@@ -1,0 +1,447 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py              # full run: 32 layers of Llama-3-8B
+    python3 chip_smoke.py --layers 2   # same, with the depth cut to 2
+
+Phases, each fatal on failure (exit code 1, no result line):
+
+1. Device: the card's name, count, and ``nvidia-smi`` name + power limit.
+2. Build: every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc``
+   per source, all started together), with the ptxas register and
+   shared-memory lines.
+3. Kernels against their plain PyTorch versions on the card, at the shapes
+   the Llama-3-8B main path gives them: the quantizer bitwise (up to
+   counted candidate near-ties), the dequant GEMM and the decode attention
+   within a stated tolerance. Each is timed with CUDA events (cold L2),
+   beside its plain version, one PyTorch library call computing the same
+   function (a yardstick the port never calls) and its bound on the card.
+4. Reference on a small input: the smoke Llama through the kernels on the
+   card against the plain path on the CPU, teacher-forced, logits within
+   tolerance.
+5. Main path: Llama-3-8B at full width (random weights from a seed),
+   ``ServeEngine`` with nxfp4 weights and nxfp4 KV, 4 prompts of 128
+   tokens, 32 greedy tokens through the device loop (chunk 16) and the
+   host loop, which must agree. Every kernel's launch counter is set to 0
+   just before and read just after; each must be > 0.
+
+The last three lines are the kernel table as JSON, the ``nvidia-smi``
+line, and ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# published H100 SXM peaks (NVIDIA data sheet, dense): bytes/s, FLOP/s
+PEAK_BYTES = 3.35e12
+PEAK_BF16 = 989e12
+PEAK_F32 = 67e12
+# f32 operations per element per candidate in the quantizer's encode:
+# scale, abs, clamp, exponent read, two ulp multiplies + round, clamp,
+# sign select, dequant multiply, subtract, square, add
+QUANT_OPS = 13
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def bound(n_bytes: float, n_ops: float, peak_ops: float):
+    t_bytes, t_ops = n_bytes / PEAK_BYTES, n_ops / peak_ops
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+class Timer:
+    """Median kernel time over launches, each after an L2 flush."""
+
+    def __init__(self, device):
+        self.flush = torch.empty(96 << 20, dtype=torch.uint8, device=device)
+
+    def __call__(self, fn, iters: int = 20) -> float:
+        fn()
+        fn()
+        torch.cuda.synchronize()
+        events = []
+        for _ in range(iters):
+            self.flush.zero_()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            events.append((a, b))
+        torch.cuda.synchronize()
+        ts = sorted(a.elapsed_time(b) for a, b in events)
+        return ts[len(ts) // 2]
+
+
+def phase_device():
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a GPU")
+    name = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    try:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        fail(f"nvidia-smi: {e}")
+    if smi.returncode != 0 or not smi.stdout.strip():
+        fail(f"nvidia-smi: {smi.stderr.strip()}")
+    smi_line = smi.stdout.strip().splitlines()[0]
+    log(f"device: {name} (count {count}); nvidia-smi: {smi_line}")
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"python {sys.version.split()[0]}")
+    return name, count, smi_line
+
+
+def phase_build():
+    from repro_torch.kernels import build
+    info = build.build()
+    log(f"build: {info['seconds']:.1f} s -> {info['path']}"
+        f"{' (cached)' if info['cached'] else ''}")
+    for src, lines in info["ptxas"].items():
+        for ln in lines:
+            log(f"  ptxas {src}: {ln}")
+    build.library()
+
+
+def check_quantizer(timer, rows):
+    from repro_torch.core.formats import get_format
+    from repro_torch.core.quantize import near_tie_blocks, to_blocks
+    from repro_torch.kernels import nxfp_quantize as nq
+    from repro_torch.kernels.decode_lib import decode_block_values
+    from repro_torch.core.pack import unpack_codes
+
+    fmt = get_format("nxfp4")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    w = torch.randn((4096, 14336), generator=gen, device="cuda") * 0.02
+    xb, _ = to_blocks(w, fmt.block_size, -2)            # the weight cast
+    flat = xb.reshape(-1, fmt.block_size).contiguous()
+    kp, km = nq.nxfp_quantize_pack(flat, fmt)
+    pp, pm = nq.nxfp_quantize_pack_plain(flat, fmt)
+    torch.cuda.synchronize()
+    diff = (kp != pp).any(dim=-1) | (km.to(torch.int32) != pm.to(torch.int32))
+    n_diff = int(diff.sum())
+    if n_diff:
+        ties = near_tie_blocks(flat[diff], fmt)
+        if not bool(ties.all()):
+            fail(f"quantizer: {int((~ties).sum())} blocks differ from the "
+                 "plain version beyond a candidate near-tie")
+
+    def deq(p, m):
+        return decode_block_values(unpack_codes(p, fmt.bits, 32), m, fmt)
+
+    err = float((deq(kp, km) - deq(pp, pm)).abs().max())
+    t = flat.shape[0]
+    n_bytes = t * 32 * 4 + t * fmt.bytes_per_block + t * 2
+    n_ops = t * 32 * 4 * QUANT_OPS              # 4 candidates for nxfp4
+    ms = timer(lambda: nq.nxfp_quantize_pack(flat, fmt))
+    plain_ms = timer(lambda: nq.nxfp_quantize_pack_plain(flat, fmt), 3)
+    b_ms, b_by = bound(n_bytes, n_ops, PEAK_F32)
+    log(f"quantizer (4096x14336 f32 weight, {t} blocks): packed+meta "
+        f"bitwise except {n_diff} near-tie blocks; kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    rows["nxfp_quantize"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None, near_ties=n_diff,
+        shape=f"(4096, 14336) f32 weight, {t} blocks of 32, nxfp4")
+
+
+def check_matmul(timer, rows):
+    from repro_torch.core.formats import get_format
+    from repro_torch.kernels import nxfp_matmul as nm
+    from repro_torch.kernels.ops import quantize_qtensor
+
+    fmt = get_format("nxfp4")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for k, n in ((4096, 14336), (14336, 4096)):
+        w = torch.randn((k, n), generator=gen, device="cuda") * 0.02
+        wq = quantize_qtensor(w, fmt, axis=-2, device="cuda")
+        del w
+        wd = nm.dequant_weight_bf16(wq.packed, wq.meta, fmt)     # (N, K)
+        for m in (4, 512):
+            x = torch.randn((m, k), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            y = nm.nxfp_matmul(x, wq.packed, wq.meta, fmt)
+            y_plain = nm.nxfp_matmul_plain(x, wq.packed, wq.meta, fmt)
+            mag = x.float().abs() @ wd.float().abs().T
+            err = float((y - y_plain).abs().max())
+            rel = float(((y - y_plain).abs() / mag.clamp(min=1e-30)).max())
+            # both sum exact bf16 products in f32, in different orders
+            if not rel <= 1e-5:
+                fail(f"qmatmul M={m} K={k} N={n}: error {rel:.3g} of "
+                     "sum|x||w| exceeds 1e-5")
+            ms = timer(lambda: nm.nxfp_matmul(x, wq.packed, wq.meta, fmt))
+            plain_ms = timer(
+                lambda: nm.nxfp_matmul_plain(x, wq.packed, wq.meta, fmt), 5)
+            lib_ms = timer(lambda: torch.matmul(x, wd.T))
+            n_bytes = (wq.packed.numel() + wq.meta.numel() * 2 + m * k * 2
+                       + m * n * 4)
+            b_ms, b_by = bound(n_bytes, 2.0 * m * n * k, PEAK_BF16)
+            log(f"qmatmul M={m} K={k} N={n}: max err {err:.3g} "
+                f"({rel:.3g} of sum|x||w|); kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, torch.matmul bf16 {lib_ms:.4f} ms, "
+                f"bound {b_ms:.4f} ms ({b_by})")
+            key = f"nxfp_matmul M={m} K={k} N={n}"
+            rows[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                             shape=f"x ({m}, {k}) bf16 @ nxfp4 W ({k}, {n})")
+
+
+def check_attention(timer, rows):
+    import torch.nn.functional as F
+    from repro_torch.core.formats import get_format
+    from repro_torch.kernels import nxfp_attention as na
+    from repro_torch.kernels.ops import quantize_qtensor
+
+    fmt = get_format("nxfp4")
+    b, kvh, g, d, s = 4, 8, 4, 128, 256
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    k = torch.randn((b, s, kvh, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    v = torch.randn((b, s, kvh, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    kq = quantize_qtensor(k, fmt, axis=-1, device="cuda")
+    vq = quantize_qtensor(v, fmt, axis=-1, device="cuda")
+    q = torch.randn((b, kvh, g, d), generator=gen, device="cuda") * d ** -0.5
+    lengths = torch.tensor([256, 200, 131, 17], dtype=torch.int32,
+                           device="cuda")
+    args = (q, kq.packed, kq.meta, vq.packed, vq.meta, lengths, fmt)
+    out = na.nxfp_decode_attention(*args)
+    ref = na.nxfp_decode_attention_plain(*args)
+    kd = na.dequant_cache(kq.packed, kq.meta, fmt)          # (B, S, KVH, D)
+    vd = na.dequant_cache(vq.packed, vq.meta, fmt)
+    err = float((out - ref).abs().max())
+    # f32 online softmax and dots in another order than the one-pass plain
+    # version: 1e-5 of the largest |V|
+    if not err <= 1e-5 * float(vd.abs().max()):
+        fail(f"decode attention: max error {err:.3g} exceeds 1e-5 max|V|")
+    # yardstick: SDPA over pre-dequantized K/V, one query token per head
+    qh = q.reshape(b, kvh * g, 1, d)
+    kh = kd.permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
+    vh = vd.permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
+    mask = (torch.arange(s, device="cuda")[None, :]
+            < lengths[:, None])[:, None, None, :]
+    lib = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                         scale=1.0)
+    lib_err = float((lib.reshape(out.shape) - ref).abs().max())
+    ms = timer(lambda: na.nxfp_decode_attention(*args))
+    plain_ms = timer(lambda: na.nxfp_decode_attention_plain(*args), 5)
+    lib_ms = timer(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=mask, scale=1.0))
+    tot = int(lengths.sum())
+    nb = d // 32
+    n_bytes = (q.numel() * 4 + 2 * tot * kvh * nb * (fmt.bytes_per_block + 2)
+               + b * 4 + out.numel() * 4)
+    n_ops = 2 * 2 * tot * kvh * g * d              # QK^T and PV, f32
+    b_ms, b_by = bound(n_bytes, n_ops, PEAK_F32)
+    log(f"decode attention B={b} KVH={kvh} G={g} D={d} S={s} lengths "
+        f"{lengths.tolist()}: max err {err:.3g} (SDPA {lib_err:.3g}); kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA f32 {lib_ms:.4f} ms, "
+        f"bound {b_ms:.5f} ms ({b_by})")
+    rows["nxfp_decode_attention"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib_ms,
+        shape=f"q ({b}, {kvh}, {g}, {d}), nxfp4 K/V S={s}, "
+              f"lengths {lengths.tolist()}")
+
+
+def phase_reference():
+    """The smoke Llama through the kernels vs the plain path on the CPU."""
+    import numpy as np
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.qtensor import QuantPolicy
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.serving import ServeEngine
+
+    cfg = get_smoke_config("llama3_8b")
+    params = init_params(cfg, seed=0, device="cpu")
+    pol = QuantPolicy("nxfp4", "nxfp4")
+    eng = {dev: ServeEngine(cfg, params, pol, max_len=32, device=dev)
+           for dev in ("cpu", "cuda")}
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab,
+                                                              (2, 9)))
+    out = {dev: prefill(cfg, e.params, {"tokens": toks.to(dev)}, max_len=32,
+                        kv_fmt="nxfp4") for dev, e in eng.items()}
+    worst = 0.0
+    tok = torch.argmax(out["cpu"][0], dim=-1)
+    for step in range(4):
+        lc, lg = out["cpu"][0], out["cuda"][0].cpu()
+        if not torch.isfinite(lg).all():
+            fail("smoke model: non-finite logits on the card")
+        worst = max(worst, float((lc - lg).abs().max()))
+        for dev, e in eng.items():
+            out[dev] = decode_step(cfg, e.params, tok.to(dev)[:, None],
+                                   out[dev][1], "nxfp4")
+        tok = torch.argmax(out["cpu"][0], dim=-1)
+    # bf16 activations: one GEMM summed in another order can flip a bf16
+    # rounding, and a K/V value near an nxfp4 level boundary a code
+    if worst > 1e-2:
+        fail(f"smoke model: card vs CPU logits differ by {worst:.3g} > 1e-2")
+    log(f"reference: smoke Llama (2 layers, d 64) through the kernels vs "
+        f"the plain CPU path, prefill + 4 teacher-forced steps: max logit "
+        f"difference {worst:.3g} (tolerance 1e-2)")
+
+
+def phase_main(n_layers: int):
+    from repro_torch.configs import get_config
+    from repro_torch.core.qtensor import QuantPolicy
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.serving import ServeEngine
+
+    cfg = get_config("llama3_8b")
+    if n_layers != cfg.n_layers:
+        log(f"main path: depth cut from {cfg.n_layers} to {n_layers} layers")
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    log(f"main path: {cfg.name} d_model {cfg.d_model}, {cfg.n_heads} heads, "
+        f"{cfg.n_kv_heads} KV heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+        f"{cfg.n_layers} layers, random weights (seed 0)")
+    t0 = time.time()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"  init_params: {time.time() - t0:.2f} s")
+
+    reset_launch_counts()
+    t0 = time.time()
+    engine = ServeEngine(cfg, params, QuantPolicy("nxfp4", "nxfp4"),
+                         max_len=256, device="cuda")
+    del params                                  # drop the dense weights
+    torch.cuda.synchronize()
+    cast_s = time.time() - t0
+    torch.cuda.empty_cache()
+    foot = engine.weights_footprint_bytes()
+    log(f"  load-time cast: {cast_s:.2f} s; weights footprint {foot} bytes")
+    gen = torch.Generator().manual_seed(0)
+    prompts = torch.randint(0, cfg.vocab, (4, 128), generator=gen)
+    batch = {"tokens": prompts.numpy()}
+    torch.cuda.reset_peak_memory_stats()
+    warm = engine.generate(batch, max_new=32, loop="device", chunk=16)
+    dev = engine.generate(batch, max_new=32, loop="device", chunk=16)
+    host = engine.generate(batch, max_new=32, loop="host")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    for name, r in (("device", dev), ("host", host), ("warm-up", warm)):
+        if r.tokens.shape != (4, 32) or not (r.n_generated == 32).all():
+            fail(f"main path ({name} loop): shape {r.tokens.shape}, "
+                 f"n_generated {r.n_generated.tolist()}")
+        if r.tokens.min() < 0 or r.tokens.max() >= cfg.vocab:
+            fail(f"main path ({name} loop): token out of range")
+    if not ((dev.tokens == host.tokens).all()
+            and (warm.tokens == dev.tokens).all()):
+        fail("main path: device and host loops disagree")
+    for name, c in counts.items():
+        if c <= 0:
+            fail(f"main path: kernel {name} was never launched")
+
+    reset_launch_counts()
+    logits, cache = prefill(cfg, engine.params,
+                            {"tokens": prompts.to("cuda")}, max_len=256,
+                            kv_fmt="nxfp4")
+    torch.cuda.synchronize()
+    if not torch.isfinite(logits).all():
+        fail("main path: non-finite prefill logits")
+    reset_launch_counts()
+    decode_step(cfg, engine.params, logits.argmax(-1).to(torch.int32)[:, None],
+                cache, "nxfp4")
+    per_step = launch_counts()
+
+    steps = 32
+    log(f"  greedy 4 x 32 tokens, device loop (chunk 16) == host loop: "
+        f"{dev.tokens[:, :8].tolist()} ...")
+    log(f"  prefill (4 x 128 tokens): device loop {dev.prefill_seconds:.4f} "
+        f"s, host loop {host.prefill_seconds:.4f} s")
+    log(f"  decode: device loop {steps * 4 / dev.decode_seconds:.2f} tok/s "
+        f"({dev.decode_seconds / steps * 1e3:.3f} ms/step); host loop "
+        f"{steps * 4 / host.decode_seconds:.2f} tok/s "
+        f"({host.decode_seconds / steps * 1e3:.3f} ms/step)")
+    log(f"  peak device memory during generate: {peak} bytes")
+    log(f"  launches on the main path (cast + 3 generate calls): {counts}")
+    log(f"  launches per decode step: {per_step}")
+    return counts, per_step
+
+
+KERNELS = {
+    "nxfp_quantize": ("src/repro_torch/csrc/nxfp_quantize.cu",
+                      "src/repro/kernels/nxfp_quantize.py:92"),
+    "nxfp_matmul": ("src/repro_torch/csrc/nxfp_matmul.cu",
+                    "src/repro/kernels/nxfp_matmul.py:73"),
+    "nxfp_decode_attention": ("src/repro_torch/csrc/nxfp_attention.cu",
+                              "src/repro/kernels/nxfp_attention.py:86"),
+}
+# the module whose counter each kernel bumps, and the row that stands for
+# it in the table (the GEMM's decode shape, mlp_w1/w3)
+COUNTERS = {"nxfp_quantize": "nxfp_quantize", "nxfp_matmul": "nxfp_matmul",
+            "nxfp_decode_attention": "nxfp_attention"}
+MAIN_ROW = {"nxfp_quantize": "nxfp_quantize",
+            "nxfp_matmul": "nxfp_matmul M=4 K=4096 N=14336",
+            "nxfp_decode_attention": "nxfp_decode_attention"}
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--layers", type=int, default=32,
+                    help="Llama-3-8B depth for the main path (default 32)")
+    args = ap.parse_args()
+    name, count, smi_line = phase_device()
+    src = os.path.join(ROOT, "src")
+    if not os.path.isdir(os.path.join(src, "repro_torch", "csrc")):
+        fail(f"{src}/repro_torch not found: run from a checkout of the repo")
+    sys.path.insert(0, src)
+    import repro_torch  # noqa: F401  (pins the TF32 flags)
+
+    t_start = time.time()
+    phase_build()
+    timer = Timer("cuda")
+    rows = {}
+    check_quantizer(timer, rows)
+    check_matmul(timer, rows)
+    check_attention(timer, rows)
+    del timer
+    torch.cuda.empty_cache()
+    phase_reference()
+    counts, per_step = phase_main(args.layers)
+
+    table = []
+    for kname, (source, replaces) in KERNELS.items():
+        row = rows[MAIN_ROW[kname]]
+        table.append(dict(
+            name=kname, route="cuda", source=source, replaces=replaces,
+            launches=counts[COUNTERS[kname]],
+            launches_per_decode_step=per_step[COUNTERS[kname]],
+            max_abs_err=row["max_abs_err"], ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=row["library_ms"],
+            shape=row["shape"]))
+    extra = [dict(name=k, **{f: v for f, v in r.items()})
+             for k, r in rows.items() if k not in MAIN_ROW.values()]
+    log(f"other shapes: {json.dumps(extra)}")
+    log(f"total seconds: {time.time() - t_start:.1f}")
+    print(json.dumps({"kernels": table}), flush=True)
+    print(smi_line, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": count}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

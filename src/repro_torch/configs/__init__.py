@@ -1,0 +1,30 @@
+"""Model configurations (exact public configs) + reduced smoke variants.
+
+``get_config(arch)`` -> full ModelConfig; ``get_smoke_config(arch)`` -> a
+tiny same-family variant for CPU tests. Only the dense family is ported.
+"""
+from __future__ import annotations
+
+import importlib
+from typing import List
+
+from repro_torch.models.common import ModelConfig
+
+ARCH_IDS: List[str] = ["llama3_8b"]
+
+_ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
+
+
+def _module(arch: str):
+    arch = _ALIASES.get(arch, arch)
+    if arch not in ARCH_IDS:
+        raise ValueError(f"{arch!r} is not ported; ported: {ARCH_IDS}")
+    return importlib.import_module(f"repro_torch.configs.{arch}")
+
+
+def get_config(arch: str) -> ModelConfig:
+    return _module(arch).CONFIG
+
+
+def get_smoke_config(arch: str) -> ModelConfig:
+    return _module(arch).SMOKE

@@ -1,0 +1,121 @@
+"""QTensor (a direct-cast tensor) and direct-cast of nested parameter dicts."""
+from __future__ import annotations
+
+import dataclasses
+import re
+from typing import Any, Optional, Tuple
+
+import torch
+
+from .formats import BlockFormat, get_format
+from .pack import unpack_codes
+from .quantize import dequantize_blocks, from_blocks
+
+__all__ = ["QTensor", "QuantPolicy", "direct_cast_tree",
+           "tree_footprint_bytes"]
+
+
+@dataclasses.dataclass
+class QTensor:
+    """A direct-cast NxFP/MxFP/BFP tensor, in the reference's layout.
+
+    ``packed``: (..., nb, bytes_per_block) uint8 — block axis moved last.
+    ``meta``:   (..., nb) uint16 — shared exponent / nano / fmt bits.
+    Aux fields: format name, logical shape, block axis (always negative),
+    original length of the blocked axis.
+    """
+
+    packed: torch.Tensor
+    meta: torch.Tensor
+    fmt_name: str
+    shape: Tuple[int, ...]
+    axis: int
+    orig_len: int
+
+    @property
+    def fmt(self) -> BlockFormat:
+        return get_format(self.fmt_name)
+
+    @property
+    def device(self) -> torch.device:
+        return self.packed.device
+
+    def dequantize(self, dtype=torch.bfloat16):
+        fmt = self.fmt
+        codes = unpack_codes(self.packed, fmt.bits, fmt.block_size)
+        deq = dequantize_blocks(codes, self.meta, fmt, torch.float32)
+        return from_blocks(deq, self.orig_len, self.axis).to(dtype)
+
+    def nbytes(self) -> int:
+        return (self.packed.numel() * self.packed.element_size()
+                + self.meta.numel() * self.meta.element_size())
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantPolicy:
+    """Which parameter leaves get direct-cast, and how (the reference's
+    fields and regexes, less the SSM families' ``state_fmt``)."""
+
+    weight_fmt: Optional[str] = "nxfp4"
+    kv_fmt: Optional[str] = "nxfp4"
+    pattern: str = r"(w|kernel|embed|weight)"
+    skip: str = r"(norm|scale|bias|gamma|beta|dt_bias|a_log|conv|tok_embed|pos_embed|router)"
+    axis: int = -2
+    min_size: int = 1024
+
+    def matches(self, path: str, leaf) -> bool:
+        if self.weight_fmt is None:
+            return False
+        if getattr(leaf, "ndim", 0) < 2:
+            return False
+        if leaf.numel() < self.min_size:
+            return False
+        p = path.lower()
+        if re.search(self.skip, p):
+            return False
+        return re.search(self.pattern, p) is not None
+
+
+def _map_with_path(fn, tree, path=""):
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, f"{path}/{k}" if path else str(k))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_with_path(fn, v, f"{path}/{i}")
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def _leaves(tree):
+    """Leaves of a nested dict/list tree (QTensor counts as one leaf)."""
+    if isinstance(tree, dict):
+        return [l for v in tree.values() for l in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [l for v in tree for l in _leaves(v)]
+    return [tree]
+
+
+def direct_cast_tree(params, policy: QuantPolicy, quantize_fn):
+    """Direct-cast a nested parameter dict: matching leaves become QTensor.
+
+    ``quantize_fn(leaf, fmt, axis) -> QTensor`` is the encoder (the serving
+    engine passes ``kernels.ops.quantize_qtensor``). Leaves are cast one at
+    a time, so only one dense leaf's temporaries are alive at once.
+    """
+    def cast(path, leaf):
+        if policy.matches(path, leaf):
+            return quantize_fn(leaf, policy.weight_fmt, policy.axis)
+        return leaf
+
+    return _map_with_path(cast, params)
+
+
+def tree_footprint_bytes(params) -> int:
+    """Stored bytes: packed + meta for QTensor leaves, nbytes for the rest."""
+    total = 0
+    for leaf in _leaves(params):
+        if isinstance(leaf, QTensor):
+            total += leaf.nbytes()
+        else:
+            total += leaf.numel() * leaf.element_size()
+    return total

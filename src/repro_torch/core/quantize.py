@@ -1,0 +1,248 @@
+"""Arithmetic NxFP codec (paper Algorithm 1) on torch tensors.
+
+Port of the reference's arithmetic encoder (``arith_encode_blocks`` /
+``_encode_candidate_arith``) and its decode (``dequantize_blocks``). Every
+operation repeats the reference's f32 arithmetic step for step so that
+codes, meta words and decoded values are bitwise equal:
+
+  * ``x * (1/scale)`` (a reciprocal, then a multiply), never ``x / scale``;
+  * ``torch.round`` (round half to even, as ``jnp.round``);
+  * powers of two assembled from exponent bits (``pow2i``);
+  * code fields read straight out of the snapped value's f32 bit pattern.
+
+Subnormal inputs are read as zero: the reference's XLA (CPU) and TPU
+arithmetic flushes them. Intermediates are not flushed, so a block whose
+squared errors fall below 2**-126 (values under ~1e-19) may still pick
+another candidate than the reference.
+
+The one place the order of operations is free in the reference is the
+candidate MSE, a 32-element mean. Here it is a left-to-right sum, the
+order the CUDA quantizer (``csrc/nxfp_quantize.cu``) uses, so kernel and
+plain version agree bitwise; against the reference a block whose two best
+candidates lie within an ulp may pick the other one.
+
+Symmetric formats only: the asymmetric (``asym``) and outlier-mantissa
+(``ox``) activation formats come with the quantized x quantized GEMM.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .formats import BlockFormat, get_format
+from .levels import level_table
+
+__all__ = ["pow2i", "floor_log2_bits", "meta_fields", "arith_encode_blocks",
+           "quantize_blocks_arith", "dequantize_blocks", "to_blocks",
+           "from_blocks", "candidates", "near_tie_blocks"]
+
+_E_BIAS = 128
+_F32_TINY = float(np.finfo(np.float32).tiny)
+
+
+def pow2i(e):
+    """Exact 2**e (f32) for int32 e, clipped to [-126, 127], from exponent bits."""
+    e = torch.clamp(e, -126, 127).to(torch.int32)
+    return ((e + 127) << 23).view(torch.float32)
+
+
+def floor_log2_bits(v):
+    """floor(log2 v) for positive f32 by exponent-field extraction; zeros
+    and subnormals clamp to -126 (as the reference)."""
+    bits = v.contiguous().view(torch.int32)
+    e = ((bits >> 23) & 0xFF) - 127
+    return torch.where(v < _F32_TINY, torch.full_like(e, -126), e)
+
+
+def meta_fields(meta):
+    """uint16 meta -> (E_shared, nano, fmt_bit), each int32."""
+    m = meta.to(torch.int32) & 0xFFFF
+    return (m & 0xFF) - _E_BIAS, (m >> 8) & 0x3, (m >> 10) & 0x1
+
+
+def candidates(fmt: BlockFormat):
+    """Static candidate list (fmt_bit, LevelTable, nano_mode), in the
+    reference's order: nano_mode None = 0, "round" = Alg.-1 rounded nano,
+    int = that nano code (exhaustive search)."""
+    cands = []
+    for fmt_bit, elem in fmt.elem_formats:
+        table = level_table(elem.name, fmt.cr, fmt.recycle)
+        if not fmt.nm:
+            cands.append((fmt_bit, table, None))
+        elif fmt.nano_search == "exhaustive":
+            cands.extend((fmt_bit, table, n) for n in range(4))
+        else:
+            cands.append((fmt_bit, table, "round"))
+            cands.append((fmt_bit, table, None))
+    return cands
+
+
+def _block_mean(d):
+    """Mean over the last axis as a left-to-right f32 sum (the kernel's order)."""
+    s = d[..., 0]
+    for i in range(1, d.shape[-1]):
+        s = s + d[..., i]
+    return s / d.shape[-1]
+
+
+def _encode_candidate(xb, vmax, vmax_e, fmt_bit, nano_mode, table, cr):
+    """One (element format x nano) candidate: int32 codes, meta, f32 MSE."""
+    elem = table.fmt
+    bits, mbits, bias = elem.bits, elem.mbits, elem.bias
+    max_pos = float(np.float32(table.max_pos))
+
+    e_sh = torch.clamp(vmax_e - table.emax, -126, 127)
+    scale0 = pow2i(e_sh)
+    if nano_mode is None:
+        nano = torch.zeros_like(e_sh)
+    elif nano_mode == "round":
+        r = vmax / (scale0 * max_pos)
+        nano = torch.clamp(torch.round((r - 1.0) * 4.0), 0, 3).to(torch.int32)
+    else:
+        nano = torch.full_like(e_sh, int(nano_mode))
+    scale = scale0 * (1.0 + nano.to(torch.float32) * 0.25)
+    vp = xb * torch.reciprocal(scale)[..., None]
+    a = vp.abs()
+    neg = vp < 0
+
+    if elem.is_bfp:
+        mmax = (1 << (bits - 1)) - 1
+        q = torch.clamp(torch.round(a), 0, mmax)
+        mag = q.to(torch.int32)
+        smallest = 1.0
+    else:
+        emin = 1 - bias
+        a_c = torch.clamp(a, max=max_pos)
+        e_eff = torch.clamp(floor_log2_bits(a_c), min=emin)
+        q = torch.round(a_c * pow2i(mbits - e_eff)) * pow2i(e_eff - mbits)
+        q = torch.clamp(q, max=max_pos)
+        qbits = q.view(torch.int32)
+        e_q = ((qbits >> 23) & 0xFF) - 127
+        m_top = (qbits >> (23 - mbits)) & ((1 << mbits) - 1)
+        m_sub = (q * float(2.0 ** (mbits - emin))).to(torch.int32)
+        normal = q >= float(2.0 ** emin)
+        mag = torch.where(normal, ((e_q + bias) << mbits) | m_top, m_sub)
+        smallest = (0.5 ** mbits) * 2.0 ** emin
+    sign_code = 1 << (bits - 1)
+    codes = torch.where(neg, mag | sign_code, mag)
+    val = torch.where(neg, -q, q)
+    # negatives that snap to zero take the canonical +0 code
+    codes = torch.where((mag == 0) & neg, torch.zeros_like(codes), codes)
+    if cr:
+        win = ((vp > float(np.float32(-0.75 * smallest)))
+               & (vp < float(np.float32(-0.25 * smallest))))
+        codes = torch.where(win, torch.full_like(codes, sign_code), codes)
+        val = torch.where(win, torch.full_like(val, -0.5 * smallest), val)
+    deq = val * scale[..., None]
+    meta = (e_sh + _E_BIAS) | (nano << 8) | (fmt_bit << 10)
+    mse = _block_mean(torch.square(deq - xb))
+    return codes, meta, mse
+
+
+def _check_symmetric(fmt: BlockFormat):
+    if fmt.asym or fmt.ox:
+        raise NotImplementedError(
+            f"{fmt.name}: the asym/ox activation formats are not ported yet "
+            "(they come with the quantized x quantized GEMM)")
+
+
+def _candidate_results(xb, fmt: BlockFormat):
+    """Yield (codes, meta, mse) of every candidate, in the reference's order."""
+    _check_symmetric(fmt)
+    xb = torch.nan_to_num(xb.to(torch.float32), nan=0.0, posinf=1e30,
+                          neginf=-1e30)
+    # subnormal inputs read as zero, as the reference's XLA and TPU
+    # arithmetic flushes them
+    xb = torch.where(xb.abs() < _F32_TINY, 0.0, xb)
+    vmax = xb.abs().amax(dim=-1)
+    vmax_e = floor_log2_bits(vmax)
+    for fmt_bit, table, nano_mode in candidates(fmt):
+        yield _encode_candidate(xb, vmax, vmax_e, fmt_bit, nano_mode, table,
+                                fmt.cr)
+
+
+def arith_encode_blocks(xb, fmt: BlockFormat):
+    """(..., nb, B) float -> (codes int32 (..., nb, B), meta int32 (..., nb))."""
+    best_codes = best_meta = best_mse = None
+    for ci, (codes, meta, mse) in enumerate(_candidate_results(xb, fmt)):
+        if ci == 0:
+            # first candidate unconditional: inf-MSE blocks still encode
+            best_codes, best_meta, best_mse = codes, meta, mse
+            continue
+        take = mse < best_mse
+        best_codes = torch.where(take[..., None], codes, best_codes)
+        best_meta = torch.where(take, meta, best_meta)
+        best_mse = torch.where(take, mse, best_mse)
+    return best_codes, best_meta
+
+
+def near_tie_blocks(xb, fmt: BlockFormat, ulps: int = 4):
+    """(..., nb) bool: blocks whose best and runner-up candidate MSEs lie
+    within ``ulps`` f32 ulps of each other.
+
+    Only there may two correct encoders pick different candidates: the
+    32-element mean is summed in another order by XLA, torch and CUDA.
+    Used to tell such blocks from real faults when codes differ.
+    """
+    mses = torch.stack([mse for _, _, mse in _candidate_results(xb, fmt)])
+    if mses.shape[0] < 2:
+        return torch.zeros(mses.shape[1:], dtype=torch.bool,
+                           device=mses.device)
+    best, second = torch.topk(mses, 2, dim=0, largest=False).values
+    ulp = torch.nextafter(best, torch.full_like(best, float("inf"))) - best
+    return (second - best) <= ulps * ulp
+
+
+def quantize_blocks_arith(xb, fmt: BlockFormat):
+    """Blocked encode -> (codes uint8 (..., nb, B), meta uint16 (..., nb)).
+
+    Only the default ``recycle="half_smallest"`` remap is supported (the
+    CR window is hard-coded to it), as in the reference.
+    """
+    if fmt.cr and fmt.recycle != "half_smallest":
+        raise NotImplementedError(
+            f"{fmt.name}: custom recycle values need the table-driven "
+            "encoder, which is not ported")
+    codes, meta = arith_encode_blocks(xb, fmt)
+    return codes.to(torch.uint8), meta.to(torch.uint16)
+
+
+def dequantize_blocks(codes, meta, fmt: BlockFormat, dtype=torch.float32):
+    """codes (..., nb, B) uint8 + meta (..., nb) -> values (..., nb, B)."""
+    _check_symmetric(fmt)
+    e_shared, nano, fmt_bit = meta_fields(meta)
+    scale = torch.ldexp(1.0 + nano.to(torch.float32) * 0.25, e_shared)
+    c = codes.to(torch.int64)
+    luts = {fb: torch.from_numpy(
+                level_table(el.name, fmt.cr, fmt.recycle).decode
+            ).to(codes.device)
+            for fb, el in fmt.elem_formats}
+    if fmt.am:
+        v = torch.where((fmt_bit == 1)[..., None], luts[1][c], luts[0][c])
+    else:
+        v = next(iter(luts.values()))[c]
+    return (v * scale[..., None]).to(dtype)
+
+
+def to_blocks(x, block_size: int, axis: int = -1):
+    """Move ``axis`` last, zero-pad to a block multiple, reshape to blocks.
+
+    Returns (xb (..., nb, block_size), orig_len).
+    """
+    x = torch.movedim(x, axis, -1)
+    n = x.shape[-1]
+    pad = (-n) % block_size
+    if pad:
+        x = F.pad(x, (0, pad))
+    return x.reshape(*x.shape[:-1], (n + pad) // block_size, block_size), n
+
+
+def from_blocks(xb, orig_len: int, axis: int = -1):
+    """Inverse of to_blocks."""
+    x = xb.reshape(*xb.shape[:-2], xb.shape[-2] * xb.shape[-1])
+    return torch.movedim(x[..., :orig_len], -1, axis)
+
+
+def resolve_format(fmt) -> BlockFormat:
+    return get_format(fmt) if isinstance(fmt, str) else fmt

@@ -1,0 +1,178 @@
+"""Build and load the CUDA kernels (``csrc/*.cu``) as one shared library.
+
+Each ``.cu`` file is compiled by its own ``nvcc`` process (all started
+together) for ``sm_90a`` into an object file, and the objects are linked
+into ``build/kernels/libnxfp_<hash>.so`` at the repository root; the hash
+covers the sources and the flags, so an edited source rebuilds. The
+library has a plain C interface and is loaded with ``ctypes``: nothing
+here includes PyTorch's headers, so a build takes seconds.
+
+Nothing is built or loaded at import; the first kernel launch calls
+``library()``. Without ``nvcc`` or a CUDA device this raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import re
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+from ..core.formats import BlockFormat
+from .decode_lib import elem_desc
+
+__all__ = ["build", "library", "BUILD_DIR", "CSRC"]
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+_COMMON = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# the quantizer must not contract a*b+c into FMAs: the reference rounds
+# the square and the sum of its MSE separately
+_PER_FILE = {"nxfp_quantize.cu": ["-fmad=false"]}
+
+_lib = None
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                           "machine with the CUDA toolkit")
+    return path
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256()
+    cus, cuhs = _sources()
+    for p in cus + cuhs:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(repr((_ARCH, _COMMON, _PER_FILE)).encode())
+    return h.hexdigest()[:16]
+
+
+def _ptxas_lines(text: str):
+    return [ln.strip() for ln in text.splitlines()
+            if re.search(r"ptxas info\s*:\s*(Used|Compiling entry)", ln)]
+
+
+def build() -> dict:
+    """Compile ``csrc/*.cu`` (one nvcc per file, in parallel) and link,
+    unless a library built from the same sources and flags exists.
+
+    Returns {"path", "seconds", "ptxas": {file: [lines]}, "cached"}.
+    """
+    out = BUILD_DIR / f"libnxfp_{_digest()}.so"
+    if out.exists():
+        return {"path": str(out), "seconds": 0.0, "ptxas": {}, "cached": True}
+    nvcc = _nvcc()
+    # objects go to a directory of this process's own, so concurrent builds
+    # never share a file; the finished library is renamed into place
+    work = BUILD_DIR / f"tmp_{os.getpid()}"
+    work.mkdir(parents=True, exist_ok=True)
+    t0 = time.time()
+    cus, _ = _sources()
+    procs = {}
+    for cu in cus:
+        obj = work / (cu.stem + ".o")
+        cmd = [nvcc, *_ARCH, *_COMMON, *_PER_FILE.get(cu.name, []),
+               "-I", str(CSRC), "-c", str(cu), "-o", str(obj)]
+        procs[cu.name] = (obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    ptxas, failed = {}, []
+    for name, (obj, proc) in procs.items():
+        text, _ = proc.communicate()
+        ptxas[name] = _ptxas_lines(text)
+        if proc.returncode != 0:
+            failed.append(f"--- {name} ---\n{text}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    tmp = work / out.name
+    link = subprocess.run(
+        [nvcc, *_ARCH, "-shared", "-o", str(tmp),
+         *[str(obj) for obj, _ in procs.values()]],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if link.returncode != 0:
+        raise RuntimeError("nvcc link failed:\n" + link.stdout)
+    os.replace(tmp, out)
+    shutil.rmtree(work, ignore_errors=True)
+    return {"path": str(out), "seconds": time.time() - t0, "ptxas": ptxas,
+            "cached": False}
+
+
+def library():
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    if _lib is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("the CUDA kernels need a CUDA device")
+        lib = ctypes.CDLL(build()["path"])
+        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.nxfp_quantize_launch.argtypes = [vp, vp, vp, ll, i, i, vp, vp]
+        lib.nxfp_matmul_launch.argtypes = [vp, vp, vp, vp, i, i, i, i, i,
+                                           vp, vp]
+        lib.nxfp_decode_attention_launch.argtypes = [vp, vp, vp, vp, vp, vp,
+                                                     vp, i, i, i, i, i, vp,
+                                                     vp]
+        for fn in (lib.nxfp_quantize_launch, lib.nxfp_matmul_launch,
+                   lib.nxfp_decode_attention_launch):
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a C entry point."""
+    if rc != 0:
+        raise RuntimeError(f"{what} failed to launch: cudaError_t {rc}")
+
+
+def stream_handle(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+# -- format descriptors (ctypes twins of the structs in csrc/) ---------------
+
+class ElemDesc(ctypes.Structure):
+    _fields_ = [(n, ctypes.c_int) for n in
+                ("bits", "is_bfp", "ebits", "mbits", "bias", "cr")]
+
+
+def elem_pair(fmt: BlockFormat):
+    """(ElemDesc for fmt_bit 0, for fmt_bit 1); equal when not AM."""
+    descs = {fb: ElemDesc(*elem_desc(el, fmt.cr)) for fb, el in
+             fmt.elem_formats}
+    if len(descs) == 1:
+        only = next(iter(descs.values()))
+        return only, only
+    return descs[0], descs[1]
+
+
+def on_cuda(*tensors) -> bool:
+    """True when every tensor is on CUDA, False when every one is on the CPU.
+
+    A wrapper takes its plain version only for CPU tensors; any other
+    device, or a mix, raises rather than fall back.
+    """
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return False
+    if kinds == {"cuda"}:
+        return True
+    raise ValueError(f"tensors must all be on cpu or all on cuda, got "
+                     f"{sorted(kinds)}")
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)

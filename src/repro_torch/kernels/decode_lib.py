@@ -1,0 +1,71 @@
+"""Arithmetic (LUT-free) NxFP field decode, plain PyTorch.
+
+Port of the symmetric part of the reference's ``kernels/decode_lib.py``
+(``decode_elem``, ``decode_scale``, ``decode_block_values``). Its device
+twin is ``csrc/nxfp_decode.cuh``, which the CUDA kernels share; both build
+values from exponent bits, so they are exact and bitwise equal to the
+table-driven ``core.quantize.dequantize_blocks``.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core.formats import ELEMENT_FORMATS, BlockFormat, ElementFormat
+from ..core.quantize import pow2i
+
+__all__ = ["decode_elem", "decode_scale", "decode_block_values", "elem_desc"]
+
+
+def elem_desc(elem: ElementFormat, cr: bool):
+    """(bits, is_bfp, ebits, mbits, bias, cr): the ElemDesc of csrc/."""
+    return (elem.bits, int(elem.is_bfp), elem.ebits, elem.mbits, elem.bias,
+            int(cr))
+
+
+def decode_elem(codes, elem_name: str, cr: bool):
+    """k-bit element codes -> f32 values in scaled units (Fig. 7 steps 1-3)."""
+    fmt = ELEMENT_FORMATS[elem_name]
+    bits, ebits, mbits, bias = fmt.bits, fmt.ebits, fmt.mbits, fmt.bias
+    c = codes.to(torch.int32)
+    sign = (c >> (bits - 1)) & 1
+    mag = c & ((1 << (bits - 1)) - 1)
+    if fmt.is_bfp:
+        val = mag.to(torch.float32)
+        smallest = 1.0
+    else:
+        e = mag >> mbits
+        m = (mag & ((1 << mbits) - 1)).to(torch.float32) * (0.5 ** mbits)
+        sub = m * (2.0 ** (1 - bias))
+        nrm = (1.0 + m) * pow2i(e - bias)
+        val = torch.where(e == 0, sub, nrm)
+        if ebits == 4 and mbits == 3:  # e4m3 NaN code decodes to 0
+            val = torch.where(mag == 127, torch.zeros_like(val), val)
+        smallest = 0.5 ** mbits * 2.0 ** (1 - bias)
+    val = torch.where(sign == 1, -val, val)
+    if cr:
+        val = torch.where(c == (1 << (bits - 1)),
+                          torch.full_like(val, -0.5 * smallest), val)
+    return val
+
+
+def decode_scale(meta):
+    """meta (uint16 semantics) -> (scale f32, fmt_bit int32)."""
+    m = meta.to(torch.int32) & 0xFFFF
+    nano = (m >> 8) & 0x3
+    scale = (1.0 + nano.to(torch.float32) * 0.25) * pow2i((m & 0xFF) - 128)
+    return scale, (m >> 10) & 0x1
+
+
+def decode_block_values(codes, meta, fmt: BlockFormat):
+    """codes (..., nb, B), meta (..., nb) -> f32 values (original units)."""
+    if fmt.asym or fmt.ox:
+        raise NotImplementedError(
+            f"{fmt.name}: asym/ox decode comes with the quantized x "
+            "quantized GEMM")
+    scale, fmt_bit = decode_scale(meta)
+    vals = None
+    for fb, elem in fmt.elem_formats:
+        v = decode_elem(codes, elem.name, fmt.cr)
+        vals = v if vals is None else torch.where(
+            (fmt_bit == fb)[..., None], v, vals)
+    return vals * scale[..., None]

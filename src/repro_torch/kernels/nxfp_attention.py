@@ -1,0 +1,98 @@
+"""Flash-decode attention of one query token over a packed NxFP KV cache.
+
+CUDA kernel: ``csrc/nxfp_attention.cu`` (replaces the reference's
+``kernels/nxfp_attention.py:nxfp_decode_attention_pallas``). Plain
+version: ``nxfp_decode_attention_plain`` — dequantize the cache to f32,
+f32 scores, the -1e30 mask, ``exp(s - max)`` zeroed where masked, f32
+``p @ V`` and the ``max(l, 1e-30)`` divisor: the kernel's arithmetic with
+the whole context as one tile.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..core.formats import BlockFormat
+from ..core.pack import unpack_codes
+from . import build
+from .decode_lib import decode_block_values
+
+__all__ = ["nxfp_decode_attention", "nxfp_decode_attention_plain",
+           "dequant_cache"]
+
+LAUNCHES = 0          # kernel launches since the caller last set it to 0
+KERNEL_BITS = (4, 5, 6, 8)
+_NEG = -1e30
+
+
+class _AttnFmt(ctypes.Structure):
+    _fields_ = [("elem", build.ElemDesc * 2), ("bits", ctypes.c_int),
+                ("block_size", ctypes.c_int)]
+
+
+def dequant_cache(packed, meta, fmt: BlockFormat):
+    """(B, S, KVH, NB, bpb) packed -> (B, S, KVH, NB*B) f32."""
+    vals = decode_block_values(
+        unpack_codes(packed, fmt.bits, fmt.block_size), meta, fmt)
+    return vals.reshape(*vals.shape[:-2], -1)
+
+
+def nxfp_decode_attention_plain(q, k_packed, k_meta, v_packed, v_meta,
+                                lengths, fmt: BlockFormat):
+    """q (B, KVH, G, D) f32 pre-scaled -> (B, KVH, G, D) f32."""
+    k = dequant_cache(k_packed, k_meta, fmt)                 # (B, S, KVH, D)
+    v = dequant_cache(v_packed, v_meta, fmt)
+    scores = torch.einsum("bhgd,bshd->bhgs", q.float(), k)
+    s = k.shape[1]
+    valid = (torch.arange(s, device=q.device)[None, :]
+             < lengths.reshape(-1, 1))[:, None, None, :]     # (B,1,1,S)
+    scores = torch.where(valid, scores, torch.full_like(scores, _NEG))
+    m = torch.clamp(scores.amax(dim=-1, keepdim=True), min=_NEG)
+    p = torch.where(valid, torch.exp(scores - m), torch.zeros_like(scores))
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("bhgs,bshd->bhgd", p, v)
+    return acc / torch.clamp(l, min=1e-30)
+
+
+def nxfp_decode_attention(q, k_packed, k_meta, v_packed, v_meta, lengths,
+                          fmt: BlockFormat):
+    """q (B, KVH, G, D) f32 (scaled by 1/sqrt(head_dim)); K/V packed
+    (B, S, KVH, NB, bpb) uint8 + (B, S, KVH, NB) uint16; lengths (B,) int.
+    Returns (B, KVH, G, D) f32. CPU tensors take the plain version; CUDA
+    tensors launch the kernel."""
+    global LAUNCHES
+    tensors = (q, k_packed, k_meta, v_packed, v_meta, lengths)
+    if not build.on_cuda(*tensors):
+        return nxfp_decode_attention_plain(*tensors, fmt)
+    if fmt.asym or fmt.ox or fmt.bits not in KERNEL_BITS \
+            or fmt.block_size not in (16, 32):
+        raise NotImplementedError(
+            f"{fmt.name}: the CUDA decode attention takes 4/5/6/8-bit "
+            "symmetric cache formats (asym/ox come with the qq slice)")
+    b, kvh, g, d = q.shape
+    bb, s, kvh2, nb, bpb = k_packed.shape
+    build.require((bb, kvh2) == (b, kvh) and nb * fmt.block_size == d,
+                  f"q {tuple(q.shape)} vs cache {tuple(k_packed.shape)}")
+    build.require(v_packed.shape == k_packed.shape
+                  and k_meta.shape == v_meta.shape == (b, s, kvh, nb),
+                  "K/V shapes differ")
+    build.require(k_meta.dtype == v_meta.dtype == torch.uint16
+                  and k_packed.dtype == v_packed.dtype == torch.uint8,
+                  "cache dtypes must be uint8 packed + uint16 meta")
+    build.require(bpb == fmt.bytes_per_block, f"{bpb} bytes per block")
+    qc = q.to(torch.float32).contiguous()
+    lens = lengths.to(torch.int32).reshape(b).contiguous()
+    for t in (k_packed, k_meta, v_packed, v_meta):
+        build.require(t.is_contiguous(), "cache must be contiguous")
+    out = torch.empty((b, kvh, g, d), dtype=torch.float32, device=q.device)
+    e0, e1 = build.elem_pair(fmt)
+    desc = _AttnFmt((build.ElemDesc * 2)(e0, e1), fmt.bits, fmt.block_size)
+    rc = build.library().nxfp_decode_attention_launch(
+        qc.data_ptr(), k_packed.data_ptr(), k_meta.data_ptr(),
+        v_packed.data_ptr(), v_meta.data_ptr(), lens.data_ptr(),
+        out.data_ptr(), b, s, kvh, g, nb, ctypes.addressof(desc),
+        build.stream_handle(q.device))
+    build.check(rc, "nxfp_decode_attention")
+    LAUNCHES += 1
+    return out

@@ -1,0 +1,91 @@
+"""Public wrappers for the NxFP kernels (the reference's ``kernels/ops.py``).
+
+Dispatch is on the tensors' device: CPU tensors take each kernel's plain
+PyTorch version, CUDA tensors launch the hand-written CUDA kernel (or raise
+for inputs it does not take). There is no ``impl`` switch and no fallback
+from a CUDA tensor to the plain version. The reference's tile constraints
+(``_tile_ok``/``_pick_tile``) are TPU matters and are not ported: the CUDA
+kernels read any block count and mask their ragged edges.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .. import resolve_device
+from ..core.qtensor import QTensor
+from ..core.quantize import resolve_format, to_blocks
+from .nxfp_attention import nxfp_decode_attention
+from .nxfp_matmul import nxfp_matmul
+from .nxfp_quantize import nxfp_quantize_pack
+
+__all__ = ["qmatmul", "quantize_qtensor", "decode_attention"]
+
+
+def _dense_matmul(x, w):
+    """bf16(x) @ bf16(w) with f32 accumulation and an f32 result."""
+    xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    if x.device.type == "cuda":
+        # a plain product outside any kernel (the reference leaves it to
+        # XLA): cuBLAS with f32 accumulation and an f32 output
+        lead = xb.shape[:-1]
+        y = torch.mm(xb.reshape(-1, xb.shape[-1]), wb, out_dtype=torch.float32)
+        return y.reshape(*lead, wb.shape[-1])
+    # bf16 x bf16 products are exact in f32, so an f32 matmul of the
+    # rounded operands is the reference's bf16 dot with f32 accumulation
+    return xb.float() @ wb.float()
+
+
+def qmatmul(x, w):
+    """x (..., K) @ w, where w is a QTensor (quantized along axis 0 of
+    (K, N)) or a dense (K, N) tensor. Returns (..., N) f32."""
+    if not isinstance(w, QTensor):
+        return _dense_matmul(x, w)
+    n, kb, _ = w.packed.shape
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    k_pad = kb * w.fmt.block_size
+    if x2.shape[-1] < k_pad:  # quantization padded K to a block multiple
+        x2 = F.pad(x2, (0, k_pad - x2.shape[-1]))
+    return nxfp_matmul(x2, w.packed, w.meta, w.fmt).reshape(*lead, n)
+
+
+def quantize_qtensor(x, fmt, axis: int = -1, device=None) -> QTensor:
+    """Direct-cast a dense tensor to a QTensor (fused encode + pack).
+
+    ``device`` is where the cast runs: ``cuda`` unless the caller says
+    otherwise (the input is moved there first). Raises when CUDA is asked
+    for and absent.
+    """
+    fmt = resolve_format(fmt)
+    x = x.to(resolve_device(device))
+    axis = axis if axis < 0 else axis - x.ndim
+    xb, orig = to_blocks(x, fmt.block_size, axis)
+    flat = xb.reshape(-1, fmt.block_size).to(torch.float32).contiguous()
+    packed, meta = nxfp_quantize_pack(flat, fmt)
+    packed = packed.reshape(*xb.shape[:-1], packed.shape[-1])
+    meta = meta.reshape(xb.shape[:-1])
+    return QTensor(packed, meta, fmt.name, tuple(x.shape), axis, orig)
+
+
+def decode_attention(q, kq: QTensor, vq: QTensor, lengths, n_kv_heads: int):
+    """Single-token attention over a quantized KV cache.
+
+    q (B, H, D) unscaled query; kq/vq QTensors of the (B, S, KVH, D) cache
+    quantized along axis -1; lengths (B,) valid context lengths.
+    Returns (B, H, D) f32.
+    """
+    b, h, d = q.shape
+    g = h // n_kv_heads
+    qg = (q.reshape(b, n_kv_heads, g, d).to(torch.float32)
+          * float(np.float32(1.0 / np.sqrt(d))))
+    fmt = kq.fmt
+    # quantization pads head_dim to a block multiple; pad q to match (the
+    # padded K dims dequantize to 0, so scores are unchanged) and slice out
+    d_pad = kq.packed.shape[-2] * fmt.block_size
+    if d_pad != d:
+        qg = F.pad(qg, (0, d_pad - d))
+    out = nxfp_decode_attention(qg.contiguous(), kq.packed, kq.meta,
+                                vq.packed, vq.meta, lengths, fmt)
+    return out[..., :d].reshape(b, h, d)

@@ -1,0 +1,6 @@
+"""Dense-family model (Llama-style GQA) on torch."""
+from .common import ModelConfig
+from .lm import (decode_loop, decode_step, init_cache, init_params, prefill)
+
+__all__ = ["ModelConfig", "init_params", "prefill", "decode_step",
+           "decode_loop", "init_cache"]

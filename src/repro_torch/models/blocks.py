@@ -1,0 +1,65 @@
+"""Dense transformer layer: full-sequence (prefill) and one-token decode.
+
+  layer_forward(cfg, p, x, positions)            -> (x, {"k", "v"})
+  layer_decode(cfg, p, x, layer_cache, pos, kv)  -> (x, layer_cache)
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from .attention import gqa_project, self_attention
+from .common import (ModelConfig, apply_rope, dense, init_attn, init_mlp,
+                     rmsnorm, rope_freqs, swiglu)
+from .kvcache import attend_decode, write_token
+
+Params = Dict[str, Any]
+
+
+def init_layer(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    d = cfg.d_model
+    dev = gen.device
+    p: Params = {"ln1_scale": torch.ones((d,), dtype=torch.float32,
+                                         device=dev)}
+    p.update(init_attn(gen, cfg))
+    p["ln2_scale"] = torch.ones((d,), dtype=torch.float32, device=dev)
+    p.update(init_mlp(gen, d, cfg.d_ff, cfg.n_layers))
+    return p
+
+
+def layer_forward(cfg: ModelConfig, p: Params, x, positions):
+    """x (B, T, D) -> (x, {"k", "v"}) for the cache."""
+    h = rmsnorm(x, p["ln1_scale"], cfg.norm_eps)
+    y, k, v = self_attention(cfg, p, h, positions)
+    x = x + y
+    h2 = rmsnorm(x, p["ln2_scale"], cfg.norm_eps)
+    return x + swiglu(h2, p["mlp_w1"], p["mlp_w3"], p["mlp_w2"]), {"k": k,
+                                                                   "v": v}
+
+
+def _attn_decode(cfg: ModelConfig, p: Params, h, layer_cache, pos,
+                 kv_fmt: Optional[str]):
+    """h (B, 1, D) -> attn out (B, 1, D); writes the token's K/V row."""
+    b = h.shape[0]
+    q, k1, v1 = gqa_project(cfg, p, h)
+    positions = pos.reshape(b, 1)
+    cos, sin = rope_freqs(positions, cfg.hd, cfg.rope_theta)
+    q = apply_rope(q.reshape(b, 1, -1, cfg.hd), cos, sin).reshape(q.shape)
+    k1 = apply_rope(k1, cos, sin)
+    write_token(cfg, layer_cache, k1.to(torch.float32),
+                v1.to(torch.float32), pos, kv_fmt)
+    o = attend_decode(cfg, layer_cache, q.reshape(b, cfg.n_heads, cfg.hd),
+                      pos, kv_fmt)
+    o = o.reshape(b, 1, cfg.n_heads * cfg.hd).to(h.dtype)
+    return dense(o, p["wo"])
+
+
+def layer_decode(cfg: ModelConfig, p: Params, x, layer_cache, pos,
+                 kv_fmt: Optional[str]):
+    """x (B, 1, D) -> (x, layer_cache), the cache updated in place."""
+    h = rmsnorm(x, p["ln1_scale"], cfg.norm_eps)
+    x = x + _attn_decode(cfg, p, h, layer_cache, pos, kv_fmt)
+    h2 = rmsnorm(x, p["ln2_scale"], cfg.norm_eps)
+    return (x + swiglu(h2, p["mlp_w1"], p["mlp_w3"], p["mlp_w2"]),
+            layer_cache)

@@ -1,0 +1,125 @@
+"""Shared model machinery: config, init helpers, norms, rotary, dense layer.
+
+Parameters are nested dicts of tensors (or QTensor after direct-cast);
+every layer is a function (cfg, params, x, ...) -> y. Unlike the
+reference, which stacks layers on a leading axis for ``lax.scan``, the
+port keeps one dict per layer in a list and loops over it in Python.
+
+Numerics follow the reference operation for operation: activations are
+bf16 (``cfg.dtype``), norms and the SiLU run in f32 on bf16-rounded
+inputs, and every GEMM returns f32 before the cast to its output dtype.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.ops import qmatmul
+
+Params = Dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """The dense-family subset of the reference's ModelConfig."""
+
+    name: str
+    family: str                    # dense (the one family ported so far)
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0              # 0 -> d_model // n_heads
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-5
+    dtype: Any = torch.bfloat16
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or (self.d_model // max(self.n_heads, 1))
+
+
+# ---------------------------------------------------------------------------
+# init helpers
+# ---------------------------------------------------------------------------
+
+def ninit(gen: torch.Generator, shape, scale: float = 0.02,
+          dtype=torch.float32):
+    """Normal(0, scale) weights drawn from ``gen`` on ``gen.device``."""
+    w = torch.randn(shape, generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    return (w * scale).to(dtype)
+
+
+def init_mlp(gen: torch.Generator, d: int, ff: int, n_layers: int):
+    out_scale = 0.02 / math.sqrt(2 * n_layers)
+    return {
+        "mlp_w1": ninit(gen, (d, ff)),
+        "mlp_w3": ninit(gen, (d, ff)),
+        "mlp_w2": ninit(gen, (ff, d), scale=out_scale),
+    }
+
+
+def init_attn(gen: torch.Generator, cfg: ModelConfig):
+    d, hd, h, kvh = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    out_scale = 0.02 / math.sqrt(2 * cfg.n_layers)
+    return {
+        "wq": ninit(gen, (d, h * hd)),
+        "wk": ninit(gen, (d, kvh * hd)),
+        "wv": ninit(gen, (d, kvh * hd)),
+        "wo": ninit(gen, (h * hd, d), scale=out_scale),
+    }
+
+
+# ---------------------------------------------------------------------------
+# primitive layers
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x, scale, eps: float):
+    xf = x.to(torch.float32)
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.to(torch.float32)).to(x.dtype)
+
+
+def dense(x, w, out_dtype=None):
+    """Matmul against a dense or quantized (QTensor, axis=-2) weight: f32
+    out of the GEMM, then cast to ``out_dtype or x.dtype``."""
+    return qmatmul(x, w).to(out_dtype or x.dtype)
+
+
+def scale_like(x, s: float):
+    """``x * s`` with ``s`` rounded to x's dtype first, as JAX treats a
+    Python scalar against a bf16 array (weak typing)."""
+    return x * torch.tensor(s, dtype=x.dtype, device=x.device)
+
+
+def rope_freqs(positions, head_dim: int, theta: float):
+    """positions (...,) int -> (cos, sin) each (..., head_dim//2) f32."""
+    half = head_dim // 2
+    ar = torch.arange(half, dtype=torch.float32, device=positions.device)
+    inv = 1.0 / (theta ** (ar / half))
+    ang = positions.to(torch.float32)[..., None] * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin):
+    """x (..., T, H, D); cos/sin (..., T, D//2) broadcast over heads."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    c = cos[..., None, :].to(x.dtype)
+    s = sin[..., None, :].to(x.dtype)
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+
+
+def swiglu(x, w1, w3, w2):
+    """SwiGLU MLP: silu(x W1) * (x W3), then W2; SiLU in f32 on the
+    bf16-rounded projections."""
+    h = (F.silu(dense(x, w1, out_dtype=x.dtype).to(torch.float32))
+         * dense(x, w3, out_dtype=x.dtype).to(torch.float32))
+    return dense(h.to(x.dtype), w2, out_dtype=x.dtype)

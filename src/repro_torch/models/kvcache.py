@@ -1,0 +1,127 @@
+"""Attention KV cache: dense bf16 or NxFP-packed, one dict per layer.
+
+The quantized cache is the paper's "weights AND KV cache" configuration
+(section 7.1): K/V rows are direct-cast per token (blocks along head_dim)
+into packed bytes, and decode attention dequantizes tiles on the fly.
+
+Layout per layer, as the reference's (without its stacked layer axis):
+  dense:  k, v            (B, S, KVH, hd) bf16
+  packed: k_packed, v_packed (B, S, KVH, NB, bpb) uint8
+          k_meta, v_meta     (B, S, KVH, NB) uint16
+
+Positions are per slot: ``pos`` is a (B,) int tensor and each slot writes
+and attends at its own offset. Slots are dense (no SWA ring, no paging).
+Unlike the reference, ``write_token`` updates the layer's buffers in place
+(a decode step owns its cache), which keeps the decode loop free of
+per-step copies of the whole cache.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..core.formats import get_format
+from ..core.pack import bytes_per_block
+from ..core.qtensor import QTensor
+from ..kernels.ops import decode_attention, quantize_qtensor
+from .common import ModelConfig
+
+_NEG = -1e30
+
+
+def attn_cache_init(cfg: ModelConfig, batch: int, max_len: int,
+                    kv_fmt: Optional[str], device: torch.device):
+    """One layer's zeroed attention cache."""
+    kvh, hd = cfg.n_kv_heads, cfg.hd
+    if kv_fmt is None:
+        shape = (batch, max_len, kvh, hd)
+        return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+                "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+    fmt = get_format(kv_fmt)
+    nb = -(-hd // fmt.block_size)
+    bpb = bytes_per_block(fmt.block_size, fmt.bits)
+
+    def z(*tail, dtype):
+        return torch.zeros((batch, max_len, kvh) + tail, dtype=dtype,
+                           device=device)
+
+    return {"k_packed": z(nb, bpb, dtype=torch.uint8),
+            "k_meta": z(nb, dtype=torch.uint16),
+            "v_packed": z(nb, bpb, dtype=torch.uint8),
+            "v_meta": z(nb, dtype=torch.uint16)}
+
+
+def _quantize_kv(x, kv_fmt: str):
+    """(B, T, KVH, hd) -> (packed, meta) along head_dim blocks."""
+    qt = quantize_qtensor(x, kv_fmt, axis=-1, device=x.device)
+    return qt.packed, qt.meta
+
+
+def _bits(t):
+    """A bit view torch can index-assign (uint16 meta -> int16)."""
+    return t.view(torch.int16) if t.dtype == torch.uint16 else t
+
+
+def write_prefill(cfg: ModelConfig, k, v, kv_fmt: Optional[str],
+                  max_len: int):
+    """Build one layer's cache from full prefill K/V (B, T, KVH, hd)."""
+    b, t = k.shape[:2]
+    cache = attn_cache_init(cfg, b, max_len, kv_fmt, k.device)
+    if kv_fmt is None:
+        rows = {"k": k.to(cfg.dtype), "v": v.to(cfg.dtype)}
+    else:
+        kp, km = _quantize_kv(k, kv_fmt)
+        vp, vm = _quantize_kv(v, kv_fmt)
+        rows = {"k_packed": kp, "k_meta": km, "v_packed": vp, "v_meta": vm}
+    for name, val in rows.items():
+        _bits(cache[name])[:, :t] = _bits(val)
+    return cache
+
+
+def write_token(cfg: ModelConfig, layer_cache, k1, v1, pos,
+                kv_fmt: Optional[str]):
+    """Write one token's K/V (B, 1, KVH, hd) at per-slot rows ``pos`` (B,),
+    in place. Returns ``layer_cache``."""
+    b = k1.shape[0]
+    slots = torch.arange(b, device=k1.device)
+    if kv_fmt is None:
+        rows = {"k": k1, "v": v1}
+    else:
+        kp, km = _quantize_kv(k1, kv_fmt)
+        vp, vm = _quantize_kv(v1, kv_fmt)
+        rows = {"k_packed": kp, "k_meta": km, "v_packed": vp, "v_meta": vm}
+    for name, val in rows.items():
+        buf = layer_cache[name]
+        _bits(buf)[slots, pos] = _bits(val[:, 0].to(buf.dtype))
+    return layer_cache
+
+
+def attend_decode(cfg: ModelConfig, layer_cache, q, pos,
+                  kv_fmt: Optional[str]):
+    """q (B, H, hd) attends to one layer's cache over each slot's own
+    valid length ``pos[b] + 1``. Returns (B, H, hd) f32."""
+    b, h, hd = q.shape
+    kvh = cfg.n_kv_heads
+    lengths = pos + 1
+
+    if kv_fmt is not None:
+        fmt = get_format(kv_fmt)
+        s = layer_cache["k_packed"].shape[1]
+        shape = (b, s, kvh, hd)
+        kq = QTensor(layer_cache["k_packed"], layer_cache["k_meta"],
+                     fmt.name, shape, -1, hd)
+        vq = QTensor(layer_cache["v_packed"], layer_cache["v_meta"],
+                     fmt.name, shape, -1, hd)
+        return decode_attention(q, kq, vq, lengths, kvh)
+
+    k, v = layer_cache["k"], layer_cache["v"]                  # (B,S,KVH,hd)
+    g = h // kvh
+    qg = q.reshape(b, kvh, g, hd).to(torch.float32) * (hd ** -0.5)
+    scores = torch.einsum("bhgd,bshd->bhgs", qg, k.to(torch.float32))
+    s = k.shape[1]
+    valid = torch.arange(s, device=q.device)[None, :] < lengths[:, None]
+    scores = torch.where(valid[:, None, None, :], scores, _NEG)
+    p = torch.softmax(scores, dim=-1)
+    o = torch.einsum("bhgs,bshd->bhgd", p, v.to(torch.float32))
+    return o.reshape(b, h, hd)

@@ -1,0 +1,118 @@
+"""Model assembly for the dense family: init, prefill, decode.
+
+Layers are a Python list of per-layer dicts (params) and of per-layer
+caches; prefill and decode loop over them. The cache is
+``{"pos": (B,) int32, "layers": [layer cache, ...]}``.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+
+from .. import resolve_device
+from .blocks import init_layer, layer_decode, layer_forward
+from .common import ModelConfig, dense, ninit, rmsnorm
+from .kvcache import attn_cache_init, write_prefill
+
+Params = Dict[str, Any]
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family {cfg.family!r} is not ported")
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
+    """Random weights from a ``torch.Generator`` seeded with ``seed``.
+
+    Matmul weights and norms are f32, as in the reference. ``tok_embed``
+    and ``lm_head`` are stored in bf16: the default policy keeps both
+    dense and every use rounds them to bf16, so storing them rounded
+    changes no result (the footprint counts what is stored).
+    """
+    _check_family(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    p: Params = {
+        "tok_embed": ninit(gen, (cfg.vocab, cfg.d_model), dtype=cfg.dtype),
+        "final_scale": torch.ones((cfg.d_model,), dtype=torch.float32,
+                                  device=dev),
+        "lm_head": ninit(gen, (cfg.d_model, cfg.vocab), dtype=cfg.dtype),
+    }
+    p["layers"] = [init_layer(gen, cfg) for _ in range(cfg.n_layers)]
+    return p
+
+
+def _embed(cfg: ModelConfig, params: Params, tokens):
+    return params["tok_embed"][tokens].to(cfg.dtype)
+
+
+def _head(cfg: ModelConfig, params: Params, x):
+    x = rmsnorm(x, params["final_scale"], cfg.norm_eps)
+    return dense(x, params["lm_head"], out_dtype=torch.float32)
+
+
+def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
+            max_len: int, kv_fmt: Optional[str]
+            ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Run the full prompt, build the cache. Returns (last logits (B, V)
+    f32, cache)."""
+    _check_family(cfg)
+    tokens = batch["tokens"]
+    b, t = tokens.shape
+    x = _embed(cfg, params, tokens)
+    positions = torch.arange(t, dtype=torch.int32, device=tokens.device)
+    layers = []
+    for lp in params["layers"]:
+        x, out = layer_forward(cfg, lp, x, positions)
+        layers.append(write_prefill(cfg, out["k"], out["v"], kv_fmt,
+                                    max_len))
+    cache = {"pos": torch.full((b,), t, dtype=torch.int32,
+                               device=tokens.device),
+             "layers": layers}
+    logits = _head(cfg, params, x[:, -1:])
+    return logits[:, 0], cache
+
+
+def decode_step(cfg: ModelConfig, params: Params, tokens, cache,
+                kv_fmt: Optional[str]) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """tokens (B, 1). Returns (logits (B, V) f32, cache with ``pos``
+    advanced). The layer caches are updated in place."""
+    pos = cache["pos"]
+    x = _embed(cfg, params, tokens)
+    for lp, lc in zip(params["layers"], cache["layers"]):
+        x, _ = layer_decode(cfg, lp, x, lc, pos, kv_fmt)
+    logits = _head(cfg, params, x)
+    return logits[:, 0], {"pos": pos + 1, "layers": cache["layers"]}
+
+
+def decode_loop(cfg: ModelConfig, params: Params, tok, cache, n_steps: int,
+                kv_fmt: Optional[str],
+                sample_fn: Callable[[torch.Tensor], torch.Tensor]):
+    """``n_steps`` decode steps on the device, sampling included.
+
+    ``tok`` (B,) is the token entering the loop (already sampled from the
+    previous logits). Each step records it, advances the model and samples
+    the successor with ``sample_fn(logits (B, V) f32) -> (B,)``. Nothing is
+    copied to the host. Returns (tokens (B, n_steps), tok, cache): the
+    emitted tokens start with the entering token; the returned ``tok``
+    enters the next chunk.
+    """
+    out = []
+    for _ in range(n_steps):
+        out.append(tok)
+        logits, cache = decode_step(cfg, params, tok[:, None], cache, kv_fmt)
+        tok = sample_fn(logits).to(torch.int32)
+    return torch.stack(out, dim=1), tok, cache
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               kv_fmt: Optional[str], device=None) -> Dict[str, Any]:
+    """A zeroed cache with every slot at position 0."""
+    _check_family(cfg)
+    dev = resolve_device(device)
+    return {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
+            "layers": [attn_cache_init(cfg, batch, max_len, kv_fmt, dev)
+                       for _ in range(cfg.n_layers)]}

@@ -14,6 +14,11 @@ except ImportError:
     _hypothesis_fallback.install()
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips inside the test without one")
+
+
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)

@@ -1,0 +1,145 @@
+"""The torch port's codec against the JAX reference, on the CPU.
+
+Formats and level tables are copies and must match field for field. The
+arithmetic encoder, the pack and the decode must be bitwise equal: codes,
+meta words, packed bytes and dequantized f32 values. The one allowed
+difference is a block whose best and runner-up candidate MSEs lie within
+4 f32 ulps (the 32-element mean is summed in another order by XLA and
+torch); such blocks are counted and printed, any other mismatch fails.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import formats as jformats
+from repro.core import levels as jlevels
+from repro.core import pack as jpack
+from repro.core.quantize import dequantize_blocks, quantize_blocks_arith
+from repro.kernels.ops import quantize_qtensor as jquantize_qtensor
+from repro_torch.core import formats as tformats
+from repro_torch.core import levels as tlevels
+from repro_torch.core.pack import pack_codes, unpack_codes
+from repro_torch.core import quantize as tquant
+from repro_torch.kernels.ops import quantize_qtensor
+
+# the reference codec, jitted once per (shape, format) instead of op by op
+jquantize_blocks_arith = jax.jit(quantize_blocks_arith, static_argnums=1)
+jdequantize_blocks = jax.jit(dequantize_blocks, static_argnums=2)
+
+# the format registry of tests/test_fused_quantize.py
+REGISTRY = ["bfp4", "bfp4_cr", "mxfp4", "mxfp4_cr", "nxfp4", "nxfp4_nm",
+            "nxfp4_nm_am", "nxfp4_bs16", "nxfp8", "mxfp8", "bfp8",
+            "mxfp3", "nxfp5", "mxfp5", "nxfp6", "mxfp6", "mxfp6_e3m2"]
+KERNEL_FMTS = [f for f in REGISTRY
+               if jformats.get_format(f).bits in (4, 5, 6, 8)]
+
+
+def _edge_blocks(fmt, n=1025, seed=0):
+    """Exponent-spread random blocks + zero / NaN / +-inf / 1e30 /
+    half-zero / -0 / subnormal rows."""
+    rng = np.random.default_rng(seed)
+    b = fmt.block_size
+    xb = (rng.standard_normal((n, b))
+          * np.exp(rng.normal(0, 4, size=(n, 1)))).astype(np.float32)
+    xb[0] = 0.0
+    xb[1, :4] = [np.nan, np.inf, -np.inf, 0.0]
+    xb[2] = 1e30
+    xb[3, ::2] = 0.0
+    xb[4] = -0.0
+    xb[5] = 1e-40
+    xb[6, :8] = [1e-40, -1e-40, 3.0, -2.5, 1e-39, 0.0, -0.0, 7.0]
+    return xb
+
+
+@pytest.mark.parametrize("fname", REGISTRY)
+def test_format_and_level_tables_match(fname):
+    jf, tf = jformats.get_format(fname), tformats.get_format(fname)
+    assert dataclasses.asdict(jf) == dataclasses.asdict(tf)
+    assert (jf.bits_per_value, jf.bytes_per_block, jf.meta_dtype) == \
+        (tf.bits_per_value, tf.bytes_per_block, tf.meta_dtype)
+    for (jb, je), (tb, te) in zip(jf.elem_formats, tf.elem_formats):
+        assert jb == tb and dataclasses.asdict(je) == dataclasses.asdict(te)
+        jt = jlevels.level_table(je.name, jf.cr, jf.recycle)
+        tt = tlevels.level_table(te.name, tf.cr, tf.recycle)
+        for field in ("values_sorted", "codes_sorted", "boundaries",
+                      "decode"):
+            np.testing.assert_array_equal(getattr(jt, field),
+                                          getattr(tt, field))
+        assert (jt.max_pos, jt.smallest_pos, jt.emax) == \
+            (tt.max_pos, tt.smallest_pos, tt.emax)
+
+
+def test_element_format_table_matches():
+    assert {k: dataclasses.asdict(v)
+            for k, v in jformats.ELEMENT_FORMATS.items()} == \
+        {k: dataclasses.asdict(v)
+         for k, v in tformats.ELEMENT_FORMATS.items()}
+
+
+@pytest.mark.parametrize("fname", KERNEL_FMTS)
+def test_quantize_pack_dequantize_bitwise(fname):
+    fmt = tformats.get_format(fname)
+    xb = _edge_blocks(fmt)
+    jc, jm = jquantize_blocks_arith(jnp.asarray(xb),
+                                    jformats.get_format(fname))
+    jc, jm = np.array(jc), np.array(jm)
+    tc, tm = tquant.quantize_blocks_arith(torch.from_numpy(xb), fmt)
+    tc, tm = tc.numpy(), tm.numpy()
+    assert tc.dtype == np.uint8 and tm.dtype == np.uint16
+    diff = (jc != tc).any(-1) | (jm != tm)
+    if diff.any():
+        ties = tquant.near_tie_blocks(torch.from_numpy(xb[diff]), fmt).numpy()
+        assert ties.all(), f"{int((~ties).sum())} blocks differ beyond a tie"
+    print(f"{fname}: {int(diff.sum())} near-tie blocks of {len(xb)}")
+    same = ~diff
+    # packed bytes of the reference's codes; unpack is the inverse
+    jp = np.array(jpack.pack_codes(jnp.asarray(jc), fmt.bits))
+    tp = pack_codes(torch.from_numpy(jc), fmt.bits).numpy()
+    np.testing.assert_array_equal(jp[same], tp[same])
+    np.testing.assert_array_equal(
+        unpack_codes(torch.from_numpy(jp), fmt.bits, fmt.block_size).numpy(),
+        jc)
+    # decode: bitwise f32 (compared as int32 bit patterns)
+    jd = np.asarray(jdequantize_blocks(jnp.asarray(jc), jnp.asarray(jm),
+                                       jformats.get_format(fname)))
+    td = tquant.dequantize_blocks(torch.from_numpy(jc), torch.from_numpy(jm),
+                                  fmt).numpy()
+    np.testing.assert_array_equal(jd.view(np.int32), td.view(np.int32))
+
+
+@pytest.mark.parametrize("fname,shape,axis", [
+    ("nxfp4", (48, 96), -1),
+    ("nxfp4", (96, 40), -2),
+    ("mxfp4_cr", (3, 64, 24), -2),
+    ("nxfp6", (32, 64), -1),
+    ("nxfp8", (64, 48), 0),
+])
+def test_quantize_qtensor_matches_pallas(fname, shape, axis):
+    """The port's CPU quantize_qtensor vs the reference's fused Pallas
+    kernel (interpret mode): same packed bytes, meta and aux fields."""
+    x = (np.random.default_rng(1).standard_normal(shape) * 3).astype(
+        np.float32)
+    jq = jquantize_qtensor(jnp.asarray(x), fname, axis=axis, impl="pallas")
+    tq = quantize_qtensor(torch.from_numpy(x), fname, axis=axis,
+                          device="cpu")
+    np.testing.assert_array_equal(np.asarray(jq.packed), tq.packed.numpy())
+    np.testing.assert_array_equal(np.asarray(jq.meta), tq.meta.numpy())
+    assert (jq.fmt_name, tuple(jq.shape), jq.axis, jq.orig_len) == \
+        (tq.fmt_name, tq.shape, tq.axis, tq.orig_len)
+    assert jq.nbytes() == tq.nbytes()
+    np.testing.assert_array_equal(
+        np.asarray(jq.dequantize(jnp.float32)),
+        tq.dequantize(torch.float32).numpy())
+
+
+def test_custom_recycle_and_activation_formats_not_ported():
+    fmt = dataclasses.replace(tformats.get_format("nxfp4"), recycle=0.75)
+    xb = torch.ones((2, 32))
+    with pytest.raises(NotImplementedError):
+        tquant.quantize_blocks_arith(xb, fmt)
+    with pytest.raises(NotImplementedError):
+        tquant.quantize_blocks_arith(xb, tformats.get_format("amxfp4"))

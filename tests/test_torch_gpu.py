@@ -1,0 +1,140 @@
+"""CUDA kernels of the torch port against their plain PyTorch versions.
+
+Every test here needs a CUDA card (marker ``gpu``) and skips without one.
+The file imports torch and numpy only, so it also runs where JAX is not
+installed:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_smoke_config
+from repro_torch.core.formats import get_format
+from repro_torch.core.qtensor import QuantPolicy
+from repro_torch.core.quantize import near_tie_blocks
+from repro_torch.kernels import nxfp_attention as na
+from repro_torch.kernels import nxfp_matmul as nm
+from repro_torch.kernels import nxfp_quantize as nq
+from repro_torch.kernels.ops import quantize_qtensor
+from repro_torch.models import decode_step, init_params, prefill
+from repro_torch.serving import ServeEngine
+
+pytestmark = pytest.mark.gpu
+
+KERNEL_FMTS = ["bfp4", "bfp4_cr", "mxfp4", "mxfp4_cr", "nxfp4", "nxfp4_nm",
+               "nxfp4_nm_am", "nxfp4_bs16", "nxfp8", "mxfp8", "bfp8",
+               "nxfp5", "mxfp5", "nxfp6", "mxfp6", "mxfp6_e3m2"]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _edge_blocks(fmt, n=513, seed=0):
+    rng = np.random.default_rng(seed)
+    b = fmt.block_size
+    xb = (rng.standard_normal((n, b))
+          * np.exp(rng.normal(0, 4, size=(n, 1)))).astype(np.float32)
+    xb[0] = 0.0
+    xb[1, :4] = [np.nan, np.inf, -np.inf, 0.0]
+    xb[2] = 1e30
+    xb[3, ::2] = 0.0
+    xb[4] = -0.0
+    xb[5] = 1e-40
+    return torch.from_numpy(xb)
+
+
+@pytest.mark.parametrize("fname", KERNEL_FMTS)
+def test_quantize_kernel_bitwise(cuda, fname):
+    """The CUDA quantizer equals the plain codec bit for bit (packed bytes
+    and meta), up to counted candidate near-ties."""
+    fmt = get_format(fname)
+    xb = _edge_blocks(fmt).to(cuda)
+    kp, km = nq.nxfp_quantize_pack(xb, fmt)
+    pp, pm = nq.nxfp_quantize_pack_plain(xb, fmt)
+    diff = (kp != pp).any(-1) | (km.to(torch.int32) != pm.to(torch.int32))
+    if diff.any():
+        assert near_tie_blocks(xb[diff], fmt).all(), int(diff.sum())
+    print(f"{fname}: {int(diff.sum())} near-tie blocks")
+
+
+@pytest.mark.parametrize("fname", ["nxfp4", "nxfp4_nm_am", "mxfp4_cr",
+                                   "nxfp5", "nxfp6", "nxfp8", "nxfp4_bs16"])
+@pytest.mark.parametrize("m", [1, 4, 37, 130])
+def test_matmul_kernel_matches_plain(cuda, fname, m):
+    """Ragged M, N and K (K not a multiple of the 128-wide K step); both
+    sum exact bf16 products in f32 in another order: 1e-5 of sum|x||w|."""
+    fmt = get_format(fname)
+    g = torch.Generator(device=cuda).manual_seed(m)
+    k, n = 320, 200
+    w = torch.randn((k, n), generator=g, device=cuda)
+    wq = quantize_qtensor(w, fmt, axis=-2, device=cuda)
+    x = torch.randn((m, k), generator=g, device=cuda)
+    y = nm.nxfp_matmul(x, wq.packed, wq.meta, fmt)
+    yp = nm.nxfp_matmul_plain(x, wq.packed, wq.meta, fmt)
+    wd = nm.dequant_weight_bf16(wq.packed, wq.meta, fmt).float()
+    mag = x.to(torch.bfloat16).float().abs() @ wd.abs().T
+    assert ((y - yp).abs() <= 1e-5 * mag + 1e-30).all()
+
+
+@pytest.mark.parametrize("fname", ["nxfp4", "nxfp6", "nxfp8", "nxfp4_nm_am"])
+@pytest.mark.parametrize("hd", [32, 128])
+def test_attention_kernel_matches_plain(cuda, fname, hd):
+    """Ragged lengths across and inside S tiles; f32 online softmax vs the
+    one-pass plain version: 1e-5 of max|V|."""
+    fmt = get_format(fname)
+    g = torch.Generator(device=cuda).manual_seed(hd)
+    b, kvh, grp, s = 3, 2, 4, 100
+    k = torch.randn((b, s, kvh, hd), generator=g, device=cuda)
+    v = torch.randn((b, s, kvh, hd), generator=g, device=cuda)
+    kq = quantize_qtensor(k, fmt, axis=-1, device=cuda)
+    vq = quantize_qtensor(v, fmt, axis=-1, device=cuda)
+    q = torch.randn((b, kvh, grp, hd), generator=g, device=cuda) * hd ** -0.5
+    lengths = torch.tensor([100, 33, 1], dtype=torch.int32, device=cuda)
+    args = (q, kq.packed, kq.meta, vq.packed, vq.meta, lengths, fmt)
+    out = na.nxfp_decode_attention(*args)
+    ref = na.nxfp_decode_attention_plain(*args)
+    vmax = float(na.dequant_cache(vq.packed, vq.meta, fmt).abs().max())
+    assert float((out - ref).abs().max()) <= 1e-5 * vmax
+
+
+def test_smoke_model_on_card_matches_cpu(cuda):
+    """The smoke Llama (head_dim 16, padded to a 32-value KV block) through
+    the kernels matches the plain CPU path, teacher-forced: one GEMM summed
+    in another order can flip a bf16 rounding downstream (1e-2 on logits
+    of magnitude ~0.5)."""
+    cfg = get_smoke_config("llama3_8b")
+    params = init_params(cfg, seed=0, device="cpu")
+    pol = QuantPolicy("nxfp4", "nxfp4")
+    engines = {d: ServeEngine(cfg, params, pol, max_len=32, device=d)
+               for d in ("cpu", "cuda")}
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab,
+                                                              (2, 9)))
+    out = {d: prefill(cfg, e.params, {"tokens": toks.to(d)}, max_len=32,
+                      kv_fmt="nxfp4") for d, e in engines.items()}
+    for _ in range(4):
+        lc, lg = out["cpu"][0], out["cuda"][0].cpu()
+        assert float((lc - lg).abs().max()) <= 1e-2
+        tok = torch.argmax(lc, dim=-1)
+        for d, e in engines.items():
+            out[d] = decode_step(cfg, e.params, tok.to(d)[:, None],
+                                 out[d][1], "nxfp4")
+
+
+def test_engine_loops_bitwise_on_card(cuda):
+    cfg = get_smoke_config("llama3_8b")
+    params = init_params(cfg, seed=1, device=cuda)
+    eng = ServeEngine(cfg, params, QuantPolicy("nxfp4", "nxfp4"),
+                      max_len=32, device=cuda)
+    batch = {"tokens": np.random.default_rng(1).integers(0, cfg.vocab,
+                                                         (3, 7))}
+    host = eng.generate(batch, max_new=9, loop="host")
+    for chunk in (1, 4, 9):
+        dev = eng.generate(batch, max_new=9, loop="device", chunk=chunk)
+        np.testing.assert_array_equal(dev.tokens, host.tokens)
+        np.testing.assert_array_equal(dev.n_generated, host.n_generated)

@@ -1,0 +1,94 @@
+"""The port's plain kernel versions against the reference's Pallas kernels.
+
+The JAX kernels run in interpret mode on the CPU (``impl="pallas"``), as
+the reference's own tests run them. Both sides are fed the same packed
+bytes: the reference casts, and the bytes carry across through
+``convert.tensor_from_numpy``.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.quantize import dequantize_blocks as jdequantize_blocks
+from repro.core.pack import unpack_codes as junpack_codes
+from repro.kernels import ops as jops
+from repro_torch.convert import tensor_from_numpy
+from repro_torch.core.qtensor import QTensor
+from repro_torch.kernels import ops
+from repro_torch.kernels.nxfp_matmul import dequant_weight_bf16
+
+
+# the reference's cast, jitted once per (shape, format) instead of op by op
+_jquantize = jax.jit(jops.quantize_qtensor, static_argnums=(1, 2),
+                     static_argnames=("impl",))
+
+
+def _port_qtensor(jq) -> QTensor:
+    return QTensor(tensor_from_numpy(jq.packed), tensor_from_numpy(jq.meta),
+                   jq.fmt_name, tuple(jq.shape), jq.axis, jq.orig_len)
+
+
+@pytest.mark.parametrize("fname", ["nxfp4", "nxfp4_nm_am", "mxfp4_cr",
+                                   "nxfp6", "nxfp8", "nxfp4_bs16"])
+def test_dequant_weight_tile_bitwise(fname):
+    """The bf16 weight tile the GEMM multiplies: the reference's f32
+    decode rounded to bf16 (``_decode_tile``), bit for bit."""
+    w = np.random.default_rng(2).standard_normal((96, 40)).astype(np.float32)
+    jq = _jquantize(jnp.asarray(w), fname, -2, impl="xla")
+    fmt = jq.fmt
+    ref = jdequantize_blocks(junpack_codes(jq.packed, fmt.bits,
+                                           fmt.block_size), jq.meta, fmt)
+    ref = np.asarray(ref.reshape(ref.shape[0], -1).astype(jnp.bfloat16))
+    tq = _port_qtensor(jq)
+    got = dequant_weight_bf16(tq.packed, tq.meta, tq.fmt)
+    np.testing.assert_array_equal(ref.view(np.uint16),
+                                  got.view(torch.int16).numpy().view(np.uint16))
+
+
+@pytest.mark.parametrize("fname,m,k,n", [
+    ("nxfp4", 5, 256, 64),
+    ("nxfp4", 1, 80, 24),          # K padded from 80 to 96
+    ("nxfp6", 7, 128, 32),
+])
+def test_qmatmul_plain_matches_pallas(fname, m, k, n):
+    """Both sides sum exact bf16 x bf16 products in f32, in different
+    orders: |diff| <= 1e-5 * sum_k |x||w| (f32 accumulation order)."""
+    rng = np.random.default_rng(m * k)
+    x = rng.standard_normal((3, m, k)).astype(np.float32)
+    w = rng.standard_normal((k, n)).astype(np.float32)
+    jq = _jquantize(jnp.asarray(w), fname, -2, impl="xla")
+    yj = np.asarray(jops.qmatmul(jnp.asarray(x), jq, impl="pallas"))
+    tq = _port_qtensor(jq)
+    yt = ops.qmatmul(torch.from_numpy(x), tq).numpy()
+    assert yt.shape == yj.shape == (3, m, n)
+    wd = dequant_weight_bf16(tq.packed, tq.meta, tq.fmt).float()[:, :k]
+    mag = (torch.from_numpy(x).to(torch.bfloat16).float().abs()
+           @ wd.abs().T).numpy()
+    assert (np.abs(yt - yj) <= 1e-5 * mag).all()
+
+
+@pytest.mark.parametrize("fname,hd", [("nxfp4", 16), ("nxfp4", 128),
+                                      ("nxfp6", 64)])
+def test_decode_attention_plain_matches_pallas(fname, hd):
+    """Ragged lengths; head_dim 16 exercises the q padding to one 32-value
+    block. f32 throughout on both sides; exp and the dots differ in the
+    last ulps and in summation order: 1e-5 of max|V| (absolute)."""
+    rng = np.random.default_rng(hd)
+    b, s, kvh, g = 3, 32, 2, 2
+    q = rng.standard_normal((b, kvh * g, hd)).astype(np.float32)
+    k = rng.standard_normal((b, s, kvh, hd)).astype(np.float32)
+    v = rng.standard_normal((b, s, kvh, hd)).astype(np.float32)
+    lengths = np.array([32, 9, 1], np.int32)
+    jk = _jquantize(jnp.asarray(k), fname, -1, impl="xla")
+    jv = _jquantize(jnp.asarray(v), fname, -1, impl="xla")
+    oj = np.asarray(jops.decode_attention(jnp.asarray(q), jk, jv,
+                                          jnp.asarray(lengths), kvh,
+                                          impl="pallas"))
+    ot = ops.decode_attention(torch.from_numpy(q), _port_qtensor(jk),
+                              _port_qtensor(jv), torch.from_numpy(lengths),
+                              kvh).numpy()
+    assert ot.shape == oj.shape == (b, kvh * g, hd)
+    vmax = np.abs(np.asarray(jv.dequantize(jnp.float32))).max()
+    np.testing.assert_allclose(ot, oj, rtol=0, atol=1e-5 * vmax)

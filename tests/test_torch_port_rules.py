@@ -1,0 +1,164 @@
+"""Rules of the torch port: no JAX, no silent CPU path, no quiet fallback.
+
+* Nothing under ``src/repro_torch/``, in ``scripts/`` or in
+  ``chip_smoke.py`` imports ``jax``/``jaxlib`` or the reference package
+  ``repro``.
+* Entry points run on CUDA by default and raise without it unless the
+  caller passes ``device="cpu"``.
+* A CUDA-bound request never takes the plain version: the wrapper builds
+  and launches the kernel, or raises.
+"""
+import ast
+import pathlib
+
+import jax  # noqa: F401  (the test files of the port import both packages)
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_smoke_config
+from repro_torch.convert import params_from_jax
+from repro_torch.core.formats import get_format
+from repro_torch.core.qtensor import QuantPolicy
+from repro_torch.kernels import build, nxfp_attention, nxfp_matmul
+from repro_torch.kernels import nxfp_quantize
+from repro_torch.kernels.ops import quantize_qtensor
+from repro_torch.models import init_cache, init_params
+from repro_torch.serving import ServeEngine
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+              + sorted((ROOT / "scripts").glob("*.py"))
+              + [ROOT / "chip_smoke.py"])
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "attr", getattr(node.func, "id", "")) in (
+                "import_module", "__import__") and node.args \
+                and isinstance(node.args[0], ast.Constant):
+            yield str(node.args[0].value)
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_imports_no_jax_or_reference(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_import_scan_covers_the_package():
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for must in ("src/repro_torch/kernels/ops.py",
+                 "src/repro_torch/serving/engine.py",
+                 "src/repro_torch/convert.py", "chip_smoke.py",
+                 "scripts/profile_decode.py"):
+        assert must in names
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    """A machine without CUDA, whatever this one has."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _smoke():
+    return get_smoke_config("llama3_8b")
+
+
+ENTRY_POINTS = {
+    "init_params": lambda dev: init_params(_smoke(), seed=0, device=dev),
+    "init_cache": lambda dev: init_cache(_smoke(), 2, 8, "nxfp4",
+                                         device=dev),
+    "quantize_qtensor": lambda dev: quantize_qtensor(
+        torch.ones((4, 64)), "nxfp4", axis=-1, device=dev),
+    "ServeEngine": lambda dev: ServeEngine(
+        _smoke(), init_params(_smoke(), seed=0, device="cpu"),
+        QuantPolicy("nxfp4", "nxfp4"), max_len=16, device=dev),
+    "params_from_jax": lambda dev: params_from_jax(
+        {"tok_embed": np.ones((4, 2), np.float32),
+         "layers": {"wq": np.ones((2, 2, 2), np.float32)}}, device=dev),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_points_raise_without_cuda(no_cuda, name):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ENTRY_POINTS[name](None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ENTRY_POINTS[name]("cuda")
+    ENTRY_POINTS[name]("cpu")       # the explicit CPU path works
+
+
+@pytest.fixture
+def cuda_request(monkeypatch, no_cuda):
+    """Every wrapper sees its tensors as CUDA tensors: the request must
+    go to the kernel (and fail here for want of a card), never to the
+    plain version."""
+    monkeypatch.setattr(build, "on_cuda", lambda *tensors: True)
+
+    def plain_called(*a, **k):
+        raise AssertionError("a CUDA request took the plain version")
+
+    for mod, name in ((nxfp_quantize, "nxfp_quantize_pack_plain"),
+                      (nxfp_matmul, "nxfp_matmul_plain"),
+                      (nxfp_attention, "nxfp_decode_attention_plain")):
+        monkeypatch.setattr(mod, name, plain_called)
+
+
+def _matmul_args(fmt):
+    n, kb = 8, 2
+    return (torch.zeros((4, kb * fmt.block_size), dtype=torch.bfloat16),
+            torch.zeros((n, kb, fmt.bytes_per_block), dtype=torch.uint8),
+            torch.zeros((n, kb), dtype=torch.uint16), fmt)
+
+
+def _attention_args(fmt):
+    b, s, kvh, g, nb = 2, 8, 2, 2, 1
+    packed = torch.zeros((b, s, kvh, nb, fmt.bytes_per_block),
+                         dtype=torch.uint8)
+    meta = torch.zeros((b, s, kvh, nb), dtype=torch.uint16)
+    return (torch.zeros((b, kvh, g, nb * fmt.block_size)), packed, meta,
+            packed, meta, torch.ones((b,), dtype=torch.int32), fmt)
+
+
+@pytest.mark.parametrize("kernel", ["quantize", "matmul", "attention"])
+def test_cuda_requests_raise_instead_of_falling_back(cuda_request, kernel):
+    fmt = get_format("nxfp4")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if kernel == "quantize":
+            nxfp_quantize.nxfp_quantize_pack(torch.zeros((4, 32)), fmt)
+        elif kernel == "matmul":
+            nxfp_matmul.nxfp_matmul(*_matmul_args(fmt))
+        else:
+            nxfp_attention.nxfp_decode_attention(*_attention_args(fmt))
+
+
+@pytest.mark.parametrize("kernel", ["quantize", "matmul", "attention"])
+def test_cuda_kernels_reject_formats_they_do_not_take(cuda_request, kernel):
+    """asym/ox formats (the quantized-activation slice) and custom recycle
+    values raise NotImplementedError on CUDA."""
+    with pytest.raises(NotImplementedError):
+        if kernel == "quantize":
+            import dataclasses
+            fmt = dataclasses.replace(get_format("nxfp4"), recycle=0.75)
+            nxfp_quantize.nxfp_quantize_pack(torch.zeros((4, 32)), fmt)
+        elif kernel == "matmul":
+            nxfp_matmul.nxfp_matmul(*_matmul_args(get_format("amxfp4")))
+        else:
+            nxfp_attention.nxfp_decode_attention(
+                *_attention_args(get_format("amxfp4")))
+
+
+def test_mixed_devices_raise():
+    with pytest.raises(ValueError):
+        build.on_cuda(torch.zeros(1), torch.zeros(1, device="meta"))
