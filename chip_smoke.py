@@ -11,19 +11,30 @@ Phases, each fatal on failure (exit code 1, no result line):
    per source, all started together), with the ptxas register and
    shared-memory lines.
 3. Kernels against their plain PyTorch versions on the card, at the shapes
-   the Llama-3-8B main path gives them: the quantizer bitwise (up to
-   counted candidate near-ties), the dequant GEMM and the decode attention
-   within a stated tolerance. Each is timed with CUDA events (cold L2),
-   beside its plain version, one PyTorch library call computing the same
-   function (a yardstick the port never calls) and its bound on the card.
+   the Llama-3-8B paths give them: the quantizer bitwise (up to counted
+   candidate near-ties) on a weight cast (nxfp4) and on a prefill
+   activation (amxfp4, uint32 meta), the dequant GEMM, the decode
+   attention and the quantized x quantized (qq) GEMM within a stated
+   tolerance. Each is timed with CUDA events (cold L2), beside its plain
+   version, one PyTorch library call computing the same function (a
+   yardstick the port never calls) and its bound on the card.
 4. Reference on a small input: the smoke Llama through the kernels on the
    card against the plain path on the CPU, teacher-forced, logits within
-   tolerance.
+   tolerance; and its qq prefill (``act_fmt="amxfp4"``) likewise.
 5. Main path: Llama-3-8B at full width (random weights from a seed),
    ``ServeEngine`` with nxfp4 weights and nxfp4 KV, 4 prompts of 128
    tokens, 32 greedy tokens through the device loop (chunk 16) and the
    host loop, which must agree. Every kernel's launch counter is set to 0
-   just before and read just after; each must be > 0.
+   just before and read just after; each kernel of the path (all but the
+   qq GEMM) must be > 0.
+6. The qq prefill path at full width: the same weights, 4 x 128 prompt
+   tokens through ``prefill(..., kv_fmt="nxfp4", act_fmt="amxfp4")``
+   (amxfp4 activations x nxfp4 weights in every projection), then 32
+   greedy tokens through ``decode_loop``. Counters are set to 0 just
+   before and read just after; every kernel of the path (quantizer, qq
+   GEMM, dequant GEMM, decode attention) must be > 0, with 7 qq GEMMs
+   per layer in the prefill. Logits must be finite and bitwise equal on a
+   second run.
 
 The last three lines are the kernel table as JSON, the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.
@@ -165,6 +176,100 @@ def check_quantizer(timer, rows):
         shape=f"(4096, 14336) f32 weight, {t} blocks of 32, nxfp4")
 
 
+def check_act_quantizer(timer, rows):
+    """amxfp4 over the W2 input of a 4 x 128 prefill: (512, 14336) bf16."""
+    from repro_torch.core.formats import get_format
+    from repro_torch.core.pack import unpack_codes
+    from repro_torch.core.quantize import (candidates, meta_int32,
+                                           near_tie_blocks, to_blocks)
+    from repro_torch.kernels import nxfp_quantize as nq
+    from repro_torch.kernels.decode_lib import decode_block_values
+
+    fmt = get_format("amxfp4")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = (torch.randn((512, 14336), generator=gen, device="cuda")
+         * torch.rand((512, 1), generator=gen, device="cuda")).to(
+        torch.bfloat16)
+    xb, _ = to_blocks(x, fmt.block_size, -1)
+    flat = xb.reshape(-1, fmt.block_size).to(torch.float32).contiguous()
+    kp, km = nq.nxfp_quantize_pack(flat, fmt)
+    pp, pm = nq.nxfp_quantize_pack_plain(flat, fmt)
+    torch.cuda.synchronize()
+    if km.dtype != torch.uint32 or pm.dtype != torch.uint32:
+        fail(f"activation quantizer: meta {km.dtype}/{pm.dtype}, not uint32")
+    diff = (kp != pp).any(dim=-1) | (meta_int32(km) != meta_int32(pm))
+    n_diff = int(diff.sum())
+    if n_diff and not bool(near_tie_blocks(flat[diff], fmt).all()):
+        fail(f"activation quantizer: {n_diff} blocks differ from the plain "
+             "version, not all of them candidate near-ties")
+
+    def deq(p, m):
+        return decode_block_values(unpack_codes(p, fmt.bits, 32), m, fmt)
+
+    err = float((deq(kp, km) - deq(pp, pm)).abs().max())
+    t = flat.shape[0]
+    n_bytes = t * 32 * 4 + t * fmt.bytes_per_block + t * 4
+    # asym: two sides (exponent, nano, reciprocal) and a sign select more
+    n_ops = t * 32 * len(candidates(fmt)) * (QUANT_OPS + 2)
+    ms = timer(lambda: nq.nxfp_quantize_pack(flat, fmt))
+    plain_ms = timer(lambda: nq.nxfp_quantize_pack_plain(flat, fmt), 3)
+    b_ms, b_by = bound(n_bytes, n_ops, PEAK_F32)
+    log(f"activation quantizer (512x14336 bf16 activation as f32, {t} "
+        f"blocks, amxfp4): packed+uint32 meta bitwise except {n_diff} "
+        f"near-tie blocks; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by})")
+    rows["nxfp_quantize amxfp4"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, near_ties=n_diff,
+        shape=f"(512, 14336) bf16 activation, {t} blocks of 32, amxfp4")
+
+
+def check_qq_matmul(timer, rows):
+    """amxfp4 activations x nxfp4 weights at the prefill shapes."""
+    from repro_torch.core.formats import get_format
+    from repro_torch.kernels import nxfp_matmul as nm
+    from repro_torch.kernels import nxfp_qq_matmul as nqq
+    from repro_torch.kernels.ops import quantize_qtensor
+
+    x_fmt, w_fmt = get_format("amxfp4"), get_format("nxfp4")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    m = 512
+    for k, n in ((4096, 14336), (14336, 4096)):
+        w = torch.randn((k, n), generator=gen, device="cuda") * 0.02
+        wq = quantize_qtensor(w, w_fmt, axis=-2, device="cuda")
+        del w
+        x = torch.randn((m, k), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        xq = quantize_qtensor(x, x_fmt, axis=-1, device="cuda")
+        args = (xq.packed, xq.meta, wq.packed, wq.meta, x_fmt, w_fmt)
+        y = nqq.nxfp_qq_matmul(*args)
+        y_plain = nqq.nxfp_qq_matmul_plain(*args)
+        xd = nm.dequant_weight_bf16(xq.packed, xq.meta, x_fmt)   # (M, K)
+        wd = nm.dequant_weight_bf16(wq.packed, wq.meta, w_fmt)   # (N, K)
+        mag = xd.float().abs() @ wd.float().abs().T
+        err = float((y - y_plain).abs().max())
+        rel = float(((y - y_plain).abs() / mag.clamp(min=1e-30)).max())
+        # both sum exact bf16 products in f32, in different orders
+        if not (torch.isfinite(y).all() and rel <= 1e-5):
+            fail(f"qq matmul M={m} K={k} N={n}: error {rel:.3g} of "
+                 "sum|x||w| exceeds 1e-5")
+        ms = timer(lambda: nqq.nxfp_qq_matmul(*args))
+        plain_ms = timer(lambda: nqq.nxfp_qq_matmul_plain(*args), 5)
+        lib_ms = timer(lambda: torch.matmul(xd, wd.T))
+        n_bytes = (xq.packed.numel() + xq.meta.numel() * 4
+                   + wq.packed.numel() + wq.meta.numel() * 2 + m * n * 4)
+        b_ms, b_by = bound(n_bytes, 2.0 * m * n * k, PEAK_BF16)
+        log(f"qq matmul M={m} K={k} N={n} (amxfp4 x nxfp4): max err "
+            f"{err:.3g} ({rel:.3g} of sum|x||w|); kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, torch.matmul of the bf16-dequantized "
+            f"operands {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+            f"{n_bytes} bytes)")
+        rows[f"nxfp_qq_matmul M={m} K={k} N={n}"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib_ms,
+            shape=f"amxfp4 X ({m}, {k}) x nxfp4 W ({k}, {n})")
+
+
 def check_matmul(timer, rows):
     from repro_torch.core.formats import get_format
     from repro_torch.kernels import nxfp_matmul as nm
@@ -299,6 +404,20 @@ def phase_reference():
     log(f"reference: smoke Llama (2 layers, d 64) through the kernels vs "
         f"the plain CPU path, prefill + 4 teacher-forced steps: max logit "
         f"difference {worst:.3g} (tolerance 1e-2)")
+    act = {dev: prefill(cfg, e.params, {"tokens": toks.to(dev)}, max_len=32,
+                        kv_fmt="nxfp4", act_fmt="amxfp4")[0].cpu()
+           for dev, e in eng.items()}
+    if not torch.isfinite(act["cuda"]).all():
+        fail("smoke model: non-finite qq prefill logits on the card")
+    act_err = float((act["cpu"] - act["cuda"]).abs().max())
+    # a bf16 activation an ulp apart can sit across an amxfp4 level
+    # boundary and move by a whole code
+    if act_err > 3e-2:
+        fail(f"smoke model: qq prefill, card vs CPU logits differ by "
+             f"{act_err:.3g} > 3e-2")
+    log(f"reference: smoke Llama qq prefill (amxfp4 x nxfp4, nxfp4 KV) "
+        f"through the kernels vs the plain CPU path: max logit difference "
+        f"{act_err:.3g} (tolerance 3e-2)")
 
 
 def phase_main(n_layers: int):
@@ -351,7 +470,7 @@ def phase_main(n_layers: int):
             and (warm.tokens == dev.tokens).all()):
         fail("main path: device and host loops disagree")
     for name, c in counts.items():
-        if c <= 0:
+        if c <= 0 and name != "nxfp_qq_matmul":      # qq: phase 6's path
             fail(f"main path: kernel {name} was never launched")
 
     reset_launch_counts()
@@ -378,7 +497,78 @@ def phase_main(n_layers: int):
     log(f"  peak device memory during generate: {peak} bytes")
     log(f"  launches on the main path (cast + 3 generate calls): {counts}")
     log(f"  launches per decode step: {per_step}")
-    return counts, per_step
+    return counts, per_step, cfg, engine, prompts
+
+
+def _timed_prefill(cfg, params, tokens, act_fmt):
+    from repro_torch.models import prefill
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = prefill(cfg, params, {"tokens": tokens}, max_len=256,
+                  kv_fmt="nxfp4", act_fmt=act_fmt)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_act(cfg, engine, prompts):
+    """The qq prefill (amxfp4 activations) at full width, then decode."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import decode_loop
+
+    tokens = prompts.to("cuda")
+    _timed_prefill(cfg, engine.params, tokens, "amxfp4")       # warm-up
+    reset_launch_counts()
+    (logits, cache), act_s = _timed_prefill(cfg, engine.params, tokens,
+                                            "amxfp4")
+    per_prefill = launch_counts()
+    tok = logits.argmax(-1).to(torch.int32)
+    out, _, _ = decode_loop(cfg, engine.params, tok, cache, 32, "nxfp4",
+                            lambda lg: lg.argmax(-1))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+
+    if not torch.isfinite(logits).all():
+        fail("qq prefill: non-finite logits")
+    (again, _), act_s2 = _timed_prefill(cfg, engine.params, tokens, "amxfp4")
+    if not torch.equal(logits, again):
+        fail("qq prefill: a second run gave other logits")
+    for name, c in counts.items():
+        if c <= 0:
+            fail(f"qq prefill path: kernel {name} was never launched")
+    if per_prefill["nxfp_qq_matmul"] != 7 * cfg.n_layers:
+        fail(f"qq prefill: {per_prefill['nxfp_qq_matmul']} qq GEMMs, "
+             f"expected 7 per layer ({7 * cfg.n_layers})")
+    if out.shape != (4, 32) or out.min() < 0 or out.max() >= cfg.vocab:
+        fail(f"qq prefill path: decoded tokens {tuple(out.shape)} out of "
+             "range")
+    dense_s = []
+    for _ in range(2):
+        (dense, _), sec = _timed_prefill(cfg, engine.params, tokens, None)
+        dense_s.append(sec)
+    dev = float((logits - dense).abs().max() / dense.abs().max())
+    # how that deviation builds up with depth: the first n layers alone
+    sweep = {}
+    for n in sorted({1, 2, 4, 8, 16, cfg.n_layers}):
+        if n > cfg.n_layers:
+            continue
+        cut = dataclasses.replace(cfg, n_layers=n)
+        params = dict(engine.params, layers=engine.params["layers"][:n])
+        la = _timed_prefill(cut, params, tokens, "amxfp4")[0][0]
+        ld = _timed_prefill(cut, params, tokens, None)[0][0]
+        sweep[n] = round(float((la - ld).abs().max() / ld.abs().max()), 4)
+    log(f"qq prefill path ({cfg.n_layers} layers, 4 x 128 tokens, amxfp4 "
+        f"activations x nxfp4 weights, nxfp4 KV) + 32 greedy tokens:")
+    log(f"  launches per prefill: {per_prefill} (7 qq GEMMs and "
+        f"{per_prefill['nxfp_quantize'] // cfg.n_layers} quantizer launches "
+        f"per layer: 4 activation encodes + K and V)")
+    log(f"  launches on the path (prefill + decode_loop): {counts}")
+    log(f"  prefill seconds: act_fmt=amxfp4 {act_s:.4f} / {act_s2:.4f}, "
+        f"act_fmt=None {dense_s[0]:.4f} / {dense_s[1]:.4f}")
+    log(f"  logits bitwise equal on a second run; max |logit - dense-act "
+        f"logit| / max |dense-act logit| = {dev:.4g}; by depth (layers: "
+        f"deviation) {sweep}")
+    log(f"  greedy tokens after the qq prefill: {out[:, :8].tolist()} ...")
+    return counts
 
 
 KERNELS = {
@@ -388,14 +578,22 @@ KERNELS = {
                     "src/repro/kernels/nxfp_matmul.py:73"),
     "nxfp_decode_attention": ("src/repro_torch/csrc/nxfp_attention.cu",
                               "src/repro/kernels/nxfp_attention.py:86"),
+    "nxfp_qq_matmul": ("src/repro_torch/csrc/nxfp_qq_matmul.cu",
+                       "src/repro/kernels/nxfp_qq_matmul.py:77"),
 }
 # the module whose counter each kernel bumps, and the row that stands for
-# it in the table (the GEMM's decode shape, mlp_w1/w3)
+# it in the table (the GEMM's decode shape, mlp_w1/w3; the qq GEMM's
+# prefill shape, mlp_w1/w3)
 COUNTERS = {"nxfp_quantize": "nxfp_quantize", "nxfp_matmul": "nxfp_matmul",
-            "nxfp_decode_attention": "nxfp_attention"}
+            "nxfp_decode_attention": "nxfp_attention",
+            "nxfp_qq_matmul": "nxfp_qq_matmul"}
 MAIN_ROW = {"nxfp_quantize": "nxfp_quantize",
             "nxfp_matmul": "nxfp_matmul M=4 K=4096 N=14336",
-            "nxfp_decode_attention": "nxfp_decode_attention"}
+            "nxfp_decode_attention": "nxfp_decode_attention",
+            "nxfp_qq_matmul": "nxfp_qq_matmul M=512 K=4096 N=14336"}
+# the path whose launches stand for each kernel: the serving main path
+# (phase 5), or the qq prefill path (phase 6) for the qq GEMM
+QQ_PATH = ("nxfp_qq_matmul",)
 
 
 def main():
@@ -415,20 +613,25 @@ def main():
     timer = Timer("cuda")
     rows = {}
     check_quantizer(timer, rows)
+    check_act_quantizer(timer, rows)
     check_matmul(timer, rows)
     check_attention(timer, rows)
+    check_qq_matmul(timer, rows)
     del timer
     torch.cuda.empty_cache()
     phase_reference()
-    counts, per_step = phase_main(args.layers)
+    counts, per_step, cfg, engine, prompts = phase_main(args.layers)
+    act_counts = phase_act(cfg, engine, prompts)
 
     table = []
     for kname, (source, replaces) in KERNELS.items():
         row = rows[MAIN_ROW[kname]]
+        c = COUNTERS[kname]
         table.append(dict(
             name=kname, route="cuda", source=source, replaces=replaces,
-            launches=counts[COUNTERS[kname]],
-            launches_per_decode_step=per_step[COUNTERS[kname]],
+            launches=(act_counts if kname in QQ_PATH else counts)[c],
+            launches_qq_prefill_path=act_counts[c],
+            launches_per_decode_step=per_step[c],
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],

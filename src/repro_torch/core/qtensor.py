@@ -20,7 +20,8 @@ class QTensor:
     """A direct-cast NxFP/MxFP/BFP tensor, in the reference's layout.
 
     ``packed``: (..., nb, bytes_per_block) uint8 — block axis moved last.
-    ``meta``:   (..., nb) uint16 — shared exponent / nano / fmt bits.
+    ``meta``:   (..., nb) uint16, or uint32 for the asymmetric activation
+                formats — shared exponent(s) / nano / fmt / ox bits.
     Aux fields: format name, logical shape, block axis (always negative),
     original length of the blocked axis.
     """

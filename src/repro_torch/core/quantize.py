@@ -21,8 +21,13 @@ order the CUDA quantizer (``csrc/nxfp_quantize.cu``) uses, so kernel and
 plain version agree bitwise; against the reference a block whose two best
 candidates lie within an ulp may pick the other one.
 
-Symmetric formats only: the asymmetric (``asym``) and outlier-mantissa
-(``ox``) activation formats come with the quantized x quantized GEMM.
+The activation formats are ported too: ``asym`` (AMXFP) fits a shared
+exponent and nano per sign and scales each element by its input's sign;
+``ox`` (MX+) re-codes the block max's slot with ``bits-1`` extra mantissa
+bits and records its index in meta bits [11:16]. Their meta is uint32
+when ``asym`` (26 bits: E+ | nano+ | fmt | ox index | E- | nano-), else
+uint16. torch's CPU ops stop at storing uint32, so every field is read
+after a view as int32.
 """
 from __future__ import annotations
 
@@ -33,9 +38,10 @@ import torch.nn.functional as F
 from .formats import BlockFormat, get_format
 from .levels import level_table
 
-__all__ = ["pow2i", "floor_log2_bits", "meta_fields", "arith_encode_blocks",
-           "quantize_blocks_arith", "dequantize_blocks", "to_blocks",
-           "from_blocks", "candidates", "near_tie_blocks"]
+__all__ = ["pow2i", "floor_log2_bits", "meta_fields", "meta_int32",
+           "arith_encode_blocks", "quantize_blocks_arith",
+           "dequantize_blocks", "to_blocks", "from_blocks", "candidates",
+           "near_tie_blocks", "ox_emax", "ox_substitute"]
 
 _E_BIAS = 128
 _F32_TINY = float(np.finfo(np.float32).tiny)
@@ -55,10 +61,24 @@ def floor_log2_bits(v):
     return torch.where(v < _F32_TINY, torch.full_like(e, -126), e)
 
 
+def meta_int32(meta):
+    """uint16/uint32 meta -> int32 with the same bits (asym meta is 26
+    bits, so the value is unchanged)."""
+    if meta.dtype == torch.uint32:
+        return meta.view(torch.int32)
+    return meta.to(torch.int32)
+
+
 def meta_fields(meta):
     """uint16 meta -> (E_shared, nano, fmt_bit), each int32."""
-    m = meta.to(torch.int32) & 0xFFFF
+    m = meta_int32(meta) & 0xFFFF
     return (m & 0xFF) - _E_BIAS, (m >> 8) & 0x3, (m >> 10) & 0x1
+
+
+def ox_emax(fmt: BlockFormat) -> int:
+    """emax of the element grid the ox outlier value is scaled from."""
+    elem = fmt.elem_formats[0][1]
+    return level_table(elem.name, False, fmt.recycle).emax
 
 
 def candidates(fmt: BlockFormat):
@@ -86,23 +106,43 @@ def _block_mean(d):
     return s / d.shape[-1]
 
 
-def _encode_candidate(xb, vmax, vmax_e, fmt_bit, nano_mode, table, cr):
-    """One (element format x nano) candidate: int32 codes, meta, f32 MSE."""
-    elem = table.fmt
-    bits, mbits, bias = elem.bits, elem.mbits, elem.bias
-    max_pos = float(np.float32(table.max_pos))
-
-    e_sh = torch.clamp(vmax_e - table.emax, -126, 127)
+def _side(vm, vm_e, nano_mode, table):
+    """Shared exponent, nano code and scale fit to one block max."""
+    e_sh = torch.clamp(vm_e - table.emax, -126, 127)
     scale0 = pow2i(e_sh)
     if nano_mode is None:
         nano = torch.zeros_like(e_sh)
     elif nano_mode == "round":
-        r = vmax / (scale0 * max_pos)
+        r = vm / (scale0 * float(np.float32(table.max_pos)))
         nano = torch.clamp(torch.round((r - 1.0) * 4.0), 0, 3).to(torch.int32)
     else:
         nano = torch.full_like(e_sh, int(nano_mode))
-    scale = scale0 * (1.0 + nano.to(torch.float32) * 0.25)
-    vp = xb * torch.reciprocal(scale)[..., None]
+    return e_sh, nano, scale0 * (1.0 + nano.to(torch.float32) * 0.25)
+
+
+def _encode_candidate(xb, vmax, vmax_e, fmt_bit, nano_mode, table, cr,
+                      vmax_n=None, vmax_n_e=None, ox=False):
+    """One (element format x nano) candidate: int32 codes, meta, f32 MSE.
+
+    ``vmax_n``/``vmax_n_e`` (asym): ``vmax`` is the positive side's block
+    max and these the negative side's; each side gets its own exponent and
+    nano, and an element scales by its input's sign. ``ox``: the first
+    element with ``|x| >= max|x|`` is re-coded as sign | ``bits-1``
+    mantissa bits of the max, decoded off its sign's shared exponent; the
+    MSE counts the substituted value.
+    """
+    elem = table.fmt
+    bits, mbits, bias = elem.bits, elem.mbits, elem.bias
+    max_pos = float(np.float32(table.max_pos))
+
+    e_sh, nano, scale = _side(vmax, vmax_e, nano_mode, table)
+    asym = vmax_n is not None
+    if asym:
+        e_sh_n, nano_n, scale_n = _side(vmax_n, vmax_n_e, nano_mode, table)
+        vp = xb * torch.where(xb < 0, torch.reciprocal(scale_n)[..., None],
+                              torch.reciprocal(scale)[..., None])
+    else:
+        vp = xb * torch.reciprocal(scale)[..., None]
     a = vp.abs()
     neg = vp < 0
 
@@ -134,32 +174,67 @@ def _encode_candidate(xb, vmax, vmax_e, fmt_bit, nano_mode, table, cr):
                & (vp < float(np.float32(-0.25 * smallest))))
         codes = torch.where(win, torch.full_like(codes, sign_code), codes)
         val = torch.where(win, torch.full_like(val, -0.5 * smallest), val)
-    deq = val * scale[..., None]
+    if asym:
+        deq = val * torch.where(neg, scale_n[..., None], scale[..., None])
+    else:
+        deq = val * scale[..., None]
     meta = (e_sh + _E_BIAS) | (nano << 8) | (fmt_bit << 10)
+    if ox:
+        bs = xb.shape[-1]
+        iota = torch.arange(bs, dtype=torch.int32, device=xb.device)
+        vtot = torch.maximum(vmax, vmax_n) if asym else vmax
+        ismax = xb.abs() >= vtot[..., None]
+        idx = torch.where(ismax, iota, bs).amin(dim=-1)
+        at = iota == idx[..., None]
+        neg_ox = (at & (xb < 0)).any(dim=-1)
+        if asym:
+            e_v = torch.where(neg_ox, vmax_n_e, vmax_e)
+            vm_sel = torch.where(neg_ox, vmax_n, vmax)
+            e_used = torch.where(neg_ox, e_sh_n, e_sh)
+        else:
+            e_v, vm_sel, e_used = vmax_e, vmax, e_sh
+        mb = bits - 1
+        frac = vm_sel * pow2i(-e_v) - 1.0
+        m_ox = torch.clamp(torch.round(frac * float(2.0 ** mb)), 0,
+                           (1 << mb) - 1).to(torch.int32)
+        code_ox = torch.where(neg_ox, 1 << mb, 0).to(torch.int32) | m_ox
+        v_ox = ((1.0 + m_ox.to(torch.float32) * float(0.5 ** mb))
+                * pow2i(e_used + table.emax))
+        v_ox = torch.where(neg_ox, -v_ox, v_ox)
+        has = vtot > 0
+        sub = at & has[..., None]
+        codes = torch.where(sub, code_ox[..., None], codes)
+        deq = torch.where(sub, v_ox[..., None], deq)
+        meta = meta | (idx << 11)
+        # all-zero blocks: clear the E byte so the decode's substitution
+        # gate stays off (zero padding rows are exactly this case)
+        meta = torch.where(has, meta, meta & ~0xFF)
+    if asym:
+        meta = meta | ((e_sh_n + _E_BIAS) << 16) | (nano_n << 24)
     mse = _block_mean(torch.square(deq - xb))
     return codes, meta, mse
 
 
-def _check_symmetric(fmt: BlockFormat):
-    if fmt.asym or fmt.ox:
-        raise NotImplementedError(
-            f"{fmt.name}: the asym/ox activation formats are not ported yet "
-            "(they come with the quantized x quantized GEMM)")
-
-
 def _candidate_results(xb, fmt: BlockFormat):
     """Yield (codes, meta, mse) of every candidate, in the reference's order."""
-    _check_symmetric(fmt)
     xb = torch.nan_to_num(xb.to(torch.float32), nan=0.0, posinf=1e30,
                           neginf=-1e30)
     # subnormal inputs read as zero, as the reference's XLA and TPU
     # arithmetic flushes them
     xb = torch.where(xb.abs() < _F32_TINY, 0.0, xb)
-    vmax = xb.abs().amax(dim=-1)
+    if fmt.asym:
+        # per-sign block maxima: each side's exponent fits its own half of
+        # the value range (AMXFP dual scale)
+        vmax = torch.clamp(xb, min=0.0).amax(dim=-1)
+        vmax_n = torch.clamp(-xb, min=0.0).amax(dim=-1)
+        extra = dict(vmax_n=vmax_n, vmax_n_e=floor_log2_bits(vmax_n))
+    else:
+        vmax = xb.abs().amax(dim=-1)
+        extra = {}
     vmax_e = floor_log2_bits(vmax)
     for fmt_bit, table, nano_mode in candidates(fmt):
         yield _encode_candidate(xb, vmax, vmax_e, fmt_bit, nano_mode, table,
-                                fmt.cr)
+                                fmt.cr, ox=fmt.ox, **extra)
 
 
 def arith_encode_blocks(xb, fmt: BlockFormat):
@@ -195,7 +270,8 @@ def near_tie_blocks(xb, fmt: BlockFormat, ulps: int = 4):
 
 
 def quantize_blocks_arith(xb, fmt: BlockFormat):
-    """Blocked encode -> (codes uint8 (..., nb, B), meta uint16 (..., nb)).
+    """Blocked encode -> (codes uint8 (..., nb, B), meta (..., nb) of
+    ``fmt.meta_dtype``: uint32 for asym formats, else uint16).
 
     Only the default ``recycle="half_smallest"`` remap is supported (the
     CR window is hard-coded to it), as in the reference.
@@ -205,24 +281,71 @@ def quantize_blocks_arith(xb, fmt: BlockFormat):
             f"{fmt.name}: custom recycle values need the table-driven "
             "encoder, which is not ported")
     codes, meta = arith_encode_blocks(xb, fmt)
+    if fmt.meta_dtype == "uint32":
+        return codes.to(torch.uint8), meta.contiguous().view(torch.uint32)
     return codes.to(torch.uint8), meta.to(torch.uint16)
 
 
-def dequantize_blocks(codes, meta, fmt: BlockFormat, dtype=torch.float32):
-    """codes (..., nb, B) uint8 + meta (..., nb) -> values (..., nb, B)."""
-    _check_symmetric(fmt)
-    e_shared, nano, fmt_bit = meta_fields(meta)
-    scale = torch.ldexp(1.0 + nano.to(torch.float32) * 0.25, e_shared)
+def _level_values(codes, fmt_bit, fmt: BlockFormat):
+    """Element values (scaled units) from the level LUTs, AM-selected."""
     c = codes.to(torch.int64)
     luts = {fb: torch.from_numpy(
                 level_table(el.name, fmt.cr, fmt.recycle).decode
             ).to(codes.device)
             for fb, el in fmt.elem_formats}
     if fmt.am:
-        v = torch.where((fmt_bit == 1)[..., None], luts[1][c], luts[0][c])
+        return torch.where((fmt_bit == 1)[..., None], luts[1][c], luts[0][c])
+    return next(iter(luts.values()))[c]
+
+
+def ox_substitute(out, c, m, e_p, e_n, fmt: BlockFormat):
+    """Put the ox outlier value ``+-(1 + mag/2^(bits-1)) * 2^(E_sign +
+    emax)`` at the block-max index of meta bits [11:16], unless the E byte
+    is 0. ``c`` int32 codes, ``m`` int32 meta, ``e_p``/``e_n`` the shared
+    exponents of the positive and negative side (equal unless asym)."""
+    mb = fmt.bits - 1
+    sign = (c >> mb) & 1
+    mag = c & ((1 << mb) - 1)
+    e_used = torch.where(sign == 1, e_n[..., None], e_p[..., None])
+    vox = ((1.0 + mag.to(torch.float32) * float(0.5 ** mb))
+           * pow2i(e_used + ox_emax(fmt)))
+    vox = torch.where(sign == 1, -vox, vox)
+    iota = torch.arange(c.shape[-1], dtype=torch.int32, device=c.device)
+    sub = ((iota == ((m >> 11) & 0x1F)[..., None])
+           & ((m & 0xFF) != 0)[..., None])
+    return torch.where(sub, vox, out)
+
+
+def _dequantize_blocks_ex(codes, meta, fmt: BlockFormat, dtype):
+    """Decode the activation formats: per-sign scales (``asym``; the sign
+    of the DECODED value picks the scale, so a -0 code takes the positive
+    one) and the ox substitution of the stored block-max index, gated on a
+    non-zero E byte."""
+    m = meta_int32(meta)
+    e_p = (m & 0xFF) - _E_BIAS
+    scale_p = torch.ldexp(1.0 + ((m >> 8) & 0x3).to(torch.float32) * 0.25,
+                          e_p)
+    v = _level_values(codes, (m >> 10) & 0x1, fmt)
+    if fmt.asym:
+        e_n = ((m >> 16) & 0xFF) - _E_BIAS
+        scale_n = torch.ldexp(
+            1.0 + ((m >> 24) & 0x3).to(torch.float32) * 0.25, e_n)
+        out = v * torch.where(v < 0, scale_n[..., None], scale_p[..., None])
     else:
-        v = next(iter(luts.values()))[c]
-    return (v * scale[..., None]).to(dtype)
+        e_n = e_p
+        out = v * scale_p[..., None]
+    if fmt.ox:
+        out = ox_substitute(out, codes.to(torch.int32), m, e_p, e_n, fmt)
+    return out.to(dtype)
+
+
+def dequantize_blocks(codes, meta, fmt: BlockFormat, dtype=torch.float32):
+    """codes (..., nb, B) uint8 + meta (..., nb) -> values (..., nb, B)."""
+    if fmt.asym or fmt.ox:
+        return _dequantize_blocks_ex(codes, meta, fmt, dtype)
+    e_shared, nano, fmt_bit = meta_fields(meta)
+    scale = torch.ldexp(1.0 + nano.to(torch.float32) * 0.25, e_shared)
+    return (_level_values(codes, fmt_bit, fmt) * scale[..., None]).to(dtype)
 
 
 def to_blocks(x, block_size: int, axis: int = -1):

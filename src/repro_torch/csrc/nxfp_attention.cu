@@ -5,8 +5,10 @@
 //
 // One query token per sequence attends to its cached K/V rows:
 //   q        (B, KVH, G, D) f32, already scaled by 1/sqrt(head_dim)
-//   K/V      (B, S, KVH, NB, bpb) uint8 + (B, S, KVH, NB) uint16 meta,
-//            blocks of 32 codes along head_dim (D = NB * 32)
+//   K/V      (B, S, KVH, NB, bpb) uint8 + (B, S, KVH, NB) uint16 meta
+//            (uint32 for an asym format), blocks of 32 codes along
+//            head_dim (D = NB * 32), decoded by nxfp_decode.cuh (ox and
+//            asym formats included)
 //   lengths  (B,) int32 valid rows per sequence
 //   out      (B, KVH, G, D) f32
 // As the TPU kernel: rows are dequantized to f32, both dots run in f32,
@@ -34,11 +36,27 @@ constexpr int kTS = 32;       // cache rows per tile (one per lane)
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 
-struct AttnFmt {
-  nxfp::ElemDesc elem[2];
-  int bits;
-  int block_size;
-};
+// One packed block of QB codes -> f32 values at dst. A symmetric format
+// takes one scale per block; the activation formats the per-element sign
+// select and ox slot (nxfp_decode.cuh). The branch is uniform.
+__device__ __forceinline__ void decode_row(const uint8_t* src, unsigned m,
+                                           const float* lut,
+                                           const nxfp::FmtDesc& af,
+                                           float* dst) {
+  const int QB = af.block_size, bits = af.bits;
+  if (!af.asym && !af.ox) {
+    int fb;
+    const float sc = nxfp::decode_scale(m, &fb);
+    for (int i = 0; i < QB; ++i)
+      dst[i] = lut[fb * 256 + nxfp::unpack_code(src, i, bits)] * sc;
+  } else {
+    const nxfp::BlockScale s = nxfp::block_scale(m, af);
+    for (int i = 0; i < QB; ++i) {
+      const int c = nxfp::unpack_code(src, i, bits);
+      dst[i] = nxfp::block_value(s, lut[s.fb * 256 + c], c, i, bits);
+    }
+  }
+}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -55,12 +73,12 @@ __device__ __forceinline__ float warp_sum(float v) {
 __global__ void __launch_bounds__(kThreads)
 nxfp_decode_attention_kernel(const float* __restrict__ q,
                              const uint8_t* __restrict__ kp,
-                             const uint16_t* __restrict__ km,
+                             const void* __restrict__ km,
                              const uint8_t* __restrict__ vp,
-                             const uint16_t* __restrict__ vm,
+                             const void* __restrict__ vm,
                              const int* __restrict__ lengths,
                              float* __restrict__ out, int S, int KVH, int G,
-                             int NB, AttnFmt af) {
+                             int NB, nxfp::FmtDesc af) {
   extern __shared__ float smem[];
   const int QB = af.block_size, bits = af.bits;
   const int bpb = QB * bits / 8;
@@ -102,15 +120,10 @@ nxfp_decode_attention_kernel(const float* __restrict__ q,
       float* vd = vs + r * DP + j * QB;
       if (s < S) {
         const size_t blk = (((size_t)b * S + s) * KVH + h) * NB + j;
-        int fb;
-        float sc = nxfp::decode_scale((int)km[blk], &fb);
-        const uint8_t* src = kp + blk * bpb;
-        for (int i = 0; i < QB; ++i)
-          kd[i] = lut[fb * 256 + nxfp::unpack_code(src, i, bits)] * sc;
-        sc = nxfp::decode_scale((int)vm[blk], &fb);
-        src = vp + blk * bpb;
-        for (int i = 0; i < QB; ++i)
-          vd[i] = lut[fb * 256 + nxfp::unpack_code(src, i, bits)] * sc;
+        decode_row(kp + blk * bpb, nxfp::read_meta(km, blk, af), lut,
+                   af, kd);
+        decode_row(vp + blk * bpb, nxfp::read_meta(vm, blk, af), lut,
+                   af, vd);
       } else {
         for (int i = 0; i < QB; ++i) kd[i] = vd[i] = 0.0f;
       }
@@ -160,7 +173,7 @@ extern "C" int nxfp_decode_attention_launch(
     const void* q, const void* kp, const void* km, const void* vp,
     const void* vm, const void* lengths, void* out, int B, int S, int KVH,
     int G, int NB, const void* fmt_desc, void* stream) {
-  const AttnFmt af = *reinterpret_cast<const AttnFmt*>(fmt_desc);
+  const nxfp::FmtDesc af = *reinterpret_cast<const nxfp::FmtDesc*>(fmt_desc);
   if (B == 0 || KVH == 0 || G == 0) return 0;
   const int D = NB * af.block_size;
   const size_t smem =
@@ -175,9 +188,7 @@ extern "C" int nxfp_decode_attention_launch(
   nxfp_decode_attention_kernel<<<grid, kThreads, smem,
                                  reinterpret_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const float*>(q), reinterpret_cast<const uint8_t*>(kp),
-      reinterpret_cast<const uint16_t*>(km),
-      reinterpret_cast<const uint8_t*>(vp),
-      reinterpret_cast<const uint16_t*>(vm),
+      km, reinterpret_cast<const uint8_t*>(vp), vm,
       reinterpret_cast<const int*>(lengths), reinterpret_cast<float*>(out), S,
       KVH, G, NB, af);
   return (int)cudaGetLastError();

@@ -1,10 +1,11 @@
 """NxFP kernels: hand-written CUDA for Hopper (``csrc/``), each with its
 plain PyTorch version, and the public wrappers in ``ops``."""
-from . import nxfp_attention, nxfp_matmul, nxfp_quantize
+from . import nxfp_attention, nxfp_matmul, nxfp_qq_matmul, nxfp_quantize
 from .ops import decode_attention, qmatmul, quantize_qtensor
 
 # the modules that hold a kernel and its launch counter (``LAUNCHES``)
-KERNEL_MODULES = (nxfp_quantize, nxfp_matmul, nxfp_attention)
+KERNEL_MODULES = (nxfp_quantize, nxfp_matmul, nxfp_attention,
+                  nxfp_qq_matmul)
 
 
 def reset_launch_counts() -> None:

@@ -24,6 +24,7 @@ from pathlib import Path
 import torch
 
 from ..core.formats import BlockFormat
+from ..core.quantize import ox_emax
 from .decode_lib import elem_desc
 
 __all__ = ["build", "library", "BUILD_DIR", "CSRC"]
@@ -119,13 +120,15 @@ def library():
         lib = ctypes.CDLL(build()["path"])
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.nxfp_quantize_launch.argtypes = [vp, vp, vp, ll, i, i, vp, vp]
-        lib.nxfp_matmul_launch.argtypes = [vp, vp, vp, vp, i, i, i, i, i,
-                                           vp, vp]
+        lib.nxfp_matmul_launch.argtypes = [vp, vp, vp, vp, i, i, i, vp, vp]
         lib.nxfp_decode_attention_launch.argtypes = [vp, vp, vp, vp, vp, vp,
                                                      vp, i, i, i, i, i, vp,
                                                      vp]
+        lib.nxfp_qq_matmul_launch.argtypes = [vp, vp, vp, vp, vp, i, i, i,
+                                              vp, vp, vp]
         for fn in (lib.nxfp_quantize_launch, lib.nxfp_matmul_launch,
-                   lib.nxfp_decode_attention_launch):
+                   lib.nxfp_decode_attention_launch,
+                   lib.nxfp_qq_matmul_launch):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -148,14 +151,25 @@ class ElemDesc(ctypes.Structure):
                 ("bits", "is_bfp", "ebits", "mbits", "bias", "cr")]
 
 
-def elem_pair(fmt: BlockFormat):
-    """(ElemDesc for fmt_bit 0, for fmt_bit 1); equal when not AM."""
-    descs = {fb: ElemDesc(*elem_desc(el, fmt.cr)) for fb, el in
-             fmt.elem_formats}
-    if len(descs) == 1:
-        only = next(iter(descs.values()))
-        return only, only
-    return descs[0], descs[1]
+class FmtDesc(ctypes.Structure):
+    _fields_ = [("elem", ElemDesc * 2)] + [
+        (n, ctypes.c_int) for n in
+        ("bits", "block_size", "asym", "ox", "emax")]
+
+
+def fmt_desc(fmt: BlockFormat) -> FmtDesc:
+    """The ``nxfp::FmtDesc`` of ``csrc/nxfp_decode.cuh`` for ``fmt``: the
+    element decode for fmt_bit 0 and 1 (the same one when not AM), widths
+    and the activation-format flags."""
+    descs = [ElemDesc(*elem_desc(el, fmt.cr)) for _, el in
+             sorted(fmt.elem_formats, key=lambda e: e[0])]
+    return FmtDesc((ElemDesc * 2)(descs[0], descs[-1]), fmt.bits,
+                   fmt.block_size, int(fmt.asym), int(fmt.ox), ox_emax(fmt))
+
+
+def meta_dtype(fmt: BlockFormat) -> torch.dtype:
+    """The torch dtype of ``fmt``'s meta words (uint16, uint32 for asym)."""
+    return getattr(torch, fmt.meta_dtype)
 
 
 def on_cuda(*tensors) -> bool:

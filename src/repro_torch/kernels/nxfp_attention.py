@@ -26,11 +26,6 @@ KERNEL_BITS = (4, 5, 6, 8)
 _NEG = -1e30
 
 
-class _AttnFmt(ctypes.Structure):
-    _fields_ = [("elem", build.ElemDesc * 2), ("bits", ctypes.c_int),
-                ("block_size", ctypes.c_int)]
-
-
 def dequant_cache(packed, meta, fmt: BlockFormat):
     """(B, S, KVH, NB, bpb) packed -> (B, S, KVH, NB*B) f32."""
     vals = decode_block_values(
@@ -58,18 +53,18 @@ def nxfp_decode_attention_plain(q, k_packed, k_meta, v_packed, v_meta,
 def nxfp_decode_attention(q, k_packed, k_meta, v_packed, v_meta, lengths,
                           fmt: BlockFormat):
     """q (B, KVH, G, D) f32 (scaled by 1/sqrt(head_dim)); K/V packed
-    (B, S, KVH, NB, bpb) uint8 + (B, S, KVH, NB) uint16; lengths (B,) int.
+    (B, S, KVH, NB, bpb) uint8 + (B, S, KVH, NB) meta (uint16, uint32 for
+    an asym format); lengths (B,) int.
     Returns (B, KVH, G, D) f32. CPU tensors take the plain version; CUDA
     tensors launch the kernel."""
     global LAUNCHES
     tensors = (q, k_packed, k_meta, v_packed, v_meta, lengths)
     if not build.on_cuda(*tensors):
         return nxfp_decode_attention_plain(*tensors, fmt)
-    if fmt.asym or fmt.ox or fmt.bits not in KERNEL_BITS \
-            or fmt.block_size not in (16, 32):
+    if fmt.bits not in KERNEL_BITS or fmt.block_size not in (16, 32):
         raise NotImplementedError(
             f"{fmt.name}: the CUDA decode attention takes 4/5/6/8-bit "
-            "symmetric cache formats (asym/ox come with the qq slice)")
+            "cache formats with block size 16/32")
     b, kvh, g, d = q.shape
     bb, s, kvh2, nb, bpb = k_packed.shape
     build.require((bb, kvh2) == (b, kvh) and nb * fmt.block_size == d,
@@ -77,17 +72,16 @@ def nxfp_decode_attention(q, k_packed, k_meta, v_packed, v_meta, lengths,
     build.require(v_packed.shape == k_packed.shape
                   and k_meta.shape == v_meta.shape == (b, s, kvh, nb),
                   "K/V shapes differ")
-    build.require(k_meta.dtype == v_meta.dtype == torch.uint16
+    build.require(k_meta.dtype == v_meta.dtype == build.meta_dtype(fmt)
                   and k_packed.dtype == v_packed.dtype == torch.uint8,
-                  "cache dtypes must be uint8 packed + uint16 meta")
+                  f"cache dtypes must be uint8 packed + {fmt.meta_dtype} meta")
     build.require(bpb == fmt.bytes_per_block, f"{bpb} bytes per block")
     qc = q.to(torch.float32).contiguous()
     lens = lengths.to(torch.int32).reshape(b).contiguous()
     for t in (k_packed, k_meta, v_packed, v_meta):
         build.require(t.is_contiguous(), "cache must be contiguous")
     out = torch.empty((b, kvh, g, d), dtype=torch.float32, device=q.device)
-    e0, e1 = build.elem_pair(fmt)
-    desc = _AttnFmt((build.ElemDesc * 2)(e0, e1), fmt.bits, fmt.block_size)
+    desc = build.fmt_desc(fmt)
     rc = build.library().nxfp_decode_attention_launch(
         qc.data_ptr(), k_packed.data_ptr(), k_meta.data_ptr(),
         v_packed.data_ptr(), v_meta.data_ptr(), lens.data_ptr(),

@@ -23,12 +23,9 @@ LAUNCHES = 0          # kernel launches since the caller last set it to 0
 KERNEL_BITS = (4, 5, 6, 8)
 
 
-class _MatFmt(ctypes.Structure):
-    _fields_ = [("elem", build.ElemDesc * 2)]
-
-
 def dequant_weight_bf16(packed, meta, fmt: BlockFormat):
-    """(N, KB, bpb) packed + (N, KB) meta -> (N, KB*B) bf16 weight rows."""
+    """(N, KB, bpb) packed + (N, KB) meta -> (N, KB*B) bf16 rows: the
+    TPU's ``_decode_tile`` (f32 decode, round to nearest even)."""
     codes = unpack_codes(packed, fmt.bits, fmt.block_size)
     w = decode_block_values(codes, meta, fmt)
     return w.reshape(w.shape[0], -1).to(torch.bfloat16)
@@ -41,7 +38,8 @@ def nxfp_matmul_plain(x, packed, meta, fmt: BlockFormat):
 
 
 def nxfp_matmul(x, packed, meta, fmt: BlockFormat):
-    """x (M, K) float; packed (N, KB, bpb) uint8; meta (N, KB) uint16.
+    """x (M, K) float; packed (N, KB, bpb) uint8; meta (N, KB) uint16
+    (uint32 for an asym format).
 
     K must equal KB * block_size (the caller pads x). Returns (M, N) f32.
     CPU tensors take the plain version; CUDA tensors launch the kernel.
@@ -49,16 +47,15 @@ def nxfp_matmul(x, packed, meta, fmt: BlockFormat):
     global LAUNCHES
     if not build.on_cuda(x, packed, meta):
         return nxfp_matmul_plain(x, packed, meta, fmt)
-    if fmt.asym or fmt.ox or fmt.bits not in KERNEL_BITS \
-            or fmt.block_size not in (16, 32):
+    if fmt.bits not in KERNEL_BITS or fmt.block_size not in (16, 32):
         raise NotImplementedError(
-            f"{fmt.name}: the CUDA dequant GEMM takes 4/5/6/8-bit symmetric "
-            "weight formats with block size 16/32")
+            f"{fmt.name}: the CUDA dequant GEMM takes 4/5/6/8-bit formats "
+            "with block size 16/32")
     m, k = x.shape
     n, kb, bpb = packed.shape
     build.require(k == kb * fmt.block_size, f"x has K={k}, weight {kb} blocks")
     build.require(bpb == fmt.bytes_per_block, f"{bpb} bytes per block")
-    build.require(meta.shape == (n, kb) and meta.dtype == torch.uint16,
+    build.require(meta.shape == (n, kb) and meta.dtype == build.meta_dtype(fmt),
                   f"meta {tuple(meta.shape)} {meta.dtype}")
     build.require(packed.dtype == torch.uint8, f"packed {packed.dtype}")
     xb = x.to(torch.bfloat16).contiguous()
@@ -67,12 +64,10 @@ def nxfp_matmul(x, packed, meta, fmt: BlockFormat):
     build.require(xb.data_ptr() % 16 == 0 and packed.data_ptr() % 4 == 0,
                   "misaligned operands")
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    e0, e1 = build.elem_pair(fmt)
-    desc = _MatFmt((build.ElemDesc * 2)(e0, e1))
+    desc = build.fmt_desc(fmt)
     rc = build.library().nxfp_matmul_launch(
         xb.data_ptr(), packed.data_ptr(), meta.data_ptr(), y.data_ptr(),
-        m, n, kb, fmt.bits, fmt.block_size, ctypes.addressof(desc),
-        build.stream_handle(x.device))
+        m, n, kb, ctypes.addressof(desc), build.stream_handle(x.device))
     build.check(rc, "nxfp_matmul")
     LAUNCHES += 1
     return y

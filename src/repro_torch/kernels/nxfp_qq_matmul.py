@@ -1,0 +1,84 @@
+"""Quantized x quantized GEMM: y = dequant(Xq) @ dequant(Wq)^T, f32 out.
+
+CUDA kernel: ``csrc/nxfp_qq_matmul.cu`` (replaces the reference's
+``kernels/nxfp_qq_matmul.py:nxfp_qq_matmul_pallas``). Plain version:
+``nxfp_qq_matmul_plain``, a port of the reference's ``qq_matmul_ref``:
+both operands decoded to f32, rounded to bf16 and multiplied as an f32
+matmul of the rounded values (bf16 x bf16 products are exact in f32), the
+function the kernel computes tile by tile.
+
+Both operands are packed along the contraction axis in blocks of one
+shared size: the activation ``Xq`` (M, KB, bpb_x) with (M, KB) meta
+(uint32 for an asym format), the weight ``Wq`` (N, KB, bpb_w) with
+(N, KB) meta.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..core.formats import BlockFormat
+from . import build
+from .nxfp_matmul import dequant_weight_bf16
+
+__all__ = ["nxfp_qq_matmul", "nxfp_qq_matmul_plain"]
+
+LAUNCHES = 0          # kernel launches since the caller last set it to 0
+KERNEL_BITS = (4, 5, 6, 8)
+
+
+def nxfp_qq_matmul_plain(x_packed, x_meta, w_packed, w_meta,
+                         x_fmt: BlockFormat, w_fmt: BlockFormat):
+    """(M, KB, bpb_x) x (N, KB, bpb_w) packed -> (M, N) f32."""
+    xd = dequant_weight_bf16(x_packed, x_meta, x_fmt)           # (M, K)
+    wd = dequant_weight_bf16(w_packed, w_meta, w_fmt)           # (N, K)
+    return xd.float() @ wd.float().T
+
+
+def _check(packed, meta, fmt: BlockFormat, what: str):
+    build.require(packed.dim() == 3 and packed.dtype == torch.uint8
+                  and packed.shape[-1] == fmt.bytes_per_block,
+                  f"{what} packed {tuple(packed.shape)} {packed.dtype}")
+    build.require(meta.shape == packed.shape[:2]
+                  and meta.dtype == build.meta_dtype(fmt),
+                  f"{what} meta {tuple(meta.shape)} {meta.dtype}")
+    build.require(packed.is_contiguous() and meta.is_contiguous()
+                  and packed.data_ptr() % 4 == 0,
+                  f"{what} must be contiguous and 4-byte aligned")
+
+
+def nxfp_qq_matmul(x_packed, x_meta, w_packed, w_meta, x_fmt: BlockFormat,
+                   w_fmt: BlockFormat):
+    """Both operands packed along K in blocks of one size. Returns (M, N)
+    f32. CPU tensors take the plain version; CUDA tensors launch the
+    kernel, which raises ``NotImplementedError`` for widths it does not
+    take."""
+    global LAUNCHES
+    build.require(x_fmt.block_size == w_fmt.block_size,
+                  f"block sizes differ: {x_fmt.name} {x_fmt.block_size}, "
+                  f"{w_fmt.name} {w_fmt.block_size}")
+    build.require(x_packed.shape[1:2] == w_packed.shape[1:2],
+                  f"K blocks differ: {tuple(x_packed.shape)} vs "
+                  f"{tuple(w_packed.shape)}")
+    if not build.on_cuda(x_packed, x_meta, w_packed, w_meta):
+        return nxfp_qq_matmul_plain(x_packed, x_meta, w_packed, w_meta,
+                                    x_fmt, w_fmt)
+    for f in (x_fmt, w_fmt):
+        if f.bits not in KERNEL_BITS or f.block_size not in (16, 32):
+            raise NotImplementedError(
+                f"{f.name}: the CUDA qq GEMM takes 4/5/6/8-bit formats with "
+                "block size 16/32")
+    _check(x_packed, x_meta, x_fmt, "activation")
+    _check(w_packed, w_meta, w_fmt, "weight")
+    m, kb, _ = x_packed.shape
+    n = w_packed.shape[0]
+    y = torch.empty((m, n), dtype=torch.float32, device=x_packed.device)
+    xd, wd = build.fmt_desc(x_fmt), build.fmt_desc(w_fmt)
+    rc = build.library().nxfp_qq_matmul_launch(
+        x_packed.data_ptr(), x_meta.data_ptr(), w_packed.data_ptr(),
+        w_meta.data_ptr(), y.data_ptr(), m, n, kb, ctypes.addressof(xd),
+        ctypes.addressof(wd), build.stream_handle(x_packed.device))
+    build.check(rc, "nxfp_qq_matmul")
+    LAUNCHES += 1
+    return y

@@ -3,7 +3,9 @@
 CUDA kernel: ``csrc/nxfp_quantize.cu`` (replaces the reference's
 ``kernels/nxfp_quantize.py:nxfp_quantize_pack_pallas``). Plain version:
 ``nxfp_quantize_pack_plain``, the arithmetic codec of ``core.quantize``
-followed by ``core.pack.pack_codes``; the two are bitwise equal.
+followed by ``core.pack.pack_codes``; the two are bitwise equal. Both
+take the symmetric weight/KV formats and the asymmetric (``asym``,
+uint32 meta) and outlier-mantissa (``ox``) activation formats.
 """
 from __future__ import annotations
 
@@ -33,13 +35,14 @@ class _Cand(ctypes.Structure):
 
 
 class _QuantFmt(ctypes.Structure):
-    _fields_ = [("cr", ctypes.c_int), ("n_cands", ctypes.c_int),
+    _fields_ = [("cr", ctypes.c_int), ("asym", ctypes.c_int),
+                ("ox", ctypes.c_int), ("n_cands", ctypes.c_int),
                 ("c", _Cand * _MAX_CANDS)]
 
 
 def _desc(fmt: BlockFormat) -> _QuantFmt:
     cands = candidates(fmt)
-    d = _QuantFmt(int(fmt.cr), len(cands))
+    d = _QuantFmt(int(fmt.cr), int(fmt.asym), int(fmt.ox), len(cands))
     for i, (fmt_bit, table, nano_mode) in enumerate(cands):
         el = table.fmt
         mode = -1 if nano_mode is None else (-2 if nano_mode == "round"
@@ -50,21 +53,22 @@ def _desc(fmt: BlockFormat) -> _QuantFmt:
 
 
 def kernel_supports(fmt: BlockFormat) -> bool:
-    """What the TPU kernel takes: 4/5/6/8-bit, default recycle, symmetric."""
+    """What the TPU kernel takes: 4/5/6/8-bit, the default recycle value."""
     return (fmt.bits in KERNEL_BITS and fmt.block_size in (16, 32)
             and not (fmt.cr and fmt.recycle != "half_smallest")
-            and not (fmt.asym or fmt.ox)
             and len(candidates(fmt)) <= _MAX_CANDS)
 
 
 def nxfp_quantize_pack_plain(xb, fmt: BlockFormat):
-    """(T, B) float blocks -> (packed uint8 (T, bpb), meta uint16 (T,))."""
+    """(T, B) float blocks -> (packed uint8 (T, bpb), meta (T,) of
+    ``fmt.meta_dtype``)."""
     codes, meta = quantize_blocks_arith(xb, fmt)
     return pack_codes(codes, fmt.bits), meta
 
 
 def nxfp_quantize_pack(xb, fmt: BlockFormat):
-    """(T, B) f32 blocks -> (packed uint8 (T, bpb), meta uint16 (T,)).
+    """(T, B) f32 blocks -> (packed uint8 (T, bpb), meta (T,) uint16, or
+    uint32 for asym formats).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel,
     which raises ``NotImplementedError`` for formats it does not take.
@@ -74,8 +78,8 @@ def nxfp_quantize_pack(xb, fmt: BlockFormat):
         return nxfp_quantize_pack_plain(xb, fmt)
     if not kernel_supports(fmt):
         raise NotImplementedError(
-            f"{fmt.name}: the CUDA quantizer takes 4/5/6/8-bit symmetric "
-            "formats with the default recycle value and block size 16/32")
+            f"{fmt.name}: the CUDA quantizer takes 4/5/6/8-bit formats "
+            "with the default recycle value and block size 16/32")
     t, b = xb.shape
     build.require(b == fmt.block_size, f"block axis {b} != {fmt.block_size}")
     build.require(xb.dtype == torch.float32, f"expected float32, got {xb.dtype}")
@@ -83,7 +87,7 @@ def nxfp_quantize_pack(xb, fmt: BlockFormat):
                   "input must be contiguous and 16-byte aligned")
     packed = torch.empty((t, bytes_per_block(b, fmt.bits)), dtype=torch.uint8,
                          device=xb.device)
-    meta = torch.empty((t,), dtype=torch.uint16, device=xb.device)
+    meta = torch.empty((t,), dtype=build.meta_dtype(fmt), device=xb.device)
     desc = _desc(fmt)
     rc = build.library().nxfp_quantize_launch(
         xb.data_ptr(), packed.data_ptr(), meta.data_ptr(), t, fmt.bits, b,

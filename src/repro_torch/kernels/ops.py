@@ -18,6 +18,7 @@ from ..core.qtensor import QTensor
 from ..core.quantize import resolve_format, to_blocks
 from .nxfp_attention import nxfp_decode_attention
 from .nxfp_matmul import nxfp_matmul
+from .nxfp_qq_matmul import nxfp_qq_matmul
 from .nxfp_quantize import nxfp_quantize_pack
 
 __all__ = ["qmatmul", "quantize_qtensor", "decode_attention"]
@@ -39,7 +40,14 @@ def _dense_matmul(x, w):
 
 def qmatmul(x, w):
     """x (..., K) @ w, where w is a QTensor (quantized along axis 0 of
-    (K, N)) or a dense (K, N) tensor. Returns (..., N) f32."""
+    (K, N)) or a dense (K, N) tensor. Returns (..., N) f32.
+
+    ``x`` may itself be a QTensor quantized along axis -1 (a prefill
+    activation from ``quantize_qtensor``): with a quantized ``w`` the GEMM
+    runs quantized x quantized; with a dense ``w`` the activation is
+    decoded once to bf16 and takes the dense product."""
+    if isinstance(x, QTensor):
+        return _qact_matmul(x, w)
     if not isinstance(w, QTensor):
         return _dense_matmul(x, w)
     n, kb, _ = w.packed.shape
@@ -49,6 +57,20 @@ def qmatmul(x, w):
     if x2.shape[-1] < k_pad:  # quantization padded K to a block multiple
         x2 = F.pad(x2, (0, k_pad - x2.shape[-1]))
     return nxfp_matmul(x2, w.packed, w.meta, w.fmt).reshape(*lead, n)
+
+
+def _qact_matmul(xq: QTensor, w):
+    """Quantized-activation GEMM (``xq`` quantized along axis -1)."""
+    if xq.axis != -1:
+        raise ValueError(f"activation QTensor must quantize axis -1, "
+                         f"got {xq.axis}")
+    if not isinstance(w, QTensor):
+        return qmatmul(xq.dequantize(torch.bfloat16), w)
+    kb, bpb = xq.packed.shape[-2:]
+    y = nxfp_qq_matmul(xq.packed.reshape(-1, kb, bpb),
+                       xq.meta.reshape(-1, kb), w.packed, w.meta, xq.fmt,
+                       w.fmt)
+    return y.reshape(*xq.shape[:-1], w.packed.shape[0])
 
 
 def quantize_qtensor(x, fmt, axis: int = -1, device=None) -> QTensor:

@@ -14,7 +14,8 @@ import math
 
 import torch
 
-from .common import ModelConfig, apply_rope, dense, rope_freqs, scale_like
+from .common import (ModelConfig, apply_rope, dense, qact, rope_freqs,
+                     scale_like)
 
 _NEG = -1e30
 
@@ -44,27 +45,35 @@ def attend_chunked(q, k, v, *, chunk_q: int = 1024):
     return torch.cat(outs, dim=1)
 
 
-def gqa_project(cfg: ModelConfig, p, x):
-    """x (B, T, D) -> q (B, T, KVH, G, hd), k, v (B, T, KVH, hd)."""
+def gqa_project(cfg: ModelConfig, p, x, xq=None):
+    """x (B, T, D) -> q (B, T, KVH, G, hd), k, v (B, T, KVH, hd).
+
+    ``xq``, a quantized encoding of ``x`` (QTensor, axis -1), feeds all
+    three projections from one encode; ``x`` still gives shapes and dtype.
+    """
     b, t, _ = x.shape
     hd, h, kvh = cfg.hd, cfg.n_heads, cfg.n_kv_heads
-    q = dense(x, p["wq"], out_dtype=x.dtype).reshape(b, t, kvh, h // kvh, hd)
-    k = dense(x, p["wk"], out_dtype=x.dtype).reshape(b, t, kvh, hd)
-    v = dense(x, p["wv"], out_dtype=x.dtype).reshape(b, t, kvh, hd)
+    src = x if xq is None else xq
+    q = dense(src, p["wq"], out_dtype=x.dtype).reshape(b, t, kvh, h // kvh,
+                                                       hd)
+    k = dense(src, p["wk"], out_dtype=x.dtype).reshape(b, t, kvh, hd)
+    v = dense(src, p["wv"], out_dtype=x.dtype).reshape(b, t, kvh, hd)
     return q, k, v
 
 
-def self_attention(cfg: ModelConfig, p, x, positions):
+def self_attention(cfg: ModelConfig, p, x, positions, act_fmt=None):
     """Causal full-sequence self attention (prefill). x (B, T, D).
 
-    Returns (attn out (B, T, D), rope'd k, v (B, T, KVH, hd)).
+    ``act_fmt`` encodes the layer input once for Q/K/V and the attention
+    output once for W_o (qq prefill). Returns (attn out (B, T, D), rope'd
+    k, v (B, T, KVH, hd)).
     """
     b, t, _ = x.shape
-    q, k, v = gqa_project(cfg, p, x)
+    q, k, v = gqa_project(cfg, p, x, xq=qact(x, act_fmt))
     cos, sin = rope_freqs(positions, cfg.hd, cfg.rope_theta)
     q = apply_rope(q.reshape(b, t, -1, cfg.hd), cos, sin).reshape(q.shape)
     k = apply_rope(k, cos, sin)
     q = scale_like(q, 1.0 / math.sqrt(cfg.hd))
     o = attend_chunked(q.to(x.dtype), k.to(x.dtype), v.to(x.dtype))
     o = o.reshape(b, t, cfg.n_heads * cfg.hd).to(x.dtype)
-    return dense(o, p["wo"], out_dtype=x.dtype), k, v
+    return dense(qact(o, act_fmt), p["wo"], out_dtype=x.dtype), k, v

@@ -1,6 +1,6 @@
 """Dense transformer layer: full-sequence (prefill) and one-token decode.
 
-  layer_forward(cfg, p, x, positions)            -> (x, {"k", "v"})
+  layer_forward(cfg, p, x, positions, act_fmt)   -> (x, {"k", "v"})
   layer_decode(cfg, p, x, layer_cache, pos, kv)  -> (x, layer_cache)
 """
 from __future__ import annotations
@@ -28,14 +28,17 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig) -> Params:
     return p
 
 
-def layer_forward(cfg: ModelConfig, p: Params, x, positions):
-    """x (B, T, D) -> (x, {"k", "v"}) for the cache."""
+def layer_forward(cfg: ModelConfig, p: Params, x, positions,
+                  act_fmt: Optional[str] = None):
+    """x (B, T, D) -> (x, {"k", "v"}) for the cache. ``act_fmt`` quantizes
+    the GEMM inputs of attention and MLP (qq prefill); None keeps dense
+    activations."""
     h = rmsnorm(x, p["ln1_scale"], cfg.norm_eps)
-    y, k, v = self_attention(cfg, p, h, positions)
+    y, k, v = self_attention(cfg, p, h, positions, act_fmt=act_fmt)
     x = x + y
     h2 = rmsnorm(x, p["ln2_scale"], cfg.norm_eps)
-    return x + swiglu(h2, p["mlp_w1"], p["mlp_w3"], p["mlp_w2"]), {"k": k,
-                                                                   "v": v}
+    return x + swiglu(h2, p["mlp_w1"], p["mlp_w3"], p["mlp_w2"],
+                      act_fmt=act_fmt), {"k": k, "v": v}
 
 
 def _attn_decode(cfg: ModelConfig, p: Params, h, layer_cache, pos,

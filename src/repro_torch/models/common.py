@@ -13,12 +13,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
 
-from ..kernels.ops import qmatmul
+from ..core.qtensor import QTensor
+from ..kernels.ops import qmatmul, quantize_qtensor
 
 Params = Dict[str, Any]
 
@@ -89,8 +90,21 @@ def rmsnorm(x, scale, eps: float):
 
 def dense(x, w, out_dtype=None):
     """Matmul against a dense or quantized (QTensor, axis=-2) weight: f32
-    out of the GEMM, then cast to ``out_dtype or x.dtype``."""
+    out of the GEMM, then cast to ``out_dtype or x.dtype``.
+
+    ``x`` may be a quantized activation (QTensor, axis=-1), the quantized
+    x quantized prefill; it then needs an explicit ``out_dtype``."""
+    if isinstance(x, QTensor) and out_dtype is None:
+        raise ValueError("a QTensor activation needs an explicit out_dtype")
     return qmatmul(x, w).to(out_dtype or x.dtype)
+
+
+def qact(x, act_fmt: Optional[str]):
+    """Quantize an activation along its feature axis for the qq GEMM, on
+    the device it lies on; ``act_fmt=None`` is the identity."""
+    if act_fmt is None:
+        return x
+    return quantize_qtensor(x, act_fmt, axis=-1, device=x.device)
 
 
 def scale_like(x, s: float):
@@ -117,9 +131,11 @@ def apply_rope(x, cos, sin):
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
 
 
-def swiglu(x, w1, w3, w2):
+def swiglu(x, w1, w3, w2, act_fmt: Optional[str] = None):
     """SwiGLU MLP: silu(x W1) * (x W3), then W2; SiLU in f32 on the
-    bf16-rounded projections."""
-    h = (F.silu(dense(x, w1, out_dtype=x.dtype).to(torch.float32))
-         * dense(x, w3, out_dtype=x.dtype).to(torch.float32))
-    return dense(h.to(x.dtype), w2, out_dtype=x.dtype)
+    bf16-rounded projections. ``act_fmt`` encodes the input once for W1
+    and W3 and the gated hidden once for W2 (qq prefill)."""
+    xq = qact(x, act_fmt)
+    h = (F.silu(dense(xq, w1, out_dtype=x.dtype).to(torch.float32))
+         * dense(xq, w3, out_dtype=x.dtype).to(torch.float32))
+    return dense(qact(h.to(x.dtype), act_fmt), w2, out_dtype=x.dtype)

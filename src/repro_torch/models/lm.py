@@ -55,10 +55,16 @@ def _head(cfg: ModelConfig, params: Params, x):
 
 
 def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
-            max_len: int, kv_fmt: Optional[str]
+            max_len: int, kv_fmt: Optional[str],
+            act_fmt: Optional[str] = None
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Run the full prompt, build the cache. Returns (last logits (B, V)
-    f32, cache)."""
+    f32, cache).
+
+    ``act_fmt`` (e.g. "amxfp4") quantizes each layer's GEMM inputs, so
+    every projection runs quantized x quantized; None keeps dense
+    activations. Decode always runs with dense activations.
+    """
     _check_family(cfg)
     tokens = batch["tokens"]
     b, t = tokens.shape
@@ -66,7 +72,7 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
     positions = torch.arange(t, dtype=torch.int32, device=tokens.device)
     layers = []
     for lp in params["layers"]:
-        x, out = layer_forward(cfg, lp, x, positions)
+        x, out = layer_forward(cfg, lp, x, positions, act_fmt=act_fmt)
         layers.append(write_prefill(cfg, out["k"], out["v"], kv_fmt,
                                     max_len))
     cache = {"pos": torch.full((b,), t, dtype=torch.int32,

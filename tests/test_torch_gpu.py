@@ -13,9 +13,10 @@ import torch
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.formats import get_format
 from repro_torch.core.qtensor import QuantPolicy
-from repro_torch.core.quantize import near_tie_blocks
+from repro_torch.core.quantize import meta_int32, near_tie_blocks
 from repro_torch.kernels import nxfp_attention as na
 from repro_torch.kernels import nxfp_matmul as nm
+from repro_torch.kernels import nxfp_qq_matmul as nqq
 from repro_torch.kernels import nxfp_quantize as nq
 from repro_torch.kernels.ops import quantize_qtensor
 from repro_torch.models import decode_step, init_params, prefill
@@ -26,6 +27,12 @@ pytestmark = pytest.mark.gpu
 KERNEL_FMTS = ["bfp4", "bfp4_cr", "mxfp4", "mxfp4_cr", "nxfp4", "nxfp4_nm",
                "nxfp4_nm_am", "nxfp4_bs16", "nxfp8", "mxfp8", "bfp8",
                "nxfp5", "mxfp5", "nxfp6", "mxfp6", "mxfp6_e3m2"]
+# the activation formats (asym: uint32 meta; ox: outlier mantissa)
+ACT_FMTS = ["amxfp4", "amxfp4_nm", "amxfp4_ox", "mxfp4_ox"]
+# (activation fmt, weight fmt): the serving tiers' pairs plus width mixes
+QQ_PAIRS = [("amxfp4", "nxfp4"), ("amxfp4_ox", "nxfp4"), ("mxfp4_ox", "nxfp4"),
+            ("amxfp4", "nxfp6"), ("amxfp4_nm", "nxfp8"), ("mxfp4", "mxfp4"),
+            ("nxfp5", "amxfp4"), ("mxfp8", "nxfp5")]
 
 
 @pytest.fixture
@@ -46,25 +53,31 @@ def _edge_blocks(fmt, n=513, seed=0):
     xb[3, ::2] = 0.0
     xb[4] = -0.0
     xb[5] = 1e-40
+    xb[6] = -np.abs(xb[6])                       # one-signed blocks (asym)
+    xb[7] = np.abs(xb[7])
+    xb[8, 3], xb[8, 9] = 7.0, -7.0               # tied |max| of both signs
     return torch.from_numpy(xb)
 
 
-@pytest.mark.parametrize("fname", KERNEL_FMTS)
+@pytest.mark.parametrize("fname", KERNEL_FMTS + ACT_FMTS)
 def test_quantize_kernel_bitwise(cuda, fname):
     """The CUDA quantizer equals the plain codec bit for bit (packed bytes
-    and meta), up to counted candidate near-ties."""
+    and meta, uint32 for asym formats), up to counted candidate
+    near-ties."""
     fmt = get_format(fname)
     xb = _edge_blocks(fmt).to(cuda)
     kp, km = nq.nxfp_quantize_pack(xb, fmt)
     pp, pm = nq.nxfp_quantize_pack_plain(xb, fmt)
-    diff = (kp != pp).any(-1) | (km.to(torch.int32) != pm.to(torch.int32))
+    assert km.dtype == pm.dtype == getattr(torch, fmt.meta_dtype)
+    diff = (kp != pp).any(-1) | (meta_int32(km) != meta_int32(pm))
     if diff.any():
         assert near_tie_blocks(xb[diff], fmt).all(), int(diff.sum())
     print(f"{fname}: {int(diff.sum())} near-tie blocks")
 
 
 @pytest.mark.parametrize("fname", ["nxfp4", "nxfp4_nm_am", "mxfp4_cr",
-                                   "nxfp5", "nxfp6", "nxfp8", "nxfp4_bs16"])
+                                   "nxfp5", "nxfp6", "nxfp8", "nxfp4_bs16",
+                                   "mxfp4_ox", "amxfp4_ox"])
 @pytest.mark.parametrize("m", [1, 4, 37, 130])
 def test_matmul_kernel_matches_plain(cuda, fname, m):
     """Ragged M, N and K (K not a multiple of the 128-wide K step); both
@@ -82,7 +95,8 @@ def test_matmul_kernel_matches_plain(cuda, fname, m):
     assert ((y - yp).abs() <= 1e-5 * mag + 1e-30).all()
 
 
-@pytest.mark.parametrize("fname", ["nxfp4", "nxfp6", "nxfp8", "nxfp4_nm_am"])
+@pytest.mark.parametrize("fname", ["nxfp4", "nxfp6", "nxfp8", "nxfp4_nm_am",
+                                   "mxfp4_ox", "amxfp4"])
 @pytest.mark.parametrize("hd", [32, 128])
 def test_attention_kernel_matches_plain(cuda, fname, hd):
     """Ragged lengths across and inside S tiles; f32 online softmax vs the
@@ -101,6 +115,47 @@ def test_attention_kernel_matches_plain(cuda, fname, hd):
     ref = na.nxfp_decode_attention_plain(*args)
     vmax = float(na.dequant_cache(vq.packed, vq.meta, fmt).abs().max())
     assert float((out - ref).abs().max()) <= 1e-5 * vmax
+
+
+@pytest.mark.parametrize("xf,wf", QQ_PAIRS)
+@pytest.mark.parametrize("m", [1, 17, 512])
+def test_qq_kernel_matches_plain(cuda, xf, wf, m):
+    """Ragged M, N and K (10 blocks: not a multiple of the 128-wide K
+    step); both operands decoded to bf16 and summed in f32 in another
+    order than the plain matmul: 1e-5 of sum|x||w|."""
+    x_fmt, w_fmt = get_format(xf), get_format(wf)
+    g = torch.Generator(device=cuda).manual_seed(m)
+    k, n = 320, 200
+    x = torch.randn((m, k), generator=g, device=cuda).to(torch.bfloat16)
+    w = torch.randn((k, n), generator=g, device=cuda) * 0.05
+    xq = quantize_qtensor(x, x_fmt, axis=-1, device=cuda)
+    wq = quantize_qtensor(w, w_fmt, axis=-2, device=cuda)
+    args = (xq.packed, xq.meta, wq.packed, wq.meta, x_fmt, w_fmt)
+    y = nqq.nxfp_qq_matmul(*args)
+    yp = nqq.nxfp_qq_matmul_plain(*args)
+    xd = nm.dequant_weight_bf16(xq.packed, xq.meta, x_fmt).float()
+    wd = nm.dequant_weight_bf16(wq.packed, wq.meta, w_fmt).float()
+    assert y.shape == (m, n) and torch.isfinite(y).all()
+    assert ((y - yp).abs() <= 1e-5 * (xd.abs() @ wd.abs().T) + 1e-30).all()
+
+
+def test_smoke_act_prefill_on_card_matches_cpu(cuda):
+    """The smoke Llama's qq prefill (amxfp4 activations, nxfp4 weights and
+    KV) through the kernels matches the plain CPU path: a GEMM summed in
+    another order can move a bf16 activation by an ulp and that an
+    activation code (3e-2 on logits of magnitude ~0.5)."""
+    cfg = get_smoke_config("llama3_8b")
+    params = init_params(cfg, seed=0, device="cpu")
+    pol = QuantPolicy("nxfp4", "nxfp4")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab,
+                                                              (2, 9)))
+    out = {}
+    for d in ("cpu", "cuda"):
+        e = ServeEngine(cfg, params, pol, max_len=32, device=d)
+        out[d] = prefill(cfg, e.params, {"tokens": toks.to(d)}, max_len=32,
+                         kv_fmt="nxfp4", act_fmt="amxfp4")[0].cpu()
+    assert torch.isfinite(out["cuda"]).all()
+    assert float((out["cpu"] - out["cuda"]).abs().max()) <= 3e-2
 
 
 def test_smoke_model_on_card_matches_cpu(cuda):

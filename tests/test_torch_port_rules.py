@@ -21,7 +21,7 @@ from repro_torch.convert import params_from_jax
 from repro_torch.core.formats import get_format
 from repro_torch.core.qtensor import QuantPolicy
 from repro_torch.kernels import build, nxfp_attention, nxfp_matmul
-from repro_torch.kernels import nxfp_quantize
+from repro_torch.kernels import nxfp_qq_matmul, nxfp_quantize
 from repro_torch.kernels.ops import quantize_qtensor
 from repro_torch.models import init_cache, init_params
 from repro_torch.serving import ServeEngine
@@ -111,52 +111,81 @@ def cuda_request(monkeypatch, no_cuda):
 
     for mod, name in ((nxfp_quantize, "nxfp_quantize_pack_plain"),
                       (nxfp_matmul, "nxfp_matmul_plain"),
-                      (nxfp_attention, "nxfp_decode_attention_plain")):
+                      (nxfp_attention, "nxfp_decode_attention_plain"),
+                      (nxfp_qq_matmul, "nxfp_qq_matmul_plain")):
         monkeypatch.setattr(mod, name, plain_called)
+
+
+def _meta(shape, fmt):
+    return torch.zeros(shape, dtype=getattr(torch, fmt.meta_dtype))
 
 
 def _matmul_args(fmt):
     n, kb = 8, 2
     return (torch.zeros((4, kb * fmt.block_size), dtype=torch.bfloat16),
             torch.zeros((n, kb, fmt.bytes_per_block), dtype=torch.uint8),
-            torch.zeros((n, kb), dtype=torch.uint16), fmt)
+            _meta((n, kb), fmt), fmt)
 
 
 def _attention_args(fmt):
     b, s, kvh, g, nb = 2, 8, 2, 2, 1
     packed = torch.zeros((b, s, kvh, nb, fmt.bytes_per_block),
                          dtype=torch.uint8)
-    meta = torch.zeros((b, s, kvh, nb), dtype=torch.uint16)
+    meta = _meta((b, s, kvh, nb), fmt)
     return (torch.zeros((b, kvh, g, nb * fmt.block_size)), packed, meta,
             packed, meta, torch.ones((b,), dtype=torch.int32), fmt)
 
 
-@pytest.mark.parametrize("kernel", ["quantize", "matmul", "attention"])
+def _qq_args(x_fmt, w_fmt):
+    m, n, kb = 4, 8, 2
+    return (torch.zeros((m, kb, x_fmt.bytes_per_block), dtype=torch.uint8),
+            _meta((m, kb), x_fmt),
+            torch.zeros((n, kb, w_fmt.bytes_per_block), dtype=torch.uint8),
+            _meta((n, kb), w_fmt), x_fmt, w_fmt)
+
+
+@pytest.mark.parametrize("kernel", ["quantize", "matmul", "attention", "qq"])
 def test_cuda_requests_raise_instead_of_falling_back(cuda_request, kernel):
-    fmt = get_format("nxfp4")
+    """Symmetric and activation formats alike go to the kernel."""
+    fmt, act = get_format("nxfp4"), get_format("amxfp4_ox")
     with pytest.raises(RuntimeError, match="CUDA"):
         if kernel == "quantize":
-            nxfp_quantize.nxfp_quantize_pack(torch.zeros((4, 32)), fmt)
+            nxfp_quantize.nxfp_quantize_pack(torch.zeros((4, 32)), act)
         elif kernel == "matmul":
             nxfp_matmul.nxfp_matmul(*_matmul_args(fmt))
+        elif kernel == "attention":
+            nxfp_attention.nxfp_decode_attention(
+                *_attention_args(get_format("mxfp4_ox")))
         else:
-            nxfp_attention.nxfp_decode_attention(*_attention_args(fmt))
+            nxfp_qq_matmul.nxfp_qq_matmul(*_qq_args(act, fmt))
 
 
-@pytest.mark.parametrize("kernel", ["quantize", "matmul", "attention"])
+@pytest.mark.parametrize("kernel", ["quantize", "matmul", "attention", "qq"])
 def test_cuda_kernels_reject_formats_they_do_not_take(cuda_request, kernel):
-    """asym/ox formats (the quantized-activation slice) and custom recycle
-    values raise NotImplementedError on CUDA."""
+    """What the kernels still refuse raises NotImplementedError on CUDA:
+    custom recycle values (quantizer) and 3-bit codes (the decoding
+    kernels). The asym/ox activation formats are taken now."""
+    mxfp3 = get_format("mxfp3")
     with pytest.raises(NotImplementedError):
         if kernel == "quantize":
             import dataclasses
             fmt = dataclasses.replace(get_format("nxfp4"), recycle=0.75)
             nxfp_quantize.nxfp_quantize_pack(torch.zeros((4, 32)), fmt)
         elif kernel == "matmul":
-            nxfp_matmul.nxfp_matmul(*_matmul_args(get_format("amxfp4")))
+            nxfp_matmul.nxfp_matmul(*_matmul_args(mxfp3))
+        elif kernel == "attention":
+            nxfp_attention.nxfp_decode_attention(*_attention_args(mxfp3))
         else:
-            nxfp_attention.nxfp_decode_attention(
-                *_attention_args(get_format("amxfp4")))
+            nxfp_qq_matmul.nxfp_qq_matmul(
+                *_qq_args(get_format("amxfp4"), mxfp3))
+
+
+def test_qq_gemm_refuses_mixed_block_sizes():
+    """Both operands must share one block size (the reference asserts it),
+    on every device."""
+    with pytest.raises(ValueError, match="block sizes"):
+        nxfp_qq_matmul.nxfp_qq_matmul(*_qq_args(get_format("amxfp4"),
+                                                get_format("nxfp4_bs16")))
 
 
 def test_mixed_devices_raise():
