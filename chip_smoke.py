@@ -9,15 +9,16 @@ Phases, each fatal on failure (exit code 1, no result line):
 1. Device: the card's name, count, and ``nvidia-smi`` name + power limit.
 2. Build: every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc``
    per source, all started together), with the ptxas register and
-   shared-memory lines.
+   shared-memory lines; the prefill GEMM's SASS must hold HGMMA.
 3. Kernels against their plain PyTorch versions on the card, at the shapes
    the Llama-3-8B paths give them: the quantizer bitwise (up to counted
    candidate near-ties) on a weight cast (nxfp4) and on a prefill
-   activation (amxfp4, uint32 meta), the dequant GEMM, the decode
-   attention and the quantized x quantized (qq) GEMM within a stated
-   tolerance. Each is timed with CUDA events (cold L2), beside its plain
-   version, one PyTorch library call computing the same function (a
-   yardstick the port never calls) and its bound on the card.
+   activation (amxfp4, uint32 meta), the dequant GEMM (at the four
+   main-path (K, N) pairs and M 4, 16 and 512, bitwise on a second
+   launch), the decode attention and the quantized x quantized (qq) GEMM
+   within a stated tolerance. Each is timed with CUDA events (cold L2),
+   beside its plain version, one PyTorch library call computing the same
+   function (a yardstick the port never calls) and its bound on the card.
 4. Reference on a small input: the smoke Llama through the kernels on the
    card against the plain path on the CPU, teacher-forced, logits within
    tolerance; and its qq prefill (``act_fmt="amxfp4"``) likewise.
@@ -45,6 +46,7 @@ import argparse
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -79,7 +81,14 @@ def bound(n_bytes: float, n_ops: float, peak_ops: float):
 
 
 class Timer:
-    """Median kernel time over launches, each after an L2 flush."""
+    """Median kernel time over launches, each after an L2 flush.
+
+    A spin of the card (``torch.cuda._sleep``) after the flush keeps it
+    busy while the host enqueues the start event and the wrapper's launch,
+    so the events time the device and not the ~50 us a wrapper spends in
+    Python (at decode shapes the host took longer than the kernel)."""
+
+    SPIN_CYCLES = 400_000        # ~0.2 ms at the H100's 1.98 GHz
 
     def __init__(self, device):
         self.flush = torch.empty(96 << 20, dtype=torch.uint8, device=device)
@@ -91,6 +100,7 @@ class Timer:
         events = []
         for _ in range(iters):
             self.flush.zero_()
+            torch.cuda._sleep(self.SPIN_CYCLES)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -123,6 +133,28 @@ def phase_device():
     return name, count, smi_line
 
 
+def hgmma_count(lib_path: str) -> dict:
+    """HGMMA instructions per kernel in the built library's SASS
+    (``cuobjdump -sass``); the prefill GEMM must hold them."""
+    cuobjdump = os.path.join(os.path.dirname(os.path.realpath(
+        shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc")), "cuobjdump")
+    try:
+        out = subprocess.run([cuobjdump, "-sass", lib_path],
+                             capture_output=True, text=True, timeout=300)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        fail(f"cuobjdump: {e}")
+    if out.returncode != 0:
+        fail(f"cuobjdump: {out.stderr.strip()[-500:]}")
+    counts, fn = {}, None
+    for ln in out.stdout.splitlines():
+        if "Function :" in ln:
+            fn = ln.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HGMMA" in ln:
+            counts[fn] += 1
+    return counts
+
+
 def phase_build():
     from repro_torch.kernels import build
     info = build.build()
@@ -132,6 +164,13 @@ def phase_build():
         for ln in lines:
             log(f"  ptxas {src}: {ln}")
     build.library()
+    hg = hgmma_count(info["path"])
+    prefill = {f: c for f, c in hg.items() if "matmul_prefill" in f}
+    if not prefill or min(prefill.values()) == 0:
+        fail(f"the prefill GEMM's SASS holds no HGMMA: {prefill}")
+    log(f"  SASS: {len(prefill)} prefill GEMM instances, HGMMA per instance "
+        f"{sorted(set(prefill.values()))}; HGMMA elsewhere "
+        f"{sum(c for f, c in hg.items() if f not in prefill)}")
 
 
 def check_quantizer(timer, rows):
@@ -270,6 +309,13 @@ def check_qq_matmul(timer, rows):
             shape=f"amxfp4 X ({m}, {k}) x nxfp4 W ({k}, {n})")
 
 
+# the dequant GEMM's (K, N) pairs on the Llama-3-8B main path (wq/wo,
+# wk/wv, w1/w3, w2) and its rows: two decode batches (the split-K
+# streaming regime) and a 4 x 128 prefill (the wgmma regime)
+MATMUL_KN = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096))
+MATMUL_M = (4, 16, 512)
+
+
 def check_matmul(timer, rows):
     from repro_torch.core.formats import get_format
     from repro_torch.kernels import nxfp_matmul as nm
@@ -277,15 +323,16 @@ def check_matmul(timer, rows):
 
     fmt = get_format("nxfp4")
     gen = torch.Generator(device="cuda").manual_seed(2)
-    for k, n in ((4096, 14336), (14336, 4096)):
+    for k, n in MATMUL_KN:
         w = torch.randn((k, n), generator=gen, device="cuda") * 0.02
         wq = quantize_qtensor(w, fmt, axis=-2, device="cuda")
         del w
         wd = nm.dequant_weight_bf16(wq.packed, wq.meta, fmt)     # (N, K)
-        for m in (4, 512):
+        for m in MATMUL_M:
             x = torch.randn((m, k), generator=gen, device="cuda").to(
                 torch.bfloat16)
             y = nm.nxfp_matmul(x, wq.packed, wq.meta, fmt)
+            again = nm.nxfp_matmul(x, wq.packed, wq.meta, fmt)
             y_plain = nm.nxfp_matmul_plain(x, wq.packed, wq.meta, fmt)
             mag = x.float().abs() @ wd.float().abs().T
             err = float((y - y_plain).abs().max())
@@ -294,6 +341,10 @@ def check_matmul(timer, rows):
             if not rel <= 1e-5:
                 fail(f"qmatmul M={m} K={k} N={n}: error {rel:.3g} of "
                      "sum|x||w| exceeds 1e-5")
+            # split-K partials are summed in split order, never by atomics
+            if not torch.equal(y, again):
+                fail(f"qmatmul M={m} K={k} N={n}: a second launch gave "
+                     "other bits")
             ms = timer(lambda: nm.nxfp_matmul(x, wq.packed, wq.meta, fmt))
             plain_ms = timer(
                 lambda: nm.nxfp_matmul_plain(x, wq.packed, wq.meta, fmt), 5)
@@ -301,10 +352,12 @@ def check_matmul(timer, rows):
             n_bytes = (wq.packed.numel() + wq.meta.numel() * 2 + m * k * 2
                        + m * n * 4)
             b_ms, b_by = bound(n_bytes, 2.0 * m * n * k, PEAK_BF16)
-            log(f"qmatmul M={m} K={k} N={n}: max err {err:.3g} "
-                f"({rel:.3g} of sum|x||w|); kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, torch.matmul bf16 {lib_ms:.4f} ms, "
-                f"bound {b_ms:.4f} ms ({b_by})")
+            regime = ("split-K streaming" if m <= nm.decode_geometry().max_m
+                      else "wgmma")
+            log(f"qmatmul M={m} K={k} N={n} ({regime}): max err {err:.3g} "
+                f"({rel:.3g} of sum|x||w|), bitwise on a second launch; "
+                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.matmul "
+                f"bf16 {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
             key = f"nxfp_matmul M={m} K={k} N={n}"
             rows[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
@@ -571,14 +624,20 @@ def phase_act(cfg, engine, prompts):
     return counts
 
 
+# each kernel's sources (the first holds the code its table row runs: the
+# dequant GEMM's row is M 4, its decode regime) and the TPU kernel it
+# replaces
 KERNELS = {
-    "nxfp_quantize": ("src/repro_torch/csrc/nxfp_quantize.cu",
+    "nxfp_quantize": (["src/repro_torch/csrc/nxfp_quantize.cu"],
                       "src/repro/kernels/nxfp_quantize.py:92"),
-    "nxfp_matmul": ("src/repro_torch/csrc/nxfp_matmul.cu",
+    "nxfp_matmul": (["src/repro_torch/csrc/nxfp_matmul_decode.cu",
+                     "src/repro_torch/csrc/nxfp_matmul_prefill.cu",
+                     "src/repro_torch/csrc/nxfp_matmul.cu",
+                     "src/repro_torch/csrc/nxfp_matmul.cuh"],
                     "src/repro/kernels/nxfp_matmul.py:73"),
-    "nxfp_decode_attention": ("src/repro_torch/csrc/nxfp_attention.cu",
+    "nxfp_decode_attention": (["src/repro_torch/csrc/nxfp_attention.cu"],
                               "src/repro/kernels/nxfp_attention.py:86"),
-    "nxfp_qq_matmul": ("src/repro_torch/csrc/nxfp_qq_matmul.cu",
+    "nxfp_qq_matmul": (["src/repro_torch/csrc/nxfp_qq_matmul.cu"],
                        "src/repro/kernels/nxfp_qq_matmul.py:77"),
 }
 # the module whose counter each kernel bumps, and the row that stands for
@@ -624,11 +683,12 @@ def main():
     act_counts = phase_act(cfg, engine, prompts)
 
     table = []
-    for kname, (source, replaces) in KERNELS.items():
+    for kname, (sources, replaces) in KERNELS.items():
         row = rows[MAIN_ROW[kname]]
         c = COUNTERS[kname]
         table.append(dict(
-            name=kname, route="cuda", source=source, replaces=replaces,
+            name=kname, route="cuda", source=sources[0], sources=sources,
+            replaces=replaces,
             launches=(act_counts if kname in QQ_PATH else counts)[c],
             launches_qq_prefill_path=act_counts[c],
             launches_per_decode_step=per_step[c],

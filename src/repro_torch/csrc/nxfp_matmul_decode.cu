@@ -1,0 +1,232 @@
+// Dequant GEMM, decode regime (M <= 16): y (M, N) f32 = bf16(x) (M, K) @
+// bf16(dequant(Wq))^T.
+//
+// Replaces: src/repro/kernels/nxfp_matmul.py:nxfp_matmul_pallas (bodies
+// _kernel and _decode_tile) for the few rows of a decode step.
+//
+// Bound on the H100: the packed weight bytes. At M 4 a Llama-3-8B MLP
+// projection streams 33 MB of nxfp4 codes and scales (4.5 bits a weight)
+// for 0.47 GFLOP: 0.0099 ms at 3.35 TB/s against 0.0005 ms of bf16
+// tensor-core time. Decoding costs CUDA-core instructions per weight on
+// top, so the kernel must keep bytes in flight on every SM and spend few
+// instructions per weight.
+//
+// Design. Weight streaming with a deterministic split-K in one launch:
+// - A CTA of eight warps owns a 64-column N tile, a warp 8 columns. Lane
+//   (g, tq) reads block kb + tq of column g whole (16 bytes for nxfp4,
+//   one vector load) with its meta word; the next step's block is loaded
+//   while this one is decoded.
+// - The product runs on the tensor cores (mma.sync m16n8k16 bf16 -> f32,
+//   M padded to 16 in registers only). The 16-deep K of one mma is taken
+//   as 4 consecutive K values from each lane's own block: the sum over K
+//   does not care which physical K each MMA slot holds, as long as x is
+//   read in the same order. So a lane decodes its block's codes 4 at a
+//   time straight into its B fragment (a shift, a LOP3, a LUT load per
+//   code; a bf16 multiply by the block scale per pair), and x is staged
+//   once per CTA in shared memory in that fragment order.
+// - Split-K: grid (N tiles, splits), chosen on the host
+//   (kernels/nxfp_matmul.py:decode_split) so every main-path shape fills
+//   132 SMs. Each split writes its f32 partial tile to a scratch buffer;
+//   the last CTA to arrive at a tile (an atomic counter per tile, reset
+//   to 0 by that CTA) sums the partials in split order and writes y. No
+//   atomics touch y, so the result is bitwise repeatable.
+// How far it got (PERF.md, PR 14): at M 4 faster than torch.matmul bf16
+// at every main-path shape, but ~0.035 ms on the MLP shapes, about a
+// quarter of the bytes bound; at M 16 slower than torch.matmul.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include "nxfp_matmul.cuh"
+
+namespace {
+
+// The kernel's geometry. nxfp_matmul_decode_geometry hands it to the
+// host's split planner (kernels/nxfp_matmul.py: decode_split).
+constexpr int kThreads = 256;             // eight warps
+constexpr int kBN = kThreads / 32 * 8;    // 64 columns per CTA
+constexpr int kMaxM = 16;                 // x rows: one m16n8k16 A fragment
+constexpr int kXSliceBytes = 32768;       // the most x bytes a CTA stages
+
+__device__ __forceinline__ void mma_m16n8k16(float* d, const unsigned* a,
+                                             const unsigned* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+template <int BITS, int QB>
+struct Block {
+  nxfp::PackedBlock<BITS, QB> pb;
+  unsigned meta;
+};
+
+// x (M, K) bf16 -> xs in fragment order: entry ((ss * QB/4 + s) * 4 + t) * M
+// + m holds x[m, k .. k + 3] for k = (kb0 + 4 ss + t) * QB + 4 s, the K
+// values lane t's block feeds to MMA slot s in step ss.
+template <int QB>
+__device__ __forceinline__ void stage_x(uint2* xs, const __nv_bfloat16* x,
+                                        int M, int K, int k0, int ck,
+                                        int tid) {
+  const int quads = ck / 4;
+  for (int c = tid; c < M * quads; c += kThreads) {
+    const int m = c / quads, kl = 4 * (c % quads);
+    const int ss = kl / (4 * QB), r = kl % (4 * QB);
+    const int t = r / QB, s = r % QB / 4;
+    uint2 v = make_uint2(0u, 0u);
+    if (k0 + kl < K)
+      v = *reinterpret_cast<const uint2*>(x + (size_t)m * K + k0 + kl);
+    xs[((ss * (QB / 4) + s) * 4 + t) * M + m] = v;
+  }
+}
+
+template <int BITS, int QB, bool EX>
+__global__ void __launch_bounds__(kThreads)
+nxfp_matmul_decode_kernel(const __nv_bfloat16* __restrict__ x,
+                          const uint8_t* __restrict__ packed,
+                          const void* __restrict__ meta,
+                          float* __restrict__ y, float* __restrict__ ws,
+                          int* __restrict__ counters, int M, int N, int KB,
+                          int chunk, nxfp::FmtDesc fd) {
+  extern __shared__ uint2 xs[];
+  __shared__ float lut[2 << BITS];
+  __shared__ int is_last;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int tile = blockIdx.x, split = blockIdx.y, splits = gridDim.y;
+  const int kb0 = split * chunk, kb1 = min(KB, kb0 + chunk);
+  const int K = KB * QB;
+  nxfp::fill_lut<BITS>(lut, fd, tid, kThreads);
+  stage_x<QB>(xs, x, M, K, kb0 * QB, chunk * QB, tid);
+
+  const int n = tile * kBN + warp * 8 + g;  // this lane's column
+  // lane (g, tq) reads block kb0 + 4 ss + tq of column n
+  auto load = [&](int ss, Block<BITS, QB>& b) {
+    const int kb = kb0 + 4 * ss + tq;
+    if (n < N && kb < kb1) {
+      const size_t blk = (size_t)n * KB + kb;
+      nxfp::load_block_vec<BITS, QB>(b.pb, packed, blk);
+      b.meta = nxfp::read_meta(meta, blk, fd);
+    } else {  // zero codes under a zero meta word decode to 0
+#pragma unroll
+      for (int j = 0; j < (QB * BITS + 31) / 32; ++j) b.pb.w[j] = 0u;
+      b.meta = 0u;
+    }
+  };
+
+  float acc[4] = {};
+  const int n_ss = (kb1 - kb0 + 3) / 4;
+  Block<BITS, QB> cur;
+  load(0, cur);
+  __syncthreads();  // xs and the LUT written
+  for (int ss = 0; ss < n_ss; ++ss) {
+    Block<BITS, QB> nxt;
+    if (ss + 1 < n_ss) load(ss + 1, nxt);
+    nxfp::WScale<BITS, EX> sc;
+    sc.set(cur.meta, fd);
+#pragma unroll
+    for (int s = 0; s < QB / 4; ++s) {
+      const uint2* xf = xs + ((ss * (QB / 4) + s) * 4 + tq) * M;
+      const uint2 lo = g < M ? xf[g] : make_uint2(0u, 0u);
+      const uint2 hi = g + 8 < M ? xf[g + 8] : make_uint2(0u, 0u);
+      const unsigned a[4] = {lo.x, hi.x, lo.y, hi.y};
+      const unsigned b[2] = {
+          sc.pair(lut, nxfp::code_off(cur.pb, 4 * s),
+                  nxfp::code_off(cur.pb, 4 * s + 1), 4 * s),
+          sc.pair(lut, nxfp::code_off(cur.pb, 4 * s + 2),
+                  nxfp::code_off(cur.pb, 4 * s + 3), 4 * s + 2)};
+      mma_m16n8k16(acc, a, b);
+    }
+    cur = nxt;
+  }
+
+  // acc: rows g and g + 8, columns 2 tq and 2 tq + 1 of the warp's 8
+  float* out = splits == 1 ? y : ws + (size_t)split * M * N;
+  const int nc = tile * kBN + warp * 8 + 2 * tq;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = g + 8 * h;
+    if (m >= M) continue;
+    if (nc < N) out[(size_t)m * N + nc] = acc[2 * h];
+    if (nc + 1 < N) out[(size_t)m * N + nc + 1] = acc[2 * h + 1];
+  }
+  if (splits == 1) return;
+
+  // the last split to finish this tile sums the partials in split order
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) is_last = atomicAdd(&counters[tile], 1) == splits - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  for (int e = tid; e < M * kBN; e += kThreads) {
+    const int m = e / kBN, ne = tile * kBN + e % kBN;
+    if (ne >= N) continue;
+    float sum = 0.0f;
+    for (int p = 0; p < splits; ++p)
+      sum += __ldcg(ws + ((size_t)p * M + m) * N + ne);
+    y[(size_t)m * N + ne] = sum;
+  }
+  if (tid == 0) counters[tile] = 0;  // ready for the next launch
+}
+
+template <int BITS, int QB, bool EX>
+int launch(const void* x, const void* packed, const void* meta, void* y,
+           int M, int N, int KB, int splits, int chunk, void* ws,
+           void* counters, const nxfp::FmtDesc& fd, cudaStream_t st) {
+  const dim3 grid((N + kBN - 1) / kBN, splits);
+  const size_t smem = (size_t)M * chunk * QB * sizeof(__nv_bfloat16);
+  nxfp_matmul_decode_kernel<BITS, QB, EX><<<grid, kThreads, smem, st>>>(
+      reinterpret_cast<const __nv_bfloat16*>(x),
+      reinterpret_cast<const uint8_t*>(packed), meta,
+      reinterpret_cast<float*>(y), reinterpret_cast<float*>(ws),
+      reinterpret_cast<int*>(counters), M, N, KB, chunk, fd);
+  return (int)cudaGetLastError();
+}
+
+template <int BITS, int QB>
+int launch_ex(const void* x, const void* packed, const void* meta, void* y,
+              int M, int N, int KB, int splits, int chunk, void* ws,
+              void* counters, const nxfp::FmtDesc& fd, cudaStream_t st) {
+  // the weights are symmetric: their instance carries no activation-format
+  // decode
+  return (fd.asym || fd.ox)
+             ? launch<BITS, QB, true>(x, packed, meta, y, M, N, KB, splits,
+                                      chunk, ws, counters, fd, st)
+             : launch<BITS, QB, false>(x, packed, meta, y, M, N, KB, splits,
+                                       chunk, ws, counters, fd, st);
+}
+
+}  // namespace
+
+int nxfp_matmul_decode(const void* x, const void* packed, const void* meta,
+                       void* y, int M, int N, int KB, int splits, int chunk,
+                       void* ws, void* counters, const nxfp::FmtDesc& fd,
+                       cudaStream_t st) {
+  // every split holds at least one K block and the splits cover KB once;
+  // the x slice fits the 48 KB of shared memory a launch gets unasked
+  if (M < 1 || M > kMaxM || chunk < 4 || chunk % 4 != 0 || splits < 1 ||
+      (long long)(splits - 1) * chunk >= KB ||
+      (long long)splits * chunk < KB ||
+      (size_t)M * chunk * fd.block_size * 2 > kXSliceBytes ||
+      (splits > 1 && (ws == nullptr || counters == nullptr)))
+    return (int)cudaErrorInvalidValue;
+#define NXFP_DEC(B, S)                                                      \
+  if (fd.bits == B && fd.block_size == S)                                   \
+    return launch_ex<B, S>(x, packed, meta, y, M, N, KB, splits, chunk, ws, \
+                           counters, fd, st);
+  NXFP_DEC(4, 32) NXFP_DEC(5, 32) NXFP_DEC(6, 32) NXFP_DEC(8, 32)
+  NXFP_DEC(4, 16) NXFP_DEC(5, 16) NXFP_DEC(6, 16) NXFP_DEC(8, 16)
+#undef NXFP_DEC
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int nxfp_matmul_decode_geometry(int* max_m, int* tile_n,
+                                           int* x_slice_bytes) {
+  *max_m = kMaxM;
+  *tile_n = kBN;
+  *x_slice_bytes = kXSliceBytes;
+  return 0;
+}

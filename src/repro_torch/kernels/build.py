@@ -120,13 +120,16 @@ def library():
         lib = ctypes.CDLL(build()["path"])
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.nxfp_quantize_launch.argtypes = [vp, vp, vp, ll, i, i, vp, vp]
-        lib.nxfp_matmul_launch.argtypes = [vp, vp, vp, vp, i, i, i, vp, vp]
+        lib.nxfp_matmul_launch.argtypes = [vp, vp, vp, vp, i, i, i, vp, i, i,
+                                           vp, vp, vp]
+        lib.nxfp_matmul_decode_geometry.argtypes = [vp, vp, vp]
         lib.nxfp_decode_attention_launch.argtypes = [vp, vp, vp, vp, vp, vp,
                                                      vp, i, i, i, i, i, vp,
                                                      vp]
         lib.nxfp_qq_matmul_launch.argtypes = [vp, vp, vp, vp, vp, i, i, i,
                                               vp, vp, vp]
         for fn in (lib.nxfp_quantize_launch, lib.nxfp_matmul_launch,
+                   lib.nxfp_matmul_decode_geometry,
                    lib.nxfp_decode_attention_launch,
                    lib.nxfp_qq_matmul_launch):
             fn.restype = ctypes.c_int

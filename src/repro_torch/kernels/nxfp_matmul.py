@@ -1,14 +1,19 @@
 """Fused dequant GEMM: y = bf16(x) @ dequant(Wq)^T with f32 accumulation.
 
 CUDA kernel: ``csrc/nxfp_matmul.cu`` (replaces the reference's
-``kernels/nxfp_matmul.py:nxfp_matmul_pallas``). Plain version:
-``nxfp_matmul_plain``, which dequantizes the whole weight to bf16 and
-multiplies in f32 (bf16 x bf16 products are exact in f32), the function
-the kernel computes tile by tile.
+``kernels/nxfp_matmul.py:nxfp_matmul_pallas``), one launch per call in
+one of two regimes: up to ``decode_geometry().max_m`` rows (16) it
+streams the weight with a deterministic split-K
+(``csrc/nxfp_matmul_decode.cu``; ``decode_split`` plans the split), above
+that it runs wgmma (``csrc/nxfp_matmul_prefill.cu``). Plain
+version: ``nxfp_matmul_plain``, which dequantizes the whole weight to
+bf16 and multiplies in f32 (bf16 x bf16 products are exact in f32), the
+function the kernel computes tile by tile.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -17,10 +22,85 @@ from ..core.pack import unpack_codes
 from . import build
 from .decode_lib import decode_block_values
 
-__all__ = ["nxfp_matmul", "nxfp_matmul_plain", "dequant_weight_bf16"]
+__all__ = ["nxfp_matmul", "nxfp_matmul_plain", "dequant_weight_bf16",
+           "DecodeGeometry", "decode_geometry", "decode_split"]
 
 LAUNCHES = 0          # kernel launches since the caller last set it to 0
 KERNEL_BITS = (4, 5, 6, 8)
+CTAS_PER_SM = 4       # the decode grid aims at about four CTAs on every SM
+MIN_CHUNK = 8         # the fewest K blocks a split takes when K allows
+
+
+class DecodeGeometry(NamedTuple):
+    """What the decode regime's kernel is built for
+    (``csrc/nxfp_matmul_decode.cu``, read by ``decode_geometry``)."""
+    max_m: int          # rows up to which it runs
+    tile_n: int         # output columns per CTA
+    x_slice_bytes: int  # the most bf16 x bytes one CTA stages
+
+
+_geometry = None
+# per (device, stream): f32 partials and int32 tile counters, kept at 0
+# between launches (the last CTA of each tile resets its counter; a fault
+# inside a launch leaves the CUDA context unusable, so no later launch
+# meets a counter left off); and per device, the SM count
+_scratch: dict = {}
+_n_sm: dict = {}
+
+
+def decode_geometry() -> DecodeGeometry:
+    """The decode kernel's geometry, as the built library reports it."""
+    global _geometry
+    if _geometry is None:
+        vals = [ctypes.c_int() for _ in DecodeGeometry._fields]
+        build.check(build.library().nxfp_matmul_decode_geometry(
+            *[ctypes.byref(v) for v in vals]), "nxfp_matmul_decode_geometry")
+        _geometry = DecodeGeometry(*(v.value for v in vals))
+    return _geometry
+
+
+def decode_split(m: int, n: int, kb: int, block_size: int,
+                 geom: DecodeGeometry, n_sm: int = 132):
+    """Split-K plan of the decode regime: (n_tiles, splits, chunk).
+
+    Split s takes K blocks [s * chunk, min(kb, (s + 1) * chunk)): chunk is
+    a multiple of 4 (a quad of lanes reads 4 consecutive blocks of a
+    column per step), every split holds at least one block and the splits
+    cover the kb blocks once. The grid (n_tiles, splits) aims at
+    ``CTAS_PER_SM`` CTAs per SM, with chunks of at least ``MIN_CHUNK``
+    blocks and an x slice (m * chunk * block_size bf16) of at most
+    ``geom.x_slice_bytes``.
+    """
+    if not 1 <= m <= geom.max_m or n < 1 or kb < 1:
+        raise ValueError(f"no decode split for m={m} n={n} kb={kb}")
+    n_tiles = -(-n // geom.tile_n)
+    max_chunk = max(4, geom.x_slice_bytes // (2 * m * block_size) // 4 * 4)
+    want = max(1, -(-CTAS_PER_SM * n_sm // n_tiles))
+    chunk = -(-kb // want)
+    chunk = min(max(-(-chunk // 4) * 4, MIN_CHUNK), max_chunk)
+    return n_tiles, -(-kb // chunk), chunk
+
+
+def _decode_plan(device, m: int, n: int, kb: int, block_size: int):
+    """``decode_split`` on ``device`` and the current stream's split-K
+    buffers, grown when too small. The counters are zeroed once, at
+    allocation; each launch leaves them at 0. Only launches on the stream
+    that owns them use them, so they run one after another."""
+    if device not in _n_sm:
+        _n_sm[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    n_tiles, splits, chunk = decode_split(m, n, kb, block_size,
+                                          decode_geometry(), _n_sm[device])
+    key = (device, build.stream_handle(device))
+    ws, counters = _scratch.get(key, (None, None))
+    if ws is None or ws.numel() < splits * m * n:
+        ws = torch.empty(max(splits * m * n, 1 << 20), dtype=torch.float32,
+                         device=device)
+    if counters is None or counters.numel() < n_tiles:
+        counters = torch.zeros(max(n_tiles, 4096), dtype=torch.int32,
+                               device=device)
+    _scratch[key] = (ws, counters)
+    return splits, chunk, ws, counters
 
 
 def dequant_weight_bf16(packed, meta, fmt: BlockFormat):
@@ -61,13 +141,20 @@ def nxfp_matmul(x, packed, meta, fmt: BlockFormat):
     xb = x.to(torch.bfloat16).contiguous()
     build.require(packed.is_contiguous() and meta.is_contiguous(),
                   "packed weight must be contiguous")
-    build.require(xb.data_ptr() % 16 == 0 and packed.data_ptr() % 4 == 0,
-                  "misaligned operands")
+    build.require(xb.data_ptr() % 16 == 0 and packed.data_ptr() % 16 == 0
+                  and meta.data_ptr() % 4 == 0, "misaligned operands")
+    lib = build.library()           # raises first where there is no card
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     desc = build.fmt_desc(fmt)
-    rc = build.library().nxfp_matmul_launch(
+    splits = chunk = ws_ptr = counters_ptr = 0    # no plan: wgmma
+    if 0 < m <= decode_geometry().max_m:         # split-K streaming
+        splits, chunk, ws, counters = _decode_plan(x.device, m, n, kb,
+                                                   fmt.block_size)
+        ws_ptr, counters_ptr = ws.data_ptr(), counters.data_ptr()
+    rc = lib.nxfp_matmul_launch(
         xb.data_ptr(), packed.data_ptr(), meta.data_ptr(), y.data_ptr(),
-        m, n, kb, ctypes.addressof(desc), build.stream_handle(x.device))
+        m, n, kb, ctypes.addressof(desc), splits, chunk, ws_ptr,
+        counters_ptr, build.stream_handle(x.device))
     build.check(rc, "nxfp_matmul")
     LAUNCHES += 1
     return y

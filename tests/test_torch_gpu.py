@@ -75,24 +75,86 @@ def test_quantize_kernel_bitwise(cuda, fname):
     print(f"{fname}: {int(diff.sum())} near-tie blocks")
 
 
-@pytest.mark.parametrize("fname", ["nxfp4", "nxfp4_nm_am", "mxfp4_cr",
-                                   "nxfp5", "nxfp6", "nxfp8", "nxfp4_bs16",
-                                   "mxfp4_ox", "amxfp4_ox"])
-@pytest.mark.parametrize("m", [1, 4, 37, 130])
-def test_matmul_kernel_matches_plain(cuda, fname, m):
-    """Ragged M, N and K (K not a multiple of the 128-wide K step); both
-    sum exact bf16 products in f32 in another order: 1e-5 of sum|x||w|."""
+def _matmul_case(cuda, fname, m, k, n, seed):
     fmt = get_format(fname)
-    g = torch.Generator(device=cuda).manual_seed(m)
-    k, n = 320, 200
+    g = torch.Generator(device=cuda).manual_seed(seed)
     w = torch.randn((k, n), generator=g, device=cuda)
     wq = quantize_qtensor(w, fmt, axis=-2, device=cuda)
     x = torch.randn((m, k), generator=g, device=cuda)
-    y = nm.nxfp_matmul(x, wq.packed, wq.meta, fmt)
+    return fmt, x, wq
+
+
+def _assert_matmul_close(x, wq, fmt, y):
     yp = nm.nxfp_matmul_plain(x, wq.packed, wq.meta, fmt)
     wd = nm.dequant_weight_bf16(wq.packed, wq.meta, fmt).float()
     mag = x.to(torch.bfloat16).float().abs() @ wd.abs().T
+    assert y.shape == yp.shape and torch.isfinite(y).all()
     assert ((y - yp).abs() <= 1e-5 * mag + 1e-30).all()
+
+
+@pytest.mark.parametrize("fname", ["nxfp4", "nxfp4_nm_am", "mxfp4_cr",
+                                   "nxfp5", "nxfp6", "nxfp8", "nxfp4_bs16",
+                                   "nxfp5_bs16", "nxfp6_bs16", "mxfp4_ox",
+                                   "amxfp4_ox"])
+@pytest.mark.parametrize("m", [1, 4, 16, 17, 37, 130])
+def test_matmul_kernel_matches_plain(cuda, fname, m):
+    """Ragged M, N and K (K not a multiple of the 64-wide prefill K step,
+    nor of a 4-block split); M 16 and 17 on both sides of the regime
+    switch. Both sum exact bf16 products in f32 in another order: 1e-5 of
+    sum|x||w|."""
+    fmt, x, wq = _matmul_case(cuda, fname, m, 320, 200, m)
+    _assert_matmul_close(x, wq, fmt, nm.nxfp_matmul(x, wq.packed, wq.meta,
+                                                    fmt))
+
+
+@pytest.mark.parametrize("fname", ["nxfp4", "nxfp4_bs16", "nxfp5"])
+def test_matmul_kernel_ragged_split_k(cuda, fname):
+    """K 4160 (130 blocks of 32) splits into chunks of 8 blocks with a last
+    split of 2; N 72 leaves a ragged N tile."""
+    fmt, x, wq = _matmul_case(cuda, fname, 4, 4160, 72, 7)
+    # the geometry test_torch_kernels.py plans with on the CPU
+    assert tuple(nm.decode_geometry()) == (16, 64, 32768)
+    _, splits, chunk = nm.decode_split(4, 72, wq.packed.shape[1],
+                                       fmt.block_size, nm.decode_geometry())
+    assert splits > 1 and (splits - 1) * chunk < wq.packed.shape[1]
+    _assert_matmul_close(x, wq, fmt, nm.nxfp_matmul(x, wq.packed, wq.meta,
+                                                    fmt))
+
+
+@pytest.mark.parametrize("m", [4, 16, 512])
+def test_matmul_kernel_bitwise_repeatable(cuda, m):
+    """Repeated launches on the same inputs give the same bits: the
+    split-K partials are summed in split order by the last CTA of each
+    tile, never by atomics on y, and the tile counters the first launch
+    leaves behind (all 0) serve every later one."""
+    fmt, x, wq = _matmul_case(cuda, "nxfp4", m, 4096, 1024, 11)
+    first = nm.nxfp_matmul(x, wq.packed, wq.meta, fmt)
+    for _ in range(5):
+        again = nm.nxfp_matmul(x, wq.packed, wq.meta, fmt)
+        assert torch.equal(first, again)
+    _assert_matmul_close(x, wq, fmt, first)
+    if m <= nm.decode_geometry().max_m:
+        key = (x.device, torch.cuda.current_stream(x.device).cuda_stream)
+        assert int(nm._scratch[key][1].abs().sum()) == 0
+
+
+def test_matmul_kernel_split_k_per_stream(cuda):
+    """Launches on two streams each use their own split-K buffers: the
+    results are the bits of the default stream's, and every stream's tile
+    counters are back at 0."""
+    fmt, x, wq = _matmul_case(cuda, "nxfp4", 4, 4096, 1024, 13)
+    first = nm.nxfp_matmul(x, wq.packed, wq.meta, fmt)
+    side = [torch.cuda.Stream(cuda) for _ in range(2)]
+    torch.cuda.synchronize(cuda)
+    outs = []
+    for st in side:
+        with torch.cuda.stream(st):
+            outs += [nm.nxfp_matmul(x, wq.packed, wq.meta, fmt)
+                     for _ in range(3)]
+    torch.cuda.synchronize(cuda)
+    assert all(torch.equal(first, y) for y in outs)
+    for st in side:
+        assert int(nm._scratch[(x.device, st.cuda_stream)][1].abs().sum()) == 0
 
 
 @pytest.mark.parametrize("fname", ["nxfp4", "nxfp6", "nxfp8", "nxfp4_nm_am",

@@ -92,3 +92,49 @@ def test_decode_attention_plain_matches_pallas(fname, hd):
     assert ot.shape == oj.shape == (b, kvh * g, hd)
     vmax = np.abs(np.asarray(jv.dequantize(jnp.float32))).max()
     np.testing.assert_allclose(ot, oj, rtol=0, atol=1e-5 * vmax)
+
+
+# the dequant GEMM's (K, N) pairs on the Llama-3-8B main path: wq/wo,
+# wk/wv, w1/w3, w2
+MAIN_PATH_KN = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
+# the decode kernel's geometry as csrc/nxfp_matmul_decode.cu reports it
+# (test_torch_gpu.py checks the built library against these numbers)
+DECODE_GEOMETRY = (16, 64, 32768)
+
+
+@pytest.mark.parametrize("k,n", MAIN_PATH_KN)
+@pytest.mark.parametrize("m", [1, 4, 16, 17, 512])
+def test_decode_split_covers_k_once(k, n, m):
+    """The decode regime's split-K plan (M <= 16): every split holds at
+    least one K block, the splits cover K exactly once, the x slice a CTA
+    stages fits its shared memory, and the grid fills 132 SMs. Above 16
+    rows the prefill regime runs and there is no split to plan."""
+    from repro_torch.kernels import nxfp_matmul as nm
+    geom = nm.DecodeGeometry(*DECODE_GEOMETRY)
+    kb = k // 32
+    if m > geom.max_m:
+        with pytest.raises(ValueError):
+            nm.decode_split(m, n, kb, 32, geom)
+        return
+    n_tiles, splits, chunk = nm.decode_split(m, n, kb, 32, geom, n_sm=132)
+    assert n_tiles == -(-n // geom.tile_n)
+    assert chunk % 4 == 0 and chunk >= 4
+    ranges = [(s * chunk, min(kb, (s + 1) * chunk)) for s in range(splits)]
+    assert all(hi > lo for lo, hi in ranges)             # no empty split
+    covered = [b for lo, hi in ranges for b in range(lo, hi)]
+    assert covered == list(range(kb))                    # each block once
+    assert m * chunk * 32 * 2 <= geom.x_slice_bytes
+    assert n_tiles * splits >= 132
+
+
+@pytest.mark.parametrize("kb,n,bs", [(130, 72, 32), (1, 8, 32), (2, 200, 16),
+                                     (896, 4096, 16), (3, 100000, 32)])
+@pytest.mark.parametrize("m", [1, 16])
+def test_decode_split_ragged_shapes(kb, n, bs, m):
+    """Ragged and extreme shapes keep the same invariants: a last split
+    shorter than the rest, a single block, a wide N with one split."""
+    from repro_torch.kernels import nxfp_matmul as nm
+    geom = nm.DecodeGeometry(*DECODE_GEOMETRY)
+    _, splits, chunk = nm.decode_split(m, n, kb, bs, geom)
+    assert (splits - 1) * chunk < kb <= splits * chunk
+    assert chunk % 4 == 0 and m * chunk * bs * 2 <= geom.x_slice_bytes
