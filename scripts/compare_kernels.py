@@ -14,8 +14,9 @@ Times: the dequant GEMM at ``chip_smoke.MATMUL_KN`` x ``MATMUL_M`` beside
 ``torch.matmul`` bf16 and, at the decode rows, beside a PyTorch reduction
 that reads the packed weight bytes once (``amax``: how fast a plain read of
 those bytes streams on this card); then the quantizer (weight and
-activation), decode attention and the qq GEMM through ``chip_smoke``'s own
-checks. The last line is one JSON object.
+activation), decode attention (S 256 and 4096) and the qq GEMM (M 16 and
+512) through ``chip_smoke``'s own checks. The last line is one JSON
+object.
 """
 from __future__ import annotations
 

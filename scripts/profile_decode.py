@@ -7,10 +7,12 @@
 Builds Llama-3-8B at full width (random weights, seed 0) behind
 ``ServeEngine`` with nxfp4 weights and nxfp4 KV, prefills 4 prompts of 128
 tokens, warms up, then runs ``--steps`` decode steps under
-``torch.profiler`` (CPU and CUDA activity). Prints, per decode step: the
-host-clock step time, the device time summed over kernels (busy) and the
-idle share, the top kernels by device time, the top CPU operators by self
-time, and the host cost of one call of each kernel wrapper (launch only,
+``torch.profiler`` (CPU and CUDA activity), and ``PREFILLS`` prefills of
+the same prompts with dense activations and with the qq path
+(``act_fmt="amxfp4"``). Prints, per decode step and per prefill: the
+host-clock time, the device time summed over kernels (busy) and the idle
+share, the top kernels by device time and the top CPU operators by self
+time; then the host cost of one call of each kernel wrapper (launch only,
 no synchronise). Needs a CUDA device.
 """
 from __future__ import annotations
@@ -24,6 +26,7 @@ import time
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PREFILLS = 3          # prefills traced per activation format
 
 
 def wrapper_host_us(n: int = 200):
@@ -62,6 +65,50 @@ def wrapper_host_us(n: int = 200):
     return out
 
 
+def trace(label: str, fn, n: int) -> None:
+    """Time ``n`` calls of ``fn`` untraced (host clock, after a warm-up
+    call), then ``n`` more under ``torch.profiler``, and print per call:
+    the host-clock time, the device time summed over kernels (busy) and
+    the idle share, the top kernels by device time and the top CPU
+    operators by self time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / n * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) / n * 1e3
+
+    dev_type = torch.autograd.DeviceType.CUDA
+    avgs = prof.key_averages()
+    kernels = [e for e in avgs if e.device_type == dev_type]
+    busy_us = sum(e.self_device_time_total for e in kernels) / n
+    print(f"{label}: {wall_ms:.3f} ms (host clock, untraced), "
+          f"{traced_ms:.3f} ms traced", flush=True)
+    print(f"device busy {busy_us / 1e3:.3f} ms per call (sum of kernel "
+          f"times), idle share {1 - busy_us / 1e3 / traced_ms:.3f} of the "
+          f"traced call; {sum(e.count for e in kernels) / n:.0f} kernels "
+          "per call")
+    print("top kernels by device time per call:")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"  {e.self_device_time_total / n / 1e3:9.4f} ms  "
+              f"{e.count / n:6.1f}x  {e.key[:100]}")
+    cpu_ops = [e for e in avgs if e.device_type != dev_type]
+    print("top CPU operators by self host time per call:")
+    for e in sorted(cpu_ops, key=lambda e: -e.self_cpu_time_total)[:12]:
+        print(f"  {e.self_cpu_time_total / n / 1e3:9.4f} ms  "
+              f"{e.count / n:6.1f}x  {e.key[:100]}", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=32)
@@ -70,7 +117,6 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("profile_decode: needs a CUDA device")
     sys.path.insert(0, os.path.join(ROOT, "src"))
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
     from repro_torch.core.qtensor import QuantPolicy
@@ -85,52 +131,25 @@ def main():
     del params
     torch.cuda.empty_cache()
     gen = torch.Generator().manual_seed(0)
-    tokens = torch.randint(0, cfg.vocab, (4, 128), generator=gen)
-    logits, cache = prefill(cfg, engine.params, {"tokens": tokens.cuda()},
+    tokens = torch.randint(0, cfg.vocab, (4, 128), generator=gen).cuda()
+    logits, cache = prefill(cfg, engine.params, {"tokens": tokens},
                             max_len=256, kv_fmt="nxfp4")
+    state = {"logits": logits, "cache": cache}
 
-    def step(cache, logits):
-        tok = torch.argmax(logits, dim=-1).to(torch.int32)
-        return decode_step(cfg, engine.params, tok[:, None], cache, "nxfp4")
+    def step():
+        tok = torch.argmax(state["logits"], dim=-1).to(torch.int32)
+        state["logits"], state["cache"] = decode_step(
+            cfg, engine.params, tok[:, None], state["cache"], "nxfp4")
 
-    for _ in range(4):                                     # warm-up
-        logits, cache = step(cache, logits)
-    torch.cuda.synchronize()
-
-    t0 = time.perf_counter()
-    for _ in range(args.steps):
-        logits, cache = step(cache, logits)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) / args.steps * 1e3
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(args.steps):
-            logits, cache = step(cache, logits)
-        torch.cuda.synchronize()
-        traced_ms = (time.perf_counter() - t0) / args.steps * 1e3
-
-    dev_type = torch.autograd.DeviceType.CUDA
-    avgs = prof.key_averages()
-    kernels = [e for e in avgs if e.device_type == dev_type]
-    busy_us = sum(e.self_device_time_total for e in kernels) / args.steps
-    print(f"{cfg.name}, {cfg.n_layers} layers, B 4, context 128+: decode "
-          f"step {wall_ms:.3f} ms (host clock, untraced), {traced_ms:.3f} ms "
-          f"traced", flush=True)
-    print(f"device busy {busy_us / 1e3:.3f} ms per step (sum of kernel "
-          f"times), idle share {1 - busy_us / 1e3 / traced_ms:.3f} of the "
-          f"traced step; {sum(e.count for e in kernels) / args.steps:.0f} "
-          "kernels per step")
-    print("top kernels by device time per step:")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
-        print(f"  {e.self_device_time_total / args.steps / 1e3:9.4f} ms  "
-              f"{e.count / args.steps:6.1f}x  {e.key[:100]}")
-    cpu_ops = [e for e in avgs if e.device_type != dev_type]
-    print("top CPU operators by self host time per step:")
-    for e in sorted(cpu_ops, key=lambda e: -e.self_cpu_time_total)[:12]:
-        print(f"  {e.self_cpu_time_total / args.steps / 1e3:9.4f} ms  "
-              f"{e.count / args.steps:6.1f}x  {e.key[:100]}")
+    for _ in range(3):                                     # warm-up
+        step()
+    trace(f"{cfg.name}, {cfg.n_layers} layers, B 4, context 128+: decode "
+          "step", step, args.steps)
+    for act_fmt in (None, "amxfp4"):
+        trace(f"prefill of 4 x 128 tokens, act_fmt={act_fmt}",
+              lambda: prefill(cfg, engine.params, {"tokens": tokens},
+                              max_len=256, kv_fmt="nxfp4", act_fmt=act_fmt),
+              PREFILLS)
     print("host microseconds per wrapper call (launch only): "
           + ", ".join(f"{k} {v:.1f}" for k, v in wrapper_host_us().items()))
 

@@ -6,26 +6,39 @@
 // One query token per sequence attends to its cached K/V rows:
 //   q        (B, KVH, G, D) f32, already scaled by 1/sqrt(head_dim)
 //   K/V      (B, S, KVH, NB, bpb) uint8 + (B, S, KVH, NB) uint16 meta
-//            (uint32 for an asym format), blocks of 32 codes along
-//            head_dim (D = NB * 32), decoded by nxfp_decode.cuh (ox and
+//            (uint32 for an asym format), blocks of 16 or 32 codes along
+//            head_dim (D = NB * block), decoded by nxfp_decode.cuh (ox and
 //            asym formats included)
 //   lengths  (B,) int32 valid rows per sequence
 //   out      (B, KVH, G, D) f32
-// As the TPU kernel: rows are dequantized to f32, both dots run in f32,
-// the online softmax carries (m, l, acc) across S tiles, masked scores are
-// -1e30, p = exp(s - m_new) is zeroed where masked, and the output is
-// acc / max(l, 1e-30). Tiles wholly past a sequence's length are skipped,
-// which is exact: they would contribute p = 0 and alpha = 1.
+// As the TPU kernel: rows are dequantized to f32, both dots run in f32 on
+// the CUDA cores, the online softmax carries (m, l, acc) across S tiles,
+// masked scores are -1e30, p = exp(s - m_new) is zeroed where masked, and
+// the output is acc / max(l, 1e-30).
 //
 // Bound on the H100: the packed K/V bytes over the valid length (~4.5 bits
-// per cached value). Design: one block of 128 threads per (batch, kv head)
-// loops over S tiles of 32 rows. Each thread decodes one packed 32-value
-// block of K and of V into shared memory; warp w scores query heads
-// w, w+4, ... against the tile (lane = row), reduces max and sum with warp
-// shuffles, and every thread then updates acc for its head_dim columns.
-// B * KVH = 32 blocks underfill the 132 SMs at the Llama-3-8B smoke batch
-// (B = 4, KVH = 8); splitting S across blocks (flash-decoding) with a
-// second combine pass is later work.
+// per cached value): at B 4, S 256 about 0.8 MB, 0.00025 ms at 3.35 TB/s,
+// so a launch is set by latency, and by how many SMs share the work.
+//
+// Design: split-S (flash-decoding) in one launch.
+// - Grid (KVH, B, splits): split s of a (b, kv head) takes the whole
+//   32-row tiles [s * tps, (s + 1) * tps) of the cache. The host plans
+//   splits and tps from the cache length S alone, never from lengths
+//   (kernels/nxfp_attention.py: attention_split, about two CTAs per SM),
+//   so nothing waits on the device.
+// - Each CTA of 128 threads runs the online softmax over the rows of its
+//   range below the sequence's length. Per tile, each thread decodes
+//   packed blocks of K and V (codes read at compile-time widths, one
+//   2 << BITS LUT) into shared memory; warp w scores query heads w, w + 4,
+//   ... (lane = row) with warp-shuffle max and sum; every thread then
+//   updates acc for its head_dim columns. A range wholly past the length
+//   leaves m = -1e30, l = 0, acc = 0: exactly what its tiles would add.
+// - With splits > 1 each CTA writes (acc, m, l) in f32 to a scratch
+//   buffer; the last CTA of each (b, kv head) to finish (a counter it
+//   resets to 0) merges them in split order: M = max m_i, l = sum l_i
+//   e^(m_i - M), acc = sum acc_i e^(m_i - M). No atomics touch the output,
+//   so a second launch gives the same bits. A length-0 sequence gives 0.
+// How far it got: PERF.md (the kernel table).
 #include <cuda_runtime.h>
 
 #include "nxfp_decode.cuh"
@@ -36,24 +49,31 @@ constexpr int kTS = 32;       // cache rows per tile (one per lane)
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 
-// One packed block of QB codes -> f32 values at dst. A symmetric format
-// takes one scale per block; the activation formats the per-element sign
-// select and ox slot (nxfp_decode.cuh). The branch is uniform.
-__device__ __forceinline__ void decode_row(const uint8_t* src, unsigned m,
-                                           const float* lut,
+// One packed block of QB codes -> f32 values at dst (the reference's
+// f32 dequant: element value times its sign's scale, or the ox value).
+template <int BITS, int QB, bool EX>
+__device__ __forceinline__ void decode_row(const uint8_t* __restrict__ packed,
+                                           const void* __restrict__ meta,
+                                           size_t blk, const float* lut,
                                            const nxfp::FmtDesc& af,
                                            float* dst) {
-  const int QB = af.block_size, bits = af.bits;
-  if (!af.asym && !af.ox) {
+  nxfp::PackedBlock<BITS, QB> pb;
+  nxfp::load_block_vec<BITS, QB>(pb, packed, blk);
+  if (!EX) {
     int fb;
-    const float sc = nxfp::decode_scale(m, &fb);
-    for (int i = 0; i < QB; ++i)
-      dst[i] = lut[fb * 256 + nxfp::unpack_code(src, i, bits)] * sc;
+    const float sc = nxfp::decode_scale(
+        reinterpret_cast<const uint16_t*>(meta)[blk], &fb);
+    const float* lt = lut + (fb << BITS);
+#pragma unroll
+    for (int i = 0; i < QB; ++i) dst[i] = lt[pb.code(i)] * sc;
   } else {
-    const nxfp::BlockScale s = nxfp::block_scale(m, af);
+    const nxfp::BlockScale s =
+        nxfp::block_scale(nxfp::read_meta(meta, blk, af), af);
+    const float* lt = lut + (s.fb << BITS);
+#pragma unroll
     for (int i = 0; i < QB; ++i) {
-      const int c = nxfp::unpack_code(src, i, bits);
-      dst[i] = nxfp::block_value(s, lut[s.fb * 256 + c], c, i, bits);
+      const int c = pb.code(i);
+      dst[i] = nxfp::block_value(s, lt[c], c, i, BITS);
     }
   }
 }
@@ -70,6 +90,7 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+template <int BITS, int QB, bool EX>
 __global__ void __launch_bounds__(kThreads)
 nxfp_decode_attention_kernel(const float* __restrict__ q,
                              const uint8_t* __restrict__ kp,
@@ -77,11 +98,12 @@ nxfp_decode_attention_kernel(const float* __restrict__ q,
                              const uint8_t* __restrict__ vp,
                              const void* __restrict__ vm,
                              const int* __restrict__ lengths,
-                             float* __restrict__ out, int S, int KVH, int G,
-                             int NB, nxfp::FmtDesc af) {
+                             float* __restrict__ out, float* __restrict__ ws,
+                             int* __restrict__ counters, int S, int KVH,
+                             int G, int NB, int tps, nxfp::FmtDesc af) {
   extern __shared__ float smem[];
-  const int QB = af.block_size, bits = af.bits;
-  const int bpb = QB * bits / 8;
+  __shared__ float lut[2 << BITS];
+  __shared__ int is_last;
   const int D = NB * QB, DP = D + 1;
   float* ks = smem;                   // [kTS][DP]
   float* vs = ks + kTS * DP;          // [kTS][DP]
@@ -91,17 +113,16 @@ nxfp_decode_attention_kernel(const float* __restrict__ q,
   float* ms = ps + G * kTS;           // [G]
   float* ls = ms + G;                 // [G]
   float* al = ls + G;                 // [G]
-  float* lut = al + G;                // [2][256]
 
   const int h = blockIdx.x, b = blockIdx.y;
+  const int split = blockIdx.z, splits = gridDim.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int len = min(max(lengths[b], 0), S);
+  const int r0 = split * tps * kTS, r1 = min(len, r0 + tps * kTS);
+  const size_t bh = (size_t)b * KVH + h;
 
-  for (int i = tid; i < 512; i += kThreads) {
-    const int code = i & 255;
-    lut[i] = code < (1 << bits) ? nxfp::decode_elem(code, af.elem[i >> 8]) : 0.0f;
-  }
-  const float* qb = q + ((size_t)b * KVH + h) * G * D;
+  nxfp::fill_lut<BITS>(lut, af, tid, kThreads);
+  const float* qb = q + bh * G * D;
   for (int i = tid; i < G * D; i += kThreads) {
     qs[i] = qb[i];
     acc[i] = 0.0f;
@@ -111,7 +132,7 @@ nxfp_decode_attention_kernel(const float* __restrict__ q,
     ls[i] = 0.0f;
   }
 
-  for (int s0 = 0; s0 < len; s0 += kTS) {
+  for (int s0 = r0; s0 < r1; s0 += kTS) {
     __syncthreads();  // previous tile consumed; init visible
     // dequantize the K and V tiles: one packed block per item
     for (int it = tid; it < kTS * NB; it += kThreads) {
@@ -120,11 +141,10 @@ nxfp_decode_attention_kernel(const float* __restrict__ q,
       float* vd = vs + r * DP + j * QB;
       if (s < S) {
         const size_t blk = (((size_t)b * S + s) * KVH + h) * NB + j;
-        decode_row(kp + blk * bpb, nxfp::read_meta(km, blk, af), lut,
-                   af, kd);
-        decode_row(vp + blk * bpb, nxfp::read_meta(vm, blk, af), lut,
-                   af, vd);
+        decode_row<BITS, QB, EX>(kp, km, blk, lut, af, kd);
+        decode_row<BITS, QB, EX>(vp, vm, blk, lut, af, vd);
       } else {
+#pragma unroll
         for (int i = 0; i < QB; ++i) kd[i] = vd[i] = 0.0f;
       }
     }
@@ -162,34 +182,117 @@ nxfp_decode_attention_kernel(const float* __restrict__ q,
     }
   }
   __syncthreads();
-  float* ob = out + ((size_t)b * KVH + h) * G * D;
-  for (int i = tid; i < G * D; i += kThreads)
-    ob[i] = acc[i] / fmaxf(ls[i / D], 1e-30f);
+  float* ob = out + bh * G * D;
+  if (splits == 1) {
+    for (int i = tid; i < G * D; i += kThreads)
+      ob[i] = acc[i] / fmaxf(ls[i / D], 1e-30f);
+    return;
+  }
+
+  // this split's partial: acc [G][D], then m [G], then l [G]
+  const int part = G * D + 2 * G;
+  float* mine = ws + (bh * splits + split) * part;
+  for (int i = tid; i < G * D; i += kThreads) mine[i] = acc[i];
+  for (int i = tid; i < G; i += kThreads) {
+    mine[G * D + i] = ms[i];
+    mine[G * D + G + i] = ls[i];
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) is_last = atomicAdd(&counters[bh], 1) == splits - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+
+  // the last split merges all of them in split order
+  const float* parts = ws + bh * splits * part;
+  for (int gg = tid; gg < G; gg += kThreads) {
+    float mx = -1e30f;
+    for (int p = 0; p < splits; ++p)
+      mx = fmaxf(mx, __ldcg(parts + (size_t)p * part + G * D + gg));
+    float l = 0.0f;
+    for (int p = 0; p < splits; ++p) {
+      const float* pp = parts + (size_t)p * part + G * D;
+      l += __ldcg(pp + G + gg) * expf(__ldcg(pp + gg) - mx);
+    }
+    ms[gg] = mx;
+    ls[gg] = l;
+  }
+  __syncthreads();
+  for (int i = tid; i < G * D; i += kThreads) {
+    const int gg = i / D;
+    float a = 0.0f;
+    for (int p = 0; p < splits; ++p) {
+      const float* pp = parts + (size_t)p * part;
+      a += __ldcg(pp + i) * expf(__ldcg(pp + G * D + gg) - ms[gg]);
+    }
+    ob[i] = a / fmaxf(ls[gg], 1e-30f);
+  }
+  if (tid == 0) counters[bh] = 0;  // ready for the next launch
+}
+
+struct Args {
+  const void *q, *kp, *km, *vp, *vm, *lengths;
+  void *out, *ws, *counters;
+  int B, S, KVH, G, NB, splits, tps;
+  nxfp::FmtDesc af;
+  cudaStream_t st;
+};
+
+template <int BITS, int QB, bool EX>
+int launch(const Args& a) {
+  auto kernel = nxfp_decode_attention_kernel<BITS, QB, EX>;
+  const int D = a.NB * QB;
+  const size_t smem =
+      sizeof(float) * ((size_t)2 * kTS * (D + 1) + 2 * a.G * D + a.G * kTS + 3 * a.G);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid(a.KVH, a.B, a.splits);
+  kernel<<<grid, kThreads, smem, a.st>>>(
+      reinterpret_cast<const float*>(a.q),
+      reinterpret_cast<const uint8_t*>(a.kp), a.km,
+      reinterpret_cast<const uint8_t*>(a.vp), a.vm,
+      reinterpret_cast<const int*>(a.lengths), reinterpret_cast<float*>(a.out),
+      reinterpret_cast<float*>(a.ws), reinterpret_cast<int*>(a.counters), a.S,
+      a.KVH, a.G, a.NB, a.tps, a.af);
+  return (int)cudaGetLastError();
+}
+
+template <int BITS, int QB>
+int launch_ex(const Args& a) {
+  // a symmetric cache's instance carries no activation-format decode
+  return (a.af.asym || a.af.ox) ? launch<BITS, QB, true>(a)
+                                : launch<BITS, QB, false>(a);
 }
 
 }  // namespace
 
+// splits x tps 32-row tiles cover the ceil(S / 32) tiles of the cache,
+// every split holding one at least; with splits > 1, ws holds B * KVH *
+// splits * (G * D + 2 * G) f32 and counters B * KVH ints, all 0.
 extern "C" int nxfp_decode_attention_launch(
     const void* q, const void* kp, const void* km, const void* vp,
     const void* vm, const void* lengths, void* out, int B, int S, int KVH,
-    int G, int NB, const void* fmt_desc, void* stream) {
-  const nxfp::FmtDesc af = *reinterpret_cast<const nxfp::FmtDesc*>(fmt_desc);
+    int G, int NB, const void* fmt_desc, int splits, int tps, void* ws,
+    void* counters, void* stream) {
+  const Args a{q, kp, km, vp, vm, lengths, out, ws, counters, B, S, KVH, G,
+               NB, splits, tps,
+               *reinterpret_cast<const nxfp::FmtDesc*>(fmt_desc),
+               reinterpret_cast<cudaStream_t>(stream)};
   if (B == 0 || KVH == 0 || G == 0) return 0;
-  const int D = NB * af.block_size;
-  const size_t smem =
-      sizeof(float) * ((size_t)2 * kTS * (D + 1) + 2 * G * D + G * kTS + 3 * G + 512);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        nxfp_decode_attention_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  dim3 grid(KVH, B);
-  nxfp_decode_attention_kernel<<<grid, kThreads, smem,
-                                 reinterpret_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const float*>(q), reinterpret_cast<const uint8_t*>(kp),
-      km, reinterpret_cast<const uint8_t*>(vp), vm,
-      reinterpret_cast<const int*>(lengths), reinterpret_cast<float*>(out), S,
-      KVH, G, NB, af);
-  return (int)cudaGetLastError();
+  const long long tiles = ((long long)S + kTS - 1) / kTS;
+  if (splits < 1 || tps < 1 || splits > 65535 || B > 65535 ||
+      (long long)(splits - 1) * tps >= (tiles > 0 ? tiles : 1) ||
+      (long long)splits * tps < tiles ||
+      (splits > 1 && (ws == nullptr || counters == nullptr)))
+    return (int)cudaErrorInvalidValue;
+#define NXFP_ATT(BI, QS) \
+  if (a.af.bits == BI && a.af.block_size == QS) return launch_ex<BI, QS>(a);
+  NXFP_ATT(4, 32) NXFP_ATT(5, 32) NXFP_ATT(6, 32) NXFP_ATT(8, 32)
+  NXFP_ATT(4, 16) NXFP_ATT(5, 16) NXFP_ATT(6, 16) NXFP_ATT(8, 16)
+#undef NXFP_ATT
+  return (int)cudaErrorInvalidValue;
 }

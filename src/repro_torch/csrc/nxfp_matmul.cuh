@@ -78,45 +78,6 @@ __device__ __forceinline__ unsigned code_off(const PackedBlock<BITS, QB>& pb,
   return sh >= 2 ? w >> (sh - 2) : w << (2 - sh);
 }
 
-// Fill pb with block `blk` of a packed operand by the widest loads its
-// byte count allows (the packed base is 16-byte aligned).
-template <int BITS, int QB>
-__device__ __forceinline__ void load_block_vec(
-    PackedBlock<BITS, QB>& pb, const uint8_t* __restrict__ packed,
-    size_t blk) {
-  constexpr int kBpb = QB * BITS / 8;
-  const uint8_t* src = packed + blk * kBpb;
-  if constexpr (kBpb % 16 == 0) {
-#pragma unroll
-    for (int j = 0; j < kBpb / 16; ++j) {
-      const uint4 v = __ldg(reinterpret_cast<const uint4*>(src) + j);
-      pb.w[4 * j] = v.x;
-      pb.w[4 * j + 1] = v.y;
-      pb.w[4 * j + 2] = v.z;
-      pb.w[4 * j + 3] = v.w;
-    }
-  } else if constexpr (kBpb % 8 == 0) {
-#pragma unroll
-    for (int j = 0; j < kBpb / 8; ++j) {
-      const uint2 v = __ldg(reinterpret_cast<const uint2*>(src) + j);
-      pb.w[2 * j] = v.x;
-      pb.w[2 * j + 1] = v.y;
-    }
-  } else if constexpr (kBpb % 4 == 0) {
-#pragma unroll
-    for (int j = 0; j < kBpb / 4; ++j)
-      pb.w[j] = __ldg(reinterpret_cast<const unsigned*>(src) + j);
-  } else {  // 10-byte blocks (5-bit codes, block size 16): 2-byte aligned
-#pragma unroll
-    for (int j = 0; j < (QB * BITS + 31) / 32; ++j) pb.w[j] = 0u;
-#pragma unroll
-    for (int j = 0; j < kBpb / 2; ++j)
-      pb.w[j >> 1] |=
-          (unsigned)__ldg(reinterpret_cast<const uint16_t*>(src) + j)
-          << ((j & 1) * 16);
-  }
-}
-
 // Codes o and o + 1 (o even) of a block held in shared memory, as the low
 // 2*BITS bits of the result (code o lowest).
 template <int BITS>
@@ -144,3 +105,11 @@ int nxfp_matmul_decode(const void* x, const void* packed, const void* meta,
 int nxfp_matmul_prefill(const void* x, const void* packed, const void* meta,
                         void* y, int M, int N, int KB,
                         const nxfp::FmtDesc& fd, cudaStream_t st);
+// The regime its caller planned (nxfp_matmul.cu): the decode regime with
+// that split plan when splits > 0, the prefill regime otherwise.
+// fmt_desc points to W's nxfp::FmtDesc, stream is a cudaStream_t.
+extern "C" int nxfp_matmul_launch(const void* x, const void* packed,
+                                  const void* meta, void* y, int M, int N,
+                                  int KB, const void* fmt_desc, int splits,
+                                  int chunk, void* ws, void* counters,
+                                  void* stream);

@@ -13,6 +13,7 @@ Nothing is built or loaded at import; the first kernel launch calls
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -125,9 +126,9 @@ def library():
         lib.nxfp_matmul_decode_geometry.argtypes = [vp, vp, vp]
         lib.nxfp_decode_attention_launch.argtypes = [vp, vp, vp, vp, vp, vp,
                                                      vp, i, i, i, i, i, vp,
-                                                     vp]
+                                                     i, i, vp, vp, vp]
         lib.nxfp_qq_matmul_launch.argtypes = [vp, vp, vp, vp, vp, i, i, i,
-                                              vp, vp, vp]
+                                              vp, vp, vp, i, i, vp, vp, vp]
         for fn in (lib.nxfp_quantize_launch, lib.nxfp_matmul_launch,
                    lib.nxfp_matmul_decode_geometry,
                    lib.nxfp_decode_attention_launch,
@@ -147,6 +148,38 @@ def stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def split_scratch(cache: dict, device: torch.device, n_partials: int,
+                  n_counters: int):
+    """A split kernel's f32 partials and int32 counters for the current
+    stream of ``device``, kept in ``cache`` per (device, stream) and grown
+    when too small. The counters are zeroed once, at allocation; each
+    launch leaves them at 0 (the last CTA of each group resets its own; a
+    fault inside a launch leaves the CUDA context unusable, so no later
+    launch meets a counter left off). Only launches on the stream that
+    owns them use them, so they run one after another."""
+    key = (device, stream_handle(device))
+    ws, counters = cache.get(key, (None, None))
+    if ws is None or ws.numel() < n_partials:
+        ws = torch.empty(max(n_partials, 1 << 20), dtype=torch.float32,
+                         device=device)
+    if counters is None or counters.numel() < n_counters:
+        counters = torch.zeros(max(n_counters, 4096), dtype=torch.int32,
+                               device=device)
+    cache[key] = (ws, counters)
+    return ws, counters
+
+
+_n_sm: dict = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The number of SMs of ``device`` (read once per device)."""
+    if device not in _n_sm:
+        _n_sm[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _n_sm[device]
+
+
 # -- format descriptors (ctypes twins of the structs in csrc/) ---------------
 
 class ElemDesc(ctypes.Structure):
@@ -160,10 +193,12 @@ class FmtDesc(ctypes.Structure):
         ("bits", "block_size", "asym", "ox", "emax")]
 
 
+@functools.lru_cache(maxsize=None)
 def fmt_desc(fmt: BlockFormat) -> FmtDesc:
     """The ``nxfp::FmtDesc`` of ``csrc/nxfp_decode.cuh`` for ``fmt``: the
     element decode for fmt_bit 0 and 1 (the same one when not AM), widths
-    and the activation-format flags."""
+    and the activation-format flags. Built once per format (a wrapper
+    passes its address on every launch; the C side copies it)."""
     descs = [ElemDesc(*elem_desc(el, fmt.cr)) for _, el in
              sorted(fmt.elem_formats, key=lambda e: e[0])]
     return FmtDesc((ElemDesc * 2)(descs[0], descs[-1]), fmt.bits,

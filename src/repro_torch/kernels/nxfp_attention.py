@@ -1,7 +1,10 @@
 """Flash-decode attention of one query token over a packed NxFP KV cache.
 
 CUDA kernel: ``csrc/nxfp_attention.cu`` (replaces the reference's
-``kernels/nxfp_attention.py:nxfp_decode_attention_pallas``). Plain
+``kernels/nxfp_attention.py:nxfp_decode_attention_pallas``), split-S in
+one launch: ``attention_split`` plans how many CTAs share each (batch,
+KV head)'s 32-row tiles, and the last of them merges their partial
+softmax states in split order. Plain
 version: ``nxfp_decode_attention_plain`` — dequantize the cache to f32,
 f32 scores, the -1e30 mask, ``exp(s - max)`` zeroed where masked, f32
 ``p @ V`` and the ``max(l, 1e-30)`` divisor: the kernel's arithmetic with
@@ -19,11 +22,43 @@ from . import build
 from .decode_lib import decode_block_values
 
 __all__ = ["nxfp_decode_attention", "nxfp_decode_attention_plain",
-           "dequant_cache"]
+           "dequant_cache", "attention_split", "TILE_ROWS"]
 
 LAUNCHES = 0          # kernel launches since the caller last set it to 0
 KERNEL_BITS = (4, 5, 6, 8)
+TILE_ROWS = 32        # cache rows per tile of the kernel (one per lane)
+CTAS_PER_SM = 2       # the split grid aims at about two CTAs on every SM
 _NEG = -1e30
+
+_scratch: dict = {}   # split buffers per (device, stream), split_scratch
+
+
+def attention_split(b: int, kvh: int, s: int, n_sm: int = 132):
+    """Split-S plan: (splits, tiles per split) for a cache of ``s`` rows.
+
+    Split i of each (batch, KV head) takes the 32-row tiles
+    [i * tps, min(n_tiles, (i + 1) * tps)), n_tiles = ceil(s / 32): every
+    split holds at least one tile and the splits cover them once. The
+    grid (kvh, b, splits) aims at ``CTAS_PER_SM`` CTAs per SM, so splits
+    fall to 1 when b * kvh alone reaches that. Planned from the cache
+    length, never from the sequences' lengths: no device sync.
+    """
+    n_tiles = max(1, -(-s // TILE_ROWS))
+    want = max(1, -(-CTAS_PER_SM * n_sm // max(1, b * kvh)))
+    tps = -(-n_tiles // min(want, n_tiles))
+    return -(-n_tiles // tps), tps
+
+
+def _split_plan(device, b: int, kvh: int, g: int, d: int, s: int):
+    """``attention_split`` on ``device`` and, with more than one split, the
+    current stream's partials (acc, m, l per split of each (batch, KV
+    head)) and per-(batch, KV head) counters (``build.split_scratch``)."""
+    splits, tps = attention_split(b, kvh, s, build.sm_count(device))
+    if splits == 1:
+        return splits, tps, None, None
+    ws, counters = build.split_scratch(
+        _scratch, device, b * kvh * splits * (g * d + 2 * g), b * kvh)
+    return splits, tps, ws, counters
 
 
 def dequant_cache(packed, meta, fmt: BlockFormat):
@@ -80,12 +115,19 @@ def nxfp_decode_attention(q, k_packed, k_meta, v_packed, v_meta, lengths,
     lens = lengths.to(torch.int32).reshape(b).contiguous()
     for t in (k_packed, k_meta, v_packed, v_meta):
         build.require(t.is_contiguous(), "cache must be contiguous")
+    build.require(k_packed.data_ptr() % 16 == 0 and v_packed.data_ptr() % 16
+                  == 0 and k_meta.data_ptr() % 4 == 0
+                  and v_meta.data_ptr() % 4 == 0, "misaligned cache")
+    lib = build.library()           # raises first where there is no card
     out = torch.empty((b, kvh, g, d), dtype=torch.float32, device=q.device)
+    splits, tps, ws, counters = _split_plan(q.device, b, kvh, g, d, s)
     desc = build.fmt_desc(fmt)
-    rc = build.library().nxfp_decode_attention_launch(
+    rc = lib.nxfp_decode_attention_launch(
         qc.data_ptr(), k_packed.data_ptr(), k_meta.data_ptr(),
         v_packed.data_ptr(), v_meta.data_ptr(), lens.data_ptr(),
-        out.data_ptr(), b, s, kvh, g, nb, ctypes.addressof(desc),
+        out.data_ptr(), b, s, kvh, g, nb, ctypes.addressof(desc), splits,
+        tps, 0 if ws is None else ws.data_ptr(),
+        0 if counters is None else counters.data_ptr(),
         build.stream_handle(q.device))
     build.check(rc, "nxfp_decode_attention")
     LAUNCHES += 1

@@ -40,12 +40,7 @@ class DecodeGeometry(NamedTuple):
 
 
 _geometry = None
-# per (device, stream): f32 partials and int32 tile counters, kept at 0
-# between launches (the last CTA of each tile resets its counter; a fault
-# inside a launch leaves the CUDA context unusable, so no later launch
-# meets a counter left off); and per device, the SM count
-_scratch: dict = {}
-_n_sm: dict = {}
+_scratch: dict = {}   # split-K buffers per (device, stream), split_scratch
 
 
 def decode_geometry() -> DecodeGeometry:
@@ -81,26 +76,20 @@ def decode_split(m: int, n: int, kb: int, block_size: int,
     return n_tiles, -(-kb // chunk), chunk
 
 
-def _decode_plan(device, m: int, n: int, kb: int, block_size: int):
-    """``decode_split`` on ``device`` and the current stream's split-K
-    buffers, grown when too small. The counters are zeroed once, at
-    allocation; each launch leaves them at 0. Only launches on the stream
-    that owns them use them, so they run one after another."""
-    if device not in _n_sm:
-        _n_sm[device] = torch.cuda.get_device_properties(
-            device).multi_processor_count
+def _regime(device, m: int, n: int, kb: int, block_size: int):
+    """The regime of a GEMM with ``m`` rows on ``device``, as
+    ``nxfp_matmul_launch`` takes it: (splits, chunk, ws_ptr, counters_ptr).
+    Up to ``decode_geometry().max_m`` rows, ``decode_split``'s plan and the
+    current stream's split-K buffers (``build.split_scratch``, kept in
+    ``_scratch``); above that all 0, which runs wgmma."""
+    if not 0 < m <= decode_geometry().max_m:
+        return 0, 0, 0, 0
     n_tiles, splits, chunk = decode_split(m, n, kb, block_size,
-                                          decode_geometry(), _n_sm[device])
-    key = (device, build.stream_handle(device))
-    ws, counters = _scratch.get(key, (None, None))
-    if ws is None or ws.numel() < splits * m * n:
-        ws = torch.empty(max(splits * m * n, 1 << 20), dtype=torch.float32,
-                         device=device)
-    if counters is None or counters.numel() < n_tiles:
-        counters = torch.zeros(max(n_tiles, 4096), dtype=torch.int32,
-                               device=device)
-    _scratch[key] = (ws, counters)
-    return splits, chunk, ws, counters
+                                          decode_geometry(),
+                                          build.sm_count(device))
+    ws, counters = build.split_scratch(_scratch, device, splits * m * n,
+                                       n_tiles)
+    return splits, chunk, ws.data_ptr(), counters.data_ptr()
 
 
 def dequant_weight_bf16(packed, meta, fmt: BlockFormat):
@@ -146,15 +135,11 @@ def nxfp_matmul(x, packed, meta, fmt: BlockFormat):
     lib = build.library()           # raises first where there is no card
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     desc = build.fmt_desc(fmt)
-    splits = chunk = ws_ptr = counters_ptr = 0    # no plan: wgmma
-    if 0 < m <= decode_geometry().max_m:         # split-K streaming
-        splits, chunk, ws, counters = _decode_plan(x.device, m, n, kb,
-                                                   fmt.block_size)
-        ws_ptr, counters_ptr = ws.data_ptr(), counters.data_ptr()
     rc = lib.nxfp_matmul_launch(
         xb.data_ptr(), packed.data_ptr(), meta.data_ptr(), y.data_ptr(),
-        m, n, kb, ctypes.addressof(desc), splits, chunk, ws_ptr,
-        counters_ptr, build.stream_handle(x.device))
+        m, n, kb, ctypes.addressof(desc),
+        *_regime(x.device, m, n, kb, fmt.block_size),
+        build.stream_handle(x.device))
     build.check(rc, "nxfp_matmul")
     LAUNCHES += 1
     return y

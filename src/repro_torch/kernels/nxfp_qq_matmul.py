@@ -1,7 +1,11 @@
 """Quantized x quantized GEMM: y = dequant(Xq) @ dequant(Wq)^T, f32 out.
 
 CUDA kernel: ``csrc/nxfp_qq_matmul.cu`` (replaces the reference's
-``kernels/nxfp_qq_matmul.py:nxfp_qq_matmul_pallas``). Plain version:
+``kernels/nxfp_qq_matmul.py:nxfp_qq_matmul_pallas``), one C call per
+GEMM: a pass decodes X once into a bf16 buffer, then the dequant GEMM's
+regime runs on it (``nxfp_matmul``'s split-K streaming up to
+``decode_geometry().max_m`` rows, its wgmma pipeline above), so the
+result is ``nxfp_matmul`` of the decoded X bit for bit. Plain version:
 ``nxfp_qq_matmul_plain``, a port of the reference's ``qq_matmul_ref``:
 both operands decoded to f32, rounded to bf16 and multiplied as an f32
 matmul of the rounded values (bf16 x bf16 products are exact in f32), the
@@ -20,7 +24,7 @@ import torch
 
 from ..core.formats import BlockFormat
 from . import build
-from .nxfp_matmul import dequant_weight_bf16
+from .nxfp_matmul import _regime, dequant_weight_bf16
 
 __all__ = ["nxfp_qq_matmul", "nxfp_qq_matmul_plain"]
 
@@ -36,7 +40,7 @@ def nxfp_qq_matmul_plain(x_packed, x_meta, w_packed, w_meta,
     return xd.float() @ wd.float().T
 
 
-def _check(packed, meta, fmt: BlockFormat, what: str):
+def _check(packed, meta, fmt: BlockFormat, what: str, align: int):
     build.require(packed.dim() == 3 and packed.dtype == torch.uint8
                   and packed.shape[-1] == fmt.bytes_per_block,
                   f"{what} packed {tuple(packed.shape)} {packed.dtype}")
@@ -44,8 +48,9 @@ def _check(packed, meta, fmt: BlockFormat, what: str):
                   and meta.dtype == build.meta_dtype(fmt),
                   f"{what} meta {tuple(meta.shape)} {meta.dtype}")
     build.require(packed.is_contiguous() and meta.is_contiguous()
-                  and packed.data_ptr() % 4 == 0,
-                  f"{what} must be contiguous and 4-byte aligned")
+                  and packed.data_ptr() % align == 0
+                  and meta.data_ptr() % 4 == 0,
+                  f"{what} must be contiguous and {align}-byte aligned")
 
 
 def nxfp_qq_matmul(x_packed, x_meta, w_packed, w_meta, x_fmt: BlockFormat,
@@ -69,16 +74,22 @@ def nxfp_qq_matmul(x_packed, x_meta, w_packed, w_meta, x_fmt: BlockFormat,
             raise NotImplementedError(
                 f"{f.name}: the CUDA qq GEMM takes 4/5/6/8-bit formats with "
                 "block size 16/32")
-    _check(x_packed, x_meta, x_fmt, "activation")
-    _check(w_packed, w_meta, w_fmt, "weight")
+    _check(x_packed, x_meta, x_fmt, "activation", 4)
+    _check(w_packed, w_meta, w_fmt, "weight", 16)
+    lib = build.library()           # raises first where there is no card
     m, kb, _ = x_packed.shape
     n = w_packed.shape[0]
-    y = torch.empty((m, n), dtype=torch.float32, device=x_packed.device)
+    dev = x_packed.device
+    y = torch.empty((m, n), dtype=torch.float32, device=dev)
+    # the decoded X, (M, K) bf16: written and read back by this call alone
+    x_bf16 = torch.empty((m, kb * x_fmt.block_size), dtype=torch.bfloat16,
+                         device=dev)
     xd, wd = build.fmt_desc(x_fmt), build.fmt_desc(w_fmt)
-    rc = build.library().nxfp_qq_matmul_launch(
+    rc = lib.nxfp_qq_matmul_launch(
         x_packed.data_ptr(), x_meta.data_ptr(), w_packed.data_ptr(),
         w_meta.data_ptr(), y.data_ptr(), m, n, kb, ctypes.addressof(xd),
-        ctypes.addressof(wd), build.stream_handle(x_packed.device))
+        ctypes.addressof(wd), x_bf16.data_ptr(),
+        *_regime(dev, m, n, kb, w_fmt.block_size), build.stream_handle(dev))
     build.check(rc, "nxfp_qq_matmul")
     LAUNCHES += 1
     return y

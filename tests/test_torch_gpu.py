@@ -179,26 +179,96 @@ def test_attention_kernel_matches_plain(cuda, fname, hd):
     assert float((out - ref).abs().max()) <= 1e-5 * vmax
 
 
-@pytest.mark.parametrize("xf,wf", QQ_PAIRS)
-@pytest.mark.parametrize("m", [1, 17, 512])
-def test_qq_kernel_matches_plain(cuda, xf, wf, m):
-    """Ragged M, N and K (10 blocks: not a multiple of the 128-wide K
-    step); both operands decoded to bf16 and summed in f32 in another
-    order than the plain matmul: 1e-5 of sum|x||w|."""
+def _attention_case(cuda, fname, lens, s, seed=0, kvh=8, grp=4, hd=128):
+    fmt = get_format(fname)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    b = len(lens)
+    k = torch.randn((b, s, kvh, hd), generator=g, device=cuda)
+    v = torch.randn((b, s, kvh, hd), generator=g, device=cuda)
+    kq = quantize_qtensor(k, fmt, axis=-1, device=cuda)
+    vq = quantize_qtensor(v, fmt, axis=-1, device=cuda)
+    q = torch.randn((b, kvh, grp, hd), generator=g, device=cuda) * hd ** -0.5
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    return (q, kq.packed, kq.meta, vq.packed, vq.meta, lengths, fmt)
+
+
+@pytest.mark.parametrize("fname", ["nxfp4", "amxfp4", "mxfp4_ox"])
+@pytest.mark.parametrize("s,lens", [(100, (100, 0, 33, 64)),
+                                    (4096, (4096, 3001, 1024, 17))])
+def test_attention_kernel_split_edges(cuda, fname, s, lens):
+    """Split-S at its edges: S 100 (a ragged last tile, four splits of one
+    tile, some wholly past a length), a length-0 row (its output is 0),
+    and a 4096-row cache (nine splits of 15 tiles); 1e-5 of max|V|."""
+    args = _attention_case(cuda, fname, lens, s, seed=s)
+    out = na.nxfp_decode_attention(*args)
+    ref = na.nxfp_decode_attention_plain(*args)
+    vmax = float(na.dequant_cache(args[3], args[4], args[6]).abs().max())
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert na.attention_split(len(lens), 8, s, n_sm)[0] > 1
+    assert float((out - ref).abs().max()) <= 1e-5 * vmax
+    for i, n in enumerate(lens):
+        if n == 0:
+            assert not out[i].any()
+
+
+def test_attention_kernel_bitwise_repeatable_per_stream(cuda):
+    """The split partials are merged in split order by the last CTA of
+    each (batch, KV head), never by atomics on the output: a second launch
+    and launches on two side streams (each with its own scratch) give the
+    same bits, and every stream's counters are back at 0."""
+    args = _attention_case(cuda, "nxfp4", (256, 200, 131, 17), 256, seed=3)
+    first = na.nxfp_decode_attention(*args)
+    outs = [na.nxfp_decode_attention(*args) for _ in range(3)]
+    side = [torch.cuda.Stream(cuda) for _ in range(2)]
+    torch.cuda.synchronize(cuda)
+    for st in side:
+        with torch.cuda.stream(st):
+            outs += [na.nxfp_decode_attention(*args) for _ in range(3)]
+    torch.cuda.synchronize(cuda)
+    assert all(torch.equal(first, y) for y in outs)
+    streams = [torch.cuda.current_stream(cuda).cuda_stream] + [
+        st.cuda_stream for st in side]
+    for handle in streams:
+        assert int(na._scratch[(args[0].device, handle)][1].abs().sum()) == 0
+
+
+def _qq_case(cuda, xf, wf, m, k=320, n=200):
     x_fmt, w_fmt = get_format(xf), get_format(wf)
     g = torch.Generator(device=cuda).manual_seed(m)
-    k, n = 320, 200
     x = torch.randn((m, k), generator=g, device=cuda).to(torch.bfloat16)
     w = torch.randn((k, n), generator=g, device=cuda) * 0.05
     xq = quantize_qtensor(x, x_fmt, axis=-1, device=cuda)
     wq = quantize_qtensor(w, w_fmt, axis=-2, device=cuda)
-    args = (xq.packed, xq.meta, wq.packed, wq.meta, x_fmt, w_fmt)
+    return (xq.packed, xq.meta, wq.packed, wq.meta, x_fmt, w_fmt)
+
+
+@pytest.mark.parametrize("xf,wf", QQ_PAIRS)
+@pytest.mark.parametrize("m", [1, 17, 512])
+def test_qq_kernel_matches_plain(cuda, xf, wf, m):
+    """Ragged M, N and K (10 blocks: not a multiple of the prefill
+    regime's 64-wide K step); both operands decoded to bf16 and summed in
+    f32 in another order than the plain matmul: 1e-5 of sum|x||w|."""
+    args = _qq_case(cuda, xf, wf, m)
     y = nqq.nxfp_qq_matmul(*args)
     yp = nqq.nxfp_qq_matmul_plain(*args)
-    xd = nm.dequant_weight_bf16(xq.packed, xq.meta, x_fmt).float()
-    wd = nm.dequant_weight_bf16(wq.packed, wq.meta, w_fmt).float()
-    assert y.shape == (m, n) and torch.isfinite(y).all()
+    xd = nm.dequant_weight_bf16(args[0], args[1], args[4]).float()
+    wd = nm.dequant_weight_bf16(args[2], args[3], args[5]).float()
+    assert y.shape == (m, 200) and torch.isfinite(y).all()
     assert ((y - yp).abs() <= 1e-5 * (xd.abs() @ wd.abs().T) + 1e-30).all()
+
+
+@pytest.mark.parametrize("xf,wf", QQ_PAIRS)
+@pytest.mark.parametrize("m", [1, 17, 512])
+def test_qq_kernel_bits_of_dequant_gemm(cuda, xf, wf, m):
+    """The qq GEMM decodes X once and runs the dequant GEMM's regime on
+    it (split-K streaming at M 1, wgmma at 17 and 512): its output is the
+    bits of ``nxfp_matmul`` fed the plain-decoded X, and a second launch
+    gives the same bits."""
+    args = _qq_case(cuda, xf, wf, m)
+    y = nqq.nxfp_qq_matmul(*args)
+    assert torch.equal(y, nqq.nxfp_qq_matmul(*args))
+    xd = nm.dequant_weight_bf16(args[0], args[1], args[4])
+    assert torch.equal(y, nm.nxfp_matmul(xd, args[2], args[3], args[5]))
 
 
 def test_smoke_act_prefill_on_card_matches_cpu(cuda):
