@@ -12,8 +12,11 @@ Phases, each fatal on failure (exit code 1, no result line):
    shared-memory lines; the prefill GEMM's SASS must hold HGMMA.
 3. Kernels against their plain PyTorch versions on the card, at the shapes
    the Llama-3-8B paths give them: the quantizer bitwise (up to counted
-   candidate near-ties) on a weight cast (nxfp4) and on a prefill
-   activation (amxfp4, uint32 meta), the dequant GEMM (at the four
+   candidate near-ties) on a weight cast (nxfp4, f32), on a prefill
+   activation (amxfp4, bf16 read as it is, uint32 meta) and on the two
+   K/V cache writes (nxfp4, bf16, K and V in one launch into the cache
+   rows: a decode step's at ragged rows, a 4 x 128 prefill's), the
+   dequant GEMM (at the four
    main-path (K, N) pairs and M 4, 16 and 512, bitwise on a second
    launch), the decode attention (S 256 and 4096, bitwise on a second
    launch) and the quantized x quantized (qq) GEMM (the MLP shapes at
@@ -30,14 +33,16 @@ Phases, each fatal on failure (exit code 1, no result line):
    tokens, 32 greedy tokens through the device loop (chunk 16) and the
    host loop, which must agree. Every kernel's launch counter is set to 0
    just before and read just after; each kernel of the path (all but the
-   qq GEMM) must be > 0.
+   qq GEMM) must be > 0, and a decode step must launch the quantizer once
+   per layer (K and V of a layer in one launch).
 6. The qq prefill path at full width: the same weights, 4 x 128 prompt
    tokens through ``prefill(..., kv_fmt="nxfp4", act_fmt="amxfp4")``
    (amxfp4 activations x nxfp4 weights in every projection), then 32
    greedy tokens through ``decode_loop``. Counters are set to 0 just
    before and read just after; every kernel of the path (quantizer, qq
-   GEMM, dequant GEMM, decode attention) must be > 0, with 7 qq GEMMs
-   per layer in the prefill. Logits must be finite and bitwise equal on a
+   GEMM, dequant GEMM, decode attention) must be > 0, with 7 qq GEMMs and
+   5 quantizer launches (4 activation encodes, K and V) per layer in the
+   prefill. Logits must be finite and bitwise equal on a
    second run. The qq and dense-activation prefills are timed in turns,
    8 rounds of (qq, dense, dense, qq), and compared by their medians and
    by each round's ratio.
@@ -67,7 +72,8 @@ PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
 # f32 operations per element per candidate in the quantizer's encode:
 # scale, abs, clamp, exponent read, two ulp multiplies + round, clamp,
-# sign select, dequant multiply, subtract, square, add
+# sign select, dequant multiply, subtract, square, add; counted over the
+# candidates the kernel evaluates for this data (evaluated_candidates)
 QUANT_OPS = 13
 
 
@@ -179,6 +185,18 @@ def phase_build():
         f"{sum(c for f, c in hg.items() if f not in prefill)}")
 
 
+def _quantizer_traits(nq, flat, fmt):
+    """(candidates the quantizer evaluates over ``flat``, its regime) for
+    the quantizer module ``nq`` of the tree under test; a quantizer
+    without a plan (``scripts/compare_kernels.py`` times older trees)
+    runs a thread per block over every candidate."""
+    if not hasattr(nq, "quantize_plan"):
+        from repro_torch.core.quantize import candidates
+        return flat.shape[0] * len(candidates(fmt)), "thread per block"
+    return (int(nq.evaluated_candidates(flat, fmt).sum()),
+            nq.quantize_plan(flat.shape[0], fmt.block_size).regime)
+
+
 def check_quantizer(timer, rows):
     from repro_torch.core.formats import get_format
     from repro_torch.core.quantize import near_tie_blocks, to_blocks
@@ -207,17 +225,21 @@ def check_quantizer(timer, rows):
 
     err = float((deq(kp, km) - deq(pp, pm)).abs().max())
     t = flat.shape[0]
+    n_cands, regime = _quantizer_traits(nq, flat, fmt)
     n_bytes = t * 32 * 4 + t * fmt.bytes_per_block + t * 2
-    n_ops = t * 32 * 4 * QUANT_OPS              # 4 candidates for nxfp4
+    n_ops = n_cands * 32 * QUANT_OPS
     ms = timer(lambda: nq.nxfp_quantize_pack(flat, fmt))
     plain_ms = timer(lambda: nq.nxfp_quantize_pack_plain(flat, fmt), 3)
     b_ms, b_by = bound(n_bytes, n_ops, PEAK_F32)
-    log(f"quantizer (4096x14336 f32 weight, {t} blocks): packed+meta "
-        f"bitwise except {n_diff} near-tie blocks; kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    log(f"quantizer (4096x14336 f32 weight, {t} blocks, {regime} "
+        f"regime): packed+meta bitwise "
+        f"except {n_diff} near-tie blocks; {n_cands / t:.4f} of 4 "
+        f"candidates evaluated per block; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     rows["nxfp_quantize"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=None, near_ties=n_diff,
+        candidates_per_block=n_cands / t,
         shape=f"(4096, 14336) f32 weight, {t} blocks of 32, nxfp4")
 
 
@@ -225,8 +247,8 @@ def check_act_quantizer(timer, rows):
     """amxfp4 over the W2 input of a 4 x 128 prefill: (512, 14336) bf16."""
     from repro_torch.core.formats import get_format
     from repro_torch.core.pack import unpack_codes
-    from repro_torch.core.quantize import (candidates, meta_int32,
-                                           near_tie_blocks, to_blocks)
+    from repro_torch.core.quantize import (meta_int32, near_tie_blocks,
+                                           to_blocks)
     from repro_torch.kernels import nxfp_quantize as nq
     from repro_torch.kernels.decode_lib import decode_block_values
 
@@ -236,7 +258,9 @@ def check_act_quantizer(timer, rows):
          * torch.rand((512, 1), generator=gen, device="cuda")).to(
         torch.bfloat16)
     xb, _ = to_blocks(x, fmt.block_size, -1)
-    flat = xb.reshape(-1, fmt.block_size).to(torch.float32).contiguous()
+    flat = xb.reshape(-1, fmt.block_size).contiguous()       # bf16, no copy
+    if not hasattr(nq, "quantize_plan"):     # a quantizer that reads f32 only
+        flat = flat.float()
     kp, km = nq.nxfp_quantize_pack(flat, fmt)
     pp, pm = nq.nxfp_quantize_pack_plain(flat, fmt)
     torch.cuda.synchronize()
@@ -253,20 +277,100 @@ def check_act_quantizer(timer, rows):
 
     err = float((deq(kp, km) - deq(pp, pm)).abs().max())
     t = flat.shape[0]
-    n_bytes = t * 32 * 4 + t * fmt.bytes_per_block + t * 4
+    n_cands, regime = _quantizer_traits(nq, flat, fmt)
+    n_bytes = (t * 32 * flat.element_size() + t * fmt.bytes_per_block
+               + t * 4)
     # asym: two sides (exponent, nano, reciprocal) and a sign select more
-    n_ops = t * 32 * len(candidates(fmt)) * (QUANT_OPS + 2)
+    n_ops = n_cands * 32 * (QUANT_OPS + 2)
     ms = timer(lambda: nq.nxfp_quantize_pack(flat, fmt))
     plain_ms = timer(lambda: nq.nxfp_quantize_pack_plain(flat, fmt), 3)
     b_ms, b_by = bound(n_bytes, n_ops, PEAK_F32)
-    log(f"activation quantizer (512x14336 bf16 activation as f32, {t} "
-        f"blocks, amxfp4): packed+uint32 meta bitwise except {n_diff} "
-        f"near-tie blocks; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by})")
+    log(f"activation quantizer (512x14336 bf16 activation read as "
+        f"{flat.dtype}, {t} blocks, amxfp4, {regime} regime): "
+        f"packed+uint32 meta bitwise except {n_diff} near-tie blocks; "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by})")
     rows["nxfp_quantize amxfp4"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms,
         bound_ms=b_ms, bound_by=b_by, library_ms=None, near_ties=n_diff,
-        shape=f"(512, 14336) bf16 activation, {t} blocks of 32, amxfp4")
+        shape=f"(512, 14336) bf16 activation read as {flat.dtype}, {t} "
+              "blocks of 32, amxfp4")
+
+
+# the K/V cache writes of the main path (Llama-3-8B's 8 KV heads of 128,
+# B 4, max_len 256): a decode step at ragged rows and a 4 x 128 prefill
+KV_CASES = {"decode": (1, (128, 200, 17, 255)), "prefill": (128, None)}
+
+
+def check_kv_write(timer, rows):
+    """K and V encoded in one launch straight into the layer cache's rows,
+    bitwise (up to counted near-ties) against the codec + row writes."""
+    from repro_torch.core.formats import get_format
+    from repro_torch.core.pack import unpack_codes
+    from repro_torch.core.quantize import near_tie_blocks, to_blocks
+    from repro_torch.kernels import nxfp_quantize as nq
+    from repro_torch.kernels.decode_lib import decode_block_values
+
+    fmt = get_format("nxfp4")
+    b, kvh, hd, s = 4, 8, 128, 256
+    nb = hd // fmt.block_size
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for case, (t, pos) in KV_CASES.items():
+        k, v = (torch.randn((b, t, kvh, hd), generator=gen, device="cuda")
+                .to(torch.bfloat16) for _ in range(2))
+        pos_t = (None if pos is None
+                 else torch.tensor(pos, dtype=torch.int32, device="cuda"))
+
+        def empty():
+            return {f"{n}_{key}": torch.zeros(
+                (b, s, kvh, nb) + tail, dtype=dt, device="cuda")
+                for n in "kv" for key, tail, dt in (
+                    ("packed", (fmt.bytes_per_block,), torch.uint8),
+                    ("meta", (), torch.uint16))}
+
+        cache, plain = empty(), empty()
+        nq.nxfp_quantize_kv_rows(k, v, cache, pos_t, fmt)
+        nq.nxfp_quantize_kv_rows_plain(k, v, plain, pos_t, fmt)
+        torch.cuda.synchronize()
+        n_diff, err, n_cands = 0, 0.0, 0
+        at = (torch.arange(t, device="cuda")[None, :] if pos_t is None
+              else pos_t[:, None] + torch.arange(t, device="cuda"))
+        slots = torch.arange(b, device="cuda")[:, None]
+        for n, x in (("k", k), ("v", v)):
+            kp, km = cache[f"{n}_packed"], cache[f"{n}_meta"]
+            pp, pm = plain[f"{n}_packed"], plain[f"{n}_meta"]
+            diff = (kp != pp).any(-1) | (km.to(torch.int32)
+                                         != pm.to(torch.int32))
+            src = torch.zeros((b, s, kvh, hd), device="cuda")
+            src[slots, at] = x.float()
+            xb, _ = to_blocks(src, fmt.block_size, -1)
+            if diff.any() and not bool(near_tie_blocks(xb[diff], fmt).all()):
+                fail(f"KV write ({case}): {int(diff.sum())} blocks differ "
+                     "from the plain version beyond a candidate near-tie")
+            n_diff += int(diff.sum())
+            err = max(err, float((decode_block_values(
+                unpack_codes(kp, fmt.bits, 32), km, fmt) - decode_block_values(
+                unpack_codes(pp, fmt.bits, 32), pm, fmt)).abs().max()))
+            n_cands += int(nq.evaluated_candidates(
+                x.reshape(-1, fmt.block_size), fmt).sum())
+        n_blocks = 2 * b * t * kvh * nb
+        ms = timer(lambda: nq.nxfp_quantize_kv_rows(k, v, cache, pos_t, fmt))
+        plain_ms = timer(lambda: nq.nxfp_quantize_kv_rows_plain(
+            k, v, plain, pos_t, fmt), 5)
+        n_bytes = (2 * k.numel() * 2 + n_blocks * (fmt.bytes_per_block + 2)
+                   + (0 if pos_t is None else b * 4))
+        b_ms, b_by = bound(n_bytes, n_cands * 32 * QUANT_OPS, PEAK_F32)
+        regime = nq.quantize_plan(n_blocks, fmt.block_size).regime
+        log(f"KV write ({case}: K and V (4, {t}, 8, 128) bf16 -> nxfp4 "
+            f"cache rows {'0..' + str(t - 1) if pos is None else list(pos)}, "
+            f"{n_blocks} blocks, one launch, {regime} regime): bitwise except "
+            f"{n_diff} near-tie blocks; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+        rows[f"nxfp_quantize kv {case}"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=None, near_ties=n_diff,
+            shape=f"K, V (4, {t}, 8, 128) bf16 into an nxfp4 cache of 256 "
+                  f"rows, {n_blocks} blocks")
 
 
 # the qq GEMM's rows: a 4 x 128 prefill (the wgmma regime) and 16 rows
@@ -577,6 +681,9 @@ def phase_main(n_layers: int):
     decode_step(cfg, engine.params, logits.argmax(-1).to(torch.int32)[:, None],
                 cache, "nxfp4")
     per_step = launch_counts()
+    if per_step["nxfp_quantize"] != cfg.n_layers:
+        fail(f"decode step: {per_step['nxfp_quantize']} quantizer launches, "
+             f"expected one per layer ({cfg.n_layers})")
 
     steps = 32
     log(f"  greedy 4 x 32 tokens, device loop (chunk 16) == host loop: "
@@ -632,6 +739,9 @@ def phase_act(cfg, engine, prompts):
     if per_prefill["nxfp_qq_matmul"] != 7 * cfg.n_layers:
         fail(f"qq prefill: {per_prefill['nxfp_qq_matmul']} qq GEMMs, "
              f"expected 7 per layer ({7 * cfg.n_layers})")
+    if per_prefill["nxfp_quantize"] != 5 * cfg.n_layers:
+        fail(f"qq prefill: {per_prefill['nxfp_quantize']} quantizer "
+             f"launches, expected 5 per layer ({5 * cfg.n_layers})")
     if out.shape != (4, 32) or out.min() < 0 or out.max() >= cfg.vocab:
         fail(f"qq prefill path: decoded tokens {tuple(out.shape)} out of "
              "range")
@@ -666,7 +776,7 @@ def phase_act(cfg, engine, prompts):
         f"activations x nxfp4 weights, nxfp4 KV) + 32 greedy tokens:")
     log(f"  launches per prefill: {per_prefill} (7 qq GEMMs and "
         f"{per_prefill['nxfp_quantize'] // cfg.n_layers} quantizer launches "
-        f"per layer: 4 activation encodes + K and V)")
+        f"per layer: 4 activation encodes + one for K and V)")
     log(f"  launches on the path (prefill + decode_loop): {counts}")
     log(f"  prefill seconds, {PREFILL_ROUNDS} rounds of (qq, dense, dense, "
         f"qq) after the counted run: act_fmt=amxfp4 {secs['amxfp4']}, "
@@ -689,7 +799,13 @@ def phase_act(cfg, engine, prompts):
 # its decode pass then the dequant GEMM's prefill regime) and the TPU
 # kernel it replaces
 KERNELS = {
-    "nxfp_quantize": (["src/repro_torch/csrc/nxfp_quantize.cu"],
+    "nxfp_quantize": (["src/repro_torch/csrc/nxfp_quantize_kernels.cuh",
+                       "src/repro_torch/csrc/nxfp_quantize.cuh",
+                       "src/repro_torch/csrc/nxfp_quantize.cu",
+                       "src/repro_torch/csrc/nxfp_quantize_b4.cu",
+                       "src/repro_torch/csrc/nxfp_quantize_b5.cu",
+                       "src/repro_torch/csrc/nxfp_quantize_b6.cu",
+                       "src/repro_torch/csrc/nxfp_quantize_b8.cu"],
                       "src/repro/kernels/nxfp_quantize.py:92"),
     "nxfp_matmul": (["src/repro_torch/csrc/nxfp_matmul_decode.cu",
                      "src/repro_torch/csrc/nxfp_matmul_prefill.cu",
@@ -738,6 +854,7 @@ def main():
     rows = {}
     check_quantizer(timer, rows)
     check_act_quantizer(timer, rows)
+    check_kv_write(timer, rows)
     check_matmul(timer, rows)
     check_attention(timer, rows)
     check_qq_matmul(timer, rows)

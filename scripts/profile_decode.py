@@ -12,8 +12,9 @@ the same prompts with dense activations and with the qq path
 (``act_fmt="amxfp4"``). Prints, per decode step and per prefill: the
 host-clock time, the device time summed over kernels (busy) and the idle
 share, the top kernels by device time and the top CPU operators by self
-time; then the host cost of one call of each kernel wrapper (launch only,
-no synchronise). Needs a CUDA device.
+time; then the host cost of one call of each kernel wrapper at a decode
+step's shapes (the quantizer: K and V into the cache), launch only, no
+synchronise. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -42,14 +43,20 @@ def wrapper_host_us(n: int = 200):
     w = quantize_qtensor(torch.randn((4096, 4096), device=dev), fmt, -2,
                          device=dev)
     x = torch.randn((4, 4096), device=dev).to(torch.bfloat16)
-    xb = torch.randn((4 * 8 * 4, 32), device=dev)
+    k1 = torch.randn((4, 1, 8, 128), device=dev).to(torch.bfloat16)
+    cache = {f"{n}_{key}": torch.zeros((4, 256, 8, 4) + tail, dtype=dt,
+                                       device=dev)
+             for n in "kv" for key, tail, dt in (
+                 ("packed", (16,), torch.uint8), ("meta", (), torch.uint16))}
+    pos = torch.full((4,), 200, dtype=torch.int32, device=dev)
     kv = quantize_qtensor(torch.randn((4, 256, 8, 128), device=dev), fmt, -1,
                           device=dev)
     q = torch.randn((4, 8, 4, 128), device=dev)
     lens = torch.full((4,), 200, dtype=torch.int32, device=dev)
     calls = {
         "nxfp_matmul": lambda: nm.nxfp_matmul(x, w.packed, w.meta, fmt),
-        "nxfp_quantize": lambda: nq.nxfp_quantize_pack(xb, fmt),
+        "nxfp_quantize": lambda: nq.nxfp_quantize_kv_rows(k1, k1, cache, pos,
+                                                          fmt),
         "nxfp_decode_attention": lambda: na.nxfp_decode_attention(
             q, kv.packed, kv.meta, kv.packed, kv.meta, lens, fmt),
     }

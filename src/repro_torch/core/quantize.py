@@ -41,7 +41,7 @@ from .levels import level_table
 __all__ = ["pow2i", "floor_log2_bits", "meta_fields", "meta_int32",
            "arith_encode_blocks", "quantize_blocks_arith",
            "dequantize_blocks", "to_blocks", "from_blocks", "candidates",
-           "near_tie_blocks", "ox_emax", "ox_substitute"]
+           "near_tie_blocks", "ox_emax", "ox_substitute", "block_maxima"]
 
 _E_BIAS = 128
 _F32_TINY = float(np.finfo(np.float32).tiny)
@@ -215,8 +215,10 @@ def _encode_candidate(xb, vmax, vmax_e, fmt_bit, nano_mode, table, cr,
     return codes, meta, mse
 
 
-def _candidate_results(xb, fmt: BlockFormat):
-    """Yield (codes, meta, mse) of every candidate, in the reference's order."""
+def block_maxima(xb, fmt: BlockFormat):
+    """The codec's input cleanup and block maxima: (f32 blocks with NaN as
+    0, +-inf as +-1e30 and subnormals as 0, [(vmax, vmax_e)] for one side,
+    or for the positive and the negative side of an asym format)."""
     xb = torch.nan_to_num(xb.to(torch.float32), nan=0.0, posinf=1e30,
                           neginf=-1e30)
     # subnormal inputs read as zero, as the reference's XLA and TPU
@@ -225,13 +227,19 @@ def _candidate_results(xb, fmt: BlockFormat):
     if fmt.asym:
         # per-sign block maxima: each side's exponent fits its own half of
         # the value range (AMXFP dual scale)
-        vmax = torch.clamp(xb, min=0.0).amax(dim=-1)
-        vmax_n = torch.clamp(-xb, min=0.0).amax(dim=-1)
-        extra = dict(vmax_n=vmax_n, vmax_n_e=floor_log2_bits(vmax_n))
+        maxima = (torch.clamp(xb, min=0.0).amax(dim=-1),
+                  torch.clamp(-xb, min=0.0).amax(dim=-1))
     else:
-        vmax = xb.abs().amax(dim=-1)
-        extra = {}
-    vmax_e = floor_log2_bits(vmax)
+        maxima = (xb.abs().amax(dim=-1),)
+    return xb, [(vm, floor_log2_bits(vm)) for vm in maxima]
+
+
+def _candidate_results(xb, fmt: BlockFormat):
+    """Yield (codes, meta, mse) of every candidate, in the reference's order."""
+    xb, sides = block_maxima(xb, fmt)
+    (vmax, vmax_e), extra = sides[0], {}
+    if fmt.asym:
+        extra = dict(vmax_n=sides[1][0], vmax_n_e=sides[1][1])
     for fmt_bit, table, nano_mode in candidates(fmt):
         yield _encode_candidate(xb, vmax, vmax_e, fmt_bit, nano_mode, table,
                                 fmt.cr, ox=fmt.ox, **extra)

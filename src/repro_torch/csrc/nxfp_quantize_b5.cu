@@ -1,0 +1,7 @@
+// The quantizer's 5-bit instances (nxfp_quantize_kernels.cuh), in a file
+// of their own so that nvcc compiles the code widths in parallel.
+#include "nxfp_quantize_kernels.cuh"
+
+namespace nxfpq {
+NXFPQ_INSTANCES_5(NXFPQ_DECLARE)
+}  // namespace nxfpq

@@ -34,9 +34,14 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _COMMON = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# the quantizer must not contract a*b+c into FMAs: the reference rounds
-# the square and the sum of its MSE separately
-_PER_FILE = {"nxfp_quantize.cu": ["-fmad=false"]}
+# the quantizer (nxfp_quantize*.cu) must not contract a*b+c into FMAs: the
+# reference rounds the square and the sum of its MSE separately
+_PER_FILE = {"nxfp_quantize": ["-fmad=false"]}
+
+
+def _file_flags(name: str) -> list:
+    return [f for prefix, flags in _PER_FILE.items()
+            if name.startswith(prefix) for f in flags]
 
 _lib = None
 
@@ -87,7 +92,7 @@ def build() -> dict:
     procs = {}
     for cu in cus:
         obj = work / (cu.stem + ".o")
-        cmd = [nvcc, *_ARCH, *_COMMON, *_PER_FILE.get(cu.name, []),
+        cmd = [nvcc, *_ARCH, *_COMMON, *_file_flags(cu.name),
                "-I", str(CSRC), "-c", str(cu), "-o", str(obj)]
         procs[cu.name] = (obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
@@ -120,7 +125,7 @@ def library():
             raise RuntimeError("the CUDA kernels need a CUDA device")
         lib = ctypes.CDLL(build()["path"])
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.nxfp_quantize_launch.argtypes = [vp, vp, vp, ll, i, i, vp, vp]
+        lib.nxfp_quantize_launch.argtypes = [vp, i, i, vp, i, i, ll, vp]
         lib.nxfp_matmul_launch.argtypes = [vp, vp, vp, vp, i, i, i, vp, i, i,
                                            vp, vp, vp]
         lib.nxfp_matmul_decode_geometry.argtypes = [vp, vp, vp]

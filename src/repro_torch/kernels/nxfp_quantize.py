@@ -1,30 +1,50 @@
 """Fused NxFP block quantizer (Algorithm-1 encode + bit-pack).
 
-CUDA kernel: ``csrc/nxfp_quantize.cu`` (replaces the reference's
+CUDA kernel: ``csrc/nxfp_quantize_kernels.cuh`` (host entry
+``csrc/nxfp_quantize.cu``; replaces the reference's
 ``kernels/nxfp_quantize.py:nxfp_quantize_pack_pallas``). Plain version:
 ``nxfp_quantize_pack_plain``, the arithmetic codec of ``core.quantize``
-followed by ``core.pack.pack_codes``; the two are bitwise equal. Both
-take the symmetric weight/KV formats and the asymmetric (``asym``,
-uint32 meta) and outlier-mantissa (``ox``) activation formats.
+followed by ``core.pack.pack_codes``; the two are bitwise equal. Both take
+bf16 or f32 input and the symmetric weight/KV formats, the asymmetric
+(``asym``, uint32 meta) and the outlier-mantissa (``ox``) activation
+formats.
+
+``quantize_plan`` picks the kernel's regime from the block count: a warp
+per block for a small T (a decode step's K/V rows), a thread per block over
+a shared-memory tile otherwise. ``nxfp_quantize_kv_rows`` encodes a
+layer's K and V in one launch straight into its cache rows ``pos[b] + t``;
+its plain version is the codec followed by the same row writes.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import numpy as np
 import torch
 
 from ..core.formats import BlockFormat
 from ..core.pack import bytes_per_block, pack_codes
-from ..core.quantize import candidates, quantize_blocks_arith
+from ..core.quantize import (_side, block_maxima, candidates,
+                              quantize_blocks_arith, to_blocks)
 from . import build
 
 __all__ = ["nxfp_quantize_pack", "nxfp_quantize_pack_plain",
-           "kernel_supports"]
+           "nxfp_quantize_kv_rows", "nxfp_quantize_kv_rows_plain",
+           "quantize_plan", "warp_plan", "tile_plan", "QuantPlan",
+           "kernel_supports", "evaluated_candidates"]
 
 LAUNCHES = 0          # kernel launches since the caller last set it to 0
 KERNEL_BITS = (4, 5, 6, 8)
 _MAX_CANDS = 8
+# the warp-per-block regime up to this many blocks, the tile regime above
+# (on the H100 the two cross between 4096 and 8192 nxfp4 blocks:
+# scripts/compare_kernels.py's regime sweep)
+WARP_MAX_BLOCKS = 4096
+_MAX_WARPS = 8        # warps per CTA of the warp regime
+_TILE_MAX = 128       # blocks (threads) per CTA of the tile regime
+_REGIME = {"tile": 0, "warp": 1}
 
 
 class _Cand(ctypes.Structure):
@@ -34,15 +54,27 @@ class _Cand(ctypes.Structure):
                 ("max_pos", ctypes.c_float)]
 
 
-class _QuantFmt(ctypes.Structure):
+class _CandList(ctypes.Structure):
     _fields_ = [("cr", ctypes.c_int), ("asym", ctypes.c_int),
                 ("ox", ctypes.c_int), ("n_cands", ctypes.c_int),
                 ("c", _Cand * _MAX_CANDS)]
 
 
-def _desc(fmt: BlockFormat) -> _QuantFmt:
+class _Job(ctypes.Structure):
+    """``nxfpq::Job`` of ``csrc/nxfp_quantize.cuh``."""
+    _fields_ = [("src", ctypes.c_void_p * 2), ("packed", ctypes.c_void_p * 2),
+                ("meta", ctypes.c_void_p * 2), ("pos", ctypes.c_void_p),
+                ("n_per", ctypes.c_longlong)] + [
+        (n, ctypes.c_int) for n in ("n_tensors", "in_bf16", "b", "t", "kvh",
+                                    "hd", "nb", "s")]
+
+
+@functools.lru_cache(maxsize=None)
+def _desc(fmt: BlockFormat) -> _CandList:
+    """The format's candidate list for the host entry (built once; the C
+    side checks it against the kernel's compile-time element formats)."""
     cands = candidates(fmt)
-    d = _QuantFmt(int(fmt.cr), int(fmt.asym), int(fmt.ox), len(cands))
+    d = _CandList(int(fmt.cr), int(fmt.asym), int(fmt.ox), len(cands))
     for i, (fmt_bit, table, nano_mode) in enumerate(cands):
         el = table.fmt
         mode = -1 if nano_mode is None else (-2 if nano_mode == "round"
@@ -59,6 +91,66 @@ def kernel_supports(fmt: BlockFormat) -> bool:
             and len(candidates(fmt)) <= _MAX_CANDS)
 
 
+@dataclasses.dataclass(frozen=True)
+class QuantPlan:
+    """CTA ``c`` encodes blocks [c * per_cta, (c + 1) * per_cta): in the
+    ``tile`` regime a thread each, in the ``warp`` regime a warp each (two
+    per warp for 16-value blocks)."""
+    regime: str
+    per_cta: int
+    grid: int
+
+
+def warp_plan(n_blocks: int, block_size: int, n_sm: int) -> QuantPlan:
+    """A warp per block, with as few warps per CTA as spread the CTAs over
+    every SM."""
+    per_warp = 32 // block_size
+    warps = -(-max(n_blocks, 1) // per_warp)
+    per_cta = per_warp * min(_MAX_WARPS, max(1, -(-warps // n_sm)))
+    return QuantPlan("warp", per_cta, -(-max(n_blocks, 1) // per_cta))
+
+
+def tile_plan(n_blocks: int, n_sm: int) -> QuantPlan:
+    """A thread per block, 128 per CTA, halved (to 32 at least) while the
+    grid is under two CTAs per SM."""
+    per_cta = _TILE_MAX
+    while per_cta > 32 and -(-n_blocks // per_cta) < 2 * n_sm:
+        per_cta //= 2
+    return QuantPlan("tile", per_cta, -(-max(n_blocks, 1) // per_cta))
+
+
+def quantize_plan(n_blocks: int, block_size: int, n_sm: int = 132
+                  ) -> QuantPlan:
+    """The kernel's regime and grid for ``n_blocks`` blocks: the warp
+    regime up to ``WARP_MAX_BLOCKS`` blocks (a decode step's K and V:
+    256), the tile regime above. Planned on the host from the shape
+    alone."""
+    if n_blocks <= WARP_MAX_BLOCKS:
+        return warp_plan(n_blocks, block_size, n_sm)
+    return tile_plan(n_blocks, n_sm)
+
+
+def evaluated_candidates(xb, fmt: BlockFormat):
+    """(T,) int32: how many candidates the kernel evaluates for each of the
+    (T, B) blocks. It skips the nano-0 candidate that follows a
+    rounded-nano one of the same element format when the rounded nano came
+    out 0 on every side: the two are the same candidate. Plain PyTorch,
+    for a bound that counts the work this data needs."""
+    x, sides = block_maxima(xb, fmt)
+    count = torch.zeros(x.shape[:-1], dtype=torch.int32, device=x.device)
+    for _, table, nano_mode in candidates(fmt):
+        if nano_mode == "round":
+            zero = torch.ones_like(count, dtype=torch.bool)
+            for vm, vm_e in sides:
+                zero &= _side(vm, vm_e, "round", table)[1] == 0
+            count += 1
+        elif nano_mode is None and fmt.nm and fmt.nano_search != "exhaustive":
+            count += (~zero).to(torch.int32)
+        else:
+            count += 1
+    return count
+
+
 def nxfp_quantize_pack_plain(xb, fmt: BlockFormat):
     """(T, B) float blocks -> (packed uint8 (T, bpb), meta (T,) of
     ``fmt.meta_dtype``)."""
@@ -66,32 +158,133 @@ def nxfp_quantize_pack_plain(xb, fmt: BlockFormat):
     return pack_codes(codes, fmt.bits), meta
 
 
-def nxfp_quantize_pack(xb, fmt: BlockFormat):
-    """(T, B) f32 blocks -> (packed uint8 (T, bpb), meta (T,) uint16, or
-    uint32 for asym formats).
-
-    CPU tensors take the plain version; CUDA tensors launch the kernel,
-    which raises ``NotImplementedError`` for formats it does not take.
-    """
-    global LAUNCHES
-    if not build.on_cuda(xb):
-        return nxfp_quantize_pack_plain(xb, fmt)
+def _require_kernel(fmt: BlockFormat) -> None:
     if not kernel_supports(fmt):
         raise NotImplementedError(
             f"{fmt.name}: the CUDA quantizer takes 4/5/6/8-bit formats "
             "with the default recycle value and block size 16/32")
+
+
+def _check_input(x, name: str) -> None:
+    build.require(x.dtype in (torch.float32, torch.bfloat16),
+                  f"{name}: expected float32 or bfloat16, got {x.dtype}")
+    build.require(x.is_contiguous() and x.data_ptr() % 16 == 0,
+                  f"{name} must be contiguous and 16-byte aligned")
+
+
+def _launch(job: _Job, fmt: BlockFormat, n_blocks: int, device,
+            plan: QuantPlan | None) -> None:
+    global LAUNCHES
+    lib = build.library()
+    plan = plan or quantize_plan(n_blocks, fmt.block_size,
+                                 build.sm_count(device))
+    rc = lib.nxfp_quantize_launch(
+        ctypes.addressof(job), fmt.bits, fmt.block_size,
+        ctypes.addressof(_desc(fmt)), _REGIME[plan.regime], plan.per_cta,
+        plan.grid, build.stream_handle(device))
+    build.check(rc, "nxfp_quantize")
+    LAUNCHES += 1
+
+
+def nxfp_quantize_pack(xb, fmt: BlockFormat, plan: QuantPlan | None = None):
+    """(T, B) f32 or bf16 blocks -> (packed uint8 (T, bpb), meta (T,)
+    uint16, or uint32 for asym formats).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel,
+    which raises ``NotImplementedError`` for formats it does not take.
+    ``plan`` overrides ``quantize_plan`` (the tests and
+    ``scripts/compare_kernels.py`` run both regimes on the same blocks).
+    """
+    if not build.on_cuda(xb):
+        return nxfp_quantize_pack_plain(xb, fmt)
+    _require_kernel(fmt)
     t, b = xb.shape
     build.require(b == fmt.block_size, f"block axis {b} != {fmt.block_size}")
-    build.require(xb.dtype == torch.float32, f"expected float32, got {xb.dtype}")
-    build.require(xb.is_contiguous() and xb.data_ptr() % 16 == 0,
-                  "input must be contiguous and 16-byte aligned")
+    _check_input(xb, "input")
     packed = torch.empty((t, bytes_per_block(b, fmt.bits)), dtype=torch.uint8,
                          device=xb.device)
     meta = torch.empty((t,), dtype=build.meta_dtype(fmt), device=xb.device)
-    desc = _desc(fmt)
-    rc = build.library().nxfp_quantize_launch(
-        xb.data_ptr(), packed.data_ptr(), meta.data_ptr(), t, fmt.bits, b,
-        ctypes.addressof(desc), build.stream_handle(xb.device))
-    build.check(rc, "nxfp_quantize")
-    LAUNCHES += 1
+    job = _Job(src=(xb.data_ptr(), 0), packed=(packed.data_ptr(), 0),
+               meta=(meta.data_ptr(), 0), pos=None, n_per=t, n_tensors=1,
+               in_bf16=int(xb.dtype == torch.bfloat16), b=t, t=1, kvh=1,
+               hd=b, nb=1, s=1)
+    _launch(job, fmt, t, xb.device, plan)
     return packed, meta
+
+
+_BIT_VIEWS = {torch.uint16: torch.int16, torch.uint32: torch.int32}
+
+
+def _bits(t):
+    """A bit view torch can index-assign (uint16/uint32 meta -> int16/32)."""
+    view = _BIT_VIEWS.get(t.dtype)
+    return t if view is None else t.view(view)
+
+
+def nxfp_quantize_kv_rows_plain(k, v, cache: dict, pos, fmt: BlockFormat):
+    """The codec on K and V (B, T, KVH, hd), then row writes into the
+    layer cache: rows [0, T) of every slot when ``pos`` is None (prefill),
+    else rows ``pos[b] + t``. In place; returns ``cache``."""
+    b, t = k.shape[:2]
+    for name, x in (("k", k), ("v", v)):
+        xb, _ = to_blocks(x, fmt.block_size, -1)
+        packed, meta = nxfp_quantize_pack_plain(
+            xb.reshape(-1, fmt.block_size), fmt)
+        rows = {f"{name}_packed": packed.reshape(*xb.shape[:-1], -1),
+                f"{name}_meta": meta.reshape(xb.shape[:-1])}
+        for key, val in rows.items():
+            buf = _bits(cache[key])
+            if pos is None:
+                buf[:, :t] = _bits(val)
+            else:
+                at = pos[:, None] + torch.arange(t, device=pos.device)
+                buf[torch.arange(b, device=pos.device)[:, None], at] = \
+                    _bits(val)
+    return cache
+
+
+def nxfp_quantize_kv_rows(k, v, cache: dict, pos, fmt: BlockFormat):
+    """Encode K and V (B, T, KVH, hd), bf16 or f32, into the layer cache's
+    ``k_packed``/``k_meta``/``v_packed``/``v_meta`` (B, S, KVH, NB[, bpb])
+    at rows ``pos[b] + t`` (``pos`` (B,) int32 on the device, read there:
+    no sync), or rows [0, T) when ``pos`` is None. CUDA tensors: one
+    launch for K and V; a row outside [0, S) is not written. CPU tensors:
+    the plain version. Returns ``cache``, updated in place."""
+    tensors = [k, v] + [cache[f"{n}_{key}"] for n in "kv"
+                        for key in ("packed", "meta")]
+    tensors += [] if pos is None else [pos]
+    if not build.on_cuda(*tensors):
+        return nxfp_quantize_kv_rows_plain(k, v, cache, pos, fmt)
+    _require_kernel(fmt)
+    b, t, kvh, hd = k.shape
+    build.require(v.shape == k.shape and v.dtype == k.dtype,
+                  f"K {tuple(k.shape)} {k.dtype} and V {tuple(v.shape)} "
+                  f"{v.dtype} differ")
+    _check_input(k, "K")
+    _check_input(v, "V")
+    nb = -(-hd // fmt.block_size)
+    s = cache["k_packed"].shape[1]
+    bpb = bytes_per_block(fmt.block_size, fmt.bits)
+    for key, tail, dtype in (("packed", (nb, bpb), torch.uint8),
+                             ("meta", (nb,), build.meta_dtype(fmt))):
+        for name in "kv":
+            buf = cache[f"{name}_{key}"]
+            build.require(buf.shape == (b, s, kvh) + tail
+                          and buf.dtype == dtype and buf.is_contiguous(),
+                          f"cache {name}_{key}: {tuple(buf.shape)} "
+                          f"{buf.dtype}, expected {(b, s, kvh) + tail} "
+                          f"{dtype}, contiguous")
+    if pos is not None:
+        build.require(pos.shape == (b,) and pos.dtype == torch.int32,
+                      f"pos must be ({b},) int32, got {tuple(pos.shape)} "
+                      f"{pos.dtype}")
+    n_per = b * t * kvh * nb
+    job = _Job(src=(k.data_ptr(), v.data_ptr()),
+               packed=(cache["k_packed"].data_ptr(),
+                       cache["v_packed"].data_ptr()),
+               meta=(cache["k_meta"].data_ptr(), cache["v_meta"].data_ptr()),
+               pos=None if pos is None else pos.data_ptr(), n_per=n_per,
+               n_tensors=2, in_bf16=int(k.dtype == torch.bfloat16), b=b,
+               t=t, kvh=kvh, hd=hd, nb=nb, s=s)
+    _launch(job, fmt, 2 * n_per, k.device, None)
+    return cache

@@ -84,7 +84,10 @@ def quantize_qtensor(x, fmt, axis: int = -1, device=None) -> QTensor:
     x = x.to(resolve_device(device))
     axis = axis if axis < 0 else axis - x.ndim
     xb, orig = to_blocks(x, fmt.block_size, axis)
-    flat = xb.reshape(-1, fmt.block_size).to(torch.float32).contiguous()
+    flat = xb.reshape(-1, fmt.block_size)
+    if flat.dtype not in (torch.float32, torch.bfloat16):
+        flat = flat.to(torch.float32)       # the kernel reads bf16 or f32
+    flat = flat.contiguous()
     packed, meta = nxfp_quantize_pack(flat, fmt)
     packed = packed.reshape(*xb.shape[:-1], packed.shape[-1])
     meta = meta.reshape(xb.shape[:-1])

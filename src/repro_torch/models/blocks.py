@@ -50,8 +50,7 @@ def _attn_decode(cfg: ModelConfig, p: Params, h, layer_cache, pos,
     cos, sin = rope_freqs(positions, cfg.hd, cfg.rope_theta)
     q = apply_rope(q.reshape(b, 1, -1, cfg.hd), cos, sin).reshape(q.shape)
     k1 = apply_rope(k1, cos, sin)
-    write_token(cfg, layer_cache, k1.to(torch.float32),
-                v1.to(torch.float32), pos, kv_fmt)
+    write_token(cfg, layer_cache, k1, v1, pos, kv_fmt)
     o = attend_decode(cfg, layer_cache, q.reshape(b, cfg.n_heads, cfg.hd),
                       pos, kv_fmt)
     o = o.reshape(b, 1, cfg.n_heads * cfg.hd).to(h.dtype)

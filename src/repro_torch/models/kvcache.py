@@ -13,7 +13,9 @@ Positions are per slot: ``pos`` is a (B,) int tensor and each slot writes
 and attends at its own offset. Slots are dense (no SWA ring, no paging).
 Unlike the reference, ``write_token`` updates the layer's buffers in place
 (a decode step owns its cache), which keeps the decode loop free of
-per-step copies of the whole cache.
+per-step copies of the whole cache. A packed cache is written by the
+quantizer itself: K and V of a layer in one launch, straight into rows
+``pos[b] + t`` (``kernels/nxfp_quantize.py:nxfp_quantize_kv_rows``).
 """
 from __future__ import annotations
 
@@ -24,7 +26,8 @@ import torch
 from ..core.formats import get_format
 from ..core.pack import bytes_per_block
 from ..core.qtensor import QTensor
-from ..kernels.ops import decode_attention, quantize_qtensor
+from ..kernels.nxfp_quantize import nxfp_quantize_kv_rows
+from ..kernels.ops import decode_attention
 from .common import ModelConfig
 
 _NEG = -1e30
@@ -52,48 +55,32 @@ def attn_cache_init(cfg: ModelConfig, batch: int, max_len: int,
             "v_meta": z(nb, dtype=torch.uint16)}
 
 
-def _quantize_kv(x, kv_fmt: str):
-    """(B, T, KVH, hd) -> (packed, meta) along head_dim blocks."""
-    qt = quantize_qtensor(x, kv_fmt, axis=-1, device=x.device)
-    return qt.packed, qt.meta
-
-
-def _bits(t):
-    """A bit view torch can index-assign (uint16 meta -> int16)."""
-    return t.view(torch.int16) if t.dtype == torch.uint16 else t
-
-
 def write_prefill(cfg: ModelConfig, k, v, kv_fmt: Optional[str],
                   max_len: int):
-    """Build one layer's cache from full prefill K/V (B, T, KVH, hd)."""
+    """Build one layer's cache from full prefill K/V (B, T, KVH, hd); a
+    packed cache takes K and V in one quantizer launch."""
     b, t = k.shape[:2]
     cache = attn_cache_init(cfg, b, max_len, kv_fmt, k.device)
     if kv_fmt is None:
-        rows = {"k": k.to(cfg.dtype), "v": v.to(cfg.dtype)}
-    else:
-        kp, km = _quantize_kv(k, kv_fmt)
-        vp, vm = _quantize_kv(v, kv_fmt)
-        rows = {"k_packed": kp, "k_meta": km, "v_packed": vp, "v_meta": vm}
-    for name, val in rows.items():
-        _bits(cache[name])[:, :t] = _bits(val)
-    return cache
+        cache["k"][:, :t] = k.to(cfg.dtype)
+        cache["v"][:, :t] = v.to(cfg.dtype)
+        return cache
+    return nxfp_quantize_kv_rows(k.contiguous(), v.contiguous(), cache, None,
+                                 get_format(kv_fmt))
 
 
 def write_token(cfg: ModelConfig, layer_cache, k1, v1, pos,
                 kv_fmt: Optional[str]):
     """Write one token's K/V (B, 1, KVH, hd) at per-slot rows ``pos`` (B,),
-    in place. Returns ``layer_cache``."""
-    b = k1.shape[0]
-    slots = torch.arange(b, device=k1.device)
-    if kv_fmt is None:
-        rows = {"k": k1, "v": v1}
-    else:
-        kp, km = _quantize_kv(k1, kv_fmt)
-        vp, vm = _quantize_kv(v1, kv_fmt)
-        rows = {"k_packed": kp, "k_meta": km, "v_packed": vp, "v_meta": vm}
-    for name, val in rows.items():
+    in place; a packed cache takes K and V in one quantizer launch, which
+    reads ``pos`` on the device. Returns ``layer_cache``."""
+    if kv_fmt is not None:
+        return nxfp_quantize_kv_rows(k1.contiguous(), v1.contiguous(),
+                                     layer_cache, pos, get_format(kv_fmt))
+    slots = torch.arange(k1.shape[0], device=k1.device)
+    for name, val in (("k", k1), ("v", v1)):
         buf = layer_cache[name]
-        _bits(buf)[slots, pos] = _bits(val[:, 0].to(buf.dtype))
+        buf[slots, pos] = val[:, 0].to(buf.dtype)
     return layer_cache
 
 

@@ -13,7 +13,7 @@ import torch
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.formats import get_format
 from repro_torch.core.qtensor import QuantPolicy
-from repro_torch.core.quantize import meta_int32, near_tie_blocks
+from repro_torch.core.quantize import meta_int32, near_tie_blocks, to_blocks
 from repro_torch.kernels import nxfp_attention as na
 from repro_torch.kernels import nxfp_matmul as nm
 from repro_torch.kernels import nxfp_qq_matmul as nqq
@@ -73,6 +73,126 @@ def test_quantize_kernel_bitwise(cuda, fname):
     if diff.any():
         assert near_tie_blocks(xb[diff], fmt).all(), int(diff.sum())
     print(f"{fname}: {int(diff.sum())} near-tie blocks")
+
+
+def _quantize_vs_plain(xb, fmt, plan=None):
+    """Kernel vs plain codec on the same blocks; blocks that differ must
+    be candidate near-ties. Returns their count."""
+    kp, km = nq.nxfp_quantize_pack(xb, fmt, plan)
+    pp, pm = nq.nxfp_quantize_pack_plain(xb, fmt)
+    assert km.dtype == pm.dtype == getattr(torch, fmt.meta_dtype)
+    diff = (kp != pp).any(-1) | (meta_int32(km) != meta_int32(pm))
+    if diff.any():
+        assert near_tie_blocks(xb[diff], fmt).all(), int(diff.sum())
+    return int(diff.sum())
+
+
+@pytest.mark.parametrize("fname", KERNEL_FMTS + ACT_FMTS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("side", ["warp", "tile"])
+def test_quantize_kernel_regimes_bitwise(cuda, fname, dtype, side):
+    """Both sides of the regime boundary (``WARP_MAX_BLOCKS`` blocks: a
+    warp per block; one more: a thread per block), f32 and bf16 input:
+    the kernel equals the plain codec on the same input, up to counted
+    near-ties."""
+    fmt = get_format(fname)
+    n = nq.WARP_MAX_BLOCKS + (side == "tile")
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert nq.quantize_plan(n, fmt.block_size, n_sm).regime == side
+    xb = _edge_blocks(fmt, n=n).to(cuda, getattr(torch, dtype))
+    print(f"{fname} {dtype} {side}: {_quantize_vs_plain(xb, fmt)} near ties")
+
+
+@pytest.mark.parametrize("fname", ["nxfp4", "nxfp4_bs16", "amxfp4",
+                                   "amxfp4_ox", "mxfp4_ox", "nxfp6",
+                                   "bfp4_cr", "nxfp5_bs16"])
+@pytest.mark.parametrize("regime", ["warp", "tile"])
+@pytest.mark.parametrize("n", [1, 33, 517])
+def test_quantize_kernel_either_regime_any_count(cuda, fname, regime, n):
+    """Either regime at block counts that fill no CTA evenly (a plan the
+    wrapper would not pick at these sizes, to hold both kernels on the
+    same blocks)."""
+    fmt = get_format(fname)
+    per_cta = 3 * (32 // fmt.block_size) if regime == "warp" else 64
+    plan = nq.QuantPlan(regime, per_cta, -(-n // per_cta))
+    xb = _edge_blocks(fmt, n=max(n, 9))[:n].to(cuda, torch.bfloat16)
+    _quantize_vs_plain(xb, fmt, plan)
+
+
+# (b, t, kvh, hd, s, pos): Llama-3-8B's heads at a decode step (ragged
+# rows) and a 4 x 128 prefill, a short ragged write, head_dim 16 padded;
+# two in the tile regime: one whose K/V boundary falls inside a tile
+# (4848 blocks a tensor, tiles of 32), one of zero-padded blocks (hd 80)
+KV_CASES = {
+    "decode": (4, 1, 8, 128, 256, (255, 200, 17, 0)),
+    "prefill": (4, 128, 8, 128, 256, None),
+    "rows": (3, 5, 2, 64, 16, (11, 0, 7)),
+    "padded_hd": (2, 3, 2, 16, 8, (5, 0)),
+    "tile_kv_boundary": (4, 101, 3, 128, 160, (0, 59, 5, 27)),
+    "tile_padded_hd": (4, 300, 4, 80, 320, (0, 10, 20, 5)),
+}
+
+
+def _kv_case(cuda, fmt, case, dtype, seed=0):
+    b, t, kvh, hd, s, pos = KV_CASES[case]
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    k, v = (torch.randn((b, t, kvh, hd), generator=g, device=cuda) * sc
+            for sc in (1.0, 3.0))
+    k, v = k.to(dtype), v.to(dtype)
+    nb = -(-hd // fmt.block_size)
+    cache = {}
+    for name in "kv":
+        cache[f"{name}_packed"] = torch.randint(
+            0, 256, (b, s, kvh, nb, fmt.bytes_per_block), generator=g,
+            device=cuda, dtype=torch.uint8)
+        cache[f"{name}_meta"] = torch.randint(
+            0, 1 << 15, (b, s, kvh, nb), generator=g, device=cuda,
+            dtype=torch.int32).to(torch.uint16)
+    pos_t = (None if pos is None
+             else torch.tensor(pos, dtype=torch.int32, device=cuda))
+    return k, v, cache, pos_t
+
+
+@pytest.mark.parametrize("fname", ["nxfp4", "nxfp4_bs16", "mxfp6", "nxfp8"])
+@pytest.mark.parametrize("case", sorted(KV_CASES))
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_kv_rows_kernel_matches_plain(cuda, fname, case, dtype):
+    """One launch encodes K and V into the cache rows pos[b] + t (rows 0..T
+    at prefill): the cache equals the plain version's (codec, then row
+    writes) everywhere, the untouched rows included, up to counted
+    near-ties."""
+    fmt = get_format(fname)
+    k, v, cache, pos = _kv_case(cuda, fmt, case, getattr(torch, dtype))
+    plain = {n: a.clone() for n, a in cache.items()}
+    before = nq.LAUNCHES
+    nq.nxfp_quantize_kv_rows(k, v, cache, pos, fmt)
+    assert nq.LAUNCHES == before + 1
+    nq.nxfp_quantize_kv_rows_plain(k, v, plain, pos, fmt)
+    b, t, kvh, hd, s, _ = KV_CASES[case]
+    rows = (torch.arange(t, device=cuda)[None, :] if pos is None
+            else pos[:, None] + torch.arange(t, device=cuda))
+    slots = torch.arange(b, device=cuda)[:, None]
+    for name, x in (("k", k), ("v", v)):
+        src = torch.zeros((b, s, kvh, hd), device=cuda)
+        src[slots, rows] = x.float()
+        xb, _ = to_blocks(src, fmt.block_size, -1)
+        diff = ((cache[f"{name}_packed"] != plain[f"{name}_packed"]).any(-1)
+                | (cache[f"{name}_meta"].to(torch.int32)
+                   != plain[f"{name}_meta"].to(torch.int32)))
+        if diff.any():
+            assert near_tie_blocks(xb[diff], fmt).all(), int(diff.sum())
+
+
+def test_kv_rows_kernel_skips_rows_past_the_cache(cuda):
+    """A row outside [0, S) is not written: pos at and past S leaves the
+    cache as it was."""
+    fmt = get_format("nxfp4")
+    k, v, cache, _ = _kv_case(cuda, fmt, "rows", torch.bfloat16)
+    before = {n: a.clone() for n, a in cache.items()}
+    pos = torch.tensor([16, 40, 1 << 20], dtype=torch.int32, device=cuda)
+    nq.nxfp_quantize_kv_rows(k, v, cache, pos, fmt)
+    torch.cuda.synchronize()
+    assert all(torch.equal(before[n], cache[n]) for n in cache)
 
 
 def _matmul_case(cuda, fname, m, k, n, seed):
