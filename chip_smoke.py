@@ -21,20 +21,31 @@ Phases, each fatal on failure (exit code 1, no result line):
    launch), the decode attention (S 256 and 4096, bitwise on a second
    launch) and the quantized x quantized (qq) GEMM (the MLP shapes at
    M 16 and 512, bitwise on a second launch and equal to the dequant GEMM
-   fed the plain-decoded X) within a stated tolerance. Each is timed with
-   CUDA events (cold L2), beside its plain version, one PyTorch library
-   call computing the same function (a yardstick the port never calls)
-   and its bound on the card.
+   fed the plain-decoded X) within a stated tolerance. Then every kernel
+   at the formats beyond the main path's (``WIDE_FMTS``: nxfp3,
+   nxfp4_bs8/_bs64/_bs128 and mxfp4_cr with Fig. 11's recycled value
+   5.0): the quantizer bitwise on a 4096 x 14336 weight cast, the dequant
+   GEMM at M 4 and 512, the qq GEMM at M 512 and decode attention at
+   S 256, each bitwise on a second launch and within the tolerances
+   above. Each is timed with CUDA events (cold L2), beside its plain
+   version, one PyTorch library call computing the same function (a
+   yardstick the port never calls) and its bound on the card.
 4. Reference on a small input: the smoke Llama through the kernels on the
    card against the plain path on the CPU, teacher-forced, logits within
    tolerance; and its qq prefill (``act_fmt="amxfp4"``) likewise.
 5. Main path: Llama-3-8B at full width (random weights from a seed),
    ``ServeEngine`` with nxfp4 weights and nxfp4 KV, 4 prompts of 128
-   tokens, 32 greedy tokens through the device loop (chunk 16) and the
-   host loop, which must agree. Every kernel's launch counter is set to 0
-   just before and read just after; each kernel of the path (all but the
-   qq GEMM) must be > 0, and a decode step must launch the quantizer once
-   per layer (K and V of a layer in one launch).
+   tokens, 32 greedy tokens through the device loop (chunk 16: one CUDA
+   graph, captured in the first call, replayed twice a call) and the host
+   loop, which must agree. Every kernel's launch counter is set to 0 just
+   before and read just after (the graph's launches count at its warm-up
+   and capture, through the wrappers; a replay re-runs them); each kernel
+   of the path (all but the qq GEMM) must be > 0, and a decode step must
+   launch the quantizer once per layer (K and V of a layer in one
+   launch). Then ms per decode step of the graph device loop, the eager
+   device loop (``decode_loop`` called directly) and the host loop, in
+   ``LOOP_ROUNDS`` rounds of (graph, eager, host, host, eager, graph),
+   every run's tokens equal.
 6. The qq prefill path at full width: the same weights, 4 x 128 prompt
    tokens through ``prefill(..., kv_fmt="nxfp4", act_fmt="amxfp4")``
    (amxfp4 activations x nxfp4 weights in every projection), then 32
@@ -46,6 +57,11 @@ Phases, each fatal on failure (exit code 1, no result line):
    second run. The qq and dense-activation prefills are timed in turns,
    8 rounds of (qq, dense, dense, qq), and compared by their medians and
    by each round's ratio.
+7. Wide serving: Llama-3-8B at full width, the depth of ``--layers``,
+   served with nxfp3 weights and nxfp3 KV, then with nxfp4_bs64 weights
+   and KV: 16 greedy tokens through the graph device loop equal the host
+   loop's, and the quantizer, the dequant GEMM and decode attention run
+   at those formats.
 
 The last three lines are the kernel table as JSON, the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.
@@ -566,6 +582,209 @@ def check_attention(timer, rows):
         torch.cuda.empty_cache()
 
 
+# the formats the reference serves beyond the main path's (phase 3's wide
+# rows): 3-bit codes, block sizes 8/64/128, and a custom recycle value from
+# Fig. 11's sweep (benchmarks/fig11_remap_sweep.py: the midpoint of
+# mxfp4's two largest levels, 5.0, one of the two best remaps it finds)
+WIDE_FMTS = ("nxfp3", "nxfp4_bs8", "nxfp4_bs64", "nxfp4_bs128",
+             "mxfp4_cr@5.0")
+# the activation format each weight format's qq row pairs with (one block
+# size for both operands)
+WIDE_QQ_ACT = {"nxfp3": "amxfp3", "nxfp4_bs8": "amxfp4_bs8",
+               "nxfp4_bs64": "amxfp4_bs64", "nxfp4_bs128": "amxfp4_bs128",
+               "mxfp4_cr@5.0": "amxfp4"}
+WIDE_MATMUL_M = (4, 512)      # the decode and prefill regimes
+
+
+def wide_format(name):
+    """A registry format, or ``base@value``: ``base`` with that recycle
+    value."""
+    from repro_torch.core.formats import get_format
+    if "@" not in name:
+        return get_format(name)
+    base, value = name.split("@")
+    return dataclasses.replace(get_format(base), recycle=float(value),
+                               name=name)
+
+
+def check_wide_formats(timer, rows):
+    """Every kernel at the formats of ``WIDE_FMTS`` (the generic kernel
+    instances and the quantizer's 3-bit, block-size and custom-recycle
+    instances), at Llama-3-8B shapes, against its plain version: the
+    quantizer bitwise on the w1/w3 weight cast (up to counted near-ties),
+    the dequant GEMM (K 4096, N 14336, M 4 and 512), decode attention
+    (S 256) and the qq GEMM (M 512) bitwise on a second launch and within
+    the main path's tolerances."""
+    import torch.nn.functional as F
+    from repro_torch.core.pack import unpack_codes
+    from repro_torch.core.quantize import meta_int32, near_tie_blocks
+    from repro_torch.core.quantize import to_blocks
+    from repro_torch.kernels import nxfp_attention as na
+    from repro_torch.kernels.decode_lib import decode_block_values
+    from repro_torch.kernels import nxfp_matmul as nm
+    from repro_torch.kernels import nxfp_qq_matmul as nqq
+    from repro_torch.kernels import nxfp_quantize as nq
+    from repro_torch.kernels.ops import quantize_qtensor
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    k, n = 4096, 14336
+    for name in WIDE_FMTS:
+        fmt = wide_format(name)
+        bs = fmt.block_size
+        # the weight cast (axis 0 of the (K, N) weight)
+        w = torch.randn((k, n), generator=gen, device="cuda") * 0.02
+        xb, _ = to_blocks(w, bs, -2)
+        flat = xb.reshape(-1, bs).contiguous()
+        kp, km = nq.nxfp_quantize_pack(flat, fmt)
+        pp, pm = nq.nxfp_quantize_pack_plain(flat, fmt)
+        torch.cuda.synchronize()
+        diff = (kp != pp).any(-1) | (meta_int32(km) != meta_int32(pm))
+        n_diff = int(diff.sum())
+        if n_diff and not bool(near_tie_blocks(flat[diff], fmt).all()):
+            fail(f"quantizer {name}: {n_diff} blocks differ from the plain "
+                 "version, not all of them candidate near-ties")
+        err = float((decode_block_values(unpack_codes(kp, fmt.bits, bs), km,
+                                         fmt)
+                     - decode_block_values(unpack_codes(pp, fmt.bits, bs), pm,
+                                           fmt)).abs().max())
+        t = flat.shape[0]
+        n_cands, regime = _quantizer_traits(nq, flat, fmt)
+        ms = timer(lambda: nq.nxfp_quantize_pack(flat, fmt))
+        plain_ms = timer(lambda: nq.nxfp_quantize_pack_plain(flat, fmt), 3)
+        b_ms, b_by = bound(t * bs * 4 + t * (fmt.bytes_per_block + 2),
+                           n_cands * bs * QUANT_OPS, PEAK_F32)
+        log(f"wide quantizer {name} (4096x14336 f32 weight, {t} blocks of "
+            f"{bs}, {regime} regime): bitwise except {n_diff} near-tie "
+            f"blocks; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by})")
+        rows[f"nxfp_quantize {name}"] = dict(
+            max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            near_ties=n_diff, fmt=name,
+            shape=f"(4096, 14336) f32 weight, {t} blocks of {bs}")
+        del flat, xb, kp, km, pp, pm
+        # the dequant GEMM on that weight
+        wq = quantize_qtensor(w, fmt, axis=-2, device="cuda")
+        del w
+        wd = nm.dequant_weight_bf16(wq.packed, wq.meta, fmt)     # (N, K)
+        for m in WIDE_MATMUL_M:
+            x = torch.randn((m, k), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            y = nm.nxfp_matmul(x, wq.packed, wq.meta, fmt)
+            again = nm.nxfp_matmul(x, wq.packed, wq.meta, fmt)
+            y_plain = nm.nxfp_matmul_plain(x, wq.packed, wq.meta, fmt)
+            mag = x.float().abs() @ wd.float().abs().T
+            err = float((y - y_plain).abs().max())
+            rel = float(((y - y_plain).abs() / mag.clamp(min=1e-30)).max())
+            if not rel <= 1e-5:
+                fail(f"qmatmul {name} M={m}: error {rel:.3g} of sum|x||w| "
+                     "exceeds 1e-5")
+            if not torch.equal(y, again):
+                fail(f"qmatmul {name} M={m}: a second launch gave other bits")
+            ms = timer(lambda: nm.nxfp_matmul(x, wq.packed, wq.meta, fmt))
+            plain_ms = timer(
+                lambda: nm.nxfp_matmul_plain(x, wq.packed, wq.meta, fmt), 3)
+            lib_ms = timer(lambda: torch.matmul(x, wd.T))
+            n_bytes = (wq.packed.numel() + wq.meta.numel() * 2 + m * k * 2
+                       + m * n * 4)
+            b_ms, b_by = bound(n_bytes, 2.0 * m * n * k, PEAK_BF16)
+            log(f"wide qmatmul {name} M={m} K={k} N={n}: max err {err:.3g} "
+                f"({rel:.3g} of sum|x||w|), bitwise on a second launch; "
+                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.matmul "
+                f"bf16 {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+            rows[f"nxfp_matmul {name} M={m} K={k} N={n}"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms, fmt=name,
+                shape=f"x ({m}, {k}) bf16 @ {name} W ({k}, {n})")
+        # the qq GEMM, an activation format of the same block size
+        x_fmt = wide_format(WIDE_QQ_ACT[name])
+        m = 512
+        x = torch.randn((m, k), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        xq = quantize_qtensor(x, x_fmt, axis=-1, device="cuda")
+        args = (xq.packed, xq.meta, wq.packed, wq.meta, x_fmt, fmt)
+        y = nqq.nxfp_qq_matmul(*args)
+        if not torch.equal(y, nqq.nxfp_qq_matmul(*args)):
+            fail(f"qq matmul {x_fmt.name} x {name}: a second launch gave "
+                 "other bits")
+        y_plain = nqq.nxfp_qq_matmul_plain(*args)
+        xd = nm.dequant_weight_bf16(xq.packed, xq.meta, x_fmt)
+        mag = xd.float().abs() @ wd.float().abs().T
+        err = float((y - y_plain).abs().max())
+        rel = float(((y - y_plain).abs() / mag.clamp(min=1e-30)).max())
+        if not (torch.isfinite(y).all() and rel <= 1e-5):
+            fail(f"qq matmul {x_fmt.name} x {name}: error {rel:.3g} of "
+                 "sum|x||w| exceeds 1e-5")
+        if not torch.equal(y, nm.nxfp_matmul(xd, wq.packed, wq.meta, fmt)):
+            fail(f"qq matmul {x_fmt.name} x {name}: not the bits of "
+                 "nxfp_matmul on the plain-decoded X")
+        ms = timer(lambda: nqq.nxfp_qq_matmul(*args))
+        plain_ms = timer(lambda: nqq.nxfp_qq_matmul_plain(*args), 3)
+        lib_ms = timer(lambda: torch.matmul(xd, wd.T))
+        n_bytes = (xq.packed.numel() + xq.meta.numel()
+                   * xq.meta.element_size() + wq.packed.numel()
+                   + wq.meta.numel() * 2 + m * n * 4)
+        b_ms, b_by = bound(n_bytes, 2.0 * m * n * k, PEAK_BF16)
+        log(f"wide qq matmul {x_fmt.name} x {name} M={m} K={k} N={n}: max "
+            f"err {err:.3g} ({rel:.3g} of sum|x||w|), bitwise on a second "
+            f"launch and equal to nxfp_matmul on the decoded X; kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.matmul {lib_ms:.4f}"
+            f" ms, bound {b_ms:.4f} ms ({b_by})")
+        rows[f"nxfp_qq_matmul {x_fmt.name} x {name} M={m} K={k} N={n}"] = \
+            dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                 bound_by=b_by, library_ms=lib_ms, fmt=name,
+                 shape=f"{x_fmt.name} X ({m}, {k}) x {name} W ({k}, {n})")
+        del wq, wd, xq, xd, x, y, y_plain, mag
+        # decode attention over a cache in this format (the main path's
+        # B 4, 8 KV heads of 128, S 256, ragged lengths)
+        b, kvh, g, d, s = 4, 8, 4, 128, 256
+        lens = (256, 200, 131, 17)
+        kq, vq = (quantize_qtensor(torch.randn(
+            (b, s, kvh, d), generator=gen, device="cuda").to(torch.bfloat16),
+            fmt, axis=-1, device="cuda") for _ in range(2))
+        q = torch.randn((b, kvh, g, d), generator=gen, device="cuda") \
+            * d ** -0.5
+        d_pad = kq.packed.shape[-2] * bs
+        q = F.pad(q, (0, d_pad - d))
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        args = (q, kq.packed, kq.meta, vq.packed, vq.meta, lengths, fmt)
+        out = na.nxfp_decode_attention(*args)
+        if not torch.equal(out, na.nxfp_decode_attention(*args)):
+            fail(f"decode attention {name}: a second launch gave other bits")
+        ref = na.nxfp_decode_attention_plain(*args)
+        kd = na.dequant_cache(kq.packed, kq.meta, fmt)
+        vd = na.dequant_cache(vq.packed, vq.meta, fmt)
+        err = float((out - ref).abs().max())
+        if not err <= 1e-5 * float(vd.abs().max()):
+            fail(f"decode attention {name}: max error {err:.3g} exceeds "
+                 "1e-5 max|V|")
+        qh = q.reshape(b, kvh * g, 1, d_pad)
+        kh = kd.permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
+        vh = vd.permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
+        mask = (torch.arange(s, device="cuda")[None, :]
+                < lengths[:, None])[:, None, None, :]
+        ms = timer(lambda: na.nxfp_decode_attention(*args))
+        plain_ms = timer(lambda: na.nxfp_decode_attention_plain(*args), 3)
+        lib_ms = timer(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask, scale=1.0))
+        tot = int(lengths.sum())
+        nb = kq.packed.shape[-2]
+        n_bytes = (q.numel() * 4 + 2 * tot * kvh * nb
+                   * (fmt.bytes_per_block + 2) + b * 4 + out.numel() * 4)
+        b_ms, b_by = bound(n_bytes, 2 * 2 * tot * kvh * g * d_pad, PEAK_F32)
+        log(f"wide decode attention {name} B={b} KVH={kvh} G={g} D={d} "
+            f"S={s}: max err {err:.3g}, bitwise on a second launch; kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA f32 {lib_ms:.4f} ms, "
+            f"bound {b_ms:.5f} ms ({b_by})")
+        rows[f"nxfp_decode_attention {name}"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib_ms, fmt=name,
+            shape=f"q ({b}, {kvh}, {g}, {d}), {name} K/V S={s}, lengths "
+                  f"{list(lens)}")
+        del kq, vq, kd, vd, kh, vh, q, out, ref
+        torch.cuda.empty_cache()
+
+
 def phase_reference():
     """The smoke Llama through the kernels vs the plain path on the CPU."""
     import numpy as np
@@ -650,6 +869,8 @@ def phase_main(n_layers: int):
     prompts = torch.randint(0, cfg.vocab, (4, 128), generator=gen)
     batch = {"tokens": prompts.numpy()}
     torch.cuda.reset_peak_memory_stats()
+    # the first device-loop call captures the chunk graph (a warm-up chunk
+    # on the capture stream, then the capture) and replays it
     warm = engine.generate(batch, max_new=32, loop="device", chunk=16)
     dev = engine.generate(batch, max_new=32, loop="device", chunk=16)
     host = engine.generate(batch, max_new=32, loop="host")
@@ -665,10 +886,14 @@ def phase_main(n_layers: int):
             fail(f"main path ({name} loop): token out of range")
     if not ((dev.tokens == host.tokens).all()
             and (warm.tokens == dev.tokens).all()):
-        fail("main path: device and host loops disagree")
+        fail("main path: graph device loop and host loop disagree")
     for name, c in counts.items():
         if c <= 0 and name != "nxfp_qq_matmul":      # qq: phase 6's path
             fail(f"main path: kernel {name} was never launched")
+    prog = _device_loop_of(engine)
+    if set(prog.graphs) != {(16, True)} or prog.replays != 4:
+        fail(f"main path: the device loop ran {prog.replays} graph replays "
+             f"of {sorted(prog.graphs)}, expected 4 of one 16-step graph")
 
     reset_launch_counts()
     logits, cache = prefill(cfg, engine.params,
@@ -684,20 +909,131 @@ def phase_main(n_layers: int):
     if per_step["nxfp_quantize"] != cfg.n_layers:
         fail(f"decode step: {per_step['nxfp_quantize']} quantizer launches, "
              f"expected one per layer ({cfg.n_layers})")
+    del cache
 
     steps = 32
-    log(f"  greedy 4 x 32 tokens, device loop (chunk 16) == host loop: "
-        f"{dev.tokens[:, :8].tolist()} ...")
+    loops = time_loops(cfg, engine, batch, prompts, dev.tokens, steps)
+    med = {k: statistics.median(v) for k, v in loops.items()}
+    log(f"  greedy 4 x 32 tokens, graph device loop (chunk 16) == host loop "
+        f"== eager device loop: {dev.tokens[:, :8].tolist()} ...")
     log(f"  prefill (4 x 128 tokens): device loop {dev.prefill_seconds:.4f} "
         f"s, host loop {host.prefill_seconds:.4f} s")
-    log(f"  decode: device loop {steps * 4 / dev.decode_seconds:.2f} tok/s "
-        f"({dev.decode_seconds / steps * 1e3:.3f} ms/step); host loop "
-        f"{steps * 4 / host.decode_seconds:.2f} tok/s "
-        f"({host.decode_seconds / steps * 1e3:.3f} ms/step)")
+    log(f"  decode ms per step, {LOOP_ROUNDS} rounds of (graph, eager, host, "
+        f"host, eager, graph): graph {loops['graph']}, eager "
+        f"{loops['eager']}, host {loops['host']}")
+    log(f"  decode medians: graph device loop {med['graph']:.3f} ms/step "
+        f"({4e3 / med['graph']:.2f} tok/s), eager device loop (decode_loop) "
+        f"{med['eager']:.3f} ms/step, host loop {med['host']:.3f} ms/step; "
+        f"graph replays {prog.replays} of {len(prog.graphs)} graph(s)")
     log(f"  peak device memory during generate: {peak} bytes")
-    log(f"  launches on the main path (cast + 3 generate calls): {counts}")
+    log(f"  launches on the main path (cast + 3 generate calls, the graph's "
+        f"launches counted at its warm-up and capture): {counts}")
     log(f"  launches per decode step: {per_step}")
-    return counts, per_step, cfg, engine, prompts
+    return counts, per_step, cfg, engine, prompts, med
+
+
+LOOP_ROUNDS = 4       # phase 5: rounds of the three decode loops in turns
+
+
+def _device_loop_of(engine):
+    from repro_torch.serving import engine as engine_mod
+    progs = [p for k, p in engine_mod._PROGRAM_CACHE.items()
+             if k[0] == engine._uid]
+    if len(progs) != 1:
+        fail(f"main path: {len(progs)} device loops cached for the engine")
+    return progs[0]
+
+
+def time_loops(cfg, engine, batch, prompts, tokens, steps):
+    """ms per decode step of the graph device loop, the eager device loop
+    (``decode_loop`` called directly, greedy) and the host loop, timed in
+    ``LOOP_ROUNDS`` rounds of (graph, eager, host, host, eager, graph):
+    the host's speed drifts within a run. Every run's tokens must equal
+    ``tokens``."""
+    from repro_torch.models import decode_loop, prefill
+    out = {"graph": [], "eager": [], "host": []}
+    for kind in ("graph", "eager", "host", "host", "eager", "graph") \
+            * LOOP_ROUNDS:
+        if kind == "eager":
+            logits, cache = prefill(cfg, engine.params,
+                                    {"tokens": prompts.to("cuda")},
+                                    max_len=256, kv_fmt="nxfp4")
+            tok = logits.argmax(-1).to(torch.int32)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks, _, _ = decode_loop(cfg, engine.params, tok, cache, steps,
+                                     "nxfp4",
+                                     lambda lg: lg.argmax(-1).to(torch.int32))
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            got = toks.cpu().numpy()
+            del cache
+        else:
+            r = engine.generate(batch, max_new=steps,
+                                loop="device" if kind == "graph" else "host",
+                                chunk=16)
+            sec, got = r.decode_seconds, r.tokens
+        if not (got == tokens).all():
+            fail(f"main path: the {kind} loop's tokens differ in the timed "
+                 "rounds")
+        out[kind].append(round(sec / steps * 1e3, 3))
+    return out
+
+
+# phase 7: the main path at the formats the paper sweeps beyond nxfp4
+WIDE_SERVE = (("nxfp3", "nxfp3"), ("nxfp4_bs64", "nxfp4_bs64"))
+
+
+def phase_wide_serving(n_layers: int, prompts):
+    """Llama-3-8B at full width (depth ``n_layers``) served with nxfp3
+    weights and KV, and with nxfp4_bs64: the graph device loop's tokens
+    equal the host loop's, and the path runs the quantizer, the dequant
+    GEMM and decode attention at those formats."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.qtensor import QuantPolicy
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import init_params
+    from repro_torch.serving import ServeEngine
+
+    cfg = dataclasses.replace(get_config("llama3_8b"), n_layers=n_layers)
+    batch = {"tokens": prompts.numpy()}
+    out = {}
+    for wfmt, kvfmt in WIDE_SERVE:
+        params = init_params(cfg, seed=0, device="cuda")
+        reset_launch_counts()
+        engine = ServeEngine(cfg, params, QuantPolicy(wfmt, kvfmt),
+                             max_len=256, device="cuda")
+        del params
+        torch.cuda.empty_cache()
+        dev = engine.generate(batch, max_new=16, loop="device", chunk=8)
+        host = engine.generate(batch, max_new=16, loop="host")
+        dev2 = engine.generate(batch, max_new=16, loop="device", chunk=8)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        for name, r in (("graph", dev), ("host", host)):
+            if r.tokens.shape != (4, 16) or r.tokens.min() < 0 \
+                    or r.tokens.max() >= cfg.vocab:
+                fail(f"wide serving {wfmt}: {name} loop tokens "
+                     f"{r.tokens.shape} out of range")
+        if not ((dev.tokens == host.tokens).all()
+                and (dev2.tokens == host.tokens).all()):
+            fail(f"wide serving {wfmt} weights, {kvfmt} KV: graph device "
+                 "loop and host loop disagree")
+        for name, c in counts.items():
+            if c <= 0 and name != "nxfp_qq_matmul":
+                fail(f"wide serving {wfmt}: kernel {name} was never launched")
+        log(f"wide serving: Llama-3-8B full width, {n_layers} layers, "
+            f"{wfmt} weights, {kvfmt} KV, 4 x 128 prompt tokens, 16 greedy "
+            f"tokens: graph device loop == host loop "
+            f"{dev.tokens[:, :6].tolist()} ...; decode "
+            f"{dev2.decode_seconds / 16 * 1e3:.3f} ms/step (graph), "
+            f"{host.decode_seconds / 16 * 1e3:.3f} ms/step (host); weights "
+            f"footprint {engine.weights_footprint_bytes()} bytes; launches "
+            f"{counts}")
+        out[wfmt] = counts
+        del engine
+        torch.cuda.empty_cache()
+    return out
 
 
 PREFILL_ROUNDS = 8    # phase 6: rounds of (qq, dense, dense, qq) prefills
@@ -794,6 +1130,22 @@ def phase_act(cfg, engine, prompts):
     return counts
 
 
+def kernel_formats(kname, rows, wide_counts):
+    """The formats ``kname`` ran in this run: its main-path formats, its
+    phase-3 wide rows and the formats phase 7 served through it."""
+    main = {"nxfp_quantize": ["nxfp4", "amxfp4"],
+            "nxfp_matmul": ["nxfp4"], "nxfp_decode_attention": ["nxfp4"],
+            "nxfp_qq_matmul": ["amxfp4 x nxfp4"]}[kname]
+    wide = [r["fmt"] for k, r in rows.items()
+            if "fmt" in r and k.split(" ")[0] == kname]
+    if kname == "nxfp_qq_matmul":
+        wide = [k.split(" ", 1)[1].rsplit(" M=", 1)[0] for k, r in rows.items()
+                if "fmt" in r and k.split(" ")[0] == kname]
+    served = [f"{f} (served)" for f, c in wide_counts.items()
+              if c[COUNTERS[kname]] > 0]
+    return list(dict.fromkeys(main + wide + served))
+
+
 # each kernel's sources (the first holds the code its table row runs: the
 # dequant GEMM's row is M 4, its decode regime; the qq GEMM's row is M 512,
 # its decode pass then the dequant GEMM's prefill regime) and the TPU
@@ -805,7 +1157,13 @@ KERNELS = {
                        "src/repro_torch/csrc/nxfp_quantize_b4.cu",
                        "src/repro_torch/csrc/nxfp_quantize_b5.cu",
                        "src/repro_torch/csrc/nxfp_quantize_b6.cu",
-                       "src/repro_torch/csrc/nxfp_quantize_b8.cu"],
+                       "src/repro_torch/csrc/nxfp_quantize_b8.cu",
+                       "src/repro_torch/csrc/nxfp_quantize_b3.cu",
+                       "src/repro_torch/csrc/nxfp_quantize_b27.cu",
+                       "src/repro_torch/csrc/nxfp_quantize_bs8.cu",
+                       "src/repro_torch/csrc/nxfp_quantize_bs64.cu",
+                       "src/repro_torch/csrc/nxfp_quantize_bs128.cu",
+                       "src/repro_torch/csrc/nxfp_quantize_crt.cu"],
                       "src/repro/kernels/nxfp_quantize.py:92"),
     "nxfp_matmul": (["src/repro_torch/csrc/nxfp_matmul_decode.cu",
                      "src/repro_torch/csrc/nxfp_matmul_prefill.cu",
@@ -858,11 +1216,15 @@ def main():
     check_matmul(timer, rows)
     check_attention(timer, rows)
     check_qq_matmul(timer, rows)
+    check_wide_formats(timer, rows)
     del timer
     torch.cuda.empty_cache()
     phase_reference()
-    counts, per_step, cfg, engine, prompts = phase_main(args.layers)
+    counts, per_step, cfg, engine, prompts, loops = phase_main(args.layers)
     act_counts = phase_act(cfg, engine, prompts)
+    del engine
+    torch.cuda.empty_cache()
+    wide_counts = phase_wide_serving(args.layers, prompts)
 
     table = []
     for kname, (sources, replaces) in KERNELS.items():
@@ -877,6 +1239,7 @@ def main():
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
+            formats=kernel_formats(kname, rows, wide_counts),
             shape=row["shape"]))
     extra = [dict(name=k, **{f: v for f, v in r.items()})
              for k, r in rows.items() if k not in MAIN_ROW.values()]

@@ -7,7 +7,9 @@
 Builds Llama-3-8B at full width (random weights, seed 0) behind
 ``ServeEngine`` with nxfp4 weights and nxfp4 KV, prefills 4 prompts of 128
 tokens, warms up, then runs ``--steps`` decode steps under
-``torch.profiler`` (CPU and CUDA activity), and ``PREFILLS`` prefills of
+``torch.profiler`` (CPU and CUDA activity), ``GRAPH_CHUNKS`` chunks of
+``GRAPH_STEPS`` greedy steps through the device loop's CUDA graph (one
+replay a chunk, after the capturing call), and ``PREFILLS`` prefills of
 the same prompts with dense activations and with the qq path
 (``act_fmt="amxfp4"``). Prints, per decode step and per prefill: the
 host-clock time, the device time summed over kernels (busy) and the idle
@@ -28,6 +30,8 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PREFILLS = 3          # prefills traced per activation format
+GRAPH_STEPS = 8       # decode steps per traced graph replay
+GRAPH_CHUNKS = 4      # graph replays traced (the cache holds them all)
 
 
 def wrapper_host_us(n: int = 200):
@@ -152,6 +156,26 @@ def main():
         step()
     trace(f"{cfg.name}, {cfg.n_layers} layers, B 4, context 128+: decode "
           "step", step, args.steps)
+    # the device loop: one captured graph of GRAPH_STEPS steps
+    logits, cache = prefill(cfg, engine.params, {"tokens": tokens},
+                            max_len=256, kv_fmt="nxfp4")
+    prog = engine._device_loop(cache)
+    prog.load(cache)
+    del cache
+    b = tokens.shape[0]
+    loop = {"tok": torch.argmax(logits, dim=-1).to(torch.int32),
+            "done": torch.zeros((b,), dtype=torch.bool, device="cuda"),
+            "n_gen": torch.zeros((b,), dtype=torch.int32, device="cuda")}
+    temp = torch.zeros((b,), device="cuda")
+    stop = torch.full((b,), -1, dtype=torch.int64, device="cuda")
+
+    def chunk():
+        (_, loop["tok"], loop["n_gen"], loop["done"]), _ = prog.run(
+            GRAPH_STEPS, True, loop["tok"], loop["done"], loop["n_gen"],
+            temp, stop)
+
+    trace(f"graph device loop, one replay of {GRAPH_STEPS} decode steps "
+          "(per-step figures: divide by it)", chunk, GRAPH_CHUNKS)
     for act_fmt in (None, "amxfp4"):
         trace(f"prefill of 4 x 128 tokens, act_fmt={act_fmt}",
               lambda: prefill(cfg, engine.params, {"tokens": tokens},

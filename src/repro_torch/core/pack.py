@@ -9,7 +9,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["bytes_per_block", "pack_codes", "unpack_codes"]
+__all__ = ["bytes_per_block", "pack_codes", "pack_codes_scatter",
+           "unpack_codes"]
 
 
 def bytes_per_block(block_size: int, bits: int) -> int:
@@ -40,6 +41,21 @@ def pack_codes(codes, bits: int):
     # with no spill adds 0 to its clamped spill byte
     out.index_add_(-1, lo, shifted & 0xFF)
     out.index_add_(-1, hi, shifted >> 8)
+    return out.to(torch.uint8)
+
+
+def pack_codes_scatter(codes, bits: int):
+    """The reference's scatter-add pack (``core/pack.py:
+    pack_codes_scatter``), its oracle for the packed layout: each code's
+    low-byte and spill contributions added into their bytes by index
+    (the spill index clamped to the last byte, where it adds 0)."""
+    lo, hi, off, bpb = _layout(codes.shape[-1], bits, codes.device)
+    shifted = codes.to(torch.int32) << off
+    out = torch.zeros(*codes.shape[:-1], bpb, dtype=torch.int32,
+                      device=codes.device)
+    idx = lambda i: i.expand(*codes.shape[:-1], -1)  # noqa: E731
+    out.scatter_add_(-1, idx(lo), shifted & 0xFF)
+    out.scatter_add_(-1, idx(hi), shifted >> 8)
     return out.to(torch.uint8)
 
 

@@ -12,7 +12,17 @@ from .pack import unpack_codes
 from .quantize import dequantize_blocks, from_blocks
 
 __all__ = ["QTensor", "QuantPolicy", "direct_cast_tree",
-           "tree_footprint_bytes"]
+           "tree_footprint_bytes", "fmt_key"]
+
+
+def fmt_key(fmt: BlockFormat):
+    """QTensor.fmt_name for a BlockFormat: the registry name when it names
+    this format, else the BlockFormat itself (an ad-hoc format, e.g. a
+    custom recycle value of the Fig. 11 sweep), as in the reference."""
+    try:
+        return fmt.name if get_format(fmt.name) == fmt else fmt
+    except ValueError:
+        return fmt
 
 
 @dataclasses.dataclass
@@ -35,6 +45,10 @@ class QTensor:
 
     @property
     def fmt(self) -> BlockFormat:
+        # a registry name, or the BlockFormat itself for an ad-hoc format
+        # (a custom recycle value: fmt_key)
+        if isinstance(self.fmt_name, BlockFormat):
+            return self.fmt_name
         return get_format(self.fmt_name)
 
     @property

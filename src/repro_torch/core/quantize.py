@@ -1,7 +1,9 @@
-"""Arithmetic NxFP codec (paper Algorithm 1) on torch tensors.
+"""NxFP codec (paper Algorithm 1) on torch tensors.
 
 Port of the reference's arithmetic encoder (``arith_encode_blocks`` /
-``_encode_candidate_arith``) and its decode (``dequantize_blocks``). Every
+``_encode_candidate_arith``), of its table-driven encoder
+(``quantize_blocks``, which serves custom recycle values) and of its
+decode (``dequantize_blocks``). Every
 operation repeats the reference's f32 arithmetic step for step so that
 codes, meta words and decoded values are bitwise equal:
 
@@ -39,7 +41,8 @@ from .formats import BlockFormat, get_format
 from .levels import level_table
 
 __all__ = ["pow2i", "floor_log2_bits", "meta_fields", "meta_int32",
-           "arith_encode_blocks", "quantize_blocks_arith",
+           "arith_encode_blocks", "quantize_blocks_arith", "quantize_blocks",
+           "arith_ok", "encode_blocks", "recycled_value",
            "dequantize_blocks", "to_blocks", "from_blocks", "candidates",
            "near_tie_blocks", "ox_emax", "ox_substitute", "block_maxima"]
 
@@ -96,6 +99,19 @@ def candidates(fmt: BlockFormat):
             cands.append((fmt_bit, table, "round"))
             cands.append((fmt_bit, table, None))
     return cands
+
+
+def arith_ok(fmt: BlockFormat) -> bool:
+    """The arithmetic encoder hard-codes the default CR remap
+    (``recycle="half_smallest"``); a custom recycle value takes the
+    table-driven ``quantize_blocks``, as in the reference."""
+    return not fmt.cr or fmt.recycle == "half_smallest"
+
+
+def recycled_value(elem_name: str, recycle) -> float:
+    """The f32 value the recycled -0 code (10...0) decodes to."""
+    elem = level_table(elem_name, True, recycle)
+    return float(elem.decode[1 << (elem.fmt.bits - 1)])
 
 
 def _block_mean(d):
@@ -234,21 +250,43 @@ def block_maxima(xb, fmt: BlockFormat):
     return xb, [(vm, floor_log2_bits(vm)) for vm in maxima]
 
 
-def _candidate_results(xb, fmt: BlockFormat):
-    """Yield (codes, meta, mse) of every candidate, in the reference's order."""
+def _table_candidate(xb, vmax, vmax_e, fmt_bit, nano_mode, table):
+    """One candidate of the table-driven encoder: the reference's
+    ``_quantize_candidate``. Each scaled value takes the level of its
+    ``searchsorted`` slot among the midpoints (side left: a value on a
+    midpoint takes the lower level)."""
+    e_sh, nano, scale = _side(vmax, vmax_e, nano_mode, table)
+    vp = xb * torch.reciprocal(scale)[..., None]
+    dev = xb.device
+    bounds = torch.from_numpy(table.boundaries).to(dev)
+    idx = torch.searchsorted(bounds, vp.contiguous())
+    codes = torch.from_numpy(table.codes_sorted.astype(np.int32)).to(dev)[idx]
+    deq = torch.from_numpy(table.values_sorted).to(dev)[idx] * scale[..., None]
+    meta = (e_sh + _E_BIAS) | (nano << 8) | (fmt_bit << 10)
+    return codes, meta, _block_mean(torch.square(deq - xb))
+
+
+def _candidate_results(xb, fmt: BlockFormat, table: bool = False):
+    """Yield (codes, meta, mse) of every candidate, in the reference's
+    order: the arithmetic encoder's, or with ``table`` the table-driven
+    one's (symmetric formats only)."""
     xb, sides = block_maxima(xb, fmt)
     (vmax, vmax_e), extra = sides[0], {}
     if fmt.asym:
         extra = dict(vmax_n=sides[1][0], vmax_n_e=sides[1][1])
-    for fmt_bit, table, nano_mode in candidates(fmt):
-        yield _encode_candidate(xb, vmax, vmax_e, fmt_bit, nano_mode, table,
-                                fmt.cr, ox=fmt.ox, **extra)
+    for fmt_bit, tbl, nano_mode in candidates(fmt):
+        if table:
+            yield _table_candidate(xb, vmax, vmax_e, fmt_bit, nano_mode, tbl)
+        else:
+            yield _encode_candidate(xb, vmax, vmax_e, fmt_bit, nano_mode,
+                                    tbl, fmt.cr, ox=fmt.ox, **extra)
 
 
-def arith_encode_blocks(xb, fmt: BlockFormat):
-    """(..., nb, B) float -> (codes int32 (..., nb, B), meta int32 (..., nb))."""
+def _best(results):
+    """The first candidate, then each later one that has a strictly lower
+    MSE (the reference's argmin)."""
     best_codes = best_meta = best_mse = None
-    for ci, (codes, meta, mse) in enumerate(_candidate_results(xb, fmt)):
+    for ci, (codes, meta, mse) in enumerate(results):
         if ci == 0:
             # first candidate unconditional: inf-MSE blocks still encode
             best_codes, best_meta, best_mse = codes, meta, mse
@@ -260,6 +298,11 @@ def arith_encode_blocks(xb, fmt: BlockFormat):
     return best_codes, best_meta
 
 
+def arith_encode_blocks(xb, fmt: BlockFormat):
+    """(..., nb, B) float -> (codes int32 (..., nb, B), meta int32 (..., nb))."""
+    return _best(_candidate_results(xb, fmt))
+
+
 def near_tie_blocks(xb, fmt: BlockFormat, ulps: int = 4):
     """(..., nb) bool: blocks whose best and runner-up candidate MSEs lie
     within ``ulps`` f32 ulps of each other.
@@ -268,7 +311,9 @@ def near_tie_blocks(xb, fmt: BlockFormat, ulps: int = 4):
     32-element mean is summed in another order by XLA, torch and CUDA.
     Used to tell such blocks from real faults when codes differ.
     """
-    mses = torch.stack([mse for _, _, mse in _candidate_results(xb, fmt)])
+    table = not arith_ok(fmt) and not (fmt.asym or fmt.ox)
+    mses = torch.stack([mse for _, _, mse in
+                        _candidate_results(xb, fmt, table)])
     if mses.shape[0] < 2:
         return torch.zeros(mses.shape[1:], dtype=torch.bool,
                            device=mses.device)
@@ -277,21 +322,47 @@ def near_tie_blocks(xb, fmt: BlockFormat, ulps: int = 4):
     return (second - best) <= ulps * ulp
 
 
+def _typed(codes, meta, fmt: BlockFormat):
+    if fmt.meta_dtype == "uint32":
+        return codes.to(torch.uint8), meta.contiguous().view(torch.uint32)
+    return codes.to(torch.uint8), meta.to(torch.uint16)
+
+
 def quantize_blocks_arith(xb, fmt: BlockFormat):
     """Blocked encode -> (codes uint8 (..., nb, B), meta (..., nb) of
     ``fmt.meta_dtype``: uint32 for asym formats, else uint16).
 
     Only the default ``recycle="half_smallest"`` remap is supported (the
-    CR window is hard-coded to it), as in the reference.
+    CR window is hard-coded to it), as in the reference; a custom recycle
+    value takes ``quantize_blocks``.
     """
-    if fmt.cr and fmt.recycle != "half_smallest":
+    if not arith_ok(fmt):
         raise NotImplementedError(
-            f"{fmt.name}: custom recycle values need the table-driven "
-            "encoder, which is not ported")
-    codes, meta = arith_encode_blocks(xb, fmt)
-    if fmt.meta_dtype == "uint32":
-        return codes.to(torch.uint8), meta.contiguous().view(torch.uint32)
-    return codes.to(torch.uint8), meta.to(torch.uint16)
+            f"{fmt.name}: the arithmetic encoder takes the default recycle "
+            "value only; custom values take quantize_blocks")
+    return _typed(*arith_encode_blocks(xb, fmt), fmt)
+
+
+def quantize_blocks(xb, fmt: BlockFormat):
+    """The reference's table-driven encoder (``core/quantize.py:
+    quantize_blocks``): each candidate snaps every scaled value to its
+    ``searchsorted`` level among the midpoints of the format's levels
+    (a value on a midpoint takes the lower level), the recycled value
+    included wherever the format puts it. The activation formats (asym,
+    ox) have no table form and take the arithmetic encoder, as there.
+    Returns (codes uint8 (..., nb, B), meta (..., nb) of
+    ``fmt.meta_dtype``)."""
+    if fmt.asym or fmt.ox:
+        return _typed(*arith_encode_blocks(xb, fmt), fmt)
+    return _typed(*_best(_candidate_results(xb, fmt, table=True)), fmt)
+
+
+def encode_blocks(xb, fmt: BlockFormat):
+    """The encoder the reference serves ``fmt`` with: the arithmetic one,
+    or the table-driven one for a custom recycle value."""
+    if arith_ok(fmt):
+        return quantize_blocks_arith(xb, fmt)
+    return quantize_blocks(xb, fmt)
 
 
 def _level_values(codes, fmt_bit, fmt: BlockFormat):

@@ -6,9 +6,13 @@
 // One query token per sequence attends to its cached K/V rows:
 //   q        (B, KVH, G, D) f32, already scaled by 1/sqrt(head_dim)
 //   K/V      (B, S, KVH, NB, bpb) uint8 + (B, S, KVH, NB) uint16 meta
-//            (uint32 for an asym format), blocks of 16 or 32 codes along
-//            head_dim (D = NB * block), decoded by nxfp_decode.cuh (ox and
-//            asym formats included)
+//            (uint32 for an asym format), blocks of bs codes along
+//            head_dim (D = NB * bs), decoded by nxfp_decode.cuh (ox and
+//            asym formats included): 4/5/6/8-bit codes at bs 16/32 by
+//            instances that read whole blocks, every other width and block
+//            size (3-bit codes, bs 8, 64, 128) by a generic instance per
+//            width that reads each row as one long block, 8 codes at a
+//            time, and takes bs as a runtime shift
 //   lengths  (B,) int32 valid rows per sequence
 //   out      (B, KVH, G, D) f32
 // As the TPU kernel: rows are dequantized to f32, both dots run in f32 on
@@ -90,6 +94,8 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// QB: the block size of an instance that reads whole blocks, 0 for the
+// generic instance (bs = 1 << lbs, any power of two from 8 to 128).
 template <int BITS, int QB, bool EX>
 __global__ void __launch_bounds__(kThreads)
 nxfp_decode_attention_kernel(const float* __restrict__ q,
@@ -100,11 +106,12 @@ nxfp_decode_attention_kernel(const float* __restrict__ q,
                              const int* __restrict__ lengths,
                              float* __restrict__ out, float* __restrict__ ws,
                              int* __restrict__ counters, int S, int KVH,
-                             int G, int NB, int tps, nxfp::FmtDesc af) {
+                             int G, int NB, int tps, int lbs,
+                             nxfp::FmtDesc af) {
   extern __shared__ float smem[];
   __shared__ float lut[2 << BITS];
   __shared__ int is_last;
-  const int D = NB * QB, DP = D + 1;
+  const int D = QB > 0 ? NB * QB : NB << lbs, DP = D + 1;
   float* ks = smem;                   // [kTS][DP]
   float* vs = ks + kTS * DP;          // [kTS][DP]
   float* qs = vs + kTS * DP;          // [G][D]
@@ -134,18 +141,43 @@ nxfp_decode_attention_kernel(const float* __restrict__ q,
 
   for (int s0 = r0; s0 < r1; s0 += kTS) {
     __syncthreads();  // previous tile consumed; init visible
-    // dequantize the K and V tiles: one packed block per item
-    for (int it = tid; it < kTS * NB; it += kThreads) {
-      const int r = it / NB, j = it % NB, s = s0 + r;
-      float* kd = ks + r * DP + j * QB;
-      float* vd = vs + r * DP + j * QB;
-      if (s < S) {
-        const size_t blk = (((size_t)b * S + s) * KVH + h) * NB + j;
-        decode_row<BITS, QB, EX>(kp, km, blk, lut, af, kd);
-        decode_row<BITS, QB, EX>(vp, vm, blk, lut, af, vd);
-      } else {
+    if constexpr (QB > 0) {
+      // dequantize the K and V tiles: one packed block per item
+      for (int it = tid; it < kTS * NB; it += kThreads) {
+        const int r = it / NB, j = it % NB, s = s0 + r;
+        float* kd = ks + r * DP + j * QB;
+        float* vd = vs + r * DP + j * QB;
+        if (s < S) {
+          const size_t blk = (((size_t)b * S + s) * KVH + h) * NB + j;
+          decode_row<BITS, QB, EX>(kp, km, blk, lut, af, kd);
+          decode_row<BITS, QB, EX>(vp, vm, blk, lut, af, vd);
+        } else {
 #pragma unroll
-        for (int i = 0; i < QB; ++i) kd[i] = vd[i] = 0.0f;
+          for (int i = 0; i < QB; ++i) kd[i] = vd[i] = 0.0f;
+        }
+      }
+    } else {
+      // generic: a row of D codes is one long block, 8 codes per item
+      const int no = D / 8;
+      for (int it = tid; it < kTS * no; it += kThreads) {
+        const int r = it / no, j = it % no, s = s0 + r;
+        float* kd = ks + r * DP + 8 * j;
+        float* vd = vs + r * DP + 8 * j;
+        if (s < S) {
+          const size_t row = ((size_t)b * S + s) * KVH + h;
+          const size_t at = row * D / 8 * BITS + (size_t)j * BITS;
+          const size_t mi = row * NB + ((8 * j) >> lbs);
+          const int i0 = (8 * j) & ((1 << lbs) - 1);
+          nxfp::decode_octet<BITS, EX>(nxfp::load_octet<BITS>(kp + at),
+                                       nxfp::read_meta(km, mi, af), i0, lut,
+                                       af, kd);
+          nxfp::decode_octet<BITS, EX>(nxfp::load_octet<BITS>(vp + at),
+                                       nxfp::read_meta(vm, mi, af), i0, lut,
+                                       af, vd);
+        } else {
+#pragma unroll
+          for (int i = 0; i < 8; ++i) kd[i] = vd[i] = 0.0f;
+        }
       }
     }
     __syncthreads();
@@ -234,7 +266,7 @@ nxfp_decode_attention_kernel(const float* __restrict__ q,
 struct Args {
   const void *q, *kp, *km, *vp, *vm, *lengths;
   void *out, *ws, *counters;
-  int B, S, KVH, G, NB, splits, tps;
+  int B, S, KVH, G, NB, splits, tps, lbs;
   nxfp::FmtDesc af;
   cudaStream_t st;
 };
@@ -242,7 +274,7 @@ struct Args {
 template <int BITS, int QB, bool EX>
 int launch(const Args& a) {
   auto kernel = nxfp_decode_attention_kernel<BITS, QB, EX>;
-  const int D = a.NB * QB;
+  const int D = a.NB << a.lbs;
   const size_t smem =
       sizeof(float) * ((size_t)2 * kTS * (D + 1) + 2 * a.G * D + a.G * kTS + 3 * a.G);
   if (smem > 48 * 1024) {
@@ -257,7 +289,7 @@ int launch(const Args& a) {
       reinterpret_cast<const uint8_t*>(a.vp), a.vm,
       reinterpret_cast<const int*>(a.lengths), reinterpret_cast<float*>(a.out),
       reinterpret_cast<float*>(a.ws), reinterpret_cast<int*>(a.counters), a.S,
-      a.KVH, a.G, a.NB, a.tps, a.af);
+      a.KVH, a.G, a.NB, a.tps, a.lbs, a.af);
   return (int)cudaGetLastError();
 }
 
@@ -278,11 +310,13 @@ extern "C" int nxfp_decode_attention_launch(
     const void* vm, const void* lengths, void* out, int B, int S, int KVH,
     int G, int NB, const void* fmt_desc, int splits, int tps, void* ws,
     void* counters, void* stream) {
+  const auto af = *reinterpret_cast<const nxfp::FmtDesc*>(fmt_desc);
+  const int bs = af.block_size, lbs = nxfp::log2_bs(bs);
   const Args a{q, kp, km, vp, vm, lengths, out, ws, counters, B, S, KVH, G,
-               NB, splits, tps,
-               *reinterpret_cast<const nxfp::FmtDesc*>(fmt_desc),
+               NB, splits, tps, lbs, af,
                reinterpret_cast<cudaStream_t>(stream)};
   if (B == 0 || KVH == 0 || G == 0) return 0;
+  if (bs < 8 || bs > 128 || (1 << lbs) != bs) return (int)cudaErrorInvalidValue;
   const long long tiles = ((long long)S + kTS - 1) / kTS;
   if (splits < 1 || tps < 1 || splits > 65535 || B > 65535 ||
       (long long)(splits - 1) * tps >= (tiles > 0 ? tiles : 1) ||
@@ -294,5 +328,10 @@ extern "C" int nxfp_decode_attention_launch(
   NXFP_ATT(4, 32) NXFP_ATT(5, 32) NXFP_ATT(6, 32) NXFP_ATT(8, 32)
   NXFP_ATT(4, 16) NXFP_ATT(5, 16) NXFP_ATT(6, 16) NXFP_ATT(8, 16)
 #undef NXFP_ATT
+  // every other width and block size: the generic instance of the width
+#define NXFP_ATT_GEN(BI) if (a.af.bits == BI) return launch_ex<BI, 0>(a);
+  NXFP_ATT_GEN(2) NXFP_ATT_GEN(3) NXFP_ATT_GEN(4) NXFP_ATT_GEN(5)
+  NXFP_ATT_GEN(6) NXFP_ATT_GEN(7) NXFP_ATT_GEN(8)
+#undef NXFP_ATT_GEN
   return (int)cudaErrorInvalidValue;
 }

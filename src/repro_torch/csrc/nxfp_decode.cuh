@@ -15,8 +15,17 @@
 // all-zero block, e.g. padding).
 //
 // Code i of a packed block sits at bit offset i*bits, little-endian, and
-// straddles at most two bytes: one read serves 4/5/6/8-bit widths and any
+// straddles at most two bytes: one read serves 2- to 8-bit widths and any
 // block count (the two-block pack tile of the TPU kernels is not needed).
+//
+// One long block. Every block of bs >= 8 codes is a whole number of bytes,
+// so consecutive blocks of a row have exactly the bytes of one long block:
+// a kernel may read a row's codes in units of its own choosing (8 or 32
+// codes) and find each code's meta word by its position k along the row,
+// word row * KB + (k >> log2(bs)). The kernels' instances for bs 16/32 at
+// 4/5/6/8 bits read whole blocks; every other width and block size (3-bit
+// codes, bs 8, 64, 128) runs a "generic" instance that reads such units,
+// with the block size a runtime shift (2/7-bit codes, BFP only, too).
 #pragma once
 
 #include <cstdint>
@@ -32,7 +41,8 @@ struct ElemDesc {
   int ebits;
   int mbits;
   int bias;
-  int cr;      // code recycling: 10...0 decodes to -smallest/2
+  int cr;      // code recycling: 10...0 decodes to cr_val
+  float cr_val;  // the recycled value (-smallest/2 unless the format says)
 };
 
 // One block format (kernels/build.py: FmtDesc).
@@ -62,10 +72,9 @@ __device__ __forceinline__ int floor_log2_bits(float v) {
 __device__ __forceinline__ float decode_elem(int c, const ElemDesc& f) {
   const int sign = (c >> (f.bits - 1)) & 1;
   const int mag = c & ((1 << (f.bits - 1)) - 1);
-  float val, smallest;
+  float val;
   if (f.is_bfp) {
     val = (float)mag;
-    smallest = 1.0f;
   } else {
     const int e = mag >> f.mbits;
     const float m = (float)(mag & ((1 << f.mbits) - 1)) * pow2i(-f.mbits);
@@ -73,10 +82,9 @@ __device__ __forceinline__ float decode_elem(int c, const ElemDesc& f) {
     const float nrm = (1.0f + m) * pow2i(e - f.bias);
     val = e == 0 ? sub : nrm;
     if (f.ebits == 4 && f.mbits == 3 && mag == 127) val = 0.0f;  // e4m3 NaN
-    smallest = pow2i(-f.mbits) * pow2i(1 - f.bias);
   }
   if (sign) val = -val;
-  if (f.cr && c == (1 << (f.bits - 1))) val = -0.5f * smallest;
+  if (f.cr && c == (1 << (f.bits - 1))) val = f.cr_val;
   return val;
 }
 
@@ -249,6 +257,69 @@ __device__ __forceinline__ void decode_block_bf16(
           block_value(s, lt[c1], c1, i + 1, BITS));
     }
   }
+}
+
+// The BITS bytes of 8 codes starting at byte p (any alignment), as the low
+// 8 * BITS bits of the result.
+template <int BITS>
+__device__ __forceinline__ unsigned long long load_octet(
+    const uint8_t* __restrict__ p) {
+  unsigned long long w = 0ull;
+#pragma unroll
+  for (int j = 0; j < BITS; ++j) w |= (unsigned long long)__ldg(p + j) << (8 * j);
+  return w;
+}
+
+// Code j of an octet read by load_octet.
+template <int BITS>
+__device__ __forceinline__ int octet_code(unsigned long long w, int j) {
+  return (int)((w >> (j * BITS)) & ((1u << BITS) - 1u));
+}
+
+// Value j of an octet of a long block (see the note at the top): `m` is
+// the octet's meta word, `i0` the octet's first position within its block.
+// A symmetric format's value is its element value times the block scale,
+// an activation format's the per-sign scale or the ox value.
+template <int BITS, bool EX>
+__device__ __forceinline__ void decode_octet(unsigned long long w, unsigned m,
+                                             int i0, const float* lut,
+                                             const FmtDesc& f, float* dst) {
+  if (!EX || (!f.asym && !f.ox)) {
+    int fb;
+    const float sc = decode_scale(m & 0xFFFFu, &fb);
+    const float* lt = lut + (fb << BITS);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) dst[j] = lt[octet_code<BITS>(w, j)] * sc;
+  } else {
+    const BlockScale s = block_scale(m, f);
+    const float* lt = lut + (s.fb << BITS);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = octet_code<BITS>(w, j);
+      dst[j] = block_value(s, lt[c], c, i0 + j, BITS);
+    }
+  }
+}
+
+// Whether (bits, bs) has kernel instances that read whole blocks (the
+// widths and block sizes of the main path); every other format a kernel
+// takes runs its generic instance for the width.
+__host__ __device__ __forceinline__ bool native_fmt(int bits, int bs) {
+  return (bits == 4 || bits == 5 || bits == 6 || bits == 8) &&
+         (bs == 16 || bs == 32);
+}
+
+// The code widths and block sizes of the generic instances.
+__host__ __device__ __forceinline__ bool generic_fmt(int bits, int bs) {
+  return bits >= 2 && bits <= 8 &&
+         (bs == 8 || bs == 16 || bs == 32 || bs == 64 || bs == 128);
+}
+
+// log2 of a power-of-two block size.
+__host__ __device__ __forceinline__ int log2_bs(int bs) {
+  int l = 0;
+  while ((1 << l) < bs) ++l;
+  return l;
 }
 
 // Fill lut[2 << BITS] with decode_elem of every code, for fmt bit 0 and 1.

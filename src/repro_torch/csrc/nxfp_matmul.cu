@@ -5,7 +5,9 @@
 //
 // Wq is stored packed (N, KB, bpb) uint8 + (N, KB) meta, uint16 (uint32
 // for an asym format): for each output column n the K axis is contiguous,
-// KB blocks of 16 or 32 codes of 4/5/6/8 bits.
+// KB blocks of 8 to 128 codes of 2 to 8 bits (nxfp_decode.cuh: the main
+// path's 4/5/6/8 bits at bs 16/32 read whole blocks, every other format a
+// row as one long block).
 //
 // Bound on the H100: at decode (M = batch, a few rows) the packed weight
 // bytes, ~4.5 bits per weight: a Llama-3-8B step streams 3.9 GB, >= 1.17 ms

@@ -30,6 +30,12 @@
 //   the last CTA to arrive at a tile (an atomic counter per tile, reset
 //   to 0 by that CTA) sums the partials in split order and writes y. No
 //   atomics touch y, so the result is bitwise repeatable.
+// - Formats: 4/5/6/8-bit codes at bs 16/32 read whole blocks (QB = bs).
+//   Every other width and block size (3-bit codes, bs 8, 64, 128) runs the
+//   generic instance of its width (GEN): a row of K codes is one long
+//   block (nxfp_decode.cuh), read in units of 32 codes exactly as a bs-32
+//   block, and each unit reads the meta word of every 8 codes it holds,
+//   word n * KBm + (k >> lbs). The caller pads K to a multiple of 32.
 // How far it got (PERF.md, PR 14): at M 4 faster than torch.matmul bf16
 // at every main-path shape, but ~0.035 ms on the MLP shapes, about a
 // quarter of the bytes bound; at M 16 slower than torch.matmul.
@@ -56,10 +62,12 @@ __device__ __forceinline__ void mma_m16n8k16(float* d, const unsigned* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-template <int BITS, int QB>
+// A lane's block (GEN: its unit of 32 codes, with the meta word of each
+// of its four octets).
+template <int BITS, int QB, bool GEN>
 struct Block {
   nxfp::PackedBlock<BITS, QB> pb;
-  unsigned meta;
+  unsigned meta[GEN ? 4 : 1];
 };
 
 // x (M, K) bf16 -> xs in fragment order: entry ((ss * QB/4 + s) * 4 + t) * M
@@ -81,14 +89,16 @@ __device__ __forceinline__ void stage_x(uint2* xs, const __nv_bfloat16* x,
   }
 }
 
-template <int BITS, int QB, bool EX>
+// KB: blocks per row (GEN: units of 32 codes); KBm, lbs: meta words per
+// row and log2 of the block size (read by GEN only).
+template <int BITS, int QB, bool EX, bool GEN>
 __global__ void __launch_bounds__(kThreads)
 nxfp_matmul_decode_kernel(const __nv_bfloat16* __restrict__ x,
                           const uint8_t* __restrict__ packed,
                           const void* __restrict__ meta,
                           float* __restrict__ y, float* __restrict__ ws,
                           int* __restrict__ counters, int M, int N, int KB,
-                          int chunk, nxfp::FmtDesc fd) {
+                          int chunk, int KBm, int lbs, nxfp::FmtDesc fd) {
   extern __shared__ uint2 xs[];
   __shared__ float lut[2 << BITS];
   __shared__ int is_last;
@@ -103,40 +113,55 @@ nxfp_matmul_decode_kernel(const __nv_bfloat16* __restrict__ x,
 
   const int n = tile * kBN + warp * 8 + g;  // this lane's column
   // lane (g, tq) reads block kb0 + 4 ss + tq of column n
-  auto load = [&](int ss, Block<BITS, QB>& b) {
+  auto load = [&](int ss, Block<BITS, QB, GEN>& b) {
     const int kb = kb0 + 4 * ss + tq;
     if (n < N && kb < kb1) {
       const size_t blk = (size_t)n * KB + kb;
       nxfp::load_block_vec<BITS, QB>(b.pb, packed, blk);
-      b.meta = nxfp::read_meta(meta, blk, fd);
+      if constexpr (GEN) {
+#pragma unroll
+        for (int o = 0; o < 4; ++o)
+          b.meta[o] = nxfp::read_meta(
+              meta, (size_t)n * KBm + ((kb * QB + 8 * o) >> lbs), fd);
+      } else {
+        b.meta[0] = nxfp::read_meta(meta, blk, fd);
+      }
     } else {  // zero codes under a zero meta word decode to 0
 #pragma unroll
       for (int j = 0; j < (QB * BITS + 31) / 32; ++j) b.pb.w[j] = 0u;
-      b.meta = 0u;
+#pragma unroll
+      for (int o = 0; o < (GEN ? 4 : 1); ++o) b.meta[o] = 0u;
     }
   };
 
   float acc[4] = {};
   const int n_ss = (kb1 - kb0 + 3) / 4;
-  Block<BITS, QB> cur;
+  const int bmask = (1 << lbs) - 1;
+  Block<BITS, QB, GEN> cur;
   load(0, cur);
   __syncthreads();  // xs and the LUT written
   for (int ss = 0; ss < n_ss; ++ss) {
-    Block<BITS, QB> nxt;
+    Block<BITS, QB, GEN> nxt;
     if (ss + 1 < n_ss) load(ss + 1, nxt);
     nxfp::WScale<BITS, EX> sc;
-    sc.set(cur.meta, fd);
+    sc.set(cur.meta[0], fd);
 #pragma unroll
     for (int s = 0; s < QB / 4; ++s) {
+      // GEN: a new block every 8 codes at bs 8, every 16 at bs 16
+      if constexpr (GEN) {
+        if (s > 0 && (s & 1) == 0 && lbs < 5) sc.set(cur.meta[s >> 1], fd);
+      }
+      // the position within its block (read by the ox decode)
+      const int pi = GEN ? ((4 * s) & bmask) : 4 * s;
       const uint2* xf = xs + ((ss * (QB / 4) + s) * 4 + tq) * M;
       const uint2 lo = g < M ? xf[g] : make_uint2(0u, 0u);
       const uint2 hi = g + 8 < M ? xf[g + 8] : make_uint2(0u, 0u);
       const unsigned a[4] = {lo.x, hi.x, lo.y, hi.y};
       const unsigned b[2] = {
           sc.pair(lut, nxfp::code_off(cur.pb, 4 * s),
-                  nxfp::code_off(cur.pb, 4 * s + 1), 4 * s),
+                  nxfp::code_off(cur.pb, 4 * s + 1), pi),
           sc.pair(lut, nxfp::code_off(cur.pb, 4 * s + 2),
-                  nxfp::code_off(cur.pb, 4 * s + 3), 4 * s + 2)};
+                  nxfp::code_off(cur.pb, 4 * s + 3), pi + 2)};
       mma_m16n8k16(acc, a, b);
     }
     cur = nxt;
@@ -172,31 +197,35 @@ nxfp_matmul_decode_kernel(const __nv_bfloat16* __restrict__ x,
   if (tid == 0) counters[tile] = 0;  // ready for the next launch
 }
 
-template <int BITS, int QB, bool EX>
+template <int BITS, int QB, bool EX, bool GEN>
 int launch(const void* x, const void* packed, const void* meta, void* y,
            int M, int N, int KB, int splits, int chunk, void* ws,
-           void* counters, const nxfp::FmtDesc& fd, cudaStream_t st) {
+           void* counters, int KBm, int lbs, const nxfp::FmtDesc& fd,
+           cudaStream_t st) {
   const dim3 grid((N + kBN - 1) / kBN, splits);
   const size_t smem = (size_t)M * chunk * QB * sizeof(__nv_bfloat16);
-  nxfp_matmul_decode_kernel<BITS, QB, EX><<<grid, kThreads, smem, st>>>(
+  nxfp_matmul_decode_kernel<BITS, QB, EX, GEN><<<grid, kThreads, smem, st>>>(
       reinterpret_cast<const __nv_bfloat16*>(x),
       reinterpret_cast<const uint8_t*>(packed), meta,
       reinterpret_cast<float*>(y), reinterpret_cast<float*>(ws),
-      reinterpret_cast<int*>(counters), M, N, KB, chunk, fd);
+      reinterpret_cast<int*>(counters), M, N, KB, chunk, KBm, lbs, fd);
   return (int)cudaGetLastError();
 }
 
-template <int BITS, int QB>
+template <int BITS, int QB, bool GEN>
 int launch_ex(const void* x, const void* packed, const void* meta, void* y,
               int M, int N, int KB, int splits, int chunk, void* ws,
-              void* counters, const nxfp::FmtDesc& fd, cudaStream_t st) {
+              void* counters, int KBm, int lbs, const nxfp::FmtDesc& fd,
+              cudaStream_t st) {
   // the weights are symmetric: their instance carries no activation-format
   // decode
   return (fd.asym || fd.ox)
-             ? launch<BITS, QB, true>(x, packed, meta, y, M, N, KB, splits,
-                                      chunk, ws, counters, fd, st)
-             : launch<BITS, QB, false>(x, packed, meta, y, M, N, KB, splits,
-                                       chunk, ws, counters, fd, st);
+             ? launch<BITS, QB, true, GEN>(x, packed, meta, y, M, N, KB,
+                                           splits, chunk, ws, counters, KBm,
+                                           lbs, fd, st)
+             : launch<BITS, QB, false, GEN>(x, packed, meta, y, M, N, KB,
+                                            splits, chunk, ws, counters, KBm,
+                                            lbs, fd, st);
 }
 
 }  // namespace
@@ -205,21 +234,35 @@ int nxfp_matmul_decode(const void* x, const void* packed, const void* meta,
                        void* y, int M, int N, int KB, int splits, int chunk,
                        void* ws, void* counters, const nxfp::FmtDesc& fd,
                        cudaStream_t st) {
-  // every split holds at least one K block and the splits cover KB once;
+  // generic formats run in units of 32 codes: KU of them per row
+  const int bs = fd.block_size, lbs = nxfp::log2_bs(bs);
+  const bool gen = !nxfp::native_fmt(fd.bits, bs);
+  if (gen && (!nxfp::generic_fmt(fd.bits, bs) || (long long)KB * bs % 32))
+    return (int)cudaErrorInvalidValue;
+  const int KU = gen ? (int)((long long)KB * bs / 32) : KB;
+  const int qb = gen ? 32 : bs;
+  // every split holds at least one K block and the splits cover KU once;
   // the x slice fits the 48 KB of shared memory a launch gets unasked
   if (M < 1 || M > kMaxM || chunk < 4 || chunk % 4 != 0 || splits < 1 ||
-      (long long)(splits - 1) * chunk >= KB ||
-      (long long)splits * chunk < KB ||
-      (size_t)M * chunk * fd.block_size * 2 > kXSliceBytes ||
+      (long long)(splits - 1) * chunk >= KU ||
+      (long long)splits * chunk < KU ||
+      (size_t)M * chunk * qb * 2 > kXSliceBytes ||
       (splits > 1 && (ws == nullptr || counters == nullptr)))
     return (int)cudaErrorInvalidValue;
-#define NXFP_DEC(B, S)                                                      \
-  if (fd.bits == B && fd.block_size == S)                                   \
-    return launch_ex<B, S>(x, packed, meta, y, M, N, KB, splits, chunk, ws, \
-                           counters, fd, st);
+#define NXFP_DEC(B, S)                                                       \
+  if (fd.bits == B && bs == S)                                               \
+    return launch_ex<B, S, false>(x, packed, meta, y, M, N, KB, splits,      \
+                                  chunk, ws, counters, KB, lbs, fd, st);
   NXFP_DEC(4, 32) NXFP_DEC(5, 32) NXFP_DEC(6, 32) NXFP_DEC(8, 32)
   NXFP_DEC(4, 16) NXFP_DEC(5, 16) NXFP_DEC(6, 16) NXFP_DEC(8, 16)
 #undef NXFP_DEC
+#define NXFP_DEC_GEN(B)                                                      \
+  if (fd.bits == B)                                                          \
+    return launch_ex<B, 32, true>(x, packed, meta, y, M, N, KU, splits,      \
+                                  chunk, ws, counters, KB, lbs, fd, st);
+  NXFP_DEC_GEN(2) NXFP_DEC_GEN(3) NXFP_DEC_GEN(4) NXFP_DEC_GEN(5)
+  NXFP_DEC_GEN(6) NXFP_DEC_GEN(7) NXFP_DEC_GEN(8)
+#undef NXFP_DEC_GEN
   return (int)cudaErrorInvalidValue;
 }
 

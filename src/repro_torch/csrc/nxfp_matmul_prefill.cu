@@ -24,6 +24,13 @@
 //   the A fragments of step t + 1 are decoded while they run, then
 //   wgmma.wait_group 0 and one __syncthreads release stage t for the copy
 //   of step t + 4. No producer warp and no persistent tile scheduler.
+// - Formats: 4/5/6/8-bit codes at bs 16/32 stage whole blocks with their
+//   meta words. Every other width and block size (3-bit codes, bs 8, 64,
+//   128) runs the generic instance of its width (GEN): a row is one long
+//   block (nxfp_decode.cuh) staged in units of 32 codes as bs-32 blocks,
+//   and each 8 codes read their meta word, n * KBm + (k >> lbs), from
+//   device memory (L1/L2) when they are decoded. The caller pads K to a
+//   multiple of 32.
 // How far it got (PERF.md, PR 14): ~0.2 ms at M 512 on the MLP shapes,
 // ~30% of the operations bound and ~2.2x torch.matmul bf16. The W decode
 // (with the copy issue, well over the four instructions per weight of the
@@ -163,12 +170,14 @@ struct Stage {
   }
 };
 
-template <int BITS, int QB, bool EX>
+// KB: blocks per row (GEN: units of 32 codes); KBm, lbs: meta words per
+// row and log2 of the block size (read by GEN only).
+template <int BITS, int QB, bool EX, bool GEN>
 __global__ void __launch_bounds__(kThreads, 1)
 nxfp_matmul_prefill_kernel(const uint8_t* __restrict__ packed,
                            const void* __restrict__ meta,
                            float* __restrict__ y, int M, int N, int KB,
-                           nxfp::FmtDesc fd,
+                           int KBm, int lbs, nxfp::FmtDesc fd,
                            const __grid_constant__ CUtensorMap xmap) {
   constexpr int kBpb = QB * BITS / 8;
   constexpr int kNB = kBK / QB;            // blocks per row per stage
@@ -236,8 +245,9 @@ nxfp_matmul_prefill_kernel(const uint8_t* __restrict__ packed,
         cp_async<kCW>(dst, src, ok);
     }
     // meta: the aligned 4-byte words covering row cr's kNB entries
-    // (uint16 entries may start at an odd index, see par)
-    for (int i = half; i < m_words; i += 2) {
+    // (uint16 entries may start at an odd index, see par); GEN reads its
+    // meta words from device memory instead
+    for (int i = half; i < (GEN ? 0 : m_words); i += 2) {
       const size_t wd = m_base + (size_t)t * m_step + i;
       int bytes = 0;
       if (row_ok && wd < m_valid)
@@ -267,6 +277,14 @@ nxfp_matmul_prefill_kernel(const uint8_t* __restrict__ packed,
   // of each k16 slice. One scale per (row, block); 4-bit codes come four
   // words at a time (byte tq of each holds this thread's code pairs).
   using Frag = unsigned[kBK / 16][4];
+  const int bmask = (1 << lbs) - 1;
+  // GEN: the meta word of the 8 codes at row position k of W row n (0 past
+  // K, as the ox decode reads the E byte of a padding block)
+  auto gmeta = [&](int n, int k) -> unsigned {
+    return (n < N && k < K)
+               ? nxfp::read_meta(meta, (size_t)n * KBm + (k >> lbs), fd)
+               : 0u;
+  };
   auto decode = [&](int t, Frag& a) {
     const Stage sg = stage(t % kStages);
     mbar_wait(&full[t % kStages], (t / kStages) & 1);
@@ -276,7 +294,7 @@ nxfp_matmul_prefill_kernel(const uint8_t* __restrict__ packed,
 #pragma unroll
       for (int b = 0; b < kNB; ++b) {
         nxfp::WScale<BITS, EX> sc;
-        sc.set(stage_meta(sg, r, b, t * kNB, par[h]), fd);
+        if constexpr (!GEN) sc.set(stage_meta(sg, r, b, t * kNB, par[h]), fd);
         const uint8_t* blk = sg.w() + r * kRow + b * kBpb;
 #pragma unroll
         for (int q = 0; q < QB / 16; ++q) {  // the block's k16 slices
@@ -298,8 +316,18 @@ nxfp_matmul_prefill_kernel(const uint8_t* __restrict__ packed,
             o2 = (p1 & kMask) << 2;
             o3 = (p1 >> BITS) << 2;
           }
-          a[j][h] = sc.pair(lut, o0, o1, o);
-          a[j][2 + h] = sc.pair(lut, o2, o3, o + 8);
+          if constexpr (GEN) {
+            // codes o, o + 1 and o + 8, o + 9 lie in octets 2q and 2q + 1
+            const int k0 = t * kBK + b * QB + 16 * q;
+            nxfp::WScale<BITS, EX> hi;
+            sc.set(gmeta(n0 + r, k0), fd);
+            hi.set(gmeta(n0 + r, k0 + 8), fd);
+            a[j][h] = sc.pair(lut, o0, o1, o & bmask);
+            a[j][2 + h] = hi.pair(lut, o2, o3, (o + 8) & bmask);
+          } else {
+            a[j][h] = sc.pair(lut, o0, o1, o);
+            a[j][2 + h] = sc.pair(lut, o2, o3, o + 8);
+          }
         }
       }
     }
@@ -368,10 +396,11 @@ int x_tensor_map(CUtensorMap* map, const void* x, int M, int K) {
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-template <int BITS, int QB, bool EX>
+template <int BITS, int QB, bool EX, bool GEN>
 int launch(const void* x, const void* packed, const void* meta, void* y,
-           int M, int N, int KB, const nxfp::FmtDesc& fd, cudaStream_t st) {
-  auto kernel = nxfp_matmul_prefill_kernel<BITS, QB, EX>;
+           int M, int N, int KB, int KBm, int lbs, const nxfp::FmtDesc& fd,
+           cudaStream_t st) {
+  auto kernel = nxfp_matmul_prefill_kernel<BITS, QB, EX, GEN>;
   static bool attr = false;  // once per instance
   if (!attr) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -386,17 +415,19 @@ int launch(const void* x, const void* packed, const void* meta, void* y,
   if (rc != 0) return rc;
   kernel<<<grid, kThreads, kSmem, st>>>(
       reinterpret_cast<const uint8_t*>(packed), meta,
-      reinterpret_cast<float*>(y), M, N, KB, fd, xmap);
+      reinterpret_cast<float*>(y), M, N, KB, KBm, lbs, fd, xmap);
   return (int)cudaGetLastError();
 }
 
-template <int BITS, int QB>
+template <int BITS, int QB, bool GEN>
 int launch_ex(const void* x, const void* packed, const void* meta, void* y,
-              int M, int N, int KB, const nxfp::FmtDesc& fd,
-              cudaStream_t st) {
+              int M, int N, int KB, int KBm, int lbs,
+              const nxfp::FmtDesc& fd, cudaStream_t st) {
   return (fd.asym || fd.ox)
-             ? launch<BITS, QB, true>(x, packed, meta, y, M, N, KB, fd, st)
-             : launch<BITS, QB, false>(x, packed, meta, y, M, N, KB, fd, st);
+             ? launch<BITS, QB, true, GEN>(x, packed, meta, y, M, N, KB, KBm,
+                                           lbs, fd, st)
+             : launch<BITS, QB, false, GEN>(x, packed, meta, y, M, N, KB,
+                                            KBm, lbs, fd, st);
 }
 
 }  // namespace
@@ -405,11 +436,24 @@ int nxfp_matmul_prefill(const void* x, const void* packed, const void* meta,
                         void* y, int M, int N, int KB,
                         const nxfp::FmtDesc& fd, cudaStream_t st) {
   if ((N + kBN - 1) / kBN > 65535) return (int)cudaErrorInvalidValue;
+  const int bs = fd.block_size, lbs = nxfp::log2_bs(bs);
 #define NXFP_PF(B, S) \
-  if (fd.bits == B && fd.block_size == S) \
-    return launch_ex<B, S>(x, packed, meta, y, M, N, KB, fd, st);
+  if (fd.bits == B && bs == S) \
+    return launch_ex<B, S, false>(x, packed, meta, y, M, N, KB, KB, lbs, fd, \
+                                  st);
   NXFP_PF(4, 32) NXFP_PF(5, 32) NXFP_PF(6, 32) NXFP_PF(8, 32)
   NXFP_PF(4, 16) NXFP_PF(5, 16) NXFP_PF(6, 16) NXFP_PF(8, 16)
 #undef NXFP_PF
+  // generic formats run in units of 32 codes: KB * bs / 32 of them per row
+  if (!nxfp::generic_fmt(fd.bits, bs) || (long long)KB * bs % 32)
+    return (int)cudaErrorInvalidValue;
+  const int KU = (int)((long long)KB * bs / 32);
+#define NXFP_PF_GEN(B) \
+  if (fd.bits == B) \
+    return launch_ex<B, 32, true>(x, packed, meta, y, M, N, KU, KB, lbs, fd, \
+                                  st);
+  NXFP_PF_GEN(2) NXFP_PF_GEN(3) NXFP_PF_GEN(4) NXFP_PF_GEN(5)
+  NXFP_PF_GEN(6) NXFP_PF_GEN(7) NXFP_PF_GEN(8)
+#undef NXFP_PF_GEN
   return (int)cudaErrorInvalidValue;
 }

@@ -27,6 +27,12 @@
 //   the dequant GEMM's regime as its caller planned it: the split-K weight
 //   streaming of nxfp_matmul_decode.cu when there is a split (M <= 16),
 //   the wgmma pipeline of nxfp_matmul_prefill.cu otherwise.
+// - Formats: 4/5/6/8-bit X codes at bs 16/32 decode a block per thread;
+//   every other width and block size (3-bit codes, bs 8, 64, 128) runs the
+//   generic decode of its width, 8 codes per thread, each reading the meta
+//   word of its block at row position k, m * KB + (k >> lbs) (an X row is
+//   one long block, nxfp_decode.cuh). The mainloop takes W's format as
+//   nxfp_matmul_launch does.
 // So the result is, bit for bit, nxfp_matmul of the decoded X: each X
 // value is decoded once rather than once per W tile, and the X decode
 // adds no work to the mainloop, whose W decode is its likeliest limit.
@@ -64,6 +70,55 @@ nxfp_qq_decode_x_kernel(const uint8_t* __restrict__ xp,
   for (int j = 0; j < QB / 8; ++j)
     dst[j] = make_uint4(bf2_bits(v[4 * j]), bf2_bits(v[4 * j + 1]),
                         bf2_bits(v[4 * j + 2]), bf2_bits(v[4 * j + 3]));
+}
+
+// Generic decode: octet o of Xq (codes 8o .. 8o + 7 of X in row-major
+// order; rows hold KO octets) -> xd[8o, 8o + 8) bf16.
+template <int BITS, bool EX>
+__global__ void __launch_bounds__(kThreads)
+nxfp_qq_decode_x_generic_kernel(const uint8_t* __restrict__ xp,
+                                const void* __restrict__ xm,
+                                __nv_bfloat16* __restrict__ xd,
+                                long long n_oct, int KO, int KB, int lbs,
+                                nxfp::FmtDesc f) {
+  __shared__ float lut[2 << BITS];
+  nxfp::fill_lut<BITS>(lut, f, threadIdx.x, kThreads);
+  __syncthreads();
+  const long long o = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (o >= n_oct) return;
+  const long long row = o / KO;
+  const int k = (int)(o - row * KO) * 8;
+  float v[8];
+  nxfp::decode_octet<BITS, EX>(
+      nxfp::load_octet<BITS>(xp + o * BITS),
+      nxfp::read_meta(xm, (size_t)row * KB + (k >> lbs), f),
+      k & ((1 << lbs) - 1), lut, f, v);
+  *reinterpret_cast<uint4*>(xd + o * 8) = make_uint4(
+      bf2_bits(__floats2bfloat162_rn(v[0], v[1])),
+      bf2_bits(__floats2bfloat162_rn(v[2], v[3])),
+      bf2_bits(__floats2bfloat162_rn(v[4], v[5])),
+      bf2_bits(__floats2bfloat162_rn(v[6], v[7])));
+}
+
+template <int BITS>
+int decode_x_generic(const void* xp, const void* xm, void* xd, int M, int KB,
+                     const nxfp::FmtDesc& f, cudaStream_t st) {
+  const int lbs = nxfp::log2_bs(f.block_size);
+  const int KO = (int)((long long)KB * f.block_size / 8);
+  const long long n_oct = (long long)M * KO;
+  const long long grid = (n_oct + kThreads - 1) / kThreads;
+  if (grid > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  auto xpb = reinterpret_cast<const uint8_t*>(xp);
+  auto xdb = reinterpret_cast<__nv_bfloat16*>(xd);
+  if (f.asym || f.ox)
+    nxfp_qq_decode_x_generic_kernel<BITS, true>
+        <<<(unsigned)grid, kThreads, 0, st>>>(xpb, xm, xdb, n_oct, KO, KB, lbs,
+                                              f);
+  else
+    nxfp_qq_decode_x_generic_kernel<BITS, false>
+        <<<(unsigned)grid, kThreads, 0, st>>>(xpb, xm, xdb, n_oct, KO, KB, lbs,
+                                              f);
+  return (int)cudaGetLastError();
 }
 
 template <int BITS, int QB, bool EX>
@@ -110,6 +165,15 @@ extern "C" int nxfp_qq_matmul_launch(const void* xp, const void* xm,
   NXFP_QX(4, 32) NXFP_QX(5, 32) NXFP_QX(6, 32) NXFP_QX(8, 32)
   NXFP_QX(4, 16) NXFP_QX(5, 16) NXFP_QX(6, 16) NXFP_QX(8, 16)
 #undef NXFP_QX
+  if (!nxfp::native_fmt(xf.bits, xf.block_size)) {
+    if (!nxfp::generic_fmt(xf.bits, xf.block_size))
+      return (int)cudaErrorInvalidValue;
+#define NXFP_QX_GEN(B) \
+  if (xf.bits == B) rc = decode_x_generic<B>(xp, xm, xd, M, KB, xf, st);
+    NXFP_QX_GEN(2) NXFP_QX_GEN(3) NXFP_QX_GEN(4) NXFP_QX_GEN(5)
+    NXFP_QX_GEN(6) NXFP_QX_GEN(7) NXFP_QX_GEN(8)
+#undef NXFP_QX_GEN
+  }
   if (rc != 0) return rc;
   return nxfp_matmul_launch(xd, wp, wm, y, M, N, KB, w_desc, splits, chunk,
                             ws, counters, stream);

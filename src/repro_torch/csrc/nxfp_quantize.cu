@@ -30,6 +30,8 @@ struct CandList {
   int ox;
   int n_cands;
   CandDesc c[kMaxCands];
+  int table;  // a custom recycle value: the table-driven encoder's rules
+  float cr_lo[2], cr_hi[2], cr_val[2];  // its window and value per fmt bit
 };
 
 bool matches(const CandDesc& cd, int bits, int ebits) {
@@ -46,8 +48,8 @@ bool reduce(const CandList& cl, int bits, nxfpq::Fmt& f, int& mxe,
             int& kind) {
   static const int kModes[3][4] = {{-1}, {-2, -1}, {0, 1, 2, 3}};
   static const int kCount[3] = {1, 2, 4};
-  static const int kDefaultMxe[9] = {0, 0, 0, 0, 2, 2, 2, 0, 4};
-  if (bits < 4 || bits > 8 || cl.n_cands < 1 || cl.n_cands > kMaxCands)
+  static const int kDefaultMxe[9] = {0, 0, 1, 2, 2, 2, 2, 2, 4};
+  if (bits < 2 || bits > 8 || cl.n_cands < 1 || cl.n_cands > kMaxCands)
     return false;
   const int m0 = cl.c[0].nano_mode;
   f.nm = m0 == -1 ? 0 : m0 == -2 ? 1 : m0 == 0 ? 2 : -1;
@@ -75,10 +77,18 @@ bool reduce(const CandList& cl, int bits, nxfpq::Fmt& f, int& mxe,
     }
   }
   if (cl.cr && (cl.asym || cl.ox)) return false;
+  if (cl.table && !cl.cr) return false;
   f.asym = cl.asym;
-  kind = cl.ox ? nxfpq::KIND_OX
-               : cl.asym ? nxfpq::KIND_ASYM
-                         : cl.cr ? nxfpq::KIND_CR : nxfpq::KIND_SYM;
+  for (int b = 0; b < 2; ++b) {
+    f.cr_lo[b] = cl.cr_lo[b];
+    f.cr_hi[b] = cl.cr_hi[b];
+    f.cr_val[b] = cl.cr_val[b];
+  }
+  kind = cl.ox     ? nxfpq::KIND_OX
+         : cl.asym ? nxfpq::KIND_ASYM
+         : cl.table ? nxfpq::KIND_CRT
+         : cl.cr   ? nxfpq::KIND_CR
+                   : nxfpq::KIND_SYM;
   return true;
 }
 
@@ -111,6 +121,12 @@ extern "C" int nxfp_quantize_launch(const void* job_desc, int bits,
   NXFPQ_INSTANCES_5(NXFPQ_CASE)
   NXFPQ_INSTANCES_6(NXFPQ_CASE)
   NXFPQ_INSTANCES_8(NXFPQ_CASE)
+  NXFPQ_INSTANCES_3(NXFPQ_CASE)
+  NXFPQ_INSTANCES_27(NXFPQ_CASE)
+  NXFPQ_INSTANCES_BS8(NXFPQ_CASE)
+  NXFPQ_INSTANCES_BS64(NXFPQ_CASE)
+  NXFPQ_INSTANCES_BS128(NXFPQ_CASE)
+  NXFPQ_INSTANCES_CRT(NXFPQ_CASE)
 #undef NXFPQ_CASE
   return (int)cudaErrorInvalidValue;
 }

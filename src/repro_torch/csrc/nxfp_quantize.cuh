@@ -39,12 +39,26 @@ struct Fmt {
   int nm;       // nano modes per element format: 0 {0}, 1 {rounded, 0},
                 // 2 {0, 1, 2, 3} (exhaustive)
   int asym;     // KIND_OX only: per-sign scales (KIND_ASYM always has them)
+  // KIND_CRT only, per fmt bit: the recycled value and the window of
+  // scaled values (cr_lo, cr_hi] that snaps to it (its midpoints with its
+  // neighbouring levels; empty when the value duplicates a level)
+  float cr_lo[2], cr_hi[2], cr_val[2];
 };
 
 // The format kinds an instance is compiled for: symmetric, symmetric with
 // code recycling, asymmetric (AMXFP), outlier mantissa (MX+, asym at run
-// time). CR excludes asym and ox (formats.py).
-enum Kind { KIND_SYM = 0, KIND_CR = 1, KIND_ASYM = 2, KIND_OX = 3 };
+// time), and code recycling with a custom recycled value, which the
+// reference encodes table-driven (core/quantize.py: quantize_blocks): a
+// value on a midpoint between two levels takes the lower one, and the
+// recycled value sits wherever the format puts it. CR excludes asym and ox
+// (formats.py).
+enum Kind {
+  KIND_SYM = 0,
+  KIND_CR = 1,
+  KIND_ASYM = 2,
+  KIND_OX = 3,
+  KIND_CRT = 4
+};
 // A thread per block over a shared-memory tile, or a warp per block.
 enum Regime { REGIME_TILE = 0, REGIME_WARP = 1 };
 
@@ -86,7 +100,14 @@ cudaError_t launch(const Job& job, const Fmt& fmt, int regime, int per_cta,
                    unsigned grid, cudaStream_t stream);
 
 // Every instance: code width x block size x MX element x kind. A format
-// without an MX element runs on its width's first MXE.
+// without an MX element runs on its width's first MXE. The main path's
+// instances (4/5/6/8 bits, bs 16/32, kinds 0-3: nxfp_quantize_b{4,5,6,8}.cu)
+// are listed apart from the rest, each group in a file of its own so that
+// nvcc compiles them in parallel: 3-bit codes (nxfp_quantize_b3.cu), 2- and
+// 7-bit codes (nxfp_quantize_b27.cu), bs 8,
+// 64 and 128 (nxfp_quantize_bs{8,64,128}.cu) and the custom recycle value
+// at bs 16/32 (nxfp_quantize_crt.cu). ox stops at bs 32 (its index is 5
+// bits).
 #define NXFPQ_KINDS(X, B, S, M) X(B, S, M, 0) X(B, S, M, 1) X(B, S, M, 2) \
   X(B, S, M, 3)
 #define NXFPQ_SIZES(X, B, M) NXFPQ_KINDS(X, B, 32, M) NXFPQ_KINDS(X, B, 16, M)
@@ -94,6 +115,30 @@ cudaError_t launch(const Job& job, const Fmt& fmt, int regime, int per_cta,
 #define NXFPQ_INSTANCES_5(X) NXFPQ_SIZES(X, 5, 2)
 #define NXFPQ_INSTANCES_6(X) NXFPQ_SIZES(X, 6, 2) NXFPQ_SIZES(X, 6, 3)
 #define NXFPQ_INSTANCES_8(X) NXFPQ_SIZES(X, 8, 4) NXFPQ_SIZES(X, 8, 5)
+// the widths (code width, MX element) of the main path's instances
+#define NXFPQ_WIDTHS(Y, A) Y(A, 4, 2) Y(A, 5, 2) Y(A, 6, 2) Y(A, 6, 3) \
+  Y(A, 8, 4) Y(A, 8, 5)
+#define NXFPQ_ALL_KINDS(X, B, S, M) NXFPQ_KINDS(X, B, S, M) X(B, S, M, 4)
+#define NXFPQ_WIDE_KINDS(X, B, S, M) X(B, S, M, 0) X(B, S, M, 1) \
+  X(B, S, M, 2) X(B, S, M, 4)
+#define NXFPQ_BS8_(X, B, M) NXFPQ_ALL_KINDS(X, B, 8, M)
+#define NXFPQ_BS64_(X, B, M) NXFPQ_WIDE_KINDS(X, B, 64, M)
+#define NXFPQ_BS128_(X, B, M) NXFPQ_WIDE_KINDS(X, B, 128, M)
+#define NXFPQ_CRT_(X, B, M) X(B, 32, M, 4) X(B, 16, M, 4)
+#define NXFPQ_INSTANCES_BS8(X) NXFPQ_WIDTHS(NXFPQ_BS8_, X)
+#define NXFPQ_INSTANCES_BS64(X) NXFPQ_WIDTHS(NXFPQ_BS64_, X)
+#define NXFPQ_INSTANCES_BS128(X) NXFPQ_WIDTHS(NXFPQ_BS128_, X)
+#define NXFPQ_INSTANCES_CRT(X) NXFPQ_WIDTHS(NXFPQ_CRT_, X)
+#define NXFPQ_INSTANCES_3(X) NXFPQ_ALL_KINDS(X, 3, 8, 2) \
+  NXFPQ_ALL_KINDS(X, 3, 16, 2) NXFPQ_ALL_KINDS(X, 3, 32, 2) \
+  NXFPQ_WIDE_KINDS(X, 3, 64, 2) NXFPQ_WIDE_KINDS(X, 3, 128, 2)
+// 2- and 7-bit codes have a BFP element only (int2, int7): no asym, no ox;
+// their MXE (1, 2) is never run
+#define NXFPQ_BFP_KINDS(X, B, S, M) X(B, S, M, 0) X(B, S, M, 1) X(B, S, M, 4)
+#define NXFPQ_BFP_SIZES(X, B, M) NXFPQ_BFP_KINDS(X, B, 8, M) \
+  NXFPQ_BFP_KINDS(X, B, 16, M) NXFPQ_BFP_KINDS(X, B, 32, M) \
+  NXFPQ_BFP_KINDS(X, B, 64, M) NXFPQ_BFP_KINDS(X, B, 128, M)
+#define NXFPQ_INSTANCES_27(X) NXFPQ_BFP_SIZES(X, 2, 1) NXFPQ_BFP_SIZES(X, 7, 2)
 
 #define NXFPQ_DECLARE(B, S, M, K)                                        \
   template cudaError_t launch<B, S, M, K>(const Job&, const Fmt&, int, int, \

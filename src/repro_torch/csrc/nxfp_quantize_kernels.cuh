@@ -142,9 +142,9 @@ __device__ __forceinline__ Side fit_side(float vm, int vm_e, int mode) {
   return sd;
 }
 
-// What one candidate needs per value.
+// What one candidate needs per value (cr_lo, cr_hi: KIND_CRT's window).
 struct Cand {
-  float inv, inv_n, scale, scale_n, cr_dq;
+  float inv, inv_n, scale, scale_n, cr_dq, cr_lo, cr_hi;
 };
 
 // One value under one candidate: returns its code, sets the magnitude of
@@ -155,6 +155,13 @@ struct Cand {
 // subtraction is sign-symmetric, so (dq - x)^2 is (|dq| - |x|)^2 bit for
 // bit; x's sign also gives the code's (a value that scales to -0 has
 // magnitude 0 and takes code 0 either way).
+//
+// KIND_CRT takes the table-driven encoder's rule instead: the nearest
+// level, and a value on a midpoint takes the lower level (a smaller
+// magnitude for x > 0, a larger one for x < 0); y - floor(y) is exact, so
+// the tie test is exact. Its recycled value then takes the window (cr_lo,
+// cr_hi] whatever the snap gave: outside it the nearest level of the grid
+// with the recycled value is the nearest of the grid without it.
 template <int BITS, class E, int KIND>
 __device__ __forceinline__ int encode(float x, const Cand& c, bool asym,
                                       float& dqa) {
@@ -164,14 +171,23 @@ __device__ __forceinline__ int encode(float x, const Cand& c, bool asym,
   float q;
   int mag;
   if constexpr (E::kBfp) {
-    const float t = fminf(fabsf(vp), (float)E::kMmax) + kMagic;
+    const float a = fminf(fabsf(vp), (float)E::kMmax);
+    float t = a + kMagic;
+    if constexpr (KIND == KIND_CRT) {
+      const float fl = floorf(a);
+      if (a - fl == 0.5f) t = (neg ? fl + 1.0f : fl) + kMagic;
+    }
     q = t - kMagic;
     mag = __float_as_int(t) - 0x4B000000;
   } else {
     const float a = fminf(fabsf(vp), E::kMaxPos);
     const int ex = max(__float_as_int(a) >> 23, E::kEmin + 127);
     const float y = a * __int_as_float((E::kMb + 254 - ex) << 23);
-    const float t = y + kMagic;
+    float t = y + kMagic;
+    if constexpr (KIND == KIND_CRT) {
+      const float fl = floorf(y);
+      if (y - fl == 0.5f) t = (neg ? fl + 1.0f : fl) + kMagic;
+    }
     q = (t - kMagic) * __int_as_float((ex - E::kMb) << 23);
     mag = ex * (1 << E::kMb) + (__float_as_int(t) - 0x4B000000) + E::kMagOff;
   }
@@ -181,6 +197,12 @@ __device__ __forceinline__ int encode(float x, const Cand& c, bool asym,
   dqa = q * ((asym && neg) ? c.scale_n : c.scale);
   if constexpr (KIND == KIND_CR) {
     if (vp > E::kWinLo && vp < E::kWinHi) {
+      code = kSign;
+      dqa = c.cr_dq;
+    }
+  }
+  if constexpr (KIND == KIND_CRT) {
+    if (vp > c.cr_lo && vp <= c.cr_hi) {
       code = kSign;
       dqa = c.cr_dq;
     }
@@ -215,13 +237,21 @@ __device__ __forceinline__ void ox_code(Block& bk, bool asym) {
 template <int BITS, class E, int KIND>
 __device__ __forceinline__ Cand make_cand(const Side& sp, const Side& sn,
                                           const Block& bk, int fmt_bit,
-                                          bool asym, int& meta, float& v_ox) {
+                                          bool asym, const Fmt& fmt,
+                                          int& meta, float& v_ox) {
   Cand c;
   c.inv = sp.inv;
   c.scale = sp.scale;
   c.inv_n = sn.inv;
   c.scale_n = sn.scale;
   c.cr_dq = -(E::kCrVal * sp.scale);  // the recycled value's magnitude
+  c.cr_lo = c.cr_hi = 0.0f;
+  if constexpr (KIND == KIND_CRT) {
+    // the window holds values of the recycled value's sign only
+    c.cr_dq = fabsf(fmt.cr_val[fmt_bit]) * sp.scale;
+    c.cr_lo = fmt.cr_lo[fmt_bit];
+    c.cr_hi = fmt.cr_hi[fmt_bit];
+  }
   meta = (sp.e_sh + 128) | (sp.nano << 8) | (fmt_bit << 10);
   v_ox = 0.0f;
   if constexpr (KIND == KIND_OX) {
@@ -284,6 +314,12 @@ __device__ __forceinline__ float load_value(const Job& job, int w,
 
 constexpr int kTileBlocks = 128;    // blocks (threads) per CTA at most
 constexpr int kTileCtasPerSm = 6;   // the register budget
+// blocks per CTA at most for block size BS: the staged rows stay within
+// the 48 KB of static shared memory (64 blocks of 128 values)
+template <int BS>
+struct TileRows {
+  static constexpr int kN = BS >= 128 ? 64 : kTileBlocks;
+};
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool pred) {
@@ -335,14 +371,15 @@ __device__ __forceinline__ bool stage_tile(const Job& job,
 template <int BITS, int BS, class E, int KIND>
 __device__ __forceinline__ float tile_cand(
     const float* row, const Block& bk, int fmt_bit, int mode, bool asym,
-    unsigned (&cur)[(BS * BITS + 31) / 32], int& meta, bool& nano_zero) {
+    const Fmt& fmt, unsigned (&cur)[(BS * BITS + 31) / 32], int& meta,
+    bool& nano_zero) {
   constexpr int kWords = (BS * BITS + 31) / 32;
   const Side sp = fit_side<E>(bk.vmax, bk.vmax_e, mode);
   const Side sn = asym ? fit_side<E>(bk.vmax_n, bk.vmax_n_e, mode) : sp;
   nano_zero = sp.nano == 0 && sn.nano == 0;
   float v_ox;
-  const Cand c = make_cand<BITS, E, KIND>(sp, sn, bk, fmt_bit, asym, meta,
-                                          v_ox);
+  const Cand c = make_cand<BITS, E, KIND>(sp, sn, bk, fmt_bit, asym, fmt,
+                                          meta, v_ox);
   // a period of values fills whole words (8 4-bit codes, 4 8-bit codes,
   // 16 6-bit codes): one period per loop step keeps the code short and the
   // word index constant; words shift in, so cur ends in block order
@@ -395,8 +432,8 @@ __device__ __forceinline__ float tile_cand(
 template <int BITS, int BS, class E, int KIND>
 __device__ __forceinline__ void tile_elem(
     const float* row, const Block& bk, int fmt_bit, int nm, bool asym,
-    int idx0, unsigned (&best)[(BS * BITS + 31) / 32], int& best_meta,
-    float& best_mse, int& best_idx) {
+    const Fmt& fmt, int idx0, unsigned (&best)[(BS * BITS + 31) / 32],
+    int& best_meta, float& best_mse, int& best_idx) {
   constexpr int kWords = (BS * BITS + 31) / 32;
   bool need = true;
 #pragma unroll 1
@@ -406,7 +443,7 @@ __device__ __forceinline__ void tile_elem(
     int meta;
     bool nano_zero;
     const float mse = tile_cand<BITS, BS, E, KIND>(
-        row, bk, fmt_bit, mode_of(nm, k), asym, cur, meta, nano_zero);
+        row, bk, fmt_bit, mode_of(nm, k), asym, fmt, cur, meta, nano_zero);
     need = !nano_zero;
     if (best_idx < 0 || mse < best_mse) {
       best_mse = mse;
@@ -427,7 +464,7 @@ quantize_tile_kernel(Job job, Fmt fmt) {
   constexpr int kRow = BS + 4;  // 16-byte aligned, reads conflict-free
   constexpr int kWords = (BS * BITS + 31) / 32;
   constexpr int kBpb = BS * BITS / 8;
-  __shared__ __align__(16) float rows[kTileBlocks][kRow];
+  __shared__ __align__(16) float rows[TileRows<BS>::kN][kRow];
   const int P = blockDim.x, tid = threadIdx.x;
   const long long n_total = job.n_per * job.n_tensors;
   const long long g0 = (long long)blockIdx.x * P;
@@ -516,11 +553,12 @@ quantize_tile_kernel(Job job, Fmt fmt) {
   // list index of an element format's first candidate: BFP's come first
   const int mx0 = fmt.has_bfp ? n_modes(fmt.nm) : 0;
   if (fmt.has_bfp)
-    tile_elem<BITS, BS, Elem<BITS, 0>, KIND>(row, bk, 0, fmt.nm, asym, 0, best,
-                                             best_meta, best_mse, best_idx);
+    tile_elem<BITS, BS, Elem<BITS, 0>, KIND>(row, bk, 0, fmt.nm, asym, fmt, 0,
+                                             best, best_meta, best_mse,
+                                             best_idx);
   if (fmt.has_mx)
-    tile_elem<BITS, BS, Elem<BITS, MXE>, KIND>(row, bk, 1, fmt.nm, asym, mx0,
-                                               best, best_meta, best_mse,
+    tile_elem<BITS, BS, Elem<BITS, MXE>, KIND>(row, bk, 1, fmt.nm, asym, fmt,
+                                               mx0, best, best_meta, best_mse,
                                                best_idx);
 
   const int w = g >= job.n_per;
@@ -550,28 +588,38 @@ quantize_tile_kernel(Job job, Fmt fmt) {
 }
 
 // ---------------------------------------------------------------------------
-// small T: a warp per block (two blocks of 16 per warp)
+// small T: a warp per block (32 / BS blocks per warp up to 32 values a
+// block; BS / 32 values a lane above)
 // ---------------------------------------------------------------------------
 
 constexpr int kMaxWarps = 8;
 
+template <int BS>
+struct WarpShape {
+  static constexpr int kSegs = BS <= 32 ? 32 / BS : 1;  // blocks per warp
+  static constexpr int kVpl = BS <= 32 ? 1 : BS / 32;   // values per lane
+  static constexpr int kVals = BS <= 32 ? 32 : BS;      // values per warp
+  static constexpr int kLanes = BS <= 32 ? BS : 32;     // lanes per block
+};
+
 template <int BITS, int BS>
 struct WarpSmem {
-  static constexpr int kSegs = 32 / BS;
-  float sq[kMaxWarps][kMaxCands][33];        // squared errors by lane
-  uint8_t code[kMaxWarps][kMaxCands + 1][32];  // codes; [kMaxCands]: winner
+  static constexpr int kSegs = WarpShape<BS>::kSegs;
+  static constexpr int kVals = WarpShape<BS>::kVals;
+  float sq[kMaxWarps][kMaxCands][kVals + 1];     // squared errors by value
+  uint8_t code[kMaxWarps][kMaxCands + 1][kVals];  // codes; [kMaxCands]: winner
   float mse[kMaxWarps][kSegs][kMaxCands];
   int meta[kMaxWarps][kSegs][kMaxCands];
 };
 
-// Candidates of one element format for this lane's value; each
-// candidate's squared error, code and meta go to shared memory.
+// Candidates of one element format for this lane's values (value j at
+// index lane + 32 j of the warp's); each candidate's squared errors, codes
+// and meta go to shared memory.
 template <int BITS, int BS, class E, int KIND>
-__device__ __forceinline__ void warp_elem(float x, int i, int seg, int lane,
-                                          const Block& bk, int fmt_bit,
-                                          int nm, bool asym,
-                                          WarpSmem<BITS, BS>& sm, int warp,
-                                          int& nc) {
+__device__ __forceinline__ void warp_elem(
+    const float (&x)[WarpShape<BS>::kVpl], int i, int seg, int lane,
+    const Block& bk, int fmt_bit, int nm, bool asym, const Fmt& fmt,
+    WarpSmem<BITS, BS>& sm, int warp, int& nc) {
   bool skip_zero = false;
 #pragma unroll 1
   for (int k = 0; k < n_modes(nm); ++k) {
@@ -582,19 +630,22 @@ __device__ __forceinline__ void warp_elem(float x, int i, int seg, int lane,
     if (mode == kRound) skip_zero = sp.nano == 0 && sn.nano == 0;
     int meta;
     float v_ox;
-    const Cand c = make_cand<BITS, E, KIND>(sp, sn, bk, fmt_bit, asym, meta,
-                                            v_ox);
-    float dqa;
-    int code = encode<BITS, E, KIND>(x, c, asym, dqa);
-    if constexpr (KIND == KIND_OX) {
-      if (bk.has && i == bk.ox_idx) {
-        code = bk.code_ox;
-        dqa = v_ox;
+    const Cand c = make_cand<BITS, E, KIND>(sp, sn, bk, fmt_bit, asym, fmt,
+                                            meta, v_ox);
+#pragma unroll
+    for (int j = 0; j < WarpShape<BS>::kVpl; ++j) {
+      float dqa;
+      int code = encode<BITS, E, KIND>(x[j], c, asym, dqa);
+      if constexpr (KIND == KIND_OX) {
+        if (bk.has && i == bk.ox_idx) {
+          code = bk.code_ox;
+          dqa = v_ox;
+        }
       }
+      const float d = dqa - fabsf(x[j]);
+      sm.sq[warp][nc][lane + 32 * j] = d * d;
+      sm.code[warp][nc][lane + 32 * j] = (uint8_t)code;
     }
-    const float d = dqa - fabsf(x);
-    sm.sq[warp][nc][lane] = d * d;
-    sm.code[warp][nc][lane] = (uint8_t)code;
     if (i == 0) sm.meta[warp][seg][nc] = meta;
     ++nc;
   }
@@ -603,11 +654,13 @@ __device__ __forceinline__ void warp_elem(float x, int i, int seg, int lane,
 template <int BITS, int BS, int MXE, int KIND>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 quantize_warp_kernel(Job job, Fmt fmt) {
-  constexpr int kSegs = 32 / BS;
+  using WS = WarpShape<BS>;
+  constexpr int kSegs = WS::kSegs, kVpl = WS::kVpl, kLanes = WS::kLanes;
   constexpr int kBpb = BS * BITS / 8;
   __shared__ WarpSmem<BITS, BS> sm;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int seg = lane / BS, i = lane % BS;
+  // seg: this lane's block within the warp; i: its (first) value's index
+  const int seg = lane / kLanes, i = lane % kLanes;
   const long long n_total = job.n_per * job.n_tensors;
   const long long g =
       ((long long)blockIdx.x * (blockDim.x >> 5) + warp) * kSegs + seg;
@@ -618,14 +671,23 @@ quantize_warp_kernel(Job job, Fmt fmt) {
 
   bool ok = false;  // the cache row first: its pos load overlaps the rest
   const long long d = valid ? dest_block(job, lb, ok) : 0;
-  const float x = sanitize(valid ? load_value<BS>(job, w, lb, i) : 0.0f);
-  Block bk;
-  bk.vmax = asym ? fmaxf(x, 0.0f) : fabsf(x);
-  bk.vmax_n = asym ? fmaxf(-x, 0.0f) : 0.0f;
+  float x[kVpl];
 #pragma unroll
-  for (int o = BS / 2; o > 0; o >>= 1) {  // max is order-free
-    bk.vmax = fmaxf(bk.vmax, __shfl_xor_sync(kFull, bk.vmax, o, BS));
-    bk.vmax_n = fmaxf(bk.vmax_n, __shfl_xor_sync(kFull, bk.vmax_n, o, BS));
+  for (int j = 0; j < kVpl; ++j)
+    x[j] = sanitize(valid ? load_value<BS>(job, w, lb, i + 32 * j) : 0.0f);
+  Block bk;
+  bk.vmax = asym ? fmaxf(x[0], 0.0f) : fabsf(x[0]);
+  bk.vmax_n = asym ? fmaxf(-x[0], 0.0f) : 0.0f;
+#pragma unroll
+  for (int j = 1; j < kVpl; ++j) {
+    bk.vmax = fmaxf(bk.vmax, asym ? fmaxf(x[j], 0.0f) : fabsf(x[j]));
+    bk.vmax_n = fmaxf(bk.vmax_n, asym ? fmaxf(-x[j], 0.0f) : 0.0f);
+  }
+#pragma unroll
+  for (int o = kLanes / 2; o > 0; o >>= 1) {  // max is order-free
+    bk.vmax = fmaxf(bk.vmax, __shfl_xor_sync(kFull, bk.vmax, o, kLanes));
+    bk.vmax_n =
+        fmaxf(bk.vmax_n, __shfl_xor_sync(kFull, bk.vmax_n, o, kLanes));
   }
   bk.vmax_e = nxfp::floor_log2_bits(bk.vmax);
   bk.vmax_n_e = nxfp::floor_log2_bits(bk.vmax_n);
@@ -633,13 +695,14 @@ quantize_warp_kernel(Job job, Fmt fmt) {
   bk.has = false;
   bk.neg_ox = false;
   if constexpr (KIND == KIND_OX) {
+    static_assert(BS <= 32, "ox: a 5-bit index, blocks of 32 at most");
     const float vtot = asym ? fmaxf(bk.vmax, bk.vmax_n) : bk.vmax;
     // the first value with |x| >= max: the lowest set lane of the ballot
     const unsigned seg_mask = BS == 32 ? kFull : ((1u << BS) - 1u);
     const unsigned hit =
-        (__ballot_sync(kFull, fabsf(x) >= vtot) >> (seg * BS)) & seg_mask;
+        (__ballot_sync(kFull, fabsf(x[0]) >= vtot) >> (seg * BS)) & seg_mask;
     bk.ox_idx = __ffs(hit) - 1;
-    bk.neg_ox = __shfl_sync(kFull, x, seg * BS + bk.ox_idx) < 0.0f;
+    bk.neg_ox = __shfl_sync(kFull, x[0], seg * BS + bk.ox_idx) < 0.0f;
     bk.has = vtot > 0.0f;
     ox_code<BITS>(bk, asym);
   }
@@ -647,10 +710,10 @@ quantize_warp_kernel(Job job, Fmt fmt) {
   int nc = 0;
   if (fmt.has_bfp)
     warp_elem<BITS, BS, Elem<BITS, 0>, KIND>(x, i, seg, lane, bk, 0, fmt.nm,
-                                             asym, sm, warp, nc);
+                                             asym, fmt, sm, warp, nc);
   if (fmt.has_mx)
     warp_elem<BITS, BS, Elem<BITS, MXE>, KIND>(x, i, seg, lane, bk, 1, fmt.nm,
-                                               asym, sm, warp, nc);
+                                               asym, fmt, sm, warp, nc);
   __syncwarp();
   // lane i of a block sums candidate i's squared errors, left to right
   if (i < nc) {
@@ -670,18 +733,27 @@ quantize_warp_kernel(Job job, Fmt fmt) {
       best = c;
     }
   }
-  sm.code[warp][kMaxCands][lane] = sm.code[warp][best][lane];
+#pragma unroll
+  for (int j = 0; j < kVpl; ++j)
+    sm.code[warp][kMaxCands][lane + 32 * j] =
+        sm.code[warp][best][lane + 32 * j];
   __syncwarp();
   if (!valid || !ok) return;
-  if (i < kBpb) {  // byte i of the packed block: codes k*BITS..
+  // byte by of the packed block: codes k*BITS..
+  auto pack_byte = [&](int by) {
     const uint8_t* codes = &sm.code[warp][kMaxCands][seg * BS];
     unsigned v = 0;
-    for (int k = (8 * i) / BITS; k <= (8 * i + 7) / BITS && k < BS; ++k) {
-      const int sh = k * BITS - 8 * i;
+    for (int k = (8 * by) / BITS; k <= (8 * by + 7) / BITS && k < BS; ++k) {
+      const int sh = k * BITS - 8 * by;
       v |= sh >= 0 ? (unsigned)codes[k] << sh : (unsigned)codes[k] >> -sh;
     }
-    (static_cast<uint8_t*>(w ? job.packed[1] : job.packed[0]))[d * kBpb + i] =
+    (static_cast<uint8_t*>(w ? job.packed[1] : job.packed[0]))[d * kBpb + by] =
         (uint8_t)v;
+  };
+  if constexpr (BS <= 32) {  // a lane a byte
+    if (i < kBpb) pack_byte(i);
+  } else {                   // bs / 32 bytes a lane at 8 bits
+    for (int by = i; by < kBpb; by += 32) pack_byte(by);
   }
   if (i == 0) {
     const int meta = sm.meta[warp][seg][best];
@@ -695,11 +767,11 @@ template <int BITS, int BS, int MXE, int KIND>
 cudaError_t launch(const Job& job, const Fmt& fmt, int regime, int per_cta,
                    unsigned grid, cudaStream_t stream) {
   if (regime == REGIME_TILE) {
-    if (per_cta < 1 || per_cta > kTileBlocks) return cudaErrorInvalidValue;
+    if (per_cta < 1 || per_cta > TileRows<BS>::kN) return cudaErrorInvalidValue;
     quantize_tile_kernel<BITS, BS, MXE, KIND>
         <<<grid, per_cta, 0, stream>>>(job, fmt);
   } else {
-    constexpr int kSegs = 32 / BS;
+    constexpr int kSegs = WarpShape<BS>::kSegs;
     if (per_cta < kSegs || per_cta % kSegs || per_cta / kSegs > kMaxWarps)
       return cudaErrorInvalidValue;
     quantize_warp_kernel<BITS, BS, MXE, KIND>

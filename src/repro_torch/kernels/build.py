@@ -189,7 +189,8 @@ def sm_count(device: torch.device) -> int:
 
 class ElemDesc(ctypes.Structure):
     _fields_ = [(n, ctypes.c_int) for n in
-                ("bits", "is_bfp", "ebits", "mbits", "bias", "cr")]
+                ("bits", "is_bfp", "ebits", "mbits", "bias", "cr")] + [
+        ("cr_val", ctypes.c_float)]
 
 
 class FmtDesc(ctypes.Structure):
@@ -204,10 +205,69 @@ def fmt_desc(fmt: BlockFormat) -> FmtDesc:
     element decode for fmt_bit 0 and 1 (the same one when not AM), widths
     and the activation-format flags. Built once per format (a wrapper
     passes its address on every launch; the C side copies it)."""
-    descs = [ElemDesc(*elem_desc(el, fmt.cr)) for _, el in
+    descs = [ElemDesc(*elem_desc(el, fmt.cr, fmt.recycle)) for _, el in
              sorted(fmt.elem_formats, key=lambda e: e[0])]
     return FmtDesc((ElemDesc * 2)(descs[0], descs[-1]), fmt.bits,
                    fmt.block_size, int(fmt.asym), int(fmt.ox), ox_emax(fmt))
+
+
+# the formats the CUDA kernels take (csrc/nxfp_decode.cuh: native_fmt,
+# generic_fmt): 4/5/6/8-bit codes at bs 16/32 run instances that read whole
+# blocks; every other width and block size here runs the generic instance
+# of its width, which reads rows in units of GENERIC_UNIT codes (2- and
+# 7-bit codes are BFP formats only)
+KERNEL_BITS = (2, 3, 4, 5, 6, 7, 8)
+KERNEL_BLOCK_SIZES = (8, 16, 32, 64, 128)
+GENERIC_UNIT = 32
+
+
+def native(fmt: BlockFormat) -> bool:
+    """Whether ``fmt`` has kernel instances that read whole blocks."""
+    return fmt.bits in (4, 5, 6, 8) and fmt.block_size in (16, 32)
+
+
+def require_format(fmt: BlockFormat, what: str) -> None:
+    """Raise NotImplementedError for a format no kernel instance takes."""
+    if fmt.bits not in KERNEL_BITS or fmt.block_size not in \
+            KERNEL_BLOCK_SIZES:
+        raise NotImplementedError(
+            f"{fmt.name}: the CUDA {what} takes 2- to 8-bit formats with "
+            "block sizes 8 to 128")
+
+
+def gemm_blocks(kb: int, fmt: BlockFormat):
+    """(blocks, block size) of a row of ``kb`` blocks as the GEMM kernels
+    read it, for their split plan: whole blocks for a native format, else
+    units of ``GENERIC_UNIT`` codes (``kb * block_size`` a multiple of it,
+    see ``pad_k``)."""
+    if native(fmt):
+        return kb, fmt.block_size
+    return kb * fmt.block_size // GENERIC_UNIT, GENERIC_UNIT
+
+
+def pad_k(packed, meta, block_size: int):
+    """Pad a (R, KB, bpb) operand and its (R, KB) meta with zero blocks to
+    whole units of ``GENERIC_UNIT`` codes a row, as a generic GEMM reads
+    them (zero codes under a zero meta word decode to 0, and the ox
+    substitution is off for a zero E byte). Returns them unchanged when
+    nothing is missing."""
+    per = GENERIC_UNIT // block_size
+    if per <= 1 or packed.shape[1] % per == 0:
+        return packed, meta
+    extra = per - packed.shape[1] % per
+    return (torch.nn.functional.pad(packed, (0, 0, 0, extra)),
+            torch.nn.functional.pad(bit_view(meta), (0, extra)).view(
+                meta.dtype))
+
+
+_BIT_VIEWS = {torch.uint16: torch.int16, torch.uint32: torch.int32}
+
+
+def bit_view(t):
+    """A view torch's ops take (uint16/uint32 meta -> int16/int32, the
+    same bits); other dtypes as they are."""
+    view = _BIT_VIEWS.get(t.dtype)
+    return t if view is None else t.view(view)
 
 
 def meta_dtype(fmt: BlockFormat) -> torch.dtype:

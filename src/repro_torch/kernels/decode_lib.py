@@ -12,20 +12,24 @@ from __future__ import annotations
 import torch
 
 from ..core.formats import ELEMENT_FORMATS, BlockFormat, ElementFormat
-from ..core.quantize import meta_int32, ox_substitute, pow2i
+from ..core.quantize import meta_int32, ox_substitute, pow2i, recycled_value
 
 __all__ = ["decode_elem", "decode_scale", "decode_block_values",
            "decode_block_values_ex", "elem_desc"]
 
 
-def elem_desc(elem: ElementFormat, cr: bool):
-    """(bits, is_bfp, ebits, mbits, bias, cr): the ElemDesc of csrc/."""
+def elem_desc(elem: ElementFormat, cr: bool, recycle="half_smallest"):
+    """(bits, is_bfp, ebits, mbits, bias, cr, cr_val): the ElemDesc of
+    csrc/; cr_val is what the recycled code decodes to."""
+    cr_val = recycled_value(elem.name, recycle) if cr else 0.0
     return (elem.bits, int(elem.is_bfp), elem.ebits, elem.mbits, elem.bias,
-            int(cr))
+            int(cr), cr_val)
 
 
-def decode_elem(codes, elem_name: str, cr: bool):
-    """k-bit element codes -> f32 values in scaled units (Fig. 7 steps 1-3)."""
+def decode_elem(codes, elem_name: str, cr: bool, recycle="half_smallest"):
+    """k-bit element codes -> f32 values in scaled units (Fig. 7 steps 1-3).
+    With ``cr`` the -0 code (10...0) decodes to the recycled value:
+    -smallest/2 by default, else ``recycle``."""
     fmt = ELEMENT_FORMATS[elem_name]
     bits, ebits, mbits, bias = fmt.bits, fmt.ebits, fmt.mbits, fmt.bias
     c = codes.to(torch.int32)
@@ -45,8 +49,10 @@ def decode_elem(codes, elem_name: str, cr: bool):
         smallest = 0.5 ** mbits * 2.0 ** (1 - bias)
     val = torch.where(sign == 1, -val, val)
     if cr:
-        val = torch.where(c == (1 << (bits - 1)),
-                          torch.full_like(val, -0.5 * smallest), val)
+        r = (-0.5 * smallest if recycle == "half_smallest"
+             else recycled_value(elem_name, recycle))
+        val = torch.where(c == (1 << (bits - 1)), torch.full_like(val, r),
+                          val)
     return val
 
 
@@ -70,7 +76,7 @@ def _elem_values(codes, fmt_bit, fmt: BlockFormat):
     """Element values in scaled units, AM-selected by ``fmt_bit``."""
     vals = None
     for fb, elem in fmt.elem_formats:
-        v = decode_elem(codes, elem.name, fmt.cr)
+        v = decode_elem(codes, elem.name, fmt.cr, fmt.recycle)
         vals = v if vals is None else torch.where(
             (fmt_bit == fb)[..., None], v, vals)
     return vals

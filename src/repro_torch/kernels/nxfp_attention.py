@@ -25,7 +25,6 @@ __all__ = ["nxfp_decode_attention", "nxfp_decode_attention_plain",
            "dequant_cache", "attention_split", "TILE_ROWS"]
 
 LAUNCHES = 0          # kernel launches since the caller last set it to 0
-KERNEL_BITS = (4, 5, 6, 8)
 TILE_ROWS = 32        # cache rows per tile of the kernel (one per lane)
 CTAS_PER_SM = 2       # the split grid aims at about two CTAs on every SM
 _NEG = -1e30
@@ -96,10 +95,7 @@ def nxfp_decode_attention(q, k_packed, k_meta, v_packed, v_meta, lengths,
     tensors = (q, k_packed, k_meta, v_packed, v_meta, lengths)
     if not build.on_cuda(*tensors):
         return nxfp_decode_attention_plain(*tensors, fmt)
-    if fmt.bits not in KERNEL_BITS or fmt.block_size not in (16, 32):
-        raise NotImplementedError(
-            f"{fmt.name}: the CUDA decode attention takes 4/5/6/8-bit "
-            "cache formats with block size 16/32")
+    build.require_format(fmt, "decode attention")
     b, kvh, g, d = q.shape
     bb, s, kvh2, nb, bpb = k_packed.shape
     build.require((bb, kvh2) == (b, kvh) and nb * fmt.block_size == d,

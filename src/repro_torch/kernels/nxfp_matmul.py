@@ -5,7 +5,11 @@ CUDA kernel: ``csrc/nxfp_matmul.cu`` (replaces the reference's
 one of two regimes: up to ``decode_geometry().max_m`` rows (16) it
 streams the weight with a deterministic split-K
 (``csrc/nxfp_matmul_decode.cu``; ``decode_split`` plans the split), above
-that it runs wgmma (``csrc/nxfp_matmul_prefill.cu``). Plain
+that it runs wgmma (``csrc/nxfp_matmul_prefill.cu``). Both take 2- to 8-bit
+codes at block sizes 8 to 128: 4/5/6/8 bits at bs 16/32 read whole blocks,
+every other format a row as one long block in units of 32 codes
+(``build.gemm_blocks``; a row of a bs-8 or bs-16 format that is not a
+whole number of units is padded with zero blocks, ``build.pad_k``). Plain
 version: ``nxfp_matmul_plain``, which dequantizes the whole weight to
 bf16 and multiplies in f32 (bf16 x bf16 products are exact in f32), the
 function the kernel computes tile by tile.
@@ -16,6 +20,7 @@ import ctypes
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from ..core.formats import BlockFormat
 from ..core.pack import unpack_codes
@@ -26,7 +31,6 @@ __all__ = ["nxfp_matmul", "nxfp_matmul_plain", "dequant_weight_bf16",
            "DecodeGeometry", "decode_geometry", "decode_split"]
 
 LAUNCHES = 0          # kernel launches since the caller last set it to 0
-KERNEL_BITS = (4, 5, 6, 8)
 CTAS_PER_SM = 4       # the decode grid aims at about four CTAs on every SM
 MIN_CHUNK = 8         # the fewest K blocks a split takes when K allows
 
@@ -116,10 +120,7 @@ def nxfp_matmul(x, packed, meta, fmt: BlockFormat):
     global LAUNCHES
     if not build.on_cuda(x, packed, meta):
         return nxfp_matmul_plain(x, packed, meta, fmt)
-    if fmt.bits not in KERNEL_BITS or fmt.block_size not in (16, 32):
-        raise NotImplementedError(
-            f"{fmt.name}: the CUDA dequant GEMM takes 4/5/6/8-bit formats "
-            "with block size 16/32")
+    build.require_format(fmt, "dequant GEMM")
     m, k = x.shape
     n, kb, bpb = packed.shape
     build.require(k == kb * fmt.block_size, f"x has K={k}, weight {kb} blocks")
@@ -127,6 +128,11 @@ def nxfp_matmul(x, packed, meta, fmt: BlockFormat):
     build.require(meta.shape == (n, kb) and meta.dtype == build.meta_dtype(fmt),
                   f"meta {tuple(meta.shape)} {meta.dtype}")
     build.require(packed.dtype == torch.uint8, f"packed {packed.dtype}")
+    if not build.native(fmt):
+        packed, meta = build.pad_k(packed, meta, fmt.block_size)
+    if packed.shape[1] != kb:                   # zero K blocks appended
+        x = F.pad(x, (0, (packed.shape[1] - kb) * fmt.block_size))
+        kb = packed.shape[1]
     xb = x.to(torch.bfloat16).contiguous()
     build.require(packed.is_contiguous() and meta.is_contiguous(),
                   "packed weight must be contiguous")
@@ -138,7 +144,7 @@ def nxfp_matmul(x, packed, meta, fmt: BlockFormat):
     rc = lib.nxfp_matmul_launch(
         xb.data_ptr(), packed.data_ptr(), meta.data_ptr(), y.data_ptr(),
         m, n, kb, ctypes.addressof(desc),
-        *_regime(x.device, m, n, kb, fmt.block_size),
+        *_regime(x.device, m, n, *build.gemm_blocks(kb, fmt)),
         build.stream_handle(x.device))
     build.check(rc, "nxfp_matmul")
     LAUNCHES += 1

@@ -29,7 +29,6 @@ from .nxfp_matmul import _regime, dequant_weight_bf16
 __all__ = ["nxfp_qq_matmul", "nxfp_qq_matmul_plain"]
 
 LAUNCHES = 0          # kernel launches since the caller last set it to 0
-KERNEL_BITS = (4, 5, 6, 8)
 
 
 def nxfp_qq_matmul_plain(x_packed, x_meta, w_packed, w_meta,
@@ -57,8 +56,8 @@ def nxfp_qq_matmul(x_packed, x_meta, w_packed, w_meta, x_fmt: BlockFormat,
                    w_fmt: BlockFormat):
     """Both operands packed along K in blocks of one size. Returns (M, N)
     f32. CPU tensors take the plain version; CUDA tensors launch the
-    kernel, which raises ``NotImplementedError`` for widths it does not
-    take."""
+    kernel (2- to 8-bit codes at block sizes 8 to 128; it raises
+    ``NotImplementedError`` for any other)."""
     global LAUNCHES
     build.require(x_fmt.block_size == w_fmt.block_size,
                   f"block sizes differ: {x_fmt.name} {x_fmt.block_size}, "
@@ -70,12 +69,14 @@ def nxfp_qq_matmul(x_packed, x_meta, w_packed, w_meta, x_fmt: BlockFormat,
         return nxfp_qq_matmul_plain(x_packed, x_meta, w_packed, w_meta,
                                     x_fmt, w_fmt)
     for f in (x_fmt, w_fmt):
-        if f.bits not in KERNEL_BITS or f.block_size not in (16, 32):
-            raise NotImplementedError(
-                f"{f.name}: the CUDA qq GEMM takes 4/5/6/8-bit formats with "
-                "block size 16/32")
+        build.require_format(f, "qq GEMM")
     _check(x_packed, x_meta, x_fmt, "activation", 4)
     _check(w_packed, w_meta, w_fmt, "weight", 16)
+    if not build.native(w_fmt):
+        # the generic GEMM reads W's rows in whole 32-code units: both
+        # operands take the same zero blocks (X's decode takes any count)
+        x_packed, x_meta = build.pad_k(x_packed, x_meta, x_fmt.block_size)
+        w_packed, w_meta = build.pad_k(w_packed, w_meta, w_fmt.block_size)
     lib = build.library()           # raises first where there is no card
     m, kb, _ = x_packed.shape
     n = w_packed.shape[0]
@@ -89,7 +90,8 @@ def nxfp_qq_matmul(x_packed, x_meta, w_packed, w_meta, x_fmt: BlockFormat,
         x_packed.data_ptr(), x_meta.data_ptr(), w_packed.data_ptr(),
         w_meta.data_ptr(), y.data_ptr(), m, n, kb, ctypes.addressof(xd),
         ctypes.addressof(wd), x_bf16.data_ptr(),
-        *_regime(dev, m, n, kb, w_fmt.block_size), build.stream_handle(dev))
+        *_regime(dev, m, n, *build.gemm_blocks(kb, w_fmt)),
+        build.stream_handle(dev))
     build.check(rc, "nxfp_qq_matmul")
     LAUNCHES += 1
     return y

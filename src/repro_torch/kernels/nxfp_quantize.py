@@ -7,7 +7,10 @@ CUDA kernel: ``csrc/nxfp_quantize_kernels.cuh`` (host entry
 followed by ``core.pack.pack_codes``; the two are bitwise equal. Both take
 bf16 or f32 input and the symmetric weight/KV formats, the asymmetric
 (``asym``, uint32 meta) and the outlier-mantissa (``ox``) activation
-formats.
+formats, at 2 to 8 bits and block sizes 8 to 128. A custom recycle
+value is encoded as the reference's table-driven ``quantize_blocks`` does
+(a value on a midpoint takes the lower level), and the plain version is
+that encoder.
 
 ``quantize_plan`` picks the kernel's regime from the block count: a warp
 per block for a small T (a decode step's K/V rows), a thread per block over
@@ -25,9 +28,10 @@ import numpy as np
 import torch
 
 from ..core.formats import BlockFormat
+from ..core.levels import level_table
 from ..core.pack import bytes_per_block, pack_codes
-from ..core.quantize import (_side, block_maxima, candidates,
-                              quantize_blocks_arith, to_blocks)
+from ..core.quantize import (_side, arith_ok, block_maxima, candidates,
+                              encode_blocks, to_blocks)
 from . import build
 
 __all__ = ["nxfp_quantize_pack", "nxfp_quantize_pack_plain",
@@ -36,7 +40,6 @@ __all__ = ["nxfp_quantize_pack", "nxfp_quantize_pack_plain",
            "kernel_supports", "evaluated_candidates"]
 
 LAUNCHES = 0          # kernel launches since the caller last set it to 0
-KERNEL_BITS = (4, 5, 6, 8)
 _MAX_CANDS = 8
 # the warp-per-block regime up to this many blocks, the tile regime above
 # (on the H100 the two cross between 4096 and 8192 nxfp4 blocks:
@@ -44,6 +47,7 @@ _MAX_CANDS = 8
 WARP_MAX_BLOCKS = 4096
 _MAX_WARPS = 8        # warps per CTA of the warp regime
 _TILE_MAX = 128       # blocks (threads) per CTA of the tile regime
+_TILE_MAX_BS128 = 64  # ... at block size 128 (its shared-memory rows)
 _REGIME = {"tile": 0, "warp": 1}
 
 
@@ -57,7 +61,9 @@ class _Cand(ctypes.Structure):
 class _CandList(ctypes.Structure):
     _fields_ = [("cr", ctypes.c_int), ("asym", ctypes.c_int),
                 ("ox", ctypes.c_int), ("n_cands", ctypes.c_int),
-                ("c", _Cand * _MAX_CANDS)]
+                ("c", _Cand * _MAX_CANDS), ("table", ctypes.c_int),
+                ("cr_lo", ctypes.c_float * 2), ("cr_hi", ctypes.c_float * 2),
+                ("cr_val", ctypes.c_float * 2)]
 
 
 class _Job(ctypes.Structure):
@@ -67,6 +73,25 @@ class _Job(ctypes.Structure):
                 ("n_per", ctypes.c_longlong)] + [
         (n, ctypes.c_int) for n in ("n_tensors", "in_bf16", "b", "t", "kvh",
                                     "hd", "nb", "s")]
+
+
+def recycle_window(elem_name: str, recycle):
+    """(lo, hi, value): the recycled -0 code's value and the window of
+    scaled values (lo, hi] that the table-driven encoder snaps to it, the
+    midpoints with its neighbouring levels (+-inf at the ends of the grid;
+    lo > hi, an empty window, when the value duplicates a level and the
+    table keeps another code for it)."""
+    t = level_table(elem_name, True, recycle)
+    code = 1 << (t.fmt.bits - 1)
+    val = float(t.decode[code])
+    at = np.nonzero(t.codes_sorted == code)[0]
+    if at.size == 0:
+        return float("inf"), float("-inf"), val
+    i = int(at[0])
+    lo = float(t.boundaries[i - 1]) if i > 0 else float("-inf")
+    hi = (float(t.boundaries[i]) if i < t.boundaries.size
+          else float("inf"))
+    return lo, hi, val
 
 
 @functools.lru_cache(maxsize=None)
@@ -81,13 +106,20 @@ def _desc(fmt: BlockFormat) -> _CandList:
                                              else int(nano_mode))
         d.c[i] = _Cand(fmt_bit, int(el.is_bfp), el.mbits, el.bias, table.emax,
                        mode, float(np.float32(table.max_pos)))
+    if not arith_ok(fmt):
+        d.table = 1
+        for fmt_bit, el in fmt.elem_formats:
+            lo, hi, val = recycle_window(el.name, fmt.recycle)
+            d.cr_lo[fmt_bit], d.cr_hi[fmt_bit] = lo, hi
+            d.cr_val[fmt_bit] = val
     return d
 
 
 def kernel_supports(fmt: BlockFormat) -> bool:
-    """What the TPU kernel takes: 4/5/6/8-bit, the default recycle value."""
-    return (fmt.bits in KERNEL_BITS and fmt.block_size in (16, 32)
-            and not (fmt.cr and fmt.recycle != "half_smallest")
+    """What the kernel takes: 2- to 8-bit codes, block sizes 8 to 128,
+    any recycle value."""
+    return (fmt.bits in build.KERNEL_BITS
+            and fmt.block_size in build.KERNEL_BLOCK_SIZES
             and len(candidates(fmt)) <= _MAX_CANDS)
 
 
@@ -102,18 +134,19 @@ class QuantPlan:
 
 
 def warp_plan(n_blocks: int, block_size: int, n_sm: int) -> QuantPlan:
-    """A warp per block, with as few warps per CTA as spread the CTAs over
-    every SM."""
-    per_warp = 32 // block_size
+    """A warp per block (32 / bs blocks a warp below 32 values, bs / 32
+    values a lane above), with as few warps per CTA as spread the CTAs
+    over every SM."""
+    per_warp = max(1, 32 // block_size)
     warps = -(-max(n_blocks, 1) // per_warp)
     per_cta = per_warp * min(_MAX_WARPS, max(1, -(-warps // n_sm)))
     return QuantPlan("warp", per_cta, -(-max(n_blocks, 1) // per_cta))
 
 
-def tile_plan(n_blocks: int, n_sm: int) -> QuantPlan:
-    """A thread per block, 128 per CTA, halved (to 32 at least) while the
-    grid is under two CTAs per SM."""
-    per_cta = _TILE_MAX
+def tile_plan(n_blocks: int, n_sm: int, block_size: int = 32) -> QuantPlan:
+    """A thread per block, 128 per CTA (64 at block size 128), halved (to
+    32 at least) while the grid is under two CTAs per SM."""
+    per_cta = _TILE_MAX_BS128 if block_size >= 128 else _TILE_MAX
     while per_cta > 32 and -(-n_blocks // per_cta) < 2 * n_sm:
         per_cta //= 2
     return QuantPlan("tile", per_cta, -(-max(n_blocks, 1) // per_cta))
@@ -127,7 +160,7 @@ def quantize_plan(n_blocks: int, block_size: int, n_sm: int = 132
     alone."""
     if n_blocks <= WARP_MAX_BLOCKS:
         return warp_plan(n_blocks, block_size, n_sm)
-    return tile_plan(n_blocks, n_sm)
+    return tile_plan(n_blocks, n_sm, block_size)
 
 
 def evaluated_candidates(xb, fmt: BlockFormat):
@@ -153,16 +186,17 @@ def evaluated_candidates(xb, fmt: BlockFormat):
 
 def nxfp_quantize_pack_plain(xb, fmt: BlockFormat):
     """(T, B) float blocks -> (packed uint8 (T, bpb), meta (T,) of
-    ``fmt.meta_dtype``)."""
-    codes, meta = quantize_blocks_arith(xb, fmt)
+    ``fmt.meta_dtype``): the encoder the reference serves ``fmt`` with
+    (table-driven for a custom recycle value), then the pack."""
+    codes, meta = encode_blocks(xb, fmt)
     return pack_codes(codes, fmt.bits), meta
 
 
 def _require_kernel(fmt: BlockFormat) -> None:
     if not kernel_supports(fmt):
         raise NotImplementedError(
-            f"{fmt.name}: the CUDA quantizer takes 4/5/6/8-bit formats "
-            "with the default recycle value and block size 16/32")
+            f"{fmt.name}: the CUDA quantizer takes 2- to 8-bit formats "
+            "with block sizes 8 to 128")
 
 
 def _check_input(x, name: str) -> None:
@@ -212,15 +246,6 @@ def nxfp_quantize_pack(xb, fmt: BlockFormat, plan: QuantPlan | None = None):
     return packed, meta
 
 
-_BIT_VIEWS = {torch.uint16: torch.int16, torch.uint32: torch.int32}
-
-
-def _bits(t):
-    """A bit view torch can index-assign (uint16/uint32 meta -> int16/32)."""
-    view = _BIT_VIEWS.get(t.dtype)
-    return t if view is None else t.view(view)
-
-
 def nxfp_quantize_kv_rows_plain(k, v, cache: dict, pos, fmt: BlockFormat):
     """The codec on K and V (B, T, KVH, hd), then row writes into the
     layer cache: rows [0, T) of every slot when ``pos`` is None (prefill),
@@ -233,13 +258,13 @@ def nxfp_quantize_kv_rows_plain(k, v, cache: dict, pos, fmt: BlockFormat):
         rows = {f"{name}_packed": packed.reshape(*xb.shape[:-1], -1),
                 f"{name}_meta": meta.reshape(xb.shape[:-1])}
         for key, val in rows.items():
-            buf = _bits(cache[key])
+            buf = build.bit_view(cache[key])
             if pos is None:
-                buf[:, :t] = _bits(val)
+                buf[:, :t] = build.bit_view(val)
             else:
                 at = pos[:, None] + torch.arange(t, device=pos.device)
                 buf[torch.arange(b, device=pos.device)[:, None], at] = \
-                    _bits(val)
+                    build.bit_view(val)
     return cache
 
 

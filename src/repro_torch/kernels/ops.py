@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import resolve_device
-from ..core.qtensor import QTensor
+from ..core.qtensor import QTensor, fmt_key
 from ..core.quantize import resolve_format, to_blocks
 from .nxfp_attention import nxfp_decode_attention
 from .nxfp_matmul import nxfp_matmul
@@ -91,7 +91,7 @@ def quantize_qtensor(x, fmt, axis: int = -1, device=None) -> QTensor:
     packed, meta = nxfp_quantize_pack(flat, fmt)
     packed = packed.reshape(*xb.shape[:-1], packed.shape[-1])
     meta = meta.reshape(xb.shape[:-1])
-    return QTensor(packed, meta, fmt.name, tuple(x.shape), axis, orig)
+    return QTensor(packed, meta, fmt_key(fmt), tuple(x.shape), axis, orig)
 
 
 def decode_attention(q, kq: QTensor, vq: QTensor, lengths, n_kv_heads: int):

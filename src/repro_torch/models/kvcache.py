@@ -23,9 +23,9 @@ from typing import Optional
 
 import torch
 
-from ..core.formats import get_format
 from ..core.pack import bytes_per_block
-from ..core.qtensor import QTensor
+from ..core.qtensor import QTensor, fmt_key
+from ..core.quantize import resolve_format
 from ..kernels.nxfp_quantize import nxfp_quantize_kv_rows
 from ..kernels.ops import decode_attention
 from .common import ModelConfig
@@ -41,7 +41,7 @@ def attn_cache_init(cfg: ModelConfig, batch: int, max_len: int,
         shape = (batch, max_len, kvh, hd)
         return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
                 "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
-    fmt = get_format(kv_fmt)
+    fmt = resolve_format(kv_fmt)
     nb = -(-hd // fmt.block_size)
     bpb = bytes_per_block(fmt.block_size, fmt.bits)
 
@@ -66,7 +66,7 @@ def write_prefill(cfg: ModelConfig, k, v, kv_fmt: Optional[str],
         cache["v"][:, :t] = v.to(cfg.dtype)
         return cache
     return nxfp_quantize_kv_rows(k.contiguous(), v.contiguous(), cache, None,
-                                 get_format(kv_fmt))
+                                 resolve_format(kv_fmt))
 
 
 def write_token(cfg: ModelConfig, layer_cache, k1, v1, pos,
@@ -76,7 +76,7 @@ def write_token(cfg: ModelConfig, layer_cache, k1, v1, pos,
     reads ``pos`` on the device. Returns ``layer_cache``."""
     if kv_fmt is not None:
         return nxfp_quantize_kv_rows(k1.contiguous(), v1.contiguous(),
-                                     layer_cache, pos, get_format(kv_fmt))
+                                     layer_cache, pos, resolve_format(kv_fmt))
     slots = torch.arange(k1.shape[0], device=k1.device)
     for name, val in (("k", k1), ("v", v1)):
         buf = layer_cache[name]
@@ -93,13 +93,13 @@ def attend_decode(cfg: ModelConfig, layer_cache, q, pos,
     lengths = pos + 1
 
     if kv_fmt is not None:
-        fmt = get_format(kv_fmt)
+        fmt = resolve_format(kv_fmt)
         s = layer_cache["k_packed"].shape[1]
         shape = (b, s, kvh, hd)
         kq = QTensor(layer_cache["k_packed"], layer_cache["k_meta"],
-                     fmt.name, shape, -1, hd)
+                     fmt_key(fmt), shape, -1, hd)
         vq = QTensor(layer_cache["v_packed"], layer_cache["v_meta"],
-                     fmt.name, shape, -1, hd)
+                     fmt_key(fmt), shape, -1, hd)
         return decode_attention(q, kq, vq, lengths, kvh)
 
     k, v = layer_cache["k"], layer_cache["v"]                  # (B,S,KVH,hd)

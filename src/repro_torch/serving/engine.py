@@ -6,21 +6,34 @@ cache is cast per token, and every projection GEMM dequantizes on the fly.
 
 Two decode loops, bitwise equal by construction (same ops, same order):
 
-  * ``loop="device"``: ``chunk`` decode steps run back to back on the card,
-    sampling and stop-token masking included; the host copies the chunk's
-    tokens once. (A CUDA graph per chunk is later work.)
+  * ``loop="device"``: one chunk function (``decode_chunk``: ``chunk``
+    decode steps, sampling and stop-token masking) per host copy. On CUDA
+    the chunk is one captured ``torch.cuda.CUDAGraph`` replayed from
+    static buffers, the counterpart of the reference's jitted
+    ``lax.scan`` chunk; graphs are cached process-wide per (engine,
+    batch, steps, greedy or sampled; the engine fixes max_len and kv_fmt),
+    the counterpart of its ``cached_program``. A capture that fails raises: there is no eager
+    loop behind it on CUDA. On the CPU the same chunk function runs
+    eagerly from the same static buffers.
   * ``loop="host"``: one decode step and one host copy per token, the
     dispatch-bound baseline and the equality oracle.
 
-Sampling draws from a ``torch.Generator`` seeded with ``rng_seed``. It does
-not reproduce the reference's JAX PRNG stream. Greedy decoding (all
-temperatures 0) never touches the generator.
+Sampling draws from a ``torch.Generator`` seeded with ``rng_seed``: one
+draw of exponential noise over the (B, V) probabilities per sampled token,
+which the CUDA graph replays through the generator registered with it. It
+does not reproduce the reference's JAX PRNG stream. Greedy decoding (all
+temperatures 0) never touches the generator. After a sampled call the
+generator stands where the host loop leaves it, whichever loop ran
+(``_sync_key``, as the reference's), so later sampled calls do not depend
+on the loop mode.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import logging
 import time
+import weakref
 from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
@@ -34,6 +47,27 @@ from ..models import decode_loop, decode_step, prefill
 from ..models.common import ModelConfig
 
 logger = logging.getLogger("repro_torch.serving")
+
+# process-wide chunk programs: captured CUDA graphs (and, on the CPU, the
+# static buffers the eager chunk runs from), keyed by everything a capture
+# closes over: the engine (its weights, generator, max_len, kv_fmt and
+# device) and the batch (a _DeviceLoop), then steps and greedy (its
+# graphs). An engine's entries go when the engine is collected.
+_PROGRAM_CACHE: Dict[Any, "_DeviceLoop"] = {}
+_ENGINE_IDS = itertools.count()
+
+
+def cached_program(key, build):
+    """The cached program under ``key``, built by ``build()`` on a miss."""
+    prog = _PROGRAM_CACHE.get(key)
+    if prog is None:
+        prog = _PROGRAM_CACHE[key] = build()
+    return prog
+
+
+def _drop_engine(uid: int) -> None:
+    for key in [k for k in _PROGRAM_CACHE if k[0] == uid]:
+        del _PROGRAM_CACHE[key]
 
 
 @dataclasses.dataclass
@@ -81,6 +115,117 @@ def mask_chunk_emissions(toks, done, n_gen, stop):
     return emitted, n_gen, done
 
 
+def decode_chunk(cfg: ModelConfig, params, kv_fmt: Optional[str],
+                 n_steps: int, sample_fn, tok, done, n_gen, stop, cache):
+    """One device-loop chunk (the reference's ``_chunk_fn``): ``n_steps``
+    decode steps with sampling (``decode_loop``), then the chunk's
+    emission and stop masking. Returns (emitted (B, n), tok, n_gen, done,
+    cache)."""
+    toks, tok, cache = decode_loop(cfg, params, tok, cache, n_steps, kv_fmt,
+                                   sample_fn)
+    emitted, n_gen, done = mask_chunk_emissions(toks, done, n_gen, stop)
+    return emitted, tok, n_gen, done, cache
+
+
+class _DeviceLoop:
+    """The device loop of one (engine, batch): static
+    input buffers (tok, done, n_gen, temperature, stop, and the whole
+    cache), and per (steps, greedy) one chunk program over them: a
+    captured CUDA graph on CUDA, the eager chunk function on the CPU.
+
+    A chunk copies its inputs into the static buffers, runs the program and
+    copies emitted tokens, n_gen and done to the host in one copy; tok,
+    n_gen, done and the cache stay on the device for the next chunk.
+    Capture: one warm-up chunk first, on the capture stream, so the split
+    kernels plan and allocate their per-stream scratch
+    (``kernels/build.py: split_scratch``) before the capture (their
+    counters are back at 0 after every launch, so every replay starts
+    clean); the generator is put back where it was after the warm-up and
+    the capture, and registered with the graph so that every replay
+    advances it.
+    """
+
+    def __init__(self, engine: "ServeEngine", cache):
+        # weak: the cache entry must not keep its engine alive (the
+        # engine's finalizer drops the entry)
+        self._engine = weakref.ref(engine)
+        self.dev = engine.device
+        b = cache["pos"].shape[0]
+
+        def z(t):
+            return torch.zeros_like(t)
+
+        self.cache = {"pos": z(cache["pos"]),
+                      "layers": [{k: z(v) for k, v in layer.items()}
+                                 for layer in cache["layers"]]}
+        self.tok = torch.zeros((b,), dtype=torch.int32, device=self.dev)
+        self.done = torch.zeros((b,), dtype=torch.bool, device=self.dev)
+        self.n_gen = torch.zeros((b,), dtype=torch.int32, device=self.dev)
+        self.temp = torch.zeros((b,), dtype=torch.float32, device=self.dev)
+        self.stop = torch.zeros((b,), dtype=torch.int64, device=self.dev)
+        self.graphs: Dict[Any, Any] = {}   # (steps, greedy) -> (graph, outs)
+        self.replays = 0
+
+    def load(self, cache) -> None:
+        """Copy a prefilled cache into the static one."""
+        self.cache["pos"].copy_(cache["pos"])
+        for dst, src in zip(self.cache["layers"], cache["layers"]):
+            for k, v in src.items():
+                dst[k].copy_(v)
+
+    def _fn(self, steps: int, greedy: bool):
+        eng = self._engine()
+
+        def sample(logits):
+            return eng._sample(logits, self.temp, greedy).to(torch.int32)
+
+        return lambda: decode_chunk(
+            eng.cfg, eng.params, eng.policy.kv_fmt, steps, sample, self.tok,
+            self.done, self.n_gen, self.stop, self.cache)
+
+    def _capture(self, steps: int, greedy: bool):
+        fn = self._fn(steps, greedy)
+        gen = self._engine()._gen
+        state = gen.get_state()
+        graph = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream(self.dev)
+        side.wait_stream(torch.cuda.current_stream(self.dev))
+        with torch.cuda.stream(side):
+            fn()                      # warm-up: plans and scratch of `side`
+        torch.cuda.current_stream(self.dev).wait_stream(side)
+        if not greedy:
+            gen.set_state(state)
+            graph.register_generator_state(gen)
+        with torch.cuda.graph(graph, stream=side):
+            outs = fn()
+        gen.set_state(state)
+        return graph, outs
+
+    def run(self, steps: int, greedy: bool, tok, done, n_gen, temp, stop):
+        """One chunk from these inputs. Returns (emitted, tok, n_gen, done)
+        on the device and, in one host copy, emitted (B, steps), n_gen and
+        done as numpy."""
+        for dst, src in ((self.tok, tok), (self.done, done),
+                         (self.n_gen, n_gen), (self.temp, temp),
+                         (self.stop, stop)):
+            dst.copy_(src)
+        if self.dev.type == "cuda":
+            key = (steps, greedy)
+            if key not in self.graphs:
+                self.graphs[key] = self._capture(steps, greedy)
+            graph, outs = self.graphs[key]
+            graph.replay()
+            self.replays += 1
+        else:
+            outs = self._fn(steps, greedy)()
+        emitted, tok, n_gen, done, cache = outs
+        self.cache["pos"].copy_(cache["pos"])
+        host = torch.cat([emitted, n_gen[:, None],
+                          done[:, None].to(torch.int32)], dim=1).cpu().numpy()
+        return ((emitted, tok, n_gen, done),
+                (host[:, :steps], host[:, steps], host[:, steps + 1] != 0))
+
+
 class ServeEngine:
     def __init__(self, cfg: ModelConfig, params, policy: QuantPolicy,
                  max_len: int = 2048, rng_seed: int = 0, device=None):
@@ -98,17 +243,33 @@ class ServeEngine:
             if policy.weight_fmt else params)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(rng_seed)
+        self._uid = next(_ENGINE_IDS)
+        weakref.finalize(self, _drop_engine, self._uid)
+
+    def _draw(self, probs):
+        """The sampler's one use of the generator: Exp(1) noise over the
+        (B, V) probabilities."""
+        return torch.empty_like(probs).exponential_(1.0, generator=self._gen)
 
     def _sample(self, logits, temperature, all_greedy: bool):
         """logits (B, V); temperature (B,) tensor, rows with 0 take argmax.
-        An all-greedy batch never touches the generator."""
+        A sampled row takes argmax(p / E), E ~ Exp(1) i.i.d.: token i with
+        probability p_i, as ``torch.multinomial`` draws one sample, with no
+        host sync (capturable). An all-greedy batch never touches the
+        generator."""
         greedy = torch.argmax(logits, dim=-1)
         if all_greedy:
             return greedy
         safe = torch.where(temperature > 0, temperature, 1.0)
         probs = torch.softmax(logits / safe[:, None], dim=-1)
-        sampled = torch.multinomial(probs, 1, generator=self._gen)[:, 0]
+        sampled = torch.argmax(probs / self._draw(probs), dim=-1)
         return torch.where(temperature > 0, sampled, greedy)
+
+    def _device_loop(self, cache) -> _DeviceLoop:
+        """This engine's device loop for the cache's batch (cached
+        process-wide)."""
+        key = (self._uid, cache["pos"].shape[0])
+        return cached_program(key, lambda: _DeviceLoop(self, cache))
 
     def _prefill(self, batch):
         tokens = torch.as_tensor(np.asarray(batch["tokens"]),
@@ -146,7 +307,6 @@ class ServeEngine:
         if loop == "host":
             return self._generate_host(batch, max_new, sample, stop_np)
         has_stop = bool((stop_np >= 0).any())
-        kv = self.policy.kv_fmt
 
         t0 = time.time()
         logits, cache = self._prefill(batch)
@@ -154,27 +314,58 @@ class ServeEngine:
         t1 = time.time()
 
         out = np.zeros((b, max_new), np.int32)
+        n_host = np.zeros((b,), np.int32)
         tok = sample(logits)
         done = torch.zeros((b,), dtype=torch.bool, device=self.device)
         n_gen = torch.zeros((b,), dtype=torch.int32, device=self.device)
+        loop_prog = self._device_loop(cache)
+        loop_prog.load(cache)
+        del cache
         chunk_times: List[float] = []
-        i = 0
+        i, gen_before = 0, None
         while i < max_new:
             c = min(chunk, max_new - i)
             ts = time.time()
-            toks, tok, cache = decode_loop(self.cfg, self.params, tok, cache,
-                                           c, kv, sample)
-            emitted, n_gen, done = mask_chunk_emissions(toks, done, n_gen,
-                                                        stop)
-            out[:, i:i + c] = emitted.cpu().numpy()   # one copy per chunk
+            if not greedy:            # where the generator stood (_sync_key)
+                gen_before = (i, self._gen.get_state())
+            (_, tok, n_gen, done), (emitted, n_host, done_host) = \
+                loop_prog.run(c, greedy, tok, done, n_gen, temp, stop)
+            out[:, i:i + c] = emitted
             chunk_times.append(time.time() - ts)
             i += c
-            if has_stop and bool(done.all()):
+            if has_stop and done_host.all():
                 break
+        if not greedy:
+            self._sync_key(out, n_host, max_new, stop_np, gen_before,
+                           logits.shape)
         t2 = time.time()
         _watchdog(chunk_times, "chunk")
-        return GenerationResult(out, n_gen.cpu().numpy(), t1 - t0, t2 - t1,
+        return GenerationResult(out, n_host.copy(), t1 - t0, t2 - t1,
                                 chunk_times)
+
+    def _sync_key(self, out, n_gen, max_new: int, stop: np.ndarray,
+                  before, shape):
+        """Put the generator where the host loop leaves it (the reference's
+        ``_sync_key``). The host loop draws once after prefill and once per
+        step until ``done.all()``, which it checks before each step: it
+        draws max(n_gen) times when every row ended on its stop token, else
+        1 + max_new. The device loop always finishes its chunk; the host
+        loop's stop falls in the last chunk, so the generator goes back to
+        where that chunk began (``before``: its first step and the state)
+        and draws the host loop's remaining draws again (each draw's
+        advance depends only on the (B, V) shape)."""
+        draws = 1 + max_new
+        if (stop >= 0).any() and max_new > 0:
+            last = out[np.arange(out.shape[0]), np.maximum(n_gen, 1) - 1]
+            if (n_gen > 0).all() and (last == stop).all():
+                draws = int(n_gen.max())
+        i0, state = before
+        if draws >= 1 + max_new:
+            return
+        self._gen.set_state(state)
+        probs = torch.empty(shape, dtype=torch.float32, device=self.device)
+        for _ in range(draws - 1 - i0):
+            self._draw(probs)
 
     def _generate_host(self, batch: Dict[str, Any], max_new: int, sample,
                        stop: np.ndarray) -> GenerationResult:

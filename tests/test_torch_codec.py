@@ -137,13 +137,26 @@ def test_quantize_qtensor_matches_pallas(fname, shape, axis):
 
 
 def test_custom_recycle_and_activation_formats_not_ported():
-    """Custom recycle values need the table-driven encoder, which is not
-    ported, and raise. The activation formats, once refused here, are
-    ported now (tests/test_torch_act.py): they encode, with uint32 meta
-    for the asymmetric ones."""
+    """The arithmetic encoder still refuses a custom recycle value, as the
+    reference's does (its CR window is the default's); the value is
+    served now by the ported table-driven ``quantize_blocks``, bitwise
+    the reference's (``tests/test_torch_wide_formats.py`` holds it at
+    Fig. 11's values). The activation formats, once refused here, are
+    ported too (``tests/test_torch_act.py``): they encode, with uint32
+    meta for the asymmetric ones."""
     fmt = dataclasses.replace(tformats.get_format("nxfp4"), recycle=0.75)
-    xb = torch.ones((2, 32))
+    jfmt = dataclasses.replace(jformats.get_format("nxfp4"), recycle=0.75)
+    xb = _edge_blocks(fmt)
     with pytest.raises(NotImplementedError):
-        tquant.quantize_blocks_arith(xb, fmt)
-    _, meta = tquant.quantize_blocks_arith(xb, tformats.get_format("amxfp4"))
+        tquant.quantize_blocks_arith(torch.from_numpy(xb), fmt)
+    from repro.core.quantize import quantize_blocks as jquantize_blocks
+    jc, jm = jquantize_blocks(jnp.asarray(xb), jfmt)
+    tc, tm = tquant.quantize_blocks(torch.from_numpy(xb), fmt)
+    diff = (np.asarray(jc) != tc.numpy()).any(-1) | (np.asarray(jm)
+                                                     != tm.numpy())
+    if diff.any():
+        assert tquant.near_tie_blocks(torch.from_numpy(xb[diff]),
+                                      fmt).all()
+    _, meta = tquant.quantize_blocks_arith(torch.ones((2, 32)),
+                                           tformats.get_format("amxfp4"))
     assert meta.dtype == torch.uint32

@@ -6,6 +6,8 @@ installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -445,3 +447,321 @@ def test_engine_loops_bitwise_on_card(cuda):
         dev = eng.generate(batch, max_new=9, loop="device", chunk=chunk)
         np.testing.assert_array_equal(dev.tokens, host.tokens)
         np.testing.assert_array_equal(dev.n_generated, host.n_generated)
+
+
+# -- every format the reference serves: 2- to 8-bit codes, block sizes 8 to
+# 128, custom recycle values (the generic kernel instances and the
+# quantizer's table-driven kind)
+
+WIDE_FMTS = ["nxfp3", "mxfp3", "bfp3", "nxfp3_bs8", "mxfp3_bs128",
+             "nxfp4_bs8", "nxfp4_bs64", "nxfp4_bs128", "mxfp6_bs8",
+             "nxfp6_bs64", "nxfp8_bs128", "mxfp8_bs8", "bfp5_bs64",
+             "nxfp5_bs128", "bfp2", "bfp7_bs16", "bfp7_bs64"]
+WIDE_ACT_FMTS = ["amxfp4_bs64", "amxfp4_bs8", "amxfp4_ox_bs8",
+                 "mxfp4_ox_bs8", "amxfp3", "amxfp3_ox", "amxfp6_bs128"]
+# (format, recycled value): Fig. 11's sweep points (benchmarks/
+# fig11_remap_sweep.py: -smallest/2 and midpoints of positive levels) on
+# the formats it sweeps, and on nxfp (two element formats) and other widths
+RECYCLE = [("mxfp4_cr", 5.0), ("mxfp4_cr", 0.75), ("bfp4_cr", 1.5),
+           ("bfp4_cr", -0.5), ("nxfp4", 0.75), ("nxfp3", 1.5),
+           ("nxfp4_bs64", -0.25), ("mxfp8_cr", 0.0068359375),
+           ("bfp7_cr_bs8", 2.5)]
+
+
+def _wide_edge_blocks(fmt, n):
+    """``_edge_blocks`` for any block size (its tied-max block puts the
+    negative max at position bs - 1 when a block has fewer than 10)."""
+    b = fmt.block_size
+    if b > 9:
+        return _edge_blocks(fmt, n=n)
+    wide = _edge_blocks(dataclasses.replace(fmt, block_size=16), n=n)
+    xb = wide[:, :b].clone()
+    xb[8, b - 1] = -7.0
+    return xb
+
+
+def _recycled(base, value):
+    return dataclasses.replace(get_format(base), recycle=float(value),
+                               name=f"{base}@{value}")
+
+
+def _tie_blocks(fmt, n=64):
+    """Blocks whose scale comes out 1 (block max = the element's largest
+    level, nano 0) holding every midpoint between two levels of the
+    format, of both signs: exact ties for the snap."""
+    from repro_torch.core.levels import level_table
+    rows = []
+    for _, el in fmt.elem_formats:
+        t = level_table(el.name, fmt.cr, fmt.recycle)
+        vals = np.concatenate([t.boundaries, -t.boundaries])
+        for i in range(0, len(vals), fmt.block_size - 1):
+            row = np.zeros(fmt.block_size, np.float32)
+            row[0] = t.max_pos
+            part = vals[i:i + fmt.block_size - 1]
+            row[1:1 + len(part)] = part
+            rows.append(row)
+    xb = np.tile(np.stack(rows), (-(-n // len(rows)), 1))[:n]
+    return torch.from_numpy(xb)
+
+
+@pytest.mark.parametrize("fname", WIDE_FMTS + WIDE_ACT_FMTS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("side", ["warp", "tile"])
+def test_quantize_kernel_wide_formats_bitwise(cuda, fname, dtype, side):
+    """3-bit (and 2/7-bit BFP) codes and block sizes 8 to 128, on both
+    sides of the regime boundary: the kernel equals the plain codec, up to
+    counted near-ties."""
+    fmt = get_format(fname)
+    n = nq.WARP_MAX_BLOCKS + (side == "tile")
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert nq.quantize_plan(n, fmt.block_size, n_sm).regime == side
+    xb = _wide_edge_blocks(fmt, n).to(cuda, getattr(torch, dtype))
+    print(f"{fname} {dtype} {side}: {_quantize_vs_plain(xb, fmt)} near ties")
+
+
+@pytest.mark.parametrize("base,value", RECYCLE)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("side", ["warp", "tile"])
+def test_quantize_kernel_custom_recycle_bitwise(cuda, base, value, dtype,
+                                                side):
+    """A custom recycle value: the kernel equals the plain table-driven
+    encoder (``core.quantize.quantize_blocks``, a value on a midpoint
+    taking the lower level) bit for bit, exact ties included, up to
+    counted candidate near-ties."""
+    fmt = _recycled(base, value)
+    n = nq.WARP_MAX_BLOCKS + (side == "tile")
+    xb = torch.cat([_tie_blocks(fmt), _wide_edge_blocks(fmt, n - 64)])
+    xb = xb.to(cuda, getattr(torch, dtype))
+    print(f"{fmt.name} {dtype} {side}: {_quantize_vs_plain(xb, fmt)} near "
+          "ties")
+    ties = _tie_blocks(fmt).to(cuda, getattr(torch, dtype))
+    kp, km = nq.nxfp_quantize_pack(ties, fmt)
+    pp, pm = nq.nxfp_quantize_pack_plain(ties, fmt)
+    assert torch.equal(kp, pp) and torch.equal(km, pm)
+
+
+@pytest.mark.parametrize("fname", ["nxfp3", "nxfp4_bs64", "nxfp4_bs8",
+                                   "mxfp6_bs128"])
+@pytest.mark.parametrize("case", ["decode", "prefill", "rows"])
+def test_kv_rows_kernel_wide_formats(cuda, fname, case):
+    """The fused K/V cache write at 3 bits and block sizes 8 to 128 (head
+    dims padded to the block): bitwise against the codec + row writes, up
+    to counted near-ties."""
+    fmt = get_format(fname)
+    k, v, cache, pos = _kv_case(cuda, fmt, case, torch.bfloat16)
+    plain = {n: a.clone() for n, a in cache.items()}
+    nq.nxfp_quantize_kv_rows(k, v, cache, pos, fmt)
+    nq.nxfp_quantize_kv_rows_plain(k, v, plain, pos, fmt)
+    b, t, kvh, hd, s, _ = KV_CASES[case]
+    rows = (torch.arange(t, device=cuda)[None, :] if pos is None
+            else pos[:, None] + torch.arange(t, device=cuda))
+    slots = torch.arange(b, device=cuda)[:, None]
+    for name, x in (("k", k), ("v", v)):
+        src = torch.zeros((b, s, kvh, hd), device=cuda)
+        src[slots, rows] = x.float()
+        xb, _ = to_blocks(src, fmt.block_size, -1)
+        diff = ((cache[f"{name}_packed"] != plain[f"{name}_packed"]).any(-1)
+                | (cache[f"{name}_meta"].to(torch.int32)
+                   != plain[f"{name}_meta"].to(torch.int32)))
+        if diff.any():
+            assert near_tie_blocks(xb[diff], fmt).all(), int(diff.sum())
+
+
+WIDE_GEMM_FMTS = ["nxfp3", "mxfp3", "bfp3_bs16", "nxfp4_bs8", "nxfp4_bs64",
+                  "nxfp4_bs128", "nxfp6_bs8", "nxfp8_bs64", "bfp7_bs8",
+                  "amxfp4_ox_bs8", "amxfp4_bs128"]
+
+
+@pytest.mark.parametrize("fname", WIDE_GEMM_FMTS)
+@pytest.mark.parametrize("m", [1, 4, 16, 17, 130])
+@pytest.mark.parametrize("k", [320, 200])
+def test_matmul_kernel_wide_formats(cuda, fname, m, k):
+    """The generic instances (a row read as one long block in 32-code
+    units) at both regimes; K 200 leaves a bs-8 row short of a whole unit
+    (the wrapper pads it with zero blocks): 1e-5 of sum|x||w|, and a
+    second launch gives the same bits."""
+    fmt, x, wq = _matmul_case(cuda, fname, m, k, 72, m + k)
+    # the cast pads K to whole blocks; the caller pads x to match
+    x = torch.nn.functional.pad(
+        x, (0, wq.packed.shape[1] * fmt.block_size - k))
+    y = nm.nxfp_matmul(x, wq.packed, wq.meta, fmt)
+    assert torch.equal(y, nm.nxfp_matmul(x, wq.packed, wq.meta, fmt))
+    _assert_matmul_close(x, wq, fmt, y)
+
+
+def test_matmul_kernel_custom_recycle(cuda):
+    """The decoders read the recycled value from the format: a weight cast
+    with a custom value decodes to the plain level-table values."""
+    fmt = _recycled("nxfp4", 0.75)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    w = torch.randn((256, 96), generator=g, device=cuda)
+    wq = quantize_qtensor(w, fmt, axis=-2, device=cuda)
+    x = torch.randn((16, 256), generator=g, device=cuda)
+    for m in (4, 16):
+        _assert_matmul_close(x[:m], wq, fmt,
+                             nm.nxfp_matmul(x[:m], wq.packed, wq.meta, fmt))
+
+
+@pytest.mark.parametrize("fname", ["nxfp3", "mxfp3", "nxfp4_bs8",
+                                   "nxfp4_bs64", "nxfp4_bs128", "nxfp6_bs8",
+                                   "amxfp4_ox_bs8", "amxfp4_bs64", "bfp7"])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_attention_kernel_wide_formats(cuda, fname, hd):
+    """The generic instance (each row one long block, 8 codes at a time)
+    with ragged lengths and splits: 1e-5 of max|V|, and a second launch
+    gives the same bits."""
+    args = _attention_case(cuda, fname, (100, 0, 33, 64), 100, seed=hd,
+                           kvh=2, hd=hd)
+    # the cast pads head_dim to whole blocks; the caller pads q to match
+    d_pad = args[1].shape[-2] * args[6].block_size
+    args = (torch.nn.functional.pad(args[0], (0, d_pad - hd)),) + args[1:]
+    out = na.nxfp_decode_attention(*args)
+    assert torch.equal(out, na.nxfp_decode_attention(*args))
+    ref = na.nxfp_decode_attention_plain(*args)
+    vmax = float(na.dequant_cache(args[3], args[4], args[6]).abs().max())
+    assert float((out - ref).abs().max()) <= 1e-5 * vmax
+    assert not out[1].any()
+
+
+def test_attention_kernel_custom_recycle(cuda):
+    fmt = _recycled("nxfp4", 0.75)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    b, s, kvh, grp, hd = 2, 70, 2, 4, 128
+    kq, vq = (quantize_qtensor(torch.randn((b, s, kvh, hd), generator=g,
+                                           device=cuda), fmt, axis=-1,
+                               device=cuda) for _ in range(2))
+    q = torch.randn((b, kvh, grp, hd), generator=g, device=cuda) * hd ** -0.5
+    lengths = torch.tensor([70, 41], dtype=torch.int32, device=cuda)
+    args = (q, kq.packed, kq.meta, vq.packed, vq.meta, lengths, fmt)
+    out = na.nxfp_decode_attention(*args)
+    ref = na.nxfp_decode_attention_plain(*args)
+    vmax = float(na.dequant_cache(vq.packed, vq.meta, fmt).abs().max())
+    assert float((out - ref).abs().max()) <= 1e-5 * vmax
+
+
+WIDE_QQ_PAIRS = [("amxfp3", "nxfp3"), ("amxfp4_bs64", "nxfp4_bs64"),
+                 ("amxfp4_ox_bs8", "nxfp4_bs8"), ("mxfp4_bs128",
+                                                  "nxfp4_bs128"),
+                 ("amxfp3_ox", "nxfp4"), ("amxfp4", "nxfp3"),
+                 ("nxfp4_bs16", "bfp3_bs16")]
+
+
+@pytest.mark.parametrize("xf,wf", WIDE_QQ_PAIRS)
+@pytest.mark.parametrize("m", [1, 17, 512])
+@pytest.mark.parametrize("k", [320, 200])
+def test_qq_kernel_wide_formats(cuda, xf, wf, m, k):
+    """The generic X decode (8 codes a thread) and the generic GEMM: the
+    bits of ``nxfp_matmul`` on the plain-decoded X, a second launch the
+    same bits, and 1e-5 of sum|x||w| against the plain version."""
+    args = _qq_case(cuda, xf, wf, m, k=k, n=72)
+    y = nqq.nxfp_qq_matmul(*args)
+    assert torch.equal(y, nqq.nxfp_qq_matmul(*args))
+    xd = nm.dequant_weight_bf16(args[0], args[1], args[4])
+    assert torch.equal(y, nm.nxfp_matmul(xd, args[2], args[3], args[5]))
+    yp = nqq.nxfp_qq_matmul_plain(*args)
+    wd = nm.dequant_weight_bf16(args[2], args[3], args[5]).float()
+    assert ((y - yp).abs() <= 1e-5 * (xd.float().abs() @ wd.abs().T)
+            + 1e-30).all()
+
+
+# -- the device loop as one CUDA graph per chunk
+
+def _graph_engine(cuda, kv="nxfp4", weight="nxfp4", seed=0):
+    cfg = get_smoke_config("llama3_8b")
+    params = init_params(cfg, seed=1, device=cuda)
+    return cfg, ServeEngine(cfg, params, QuantPolicy(weight, kv), max_len=32,
+                            rng_seed=seed, device=cuda)
+
+
+def _graph_loop(eng, b):
+    from repro_torch.serving import engine as engine_mod
+    return [p for k, p in engine_mod._PROGRAM_CACHE.items()
+            if k[0] == eng._uid and k[1] == b][0]
+
+
+@pytest.mark.parametrize("kv,weight", [("nxfp4", "nxfp4"), (None, "nxfp4"),
+                                       ("nxfp3", "nxfp3"),
+                                       ("nxfp4_bs64", "nxfp4_bs64")])
+def test_graph_loop_tokens_equal_host_loop(cuda, kv, weight):
+    """Greedy: the captured chunk graphs (chunks of 1, 4 and 9 steps, a
+    last chunk shorter than the rest) give the host loop's tokens bit for
+    bit, and the loop ran as graph replays."""
+    cfg, eng = _graph_engine(cuda, kv, weight)
+    batch = {"tokens": np.random.default_rng(1).integers(0, cfg.vocab,
+                                                         (3, 7))}
+    host = eng.generate(batch, max_new=9, loop="host")
+    for chunk in (1, 4, 9):
+        dev = eng.generate(batch, max_new=9, loop="device", chunk=chunk)
+        np.testing.assert_array_equal(dev.tokens, host.tokens)
+        np.testing.assert_array_equal(dev.n_generated, host.n_generated)
+    prog = _graph_loop(eng, 3)
+    assert set(prog.graphs) == {(1, True), (4, True), (9, True)}
+    assert prog.replays == 9 + 3 + 1
+
+
+def test_graph_replays_give_the_same_bits(cuda):
+    """Two replays of one graph from the same inputs give the same bits:
+    the split kernels' counters are back at 0 after each replay and their
+    scratch is the capture stream's."""
+    cfg, eng = _graph_engine(cuda)
+    batch = {"tokens": np.random.default_rng(2).integers(0, cfg.vocab,
+                                                         (4, 5))}
+    runs = [eng.generate(batch, max_new=8, loop="device", chunk=8)
+            for _ in range(3)]
+    for r in runs[1:]:
+        np.testing.assert_array_equal(r.tokens, runs[0].tokens)
+    prog = _graph_loop(eng, 4)
+    assert prog.replays == 3 and len(prog.graphs) == 1
+    from repro_torch.kernels import nxfp_attention as na_mod
+    for scratch in (nm._scratch, na_mod._scratch):
+        for _, counters in scratch.values():
+            assert int(counters.abs().sum()) == 0
+
+
+def test_sampled_graph_stream_equals_eager_loops(cuda):
+    """Sampled: the graph replays draw through the generator registered
+    with them, so for one seed the graph loop's stream equals the host
+    loop's and the eager device loop's (``decode_loop`` called directly)
+    bit for bit."""
+    from repro_torch.models import decode_loop
+    cfg, eng = _graph_engine(cuda, seed=11)
+    batch = {"tokens": np.random.default_rng(3).integers(0, cfg.vocab,
+                                                         (3, 6))}
+    temp = np.array([0.7, 1.0, 0.0], np.float32)
+    dev = eng.generate(batch, max_new=10, temperature=temp, loop="device",
+                       chunk=4)
+    host = _graph_engine(cuda, seed=11)[1].generate(
+        batch, max_new=10, temperature=temp, loop="host")
+    np.testing.assert_array_equal(dev.tokens, host.tokens)
+    _, eager_eng = _graph_engine(cuda, seed=11)
+    t = torch.as_tensor(temp, device=cuda)
+    logits, cache = prefill(cfg, eager_eng.params,
+                            {"tokens": torch.as_tensor(batch["tokens"],
+                                                       device=cuda)},
+                            max_len=32, kv_fmt="nxfp4")
+
+    def sample(lg):
+        return eager_eng._sample(lg, t, False).to(torch.int32)
+
+    toks, _, _ = decode_loop(cfg, eager_eng.params, sample(logits), cache,
+                             10, "nxfp4", sample)
+    np.testing.assert_array_equal(dev.tokens, toks.cpu().numpy())
+
+
+def test_graph_loop_sync_key_after_early_stop(cuda):
+    """After a sampled call that stops mid-chunk, the next sampled call
+    gives the same tokens whichever loop ran the first."""
+    cfg, probe_eng = _graph_engine(cuda, seed=5)
+    batch = {"tokens": np.random.default_rng(4).integers(0, cfg.vocab,
+                                                         (3, 6))}
+    probe = probe_eng.generate(batch, max_new=10, temperature=0.9,
+                               loop="host")
+    stop = np.array([row[2] for row in probe.tokens], np.int64)
+    second = {}
+    for loop in ("host", "device"):
+        eng = _graph_engine(cuda, seed=5)[1]
+        eng.generate(batch, max_new=10, temperature=0.9, stop_token=stop,
+                     loop=loop, chunk=4)
+        second[loop] = eng.generate(batch, max_new=6, temperature=0.9,
+                                    loop=loop, chunk=4).tokens
+    np.testing.assert_array_equal(second["host"], second["device"])

@@ -162,22 +162,59 @@ def test_cuda_requests_raise_instead_of_falling_back(cuda_request, kernel):
 
 @pytest.mark.parametrize("kernel", ["quantize", "matmul", "attention", "qq"])
 def test_cuda_kernels_reject_formats_they_do_not_take(cuda_request, kernel):
-    """What the kernels still refuse raises NotImplementedError on CUDA:
-    custom recycle values (quantizer) and 3-bit codes (the decoding
-    kernels). The asym/ox activation formats are taken now."""
-    mxfp3 = get_format("mxfp3")
+    """What the kernels still refuse raises NotImplementedError on CUDA: a
+    block size outside 8 to 128 (here 4). 3-bit codes and custom recycle
+    values, refused once, are taken now
+    (``test_cuda_requests_for_wide_formats_reach_the_kernel``)."""
+    bs4 = get_format("bfp4_bs4")
     with pytest.raises(NotImplementedError):
         if kernel == "quantize":
-            import dataclasses
-            fmt = dataclasses.replace(get_format("nxfp4"), recycle=0.75)
-            nxfp_quantize.nxfp_quantize_pack(torch.zeros((4, 32)), fmt)
+            nxfp_quantize.nxfp_quantize_pack(torch.zeros((4, 4)), bs4)
         elif kernel == "matmul":
-            nxfp_matmul.nxfp_matmul(*_matmul_args(mxfp3))
+            nxfp_matmul.nxfp_matmul(*_matmul_args(bs4))
         elif kernel == "attention":
-            nxfp_attention.nxfp_decode_attention(*_attention_args(mxfp3))
+            nxfp_attention.nxfp_decode_attention(*_attention_args(bs4))
         else:
             nxfp_qq_matmul.nxfp_qq_matmul(
-                *_qq_args(get_format("amxfp4"), mxfp3))
+                *_qq_args(get_format("amxfp4_bs4"), bs4))
+
+
+def _wide(name):
+    if "@" not in name:
+        return get_format(name)
+    import dataclasses
+    base, value = name.split("@")
+    return dataclasses.replace(get_format(base), recycle=float(value),
+                               name=name)
+
+
+WIDE = ["mxfp3", "nxfp3", "bfp3_bs16", "bfp2", "bfp7", "nxfp4_bs8",
+        "nxfp4_bs64", "nxfp4_bs128", "nxfp4@0.75", "mxfp4_cr@5.0"]
+# the activation format of a qq request at each weight format's block size
+WIDE_ACT = {8: "amxfp4_bs8", 16: "amxfp3_bs16", 32: "amxfp3",
+            64: "amxfp4_bs64", 128: "amxfp4_bs128"}
+
+
+@pytest.mark.parametrize("kernel", ["quantize", "matmul", "attention", "qq"])
+@pytest.mark.parametrize("fname", WIDE)
+def test_cuda_requests_for_wide_formats_reach_the_kernel(cuda_request,
+                                                         kernel, fname):
+    """3-bit (and 2/7-bit BFP) codes, block sizes 8 to 128 and custom
+    recycle values, once refused with NotImplementedError, go to the
+    kernel like every other format: the wrapper builds and launches it
+    (and fails here for want of a card), never the plain version."""
+    fmt = _wide(fname)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if kernel == "quantize":
+            nxfp_quantize.nxfp_quantize_pack(
+                torch.zeros((4, fmt.block_size)), fmt)
+        elif kernel == "matmul":
+            nxfp_matmul.nxfp_matmul(*_matmul_args(fmt))
+        elif kernel == "attention":
+            nxfp_attention.nxfp_decode_attention(*_attention_args(fmt))
+        else:
+            nxfp_qq_matmul.nxfp_qq_matmul(
+                *_qq_args(get_format(WIDE_ACT[fmt.block_size]), fmt))
 
 
 def test_qq_gemm_refuses_mixed_block_sizes():
