@@ -18,7 +18,7 @@ Phases, each fatal on failure (exit code 1, no result line):
    rows: a decode step's at ragged rows, a 4 x 128 prefill's), the
    dequant GEMM (at the four
    main-path (K, N) pairs and M 4, 16 and 512, bitwise on a second
-   launch), the decode attention (S 256 and 4096, bitwise on a second
+   launch), the decode attention (S 256, 512 and 4096, bitwise on a second
    launch) and the quantized x quantized (qq) GEMM (the MLP shapes at
    M 16 and 512, bitwise on a second launch and equal to the dequant GEMM
    fed the plain-decoded X) within a stated tolerance. Then every kernel
@@ -62,6 +62,21 @@ Phases, each fatal on failure (exit code 1, no result line):
    and KV: 16 greedy tokens through the graph device loop equal the host
    loop's, and the quantizer, the dequant GEMM and decode attention run
    at those formats.
+
+8. Continuous serving: first a decode row at B 4 and 8 against the same
+   row at B 1, bitwise, for every row-spanning op and ``decode_step``'s
+   logits (``scripts/batch_invariance.py``, the smoke Llama and a 2-layer
+   Llama-3-8B at full width). Then Llama-3-8B at full width (depth of
+   ``--layers``, random weights from seed 0, nxfp4 weights and KV) through
+   ``ContinuousEngine`` (4 slots, chunk 16, max_len 512): 8 requests
+   (prompts 32-256, max_new 8-64, 4 at once then 4 over 0.3 s, two
+   sampled with their own seeds, one with a stop token) served twice,
+   every stream equal to its solo ``ServeEngine`` host-loop stream
+   bitwise; the quantizer, the dequant GEMM and decode attention launch
+   on the path (first serve: prefills and the graphs' capture); every
+   decode chunk of the second serve is a graph replay. Printed: tok/s,
+   TTFT and queue delay, ms a step of a 4-slot chunk, admission seconds,
+   slot occupancy, the same requests as two static batches, peak memory.
 
 The last three lines are the kernel table as JSON, the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.
@@ -507,8 +522,10 @@ def check_matmul(timer, rows):
 
 
 # decode attention's shapes: Llama-3-8B's heads at B 4, the main path's
-# cache (max_len 256) and a long one (S 4096), ragged lengths
-ATTENTION_CASES = ((256, (256, 200, 131, 17)), (4096, (4096, 3001, 1024, 17)))
+# cache (max_len 256), the continuous path's (512) and a long one (S
+# 4096), ragged lengths
+ATTENTION_CASES = ((256, (256, 200, 131, 17)), (512, (512, 300, 131, 17)),
+                   (4096, (4096, 3001, 1024, 17)))
 
 
 def check_attention(timer, rows):
@@ -1130,6 +1147,182 @@ def phase_act(cfg, engine, prompts):
     return counts
 
 
+# phase 8: continuous serving at full width
+CONT_SLOTS, CONT_CHUNK, CONT_MAX_LEN = 4, 16, 512
+CONT_PROMPTS = (32, 64, 128, 256, 32, 64, 128, 256)
+CONT_MAX_NEW = (8, 16, 24, 32, 40, 48, 56, 64)
+CONT_SAMPLED = {2: (0.8, 17), 5: (1.3, 23)}     # uid: (temperature, seed)
+CONT_STOP_UID, CONT_STOP_AT = 7, 20   # its stop: its solo stream's 21st token
+
+
+def phase_invariance():
+    """A decode row at B 4 and 8 against the same row at B 1, bitwise
+    (``scripts/batch_invariance.py``: the smoke Llama and a 2-layer
+    Llama-3-8B at full width, each row-spanning op and ``decode_step``'s
+    logits, ``lm_head`` included)."""
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import batch_invariance
+    res = batch_invariance.measure(2)
+    bad = {f"{m} {op} B={b}": r for m, rows in res.items()
+           for op, by_b in rows.items() for b, r in by_b.items()
+           if r["differ"] and op != batch_invariance.PLAIN_MEAN}
+    if bad:
+        fail(f"batch invariance: row 0 differs from B 1 in {bad}")
+    log(f"batch invariance: row 0 at B {list(batch_invariance.BATCHES)} "
+        f"equals B 1 bitwise in every op the port runs and in "
+        f"decode_step's logits (eager and as a graph replay; "
+        f"'{batch_invariance.PLAIN_MEAN}' is for comparison) "
+        f"(smoke Llama; Llama-3-8B full width, 2 layers, lm_head "
+        f"included; nxfp4 weights and KV, S {batch_invariance.MAX_LEN}): "
+        f"{json.dumps(res)}")
+
+
+def _continuous_requests(cfg):
+    import numpy as np
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(0)
+    return [Request(uid=i, tokens=rng.integers(0, cfg.vocab, (t,)),
+                    max_new=m, temperature=CONT_SAMPLED.get(i, (0.0, 0))[0],
+                    seed=CONT_SAMPLED.get(i, (0.0, 0))[1],
+                    arrival_time=0.0 if i < 4 else 0.075 * (i - 3))
+            for i, (t, m) in enumerate(zip(CONT_PROMPTS, CONT_MAX_NEW))]
+
+
+def _static_batches(cfg, params, reqs):
+    """The same requests as two static batches of 4 through
+    ``ServeEngine``'s graph loop: prompts left-padded with token 0 to the
+    batch's longest, every row decoded to the batch's largest max_new
+    (what a lockstep batch without ragged prefill pays). Returns (useful
+    tokens per second, seconds), after one warm-up of each batch."""
+    import numpy as np
+    from repro_torch.core.qtensor import QuantPolicy
+    from repro_torch.serving import ServeEngine
+    eng = ServeEngine(cfg, params, QuantPolicy(None, "nxfp4"),
+                      max_len=CONT_MAX_LEN, device="cuda")
+    batches = []
+    for group in (reqs[:4], reqs[4:]):
+        t = max(len(r.tokens) for r in group)
+        toks = np.stack([np.pad(r.tokens, (t - len(r.tokens), 0))
+                         for r in group])
+        batches.append(({"tokens": toks}, max(r.max_new for r in group)))
+    for batch, max_new in batches:                             # warm-up
+        eng.generate(batch, max_new=max_new, loop="device",
+                     chunk=CONT_CHUNK)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batch, max_new in batches:
+        eng.generate(batch, max_new=max_new, loop="device",
+                     chunk=CONT_CHUNK)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    return sum(r.max_new for r in reqs) / sec, sec
+
+
+def phase_continuous(n_layers: int, graph_ms: float, card: str):
+    """Continuous batching at full width: ``ContinuousEngine`` (4 slots,
+    chunk 16, max_len 512, nxfp4 weights and KV) serves 8 requests
+    against each one's solo host-loop stream, bitwise. Every measured
+    line names ``card`` (nvidia-smi's name and power limit)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.qtensor import QuantPolicy
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import init_params
+    from repro_torch.serving import ContinuousEngine, ServeEngine
+
+    cfg = dataclasses.replace(get_config("llama3_8b"), n_layers=n_layers)
+    params = init_params(cfg, seed=0, device="cuda")
+    engine = ContinuousEngine(cfg, params, QuantPolicy("nxfp4", "nxfp4"),
+                              n_slots=CONT_SLOTS, max_len=CONT_MAX_LEN,
+                              chunk=CONT_CHUNK, device="cuda")
+    del params                                  # drop the dense weights
+    torch.cuda.empty_cache()
+    reqs = _continuous_requests(cfg)
+
+    def solo(req):
+        # the engine's cast weights, uncast policy: no second cast
+        eng = ServeEngine(cfg, engine.params, QuantPolicy(None, "nxfp4"),
+                          max_len=CONT_MAX_LEN, rng_seed=req.seed,
+                          device="cuda")
+        out = eng.generate({"tokens": req.tokens[None]}, max_new=req.max_new,
+                           temperature=req.temperature,
+                           stop_token=req.stop_token, loop="host")
+        return out.tokens[0, :int(out.n_generated[0])]
+
+    stop = int(solo(reqs[CONT_STOP_UID])[CONT_STOP_AT])
+    reqs[CONT_STOP_UID] = dataclasses.replace(reqs[CONT_STOP_UID],
+                                              stop_token=stop)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    first = {r.uid: r for r in engine.serve(reqs)}    # captures the graphs
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    replays_first = engine.replays
+    t0 = time.perf_counter()
+    results = engine.serve(reqs)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    second = {r.uid: r for r in results}
+
+    for req in reqs:
+        want = solo(req)
+        for name, got in (("first", first), ("second", second)):
+            if not np.array_equal(got[req.uid].tokens, want):
+                fail(f"continuous: uid {req.uid} ({name} serve) "
+                     f"{got[req.uid].tokens[:8].tolist()} ... differs from "
+                     f"its solo stream {want[:8].tolist()} ...")
+    if second[CONT_STOP_UID].tokens[-1] != stop:
+        fail("continuous: the stop request did not end on its stop token")
+    for name in ("nxfp_quantize", "nxfp_matmul", "nxfp_attention"):
+        if counts[name] <= 0:
+            fail(f"continuous path: kernel {name} was never launched")
+    if engine.replays - replays_first != engine.chunks or \
+            replays_first == 0 or set(engine._graphs) != {True, False}:
+        fail(f"continuous: {engine.replays} replays of graphs "
+             f"{sorted(engine._graphs)} over {engine.chunks} chunks")
+
+    n_tok = sum(r.n_generated for r in results)
+    ttft = [r.ttft for r in results]
+    qd = [r.queue_delay for r in results]
+    full = [sec / CONT_CHUNK * 1e3 for live, sec in engine.chunk_times
+            if live == CONT_SLOTS]
+    occupancy = n_tok / (engine.chunks * CONT_CHUNK * CONT_SLOTS)
+    static_tok_s, static_s = _static_batches(cfg, engine.params, reqs)
+    log(f"continuous serving: Llama-3-8B full width, {n_layers} layers, "
+        f"nxfp4 weights and KV, {CONT_SLOTS} slots, chunk {CONT_CHUNK}, "
+        f"max_len {CONT_MAX_LEN}; 8 requests (prompts {list(CONT_PROMPTS)}, "
+        f"max_new {list(CONT_MAX_NEW)}, uids 2 and 5 sampled, uid "
+        f"{CONT_STOP_UID} stops on token {stop}); every stream equals its "
+        f"solo host-loop stream bitwise, on both serves")
+    log(f"  second serve ({card}): {n_tok} tokens in {wall:.4f} s = "
+        f"{n_tok / wall:.2f} tok/s; TTFT median {statistics.median(ttft):.4f}"
+        f" s, max {max(ttft):.4f} s; queue delay median "
+        f"{statistics.median(qd):.4f} s, max {max(qd):.4f} s")
+    log(f"  decode chunks ({card}) {engine.chunks} (graph replays: "
+        f"{engine.replays - replays_first} this serve, {replays_first} in "
+        f"the first, which captured graphs {sorted(engine._graphs)}); ms per "
+        f"step of a chunk with {CONT_SLOTS} live slots: median "
+        f"{statistics.median(full) if full else float('nan'):.3f} over "
+        f"{len(full)} chunks {[round(x, 3) for x in full]} (phase 5's graph "
+        f"loop at B 4: {graph_ms:.3f}); live slots per chunk "
+        f"{[live for live, _ in engine.chunk_times]}")
+    log(f"  admission prefill seconds ({card}; prompts in admission "
+        f"order): "
+        f"{[round(x, 4) for x in engine.admit_seconds]}; slot occupancy "
+        f"(tokens / slot-steps) {occupancy:.3f}")
+    log(f"  static batches ({card}; 2 x 4 through ServeEngine's graph "
+        f"loop, padded "
+        f"to the longest prompt, run to the largest max_new): "
+        f"{static_tok_s:.2f} useful tok/s, {static_s:.4f} s")
+    log(f"  peak device memory over both serves ({card}): {peak} bytes; "
+        f"launches on "
+        f"the continuous path (first serve: prefills, graph warm-ups and "
+        f"captures): {counts}")
+    del engine
+    torch.cuda.empty_cache()
+    return counts
+
+
 def kernel_formats(kname, rows, wide_counts):
     """The formats ``kname`` ran in this run: its main-path formats, its
     phase-3 wide rows and the formats phase 7 served through it."""
@@ -1225,6 +1418,8 @@ def main():
     del engine
     torch.cuda.empty_cache()
     wide_counts = phase_wide_serving(args.layers, prompts)
+    phase_invariance()
+    cont_counts = phase_continuous(args.layers, loops["graph"], smi_line)
 
     table = []
     for kname, (sources, replaces) in KERNELS.items():
@@ -1236,6 +1431,7 @@ def main():
             launches=(act_counts if kname in QQ_PATH else counts)[c],
             launches_qq_prefill_path=act_counts[c],
             launches_per_decode_step=per_step[c],
+            launches_continuous_path=cont_counts[c],
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],

@@ -3,6 +3,7 @@
 
     python3 scripts/compare_kernels.py               # this checkout
     python3 scripts/compare_kernels.py --tree DIR    # another checkout
+    python3 scripts/compare_kernels.py --only attention   # one kernel's rows
 
 Builds the kernels of ``DIR/src/repro_torch`` and times them on one GPU
 with the ``Timer`` and ``bound`` of the ``chip_smoke.py`` beside this
@@ -150,8 +151,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tree", default=ROOT,
                     help="root of the checkout whose kernels to time")
-    ap.add_argument("--only", choices=("quantize",),
-                    help="time the quantizer's rows alone")
+    ap.add_argument("--only", choices=("quantize", "attention"),
+                    help="time the quantizer's or decode attention's rows "
+                         "alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("compare_kernels: needs a CUDA device")
@@ -173,15 +175,17 @@ def main():
     cs.log(f"timer floor (a one-element add): {floor_ms:.4f} ms")
     rows = {} if args.only else time_matmul(cs, timer)
     rows["timer floor"] = {"ms": floor_ms}
-    cs.check_quantizer(timer, rows)
-    cs.check_act_quantizer(timer, rows)
-    from repro_torch.kernels import nxfp_quantize
-    if hasattr(nxfp_quantize, "nxfp_quantize_kv_rows"):
-        cs.check_kv_write(timer, rows)
-        rows.update(time_quantize_regimes(cs, timer))
-        rows["quantizer sass"] = quantizer_sass(cs, info["path"])
-    if not args.only:
+    if args.only != "attention":
+        cs.check_quantizer(timer, rows)
+        cs.check_act_quantizer(timer, rows)
+        from repro_torch.kernels import nxfp_quantize
+        if hasattr(nxfp_quantize, "nxfp_quantize_kv_rows"):
+            cs.check_kv_write(timer, rows)
+            rows.update(time_quantize_regimes(cs, timer))
+            rows["quantizer sass"] = quantizer_sass(cs, info["path"])
+    if args.only != "quantize":
         cs.check_attention(timer, rows)
+    if not args.only:
         cs.check_qq_matmul(timer, rows)
     print(json.dumps({"tree": tree, "build_seconds": info["seconds"],
                       "cached": info["cached"], "rows": rows}), flush=True)

@@ -3,7 +3,8 @@
 CUDA kernel: ``csrc/nxfp_attention.cu`` (replaces the reference's
 ``kernels/nxfp_attention.py:nxfp_decode_attention_pallas``), split-S in
 one launch: ``attention_split`` plans how many CTAs share each (batch,
-KV head)'s 32-row tiles, and the last of them merges their partial
+KV head)'s 32-row tiles (from the cache length and KV heads, never from
+the batch), and the last of them merges their partial
 softmax states in split order. Plain
 version: ``nxfp_decode_attention_plain`` — dequantize the cache to f32,
 f32 scores, the -1e30 mask, ``exp(s - max)`` zeroed where masked, f32
@@ -32,18 +33,23 @@ _NEG = -1e30
 _scratch: dict = {}   # split buffers per (device, stream), split_scratch
 
 
-def attention_split(b: int, kvh: int, s: int, n_sm: int = 132):
+def attention_split(kvh: int, s: int, n_sm: int = 132):
     """Split-S plan: (splits, tiles per split) for a cache of ``s`` rows.
 
     Split i of each (batch, KV head) takes the 32-row tiles
     [i * tps, min(n_tiles, (i + 1) * tps)), n_tiles = ceil(s / 32): every
     split holds at least one tile and the splits cover them once. The
-    grid (kvh, b, splits) aims at ``CTAS_PER_SM`` CTAs per SM, so splits
-    fall to 1 when b * kvh alone reaches that. Planned from the cache
-    length, never from the sequences' lengths: no device sync.
+    grid (kvh, b, splits) aims at ``CTAS_PER_SM`` CTAs per SM for one
+    sequence; a batch adds CTAs, never splits. The merge's sums follow
+    the splits, so a plan that depended on the batch would make a row's
+    output depend on how many rows share the launch (on the H100 3086 of
+    row 0's 4096 outputs moved, by up to 9e-8, between B 1 and B 4 at S
+    512 when it did), and the continuous engine's slots could not
+    reproduce a request served alone. Planned from the cache length,
+    never from the sequences' lengths: no device sync.
     """
     n_tiles = max(1, -(-s // TILE_ROWS))
-    want = max(1, -(-CTAS_PER_SM * n_sm // max(1, b * kvh)))
+    want = max(1, -(-CTAS_PER_SM * n_sm // max(1, kvh)))
     tps = -(-n_tiles // min(want, n_tiles))
     return -(-n_tiles // tps), tps
 
@@ -52,7 +58,7 @@ def _split_plan(device, b: int, kvh: int, g: int, d: int, s: int):
     """``attention_split`` on ``device`` and, with more than one split, the
     current stream's partials (acc, m, l per split of each (batch, KV
     head)) and per-(batch, KV head) counters (``build.split_scratch``)."""
-    splits, tps = attention_split(b, kvh, s, build.sm_count(device))
+    splits, tps = attention_split(kvh, s, build.sm_count(device))
     if splits == 1:
         return splits, tps, None, None
     ws, counters = build.split_scratch(

@@ -28,7 +28,8 @@ from . import build
 from .decode_lib import decode_block_values
 
 __all__ = ["nxfp_matmul", "nxfp_matmul_plain", "dequant_weight_bf16",
-           "DecodeGeometry", "decode_geometry", "decode_split"]
+           "plain_product", "DecodeGeometry", "decode_geometry",
+           "decode_split"]
 
 LAUNCHES = 0          # kernel launches since the caller last set it to 0
 CTAS_PER_SM = 4       # the decode grid aims at about four CTAs on every SM
@@ -104,10 +105,22 @@ def dequant_weight_bf16(packed, meta, fmt: BlockFormat):
     return w.reshape(w.shape[0], -1).to(torch.bfloat16)
 
 
+def plain_product(x, w):
+    """x (M, K) @ w (K, N) in f32. On the CPU one product per row: MKL
+    takes another path at M = 1 than at M > 1, whose sums differ in their
+    last bits, so one product of all rows would make a row's result (and
+    a request's decode stream) depend on how many rows share the step. On
+    CUDA, where the plain version is only the kernels' yardstick, one
+    product."""
+    if x.device.type != "cpu" or x.shape[0] < 2:
+        return x @ w
+    return torch.cat([x[i:i + 1] @ w for i in range(x.shape[0])])
+
+
 def nxfp_matmul_plain(x, packed, meta, fmt: BlockFormat):
     """x (M, K) @ dequant(W)^T -> (M, N) f32; W packed (N, KB, bpb)."""
     w = dequant_weight_bf16(packed, meta, fmt)
-    return x.to(torch.bfloat16).float() @ w.float().T
+    return plain_product(x.to(torch.bfloat16).float(), w.float().T)
 
 
 def nxfp_matmul(x, packed, meta, fmt: BlockFormat):

@@ -249,8 +249,10 @@ def nxfp_quantize_pack(xb, fmt: BlockFormat, plan: QuantPlan | None = None):
 def nxfp_quantize_kv_rows_plain(k, v, cache: dict, pos, fmt: BlockFormat):
     """The codec on K and V (B, T, KVH, hd), then row writes into the
     layer cache: rows [0, T) of every slot when ``pos`` is None (prefill),
-    else rows ``pos[b] + t``. In place; returns ``cache``."""
+    else rows ``pos[b] + t``, skipping a row outside [0, S) as the kernel
+    does. In place; returns ``cache``."""
     b, t = k.shape[:2]
+    s = cache["k_packed"].shape[1]
     for name, x in (("k", k), ("v", v)):
         xb, _ = to_blocks(x, fmt.block_size, -1)
         packed, meta = nxfp_quantize_pack_plain(
@@ -263,8 +265,9 @@ def nxfp_quantize_kv_rows_plain(k, v, cache: dict, pos, fmt: BlockFormat):
                 buf[:, :t] = build.bit_view(val)
             else:
                 at = pos[:, None] + torch.arange(t, device=pos.device)
-                buf[torch.arange(b, device=pos.device)[:, None], at] = \
-                    build.bit_view(val)
+                slot = torch.arange(b, device=pos.device)[:, None].expand(b, t)
+                inside = (at >= 0) & (at < s)
+                buf[slot[inside], at[inside]] = build.bit_view(val)[inside]
     return cache
 
 

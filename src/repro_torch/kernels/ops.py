@@ -17,7 +17,7 @@ from .. import resolve_device
 from ..core.qtensor import QTensor, fmt_key
 from ..core.quantize import resolve_format, to_blocks
 from .nxfp_attention import nxfp_decode_attention
-from .nxfp_matmul import nxfp_matmul
+from .nxfp_matmul import nxfp_matmul, plain_product
 from .nxfp_qq_matmul import nxfp_qq_matmul
 from .nxfp_quantize import nxfp_quantize_pack
 
@@ -35,7 +35,9 @@ def _dense_matmul(x, w):
         return y.reshape(*lead, wb.shape[-1])
     # bf16 x bf16 products are exact in f32, so an f32 matmul of the
     # rounded operands is the reference's bf16 dot with f32 accumulation
-    return xb.float() @ wb.float()
+    lead = x.shape[:-1]
+    y = plain_product(xb.float().reshape(-1, x.shape[-1]), wb.float())
+    return y.reshape(*lead, w.shape[-1])
 
 
 def qmatmul(x, w):

@@ -1,7 +1,7 @@
 """Dense transformer layer: full-sequence (prefill) and one-token decode.
 
   layer_forward(cfg, p, x, positions, act_fmt)   -> (x, {"k", "v"})
-  layer_decode(cfg, p, x, layer_cache, pos, kv)  -> (x, layer_cache)
+  layer_decode(cfg, p, x, layer_cache, pos, kv, live) -> (x, layer_cache)
 """
 from __future__ import annotations
 
@@ -42,15 +42,16 @@ def layer_forward(cfg: ModelConfig, p: Params, x, positions,
 
 
 def _attn_decode(cfg: ModelConfig, p: Params, h, layer_cache, pos,
-                 kv_fmt: Optional[str]):
-    """h (B, 1, D) -> attn out (B, 1, D); writes the token's K/V row."""
+                 kv_fmt: Optional[str], live=None):
+    """h (B, 1, D) -> attn out (B, 1, D); writes the token's K/V row
+    (not for a slot whose ``live`` entry is false)."""
     b = h.shape[0]
     q, k1, v1 = gqa_project(cfg, p, h)
     positions = pos.reshape(b, 1)
     cos, sin = rope_freqs(positions, cfg.hd, cfg.rope_theta)
     q = apply_rope(q.reshape(b, 1, -1, cfg.hd), cos, sin).reshape(q.shape)
     k1 = apply_rope(k1, cos, sin)
-    write_token(cfg, layer_cache, k1, v1, pos, kv_fmt)
+    write_token(cfg, layer_cache, k1, v1, pos, kv_fmt, live=live)
     o = attend_decode(cfg, layer_cache, q.reshape(b, cfg.n_heads, cfg.hd),
                       pos, kv_fmt)
     o = o.reshape(b, 1, cfg.n_heads * cfg.hd).to(h.dtype)
@@ -58,10 +59,12 @@ def _attn_decode(cfg: ModelConfig, p: Params, h, layer_cache, pos,
 
 
 def layer_decode(cfg: ModelConfig, p: Params, x, layer_cache, pos,
-                 kv_fmt: Optional[str]):
-    """x (B, 1, D) -> (x, layer_cache), the cache updated in place."""
+                 kv_fmt: Optional[str], live=None):
+    """x (B, 1, D) -> (x, layer_cache), the cache updated in place.
+    ``live`` (B,) bool: a not-live slot runs through the batch but writes
+    no K/V row (``kvcache.write_token``)."""
     h = rmsnorm(x, p["ln1_scale"], cfg.norm_eps)
-    x = x + _attn_decode(cfg, p, h, layer_cache, pos, kv_fmt)
+    x = x + _attn_decode(cfg, p, h, layer_cache, pos, kv_fmt, live)
     h2 = rmsnorm(x, p["ln2_scale"], cfg.norm_eps)
     return (x + swiglu(h2, p["mlp_w1"], p["mlp_w3"], p["mlp_w2"]),
             layer_cache)

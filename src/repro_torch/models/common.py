@@ -82,9 +82,40 @@ def init_attn(gen: torch.Generator, cfg: ModelConfig):
 # primitive layers
 # ---------------------------------------------------------------------------
 
+# up to this many rows (a decode step's batch), a row reduction runs over
+# exactly this many rows (``mean_square``)
+ROW_GROUP = 16
+
+
+def mean_square(x):
+    """mean(x^2) over the last axis in f32, keeping it (..., 1).
+
+    With fewer than ``ROW_GROUP`` rows the reduction runs on buffers of
+    exactly that many rows: CUDA's reduction kernel picks its thread
+    layout, and with it the order of a row's sums, from the number of
+    rows, so a decode row's norm would otherwise depend on the batch and a
+    continuous slot's stream could fork from the request served alone
+    (``scripts/batch_invariance.py`` measures both). The buffer's rows past
+    the batch are left unset (each row is reduced on its own and theirs
+    are sliced off), and a row is summed in two stages of fixed shape,
+    partial sums of up to 32 parts and then their total: one reduction
+    over 16 long rows gives each row a single warp."""
+    rows = x.to(torch.float32).reshape(-1, x.shape[-1])
+    n, d = rows.shape
+    if n >= ROW_GROUP:
+        return torch.mean(torch.square(rows), dim=-1).reshape(
+            *x.shape[:-1], 1)
+    sq = torch.empty((ROW_GROUP, d), dtype=torch.float32, device=rows.device)
+    torch.square(rows, out=sq[:n])
+    parts = math.gcd(d, 32)
+    part = torch.sum(sq.reshape(ROW_GROUP * parts, d // parts), dim=-1)
+    total = torch.sum(part.reshape(ROW_GROUP, parts), dim=-1)
+    return (total[:n] / d).reshape(*x.shape[:-1], 1)
+
+
 def rmsnorm(x, scale, eps: float):
     xf = x.to(torch.float32)
-    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    var = mean_square(xf)
     return (xf * torch.rsqrt(var + eps) * scale.to(torch.float32)).to(x.dtype)
 
 

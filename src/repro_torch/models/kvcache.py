@@ -70,17 +70,35 @@ def write_prefill(cfg: ModelConfig, k, v, kv_fmt: Optional[str],
 
 
 def write_token(cfg: ModelConfig, layer_cache, k1, v1, pos,
-                kv_fmt: Optional[str]):
+                kv_fmt: Optional[str], live=None):
     """Write one token's K/V (B, 1, KVH, hd) at per-slot rows ``pos`` (B,),
     in place; a packed cache takes K and V in one quantizer launch, which
-    reads ``pos`` on the device. Returns ``layer_cache``."""
+    reads ``pos`` on the device. Returns ``layer_cache``.
+
+    ``live`` (B,) bool, when given, suppresses slot b's write where
+    ``live[b]`` is false (the continuous engine's parked slots): its row is
+    handed on as S, past the cache end. A row outside [0, S) is not
+    written, on either device (the reference's ``dynamic_update_slice``
+    clamps it to row S - 1 instead). Nothing reads such a row: a slot
+    writes past its end only after its request finished (it decodes on to
+    the end of the chunk), and the next admission overwrites the whole
+    slot, so skipping and clamping cannot be told apart. Live rows are
+    bit-identical to ``live=None``."""
+    s = layer_cache["k" if kv_fmt is None else "k_packed"].shape[1]
+    if live is not None:
+        pos = torch.where(live, pos, s)
     if kv_fmt is not None:
         return nxfp_quantize_kv_rows(k1.contiguous(), v1.contiguous(),
                                      layer_cache, pos, resolve_format(kv_fmt))
+    # rows outside the cache write their old value back: no host sync, so
+    # the write stays capturable in a CUDA graph
     slots = torch.arange(k1.shape[0], device=k1.device)
+    inside = ((pos >= 0) & (pos < s))[:, None, None]
+    row = pos.clamp(0, s - 1)
     for name, val in (("k", k1), ("v", v1)):
         buf = layer_cache[name]
-        buf[slots, pos] = val[:, 0].to(buf.dtype)
+        buf[slots, row] = torch.where(inside, val[:, 0].to(buf.dtype),
+                                      buf[slots, row])
     return layer_cache
 
 

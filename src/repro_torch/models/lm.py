@@ -83,33 +83,42 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
 
 
 def decode_step(cfg: ModelConfig, params: Params, tokens, cache,
-                kv_fmt: Optional[str]) -> Tuple[torch.Tensor, Dict[str, Any]]:
+                kv_fmt: Optional[str], live=None
+                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """tokens (B, 1). Returns (logits (B, V) f32, cache with ``pos``
-    advanced). The layer caches are updated in place."""
+    advanced). The layer caches are updated in place.
+
+    ``live`` (B,) bool (the continuous engine) freezes a not-live slot: it
+    writes no K/V row and its ``pos`` stays; live slots are bit-identical
+    to ``live=None``. A row's logits do not depend on the other rows of
+    the batch (``tests/test_torch_continuous.py`` holds it bitwise)."""
     pos = cache["pos"]
     x = _embed(cfg, params, tokens)
     for lp, lc in zip(params["layers"], cache["layers"]):
-        x, _ = layer_decode(cfg, lp, x, lc, pos, kv_fmt)
+        x, _ = layer_decode(cfg, lp, x, lc, pos, kv_fmt, live)
     logits = _head(cfg, params, x)
-    return logits[:, 0], {"pos": pos + 1, "layers": cache["layers"]}
+    step = 1 if live is None else live.to(pos.dtype)
+    return logits[:, 0], {"pos": pos + step, "layers": cache["layers"]}
 
 
 def decode_loop(cfg: ModelConfig, params: Params, tok, cache, n_steps: int,
                 kv_fmt: Optional[str],
-                sample_fn: Callable[[torch.Tensor], torch.Tensor]):
+                sample_fn: Callable[[torch.Tensor], torch.Tensor],
+                live=None):
     """``n_steps`` decode steps on the device, sampling included.
 
     ``tok`` (B,) is the token entering the loop (already sampled from the
     previous logits). Each step records it, advances the model and samples
     the successor with ``sample_fn(logits (B, V) f32) -> (B,)``. Nothing is
-    copied to the host. Returns (tokens (B, n_steps), tok, cache): the
-    emitted tokens start with the entering token; the returned ``tok``
-    enters the next chunk.
+    copied to the host. ``live`` is ``decode_step``'s, for every step.
+    Returns (tokens (B, n_steps), tok, cache): the emitted tokens start
+    with the entering token; the returned ``tok`` enters the next chunk.
     """
     out = []
     for _ in range(n_steps):
         out.append(tok)
-        logits, cache = decode_step(cfg, params, tok[:, None], cache, kv_fmt)
+        logits, cache = decode_step(cfg, params, tok[:, None], cache, kv_fmt,
+                                    live)
         tok = sample_fn(logits).to(torch.int32)
     return torch.stack(out, dim=1), tok, cache
 
@@ -122,3 +131,53 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
             "layers": [attn_cache_init(cfg, batch, max_len, kv_fmt, dev)
                        for _ in range(cfg.n_layers)]}
+
+
+# ---------------------------------------------------------------------------
+# slot surgery: one slot of a live B-slot cache (the continuous engine)
+# ---------------------------------------------------------------------------
+
+def write_cache_slot(cache: Dict[str, Any], solo: Dict[str, Any],
+                     slot: int) -> Dict[str, Any]:
+    """Copy a batch-1 cache (a batch-1 ``prefill``'s) into slot ``slot``,
+    in place: every layer buffer's ``slot:slot+1`` (contiguous) and
+    ``pos[slot]``. Neighbour slots are untouched. Returns ``cache``."""
+    cache["pos"][slot:slot + 1].copy_(solo["pos"])
+    for dst, src in zip(cache["layers"], solo["layers"]):
+        for name, buf in dst.items():
+            buf[slot:slot + 1].copy_(src[name])
+    return cache
+
+
+def read_cache_slot(cache: Dict[str, Any], slot: int) -> Dict[str, Any]:
+    """Slot ``slot`` as a batch-1 cache (a copy; the inverse of
+    ``write_cache_slot``, bit for bit: packed bytes are copied raw)."""
+    return {"pos": cache["pos"][slot:slot + 1].clone(),
+            "layers": [{name: buf[slot:slot + 1].clone()
+                        for name, buf in layer.items()}
+                       for layer in cache["layers"]]}
+
+
+def prefill_into_slot(cfg: ModelConfig, params: Params,
+                      batch: Dict[str, Any], cache: Dict[str, Any],
+                      slot: int, max_len: int, kv_fmt: Optional[str]):
+    """Prefill one request (batch-1 ``tokens``) into slot ``slot`` of a
+    live cache, in place: the ordinary batch-1 ``prefill`` (so its K/V and
+    logits are those of serving it alone), then ``write_cache_slot`` of
+    its whole cache (rows past the prompt are zero, as the reference's
+    scatter leaves them). Returns (last logits (1, V), cache)."""
+    if batch["tokens"].shape[0] != 1:
+        raise ValueError(f"prefill_into_slot takes one request, got "
+                         f"{tuple(batch['tokens'].shape)}")
+    logits, solo = prefill(cfg, params, batch, max_len, kv_fmt)
+    return logits, write_cache_slot(cache, solo, slot)
+
+
+def reset_slot(cfg: ModelConfig, cache: Dict[str, Any],
+               slot: int) -> Dict[str, Any]:
+    """Park a finished slot, in place: ``pos[slot] = 0``. Its K/V rows
+    stay stale on purpose: reads are masked to ``pos`` and an admission
+    overwrites the whole slot. (``cfg`` is the reference's signature; the
+    dense family has no recurrent state to zero.) Returns ``cache``."""
+    cache["pos"][slot] = 0
+    return cache

@@ -1,4 +1,13 @@
-"""Serving: the batched engine over direct-cast weights and KV cache."""
+"""Serving: the batched engine and the continuous-batching engine over
+direct-cast weights and KV cache, and the JSONL event journal."""
 from .engine import GenerationResult, ServeEngine, mask_chunk_emissions
+from .events import EVENT_KINDS, Journal, emit, parse_event, replay
+from .scheduler import (AdmissionPolicy, ContinuousEngine, FifoPolicy,
+                        PriorityAdmission, Request, RequestResult,
+                        ShortestPromptFirst, SlotScheduler, Status)
 
-__all__ = ["ServeEngine", "GenerationResult", "mask_chunk_emissions"]
+__all__ = ["ServeEngine", "GenerationResult", "mask_chunk_emissions",
+           "ContinuousEngine", "SlotScheduler", "Request", "RequestResult",
+           "Status", "AdmissionPolicy", "FifoPolicy", "ShortestPromptFirst",
+           "PriorityAdmission", "Journal", "emit", "parse_event", "replay",
+           "EVENT_KINDS"]

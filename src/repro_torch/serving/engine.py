@@ -96,23 +96,87 @@ def _per_seq(value, b: int, dtype, default):
     return np.broadcast_to(np.asarray(value, dtype), (b,)).copy()
 
 
-def mask_chunk_emissions(toks, done, n_gen, stop):
+def mask_chunk_emissions(toks, done, n_gen, stop, max_new=None):
     """Shared chunk emission/stop semantics (host-loop equivalent).
 
     toks (B, n) are a chunk's raw decode outputs. Step i of row b is live
-    iff the row was not done at chunk entry and no stop token landed
-    strictly earlier in the chunk (the hit itself emits). (The reference's
-    per-slot ``max_new`` budget serves its continuous engine, not ported.)
-    Returns (emitted (B, n), n_gen', done').
+    iff the row was not done at chunk entry, no stop token landed
+    strictly earlier in the chunk (the hit itself emits), and, when a
+    per-slot ``max_new`` budget (B,) is given (the continuous engine),
+    ``n_gen + i < max_new``. Returns (emitted (B, n), n_gen', done').
     """
     hits = toks == stop[:, None]                       # stop<0: never
     hi = hits.to(torch.int32)
     before = torch.cumsum(hi, dim=1) - hi              # stops before i
     done_before = done[:, None] | (before > 0)         # (B, n)
+    if max_new is not None:
+        budget = n_gen[:, None] + torch.arange(
+            toks.shape[1], dtype=torch.int32, device=toks.device)[None, :]
+        done_before = done_before | (budget >= max_new[:, None])
     emitted = torch.where(done_before, torch.zeros_like(toks), toks)
     n_gen = n_gen + (~done_before).sum(dim=1).to(torch.int32)
     done = done | hits.any(dim=1)
+    if max_new is not None:
+        done = done | (n_gen >= max_new)
     return emitted, n_gen, done
+
+
+def exp_noise(probs, gen):
+    """The sampler's one use of a generator: Exp(1) noise over the
+    probabilities (``ServeEngine._sync_key`` replays these draws)."""
+    return torch.empty_like(probs).exponential_(1.0, generator=gen)
+
+
+def sample_tokens(logits, temperature, all_greedy: bool, gens):
+    """logits (B, V); temperature (B,) tensor, rows with 0 take argmax.
+    A sampled row takes argmax(p / E), E ~ Exp(1) i.i.d.: token i with
+    probability p_i, as ``torch.multinomial`` draws one sample, with no
+    host sync (capturable). ``gens`` is one generator drawing E over the
+    (B, V) probabilities (``ServeEngine``), or one per row, each drawing
+    over its own (1, V) row as a solo engine's draws (the continuous
+    engine's slots; a row's softmax, division and argmax do not depend on
+    the other rows). An all-greedy batch never touches a generator."""
+    greedy = torch.argmax(logits, dim=-1)
+    if all_greedy:
+        return greedy
+    safe = torch.where(temperature > 0, temperature, 1.0)
+    probs = torch.softmax(logits / safe[:, None], dim=-1)
+    if isinstance(gens, torch.Generator):
+        noise = exp_noise(probs, gens)
+    else:
+        noise = torch.empty_like(probs)
+        for b, gen in enumerate(gens):
+            noise[b:b + 1].exponential_(1.0, generator=gen)
+    sampled = torch.argmax(probs / noise, dim=-1)
+    return torch.where(temperature > 0, sampled, greedy)
+
+
+def capture_graph(fn, device, gens=()):
+    """Capture ``fn()`` as a CUDA graph; returns (graph, outputs).
+
+    One warm-up call first, on the capture stream, so the split kernels
+    plan and allocate their per-stream scratch (``kernels/build.py:
+    split_scratch``) before the capture (their counters are back at 0
+    after every launch, so every replay starts clean). The generators in
+    ``gens`` are put back where they were after the warm-up and the
+    capture, and registered with the graph, so that every replay draws
+    from (and advances) their state at replay time. A capture that fails
+    raises."""
+    states = [g.get_state() for g in gens]
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        fn()                          # warm-up: plans and scratch of `side`
+    torch.cuda.current_stream(device).wait_stream(side)
+    for g, state in zip(gens, states):
+        g.set_state(state)
+        graph.register_generator_state(g)
+    with torch.cuda.graph(graph, stream=side):
+        outs = fn()
+    for g, state in zip(gens, states):
+        g.set_state(state)
+    return graph, outs
 
 
 def decode_chunk(cfg: ModelConfig, params, kv_fmt: Optional[str],
@@ -136,13 +200,8 @@ class _DeviceLoop:
     A chunk copies its inputs into the static buffers, runs the program and
     copies emitted tokens, n_gen and done to the host in one copy; tok,
     n_gen, done and the cache stay on the device for the next chunk.
-    Capture: one warm-up chunk first, on the capture stream, so the split
-    kernels plan and allocate their per-stream scratch
-    (``kernels/build.py: split_scratch``) before the capture (their
-    counters are back at 0 after every launch, so every replay starts
-    clean); the generator is put back where it was after the warm-up and
-    the capture, and registered with the graph so that every replay
-    advances it.
+    Capture: ``capture_graph``, the engine's generator registered with a
+    sampled chunk's graph.
     """
 
     def __init__(self, engine: "ServeEngine", cache):
@@ -184,22 +243,8 @@ class _DeviceLoop:
             self.done, self.n_gen, self.stop, self.cache)
 
     def _capture(self, steps: int, greedy: bool):
-        fn = self._fn(steps, greedy)
-        gen = self._engine()._gen
-        state = gen.get_state()
-        graph = torch.cuda.CUDAGraph()
-        side = torch.cuda.Stream(self.dev)
-        side.wait_stream(torch.cuda.current_stream(self.dev))
-        with torch.cuda.stream(side):
-            fn()                      # warm-up: plans and scratch of `side`
-        torch.cuda.current_stream(self.dev).wait_stream(side)
-        if not greedy:
-            gen.set_state(state)
-            graph.register_generator_state(gen)
-        with torch.cuda.graph(graph, stream=side):
-            outs = fn()
-        gen.set_state(state)
-        return graph, outs
+        gens = () if greedy else (self._engine()._gen,)
+        return capture_graph(self._fn(steps, greedy), self.dev, gens)
 
     def run(self, steps: int, greedy: bool, tok, done, n_gen, temp, stop):
         """One chunk from these inputs. Returns (emitted, tok, n_gen, done)
@@ -233,37 +278,15 @@ class ServeEngine:
         self.policy = policy
         self.max_len = max_len
         self.device = resolve_device(device)
-        params = _to_device(params, self.device)
-        # load-time weight cast through the fused encode+pack quantizer
-        dev = self.device
-        self.params = (direct_cast_tree(
-            params, policy,
-            quantize_fn=lambda leaf, fmt, axis: quantize_qtensor(
-                leaf, fmt, axis, device=dev))
-            if policy.weight_fmt else params)
+        self.params = load_params(params, policy, self.device)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(rng_seed)
         self._uid = next(_ENGINE_IDS)
         weakref.finalize(self, _drop_engine, self._uid)
 
-    def _draw(self, probs):
-        """The sampler's one use of the generator: Exp(1) noise over the
-        (B, V) probabilities."""
-        return torch.empty_like(probs).exponential_(1.0, generator=self._gen)
-
     def _sample(self, logits, temperature, all_greedy: bool):
-        """logits (B, V); temperature (B,) tensor, rows with 0 take argmax.
-        A sampled row takes argmax(p / E), E ~ Exp(1) i.i.d.: token i with
-        probability p_i, as ``torch.multinomial`` draws one sample, with no
-        host sync (capturable). An all-greedy batch never touches the
-        generator."""
-        greedy = torch.argmax(logits, dim=-1)
-        if all_greedy:
-            return greedy
-        safe = torch.where(temperature > 0, temperature, 1.0)
-        probs = torch.softmax(logits / safe[:, None], dim=-1)
-        sampled = torch.argmax(probs / self._draw(probs), dim=-1)
-        return torch.where(temperature > 0, sampled, greedy)
+        """``sample_tokens`` through the engine's generator."""
+        return sample_tokens(logits, temperature, all_greedy, self._gen)
 
     def _device_loop(self, cache) -> _DeviceLoop:
         """This engine's device loop for the cache's batch (cached
@@ -365,7 +388,7 @@ class ServeEngine:
         self._gen.set_state(state)
         probs = torch.empty(shape, dtype=torch.float32, device=self.device)
         for _ in range(draws - 1 - i0):
-            self._draw(probs)
+            exp_noise(probs, self._gen)
 
     def _generate_host(self, batch: Dict[str, Any], max_new: int, sample,
                        stop: np.ndarray) -> GenerationResult:
@@ -402,6 +425,17 @@ class ServeEngine:
 
     def weights_footprint_bytes(self) -> int:
         return tree_footprint_bytes(self.params)
+
+
+def load_params(params, policy: QuantPolicy, device: torch.device):
+    """The weights on ``device``, direct-cast at load time through the
+    fused encode+pack quantizer when the policy has a weight format."""
+    params = _to_device(params, device)
+    if not policy.weight_fmt:
+        return params
+    return direct_cast_tree(
+        params, policy, quantize_fn=lambda leaf, fmt, axis:
+        quantize_qtensor(leaf, fmt, axis, device=device))
 
 
 def _sync(device: torch.device) -> None:

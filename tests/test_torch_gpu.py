@@ -320,13 +320,13 @@ def _attention_case(cuda, fname, lens, s, seed=0, kvh=8, grp=4, hd=128):
 def test_attention_kernel_split_edges(cuda, fname, s, lens):
     """Split-S at its edges: S 100 (a ragged last tile, four splits of one
     tile, some wholly past a length), a length-0 row (its output is 0),
-    and a 4096-row cache (nine splits of 15 tiles); 1e-5 of max|V|."""
+    and a 4096-row cache (32 splits of 4 tiles); 1e-5 of max|V|."""
     args = _attention_case(cuda, fname, lens, s, seed=s)
     out = na.nxfp_decode_attention(*args)
     ref = na.nxfp_decode_attention_plain(*args)
     vmax = float(na.dequant_cache(args[3], args[4], args[6]).abs().max())
     n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
-    assert na.attention_split(len(lens), 8, s, n_sm)[0] > 1
+    assert na.attention_split(8, s, n_sm)[0] > 1
     assert float((out - ref).abs().max()) <= 1e-5 * vmax
     for i, n in enumerate(lens):
         if n == 0:
@@ -765,3 +765,136 @@ def test_graph_loop_sync_key_after_early_stop(cuda):
         second[loop] = eng.generate(batch, max_new=6, temperature=0.9,
                                     loop=loop, chunk=4).tokens
     np.testing.assert_array_equal(second["host"], second["device"])
+
+
+# ---------------------------------------------------------------------------
+# continuous batching on the card
+# ---------------------------------------------------------------------------
+
+def _continuous_case(cuda, width):
+    """(cfg, params) for the smoke Llama or a 2-layer Llama-3-8B at full
+    width, random weights from seed 1."""
+    from repro_torch.configs import get_config
+    cfg = get_smoke_config("llama3_8b") if width == "smoke" else \
+        dataclasses.replace(get_config("llama3_8b"), n_layers=2)
+    return cfg, init_params(cfg, seed=1, device=cuda)
+
+
+def _solo_on_card(cfg, params, policy, req, max_len):
+    eng = ServeEngine(cfg, params, policy, max_len=max_len,
+                      rng_seed=req.seed, device="cuda")
+    out = eng.generate({"tokens": req.tokens[None]}, max_new=req.max_new,
+                       temperature=req.temperature,
+                       stop_token=req.stop_token, loop="host")
+    return out.tokens[0, :int(out.n_generated[0])]
+
+
+@pytest.mark.parametrize("width", ["smoke", "llama3_8b"])
+def test_continuous_matches_solo_on_card(cuda, width):
+    """Continuous serving through the chunk graph (2 slots, chunk 4, nxfp4
+    weights and KV) against each request's solo host-loop stream, bit for
+    bit: greedy and seeded-sampled, a stop token, staggered arrivals."""
+    from repro_torch.serving import ContinuousEngine, Request
+    cfg, params = _continuous_case(cuda, width)
+    policy = QuantPolicy("nxfp4", "nxfp4")
+    rng = np.random.default_rng(5)
+    reqs = [Request(uid=i, tokens=rng.integers(0, cfg.vocab, (t,)),
+                    max_new=m, temperature=temp, seed=seed,
+                    arrival_time=0.0 if i < 2 else 0.02 * i)
+            for i, (t, m, temp, seed) in enumerate(
+                [(9, 6, 0.0, 0), (17, 11, 0.9, 3), (5, 3, 0.0, 0),
+                 (12, 9, 1.2, 7), (7, 13, 0.0, 0)])]
+    stop = int(_solo_on_card(cfg, params, policy, reqs[4], 64)[5])
+    reqs[4] = dataclasses.replace(reqs[4], stop_token=stop)
+    eng = ContinuousEngine(cfg, params, policy, n_slots=2, max_len=64,
+                           chunk=4, device=cuda)
+    replays = 0
+    for _ in range(2):                  # the second serve replays only
+        results = {r.uid: r for r in eng.serve(reqs)}
+        for req in reqs:
+            want = _solo_on_card(cfg, params, policy, req, 64)
+            np.testing.assert_array_equal(results[req.uid].tokens, want,
+                                          err_msg=f"uid={req.uid}")
+        assert eng.replays == replays + eng.chunks
+        replays = eng.replays
+    assert results[4].tokens[-1] == stop
+    assert set(eng._graphs) == {True, False}
+
+
+def test_continuous_sampled_slot_reuse_through_graph(cuda):
+    """One slot, three sampled requests in turn: each is admitted into the
+    slot the one before used, its generator re-seeded, and the captured
+    sampled graph (registered with that generator) reproduces its solo
+    stream bit for bit."""
+    from repro_torch.serving import ContinuousEngine, Request
+    cfg, params = _continuous_case(cuda, "smoke")
+    policy = QuantPolicy("nxfp4", "nxfp4")
+    rng = np.random.default_rng(6)
+    reqs = [Request(uid=i, tokens=rng.integers(0, cfg.vocab, (8,)),
+                    max_new=10, temperature=0.8 + 0.2 * i, seed=11 + i)
+            for i in range(3)]
+    eng = ContinuousEngine(cfg, params, policy, n_slots=1, max_len=32,
+                           chunk=4, device=cuda)
+    results = {r.uid: r for r in eng.serve(reqs)}
+    for req in reqs:
+        np.testing.assert_array_equal(
+            results[req.uid].tokens,
+            _solo_on_card(cfg, params, policy, req, 32))
+    assert set(eng._graphs) == {False} and eng.replays == eng.chunks == 9
+
+
+def test_continuous_graph_replays_per_serve(cuda):
+    """Every chunk of a serve is one graph replay, the graphs are captured
+    once per engine, and the chunk launches the three main-path kernels."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import ContinuousEngine, Request
+    cfg, params = _continuous_case(cuda, "smoke")
+    eng = ContinuousEngine(cfg, params, QuantPolicy("nxfp4", "nxfp4"),
+                           n_slots=3, max_len=48, chunk=5, device=cuda)
+    rng = np.random.default_rng(7)
+    reqs = [Request(uid=i, tokens=rng.integers(0, cfg.vocab, (6,)),
+                    max_new=int(m)) for i, m in enumerate([4, 12, 7, 9])]
+    reset_launch_counts()
+    first = eng.serve(reqs)
+    counts = launch_counts()
+    replays = eng.replays
+    assert replays == eng.chunks > 0
+    for name in ("nxfp_quantize", "nxfp_matmul", "nxfp_attention"):
+        assert counts[name] > 0, name
+    second = eng.serve(reqs)
+    assert eng.replays == replays + eng.chunks and len(eng._graphs) == 1
+    for a, b in zip(sorted(first, key=lambda r: r.uid),
+                    sorted(second, key=lambda r: r.uid)):
+        np.testing.assert_array_equal(a.tokens, b.tokens)
+
+
+@pytest.mark.parametrize("width", ["smoke", "llama3_8b"])
+def test_decode_step_batch_invariant_on_card(cuda, width):
+    """Row 0 of a decode step at B 4 and 8 (nxfp4 weights and KV, ragged
+    lengths, lm_head included) equals the same row at B 1, bit for bit:
+    the split plans of the GEMM and of attention do not depend on the
+    batch."""
+    cfg, params = _continuous_case(cuda, width)
+    eng = ServeEngine(cfg, params, QuantPolicy("nxfp4", "nxfp4"),
+                      max_len=512, device=cuda)
+    rng = np.random.default_rng(8)
+    rows = []
+    for t in (200, 37, 98, 159, 220, 281, 342, 403):
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab, (1, t)),
+                               device=cuda)
+        logits, cache = prefill(cfg, eng.params, {"tokens": toks},
+                                max_len=512, kv_fmt="nxfp4")
+        rows.append((logits.argmax(-1).to(torch.int32), cache))
+
+    def step(b):
+        cache = {"pos": torch.cat([c["pos"] for _, c in rows[:b]]),
+                 "layers": [{k: torch.cat([c["layers"][i][k]
+                                           for _, c in rows[:b]])
+                             for k in rows[0][1]["layers"][i]}
+                            for i in range(cfg.n_layers)]}
+        tok = torch.cat([t for t, _ in rows[:b]])[:, None]
+        return decode_step(cfg, eng.params, tok, cache, "nxfp4")[0][0]
+
+    solo = step(1)
+    for b in (4, 8):
+        assert torch.equal(step(b), solo), b

@@ -51,10 +51,11 @@ SPLIT_CASES = [(4, 8, 256), (4, 8, 4096), (1, 8, 4096), (1, 1, 100),
 @pytest.mark.parametrize("n_sm", [132, 4])
 def test_attention_split_covers_tiles_once(b, kvh, s, n_sm):
     """Every 32-row tile of the cache lies in exactly one split, no split
-    is empty, and the grid reaches at least half the two CTAs per SM it
-    aims at where the tiles allow it (whole tiles, equal shares), without
-    a split more than needed."""
-    splits, tps = na.attention_split(b, kvh, s, n_sm)
+    is empty, and one sequence's grid reaches at least half the two CTAs
+    per SM it aims at where the tiles allow it (whole tiles, equal
+    shares), without a split more than needed. The batch ``b`` of the
+    case does not enter the plan (a row's result must not depend on it)."""
+    splits, tps = na.attention_split(kvh, s, n_sm)
     n_tiles = max(1, -(-s // na.TILE_ROWS))
     ranges = _ranges(max(s, 1), splits, tps)
     assert all(hi > lo for lo, hi in ranges)                  # none empty
@@ -62,19 +63,19 @@ def test_attention_split_covers_tiles_once(b, kvh, s, n_sm):
         == list(range(n_tiles))                               # each once
     target = na.CTAS_PER_SM * n_sm
     if splits < n_tiles:
-        assert 2 * b * kvh * splits >= target
-    assert b * kvh * (splits - 1) < target or splits == 1
+        assert 2 * kvh * splits >= target
+    assert kvh * (splits - 1) < target or splits == 1
 
 
 def test_attention_split_main_path_and_full_batches():
-    """The smoke run's cache (B 4, KVH 8, S 256) gets 8 splits of one tile
-    (256 CTAs); S 4096 9 splits of 15 tiles; once B * KVH reaches two CTAs
-    per SM the split falls to 1."""
-    assert na.attention_split(4, 8, 256) == (8, 1)
-    assert na.attention_split(4, 8, 4096) == (9, 15)
-    for b, kvh in ((33, 8), (64, 8), (264, 1)):
-        assert na.attention_split(b, kvh, 4096) == (1, 128)
-    assert na.attention_split(32, 8, 4096)[0] == 2
+    """The smoke run's cache (KVH 8, S 256) gets 8 splits of one tile; S
+    4096 32 splits of 4 tiles, at every batch size (the continuous
+    engine's slots and a request served alone take the same splits); once
+    the KV heads alone reach two CTAs per SM the split falls to 1."""
+    assert na.attention_split(8, 256) == (8, 1)
+    assert na.attention_split(8, 4096) == (32, 4)
+    assert na.attention_split(264, 4096) == (1, 128)
+    assert na.attention_split(8, 512) == (16, 1)
 
 
 def _split_merge(q, kd, vd, lengths, splits, tps):
@@ -119,12 +120,12 @@ def test_split_merge_matches_pallas(fname, n_sm):
     masked, sequence 2 has length 0 (its output is 0). asym (uint32 meta)
     and ox caches take the activation-format decode."""
     rng = np.random.default_rng(7)
-    b, s, kvh, g, hd = 3, 128, 2, 2, 32
+    b, s, kvh, g, hd = 3, 256, 2, 2, 32
     q = rng.standard_normal((b, kvh * g, hd)).astype(np.float32)
     k = rng.standard_normal((b, s, kvh, hd)).astype(np.float32)
     v = rng.standard_normal((b, s, kvh, hd)).astype(np.float32)
     k[0, 3, 1, 2] = 30.0                      # an ox outlier in one block
-    lengths = np.array([128, 40, 0], np.int32)
+    lengths = np.array([256, 40, 0], np.int32)
     jk = _jquantize(jnp.asarray(k), fname, -1, impl="xla")
     jv = _jquantize(jnp.asarray(v), fname, -1, impl="xla")
     oj = np.asarray(jops.decode_attention(jnp.asarray(q), jk, jv,
@@ -135,8 +136,8 @@ def test_split_merge_matches_pallas(fname, n_sm):
     vd = na.dequant_cache(tv.packed, tv.meta, tv.fmt)
     qg = (torch.from_numpy(q).reshape(b, kvh, g, hd)
           * float(np.float32(1.0 / np.sqrt(hd))))
-    splits, tps = na.attention_split(b, kvh, s, n_sm)
-    assert splits == (4 if n_sm == 132 else 2)
+    splits, tps = na.attention_split(kvh, s, n_sm)
+    assert splits == (8 if n_sm == 132 else 4)
     masked = [i for i, (lo, _) in enumerate(_ranges(s, splits, tps))
               if lo * na.TILE_ROWS >= lengths[1]]
     assert masked                             # a split wholly masked
