@@ -78,6 +78,27 @@ Phases, each fatal on failure (exit code 1, no result line):
    TTFT and queue delay, ms a step of a 4-slot chunk, admission seconds,
    slot occupancy, the same requests as two static batches, peak memory.
 
+9. The chunked-prefill lane: first a prompt's rows through the whole
+   prefill against the lane at P 16, 32, 64 and 128, bitwise, for every
+   op of the lane's path and ``prefill_chunk``'s logits and packed K/V,
+   eager and as graph replays (``scripts/batch_invariance.py --chunked``;
+   the dequant GEMM's rows at M 16, its split-K regime, against M 512 are
+   reported, not held). Then phase 8's 8 requests through
+   ``ContinuousEngine(prefill_mode="chunked", p_chunk=32)`` with phase 8's
+   weights and settings: every stream equal to its solo stream bitwise
+   on every serve, the quantizer, the dequant GEMM and decode attention
+   launched on the path, every lane chunk a replay of one of the lane's
+   two CUDA graphs; and through a P 128 lane and whole admission. Printed
+   for the three in 2 rounds of (P 32, whole, P 128, P 128, whole,
+   P 32): tok/s, TTFT and queue delay (median,
+   max), lane chunks, the largest stall a decode chunk waited behind and
+   slot occupancy; one lane-chunk replay at P 16-128 against one
+   decode-chunk replay (CUDA events); a serve under ``TtftDeadline`` with
+   one more request whose ``deadline_s`` expires in the queue (its status
+   DEADLINE_EXPIRED, the others bitwise). Phase 3 also holds the lane
+   chunk's K/V write (slot and n_valid read on the device) against its
+   plain version.
+
 The last three lines are the kernel table as JSON, the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.
 """
@@ -402,6 +423,81 @@ def check_kv_write(timer, rows):
             bound_by=b_by, library_ms=None, near_ties=n_diff,
             shape=f"K, V (4, {t}, 8, 128) bf16 into an nxfp4 cache of 256 "
                   f"rows, {n_blocks} blocks")
+
+
+def check_lane_kv_write(timer, rows):
+    """The lane chunk's K/V write (phase 9's shape): K and V (1, 32, 8,
+    128) bf16 into slot 2 of a 4-slot nxfp4 cache of 512 rows at rows
+    224 + t, t < n_valid = 20 (a ragged final chunk), slot, offset and
+    n_valid read on the device: bitwise (up to counted near-ties) against
+    the codec + row writes, every other row and slot as it was."""
+    from repro_torch.core.formats import get_format
+    from repro_torch.core.pack import unpack_codes
+    from repro_torch.core.quantize import near_tie_blocks, to_blocks
+    from repro_torch.kernels import build
+    from repro_torch.kernels import nxfp_quantize as nq
+    from repro_torch.kernels.decode_lib import decode_block_values
+
+    fmt = get_format("nxfp4")
+    cb, s, kvh, hd, p, slot, off, n_valid = 4, 512, 8, 128, 32, 2, 224, 20
+    nb = hd // fmt.block_size
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    k, v = (torch.randn((1, p, kvh, hd), generator=gen, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    cache = {f"{n}_{key}": torch.randint(
+        0, 200, (cb, s, kvh, nb) + tail, generator=gen, device="cuda",
+        dtype=torch.int32).to(dt) for n in "kv" for key, tail, dt in (
+            ("packed", (fmt.bytes_per_block,), torch.uint8),
+            ("meta", (), torch.uint16))}
+    before = {n: a.clone() for n, a in cache.items()}
+    plain = {n: a.clone() for n, a in cache.items()}
+    idx = torch.tensor([slot, off, n_valid], dtype=torch.int32,
+                       device="cuda")
+    args = dict(slot=idx[0:1], n_valid=idx[2:3])
+    nq.nxfp_quantize_kv_rows(k, v, cache, idx[1:2], fmt, **args)
+    nq.nxfp_quantize_kv_rows_plain(k, v, plain, idx[1:2], fmt, **args)
+    torch.cuda.synchronize()
+    n_diff, err = 0, 0.0
+    for n, x in (("k", k), ("v", v)):
+        kp, km = cache[f"{n}_packed"], cache[f"{n}_meta"]
+        pp, pm = plain[f"{n}_packed"], plain[f"{n}_meta"]
+        diff = (kp != pp).any(-1) | (km != pm)
+        err = max(err, float((decode_block_values(
+            unpack_codes(kp, fmt.bits, 32), km, fmt) - decode_block_values(
+            unpack_codes(pp, fmt.bits, 32), pm, fmt)).abs().max()))
+        src = torch.zeros((cb, s, kvh, hd), device="cuda")
+        src[slot, off:off + n_valid] = x[0, :n_valid].float()
+        xb, _ = to_blocks(src, fmt.block_size, -1)
+        if diff.any() and not bool(near_tie_blocks(xb[diff], fmt).all()):
+            fail(f"KV write (lane): {int(diff.sum())} blocks differ from "
+                 "the plain version beyond a candidate near-tie")
+        n_diff += int(diff.sum())
+    kept = torch.ones((cb, s), dtype=torch.bool, device="cuda")
+    kept[slot, off:off + n_valid] = False
+    if not all(torch.equal(build.bit_view(cache[n])[kept],
+                           build.bit_view(before[n])[kept]) for n in cache):
+        fail("KV write (lane): a row outside the chunk's valid rows changed")
+    n_blocks = 2 * n_valid * kvh * nb
+    n_cands = sum(int(nq.evaluated_candidates(
+        x[0, :n_valid].reshape(-1, fmt.block_size), fmt).sum())
+        for x in (k, v))
+    ms = timer(lambda: nq.nxfp_quantize_kv_rows(k, v, cache, idx[1:2], fmt,
+                                                **args))
+    plain_ms = timer(lambda: nq.nxfp_quantize_kv_rows_plain(
+        k, v, plain, idx[1:2], fmt, **args), 5)
+    n_bytes = 2 * n_valid * kvh * hd * 2 + n_blocks * (
+        fmt.bytes_per_block + 2) + 12
+    b_ms, b_by = bound(n_bytes, n_cands * 32 * QUANT_OPS, PEAK_F32)
+    log(f"KV write (lane chunk: K and V (1, {p}, 8, 128) bf16 -> slot "
+        f"{slot} of a {cb}-slot nxfp4 cache, rows {off}..{off + n_valid - 1}"
+        f" (n_valid {n_valid}), one launch): bitwise except {n_diff} "
+        f"near-tie blocks, other rows and slots untouched; kernel {ms:.4f} "
+        f"ms, plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+    rows["nxfp_quantize kv lane"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, near_ties=n_diff,
+        shape=f"K, V (1, {p}, 8, 128) bf16 into slot {slot} of a (4, 512) "
+              f"nxfp4 cache, {n_valid} valid rows, {n_blocks} blocks")
 
 
 # the qq GEMM's rows: a 4 x 128 prefill (the wgmma regime) and 16 rows
@@ -1177,6 +1273,37 @@ def phase_invariance():
         f"{json.dumps(res)}")
 
 
+def phase_chunked_invariance():
+    """A prompt's rows through the whole prefill against the lane at P 16,
+    32, 64 and 128, bitwise (``scripts/batch_invariance.py --chunked``:
+    each op's f32 result, ``prefill_chunk``'s logits and the slot's packed
+    K/V, eagerly and as graph replays; the smoke Llama and a 2-layer
+    Llama-3-8B at full width). The GEMM's rows at M 16 (split-K) against
+    M 512 (wgmma) are reported, not held: the lane's own path at P > 16
+    runs wgmma only."""
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import batch_invariance
+    res = batch_invariance.measure_chunked(2)
+    bad = {}
+    for m, rows in res.items():
+        for op, by_p in rows.items():
+            for key, r in by_p.items():
+                held = op != batch_invariance.PLAIN_MEAN and not (
+                    op.startswith("nxfp_matmul") and key == "M=16") and not (
+                    op.startswith("prefill_chunk") and key == "P=16")
+                if held and r["differ"]:
+                    bad[f"{m} {op} {key}"] = r
+    if bad:
+        fail(f"chunked invariance: the lane's rows differ from the whole "
+             f"prefill's in {bad}")
+    log(f"chunked invariance: a {batch_invariance.PROMPT}-token prompt "
+        f"through the lane at P {list(batch_invariance.LANE_P)} equals the "
+        f"whole prefill bitwise in every op of the lane's path and in "
+        f"prefill_chunk's logits and K/V bytes, eager and as graph replays "
+        f"(P 16, split-K GEMMs against wgmma, and the plain torch.mean: "
+        f"reported): {json.dumps(res)}")
+
+
 def _continuous_requests(cfg):
     import numpy as np
     from repro_torch.serving import Request
@@ -1264,8 +1391,9 @@ def phase_continuous(n_layers: int, graph_ms: float, card: str):
     peak = torch.cuda.max_memory_allocated()
     second = {r.uid: r for r in results}
 
+    solos = {}
     for req in reqs:
-        want = solo(req)
+        want = solos[req.uid] = solo(req)
         for name, got in (("first", first), ("second", second)):
             if not np.array_equal(got[req.uid].tokens, want):
                 fail(f"continuous: uid {req.uid} ({name} serve) "
@@ -1318,7 +1446,170 @@ def phase_continuous(n_layers: int, graph_ms: float, card: str):
         f"launches on "
         f"the continuous path (first serve: prefills, graph warm-ups and "
         f"captures): {counts}")
+    params = engine.params
     del engine
+    torch.cuda.empty_cache()
+    return counts, params, reqs, solos
+
+
+# phase 9: the chunked-prefill lane at full width
+LANE_P = 32                   # the lane's chunk width
+LANE_WIDE_P = 128             # served too: the wgmma GEMM's whole M tile
+LANE_ROUNDS = 2               # rounds of each mode in turns, and reversed
+LANE_TIMED_P = (16, 32, 64, 128)
+LANE_REPLAYS = 20             # replays timed per graph
+
+
+def _serve_figures(engine, results, wall):
+    """One serve's end-to-end figures (host clock)."""
+    n_tok = sum(r.n_generated for r in results)
+    ttft = [r.ttft for r in results]
+    qd = [r.queue_delay for r in results]
+    return dict(
+        seconds=round(wall, 4), tok_s=round(n_tok / wall, 2),
+        ttft_median=round(statistics.median(ttft), 4),
+        ttft_max=round(max(ttft), 4),
+        queue_median=round(statistics.median(qd), 4),
+        queue_max=round(max(qd), 4), lane_chunks=engine.lane_chunks,
+        max_stall=round(max(engine.stall_seconds, default=0.0), 4),
+        occupancy=round(n_tok / (engine.chunks * CONT_CHUNK * CONT_SLOTS),
+                        3))
+
+
+def _replay_ms(graph, n: int = LANE_REPLAYS) -> float:
+    """Median ms of one replay of a captured graph (CUDA events)."""
+    times = []
+    for _ in range(n):
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return round(statistics.median(times), 4)
+
+
+def phase_lane(n_layers: int, params, reqs, solos, card: str):
+    """The chunked-prefill lane at full width: phase 8's requests through
+    ``ContinuousEngine(prefill_mode="chunked", p_chunk=32)`` (lane chunks
+    as CUDA-graph replays), every stream bitwise its solo stream, then
+    both admission modes in alternated rounds, the lane chunk's replay
+    time at P 16-128 against a decode chunk's, and the lifecycle (a serve
+    under ``TtftDeadline`` with one request that expires in the queue).
+    ``params`` are phase 8's cast weights, ``solos`` its solo streams.
+    Every measured line names ``card``."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.qtensor import QuantPolicy
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import (ContinuousEngine, Request, Status,
+                                     TtftDeadline)
+
+    cfg = dataclasses.replace(get_config("llama3_8b"), n_layers=n_layers)
+
+    def engine(mode, p=LANE_P):
+        # the weights are cast already: an uncast weight policy
+        return ContinuousEngine(cfg, params, QuantPolicy(None, "nxfp4"),
+                                n_slots=CONT_SLOTS, max_len=CONT_MAX_LEN,
+                                chunk=CONT_CHUNK, prefill_mode=mode,
+                                p_chunk=p, device="cuda")
+
+    def check(name, results):
+        got = {r.uid: r for r in results}
+        for req in reqs:
+            r = got[req.uid]
+            if r.status != Status.OK or not np.array_equal(
+                    r.tokens, solos[req.uid]):
+                fail(f"chunked lane: uid {req.uid} ({name}, {r.status}) "
+                     f"{r.tokens[:8].tolist()} ... differs from its solo "
+                     f"stream {solos[req.uid][:8].tolist()} ...")
+
+    lane, whole = engine("chunked"), engine("whole")
+    wide = engine("chunked", LANE_WIDE_P)
+    reset_launch_counts()
+    check("first serve", lane.serve(reqs))  # captures the lane's graphs
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    for name in ("nxfp_quantize", "nxfp_matmul", "nxfp_attention"):
+        if counts[name] <= 0:
+            fail(f"chunked lane path: kernel {name} was never launched")
+    if lane.lane_replays != lane.lane_chunks or lane.lane_chunks == 0 or \
+            set(lane._lane_graphs) != {False, True}:
+        fail(f"chunked lane: {lane.lane_replays} lane replays of graphs "
+             f"{sorted(lane._lane_graphs)} over {lane.lane_chunks} chunks")
+    check("whole, first serve", whole.serve(reqs))   # captures its graphs
+    check(f"P {LANE_WIDE_P}, first serve", wide.serve(reqs))
+    engines = {"chunked": lane, "whole": whole,
+               f"chunked P {LANE_WIDE_P}": wide}
+    figures = {mode: [] for mode in engines}
+    order = tuple(engines)
+    for mode in (order + order[::-1]) * LANE_ROUNDS:
+        eng = engines[mode]
+        replays = eng.lane_replays
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = eng.serve(reqs)
+        wall = time.perf_counter() - t0
+        check(f"{mode} round", results)
+        if eng.lane_replays - replays != eng.lane_chunks:
+            fail(f"chunked lane: a lane chunk ran outside its graph "
+                 f"({eng.lane_replays - replays} replays, "
+                 f"{eng.lane_chunks} chunks)")
+        figures[mode].append(_serve_figures(eng, results, wall))
+    med = {mode: {k: statistics.median(f[k] for f in rows)
+                  for k in rows[0]} for mode, rows in figures.items()}
+
+    decode_ms = _replay_ms(lane._graphs[True][0])
+    lane_ms = {}
+    probe = Request(uid=0, tokens=reqs[3].tokens, max_new=1)  # 256 tokens
+    for p in LANE_TIMED_P:
+        eng = {LANE_P: lane, LANE_WIDE_P: wide}.get(p)
+        if eng is None:
+            eng = engine("chunked", p)
+            eng.serve([probe])              # captures both lane graphs
+        lane_ms[p] = {"chunk": _replay_ms(eng._lane_graphs[False][0]),
+                      "final": _replay_ms(eng._lane_graphs[True][0])}
+        del eng
+        torch.cuda.empty_cache()
+
+    doomed = Request(uid=99, tokens=reqs[0].tokens, max_new=8,
+                     arrival_time=0.05, deadline_s=1e-6)
+    lane.admission_policy = TtftDeadline(deadline_s=60.0)
+    results = lane.serve(reqs + [doomed])
+    lane.admission_policy = None
+    check("TtftDeadline serve", [r for r in results if r.uid != 99])
+    gone = next(r for r in results if r.uid == 99)
+    if gone.status != Status.DEADLINE_EXPIRED or gone.n_generated != 0 \
+            or gone.ttft != float("inf"):
+        fail(f"chunked lane: the request past its deadline ended "
+             f"{gone.status} with {gone.n_generated} tokens, TTFT "
+             f"{gone.ttft}")
+
+    log(f"chunked-prefill lane: Llama-3-8B full width, {n_layers} layers, "
+        f"nxfp4 weights and KV, {CONT_SLOTS} slots, chunk {CONT_CHUNK}, "
+        f"max_len {CONT_MAX_LEN}, p_chunk {LANE_P} (lane scratch "
+        f"{lane._lane_rows} rows); phase 8's 8 requests: every stream "
+        f"equals its solo host-loop stream bitwise on every serve (the "
+        f"P {LANE_P} and P {LANE_WIDE_P} lanes and whole admission, "
+        f"{1 + 2 * LANE_ROUNDS} serves each); every lane chunk a graph "
+        f"replay ({lane.lane_replays} replays of 2 graphs at P {LANE_P})")
+    for mode in engines:
+        log(f"  {mode} admission ({card}), {2 * LANE_ROUNDS} serves in "
+            f"rounds of {order + order[::-1]}: medians {med[mode]}; by "
+            f"serve {figures[mode]}")
+    log(f"  one replay ({card}; CUDA events, median of {LANE_REPLAYS}): "
+        f"decode chunk ({CONT_SLOTS} slots x {CONT_CHUNK} steps) "
+        f"{decode_ms} ms; lane chunk at P: " + ", ".join(
+            f"{p}: {v['chunk']} ms ({v['final']} ms with the head)"
+            for p, v in lane_ms.items()))
+    log(f"  TtftDeadline(60 s) serve with one more request (deadline_s "
+        f"1e-6, arriving at 0.05 s): the 8 streams equal their solo "
+        f"streams; uid 99 ended {gone.status}, 0 tokens, TTFT inf")
+    log(f"  launches on the chunked path (first serve: lane chunks and the "
+        f"graphs' warm-ups and captures): {counts}")
+    del lane, whole, wide, engines
     torch.cuda.empty_cache()
     return counts
 
@@ -1406,6 +1697,7 @@ def main():
     check_quantizer(timer, rows)
     check_act_quantizer(timer, rows)
     check_kv_write(timer, rows)
+    check_lane_kv_write(timer, rows)
     check_matmul(timer, rows)
     check_attention(timer, rows)
     check_qq_matmul(timer, rows)
@@ -1419,7 +1711,11 @@ def main():
     torch.cuda.empty_cache()
     wide_counts = phase_wide_serving(args.layers, prompts)
     phase_invariance()
-    cont_counts = phase_continuous(args.layers, loops["graph"], smi_line)
+    cont_counts, cast, reqs, solos = phase_continuous(
+        args.layers, loops["graph"], smi_line)
+    phase_chunked_invariance()
+    lane_counts = phase_lane(args.layers, cast, reqs, solos, smi_line)
+    del cast
 
     table = []
     for kname, (sources, replaces) in KERNELS.items():
@@ -1432,6 +1728,7 @@ def main():
             launches_qq_prefill_path=act_counts[c],
             launches_per_decode_step=per_step[c],
             launches_continuous_path=cont_counts[c],
+            launches_chunked_path=lane_counts[c],
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],

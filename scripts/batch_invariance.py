@@ -1,25 +1,40 @@
 #!/usr/bin/env python3
-"""Batch invariance of the port's decode step on one GPU: does a row's
-result depend on how many rows share the step?
+"""Batch invariance of the port on one GPU: does a row's result depend on
+how many rows share the call?
 
     python3 scripts/batch_invariance.py              # smoke + 2-layer Llama-3-8B
     python3 scripts/batch_invariance.py --layers 4
     python3 scripts/batch_invariance.py --device cpu # the plain path, smoke only
+    python3 scripts/batch_invariance.py --chunked    # whole prefill vs the lane
 
-Row 0 of every input equals the B = 1 input and the other rows are
-random. For B in ``BATCHES`` the script counts the elements of row 0 that
-differ from the B = 1 result, with the largest difference: for each op of
-the decode step whose work spans rows (the rmsnorm reduction in f32, and a
-plain ``torch.mean`` of the same squares for comparison; the dequant
-GEMM at the four Llama-3-8B (K, N) pairs, the ``lm_head`` product, decode
-attention at S 512 with per-row lengths, the sampler's softmax) and for
-``decode_step``'s logits end to end (nxfp4 weights and KV; the smoke
-Llama and Llama-3-8B at full width, ``lm_head`` included). On the card
-``lm_head`` and ``decode_step`` at B 4 and 8 also run as a replay of a
-captured CUDA graph (as the engines' chunks do) against B 1 eager. The
-continuous engine holds a request's stream bitwise to its solo stream,
-which needs every count but the plain ``torch.mean``'s to be 0. The last
-line is one JSON object.
+Decode (the default). Row 0 of every input equals the B = 1 input and the
+other rows are random. For B in ``BATCHES`` the script counts the elements
+of row 0 that differ from the B = 1 result, with the largest difference:
+for each op of the decode step whose work spans rows (the rmsnorm
+reduction in f32, and a plain ``torch.mean`` of the same squares for
+comparison; the dequant GEMM at the four Llama-3-8B (K, N) pairs, the
+``lm_head`` product, decode attention at S 512 with per-row lengths, the
+sampler's softmax) and for ``decode_step``'s logits end to end (nxfp4
+weights and KV; the smoke Llama and Llama-3-8B at full width, ``lm_head``
+included). On the card ``lm_head`` and ``decode_step`` at B 4 and 8 also
+run as a replay of a captured CUDA graph (as the engines' chunks do)
+against B 1 eager. The continuous engine holds a request's stream bitwise
+to its solo stream, which needs every count but the plain
+``torch.mean``'s to be 0.
+
+``--chunked``: a prompt's rows through the whole prefill against the same
+rows through the chunked-prefill lane, at lane widths P in ``LANE_P``:
+each op's f32 result (the norm's mean of squares of P-row chunks, and a
+plain ``torch.mean`` of them for comparison; prefill
+attention, a lane chunk over the lane's R scratch rows from its offset
+against the whole prompt; the dequant GEMM's row products at M 16, 32,
+128 and P against M 512, the regimes being split-K up to 16 rows and
+wgmma above), then ``prefill_chunk``'s final logits and the slot's packed
+K/V bytes against ``prefill``'s, eagerly and (on the card) as a replay of
+a captured graph. The chunked engine's oracle (a lane-admitted stream
+equals its solo stream) needs every count of the lane's own path to be 0.
+
+The last line is one JSON object.
 """
 from __future__ import annotations
 
@@ -38,6 +53,9 @@ DEV = "cuda"          # --device cpu runs the plain path (smoke only)
 BATCHES = (4, 8)
 MAX_LEN = 512
 KN = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096))
+LANE_P = (16, 32, 64, 128)    # --chunked: the lane widths
+PROMPT = 200                  # --chunked: the prompt (a ragged last chunk)
+GEMM_M = (16, 32, 64, 128)    # --chunked: GEMM rows against M 512
 # a row the port does not run: torch.mean over the batch's own rows, for
 # comparison with the norm's row-grouped reduction
 PLAIN_MEAN = "plain torch.mean of squares"
@@ -206,11 +224,172 @@ def measure(n_layers: int = 2) -> dict:
     return out
 
 
+def _lane_rows(t: int, p: int):
+    """The (offset, n_valid) of each lane chunk of a t-token prompt."""
+    return [(o, min(p, t - o)) for o in range(0, t, p)]
+
+
+def chunked_ops(cfg, p: int) -> dict:
+    """Whole against lane, per op, at lane width ``p``: the norm's mean of
+    squares and prefill attention."""
+    from repro_torch.models.attention import attend_chunked
+    from repro_torch.models.common import mean_square
+
+    out = {}
+    t, d = PROMPT, cfg.d_model
+    rows = _lane_rows(t, p)
+    lane_r = -(-MAX_LEN // p) * p
+    x = (torch.randn((1, t, d), generator=_gen(20), device=DEV)
+         ).to(torch.bfloat16)
+    whole = mean_square(x)[0]
+    got = torch.empty_like(whole)
+    for off, n in rows:
+        chunk = torch.zeros((1, p, d), dtype=x.dtype, device=DEV)
+        chunk[:, :n] = x[:, off:off + n]
+        got[off:off + n] = mean_square(chunk)[0, :n]
+    out["rmsnorm mean_square"] = _diff(whole, got)
+    whole = torch.mean(torch.square(x.float()), dim=-1)[0]
+    for off, n in rows:
+        chunk = torch.zeros((1, p, d), dtype=x.dtype, device=DEV)
+        chunk[:, :n] = x[:, off:off + n]
+        got[off:off + n, 0] = torch.mean(torch.square(chunk.float()),
+                                         dim=-1)[0, :n]
+    out[PLAIN_MEAN] = _diff(whole, got[:, 0])
+
+    kvh, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.hd
+    q = torch.randn((1, t, kvh, g, hd), generator=_gen(21), device=DEV)
+    k = torch.randn((1, t, kvh, hd), generator=_gen(22), device=DEV)
+    v = torch.randn((1, t, kvh, hd), generator=_gen(23), device=DEV)
+    q, k, v = (a.to(torch.bfloat16) for a in (q, k, v))
+    whole = attend_chunked(q, k, v)
+    lk = torch.randn((1, lane_r, kvh, hd), generator=_gen(24),
+                     device=DEV).to(torch.bfloat16)      # stale rows
+    lv = torch.randn((1, lane_r, kvh, hd), generator=_gen(25),
+                     device=DEV).to(torch.bfloat16)
+    got = torch.empty_like(whole)
+    for off, n in rows:
+        lk[:, off:off + n] = k[:, off:off + n]
+        lv[:, off:off + n] = v[:, off:off + n]
+        qc = torch.zeros((1, p, kvh, g, hd), dtype=q.dtype, device=DEV)
+        qc[:, :n] = q[:, off:off + n]
+        at = torch.tensor([off], dtype=torch.int32, device=DEV)
+        got[:, off:off + n] = attend_chunked(qc, lk, lv, q_offset=at,
+                                             kv_valid=at + n)[:, :n]
+    out["prefill attention"] = _diff(whole, got)
+
+    return out
+
+
+def gemm_rows(cfg) -> dict:
+    """The dequant GEMM's row products at M in ``GEMM_M`` against the same
+    rows at M 512 (split-K up to 16 rows, wgmma above)."""
+    from repro_torch.kernels.ops import qmatmul, quantize_qtensor
+
+    out = {}
+    gen = _gen(26)
+    d = cfg.d_model
+    for kk, nn in KN if d == 4096 else ((d, d), (d, cfg.d_ff)):
+        wq = quantize_qtensor(torch.randn((kk, nn), generator=gen,
+                                          device=DEV) * 0.02,
+                              "nxfp4", axis=-2, device=DEV)
+        xs = (torch.randn((512, kk), generator=gen, device=DEV)
+              ).to(torch.bfloat16)
+        ref = qmatmul(xs, wq)
+        out[f"nxfp_matmul K={kk} N={nn} rows vs M=512"] = {
+            f"M={m}": _diff(ref[:m], qmatmul(xs[:m], wq)) for m in GEMM_M}
+        del wq
+    return out
+
+
+def chunked_model(cfg, params, p: int) -> dict:
+    """``prefill_chunk`` over a prompt's chunks against ``prefill``: the
+    final logits and the slot's packed K/V rows, eagerly and, on the card,
+    with every chunk a replay of a captured graph (the engine's lane)."""
+    from repro_torch.models import (init_cache, init_lane, prefill,
+                                    prefill_chunk)
+
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, cfg.vocab, (PROMPT,))
+    want, wc = prefill(cfg, params, {"tokens": torch.as_tensor(
+        toks[None], device=DEV)}, max_len=MAX_LEN, kv_fmt="nxfp4")
+    rows = _lane_rows(PROMPT, p)
+
+    def run(graph: bool):
+        cache = init_cache(cfg, 2, MAX_LEN, "nxfp4", device=DEV)
+        lane = init_lane(cfg, MAX_LEN, p, device=DEV)
+        tok = torch.zeros((1, p), dtype=torch.int64, device=DEV)
+        idx = torch.zeros((3,), dtype=torch.int32, device=DEV)
+        graphs = {}
+        logits = None
+        for off, n in rows:
+            host = np.zeros((1, p), np.int64)
+            host[0, :n] = toks[off:off + n]
+            tok.copy_(torch.from_numpy(host))
+            idx.copy_(torch.tensor([1, off, n], dtype=torch.int32))
+            head = off + n >= PROMPT
+
+            def fn():
+                return prefill_chunk(cfg, params, tok, cache, idx[0:1],
+                                     idx[1:2], idx[2:3], lane, "nxfp4",
+                                     with_head=head)[0]
+            if graph:
+                from repro_torch.serving.engine import capture_graph
+                if head not in graphs:
+                    graphs[head] = capture_graph(fn, torch.device(DEV))
+                graphs[head][0].replay()
+                logits = graphs[head][1]
+            else:
+                logits = fn()
+        kv = sum(int((cache["layers"][i][name][1, :PROMPT]
+                      != wc["layers"][i][name][0, :PROMPT]).sum())
+                 for i in range(cfg.n_layers) for name in wc["layers"][i])
+        return logits, kv
+
+    out = {}
+    for graph in (False, True) if DEV == "cuda" else (False,):
+        logits, kv = run(graph)
+        tag = " graph" if graph else ""
+        out["prefill_chunk logits" + tag] = _diff(want, logits)
+        out["prefill_chunk K/V bytes" + tag] = {"differ": kv}
+    return out
+
+
+def measure_chunked(n_layers: int = 2) -> dict:
+    """Whole against lane at every width of ``LANE_P``, smoke and (on the
+    card) Llama-3-8B at full width."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.core.qtensor import QuantPolicy
+    from repro_torch.models import init_params
+    from repro_torch.serving.engine import load_params
+
+    out = {}
+    models = [("smoke", get_smoke_config("llama3_8b"))]
+    if DEV == "cuda":
+        models.append(("llama3_8b", dataclasses.replace(
+            get_config("llama3_8b"), n_layers=n_layers)))
+    for name, cfg in models:
+        params = load_params(init_params(cfg, seed=0, device=DEV),
+                             QuantPolicy("nxfp4", "nxfp4"),
+                             torch.device(DEV))
+        res = gemm_rows(cfg)
+        for p in LANE_P:
+            for op, r in {**chunked_ops(cfg, p),
+                          **chunked_model(cfg, params, p)}.items():
+                res.setdefault(op, {})[f"P={p}"] = r
+        out[name] = res
+        del params
+        if DEV == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=2,
                     help="Llama-3-8B depth (default 2)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--chunked", action="store_true",
+                    help="whole prefill against the chunked-prefill lane")
     args = ap.parse_args()
     global DEV
     DEV = args.device
@@ -218,19 +397,23 @@ def main():
         sys.exit("batch_invariance.py needs a CUDA device")
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import repro_torch  # noqa: F401  (pins the TF32 flags)
-    res = measure(args.layers)
+    res = (measure_chunked if args.chunked else measure)(args.layers)
     for model, rows in res.items():
         for op, by_b in rows.items():
             print(f"{model} {op}: " + "; ".join(
-                f"B={b}: {r['differ']} of {r['of']} differ, max |d| "
-                f"{r['max_abs']:.3g}" for b, r in by_b.items()), flush=True)
+                f"{b if args.chunked else f'B={b}'}: {r['differ']} differ"
+                + (f" of {r['of']}, max |d| {r['max_abs']:.3g}"
+                   if "of" in r else "")
+                for b, r in by_b.items()), flush=True)
     card = "cpu"
     if DEV == "cuda":
         card = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             timeout=60).stdout.strip()
-    print(json.dumps({"device": card, "batch_invariance": res}), flush=True)
+    print(json.dumps({"device": card, ("chunked_invariance" if args.chunked
+                                       else "batch_invariance"): res}),
+          flush=True)
 
 
 if __name__ == "__main__":

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Time one checkout's graph decode loop, to compare two trees in one call.
+"""Time one checkout's graph decode loop (or its dense prefill), to compare
+two trees in one call.
 
     python3 scripts/compare_decode.py               # this checkout
     python3 scripts/compare_decode.py --tree DIR    # another checkout
+    python3 scripts/compare_decode.py --prefill     # the prefill instead
 
 Builds the kernels of ``DIR/src/repro_torch``, then Llama-3-8B at full
 width (random weights, seed 0; ``--layers`` cuts the depth) behind
@@ -10,9 +12,13 @@ width (random weights, seed 0; ``--layers`` cuts the depth) behind
 the CUDA-graph device loop, the main path of ``chip_smoke.py`` phase 5:
 4 prompts of 128 tokens, 32 greedy tokens a call in chunks of 16, after a
 warm-up call that captures the graph; ``--rounds`` calls, each step's
-time its call's decode seconds over 32. Run it in one call on the card
-for each tree, in the order parent, change, change, parent. The last
-line is one JSON object.
+time its call's decode seconds over 32. ``--prefill`` times the dense
+prefill instead (``models.prefill``, nxfp4 weights and KV, host clock
+around a synchronized call, after two warm-ups): phase 5/6's 4 x 128
+tokens and phase 8's largest admission, 1 x 256, ``--rounds`` each in
+turns, then 3 of each under ``torch.profiler`` for the CUDA kernels and
+the device-busy ms per prefill. Run it in one call on the card for each tree, in the order parent,
+change, change, parent. The last line is one JSON object.
 """
 from __future__ import annotations
 
@@ -36,6 +42,8 @@ def main():
                     help="root of the checkout whose decode loop to time")
     ap.add_argument("--layers", type=int, default=32)
     ap.add_argument("--rounds", type=int, default=8)
+    ap.add_argument("--prefill", action="store_true",
+                    help="time the dense prefill, not the decode loop")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("compare_decode: needs a CUDA device")
@@ -60,6 +68,11 @@ def main():
     gen = torch.Generator().manual_seed(0)
     batch = {"tokens": torch.randint(0, cfg.vocab, (4, 128),
                                      generator=gen).numpy()}
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    if args.prefill:
+        return time_prefill(cfg, engine, gen, args.rounds, tree, smi)
     first = engine.generate(batch, max_new=STEPS, loop="device", chunk=CHUNK)
     ms = []
     for _ in range(args.rounds):
@@ -67,14 +80,64 @@ def main():
         if not (r.tokens == first.tokens).all():
             sys.exit("compare_decode: a round's tokens differ")
         ms.append(round(r.decode_seconds / STEPS * 1e3, 4))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip()
     print(f"tree {tree}: graph decode loop ms/step {ms}, median "
           f"{statistics.median(ms):.4f} ({smi})", flush=True)
     print(json.dumps({"tree": tree, "layers": args.layers, "ms_per_step": ms,
                       "median": statistics.median(ms), "card": smi}),
           flush=True)
+
+
+def time_prefill(cfg, engine, gen, rounds: int, tree: str, smi: str):
+    """Seconds of the dense prefill at 4 x 128 and 1 x 256 tokens, in
+    turns; every round's logits equal the first's."""
+    import time
+    from repro_torch.models import prefill
+
+    shapes = {"4x128": (4, 128), "1x256": (1, 256)}
+    toks = {k: torch.randint(0, cfg.vocab, s, generator=gen).to("cuda")
+            for k, s in shapes.items()}
+
+    def run(k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(cfg, engine.params, {"tokens": toks[k]},
+                                max_len=256, kv_fmt="nxfp4")
+        torch.cuda.synchronize()
+        return logits, time.perf_counter() - t0
+
+    first = {k: run(k)[0] for k in shapes}
+    for k in shapes:                                  # a second warm-up
+        run(k)
+    secs = {k: [] for k in shapes}
+    for _ in range(rounds):
+        for k in shapes:
+            logits, sec = run(k)
+            if not torch.equal(logits, first[k]):
+                sys.exit(f"compare_decode: a {k} prefill's logits differ")
+            secs[k].append(round(sec, 5))
+    med = {k: statistics.median(v) for k, v in secs.items()}
+    traced = {k: kernels_per_prefill(lambda k=k: run(k)) for k in shapes}
+    print(f"tree {tree}: dense prefill seconds {secs}, medians {med}; "
+          f"kernels and device-busy ms per prefill (traced) {traced} "
+          f"({smi})", flush=True)
+    print(json.dumps({"tree": tree, "layers": cfg.n_layers,
+                      "prefill_seconds": secs, "median": med,
+                      "traced": traced, "card": smi}), flush=True)
+
+
+def kernels_per_prefill(fn, n: int = 3):
+    """(CUDA kernels, device-busy ms) per call of ``fn``, from
+    ``torch.profiler`` over ``n`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+    dev = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in prof.key_averages() if e.device_type == dev]
+    return (round(sum(e.count for e in kernels) / n, 1),
+            round(sum(e.self_device_time_total for e in kernels) / n / 1e3,
+                  4))
 
 
 if __name__ == "__main__":

@@ -17,18 +17,22 @@ constexpr int kMaxCands = 8;  // candidates of a format at most
 // One launch: n_tensors tensors (1, or 2 for K and V) of (b, t, kvh, hd)
 // rows, bf16 or f32, cut into nb blocks of BS along hd (the last one
 // zero-padded), encoded into packed (b, s, kvh, nb, bpb) uint8 and meta
-// (b, s, kvh, nb) at cache rows pos[bb] + tt (pos null: rows from 0);
-// a row outside [0, s) is not written. A plain (T, BS) block array is the
+// (cb, s, kvh, nb) at cache rows pos[bb] + tt (pos null: rows from 0) of
+// slot slot[bb] (slot null: slot bb); a row outside [0, s), a slot outside
+// [0, cb) and a row tt >= n_valid[bb] are not written. A plain (T, BS) block array is the
 // case b = T, t = kvh = s = nb = 1, hd = BS.
 struct Job {
   const void* src[2];
   void* packed[2];
   void* meta[2];
   const int* pos;
+  const int* slot;     // (b,) cache slot of batch row bb; null: slot bb
+  const int* n_valid;  // (b,) rows tt >= n_valid[bb] dropped; null: none
   long long n_per;  // blocks per tensor: b * t * kvh * nb
   int n_tensors;
   int in_bf16;
   int b, t, kvh, hd, nb, s;
+  int cb;  // the cache's slots (b when slot is null)
 };
 
 // The candidate list in runtime terms; the element formats themselves are

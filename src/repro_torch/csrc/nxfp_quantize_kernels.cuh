@@ -278,10 +278,11 @@ __device__ __forceinline__ int mode_of(int nm, int k) {
 // ---------------------------------------------------------------------------
 
 // Cache block of source block lb (of one tensor); ok false for a row
-// outside [0, s).
+// outside [0, s), a slot outside [0, cb) or a row past n_valid.
 __device__ __forceinline__ long long dest_block(const Job& job, unsigned lb,
                                                 bool& ok) {
-  if (job.pos == nullptr && job.t == 1 && job.kvh == 1 && job.nb == 1) {
+  if (job.pos == nullptr && job.slot == nullptr && job.n_valid == nullptr &&
+      job.t == 1 && job.kvh == 1 && job.nb == 1) {
     ok = true;
     return lb;
   }
@@ -290,8 +291,10 @@ __device__ __forceinline__ long long dest_block(const Job& job, unsigned lb,
   const unsigned bb = row / tk, rem = row - bb * tk;
   const unsigned tt = rem / job.kvh, hh = rem - tt * job.kvh;
   const int p = (job.pos ? job.pos[bb] : 0) + (int)tt;
-  ok = p >= 0 && p < job.s;
-  return (((long long)bb * job.s + p) * job.kvh + hh) * job.nb + nbi;
+  const int sl = job.slot ? job.slot[bb] : (int)bb;
+  ok = p >= 0 && p < job.s && sl >= 0 && sl < job.cb &&
+       (job.n_valid == nullptr || (int)tt < job.n_valid[bb]);
+  return (((long long)sl * job.s + p) * job.kvh + hh) * job.nb + nbi;
 }
 
 // Value i of source block lb of tensor w (0 past hd), as f32.

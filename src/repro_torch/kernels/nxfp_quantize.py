@@ -15,8 +15,10 @@ that encoder.
 ``quantize_plan`` picks the kernel's regime from the block count: a warp
 per block for a small T (a decode step's K/V rows), a thread per block over
 a shared-memory tile otherwise. ``nxfp_quantize_kv_rows`` encodes a
-layer's K and V in one launch straight into its cache rows ``pos[b] + t``;
-its plain version is the codec followed by the same row writes.
+layer's K and V in one launch straight into its cache rows ``pos[b] + t``
+of slot ``slot[b]``, dropping rows past ``n_valid[b]`` (the chunked-prefill
+lane writes one (1, P) chunk into a live slot); its plain version is the
+codec followed by the same row writes.
 """
 from __future__ import annotations
 
@@ -70,9 +72,10 @@ class _Job(ctypes.Structure):
     """``nxfpq::Job`` of ``csrc/nxfp_quantize.cuh``."""
     _fields_ = [("src", ctypes.c_void_p * 2), ("packed", ctypes.c_void_p * 2),
                 ("meta", ctypes.c_void_p * 2), ("pos", ctypes.c_void_p),
+                ("slot", ctypes.c_void_p), ("n_valid", ctypes.c_void_p),
                 ("n_per", ctypes.c_longlong)] + [
         (n, ctypes.c_int) for n in ("n_tensors", "in_bf16", "b", "t", "kvh",
-                                    "hd", "nb", "s")]
+                                    "hd", "nb", "s", "cb")]
 
 
 def recycle_window(elem_name: str, recycle):
@@ -241,18 +244,33 @@ def nxfp_quantize_pack(xb, fmt: BlockFormat, plan: QuantPlan | None = None):
     job = _Job(src=(xb.data_ptr(), 0), packed=(packed.data_ptr(), 0),
                meta=(meta.data_ptr(), 0), pos=None, n_per=t, n_tensors=1,
                in_bf16=int(xb.dtype == torch.bfloat16), b=t, t=1, kvh=1,
-               hd=b, nb=1, s=1)
+               hd=b, nb=1, s=1, cb=t)
     _launch(job, fmt, t, xb.device, plan)
     return packed, meta
 
 
-def nxfp_quantize_kv_rows_plain(k, v, cache: dict, pos, fmt: BlockFormat):
+def _row_targets(b: int, t: int, s: int, cb: int, pos, slot, n_valid,
+                 device):
+    """(slot (B, T), row (B, T), written (B, T) bool) of the K/V rows'
+    cache targets, as the kernel computes them (``dest_block``)."""
+    at = torch.arange(t, device=device)[None, :].expand(b, t)
+    row = at if pos is None else pos[:, None].long() + at
+    sl = (torch.arange(b, device=device) if slot is None
+          else slot.long())[:, None].expand(b, t)
+    ok = (row >= 0) & (row < s) & (sl >= 0) & (sl < cb)
+    if n_valid is not None:
+        ok &= at < n_valid[:, None]
+    return sl, row, ok
+
+
+def nxfp_quantize_kv_rows_plain(k, v, cache: dict, pos, fmt: BlockFormat,
+                                slot=None, n_valid=None):
     """The codec on K and V (B, T, KVH, hd), then row writes into the
-    layer cache: rows [0, T) of every slot when ``pos`` is None (prefill),
-    else rows ``pos[b] + t``, skipping a row outside [0, S) as the kernel
-    does. In place; returns ``cache``."""
+    layer cache, to the rows the kernel writes (``nxfp_quantize_kv_rows``)
+    and no others. In place; returns ``cache``."""
     b, t = k.shape[:2]
-    s = cache["k_packed"].shape[1]
+    cb, s = cache["k_packed"].shape[:2]
+    sl, row, ok = _row_targets(b, t, s, cb, pos, slot, n_valid, k.device)
     for name, x in (("k", k), ("v", v)):
         xb, _ = to_blocks(x, fmt.block_size, -1)
         packed, meta = nxfp_quantize_pack_plain(
@@ -261,28 +279,28 @@ def nxfp_quantize_kv_rows_plain(k, v, cache: dict, pos, fmt: BlockFormat):
                 f"{name}_meta": meta.reshape(xb.shape[:-1])}
         for key, val in rows.items():
             buf = build.bit_view(cache[key])
-            if pos is None:
-                buf[:, :t] = build.bit_view(val)
-            else:
-                at = pos[:, None] + torch.arange(t, device=pos.device)
-                slot = torch.arange(b, device=pos.device)[:, None].expand(b, t)
-                inside = (at >= 0) & (at < s)
-                buf[slot[inside], at[inside]] = build.bit_view(val)[inside]
+            buf[sl[ok], row[ok]] = build.bit_view(val)[ok]
     return cache
 
 
-def nxfp_quantize_kv_rows(k, v, cache: dict, pos, fmt: BlockFormat):
+def nxfp_quantize_kv_rows(k, v, cache: dict, pos, fmt: BlockFormat,
+                          slot=None, n_valid=None):
     """Encode K and V (B, T, KVH, hd), bf16 or f32, into the layer cache's
-    ``k_packed``/``k_meta``/``v_packed``/``v_meta`` (B, S, KVH, NB[, bpb])
+    ``k_packed``/``k_meta``/``v_packed``/``v_meta`` (CB, S, KVH, NB[, bpb])
     at rows ``pos[b] + t`` (``pos`` (B,) int32 on the device, read there:
-    no sync), or rows [0, T) when ``pos`` is None. CUDA tensors: one
-    launch for K and V; a row outside [0, S) is not written. CPU tensors:
-    the plain version. Returns ``cache``, updated in place."""
+    no sync), or rows [0, T) when ``pos`` is None, of slot ``slot[b]``
+    ((B,) int32; None: slot b, and then CB must be B). ``n_valid`` (B,)
+    int32 drops rows t >= ``n_valid[b]`` (the chunked-prefill lane's
+    padded tail; None keeps them all). A row outside [0, S) or a slot
+    outside [0, CB) is not written either. CUDA tensors: one launch for K
+    and V. CPU tensors: the plain version. Returns ``cache``, updated in
+    place."""
     tensors = [k, v] + [cache[f"{n}_{key}"] for n in "kv"
                         for key in ("packed", "meta")]
-    tensors += [] if pos is None else [pos]
+    tensors += [x for x in (pos, slot, n_valid) if x is not None]
     if not build.on_cuda(*tensors):
-        return nxfp_quantize_kv_rows_plain(k, v, cache, pos, fmt)
+        return nxfp_quantize_kv_rows_plain(k, v, cache, pos, fmt, slot,
+                                           n_valid)
     _require_kernel(fmt)
     b, t, kvh, hd = k.shape
     build.require(v.shape == k.shape and v.dtype == k.dtype,
@@ -291,28 +309,37 @@ def nxfp_quantize_kv_rows(k, v, cache: dict, pos, fmt: BlockFormat):
     _check_input(k, "K")
     _check_input(v, "V")
     nb = -(-hd // fmt.block_size)
-    s = cache["k_packed"].shape[1]
+    cb, s = cache["k_packed"].shape[:2]
+    build.require(slot is not None or cb == b,
+                  f"cache has {cb} slots, K {b} rows: pass slot")
     bpb = bytes_per_block(fmt.block_size, fmt.bits)
     for key, tail, dtype in (("packed", (nb, bpb), torch.uint8),
                              ("meta", (nb,), build.meta_dtype(fmt))):
         for name in "kv":
             buf = cache[f"{name}_{key}"]
-            build.require(buf.shape == (b, s, kvh) + tail
+            build.require(buf.shape == (cb, s, kvh) + tail
                           and buf.dtype == dtype and buf.is_contiguous(),
                           f"cache {name}_{key}: {tuple(buf.shape)} "
-                          f"{buf.dtype}, expected {(b, s, kvh) + tail} "
+                          f"{buf.dtype}, expected {(cb, s, kvh) + tail} "
                           f"{dtype}, contiguous")
-    if pos is not None:
-        build.require(pos.shape == (b,) and pos.dtype == torch.int32,
-                      f"pos must be ({b},) int32, got {tuple(pos.shape)} "
-                      f"{pos.dtype}")
+    for arg, val in (("pos", pos), ("slot", slot), ("n_valid", n_valid)):
+        if val is not None:
+            build.require(val.shape == (b,) and val.dtype == torch.int32
+                          and val.is_contiguous(),
+                          f"{arg} must be ({b},) int32, got "
+                          f"{tuple(val.shape)} {val.dtype}")
     n_per = b * t * kvh * nb
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
     job = _Job(src=(k.data_ptr(), v.data_ptr()),
                packed=(cache["k_packed"].data_ptr(),
                        cache["v_packed"].data_ptr()),
                meta=(cache["k_meta"].data_ptr(), cache["v_meta"].data_ptr()),
-               pos=None if pos is None else pos.data_ptr(), n_per=n_per,
-               n_tensors=2, in_bf16=int(k.dtype == torch.bfloat16), b=b,
-               t=t, kvh=kvh, hd=hd, nb=nb, s=s)
+               pos=ptr(pos), slot=ptr(slot), n_valid=ptr(n_valid),
+               n_per=n_per, n_tensors=2,
+               in_bf16=int(k.dtype == torch.bfloat16), b=b, t=t, kvh=kvh,
+               hd=hd, nb=nb, s=s, cb=cb)
     _launch(job, fmt, 2 * n_per, k.device, None)
     return cache

@@ -1,6 +1,9 @@
-"""Dense transformer layer: full-sequence (prefill) and one-token decode.
+"""Dense transformer layer: full-sequence (prefill), one prefill chunk
+(the chunked-prefill lane) and one-token decode.
 
   layer_forward(cfg, p, x, positions, act_fmt)   -> (x, {"k", "v"})
+  layer_prefill_chunk(cfg, p, x, lane_l, cache_l, slot, positions, offset,
+                      n_valid, kv, act_fmt)         -> x
   layer_decode(cfg, p, x, layer_cache, pos, kv, live) -> (x, layer_cache)
 """
 from __future__ import annotations
@@ -9,10 +12,10 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from .attention import gqa_project, self_attention
+from .attention import gqa_project, self_attention, self_attention_resume
 from .common import (ModelConfig, apply_rope, dense, init_attn, init_mlp,
                      rmsnorm, rope_freqs, swiglu)
-from .kvcache import attend_decode, write_token
+from .kvcache import attend_decode, write_prefill_at, write_token
 
 Params = Dict[str, Any]
 
@@ -39,6 +42,29 @@ def layer_forward(cfg: ModelConfig, p: Params, x, positions,
     h2 = rmsnorm(x, p["ln2_scale"], cfg.norm_eps)
     return x + swiglu(h2, p["mlp_w1"], p["mlp_w3"], p["mlp_w2"],
                       act_fmt=act_fmt), {"k": k, "v": v}
+
+
+def layer_prefill_chunk(cfg: ModelConfig, p: Params, x, lane_l, cache_l,
+                        slot, positions, offset, n_valid,
+                        kv_fmt: Optional[str],
+                        act_fmt: Optional[str] = None):
+    """One layer of the chunked prefill over a (1, P) chunk x, the dense
+    family's ``layer_forward`` resumed: attention reads the lane's dense
+    natural-order K/V scratch ``lane_l`` (earlier chunks and this one,
+    ``attention.self_attention_resume``), so every hidden row is the whole
+    prompt's, bit for bit; the chunk's rope'd K/V rows also go into slot
+    ``slot`` of the live layer cache ``cache_l`` at their global rows
+    (``kvcache.write_prefill_at``; rows past ``n_valid`` dropped). Lane
+    and cache are updated in place. Returns x."""
+    h = rmsnorm(x, p["ln1_scale"], cfg.norm_eps)
+    y, k, v = self_attention_resume(
+        cfg, p, h, lane_l["k"], lane_l["v"], positions, offset,
+        offset + n_valid, act_fmt=act_fmt)
+    write_prefill_at(cfg, cache_l, k, v, slot, offset, n_valid, kv_fmt)
+    x = x + y
+    h2 = rmsnorm(x, p["ln2_scale"], cfg.norm_eps)
+    return x + swiglu(h2, p["mlp_w1"], p["mlp_w3"], p["mlp_w2"],
+                      act_fmt=act_fmt)
 
 
 def _attn_decode(cfg: ModelConfig, p: Params, h, layer_cache, pos,

@@ -90,26 +90,26 @@ ROW_GROUP = 16
 def mean_square(x):
     """mean(x^2) over the last axis in f32, keeping it (..., 1).
 
-    With fewer than ``ROW_GROUP`` rows the reduction runs on buffers of
-    exactly that many rows: CUDA's reduction kernel picks its thread
-    layout, and with it the order of a row's sums, from the number of
-    rows, so a decode row's norm would otherwise depend on the batch and a
-    continuous slot's stream could fork from the request served alone
-    (``scripts/batch_invariance.py`` measures both). The buffer's rows past
-    the batch are left unset (each row is reduced on its own and theirs
-    are sliced off), and a row is summed in two stages of fixed shape,
-    partial sums of up to 32 parts and then their total: one reduction
-    over 16 long rows gives each row a single warp."""
+    A row's sum must not depend on how many rows share the call: a decode
+    row's norm on the batch (a continuous slot's stream would fork from
+    the request served alone), a prompt row's on whether the prompt runs
+    whole or in the chunked-prefill lane's chunks. CUDA's reduction kernel
+    picks its thread layout, and with it the order of a row's sums, from
+    the number of rows (``scripts/batch_invariance.py`` measures it). So a
+    row is summed in two stages of fixed shape, partial sums of up to 32
+    parts and then their total, over at least ``ROW_GROUP`` rows: fewer
+    rows run on a buffer of exactly that many (its rows past ``x``'s are
+    left unset; each row is reduced on its own and theirs are sliced
+    off), where one reduction over 16 long rows gives each row a single
+    warp, as it does over more rows."""
     rows = x.to(torch.float32).reshape(-1, x.shape[-1])
     n, d = rows.shape
-    if n >= ROW_GROUP:
-        return torch.mean(torch.square(rows), dim=-1).reshape(
-            *x.shape[:-1], 1)
-    sq = torch.empty((ROW_GROUP, d), dtype=torch.float32, device=rows.device)
+    sq = torch.empty((max(n, ROW_GROUP), d), dtype=torch.float32,
+                     device=rows.device)
     torch.square(rows, out=sq[:n])
     parts = math.gcd(d, 32)
-    part = torch.sum(sq.reshape(ROW_GROUP * parts, d // parts), dim=-1)
-    total = torch.sum(part.reshape(ROW_GROUP, parts), dim=-1)
+    part = torch.sum(sq.reshape(-1, d // parts), dim=-1)
+    total = torch.sum(part.reshape(-1, parts), dim=-1)
     return (total[:n] / d).reshape(*x.shape[:-1], 1)
 
 
@@ -140,8 +140,10 @@ def qact(x, act_fmt: Optional[str]):
 
 def scale_like(x, s: float):
     """``x * s`` with ``s`` rounded to x's dtype first, as JAX treats a
-    Python scalar against a bf16 array (weak typing)."""
-    return x * torch.tensor(s, dtype=x.dtype, device=x.device)
+    Python scalar against a bf16 array (weak typing). The rounded scalar
+    stays a 0-dim CPU tensor, which a CUDA op reads on the host: no copy
+    to the card, so the op is capturable in a CUDA graph."""
+    return x * torch.tensor(s, dtype=x.dtype)
 
 
 def rope_freqs(positions, head_dim: int, theta: float):

@@ -69,6 +69,41 @@ def write_prefill(cfg: ModelConfig, k, v, kv_fmt: Optional[str],
                                  resolve_format(kv_fmt))
 
 
+def write_prefill_at(cfg: ModelConfig, layer_cache, k, v, slot, offset,
+                     n_valid, kv_fmt: Optional[str]):
+    """Write one prefill chunk's K/V (1, P, KVH, hd) into slot ``slot`` of
+    a live layer cache, in place (the chunked-prefill lane's cache write):
+    chunk row i lands at row ``offset + i``; rows i >= ``n_valid`` (a
+    ragged final chunk's padding) and rows past the cache are dropped.
+    ``slot``, ``offset`` and ``n_valid`` are (1,) int32 tensors on the
+    device, read there (no host sync: the lane's chunk is capturable). A
+    packed cache takes K and V in one quantizer launch; its blocks run
+    along head_dim, inside one row, so the bytes are a whole-prompt
+    cast's. ``n_valid = 0`` writes nothing. Returns ``layer_cache``."""
+    p = k.shape[1]
+    if kv_fmt is not None:
+        return nxfp_quantize_kv_rows(k.contiguous(), v.contiguous(),
+                                     layer_cache, offset,
+                                     resolve_format(kv_fmt), slot=slot,
+                                     n_valid=n_valid)
+    s = layer_cache["k"].shape[1]
+    if p > s:
+        raise ValueError(f"chunk of {p} rows over a cache of {s}")
+    i = torch.arange(p, device=k.device)
+    row = offset.long() + i
+    keep = (i < n_valid) & (row < s)
+    # a dropped row past the cache writes the value it reads back to row
+    # - P, which lies below the chunk: every index is distinct, so the
+    # scatter is deterministic, and nothing syncs with the host
+    row = torch.where(row < s, row, row - p)
+    sl = slot.long()
+    for name, val in (("k", k), ("v", v)):
+        buf = layer_cache[name]
+        buf[sl, row] = torch.where(keep[:, None, None],
+                                   val[0].to(buf.dtype), buf[sl, row])
+    return layer_cache
+
+
 def write_token(cfg: ModelConfig, layer_cache, k1, v1, pos,
                 kv_fmt: Optional[str], live=None):
     """Write one token's K/V (B, 1, KVH, hd) at per-slot rows ``pos`` (B,),

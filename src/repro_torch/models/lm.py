@@ -1,4 +1,5 @@
-"""Model assembly for the dense family: init, prefill, decode.
+"""Model assembly for the dense family: init, prefill, the chunked
+prefill's lane chunk, decode.
 
 Layers are a Python list of per-layer dicts (params) and of per-layer
 caches; prefill and decode loop over them. The cache is
@@ -11,7 +12,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from .. import resolve_device
-from .blocks import init_layer, layer_decode, layer_forward
+from .blocks import (init_layer, layer_decode, layer_forward,
+                     layer_prefill_chunk)
 from .common import ModelConfig, dense, ninit, rmsnorm
 from .kvcache import attn_cache_init, write_prefill
 
@@ -80,6 +82,89 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
              "layers": layers}
     logits = _head(cfg, params, x[:, -1:])
     return logits[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# chunked prefill: a resumable fixed-shape partial prefill (the serving lane)
+# ---------------------------------------------------------------------------
+
+def _check_p_chunk(cfg: ModelConfig, p_chunk: int) -> None:
+    """The lane chunk's static invariants. The reference's two (a chunk
+    no wider than a sliding window, a multiple of ``ssm_chunk``) belong
+    to families the port does not serve; what is left is a positive
+    width."""
+    _check_family(cfg)
+    if p_chunk < 1:
+        raise ValueError(f"p_chunk ({p_chunk}) must be >= 1")
+
+
+def init_lane(cfg: ModelConfig, max_len: int, p_chunk: int,
+              device=None) -> Dict[str, Any]:
+    """The chunked-prefill lane's scratch for one in-flight prompt: per
+    layer a dense natural-order K/V buffer (1, R, KVH, hd) in
+    ``cfg.dtype``, R = ``ceil(max_len / p_chunk) * p_chunk`` rows, which
+    the next chunk attends over: the values the whole-prompt prefill
+    attends over, which makes chunked equal to whole bit for bit also
+    when the live cache is NxFP-packed. Stale rows need no reset between
+    prompts: attention masks rows past the valid length to exact-zero
+    contributions. Returns ``{"layers": [{"k", "v"}, ...]}``. (The
+    reference's ``n_lanes``, one lane per shard, waits for the sharded
+    engine.)"""
+    _check_p_chunk(cfg, p_chunk)
+    dev = resolve_device(device)
+    rows = -(-max_len // p_chunk) * p_chunk
+    shape = (1, rows, cfg.n_kv_heads, cfg.hd)
+    return {"layers": [{"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+                        "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
+                       for _ in range(cfg.n_layers)]}
+
+
+def _device_int(x, device):
+    """An int or a tensor as a (1,) int32 tensor on ``device``."""
+    return torch.as_tensor(x, dtype=torch.int32, device=device).reshape(1)
+
+
+def prefill_chunk(cfg: ModelConfig, params: Params, tokens, cache, slot,
+                  offset, n_valid, lane, kv_fmt: Optional[str],
+                  with_head: bool = True, act_fmt: Optional[str] = None):
+    """Advance an in-flight prefill by one fixed-shape (1, P) chunk.
+
+    ``tokens`` (1, P) holds prompt positions [offset, offset + P),
+    padded past ``n_valid``. The chunk's K/V go into slot ``slot`` of the
+    live ``cache`` at their global rows (dense, or NxFP-packed by the
+    quantizer), the lane keeps the dense attention scratch for the next
+    chunk, and the hidden row at the chunk's last valid position goes
+    through the head: on the prompt's final chunk, the whole-prompt
+    ``prefill``'s last-token logits, bit for bit. ``slot``, ``offset``
+    and ``n_valid`` are ints or (1,) int32 tensors on the device, read
+    there: the shapes do not depend on them and nothing syncs with the
+    host, so one captured CUDA graph serves every chunk of every prompt.
+
+    ``with_head=False`` skips the (D, V) head and returns the last valid
+    hidden row (1, D): only the final chunk's logits are read.
+    ``act_fmt`` quantizes the chunk's GEMM inputs as ``prefill``'s does.
+    ``cache["pos"][slot]`` stays as it is (the engine parks the slot
+    while it prefills and arms it after the final chunk). Cache and lane
+    are updated in place. Returns (logits (1, V) f32, or the hidden row
+    (1, D), cache, lane).
+    """
+    b, p = tokens.shape
+    if b != 1:
+        raise ValueError(f"prefill_chunk takes one (1, P) chunk, got "
+                         f"{tuple(tokens.shape)}")
+    _check_p_chunk(cfg, p)
+    dev = tokens.device
+    slot, offset, n_valid = (_device_int(a, dev)
+                             for a in (slot, offset, n_valid))
+    x = _embed(cfg, params, tokens)
+    positions = offset + torch.arange(p, dtype=torch.int32, device=dev)
+    for lp, ll, lc in zip(params["layers"], lane["layers"], cache["layers"]):
+        x = layer_prefill_chunk(cfg, lp, x, ll, lc, slot, positions, offset,
+                                n_valid, kv_fmt, act_fmt=act_fmt)
+    last = x.index_select(1, (n_valid - 1).clamp(min=0).long())
+    if not with_head:
+        return last[:, 0], cache, lane
+    return _head(cfg, params, last)[:, 0], cache, lane
 
 
 def decode_step(cfg: ModelConfig, params: Params, tokens, cache,

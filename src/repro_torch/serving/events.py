@@ -23,7 +23,8 @@ from typing import Iterable, List, Optional, Tuple
 __all__ = ["emit", "parse_event", "Journal", "replay", "EVENT_KINDS"]
 
 # Every kind the reference's engines and scheduler emit (the port's
-# continuous engine emits admit and finish so far): recovery kinds
+# continuous engine emits admit, prefill-start, prefill-done, cancel,
+# expire and finish so far): recovery kinds
 # (suspend through restore), paged-KV memory kinds (pool, cow-break,
 # prefix-hit) and the tiered engine's kv-repack.
 EVENT_KINDS = ("admit", "prefill-start", "prefill-done", "degrade",

@@ -4,33 +4,56 @@
 the slowest, and a finished slot idles until the whole batch drains. The
 ``ContinuousEngine`` here keeps one persistent n-slot cache on the device,
 and a ``SlotScheduler`` that, at every chunk boundary, retires finished
-slots and prefills queued requests into them while the neighbours keep
-decoding (the reference's ``serving/scheduler.py``, whole-prompt
-admission). Which queued request a free slot takes is a pluggable
-``AdmissionPolicy`` (FIFO, shortest prompt first, priority).
+slots and admits queued requests into them while the neighbours keep
+decoding (the reference's ``serving/scheduler.py``). Which queued request
+a free slot takes is a pluggable ``AdmissionPolicy`` (FIFO, shortest
+prompt first, priority, TTFT deadline with least slack first).
+
+Admission comes in two modes:
+
+- ``prefill_mode="whole"``: one batch-1 prefill per admitted request
+  (``prefill_into_slot``); it stalls every decoding slot for its length.
+- ``prefill_mode="chunked"``: the chunked-prefill lane. A prompt goes
+  through fixed-shape (1, ``p_chunk``) chunks (``models.prefill_chunk``),
+  at most one between two decode chunks, so a decode chunk waits behind
+  one lane chunk at most. The slot is PREFILLING meanwhile and rides the
+  decode chunk not live; after its final chunk it is DECODING.
 
 The decode chunk is the same on both devices: ``chunk`` ragged decode
-steps over every slot, live-gated (a parked slot writes no K/V row and
-keeps its position), with the per-slot budget, stop and emission masking
-of ``mask_chunk_emissions``. On CUDA it is one captured CUDA graph per
-(chunk, greedy or sampled) over static buffers and the engine's cache;
-admission prefills and ``reset_slot`` write into that cache in place
-between replays, and each chunk makes one host copy (emitted, tok, n_gen,
-done). A capture that fails raises: there is no eager path behind it on
-CUDA. On the CPU the same chunk function runs eagerly.
+steps over every slot, live-gated (a parked or prefilling slot writes no
+K/V row and keeps its position), with the per-slot budget, stop and
+emission masking of ``mask_chunk_emissions``. On CUDA it is one captured
+CUDA graph per (chunk, greedy or sampled) over static buffers and the
+engine's cache, and the lane chunk is one captured CUDA graph per
+``with_head`` over its own static buffers (tokens, slot, offset, n_valid),
+the same cache and the lane scratch; admissions and ``reset_slot`` write
+into that cache in place between replays, and each decode chunk makes one
+host copy (emitted, tok, n_gen, done). A capture that fails raises: there
+is no eager path behind it on CUDA. On the CPU the same functions run
+eagerly.
+
+The lifecycle: ``Request.deadline_s`` and ``ContinuousEngine.cancel``
+end a request at a chunk boundary. A queued one leaves with no tokens and a TTFT of inf, a
+decoding one with its partial output, a prefilling one drops the lane
+cursor and frees its slot; the neighbours' streams do not change.
 
 The oracle: a request served through the slots emits the same tokens as
 the same request served alone by ``ServeEngine(loop="host")`` with the
 same ``max_len`` and ``rng_seed=request.seed``, bit for bit, greedy and
-sampled. It holds because a decode row's result does not depend on the
-other rows (``decode_step``; the split plans of the kernels depend on no
-batch size the engines use) and because each slot samples with its own
+sampled, in either admission mode. It holds because a decode row's result
+does not depend on the other rows (``decode_step``; the split plans of the
+kernels depend on no batch size the engines use), because a lane chunk's
+rows are the whole prompt's rows (fixed-shape attention tiles and norms,
+``models/attention.py``), and because each slot samples with its own
 generator, re-seeded with the request's seed at admission, drawing over
-its own (1, V) row as a solo engine does.
+its own (1, V) row as a solo engine does. One exception on CUDA: the
+dequant GEMM runs split-K up to 16 rows and wgmma above, and the two sum
+a row in different orders, so there the chunked mode holds the oracle for
+``p_chunk`` > 16 and prompts longer than 16 tokens (a lane chunk and the
+whole prompt then both run wgmma).
 
-Left for later slices: the chunked-prefill lane (``prefill_mode=
-"chunked"``), deadlines, cancellation, shedding, quarantine, preemption,
-snapshots, tiers, paging, speculation and sharding.
+Left for later slices: shedding, quarantine, suspension, preemption,
+snapshots, ``p_chunk="auto"``, tiers, paging, speculation and sharding.
 """
 from __future__ import annotations
 
@@ -44,7 +67,8 @@ import torch
 
 from .. import resolve_device
 from ..core.qtensor import QuantPolicy
-from ..models import decode_loop, init_cache, prefill_into_slot, reset_slot
+from ..models import (decode_loop, init_cache, init_lane, prefill_chunk,
+                      prefill_into_slot, reset_slot)
 from ..models.common import ModelConfig
 from .engine import (capture_graph, load_params, mask_chunk_emissions,
                      sample_tokens)
@@ -55,11 +79,17 @@ logger = logging.getLogger("repro_torch.serving.scheduler")
 
 class Status:
     """Terminal request statuses, plain strings (they serialize into the
-    event stream unchanged). This slice ends every request OK; the
-    lifecycle's statuses (deadline expired, cancelled, shed, failed) come
-    with it."""
+    event stream unchanged). Every submitted request gets one result with
+    one of them: OK (ran to completion), DEADLINE_EXPIRED (its
+    ``deadline_s`` passed, or the admission policy found it unservable: a
+    queued request leaves with no tokens, a decoding one with its partial
+    output), CANCELLED (``ContinuousEngine.cancel``, the same partial-
+    output rule). The reference's SHED and FAILED come with shedding and
+    quarantine."""
 
     OK = "OK"
+    DEADLINE_EXPIRED = "DEADLINE_EXPIRED"
+    CANCELLED = "CANCELLED"
 
 
 @dataclasses.dataclass
@@ -70,8 +100,10 @@ class Request:
     already waiting); the scheduler admits a request only once its
     arrival has passed. ``seed`` seeds this request's own sampling
     generator: a sampled request reproduces ``ServeEngine(rng_seed=seed)``
-    serving it alone. ``priority`` (higher = more urgent) feeds
-    ``PriorityAdmission``.
+    serving it alone. ``deadline_s`` is an end-to-end budget from arrival:
+    once it is exceeded the request is ended at the next chunk boundary
+    with what it generated so far. ``priority`` (higher = more urgent)
+    feeds ``PriorityAdmission``.
     """
     uid: int
     tokens: np.ndarray                  # (T,) int prompt
@@ -80,6 +112,7 @@ class Request:
     stop_token: Optional[int] = None
     arrival_time: float = 0.0
     seed: int = 0
+    deadline_s: Optional[float] = None
     priority: int = 0
 
 
@@ -91,7 +124,8 @@ class RequestResult:
     tokens: np.ndarray                  # (n_generated,) int32
     n_generated: int
     queue_delay: float                  # arrival -> admission (s)
-    ttft: float                         # arrival -> first token (s)
+    ttft: float                         # arrival -> first token (s); inf
+    #                                     for a request that got none
     decode_seconds: float               # admission -> finish (s)
     status: str = Status.OK
 
@@ -119,6 +153,12 @@ class AdmissionPolicy:
     def select(self, queue: Sequence[Request], now: float) -> Optional[int]:
         raise NotImplementedError
 
+    def expired(self, queue: Sequence[Request], now: float) -> List[int]:
+        """Indices of arrived requests this policy finds unservable: the
+        scheduler ends them with ``Status.DEADLINE_EXPIRED`` instead of
+        leaving them at the back of its ranking. Default: none."""
+        return []
+
 
 class FifoPolicy(AdmissionPolicy):
     """First come, first served."""
@@ -141,6 +181,36 @@ class ShortestPromptFirst(AdmissionPolicy):
         return min(arrived)[1] if arrived else None
 
 
+class TtftDeadline(AdmissionPolicy):
+    """Least slack first against a TTFT deadline.
+
+    Every request owes a first token by ``arrival_time + deadline_s``; its
+    slack is that deadline less now and its own estimated prefill time
+    (``prefill_s_per_tok`` a prompt token). The arrived request with the
+    least slack is admitted: an old long prompt and a fresh short one are
+    ranked by which is closer to missing its deadline. A request whose
+    slack has gone negative is never selected (its first token would be
+    late by construction); ``expired`` reports it for eviction."""
+
+    def __init__(self, deadline_s: float = 0.25,
+                 prefill_s_per_tok: float = 0.0):
+        self.deadline_s = deadline_s
+        self.prefill_s_per_tok = prefill_s_per_tok
+
+    def _slack(self, r: Request, now: float) -> float:
+        return (r.arrival_time + self.deadline_s - now
+                - len(r.tokens) * self.prefill_s_per_tok)
+
+    def select(self, queue, now):
+        arrived = [(self._slack(r, now), i) for i, r in enumerate(queue)
+                   if r.arrival_time <= now and self._slack(r, now) >= 0.0]
+        return min(arrived)[1] if arrived else None
+
+    def expired(self, queue, now):
+        return [i for i, r in enumerate(queue)
+                if r.arrival_time <= now and self._slack(r, now) < 0.0]
+
+
 class PriorityAdmission(AdmissionPolicy):
     """The arrived request with the highest ``Request.priority`` (ties:
     earliest arrival, then FIFO)."""
@@ -155,10 +225,17 @@ class PriorityAdmission(AdmissionPolicy):
 # slot bookkeeping
 # ---------------------------------------------------------------------------
 
+PREFILLING = "PREFILLING"
+DECODING = "DECODING"
+
+
 class SlotScheduler:
     """Queue and free-slot bookkeeping behind a pluggable admission policy:
     ``next_admission`` pairs the first free slot with whichever arrived
-    request the policy ranks first. Pure host Python."""
+    request the policy ranks first. A slot carries a phase: PREFILLING
+    while the chunked lane still feeds its prompt, DECODING once its first
+    token exists. ``expire_queued`` evicts queued requests whose deadline
+    has passed. Pure host Python."""
 
     def __init__(self, n_slots: int,
                  policy: Optional[AdmissionPolicy] = None):
@@ -167,6 +244,7 @@ class SlotScheduler:
         self.queue: List[Request] = []
         self.free: List[int] = list(range(n_slots))
         self.active: Dict[int, Request] = {}
+        self.phase: Dict[int, str] = {}
 
     def submit(self, req: Request) -> None:
         self.queue.append(req)
@@ -181,12 +259,36 @@ class SlotScheduler:
         slot = self.free.pop(0)
         req = self.queue.pop(idx)
         self.active[slot] = req
+        self.phase[slot] = DECODING
         return slot, req
+
+    def pop_queued(self, uid: int) -> Optional[Request]:
+        """Remove and return the queued request with ``uid`` (else None)."""
+        for i, r in enumerate(self.queue):
+            if r.uid == uid:
+                return self.queue.pop(i)
+        return None
+
+    def expire_queued(self, now: float) -> List[Request]:
+        """Pop the arrived queued requests whose ``deadline_s`` has passed
+        or that the policy reports as ``expired``."""
+        idx = {i for i, r in enumerate(self.queue)
+               if r.deadline_s is not None and r.arrival_time <= now
+               and now - r.arrival_time > r.deadline_s}
+        idx.update(self.policy.expired(self.queue, now))
+        return [self.queue.pop(i) for i in sorted(idx, reverse=True)]
 
     def release(self, slot: int) -> Request:
         req = self.active.pop(slot)
+        self.phase.pop(slot, None)
         self.free.append(slot)
         return req
+
+    def mark_prefilling(self, slot: int) -> None:
+        self.phase[slot] = PREFILLING
+
+    def mark_decoding(self, slot: int) -> None:
+        self.phase[slot] = DECODING
 
     def next_arrival(self) -> Optional[float]:
         return min((r.arrival_time for r in self.queue), default=None)
@@ -222,35 +324,59 @@ def continuous_chunk(cfg: ModelConfig, params, kv_fmt: Optional[str],
 class ContinuousEngine:
     """Continuous batching over one persistent ``n_slots`` cache.
 
-    Whole-prompt admission: one batch-1 prefill per admitted request,
+    ``prefill_mode="whole"`` admits with one batch-1 prefill per request,
     written into its slot (``prefill_into_slot``), between decode chunks;
-    it stalls every decoding slot for its length. Weights are cast at
-    load time as ``ServeEngine``'s are. ``serve`` drains a list of
-    requests, honouring their arrival times, and returns one
+    it stalls every decoding slot for its length. ``prefill_mode=
+    "chunked"`` feeds prompts through the lane in (1, ``p_chunk``)
+    chunks, one between two decode chunks (on CUDA a replay of one of two
+    captured graphs, ``with_head`` false or true), so a decode chunk waits
+    behind one lane chunk at most; the first token is sampled after the
+    final chunk as a whole admission samples it, and the slot is then
+    armed at position T. Weights are cast at load time as
+    ``ServeEngine``'s are. ``serve`` drains a list of requests, honouring
+    their arrival times, deadlines and ``cancel`` calls, and returns one
     ``RequestResult`` per request. The bitwise oracle holds up to 16 slots
     (``models.common.ROW_GROUP``, the decode GEMM's regime).
 
-    Counters for the caller: ``replays`` (CUDA graph replays since
-    construction); for the last ``serve``, ``chunks`` (decode chunks),
-    ``chunk_times`` (each chunk's live slots at dispatch and host-clock
-    seconds, the host copy included) and ``admit_seconds`` (each
-    admission's host-clock seconds, prefill and first token).
+    Counters for the caller: ``replays`` and ``lane_replays`` (decode and
+    lane CUDA graph replays since construction); for the last ``serve``,
+    ``chunks`` (decode chunks), ``chunk_times`` (each chunk's live slots
+    at dispatch and host-clock seconds, the host copy included),
+    ``admit_seconds`` (each whole admission's host-clock seconds, prefill
+    and first token), ``lane_chunks`` and ``lane_seconds`` (each lane
+    dispatch's host-clock seconds, a final chunk's first token included)
+    and ``stall_seconds`` (for each decode chunk that had live slots
+    waiting, the seconds of admission or lane work before it).
     """
 
     def __init__(self, cfg: ModelConfig, params, policy: QuantPolicy,
                  n_slots: int = 4, max_len: int = 2048, chunk: int = 16,
                  admission_policy: Optional[AdmissionPolicy] = None,
+                 prefill_mode: str = "whole", p_chunk: int = 32,
                  device=None):
         if chunk < 1 or n_slots < 1:
             raise ValueError(f"chunk ({chunk}) and n_slots ({n_slots}) "
                              "must be >= 1")
+        if prefill_mode not in ("whole", "chunked"):
+            raise ValueError(f"prefill_mode {prefill_mode!r}: 'whole' or "
+                             "'chunked'")
         self.cfg = cfg
         self.policy = policy
         self.n_slots = n_slots
         self.max_len = max_len
         self.chunk = chunk
         self.admission_policy = admission_policy
+        self.prefill_mode = prefill_mode
         self.device = resolve_device(device)
+        if prefill_mode == "chunked":
+            if not isinstance(p_chunk, int):
+                raise NotImplementedError(
+                    f"p_chunk={p_chunk!r}: the port takes a fixed chunk "
+                    "width (the reference's 'auto' sweep is not ported)")
+            if not 1 <= p_chunk <= max_len:
+                raise ValueError(f"p_chunk ({p_chunk}) must be in 1.."
+                                 f"max_len ({max_len})")
+        self.p_chunk = p_chunk
         self.params = load_params(params, policy, self.device)
         self.cache = init_cache(cfg, n_slots, max_len, policy.kv_fmt,
                                 device=self.device)
@@ -270,9 +396,27 @@ class ContinuousEngine:
                      for k, v in self._host.items()}
         self._graphs: Dict[bool, Any] = {}   # greedy -> (graph, outputs)
         self.replays = 0
+        self.lane_replays = 0
+        if prefill_mode == "chunked":
+            # natural-order scratch rows: a prompt longer than this is
+            # refused at submit
+            self._lane_rows = -(-max_len // p_chunk) * p_chunk
+            self.lane = init_lane(cfg, max_len, p_chunk, device=self.device)
+            # the lane chunk's static inputs: tokens, and (slot, offset,
+            # n_valid) as (1,) int32 views of one buffer
+            self._lane_tok = torch.zeros((1, p_chunk), dtype=torch.int64,
+                                         device=self.device)
+            self._lane_idx = torch.zeros((3,), dtype=torch.int32,
+                                         device=self.device)
+            self._lane_graphs: Dict[bool, Any] = {}  # with_head -> graph
+        self._pf: Optional[Dict[str, Any]] = None    # the lane's cursor
+        self._cancel_uids: set = set()
         self.chunks = 0
         self.chunk_times: List[Tuple[int, float]] = []
         self.admit_seconds: List[float] = []
+        self.lane_chunks = 0
+        self.lane_seconds: List[float] = []
+        self.stall_seconds: List[float] = []
 
     # -- device work ---------------------------------------------------------
 
@@ -313,21 +457,60 @@ class ContinuousEngine:
         self.chunk_times.append((live, time.perf_counter() - t0))
         return got[:, :n]
 
-    def _admit_dispatch(self, slot: int, req: Request) -> int:
-        """The batch-1 prefill of ``req`` into ``slot`` and its first token
-        (the reference's ``_admit_fn`` and ``_first_token``): argmax, or a
-        draw from the slot's generator re-seeded with ``req.seed``."""
-        tokens = torch.as_tensor(np.asarray(req.tokens)[None],
-                                 dtype=torch.int64).to(self.device)
-        logits, _ = prefill_into_slot(self.cfg, self.params,
-                                      {"tokens": tokens}, self.cache, slot,
-                                      self.max_len, self.policy.kv_fmt)
+    def _first_token(self, slot: int, req: Request, logits) -> int:
+        """A request's first token off its prefill logits (1, V), shared by
+        whole admission and the lane's final chunk (the reference's
+        ``_first_token``): argmax, or a draw from the slot's generator
+        re-seeded with ``req.seed``."""
         gen = self._gens[slot]
         gen.manual_seed(req.seed)
         temp = torch.full((1,), req.temperature, dtype=torch.float32,
                           device=self.device)
         tok0 = sample_tokens(logits, temp, req.temperature == 0.0, gen)
         return int(tok0[0])
+
+    def _admit_dispatch(self, slot: int, req: Request) -> int:
+        """The batch-1 prefill of ``req`` into ``slot`` and its first token
+        (the reference's ``_admit_fn``)."""
+        tokens = torch.as_tensor(np.asarray(req.tokens)[None],
+                                 dtype=torch.int64).to(self.device)
+        logits, _ = prefill_into_slot(self.cfg, self.params,
+                                      {"tokens": tokens}, self.cache, slot,
+                                      self.max_len, self.policy.kv_fmt)
+        return self._first_token(slot, req, logits)
+
+    def _lane_fn(self, with_head: bool):
+        """One lane chunk from the lane's static buffers (the reference's
+        ``_lane_chunk_fn``). Returns the logits (1, V), or the hidden row
+        (1, D) when ``with_head`` is false."""
+        cfg, params, kv = self.cfg, self.params, self.policy.kv_fmt
+        cache, lane, tok, idx = self.cache, self.lane, self._lane_tok, \
+            self._lane_idx
+        return lambda: prefill_chunk(cfg, params, tok, cache, idx[0:1],
+                                     idx[1:2], idx[2:3], lane, kv,
+                                     with_head=with_head)[0]
+
+    def _lane_dispatch(self, slot: int, tokens, offset: int,
+                       final: bool):
+        """Advance the lane by one chunk of ``tokens`` (n_valid <= P
+        prompt tokens at ``offset``) into ``slot``: the static buffers
+        filled from the host, then on CUDA a replay of the chunk's graph
+        (captured at its first use), on the CPU the eager chunk. Returns
+        the output of ``_lane_fn(final)``."""
+        toks = np.zeros((1, self.p_chunk), np.int64)
+        toks[0, :len(tokens)] = tokens
+        self._lane_tok.copy_(torch.from_numpy(toks))
+        self._lane_idx.copy_(torch.tensor([slot, offset, len(tokens)],
+                                          dtype=torch.int32))
+        if self.device.type != "cuda":
+            return self._lane_fn(final)()
+        if final not in self._lane_graphs:
+            self._lane_graphs[final] = capture_graph(self._lane_fn(final),
+                                                     self.device)
+        graph, out = self._lane_graphs[final]
+        graph.replay()
+        self.lane_replays += 1
+        return out
 
     # -- host loop -----------------------------------------------------------
 
@@ -343,13 +526,20 @@ class ContinuousEngine:
         h["stop"][slot] = -1 if req.stop_token is None else req.stop_token
 
     def _park_slot_flags(self, slot: int) -> None:
-        """Host flags of a slot leaving service: not live, done, greedy (a
-        parked slot never holds the chunk in sampled mode), no stop."""
+        """Host flags of a slot leaving service or prefilling in the lane:
+        not live, done, greedy (a parked slot never holds the chunk in
+        sampled mode), no stop."""
         h = self._host
         h["live"][slot] = False
         h["done"][slot] = True
         h["temp"][slot] = 0.0
         h["stop"][slot] = -1
+
+    def _decoding_state(self, req: Request, admit_time: float,
+                        clock) -> Dict[str, Any]:
+        return {"admit_time": admit_time, "out": [], "prev_n_gen": 0,
+                "queue_delay": admit_time - req.arrival_time,
+                "ttft": clock() - req.arrival_time}
 
     def _admit(self, slot: int, req: Request, now: float,
                clock) -> Dict[str, Any]:
@@ -357,13 +547,10 @@ class ContinuousEngine:
         tok0 = self._admit_dispatch(slot, req)
         self.admit_seconds.append(time.perf_counter() - t0)
         self._arm_slot(slot, req, tok0)
-        admit_done = clock()
         self.journal.emit(logger, "admit", uid=req.uid, slot=slot,
                           prompt=len(req.tokens), max_new=req.max_new,
                           queue_delay=now - req.arrival_time)
-        return {"admit_time": now, "out": [], "prev_n_gen": 0,
-                "queue_delay": now - req.arrival_time,
-                "ttft": admit_done - req.arrival_time}
+        return self._decoding_state(req, now, clock)
 
     def _admit_ready(self, sched: SlotScheduler, state: Dict[int, Any],
                      now: float, clock) -> None:
@@ -375,11 +562,82 @@ class ContinuousEngine:
             slot, req = adm
             state[slot] = self._admit(slot, req, now, clock)
 
+    def _start_prefill(self, sched: SlotScheduler, slot: int, req: Request,
+                       now: float) -> Dict[str, Any]:
+        """Mark a slot PREFILLING and park its flags (it rides the decode
+        chunk not live until armed); returns its lane cursor."""
+        sched.mark_prefilling(slot)
+        self._park_slot_flags(slot)
+        self.journal.emit(logger, "prefill-start", uid=req.uid, slot=slot,
+                          prompt=len(req.tokens),
+                          chunks=-(-len(req.tokens) // self.p_chunk),
+                          queue_delay=now - req.arrival_time)
+        return {"slot": slot, "req": req, "offset": 0, "admit_time": now}
+
+    def _advance_lane(self, sched: SlotScheduler, state: Dict[int, Any],
+                      clock) -> None:
+        """Chunked admission: start or advance the one in-flight prefill by
+        one lane chunk (``p_chunk`` prompt tokens at most). After the final
+        chunk, the first token and ``pos[slot] = T`` arm the slot as a
+        whole admission would."""
+        if self._pf is None:
+            now = clock()
+            adm = sched.next_admission(now)
+            if adm is None:
+                return
+            self._pf = self._start_prefill(sched, *adm, now)
+        t0 = time.perf_counter()
+        pf = self._pf
+        slot, req, off = pf["slot"], pf["req"], pf["offset"]
+        t = len(req.tokens)
+        n_valid = min(self.p_chunk, t - off)
+        final = off + n_valid >= t
+        out = self._lane_dispatch(
+            slot, np.asarray(req.tokens[off:off + n_valid]), off, final)
+        pf["offset"] = off + n_valid
+        if final:
+            tok0 = self._first_token(slot, req, out)
+            self.cache["pos"][slot] = t
+        self.lane_chunks += 1
+        self.lane_seconds.append(time.perf_counter() - t0)
+        if not final:
+            return
+        self._arm_slot(slot, req, tok0)
+        sched.mark_decoding(slot)
+        state[slot] = self._decoding_state(req, pf["admit_time"], clock)
+        self.journal.emit(logger, "prefill-done", uid=req.uid, slot=slot,
+                          prompt=t, ttft=state[slot]["ttft"])
+        self._pf = None
+
+    # -- the lifecycle: results, cancellation, deadlines ----------------------
+
+    _EVENT_OF = {Status.CANCELLED: "cancel",
+                 Status.DEADLINE_EXPIRED: "expire"}
+
+    def cancel(self, uid: int) -> None:
+        """Ask for ``uid`` to be cancelled in the current ``serve``, at the
+        next chunk boundary: a queued request is dropped, a prefilling one
+        aborts its lane and frees its slot, a decoding one ends with its
+        partial output, each with ``Status.CANCELLED``. An unknown or
+        finished uid is a no-op. Safe from a ``progress_cb``."""
+        self._cancel_uids.add(uid)
+
+    def _unadmitted(self, req: Request, status: str, now: float,
+                    results: List[RequestResult]) -> None:
+        """The result of a request that leaves without a first token."""
+        results.append(RequestResult(
+            uid=req.uid, tokens=np.zeros((0,), np.int32), n_generated=0,
+            queue_delay=now - req.arrival_time, ttft=float("inf"),
+            decode_seconds=0.0, status=status))
+        self.journal.emit(logger, self._EVENT_OF[status], uid=req.uid,
+                          status=status, queue_delay=now - req.arrival_time)
+
     def _finish_slot(self, sched: SlotScheduler, state: Dict[int, Any],
-                     slot: int, now: float,
+                     slot: int, status: str, now: float,
                      results: List[RequestResult]) -> None:
-        """Retire a slot whose request is done: scheduler release, device
-        park (``reset_slot``), host flags, result and ``finish`` event."""
+        """Retire a decoding slot with its (possibly partial) output:
+        scheduler release, device park (``reset_slot``), host flags, result
+        and ``finish`` event, for OK completion and eviction alike."""
         req = sched.release(slot)
         st = state.pop(slot)
         reset_slot(self.cfg, self.cache, slot)
@@ -387,39 +645,103 @@ class ContinuousEngine:
         res = RequestResult(
             uid=req.uid, tokens=np.asarray(st["out"], np.int32),
             n_generated=len(st["out"]), queue_delay=st["queue_delay"],
-            ttft=st["ttft"], decode_seconds=now - st["admit_time"])
+            ttft=st["ttft"], decode_seconds=now - st["admit_time"],
+            status=status)
         results.append(res)
         self.journal.emit(logger, "finish", uid=req.uid, slot=slot,
                           status=res.status, n=res.n_generated,
                           ttft=res.ttft, tok_s=res.decode_tok_s)
 
+    def _abort_prefill(self, sched: SlotScheduler, slot: int) -> Request:
+        """Tear down a PREFILLING slot: the lane cursor is dropped (the
+        lane scratch needs no cleanup: a later prompt reads only rows it
+        wrote), the slot parked and freed."""
+        if self._pf is not None and self._pf["slot"] == slot:
+            self._pf = None
+        req = sched.release(slot)
+        reset_slot(self.cfg, self.cache, slot)
+        self._park_slot_flags(slot)
+        return req
+
+    def _end_active(self, sched: SlotScheduler, state: Dict[int, Any],
+                    slot: int, status: str, now: float,
+                    results: List[RequestResult]) -> None:
+        if sched.phase.get(slot) == PREFILLING:
+            req = self._abort_prefill(sched, slot)
+            self._unadmitted(req, status, now, results)
+        else:
+            self._finish_slot(sched, state, slot, status, now, results)
+
+    def _lifecycle(self, sched: SlotScheduler, state: Dict[int, Any],
+                   results: List[RequestResult], clock) -> None:
+        """The chunk-boundary sweep (cancels, then deadlines), before
+        admission so that a doomed request never takes a prefill, and
+        before the decode chunk so that an evicted slot spends nothing."""
+        now = clock()
+        uids = set()
+        while self._cancel_uids:            # safe against concurrent adds
+            uids.add(self._cancel_uids.pop())
+        for uid in uids:
+            req = sched.pop_queued(uid)
+            if req is not None:
+                self._unadmitted(req, Status.CANCELLED, now, results)
+                continue
+            slot = next((s for s, r in sched.active.items() if r.uid == uid),
+                        None)
+            if slot is not None:            # else unknown or finished
+                self._end_active(sched, state, slot, Status.CANCELLED, now,
+                                 results)
+        for req in sched.expire_queued(now):
+            self._unadmitted(req, Status.DEADLINE_EXPIRED, now, results)
+        for slot in list(sched.active):
+            req = sched.active[slot]
+            if req.deadline_s is not None and \
+                    now - req.arrival_time > req.deadline_s:
+                self._end_active(sched, state, slot,
+                                 Status.DEADLINE_EXPIRED, now, results)
+
     def _check_request(self, r: Request) -> None:
-        """A request whose prompt and budget overflow the cache is refused
-        at submit: its slot would run past the last row."""
+        """A request the engine cannot serve right is refused at submit:
+        a prompt and budget that overflow the cache (its slot would run
+        past the last row), or a prompt longer than the lane's scratch."""
         if len(r.tokens) + r.max_new > self.max_len:
             raise ValueError(
                 f"request uid={r.uid}: prompt ({len(r.tokens)}) + "
                 f"max_new ({r.max_new}) exceeds max_len ({self.max_len})")
+        if self.prefill_mode == "chunked" and \
+                len(r.tokens) > self._lane_rows:
+            raise ValueError(
+                f"request uid={r.uid}: prompt ({len(r.tokens)}) exceeds "
+                f"the prefill-lane scratch ({self._lane_rows} rows)")
 
-    def serve(self, requests: List[Request]) -> List[RequestResult]:
+    def serve(self, requests: List[Request],
+              progress_cb=None) -> List[RequestResult]:
         """Drain ``requests`` through the slots, honouring arrival times.
 
-        Per iteration: admit into free slots the requests that have
-        arrived (one batch-1 prefill each), run one decode chunk over all
-        slots, harvest each slot's new tokens, retire finished slots.
-        When nothing is live and the queue waits on a future arrival, the
-        loop sleeps until it. Returns one result per request, in the
-        order they finished.
+        Per iteration: the lifecycle sweep (cancels, deadlines); admission
+        into free slots of the requests that have arrived (one batch-1
+        prefill each, or one lane chunk in chunked mode); one decode chunk
+        over all slots; harvest of each decoding slot's new tokens;
+        retirement of finished slots; then ``progress_cb(engine, sched)``
+        when given. When nothing is live and the lane is idle, the loop
+        sleeps until the next arrival. Returns one result per request, in
+        the order they ended (check ``status``).
         """
+        self._cancel_uids.clear()           # cancels of a past serve
         sched = SlotScheduler(self.n_slots, policy=self.admission_policy)
         for r in requests:
             self._check_request(r)
             sched.submit(r)
+        self._pf = None
         for slot in range(self.n_slots):      # every slot parked at entry
             self._park_slot_flags(slot)
         self.chunks = 0
         self.chunk_times = []
         self.admit_seconds = []
+        self.lane_chunks = 0
+        self.lane_seconds = []
+        self.stall_seconds = []
+        chunked = self.prefill_mode == "chunked"
         t0 = time.time()
 
         def clock():
@@ -427,20 +749,39 @@ class ContinuousEngine:
 
         state: Dict[int, Dict[str, Any]] = {}
         results: List[RequestResult] = []
-        while sched.has_work:
-            self._admit_ready(sched, state, clock(), clock)
+        while True:
+            self._lifecycle(sched, state, results, clock)
+            if not sched.has_work:
+                break
+            waiting = bool(self._host["live"].any())
+            marks = len(self.admit_seconds), len(self.lane_seconds)
+            if chunked:
+                self._advance_lane(sched, state, clock)
+            else:
+                self._admit_ready(sched, state, clock(), clock)
             if not self._host["live"].any():
-                nxt = sched.next_arrival()
-                time.sleep(max(nxt - clock(), 0.0))
+                if self._pf is None:
+                    nxt = sched.next_arrival()
+                    if nxt is not None:
+                        time.sleep(max(nxt - clock(), 0.0))
                 continue
+            if waiting:                     # decoders waited on this
+                self.stall_seconds.append(
+                    sum(self.admit_seconds[marks[0]:])
+                    + sum(self.lane_seconds[marks[1]:]))
             emitted = self._dispatch_chunk()
             now = clock()
             n_gen, done = self._host["n_gen"], self._host["done"]
             for slot in list(sched.active):
-                st = state[slot]
+                st = state.get(slot)
+                if st is None:              # prefilling: nothing to harvest
+                    continue
                 delta = int(n_gen[slot]) - st["prev_n_gen"]
                 st["out"].extend(emitted[slot, :delta].tolist())
                 st["prev_n_gen"] = int(n_gen[slot])
                 if done[slot]:
-                    self._finish_slot(sched, state, slot, now, results)
+                    self._finish_slot(sched, state, slot, Status.OK, now,
+                                      results)
+            if progress_cb is not None:
+                progress_cb(self, sched)
         return results

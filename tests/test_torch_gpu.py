@@ -898,3 +898,150 @@ def test_decode_step_batch_invariant_on_card(cuda, width):
     solo = step(1)
     for b in (4, 8):
         assert torch.equal(step(b), solo), b
+
+
+# ---------------------------------------------------------------------------
+# the chunked-prefill lane on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("fname", ["nxfp4", "nxfp4_bs16", "mxfp6"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_kv_rows_kernel_slot_and_n_valid(cuda, fname, dtype):
+    """K/V rows of a batch row go to slot ``slot[b]`` at rows ``pos[b] + t``
+    for t < ``n_valid[b]``: one launch, the cache equal to the plain
+    version's everywhere (bitwise, up to counted near-ties), a slot out of
+    range and n_valid 0 writing nothing, the untouched slots as they were."""
+    fmt = get_format(fname)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    b, t, kvh, hd, cb, s = 3, 7, 2, 64, 5, 16
+    k, v = (torch.randn((b, t, kvh, hd), generator=g, device=cuda)
+            .to(getattr(torch, dtype)) for _ in range(2))
+    nb = -(-hd // fmt.block_size)
+    cache = {}
+    for name in "kv":
+        cache[f"{name}_packed"] = torch.randint(
+            0, 256, (cb, s, kvh, nb, fmt.bytes_per_block), generator=g,
+            device=cuda, dtype=torch.uint8)
+        cache[f"{name}_meta"] = torch.randint(
+            0, 1 << 15, (cb, s, kvh, nb), generator=g, device=cuda,
+            dtype=torch.int32).to(torch.uint16)
+    i32 = dict(dtype=torch.int32, device=cuda)
+    pos = torch.tensor([11, 0, 3], **i32)
+    slot = torch.tensor([3, 1, cb], **i32)          # the last: no slot
+    n_valid = torch.tensor([4, 7, 7], **i32)
+    before = {n: a.clone() for n, a in cache.items()}
+    plain = {n: a.clone() for n, a in cache.items()}
+    launches = nq.LAUNCHES
+    nq.nxfp_quantize_kv_rows(k, v, cache, pos, fmt, slot=slot,
+                             n_valid=n_valid)
+    assert nq.LAUNCHES == launches + 1
+    nq.nxfp_quantize_kv_rows_plain(k, v, plain, pos, fmt, slot=slot,
+                                   n_valid=n_valid)
+    for name in "kv":
+        diff = ((cache[f"{name}_packed"] != plain[f"{name}_packed"]).any(-1)
+                | (cache[f"{name}_meta"] != plain[f"{name}_meta"]))
+        assert not diff.any(), int(diff.sum())
+    for sl in (0, 2, 4):
+        assert all(torch.equal(cache[n][sl], before[n][sl]) for n in cache)
+    assert all(torch.equal(cache[n][3, :11], before[n][3, :11])
+               and torch.equal(cache[n][3, 15:], before[n][3, 15:])
+               for n in cache)
+    zero = torch.zeros((b,), **i32)
+    nq.nxfp_quantize_kv_rows(k, v, cache, pos, fmt, slot=slot, n_valid=zero)
+    assert all(torch.equal(cache[n], plain[n]) for n in cache)
+
+
+@pytest.mark.parametrize("case", ["decode", "prefill", "rows"])
+def test_kv_rows_kernel_old_call_unchanged(cuda, case):
+    """Without slot and n_valid the kernel writes what it wrote before: the
+    same bytes as slot b and every row kept, passed explicitly."""
+    fmt = get_format("nxfp4")
+    k, v, cache, pos = _kv_case(cuda, fmt, case, torch.bfloat16)
+    other = {n: a.clone() for n, a in cache.items()}
+    b, t = k.shape[:2]
+    i32 = dict(dtype=torch.int32, device=cuda)
+    nq.nxfp_quantize_kv_rows(k, v, cache, pos, fmt)
+    nq.nxfp_quantize_kv_rows(k, v, other, pos, fmt,
+                             slot=torch.arange(b, **i32),
+                             n_valid=torch.full((b,), t, **i32))
+    assert all(torch.equal(cache[n], other[n]) for n in cache)
+
+
+def _lane_engine(cuda, width, p_chunk, max_len=128):
+    from repro_torch.serving import ContinuousEngine
+    cfg, params = _continuous_case(cuda, width)
+    return ContinuousEngine(cfg, params, QuantPolicy("nxfp4", "nxfp4"),
+                            n_slots=2, max_len=max_len, chunk=4,
+                            prefill_mode="chunked", p_chunk=p_chunk,
+                            device=cuda)
+
+
+@pytest.mark.parametrize("width", ["smoke", "llama3_8b"])
+@pytest.mark.parametrize("p_chunk", [16, 32])
+def test_lane_graph_replay_matches_eager_lane(cuda, width, p_chunk):
+    """Every lane chunk replayed from its captured graph leaves the cache
+    slot and the lane scratch with the bits the eager ``prefill_chunk``
+    leaves on copies of them, and the final chunk's logits are the eager
+    ones; with P > 16 and a prompt > 16 tokens they also equal the whole
+    ``prefill``'s logits."""
+    from repro_torch.models import prefill_chunk
+    eng = _lane_engine(cuda, width, p_chunk)
+    cfg, t = eng.cfg, 3 * p_chunk - 5
+    toks = np.random.default_rng(9).integers(0, cfg.vocab, (t,))
+    cache = {"pos": eng.cache["pos"].clone(),
+             "layers": [{n: a.clone() for n, a in lc.items()}
+                        for lc in eng.cache["layers"]]}
+    lane = {"layers": [{n: a.clone() for n, a in ll.items()}
+                       for ll in eng.lane["layers"]]}
+    for off in range(0, t, p_chunk):
+        n = min(p_chunk, t - off)
+        final = off + n >= t
+        got = eng._lane_dispatch(1, toks[off:off + n], off, final)
+        chunk = np.zeros((1, p_chunk), np.int64)
+        chunk[0, :n] = toks[off:off + n]
+        want, _, _ = prefill_chunk(cfg, eng.params,
+                                   torch.as_tensor(chunk, device=cuda),
+                                   cache, 1, off, n, lane, "nxfp4",
+                                   with_head=final)
+        assert torch.equal(got, want), off
+    assert eng.lane_replays == -(-t // p_chunk)
+    assert set(eng._lane_graphs) == {False, True}
+    for mine, ref in zip(eng.cache["layers"] + eng.lane["layers"],
+                         cache["layers"] + lane["layers"]):
+        assert all(torch.equal(mine[n], ref[n]) for n in ref)
+    whole, _ = prefill(cfg, eng.params,
+                       {"tokens": torch.as_tensor(toks[None], device=cuda)},
+                       max_len=128, kv_fmt="nxfp4")
+    if p_chunk > 16:
+        assert torch.equal(got, whole)
+
+
+@pytest.mark.parametrize("width", ["smoke", "llama3_8b"])
+def test_chunked_continuous_matches_solo_on_card(cuda, width):
+    """The chunked lane (P 32, lane chunks as graph replays) admitting into
+    live decode traffic: every stream equals its solo host-loop stream bit
+    for bit, greedy and seeded-sampled with a stop token, on two serves
+    (the first captures the graphs)."""
+    from repro_torch.serving import Request
+    eng = _lane_engine(cuda, width, 32)
+    cfg, params = eng.cfg, eng.params
+    policy = QuantPolicy(None, "nxfp4")        # the engine's cast weights
+    rng = np.random.default_rng(10)
+    reqs = [Request(uid=i, tokens=rng.integers(0, cfg.vocab, (t,)),
+                    max_new=m, temperature=temp, seed=seed,
+                    arrival_time=0.0 if i < 2 else 0.02 * i)
+            for i, (t, m, temp, seed) in enumerate(
+                [(40, 6, 0.0, 0), (75, 11, 0.9, 3), (17, 3, 0.0, 0),
+                 (64, 9, 1.2, 7), (33, 13, 0.0, 0)])]
+    stop = int(_solo_on_card(cfg, params, policy, reqs[4], 128)[5])
+    reqs[4] = dataclasses.replace(reqs[4], stop_token=stop)
+    lane_replays = 0
+    for _ in range(2):
+        results = {r.uid: r for r in eng.serve(reqs)}
+        for req in reqs:
+            want = _solo_on_card(cfg, params, policy, req, 128)
+            np.testing.assert_array_equal(results[req.uid].tokens, want,
+                                          err_msg=f"uid={req.uid}")
+        assert eng.lane_replays == lane_replays + eng.lane_chunks > 0
+        lane_replays = eng.lane_replays
+    assert results[4].tokens[-1] == stop
