@@ -19,15 +19,15 @@ Phases, each fatal on failure (exit code 1, no result line):
    dequant GEMM (at the four
    main-path (K, N) pairs and M 4, 16 and 512, bitwise on a second
    launch), the decode attention (S 256, 512 and 4096, bitwise on a second
-   launch) and the quantized x quantized (qq) GEMM (the MLP shapes at
-   M 16 and 512, bitwise on a second launch and equal to the dequant GEMM
-   fed the plain-decoded X) within a stated tolerance. Then every kernel
-   at the formats beyond the main path's (``WIDE_FMTS``: nxfp3,
-   nxfp4_bs8/_bs64/_bs128 and mxfp4_cr with Fig. 11's recycled value
-   5.0): the quantizer bitwise on a 4096 x 14336 weight cast, the dequant
-   GEMM at M 4 and 512, the qq GEMM at M 512 and decode attention at
-   S 256, each bitwise on a second launch and within the tolerances
-   above. Each is timed with CUDA events (cold L2), beside its plain
+   launch) and the quantized x quantized (qq) GEMM (the four (K, N) pairs
+   at M 16, 32 and 512, bitwise on a second launch and equal to the
+   dequant GEMM fed the plain-decoded X) within a stated tolerance. Then
+   every kernel at the formats beyond the main path's (``WIDE_FMTS``:
+   nxfp3, nxfp4_bs8/_bs64/_bs128, mxfp4_cr with Fig. 11's recycled value
+   5.0, and nxfp6, phase 10's standard tier): the quantizer bitwise on a
+   4096 x 14336 weight cast, the dequant GEMM at M 4, 32 and 512, the qq
+   GEMM at M 512 and decode attention at S 256, each bitwise on a second
+   launch and within the tolerances above. Each is timed with CUDA events (cold L2), beside its plain
    version, one PyTorch library call computing the same function (a
    yardstick the port never calls) and its bound on the card.
 4. Reference on a small input: the smoke Llama through the kernels on the
@@ -99,6 +99,36 @@ Phases, each fatal on failure (exit code 1, no result line):
    chunk's K/V write (slot and n_valid read on the device) against its
    plain version.
 
+10. Admission control and serving tiers, at phase 8's settings. First
+   ``ContinuousEngine(prefill_mode="chunked", p_chunk="auto")`` with
+   phase 8's weights: its sweep (one decode-chunk replay and one lane-chunk
+   replay at P 16-128, least of 3 after a warm-up) and pick, which must be
+   > 16 (at 16 the lane's GEMMs run split-K, outside the bitwise oracle);
+   phase 8's requests bitwise their solo streams on every serve, timed in
+   2 rounds of (auto, whole, whole, auto). Then overload: 16 requests at
+   t 0 (phase 8's, twice) into 4 slots with ``max_queue`` 4, under
+   ``RejectNew``, ``DropOldest`` and ``DegradeOverBudget(max_new_cap=8)``:
+   the shed and degraded uids are the rule's (8 over budget at the first
+   sweep: the newest, the oldest, the newest), every served stream its
+   solo stream (a degraded one's at max_new 8, greedy); goodput, shed
+   count, queue delay. Then ``TieredContinuousEngine(default_tiers())``
+   over a bf16 Llama-3-8B: first the premium path's invariance
+   (``batch_invariance.py --dense``: cuBLAS rows at B 4 and 8 vs B 1, the
+   lane at P 32 vs the whole prompt); phase 8's requests by uid % 3 over
+   premium, standard and economy, served whole and chunked (P 32), each
+   three times: standard and economy streams bitwise their solo streams
+   (``ServeEngine``'s host loop at the tier; the economy prefill with
+   amxfp4 activations), premium likewise where the invariance holds, else
+   its differing streams reported; the qq GEMM launched 7 times a layer
+   per economy prefill and per lane-graph warm-up and capture, every
+   decode and lane chunk a graph replay; a tier engine restricted to
+   standard, and to premium, bitwise the plain engine at that policy; the
+   degrade rung once (a premium request over a KV watermark repacked into
+   the standard arena, its rows bitwise the plain codec's encode of its
+   dense rows, ``degraded=True``, a ``kv-repack`` event). Printed: tok/s,
+   TTFT by tier, group dispatches and ms a chunk by group count, arena and
+   weight bytes, peak memory, the phase's seconds.
+
 The last three lines are the kernel table as JSON, the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.
 """
@@ -107,6 +137,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import logging
 import os
 import shutil
 import statistics
@@ -500,15 +531,19 @@ def check_lane_kv_write(timer, rows):
               f"nxfp4 cache, {n_valid} valid rows, {n_blocks} blocks")
 
 
-# the qq GEMM's rows: a 4 x 128 prefill (the wgmma regime) and 16 rows
-# (the split-K streaming regime, the most a decode-regime call takes)
-QQ_M = (16, 512)
+# the qq GEMM's rows: a 4 x 128 prefill (the wgmma regime), 32 rows (the
+# economy tier's lane chunk in phase 10, ``TIER_P``, and its shortest
+# prompt: one partial wgmma M tile) and 16 rows (the split-K streaming
+# regime, the most a decode-regime call takes), at every projection's
+# (K, N) pair of the economy prefill (``MATMUL_KN``)
+QQ_M = (16, 32, 512)
 
 
 def check_qq_matmul(timer, rows):
-    """amxfp4 activations x nxfp4 weights at the MLP shapes, held to the
-    bits of ``nxfp_matmul`` fed the plain-decoded X (the kernel runs that
-    GEMM on its own decode of X)."""
+    """amxfp4 activations x nxfp4 weights at the four projections' (K, N)
+    pairs and the rows of ``QQ_M``, held to the bits of ``nxfp_matmul``
+    fed the plain-decoded X (the kernel runs that GEMM on its own decode
+    of X)."""
     from repro_torch.core.formats import get_format
     from repro_torch.kernels import nxfp_matmul as nm
     from repro_torch.kernels import nxfp_qq_matmul as nqq
@@ -516,7 +551,7 @@ def check_qq_matmul(timer, rows):
 
     x_fmt, w_fmt = get_format("amxfp4"), get_format("nxfp4")
     gen = torch.Generator(device="cuda").manual_seed(5)
-    for k, n in ((4096, 14336), (14336, 4096)):
+    for k, n in MATMUL_KN:
         w = torch.randn((k, n), generator=gen, device="cuda") * 0.02
         wq = quantize_qtensor(w, w_fmt, axis=-2, device="cuda")
         del w
@@ -698,15 +733,18 @@ def check_attention(timer, rows):
 # the formats the reference serves beyond the main path's (phase 3's wide
 # rows): 3-bit codes, block sizes 8/64/128, and a custom recycle value from
 # Fig. 11's sweep (benchmarks/fig11_remap_sweep.py: the midpoint of
-# mxfp4's two largest levels, 5.0, one of the two best remaps it finds)
+# mxfp4's two largest levels, 5.0, one of the two best remaps it finds),
+# and nxfp6, the standard tier's weights in phase 10
 WIDE_FMTS = ("nxfp3", "nxfp4_bs8", "nxfp4_bs64", "nxfp4_bs128",
-             "mxfp4_cr@5.0")
+             "mxfp4_cr@5.0", "nxfp6")
 # the activation format each weight format's qq row pairs with (one block
 # size for both operands)
 WIDE_QQ_ACT = {"nxfp3": "amxfp3", "nxfp4_bs8": "amxfp4_bs8",
                "nxfp4_bs64": "amxfp4_bs64", "nxfp4_bs128": "amxfp4_bs128",
-               "mxfp4_cr@5.0": "amxfp4"}
-WIDE_MATMUL_M = (4, 512)      # the decode and prefill regimes
+               "mxfp4_cr@5.0": "amxfp4", "nxfp6": "amxfp6"}
+# the decode regime, a lane chunk (phase 10's ``TIER_P``: one partial
+# wgmma M tile) and a 4 x 128 prefill
+WIDE_MATMUL_M = (4, 32, 512)
 
 
 def wide_format(name):
@@ -725,9 +763,9 @@ def check_wide_formats(timer, rows):
     instances and the quantizer's 3-bit, block-size and custom-recycle
     instances), at Llama-3-8B shapes, against its plain version: the
     quantizer bitwise on the w1/w3 weight cast (up to counted near-ties),
-    the dequant GEMM (K 4096, N 14336, M 4 and 512), decode attention
-    (S 256) and the qq GEMM (M 512) bitwise on a second launch and within
-    the main path's tolerances."""
+    the dequant GEMM (K 4096, N 14336, M of ``WIDE_MATMUL_M``), decode
+    attention (S 256) and the qq GEMM (M 512) bitwise on a second launch
+    and within the main path's tolerances."""
     import torch.nn.functional as F
     from repro_torch.core.pack import unpack_codes
     from repro_torch.core.quantize import meta_int32, near_tie_blocks
@@ -1614,6 +1652,455 @@ def phase_lane(n_layers: int, params, reqs, solos, card: str):
     return counts
 
 
+# phase 10: admission control and serving tiers at full width
+AUTO_ROUNDS = 2               # rounds of (auto, whole, whole, auto)
+BURST, BURST_QUEUE, BURST_CAP = 16, 4, 8   # overload: requests, max_queue,
+#                                            DegradeOverBudget's max_new_cap
+TIER_OF = ("premium", "standard", "economy")   # phase 8's uid % 3
+TIER_P = 32                   # the tiered lane's chunk width
+REPACK_WATERMARK = 0.1        # the degrade rung's KV occupancy trigger
+
+
+class _TierSolo:
+    """A request served alone at a tier: ``ServeEngine``'s host loop over
+    the tier's weights (already cast), its prefill with the tier's
+    ``act_fmt`` (the economy tier's quantized activations)."""
+
+    def __init__(self, cfg, params, kv_fmt, act_fmt):
+        self.cfg, self.params = cfg, params
+        self.kv_fmt, self.act_fmt = kv_fmt, act_fmt
+
+    def __call__(self, req, greedy_cap=None):
+        import numpy as np
+        from repro_torch.core.qtensor import QuantPolicy
+        from repro_torch.models import prefill
+        from repro_torch.serving import ServeEngine
+        cfg, act = self.cfg, self.act_fmt
+
+        class Solo(ServeEngine):
+            def _prefill(self, batch):
+                toks = torch.as_tensor(np.asarray(batch["tokens"]),
+                                       dtype=torch.int64).to(self.device)
+                return prefill(cfg, self.params, {"tokens": toks},
+                               max_len=self.max_len,
+                               kv_fmt=self.policy.kv_fmt, act_fmt=act)
+
+        eng = Solo(cfg, self.params, QuantPolicy(None, self.kv_fmt),
+                   max_len=CONT_MAX_LEN, rng_seed=req.seed, device="cuda")
+        max_new, temp = req.max_new, req.temperature
+        if greedy_cap is not None:
+            max_new, temp = min(max_new, greedy_cap), 0.0
+        out = eng.generate({"tokens": req.tokens[None]}, max_new=max_new,
+                           temperature=temp, stop_token=req.stop_token,
+                           loop="host")
+        return out.tokens[0, :int(out.n_generated[0])]
+
+
+class _Journal(logging.Handler):
+    """The serving journal's records (kind and fields) of a run."""
+
+    def __init__(self):
+        from repro_torch.serving import events
+        super().__init__()
+        self.parse, self.records = events.parse_event, []
+        self.log = logging.getLogger("repro_torch.serving.scheduler")
+        self.log.addHandler(self)
+        self.log.setLevel(logging.INFO)
+
+    def emit(self, rec):
+        e = self.parse(rec.getMessage())
+        if e:
+            self.records.append(e)
+
+
+def _held(res, op_prefixes, keys) -> dict:
+    """The rows of ``res`` (``batch_invariance``'s output) whose op starts
+    with one of ``op_prefixes``, at ``keys``, that differ."""
+    return {f"{m} {op} {k}": r for m, rows in res.items()
+            for op, by in rows.items() for k, r in by.items()
+            if op.startswith(op_prefixes) and k in keys and r["differ"]}
+
+
+def phase_auto_and_overload(n_layers, params, reqs, solos, card):
+    """``p_chunk="auto"`` and bounded-queue shedding at phase 8's settings,
+    with its cast weights, requests and solo streams."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.qtensor import QuantPolicy
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import (ContinuousEngine, DegradeOverBudget,
+                                     DropOldest, RejectNew, Status)
+
+    cfg = dataclasses.replace(get_config("llama3_8b"), n_layers=n_layers)
+    policy = QuantPolicy(None, "nxfp4")       # the weights are cast already
+
+    def check(name, results, want=solos):
+        got = {r.uid: r for r in results}
+        for uid, stream in want.items():
+            r = got[uid]
+            if r.status != Status.OK or not np.array_equal(r.tokens, stream):
+                fail(f"{name}: uid {uid} ({r.status}) {r.tokens[:8].tolist()}"
+                     f" ... differs from its solo stream "
+                     f"{stream[:8].tolist()} ...")
+
+    auto = ContinuousEngine(cfg, params, policy, n_slots=CONT_SLOTS,
+                            max_len=CONT_MAX_LEN, chunk=CONT_CHUNK,
+                            prefill_mode="chunked", p_chunk="auto",
+                            device="cuda")
+    sweep = {p: round(s * 1e3, 4) for p, s in auto.p_chunk_sweep.items()}
+    pick = auto.p_chunk
+    if pick <= 16:
+        fail(f"p_chunk='auto' picked {pick} (sweep {sweep} ms, decode chunk "
+             f"{auto.p_chunk_decode_s * 1e3:.4f} ms): the lane's GEMMs run "
+             f"split-K and leave the bitwise oracle")
+    if set(auto._lane_graphs) != {False}:
+        fail(f"p_chunk='auto' kept lane graphs {sorted(auto._lane_graphs)}")
+    whole = ContinuousEngine(cfg, params, policy, n_slots=CONT_SLOTS,
+                             max_len=CONT_MAX_LEN, chunk=CONT_CHUNK,
+                             device="cuda")
+    reset_launch_counts()
+    check("p_chunk='auto', first serve", auto.serve(reqs))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check("whole, first serve", whole.serve(reqs))
+    figures = {"auto": [], "whole": []}
+    for mode in ("auto", "whole", "whole", "auto") * AUTO_ROUNDS:
+        eng = auto if mode == "auto" else whole
+        replays = eng.lane_replays
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = eng.serve(reqs)
+        wall = time.perf_counter() - t0
+        check(f"{mode} round", results)
+        if eng.lane_replays - replays != eng.lane_chunks:
+            fail("p_chunk='auto': a lane chunk ran outside its graph")
+        figures[mode].append(_serve_figures(eng, results, wall))
+    med = {mode: {k: statistics.median(f[k] for f in rows)
+                  for k in rows[0]} for mode, rows in figures.items()}
+    log(f"p_chunk='auto' ({card}): decode chunk "
+        f"{auto.p_chunk_decode_s * 1e3:.4f} ms, lane chunk by P (ms, least "
+        f"of 3 replays after a warm-up) {sweep} -> P {pick} (> 16: "
+        f"{pick > 16}); phase 8's 8 requests: every stream equals its solo "
+        f"stream bitwise on {1 + 2 * AUTO_ROUNDS} serves")
+    for mode in figures:
+        log(f"  {mode} admission ({card}), {2 * AUTO_ROUNDS} serves in "
+            f"rounds of (auto, whole, whole, auto): medians {med[mode]}; "
+            f"by serve {figures[mode]}")
+    log(f"  launches on the auto path (first serve: lane chunks and the "
+        f"graphs' warm-ups and captures): {counts}")
+    del auto
+    torch.cuda.empty_cache()
+
+    # overload: a burst of BURST at t 0 (phase 8's requests twice, uid i a
+    # copy of request i % 8) into CONT_SLOTS slots, the queue bounded at
+    # BURST_QUEUE: at the first sweep BURST - BURST_QUEUE - CONT_SLOTS
+    # arrivals are over budget, the newest (RejectNew, DegradeOverBudget)
+    # or the oldest (DropOldest)
+    burst = [dataclasses.replace(reqs[i % len(reqs)], uid=i,
+                                 arrival_time=0.0) for i in range(BURST)]
+    n_over = BURST - BURST_QUEUE - CONT_SLOTS
+    newest, oldest = set(range(BURST - n_over, BURST)), set(range(n_over))
+    greedy_solo = _TierSolo(cfg, params, "nxfp4", None)
+    capped = {uid: (solos[uid][:BURST_CAP]
+                    if reqs[uid].temperature == 0.0
+                    else greedy_solo(reqs[uid], BURST_CAP))
+              for uid in solos}
+    whole.max_queue = BURST_QUEUE
+    overload = {}
+    for pol, shed, degraded in ((RejectNew(), newest, set()),
+                                (DropOldest(), oldest, set()),
+                                (DegradeOverBudget(max_new_cap=BURST_CAP),
+                                 set(), newest)):
+        whole.shedding = pol
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = whole.serve(burst)
+        wall = time.perf_counter() - t0
+        got_shed = {r.uid for r in results if r.status == Status.SHED}
+        got_deg = {r.uid for r in results if r.degraded}
+        if got_shed != shed or got_deg != degraded:
+            fail(f"overload under {pol.name}: shed {sorted(got_shed)}, "
+                 f"degraded {sorted(got_deg)}; the rule gives shed "
+                 f"{sorted(shed)}, degraded {sorted(degraded)}")
+        check(f"overload under {pol.name}",
+              [r for r in results if r.uid not in shed],
+              {u: (capped if u in degraded else solos)[u % len(reqs)]
+               for u in range(BURST) if u not in shed})
+        served = [r for r in results if r.status == Status.OK]
+        qd = [r.queue_delay for r in served]
+        overload[pol.name] = dict(
+            seconds=round(wall, 4),
+            goodput_tok_s=round(sum(r.n_generated for r in served) / wall,
+                                2),
+            shed=len(got_shed), degraded=len(got_deg),
+            queue_median=round(statistics.median(qd), 4),
+            queue_max=round(max(qd), 4))
+    whole.max_queue = whole.shedding = None
+    log(f"overload ({card}): {BURST} requests at t 0 into {CONT_SLOTS} "
+        f"slots, max_queue {BURST_QUEUE} ({n_over} over budget at the first "
+        f"sweep); shed and degraded uids as the rule gives, every served "
+        f"stream its solo stream (a degraded one's at max_new "
+        f"{BURST_CAP}, greedy): {json.dumps(overload)}")
+    del whole
+    torch.cuda.empty_cache()
+    return counts, {"sweep_ms": sweep, "pick": pick, "auto": med["auto"],
+                    "whole": med["whole"], "overload": overload}
+
+
+def phase_tiers(n_layers, card):
+    """``TieredContinuousEngine(default_tiers())`` at full width: phase
+    8's requests spread over premium, standard and economy, both admission
+    modes, every stream against its solo stream at its tier; a tier engine
+    restricted to one tier against the plain engine; the degrade rung."""
+    import numpy as np
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import batch_invariance
+    from repro_torch.configs import get_config
+    from repro_torch.core.qtensor import QuantPolicy
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import init_params, read_cache_slot
+    from repro_torch.serving import (ContinuousEngine, DegradeOverBudget,
+                                     Status, TieredContinuousEngine,
+                                     default_tiers, kv_row_bytes,
+                                     pack_device_state, repack_kv,
+                                     unpack_device_state)
+    from repro_torch.serving.engine import load_params
+
+    # (c): the premium tier's bf16 weights (cuBLAS) and dense KV, a row at
+    # B 4 and 8 against B 1, and a lane chunk's rows against the whole
+    # prompt's, per op
+    dense_inv = batch_invariance.measure(2, None)
+    dense_lane = batch_invariance.measure_chunked(2, None, (TIER_P,))
+    inv_bad = _held(dense_inv, ("dense_matmul", "decode_attention", "lm_head",
+                                "softmax", "rmsnorm", "decode_step"),
+                    batch_invariance.BATCHES)
+    lane_bad = _held(dense_lane, ("dense_matmul", "prefill", "rmsnorm"),
+                     (f"P={TIER_P}",) + tuple(
+                         f"M={m}" for m in batch_invariance.GEMM_M
+                         if m >= TIER_P))
+    log(f"premium path invariance ({card}; bf16 weights through cuBLAS, "
+        f"dense KV; smoke Llama and Llama-3-8B full width, 2 layers): a "
+        f"decode row at B {list(batch_invariance.BATCHES)} vs B 1: "
+        f"{len(inv_bad)} differing ops {sorted(inv_bad)}; the lane at P "
+        f"{TIER_P} vs the whole prompt: {len(lane_bad)} differing ops "
+        f"{sorted(lane_bad)}: {json.dumps({'decode': dense_inv, 'lane': dense_lane})}")
+
+    cfg = dataclasses.replace(get_config("llama3_8b"), n_layers=n_layers)
+    raw = init_params(cfg, seed=0, device="cuda")
+    # the model in bf16 (the premium tier's weight set; the casts below
+    # read it): one dense copy serves every engine of the phase
+    model = load_params(raw, QuantPolicy(None, None), torch.device("cuda"))
+    del raw
+    torch.cuda.empty_cache()
+    tiers = default_tiers()
+    rng_reqs = _continuous_requests(cfg)
+    reqs = [dataclasses.replace(r, tier=TIER_OF[r.uid % 3])
+            for r in rng_reqs]
+    torch.cuda.reset_peak_memory_stats()
+    whole = TieredContinuousEngine(cfg, model, tiers, n_slots=CONT_SLOTS,
+                                   max_len=CONT_MAX_LEN, chunk=CONT_CHUNK,
+                                   device="cuda")
+    lane = TieredContinuousEngine(cfg, model, tiers, n_slots=CONT_SLOTS,
+                                  max_len=CONT_MAX_LEN, chunk=CONT_CHUNK,
+                                  prefill_mode="chunked", p_chunk=TIER_P,
+                                  device="cuda")
+    solo_of = {name: _TierSolo(cfg, whole._wparams[spec.weight_fmt],
+                               spec.kv_fmt, spec.act_fmt)
+               for name, spec in tiers.items()}
+    solos = {r.uid: solo_of[r.tier](r) for r in reqs}
+
+    journal = _Journal()
+    reset_launch_counts()
+    first = {"whole": whole.serve(reqs)}
+    torch.cuda.synchronize()
+    whole_counts = launch_counts()
+    replays = lane.lane_replays, lane.replays
+    first["chunked"] = lane.serve(reqs)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    n_econ = sum(r.tier == "economy" for r in reqs)
+    qq_per = 7 * n_layers
+    if whole_counts["nxfp_qq_matmul"] != qq_per * n_econ:
+        fail(f"tiers: {whole_counts['nxfp_qq_matmul']} qq GEMM launches in "
+             f"the whole serve, want 7 a layer x {n_layers} layers x "
+             f"{n_econ} economy prefills")
+    lane_qq = counts["nxfp_qq_matmul"] - whole_counts["nxfp_qq_matmul"]
+    econ_graphs = [k for k in lane._lane_graphs if k[2] is not None]
+    if lane_qq != 2 * qq_per * len(econ_graphs) or not econ_graphs:
+        fail(f"tiers: {lane_qq} qq GEMM launches in the chunked serve's "
+             f"lane graphs {econ_graphs} (a warm-up and a capture each), "
+             f"want {2 * qq_per} a graph")
+    if lane.lane_replays - replays[0] != lane.lane_chunks or \
+            lane.replays - replays[1] != sum(lane.chunk_groups) or \
+            whole.replays != sum(whole.chunk_groups):
+        fail(f"tiers: a chunk ran outside its graph (lane {lane.lane_replays}"
+             f" replays / {lane.lane_chunks} chunks, decode "
+             f"{lane.replays} / {sum(lane.chunk_groups)} group dispatches)")
+    held_premium = {"whole": not inv_bad, "chunked": not inv_bad
+                    and not lane_bad}
+    figures = {"whole": [], "chunked": []}
+    differ = {"whole": set(), "chunked": set()}
+    for mode in ("whole", "chunked", "chunked", "whole"):
+        eng = whole if mode == "whole" else lane
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = eng.serve(reqs)
+        wall = time.perf_counter() - t0
+        for res in (results, first.pop(mode, [])):
+            for r in res:
+                same = r.status == Status.OK and np.array_equal(
+                    r.tokens, solos[r.uid])
+                if same:
+                    continue
+                tier = reqs[r.uid].tier
+                if tier == "premium" and not held_premium[mode]:
+                    differ[mode].add(r.uid)
+                    continue
+                fail(f"tiers ({mode}): uid {r.uid} ({tier}, {r.status}) "
+                     f"{r.tokens[:8].tolist()} ... differs from its solo "
+                     f"stream {solos[r.uid][:8].tolist()} ...")
+        by_tier = {t: statistics.median(r.ttft for r in results
+                                        if reqs[r.uid].tier == t)
+                   for t in TIER_OF}
+        groups = {}
+        for g, (live, sec) in zip(eng.chunk_groups, eng.chunk_times):
+            groups.setdefault(g, []).append(sec * 1e3)
+        figures[mode].append(dict(
+            _serve_figures(eng, results, wall),
+            ttft_median_by_tier={t: round(v, 4) for t, v in by_tier.items()},
+            group_dispatches=sum(eng.chunk_groups),
+            chunk_ms_by_groups={g: round(statistics.median(v), 3)
+                                for g, v in sorted(groups.items())}))
+    # one replay of each group's decode graph, every slot parked (a
+    # chunk's cost follows its shapes, not the live rows)
+    whole._upload(whole._host)
+    group_ms = {f"{k[0]}/{k[1]} {'greedy' if k[2] else 'sampled'}":
+                _replay_ms(g[0], 10) for k, g in whole._graphs.items()}
+    admits = [e["uid"] for e in journal.records if e["event"] == "admit"]
+    admit_s = {t: [] for t in TIER_OF}
+    for uid, sec in zip(admits[-len(whole.admit_seconds):],
+                        whole.admit_seconds):
+        admit_s[reqs[uid].tier].append(round(sec, 4))
+
+    # the tier engine restricted to one tier is the plain engine
+    single = {}
+    for name in ("standard", "premium"):
+        spec = tiers[name]
+        one = TieredContinuousEngine(cfg, model, {name: spec},
+                                     n_slots=CONT_SLOTS,
+                                     max_len=CONT_MAX_LEN, chunk=CONT_CHUNK,
+                                     device="cuda")
+        plain = ContinuousEngine(cfg, one._wparams[spec.weight_fmt],
+                                 QuantPolicy(None, spec.kv_fmt),
+                                 n_slots=CONT_SLOTS, max_len=CONT_MAX_LEN,
+                                 chunk=CONT_CHUNK, device="cuda")
+        a = {r.uid: r.tokens for r in one.serve(rng_reqs)}
+        b = {r.uid: r.tokens for r in plain.serve(rng_reqs)}
+        bad = [u for u in a if not np.array_equal(a[u], b[u])]
+        if bad:
+            fail(f"tiers: the engine restricted to {name} differs from the "
+                 f"plain engine at its policy in uids {bad}")
+        single[name] = "bitwise"
+        del one, plain
+        torch.cuda.empty_cache()
+
+    # the degrade rung: a premium request over the watermark is repacked
+    # into the standard tier's arena once, its neighbour stays standard
+    repacked = []
+    repack = whole._repack_slot
+
+    def spy(sched, slot, dst):
+        before = read_cache_slot(whole._slot_cache(slot), slot)
+        repack(sched, slot, dst)
+        repacked.append((slot, before,
+                         read_cache_slot(whole._slot_cache(slot), slot)))
+
+    whole._repack_slot = spy
+    whole.degrade_kv_to = "standard"
+    whole.shedding = DegradeOverBudget(max_new_cap=None,
+                                       pool_watermark=REPACK_WATERMARK)
+    pair = [reqs[3], reqs[1]]          # premium (256 tokens), standard
+    n_events = len(journal.records)
+    rung = {r.uid: r for r in whole.serve(pair)}
+    whole._repack_slot, whole.degrade_kv_to, whole.shedding = repack, None, \
+        None
+    events_ = [e for e in journal.records[n_events:]
+               if e["event"] == "kv-repack"]
+    if len(repacked) != 1 or len(events_) != 1 or \
+            events_[0]["uid"] != 3 or not rung[3].degraded or \
+            rung[1].degraded or rung[3].status != Status.OK:
+        fail(f"degrade rung: {len(repacked)} repacks, events {events_}, "
+             f"results {[(r.uid, r.status, r.degraded) for r in rung.values()]}")
+    if not np.array_equal(rung[1].tokens, solos[1]):
+        fail("degrade rung: the standard neighbour's stream moved")
+    slot, before, after = repacked[0]
+    pos = int(before["pos"][0])
+    cpu = {"pos": before["pos"].cpu(),
+           "layers": [{k: v.cpu() for k, v in layer.items()}
+                      for layer in before["layers"]]}
+    want = repack_kv(cfg, unpack_device_state(pack_device_state(cpu, pos),
+                                              CONT_MAX_LEN), None, "nxfp4")
+    n_bytes = 0
+    for mine, ref in zip(after["layers"], want["layers"]):
+        for name, buf in mine.items():
+            if not torch.equal(buf[:, :pos].cpu(), ref[name][:, :pos]):
+                fail(f"degrade rung: the repacked slot's {name} rows differ "
+                     f"from the plain codec's encode of its dense rows")
+            n_bytes += buf[:, :pos].numel() * buf.element_size()
+    peak = torch.cuda.max_memory_allocated()
+    arenas = {str(k): sum(b.numel() * b.element_size()
+                          for layer in c["layers"] for b in layer.values())
+              for k, c in whole._caches.items()}
+    weights = {str(k): sum(
+        (x.packed.numel() + x.meta.numel() * x.meta.element_size())
+        if hasattr(x, "packed") else x.numel() * x.element_size()
+        for layer in w["layers"] for x in layer.values())
+        for k, w in whole._wparams.items()}
+    def median_of(values):
+        if isinstance(values[0], dict):
+            return {k: median_of([v[k] for v in values if k in v])
+                    for k in values[0]}
+        return statistics.median(values)
+
+    med = {mode: {k: median_of([f[k] for f in rows]) for k in rows[0]}
+           for mode, rows in figures.items()}
+    log(f"serving tiers ({card}): Llama-3-8B full width, {n_layers} layers "
+        f"(bf16 model), default_tiers() {json.dumps({k: dataclasses.astuple(v) for k, v in tiers.items()})}, "
+        f"{CONT_SLOTS} slots, chunk {CONT_CHUNK}, max_len {CONT_MAX_LEN}; "
+        f"phase 8's 8 requests by uid % 3 over {TIER_OF}: standard and "
+        f"economy streams equal their solo streams bitwise (economy: the "
+        f"amxfp4 prefill, whole and lane alike), premium "
+        f"{'held bitwise' if all(held_premium.values()) else 'differing streams ' + json.dumps({m: sorted(d) for m, d in differ.items()})} "
+        f"(held where the invariance above is 0: {held_premium}); one-tier "
+        f"engines vs the plain engine: {single}")
+    for mode in figures:
+        log(f"  {mode} ({card}) 3 serves (first captures): medians "
+            f"{med[mode]}; by serve {figures[mode]}")
+    log(f"  whole admission seconds by tier ({card}): {admit_s}")
+    log(f"  one decode-chunk replay by (weights/KV) group ({card}; "
+        f"CUDA events, median of 10; {CONT_SLOTS} slots x {CONT_CHUNK} "
+        f"steps): {group_ms} ms")
+    log(f"  launches on the tiered path (whole serve, then the chunked "
+        f"serve's lane chunks and graph captures): whole {whole_counts}, "
+        f"both {counts}; qq GEMM 7 a layer ({qq_per}) per economy prefill "
+        f"and per lane-graph warm-up and capture "
+        f"({sorted(map(str, lane._lane_graphs))})")
+    log(f"  degrade rung: premium uid 3 repacked at occupancy >= "
+        f"{REPACK_WATERMARK} ({events_[0]}), {pos} rows x {n_layers} layers "
+        f"({n_bytes} packed bytes) bitwise the plain codec's encode of its "
+        f"dense rows; degraded=True; its standard neighbour unchanged")
+    log(f"  memory ({card}): weight sets {weights} bytes, KV arenas "
+        f"{arenas} bytes (row bytes "
+        f"{ {str(k): kv_row_bytes(cfg, k) for k in whole._caches} }), peak "
+        f"{peak} bytes")
+    del whole, lane, model
+    torch.cuda.empty_cache()
+    return counts, {"tiers": med, "admit_seconds": admit_s,
+                    "group_ms": group_ms,
+                    "premium_differ": {m: sorted(d) for m, d in
+                                       differ.items()}}
+
+
 def kernel_formats(kname, rows, wide_counts):
     """The formats ``kname`` ran in this run: its main-path formats, its
     phase-3 wide rows and the formats phase 7 served through it."""
@@ -1715,7 +2202,13 @@ def main():
         args.layers, loops["graph"], smi_line)
     phase_chunked_invariance()
     lane_counts = phase_lane(args.layers, cast, reqs, solos, smi_line)
+    t10 = time.time()
+    auto_counts, _ = phase_auto_and_overload(args.layers, cast, reqs, solos,
+                                             smi_line)
     del cast
+    torch.cuda.empty_cache()
+    tier_counts, _ = phase_tiers(args.layers, smi_line)
+    log(f"phase 10 seconds: {time.time() - t10:.1f}")
 
     table = []
     for kname, (sources, replaces) in KERNELS.items():
@@ -1729,6 +2222,8 @@ def main():
             launches_per_decode_step=per_step[c],
             launches_continuous_path=cont_counts[c],
             launches_chunked_path=lane_counts[c],
+            launches_auto_path=auto_counts[c],
+            launches_tiered_path=tier_counts[c],
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],

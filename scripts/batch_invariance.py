@@ -6,6 +6,7 @@ how many rows share the call?
     python3 scripts/batch_invariance.py --layers 4
     python3 scripts/batch_invariance.py --device cpu # the plain path, smoke only
     python3 scripts/batch_invariance.py --chunked    # whole prefill vs the lane
+    python3 scripts/batch_invariance.py --dense      # bf16 weights, dense KV
 
 Decode (the default). Row 0 of every input equals the B = 1 input and the
 other rows are random. For B in ``BATCHES`` the script counts the elements
@@ -27,12 +28,18 @@ rows through the chunked-prefill lane, at lane widths P in ``LANE_P``:
 each op's f32 result (the norm's mean of squares of P-row chunks, and a
 plain ``torch.mean`` of them for comparison; prefill
 attention, a lane chunk over the lane's R scratch rows from its offset
-against the whole prompt; the dequant GEMM's row products at M 16, 32,
-128 and P against M 512, the regimes being split-K up to 16 rows and
+against the whole prompt; the dequant GEMM's row products at M 16 to 256
+against M 512, the regimes being split-K up to 16 rows and
 wgmma above), then ``prefill_chunk``'s final logits and the slot's packed
 K/V bytes against ``prefill``'s, eagerly and (on the card) as a replay of
 a captured graph. The chunked engine's oracle (a lane-admitted stream
 equals its solo stream) needs every count of the lane's own path to be 0.
+
+``--dense``: the same with bf16 weights (cuBLAS products) and a dense KV
+cache instead of nxfp4 (the premium serving tier's path): the GEMM rows
+are ``torch.mm``'s, attention the dense einsum path of ``attend_decode``
+or ``attend_chunked``, and ``decode_step``/``prefill_chunk`` run the dense
+model.
 
 The last line is one JSON object.
 """
@@ -55,7 +62,7 @@ MAX_LEN = 512
 KN = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096))
 LANE_P = (16, 32, 64, 128)    # --chunked: the lane widths
 PROMPT = 200                  # --chunked: the prompt (a ragged last chunk)
-GEMM_M = (16, 32, 64, 128)    # --chunked: GEMM rows against M 512
+GEMM_M = (16, 32, 64, 128, 256)   # --chunked: GEMM rows against M 512
 # a row the port does not run: torch.mean over the batch's own rows, for
 # comparison with the norm's row-grouped reduction
 PLAIN_MEAN = "plain torch.mean of squares"
@@ -98,15 +105,28 @@ def _rows(shape, b, seed, dtype=torch.float32):
     return torch.cat([first, rest]).to(dtype)
 
 
-def ops(cfg) -> dict:
-    """The decode step's row-spanning ops at ``cfg``'s widths."""
+def _weight(k, n, gen, fmt):
+    """A (K, N) weight of N(0, 0.02): cast to ``fmt``, or bf16."""
+    from repro_torch.kernels.ops import quantize_qtensor
+    w = torch.randn((k, n), generator=gen, device=DEV) * 0.02
+    if fmt is None:
+        return w.to(torch.bfloat16)
+    return quantize_qtensor(w, fmt, axis=-2, device=DEV)
+
+
+def _gemm_name(fmt) -> str:
+    return "nxfp_matmul" if fmt is not None else "dense_matmul (torch.mm)"
+
+
+def ops(cfg, fmt="nxfp4") -> dict:
+    """The decode step's row-spanning ops at ``cfg``'s widths, with
+    weights and KV at ``fmt`` (None: bf16 weights, dense KV)."""
     from repro_torch.core.formats import get_format
     from repro_torch.core.qtensor import QTensor, fmt_key
     from repro_torch.kernels.nxfp_quantize import nxfp_quantize_kv_rows
     from repro_torch.kernels.ops import decode_attention, qmatmul
-    from repro_torch.kernels.ops import quantize_qtensor
     from repro_torch.models.common import dense, mean_square
-    from repro_torch.models.kvcache import attn_cache_init
+    from repro_torch.models.kvcache import attend_decode, attn_cache_init
 
     out = {}
     d, v = cfg.d_model, cfg.vocab
@@ -131,33 +151,44 @@ def ops(cfg) -> dict:
     del head
     gen = _gen(4)
     for k, n in KN if d == 4096 else ((d, d), (d, cfg.d_ff), (cfg.d_ff, d)):
-        wq = quantize_qtensor(torch.randn((k, n), generator=gen,
-                                          device=DEV) * 0.02,
-                              "nxfp4", axis=-2, device=DEV)
-        out[f"nxfp_matmul K={k} N={n}"] = row0(
+        wq = _weight(k, n, gen, fmt)
+        out[f"{_gemm_name(fmt)} K={k} N={n}"] = row0(
             lambda x: qmatmul(x, wq), lambda b: (_rows((k,), b, 5,
                                                        torch.bfloat16),))
         del wq
-    fmt = get_format("nxfp4")
     kvh, hd, h = cfg.n_kv_heads, cfg.hd, cfg.n_heads
 
+    def dense_attention(b):
+        cache = attn_cache_init(cfg, b, MAX_LEN, None, torch.device(DEV))
+        cache["k"].copy_(_rows((MAX_LEN, kvh, hd), b, 6, torch.bfloat16))
+        cache["v"].copy_(_rows((MAX_LEN, kvh, hd), b, 8, torch.bfloat16))
+        pos = torch.tensor([299] + [16 + 97 * i for i in range(1, b)],
+                           dtype=torch.int32, device=DEV)
+        return _rows((h, hd), b, 10), cache, pos
+
     def attention(b):
-        cache = attn_cache_init(cfg, b, MAX_LEN, "nxfp4", torch.device(DEV))
+        qfmt = get_format(fmt)
+        cache = attn_cache_init(cfg, b, MAX_LEN, fmt, torch.device(DEV))
         k = _rows((MAX_LEN, kvh, hd), b, 6, torch.bfloat16)
         vv = _rows((MAX_LEN, kvh, hd), b, 8, torch.bfloat16)
-        nxfp_quantize_kv_rows(k, vv, cache, None, fmt)
+        nxfp_quantize_kv_rows(k, vv, cache, None, qfmt)
         lens = torch.tensor([300] + [17 + 97 * i for i in range(1, b)],
                             dtype=torch.int32, device=DEV)
         shape = (b, MAX_LEN, kvh, hd)
-        kq = QTensor(cache["k_packed"], cache["k_meta"], fmt_key(fmt), shape,
-                     -1, hd)
-        vq = QTensor(cache["v_packed"], cache["v_meta"], fmt_key(fmt), shape,
-                     -1, hd)
+        kq = QTensor(cache["k_packed"], cache["k_meta"], fmt_key(qfmt),
+                     shape, -1, hd)
+        vq = QTensor(cache["v_packed"], cache["v_meta"], fmt_key(qfmt),
+                     shape, -1, hd)
         return _rows((h, hd), b, 10), kq, vq, lens
 
-    out[f"decode_attention S={MAX_LEN}"] = row0(
-        lambda q, kq, vq, lens: decode_attention(q, kq, vq, lens, kvh),
-        attention)
+    if fmt is None:
+        out[f"decode_attention dense S={MAX_LEN}"] = row0(
+            lambda q, cache, pos: attend_decode(cfg, cache, q, pos, None),
+            dense_attention)
+    else:
+        out[f"decode_attention S={MAX_LEN}"] = row0(
+            lambda q, kq, vq, lens: decode_attention(q, kq, vq, lens, kvh),
+            attention)
     out["softmax"] = row0(lambda x: torch.softmax(x, dim=-1),
                           lambda b: (_rows((v,), b, 12),))
     return out
@@ -197,8 +228,9 @@ def decode(cfg, params, kv) -> dict:
     return out
 
 
-def measure(n_layers: int = 2) -> dict:
-    """Every row-0 difference, smoke and Llama-3-8B width."""
+def measure(n_layers: int = 2, fmt="nxfp4") -> dict:
+    """Every row-0 difference, smoke and Llama-3-8B width, weights and KV
+    at ``fmt`` (None: bf16 weights and a dense KV cache)."""
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.core.qtensor import QuantPolicy
     from repro_torch.models import init_params
@@ -211,12 +243,12 @@ def measure(n_layers: int = 2) -> dict:
             get_config("llama3_8b"), n_layers=n_layers)))
     for name, cfg in models:
         params = init_params(cfg, seed=0, device=DEV)
-        eng = ServeEngine(cfg, params, QuantPolicy("nxfp4", "nxfp4"),
+        eng = ServeEngine(cfg, params, QuantPolicy(fmt, fmt),
                           max_len=MAX_LEN, device=DEV)
         del params
-        res = ops(cfg)
-        for suffix, r in decode(cfg, eng.params, "nxfp4").items():
-            res["decode_step nxfp4" + suffix] = r
+        res = ops(cfg, fmt)
+        for suffix, r in decode(cfg, eng.params, fmt).items():
+            res[f"decode_step {fmt or 'dense'}" + suffix] = r
         out[name] = res
         del eng
         if DEV == "cuda":
@@ -280,28 +312,27 @@ def chunked_ops(cfg, p: int) -> dict:
     return out
 
 
-def gemm_rows(cfg) -> dict:
-    """The dequant GEMM's row products at M in ``GEMM_M`` against the same
-    rows at M 512 (split-K up to 16 rows, wgmma above)."""
-    from repro_torch.kernels.ops import qmatmul, quantize_qtensor
+def gemm_rows(cfg, fmt="nxfp4") -> dict:
+    """The GEMM's row products at M in ``GEMM_M`` against the same rows at
+    M 512: the dequant GEMM's (split-K up to 16 rows, wgmma above), or
+    with ``fmt`` None the dense product's (``torch.mm``)."""
+    from repro_torch.kernels.ops import qmatmul
 
     out = {}
     gen = _gen(26)
     d = cfg.d_model
     for kk, nn in KN if d == 4096 else ((d, d), (d, cfg.d_ff)):
-        wq = quantize_qtensor(torch.randn((kk, nn), generator=gen,
-                                          device=DEV) * 0.02,
-                              "nxfp4", axis=-2, device=DEV)
+        wq = _weight(kk, nn, gen, fmt)
         xs = (torch.randn((512, kk), generator=gen, device=DEV)
               ).to(torch.bfloat16)
         ref = qmatmul(xs, wq)
-        out[f"nxfp_matmul K={kk} N={nn} rows vs M=512"] = {
+        out[f"{_gemm_name(fmt)} K={kk} N={nn} rows vs M=512"] = {
             f"M={m}": _diff(ref[:m], qmatmul(xs[:m], wq)) for m in GEMM_M}
         del wq
     return out
 
 
-def chunked_model(cfg, params, p: int) -> dict:
+def chunked_model(cfg, params, p: int, fmt="nxfp4") -> dict:
     """``prefill_chunk`` over a prompt's chunks against ``prefill``: the
     final logits and the slot's packed K/V rows, eagerly and, on the card,
     with every chunk a replay of a captured graph (the engine's lane)."""
@@ -311,11 +342,11 @@ def chunked_model(cfg, params, p: int) -> dict:
     rng = np.random.default_rng(1)
     toks = rng.integers(0, cfg.vocab, (PROMPT,))
     want, wc = prefill(cfg, params, {"tokens": torch.as_tensor(
-        toks[None], device=DEV)}, max_len=MAX_LEN, kv_fmt="nxfp4")
+        toks[None], device=DEV)}, max_len=MAX_LEN, kv_fmt=fmt)
     rows = _lane_rows(PROMPT, p)
 
     def run(graph: bool):
-        cache = init_cache(cfg, 2, MAX_LEN, "nxfp4", device=DEV)
+        cache = init_cache(cfg, 2, MAX_LEN, fmt, device=DEV)
         lane = init_lane(cfg, MAX_LEN, p, device=DEV)
         tok = torch.zeros((1, p), dtype=torch.int64, device=DEV)
         idx = torch.zeros((3,), dtype=torch.int32, device=DEV)
@@ -330,7 +361,7 @@ def chunked_model(cfg, params, p: int) -> dict:
 
             def fn():
                 return prefill_chunk(cfg, params, tok, cache, idx[0:1],
-                                     idx[1:2], idx[2:3], lane, "nxfp4",
+                                     idx[1:2], idx[2:3], lane, fmt,
                                      with_head=head)[0]
             if graph:
                 from repro_torch.serving.engine import capture_graph
@@ -354,9 +385,10 @@ def chunked_model(cfg, params, p: int) -> dict:
     return out
 
 
-def measure_chunked(n_layers: int = 2) -> dict:
-    """Whole against lane at every width of ``LANE_P``, smoke and (on the
-    card) Llama-3-8B at full width."""
+def measure_chunked(n_layers: int = 2, fmt="nxfp4", lane_p=LANE_P) -> dict:
+    """Whole against lane at every width of ``lane_p``, smoke and (on the
+    card) Llama-3-8B at full width, weights and KV at ``fmt`` (None: bf16
+    weights, dense KV)."""
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.core.qtensor import QuantPolicy
     from repro_torch.models import init_params
@@ -369,12 +401,11 @@ def measure_chunked(n_layers: int = 2) -> dict:
             get_config("llama3_8b"), n_layers=n_layers)))
     for name, cfg in models:
         params = load_params(init_params(cfg, seed=0, device=DEV),
-                             QuantPolicy("nxfp4", "nxfp4"),
-                             torch.device(DEV))
-        res = gemm_rows(cfg)
-        for p in LANE_P:
+                             QuantPolicy(fmt, fmt), torch.device(DEV))
+        res = gemm_rows(cfg, fmt)
+        for p in lane_p:
             for op, r in {**chunked_ops(cfg, p),
-                          **chunked_model(cfg, params, p)}.items():
+                          **chunked_model(cfg, params, p, fmt)}.items():
                 res.setdefault(op, {})[f"P={p}"] = r
         out[name] = res
         del params
@@ -390,6 +421,8 @@ def main():
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--chunked", action="store_true",
                     help="whole prefill against the chunked-prefill lane")
+    ap.add_argument("--dense", action="store_true",
+                    help="bf16 weights and a dense KV cache (not nxfp4)")
     args = ap.parse_args()
     global DEV
     DEV = args.device
@@ -397,7 +430,8 @@ def main():
         sys.exit("batch_invariance.py needs a CUDA device")
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import repro_torch  # noqa: F401  (pins the TF32 flags)
-    res = (measure_chunked if args.chunked else measure)(args.layers)
+    res = (measure_chunked if args.chunked else measure)(
+        args.layers, None if args.dense else "nxfp4")
     for model, rows in res.items():
         for op, by_b in rows.items():
             print(f"{model} {op}: " + "; ".join(

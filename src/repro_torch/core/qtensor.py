@@ -79,8 +79,10 @@ class QuantPolicy:
     min_size: int = 1024
 
     def matches(self, path: str, leaf) -> bool:
-        if self.weight_fmt is None:
-            return False
+        return self.weight_fmt is not None and self.castable(path, leaf)
+
+    def castable(self, path: str, leaf) -> bool:
+        """Whether a weight format would cast this leaf."""
         if getattr(leaf, "ndim", 0) < 2:
             return False
         if leaf.numel() < self.min_size:

@@ -245,16 +245,20 @@ def read_cache_slot(cache: Dict[str, Any], slot: int) -> Dict[str, Any]:
 
 def prefill_into_slot(cfg: ModelConfig, params: Params,
                       batch: Dict[str, Any], cache: Dict[str, Any],
-                      slot: int, max_len: int, kv_fmt: Optional[str]):
+                      slot: int, max_len: int, kv_fmt: Optional[str],
+                      act_fmt: Optional[str] = None):
     """Prefill one request (batch-1 ``tokens``) into slot ``slot`` of a
     live cache, in place: the ordinary batch-1 ``prefill`` (so its K/V and
     logits are those of serving it alone), then ``write_cache_slot`` of
     its whole cache (rows past the prompt are zero, as the reference's
-    scatter leaves them). Returns (last logits (1, V), cache)."""
+    scatter leaves them). ``act_fmt`` is ``prefill``'s (the quantized-
+    activation prefill of a serving tier). Returns (last logits (1, V),
+    cache)."""
     if batch["tokens"].shape[0] != 1:
         raise ValueError(f"prefill_into_slot takes one request, got "
                          f"{tuple(batch['tokens'].shape)}")
-    logits, solo = prefill(cfg, params, batch, max_len, kv_fmt)
+    logits, solo = prefill(cfg, params, batch, max_len, kv_fmt,
+                           act_fmt=act_fmt)
     return logits, write_cache_slot(cache, solo, slot)
 
 

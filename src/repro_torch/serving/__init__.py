@@ -1,15 +1,25 @@
-"""Serving: the batched engine and the continuous-batching engine over
-direct-cast weights and KV cache, and the JSONL event journal."""
+"""Serving: the batched engine, the continuous-batching engine (with
+bounded-queue shedding and per-slot tiers) over direct-cast weights and KV
+cache, and the JSONL event journal."""
 from .engine import GenerationResult, ServeEngine, mask_chunk_emissions
 from .events import EVENT_KINDS, Journal, emit, parse_event, replay
 from .scheduler import (DECODING, PREFILLING, AdmissionPolicy,
-                        ContinuousEngine, FifoPolicy, PriorityAdmission,
-                        Request, RequestResult, ShortestPromptFirst,
+                        ContinuousEngine, DegradeOverBudget, DropOldest,
+                        FifoPolicy, PriorityAdmission, RejectNew, Request,
+                        RequestResult, SheddingPolicy, ShortestPromptFirst,
                         SlotScheduler, Status, TtftDeadline)
+from .snapshot import (pack_device_state, slot_row_capacity,
+                       unpack_device_state)
+from .tiers import (TieredContinuousEngine, TierSpec, default_tiers,
+                    kv_row_bytes, repack_kv)
 
 __all__ = ["ServeEngine", "GenerationResult", "mask_chunk_emissions",
            "ContinuousEngine", "SlotScheduler", "Request", "RequestResult",
            "Status", "AdmissionPolicy", "FifoPolicy", "ShortestPromptFirst",
            "PriorityAdmission", "TtftDeadline", "PREFILLING", "DECODING",
+           "SheddingPolicy", "RejectNew", "DropOldest", "DegradeOverBudget",
+           "TieredContinuousEngine", "TierSpec", "default_tiers",
+           "kv_row_bytes", "repack_kv", "pack_device_state",
+           "unpack_device_state", "slot_row_capacity",
            "Journal", "emit", "parse_event", "replay",
            "EVENT_KINDS"]

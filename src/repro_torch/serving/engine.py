@@ -40,8 +40,8 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..core.qtensor import (QTensor, QuantPolicy, direct_cast_tree,
-                            tree_footprint_bytes)
+from ..core.qtensor import (QTensor, QuantPolicy, _map_with_path,
+                            direct_cast_tree, tree_footprint_bytes)
 from ..kernels.ops import quantize_qtensor
 from ..models import decode_loop, decode_step, prefill
 from ..models.common import ModelConfig
@@ -429,10 +429,19 @@ class ServeEngine:
 
 def load_params(params, policy: QuantPolicy, device: torch.device):
     """The weights on ``device``, direct-cast at load time through the
-    fused encode+pack quantizer when the policy has a weight format."""
-    params = _to_device(params, device)
+    fused encode+pack quantizer when the policy has a weight format.
+    Without one, the leaves a cast would replace are stored in bf16: each
+    only ever enters a GEMM that rounds it to bf16 first
+    (``kernels/ops.py``), so the stored rounding changes no result and
+    halves an f32 tree. Other leaves keep their dtype."""
     if not policy.weight_fmt:
-        return params
+        def leaf(path, x):
+            if isinstance(x, torch.Tensor) and policy.castable(path, x):
+                return x.to(device=device, dtype=torch.bfloat16)
+            return _to_device(x, device)
+
+        return _map_with_path(leaf, params)
+    params = _to_device(params, device)
     return direct_cast_tree(
         params, policy, quantize_fn=lambda leaf, fmt, axis:
         quantize_qtensor(leaf, fmt, axis, device=device))

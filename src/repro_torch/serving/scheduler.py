@@ -52,8 +52,17 @@ a row in different orders, so there the chunked mode holds the oracle for
 ``p_chunk`` > 16 and prompts longer than 16 tokens (a lane chunk and the
 whole prompt then both run wgmma).
 
-Left for later slices: shedding, quarantine, suspension, preemption,
-snapshots, ``p_chunk="auto"``, tiers, paging, speculation and sharding.
+Backpressure: with ``max_queue`` the arrived backlog is bounded at every
+chunk boundary (``SlotScheduler.enforce_bounds``); a ``SheddingPolicy``
+sheds the overflow (``Status.SHED``: ``RejectNew``, ``DropOldest``) or
+admits it degraded (``DegradeOverBudget``: a capped ``max_new``, greedy),
+and ``RequestResult.degraded`` marks what it served so. ``p_chunk="auto"``
+picks the lane width from a sweep of the engine's own graphs at
+construction (``_autotune_p_chunk``, the reference's rule). Per-slot
+serving tiers are ``serving/tiers.py``.
+
+Left for later slices: quarantine, suspension, preemption, snapshots,
+paging, speculation and sharding.
 """
 from __future__ import annotations
 
@@ -70,8 +79,8 @@ from ..core.qtensor import QuantPolicy
 from ..models import (decode_loop, init_cache, init_lane, prefill_chunk,
                       prefill_into_slot, reset_slot)
 from ..models.common import ModelConfig
-from .engine import (capture_graph, load_params, mask_chunk_emissions,
-                     sample_tokens)
+from .engine import (_sync, capture_graph, load_params,
+                     mask_chunk_emissions, sample_tokens)
 from .events import Journal
 
 logger = logging.getLogger("repro_torch.serving.scheduler")
@@ -84,12 +93,13 @@ class Status:
     ``deadline_s`` passed, or the admission policy found it unservable: a
     queued request leaves with no tokens, a decoding one with its partial
     output), CANCELLED (``ContinuousEngine.cancel``, the same partial-
-    output rule). The reference's SHED and FAILED come with shedding and
-    quarantine."""
+    output rule), SHED (bounded-queue backpressure turned it away
+    unstarted). The reference's FAILED comes with quarantine."""
 
     OK = "OK"
     DEADLINE_EXPIRED = "DEADLINE_EXPIRED"
     CANCELLED = "CANCELLED"
+    SHED = "SHED"
 
 
 @dataclasses.dataclass
@@ -103,7 +113,9 @@ class Request:
     serving it alone. ``deadline_s`` is an end-to-end budget from arrival:
     once it is exceeded the request is ended at the next chunk boundary
     with what it generated so far. ``priority`` (higher = more urgent)
-    feeds ``PriorityAdmission``.
+    feeds ``PriorityAdmission``. ``tier`` names a serving tier of a
+    ``TieredContinuousEngine`` (None: its default tier); the plain engine
+    ignores it.
     """
     uid: int
     tokens: np.ndarray                  # (T,) int prompt
@@ -114,11 +126,15 @@ class Request:
     seed: int = 0
     deadline_s: Optional[float] = None
     priority: int = 0
+    tier: Optional[str] = None
 
 
 @dataclasses.dataclass
 class RequestResult:
-    """Terminal record for one request."""
+    """Terminal record for one request. ``degraded`` marks a request served
+    under a cheaper tier than it asked for: admitted under
+    ``DegradeOverBudget`` (capped ``max_new``, greedy), or moved to a
+    cheaper KV tier while it decoded (``TieredContinuousEngine``)."""
 
     uid: int
     tokens: np.ndarray                  # (n_generated,) int32
@@ -128,6 +144,7 @@ class RequestResult:
     #                                     for a request that got none
     decode_seconds: float               # admission -> finish (s)
     status: str = Status.OK
+    degraded: bool = False
 
     @property
     def ok(self) -> bool:
@@ -222,6 +239,82 @@ class PriorityAdmission(AdmissionPolicy):
 
 
 # ---------------------------------------------------------------------------
+# load shedding: what gives way when the arrived queue exceeds max_queue?
+# ---------------------------------------------------------------------------
+
+class SheddingPolicy:
+    """Backpressure for a bounded admission queue.
+
+    When the arrived part of the queue (future arrivals are not load yet)
+    exceeds ``SlotScheduler.max_queue``, ``over_budget`` decides what gives:
+    it returns ``(shed, degrade)``, ``shed`` the queue indices to end with
+    ``Status.SHED`` and ``degrade`` ``(index, max_new_cap, force_greedy)``
+    triples to serve under a cheaper tier. ``arrived`` comes sorted oldest
+    first, so slicing its ends sheds in arrival order."""
+
+    name = "reject-new"
+
+    def over_budget(self, sched: "SlotScheduler", arrived: List[int],
+                    n_over: int, now: float
+                    ) -> Tuple[List[int], List[Tuple[int, Any, bool]]]:
+        raise NotImplementedError
+
+
+class RejectNew(SheddingPolicy):
+    """Shed the newest over-budget arrivals (the default): the queue keeps
+    its oldest waiters, and a fresh burst bounces off a full queue."""
+
+    name = "reject-new"
+
+    def over_budget(self, sched, arrived, n_over, now):
+        return arrived[-n_over:], []
+
+
+class DropOldest(SheddingPolicy):
+    """Shed the oldest arrivals: under sustained overload they are the
+    likeliest to have missed their deadline already, and dropping them
+    bounds the survivors' queue delay."""
+
+    name = "drop-oldest"
+
+    def over_budget(self, sched, arrived, n_over, now):
+        return arrived[:n_over], []
+
+
+class DegradeOverBudget(SheddingPolicy):
+    """Serve the newest over-budget arrivals degraded instead of shedding
+    them: at admission their ``max_new`` is capped at ``max_new_cap`` (None:
+    no cap) and, with ``force_greedy``, their sampling made greedy.
+    ``hard_cap`` (arrived requests) bounds the degraded backlog itself:
+    arrivals past it are shed. ``pool_watermark`` (a fraction in (0, 1])
+    adds a memory trigger: when the engine's KV occupancy
+    (``SlotScheduler.pool_monitor``) reaches it, every arrived waiter
+    counts as over budget; the tiered engine also repacks resident KV at
+    it (``TieredContinuousEngine(degrade_kv_to=)``). Results served so
+    carry ``degraded=True``."""
+
+    name = "degrade"
+
+    def __init__(self, max_new_cap: Optional[int] = 8,
+                 force_greedy: bool = True, hard_cap: Optional[int] = None,
+                 pool_watermark: Optional[float] = None):
+        self.max_new_cap = max_new_cap
+        self.force_greedy = force_greedy
+        self.hard_cap = hard_cap
+        self.pool_watermark = pool_watermark
+
+    def over_budget(self, sched, arrived, n_over, now):
+        shed: List[int] = []
+        if self.hard_cap is not None and len(arrived) > self.hard_cap:
+            shed = arrived[self.hard_cap:]
+            arrived = arrived[:self.hard_cap]
+            n_over = max(n_over - len(shed), 0)
+        degrade = [(i, self.max_new_cap, self.force_greedy)
+                   for i in (arrived[-n_over:] if n_over else [])]
+        return shed, degrade
+
+
+# ---------------------------------------------------------------------------
 # slot bookkeeping
 # ---------------------------------------------------------------------------
 
@@ -235,19 +328,48 @@ class SlotScheduler:
     request the policy ranks first. A slot carries a phase: PREFILLING
     while the chunked lane still feeds its prompt, DECODING once its first
     token exists. ``expire_queued`` evicts queued requests whose deadline
-    has passed. Pure host Python."""
+    has passed. With ``max_queue`` the arrived queue is bounded: each
+    ``enforce_bounds`` call hands the overflow to ``shedding`` (default
+    ``RejectNew``), which sheds or degrades it. Pure host Python."""
 
     def __init__(self, n_slots: int,
-                 policy: Optional[AdmissionPolicy] = None):
+                 policy: Optional[AdmissionPolicy] = None,
+                 max_queue: Optional[int] = None,
+                 shedding: Optional[SheddingPolicy] = None,
+                 journal: Optional[Journal] = None):
         self.n_slots = n_slots
         self.policy = policy or FifoPolicy()
+        self.max_queue = max_queue
+        self.shedding = shedding or RejectNew()
+        self.journal = journal or Journal()
         self.queue: List[Request] = []
         self.free: List[int] = list(range(n_slots))
         self.active: Dict[int, Request] = {}
         self.phase: Dict[int, str] = {}
+        # uid -> (max_new_cap, force_greedy): degrade markers, applied at
+        # admission (``_take``) and popped into RequestResult.degraded
+        self.degraded: Dict[int, Tuple[Optional[int], bool]] = {}
+        # () -> KV occupancy in [0, 1], for a policy's pool_watermark (set
+        # by the tiered engine)
+        self.pool_monitor = None
 
     def submit(self, req: Request) -> None:
         self.queue.append(req)
+
+    def _take(self, idx: int, slot: int) -> Tuple[int, Request]:
+        """Move queue[idx] into ``slot``, applying its degrade marker."""
+        self.free.remove(slot)
+        req = self.queue.pop(idx)
+        mark = self.degraded.get(req.uid)
+        if mark is not None:
+            cap, greedy = mark
+            if cap is not None:
+                req = dataclasses.replace(req, max_new=min(req.max_new, cap))
+            if greedy:
+                req = dataclasses.replace(req, temperature=0.0)
+        self.active[slot] = req
+        self.phase[slot] = DECODING
+        return slot, req
 
     def next_admission(self, now: float) -> Optional[Tuple[int, Request]]:
         """Pop (slot, request) if a slot is free and the policy picks one."""
@@ -256,11 +378,7 @@ class SlotScheduler:
         idx = self.policy.select(self.queue, now)
         if idx is None:
             return None
-        slot = self.free.pop(0)
-        req = self.queue.pop(idx)
-        self.active[slot] = req
-        self.phase[slot] = DECODING
-        return slot, req
+        return self._take(idx, self.free[0])
 
     def pop_queued(self, uid: int) -> Optional[Request]:
         """Remove and return the queued request with ``uid`` (else None)."""
@@ -277,6 +395,46 @@ class SlotScheduler:
                and now - r.arrival_time > r.deadline_s}
         idx.update(self.policy.expired(self.queue, now))
         return [self.queue.pop(i) for i in sorted(idx, reverse=True)]
+
+    def enforce_bounds(self, now: float) -> List[Request]:
+        """Apply the shedding policy; returns the requests shed.
+
+        The bound is on the backlog: the arrived waiters beyond what the
+        free slots take at once (the sweep runs before admission, so
+        without the ``free`` credit a first burst would shed requests an
+        idle slot was about to serve). Degrade markers are recorded here,
+        journaled once per uid, and applied when ``_take`` admits the
+        request. A policy's ``pool_watermark`` adds the memory trigger:
+        with ``pool_monitor`` at or past it, every arrived waiter is over
+        budget."""
+        wm = getattr(self.shedding, "pool_watermark", None)
+        pressure = (wm is not None and self.pool_monitor is not None
+                    and self.pool_monitor() >= wm)
+        if self.max_queue is None and not pressure:
+            return []
+        arrived = sorted((i for i, r in enumerate(self.queue)
+                          if r.arrival_time <= now),
+                         key=lambda i: (self.queue[i].arrival_time, i))
+        n_over = (len(arrived) - self.max_queue - len(self.free)
+                  if self.max_queue is not None else 0)
+        if pressure:
+            n_over = max(n_over, len(arrived))
+        if n_over <= 0:
+            return []
+        shed_idx, degrades = self.shedding.over_budget(self, arrived,
+                                                       n_over, now)
+        for i, cap, greedy in degrades:
+            uid = self.queue[i].uid
+            if uid not in self.degraded:
+                self.degraded[uid] = (cap, greedy)
+                self.journal.emit(logger, "degrade", uid=uid,
+                                  max_new_cap=cap, greedy=greedy,
+                                  policy=self.shedding.name)
+        shed = [self.queue.pop(i) for i in sorted(set(shed_idx),
+                                                  reverse=True)]
+        for r in shed:
+            self.degraded.pop(r.uid, None)
+        return shed
 
     def release(self, slot: int) -> Request:
         req = self.active.pop(slot)
@@ -332,8 +490,11 @@ class ContinuousEngine:
     captured graphs, ``with_head`` false or true), so a decode chunk waits
     behind one lane chunk at most; the first token is sampled after the
     final chunk as a whole admission samples it, and the slot is then
-    armed at position T. Weights are cast at load time as
-    ``ServeEngine``'s are. ``serve`` drains a list of requests, honouring
+    armed at position T. ``p_chunk="auto"`` picks the width from
+    ``p_chunk_candidates`` at construction (``_autotune_p_chunk``).
+    Weights are cast at load time as ``ServeEngine``'s are. ``max_queue``
+    and ``shedding`` bound the arrived backlog (``SlotScheduler.
+    enforce_bounds``). ``serve`` drains a list of requests, honouring
     their arrival times, deadlines and ``cancel`` calls, and returns one
     ``RequestResult`` per request. The bitwise oracle holds up to 16 slots
     (``models.common.ROW_GROUP``, the decode GEMM's regime).
@@ -346,13 +507,18 @@ class ContinuousEngine:
     and first token), ``lane_chunks`` and ``lane_seconds`` (each lane
     dispatch's host-clock seconds, a final chunk's first token included)
     and ``stall_seconds`` (for each decode chunk that had live slots
-    waiting, the seconds of admission or lane work before it).
+    waiting, the seconds of admission or lane work before it). After an
+    ``"auto"`` pick, ``p_chunk_sweep`` (seconds of one lane chunk per
+    candidate) and ``p_chunk_decode_s`` (one decode chunk's).
     """
 
     def __init__(self, cfg: ModelConfig, params, policy: QuantPolicy,
                  n_slots: int = 4, max_len: int = 2048, chunk: int = 16,
                  admission_policy: Optional[AdmissionPolicy] = None,
-                 prefill_mode: str = "whole", p_chunk: int = 32,
+                 prefill_mode: str = "whole", p_chunk=32,
+                 p_chunk_candidates: Sequence[int] = (16, 32, 64, 128),
+                 max_queue: Optional[int] = None,
+                 shedding: Optional[SheddingPolicy] = None,
                  device=None):
         if chunk < 1 or n_slots < 1:
             raise ValueError(f"chunk ({chunk}) and n_slots ({n_slots}) "
@@ -360,6 +526,12 @@ class ContinuousEngine:
         if prefill_mode not in ("whole", "chunked"):
             raise ValueError(f"prefill_mode {prefill_mode!r}: 'whole' or "
                              "'chunked'")
+        if prefill_mode == "chunked" and p_chunk != "auto":
+            if not isinstance(p_chunk, int):
+                raise ValueError(f"p_chunk={p_chunk!r}: an int or 'auto'")
+            if not 1 <= p_chunk <= max_len:
+                raise ValueError(f"p_chunk ({p_chunk}) must be in 1.."
+                                 f"max_len ({max_len})")
         self.cfg = cfg
         self.policy = policy
         self.n_slots = n_slots
@@ -367,19 +539,11 @@ class ContinuousEngine:
         self.chunk = chunk
         self.admission_policy = admission_policy
         self.prefill_mode = prefill_mode
+        self.max_queue = max_queue
+        self.shedding = shedding
         self.device = resolve_device(device)
-        if prefill_mode == "chunked":
-            if not isinstance(p_chunk, int):
-                raise NotImplementedError(
-                    f"p_chunk={p_chunk!r}: the port takes a fixed chunk "
-                    "width (the reference's 'auto' sweep is not ported)")
-            if not 1 <= p_chunk <= max_len:
-                raise ValueError(f"p_chunk ({p_chunk}) must be in 1.."
-                                 f"max_len ({max_len})")
-        self.p_chunk = p_chunk
-        self.params = load_params(params, policy, self.device)
-        self.cache = init_cache(cfg, n_slots, max_len, policy.kv_fmt,
-                                device=self.device)
+        self.params = self._load_weights(params)
+        self.cache = self._init_slot_cache()
         self.journal = Journal()
         self._gens = [torch.Generator(device=self.device)
                       for _ in range(n_slots)]
@@ -394,22 +558,11 @@ class ContinuousEngine:
             "stop": np.full((n_slots,), -1, np.int32)}
         self._buf = {k: torch.from_numpy(v.copy()).to(self.device)
                      for k, v in self._host.items()}
-        self._graphs: Dict[bool, Any] = {}   # greedy -> (graph, outputs)
+        self._graphs: Dict[Any, Any] = {}    # key -> (graph, outputs)
         self.replays = 0
         self.lane_replays = 0
-        if prefill_mode == "chunked":
-            # natural-order scratch rows: a prompt longer than this is
-            # refused at submit
-            self._lane_rows = -(-max_len // p_chunk) * p_chunk
-            self.lane = init_lane(cfg, max_len, p_chunk, device=self.device)
-            # the lane chunk's static inputs: tokens, and (slot, offset,
-            # n_valid) as (1,) int32 views of one buffer
-            self._lane_tok = torch.zeros((1, p_chunk), dtype=torch.int64,
-                                         device=self.device)
-            self._lane_idx = torch.zeros((3,), dtype=torch.int32,
-                                         device=self.device)
-            self._lane_graphs: Dict[bool, Any] = {}  # with_head -> graph
         self._pf: Optional[Dict[str, Any]] = None    # the lane's cursor
+        self._sched: Optional[SlotScheduler] = None  # the serve's, live
         self._cancel_uids: set = set()
         self.chunks = 0
         self.chunk_times: List[Tuple[int, float]] = []
@@ -417,6 +570,130 @@ class ContinuousEngine:
         self.lane_chunks = 0
         self.lane_seconds: List[float] = []
         self.stall_seconds: List[float] = []
+        if prefill_mode == "chunked":
+            if p_chunk == "auto":
+                p_chunk = self._autotune_p_chunk(p_chunk_candidates)
+            else:
+                self._build_lane(p_chunk)
+        self.p_chunk = p_chunk
+
+    # -- construction hooks (the tiered engine overrides these) ------------
+
+    def _load_weights(self, params):
+        return load_params(params, self.policy, self.device)
+
+    def _init_slot_cache(self):
+        return init_cache(self.cfg, self.n_slots, self.max_len,
+                          self.policy.kv_fmt, device=self.device)
+
+    def _slot_cache(self, slot: int):
+        """The cache arena that holds ``slot``'s rows."""
+        return self.cache
+
+    def _build_lane(self, p_chunk: int) -> None:
+        """The lane for chunks of ``p_chunk``: its scratch and its static
+        inputs (tokens, and (slot, offset, n_valid) as (1,) int32 views of
+        one buffer); its graphs are captured at first use."""
+        # natural-order scratch rows: a longer prompt is refused at submit
+        self._lane_rows = -(-self.max_len // p_chunk) * p_chunk
+        self.lane = init_lane(self.cfg, self.max_len, p_chunk,
+                              device=self.device)
+        self._lane_tok = torch.zeros((1, p_chunk), dtype=torch.int64,
+                                     device=self.device)
+        self._lane_idx = torch.zeros((3,), dtype=torch.int32,
+                                     device=self.device)
+        self._lane_graphs: Dict[Any, Any] = {}   # with_head -> graph
+
+    # -- p_chunk="auto" -------------------------------------------------------
+
+    def _time_best(self, fn, n: int = 3) -> float:
+        """Seconds of ``fn()``: one warm-up call, then the least of ``n``,
+        the device synchronised around each (the reference's
+        ``_time_best``)."""
+        fn()
+        _sync(self.device)
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            _sync(self.device)
+            times.append(time.perf_counter() - t0)
+        return min(times)
+
+    def _decode_probe(self):
+        """One greedy decode chunk over the parked slots, as the engine
+        runs it: on CUDA a replay of its captured graph (the graph stays for
+        serving), on the CPU the eager chunk."""
+        self._upload(self._host)
+        if self.device.type != "cuda":
+            return self._chunk_fn(True)
+        if True not in self._graphs:
+            self._graphs[True] = capture_graph(self._chunk_fn(True),
+                                               self.device)
+        return self._graphs[True][0].replay
+
+    def _lane_probe(self, p_chunk: int):
+        """One lane chunk without the head (``p_chunk`` zero tokens into
+        slot 0 at offset 0), as the engine runs it: on CUDA a replay of the
+        lane's ``with_head=False`` graph. ``_autotune_p_chunk`` clears what
+        it writes into slot 0 and the lane."""
+        self._lane_tok.zero_()
+        self._lane_idx.copy_(torch.tensor([0, 0, p_chunk],
+                                          dtype=torch.int32))
+        fn = self._lane_fn(False, *self._lane_route(0)[1:])
+        if self.device.type != "cuda":
+            return fn
+        self._lane_graphs[False] = capture_graph(fn, self.device)
+        return self._lane_graphs[False][0].replay
+
+    def _autotune_p_chunk(self, candidates: Sequence[int],
+                          stall_factor: float = 2.0) -> int:
+        """Pick the lane chunk width from a short sweep (``p_chunk="auto"``,
+        the reference's rule): time one decode chunk (the stall a lane
+        chunk interleaves with) and one lane chunk per candidate, each as
+        the engine runs it (CUDA graph replays on the card), then take the
+        candidate of the highest ``p / t_p`` among those whose lane chunk
+        costs at most ``stall_factor`` decode chunks; if none does, the
+        smallest. The winner keeps its lane scratch and graph; the others
+        are dropped. On CUDA a pick of 16 or less runs the lane's GEMMs
+        split-K, and the chunked oracle then does not hold bitwise (the
+        module docstring). Results: ``p_chunk_sweep``,
+        ``p_chunk_decode_s``."""
+        cands = sorted({int(p) for p in candidates if 1 <= p <= self.max_len})
+        if not cands:
+            raise ValueError(f"p_chunk='auto': no candidate in "
+                             f"{tuple(candidates)} fits max_len "
+                             f"({self.max_len})")
+        decode_s = self._time_best(self._decode_probe())
+        sweep: Dict[int, float] = {}
+        lanes: Dict[int, Tuple[Any, ...]] = {}
+        for p in cands:
+            self._build_lane(p)
+            sweep[p] = self._time_best(self._lane_probe(p))
+            lanes[p] = (self._lane_rows, self.lane, self._lane_tok,
+                        self._lane_idx, self._lane_graphs)
+        budget = stall_factor * decode_s
+        ok = [p for p in cands if sweep[p] <= budget]
+        best = max(ok, key=lambda p: p / sweep[p]) if ok else cands[0]
+        (self._lane_rows, self.lane, self._lane_tok, self._lane_idx,
+         self._lane_graphs) = lanes[best]
+        del lanes                     # the losers' scratch and graphs
+        # the probes' rows cleared: the state of an engine built at a fixed
+        # p_chunk (buffers zeroed in place, which the graphs keep reading)
+        for buf in (self._lane_tok, self._lane_idx, *(
+                b for layer in self.lane["layers"] for b in layer.values())):
+            buf.zero_()
+        for layer in self.cache["layers"]:
+            for buf in layer.values():
+                buf[0].zero_()
+        reset_slot(self.cfg, self.cache, 0)
+        self.p_chunk_sweep = sweep
+        self.p_chunk_decode_s = decode_s
+        logger.info("p_chunk autotune: decode chunk %.2fms, sweep {%s} -> %d",
+                    decode_s * 1e3, ", ".join(f"{p}: {s * 1e3:.2f}ms"
+                                              for p, s in sweep.items()),
+                    best)
+        return best
 
     # -- device work ---------------------------------------------------------
 
@@ -426,36 +703,52 @@ class ContinuousEngine:
         return lambda: continuous_chunk(cfg, params, kv, n, greedy, gens,
                                         buf, cache)
 
+    def _upload(self, host: Dict[str, np.ndarray]) -> None:
+        for name, arr in host.items():
+            self._buf[name].copy_(torch.from_numpy(arr))
+
+    def _run_chunk(self, key, make_fn, greedy: bool):
+        """The chunk's outputs: on CUDA a replay of the graph under ``key``
+        (captured at first use from ``make_fn()``, the slot generators
+        registered with a sampled one), on the CPU ``make_fn()()``."""
+        if self.device.type != "cuda":
+            return make_fn()()
+        if key not in self._graphs:
+            self._graphs[key] = capture_graph(make_fn(), self.device,
+                                              () if greedy else self._gens)
+        graph, outs = self._graphs[key]
+        graph.replay()
+        self.replays += 1
+        return outs
+
+    def _fold(self, outs, cache, rows) -> np.ndarray:
+        """Fold a chunk's results into ``cache["pos"]`` and the host state
+        of ``rows`` (a bool mask or a slice). Returns emitted (B, chunk)."""
+        emitted, tok, n_gen, done, pos = outs
+        cache["pos"].copy_(pos)
+        n = self.chunk
+        got = torch.cat([emitted, tok[:, None], n_gen[:, None],
+                         done[:, None].to(torch.int32)], dim=1).cpu().numpy()
+        h = self._host
+        h["tok"][rows] = got[rows, n]
+        h["n_gen"][rows] = got[rows, n + 1]
+        h["done"][rows] = got[rows, n + 2] != 0
+        return got[:, :n]
+
     def _dispatch_chunk(self) -> np.ndarray:
         """Run one decode chunk from the host slot state and fold its
         results back into it. Returns emitted (B, chunk) as numpy."""
         t0 = time.perf_counter()
         h = self._host
         live = int(h["live"].sum())
-        for name, arr in h.items():
-            self._buf[name].copy_(torch.from_numpy(arr))
+        self._upload(h)
         greedy = bool((h["temp"] == 0.0).all())
-        if self.device.type == "cuda":
-            if greedy not in self._graphs:
-                self._graphs[greedy] = capture_graph(
-                    self._chunk_fn(greedy), self.device,
-                    () if greedy else self._gens)
-            graph, outs = self._graphs[greedy]
-            graph.replay()
-            self.replays += 1
-        else:
-            outs = self._chunk_fn(greedy)()
-        emitted, tok, n_gen, done, pos = outs
-        self.cache["pos"].copy_(pos)
-        n = self.chunk
-        got = torch.cat([emitted, tok[:, None], n_gen[:, None],
-                         done[:, None].to(torch.int32)], dim=1).cpu().numpy()
-        h["tok"] = got[:, n].copy()
-        h["n_gen"] = got[:, n + 1].copy()
-        h["done"] = got[:, n + 2] != 0
+        outs = self._run_chunk(greedy, lambda: self._chunk_fn(greedy),
+                               greedy)
+        emitted = self._fold(outs, self.cache, slice(None))
         self.chunks += 1
         self.chunk_times.append((live, time.perf_counter() - t0))
-        return got[:, :n]
+        return emitted
 
     def _first_token(self, slot: int, req: Request, logits) -> int:
         """A request's first token off its prefill logits (1, V), shared by
@@ -479,16 +772,21 @@ class ContinuousEngine:
                                       self.max_len, self.policy.kv_fmt)
         return self._first_token(slot, req, logits)
 
-    def _lane_fn(self, with_head: bool):
+    def _lane_route(self, slot: int):
+        """What a lane chunk into ``slot`` runs with: (graph key prefix,
+        params, cache, kv_fmt, act_fmt)."""
+        return (), self.params, self.cache, self.policy.kv_fmt, None
+
+    def _lane_fn(self, with_head: bool, params, cache, kv_fmt, act_fmt):
         """One lane chunk from the lane's static buffers (the reference's
         ``_lane_chunk_fn``). Returns the logits (1, V), or the hidden row
         (1, D) when ``with_head`` is false."""
-        cfg, params, kv = self.cfg, self.params, self.policy.kv_fmt
-        cache, lane, tok, idx = self.cache, self.lane, self._lane_tok, \
+        cfg, lane, tok, idx = self.cfg, self.lane, self._lane_tok, \
             self._lane_idx
         return lambda: prefill_chunk(cfg, params, tok, cache, idx[0:1],
-                                     idx[1:2], idx[2:3], lane, kv,
-                                     with_head=with_head)[0]
+                                     idx[1:2], idx[2:3], lane, kv_fmt,
+                                     with_head=with_head,
+                                     act_fmt=act_fmt)[0]
 
     def _lane_dispatch(self, slot: int, tokens, offset: int,
                        final: bool):
@@ -502,17 +800,25 @@ class ContinuousEngine:
         self._lane_tok.copy_(torch.from_numpy(toks))
         self._lane_idx.copy_(torch.tensor([slot, offset, len(tokens)],
                                           dtype=torch.int32))
+        route, *how = self._lane_route(slot)
         if self.device.type != "cuda":
-            return self._lane_fn(final)()
-        if final not in self._lane_graphs:
-            self._lane_graphs[final] = capture_graph(self._lane_fn(final),
-                                                     self.device)
-        graph, out = self._lane_graphs[final]
+            return self._lane_fn(final, *how)()
+        key = route + (final,) if route else final
+        if key not in self._lane_graphs:
+            self._lane_graphs[key] = capture_graph(self._lane_fn(final, *how),
+                                                   self.device)
+        graph, out = self._lane_graphs[key]
         graph.replay()
         self.lane_replays += 1
         return out
 
+    def _reset_dispatch(self, slot: int) -> None:
+        reset_slot(self.cfg, self._slot_cache(slot), slot)
+
     # -- host loop -----------------------------------------------------------
+
+    def _emit(self, event: str, **fields) -> None:
+        self.journal.emit(logger, event, **fields)
 
     def _arm_slot(self, slot: int, req: Request, tok0: int) -> None:
         """Host slot state for a freshly admitted, decoding request."""
@@ -547,9 +853,8 @@ class ContinuousEngine:
         tok0 = self._admit_dispatch(slot, req)
         self.admit_seconds.append(time.perf_counter() - t0)
         self._arm_slot(slot, req, tok0)
-        self.journal.emit(logger, "admit", uid=req.uid, slot=slot,
-                          prompt=len(req.tokens), max_new=req.max_new,
-                          queue_delay=now - req.arrival_time)
+        self._emit("admit", uid=req.uid, slot=slot, prompt=len(req.tokens),
+                   max_new=req.max_new, queue_delay=now - req.arrival_time)
         return self._decoding_state(req, now, clock)
 
     def _admit_ready(self, sched: SlotScheduler, state: Dict[int, Any],
@@ -568,10 +873,10 @@ class ContinuousEngine:
         chunk not live until armed); returns its lane cursor."""
         sched.mark_prefilling(slot)
         self._park_slot_flags(slot)
-        self.journal.emit(logger, "prefill-start", uid=req.uid, slot=slot,
-                          prompt=len(req.tokens),
-                          chunks=-(-len(req.tokens) // self.p_chunk),
-                          queue_delay=now - req.arrival_time)
+        self._emit("prefill-start", uid=req.uid, slot=slot,
+                   prompt=len(req.tokens),
+                   chunks=-(-len(req.tokens) // self.p_chunk),
+                   queue_delay=now - req.arrival_time)
         return {"slot": slot, "req": req, "offset": 0, "admit_time": now}
 
     def _advance_lane(self, sched: SlotScheduler, state: Dict[int, Any],
@@ -597,7 +902,7 @@ class ContinuousEngine:
         pf["offset"] = off + n_valid
         if final:
             tok0 = self._first_token(slot, req, out)
-            self.cache["pos"][slot] = t
+            self._slot_cache(slot)["pos"][slot] = t
         self.lane_chunks += 1
         self.lane_seconds.append(time.perf_counter() - t0)
         if not final:
@@ -605,14 +910,15 @@ class ContinuousEngine:
         self._arm_slot(slot, req, tok0)
         sched.mark_decoding(slot)
         state[slot] = self._decoding_state(req, pf["admit_time"], clock)
-        self.journal.emit(logger, "prefill-done", uid=req.uid, slot=slot,
-                          prompt=t, ttft=state[slot]["ttft"])
+        self._emit("prefill-done", uid=req.uid, slot=slot, prompt=t,
+                   ttft=state[slot]["ttft"])
         self._pf = None
 
-    # -- the lifecycle: results, cancellation, deadlines ----------------------
+    # -- the lifecycle: results, cancellation, deadlines, shedding -----------
 
     _EVENT_OF = {Status.CANCELLED: "cancel",
-                 Status.DEADLINE_EXPIRED: "expire"}
+                 Status.DEADLINE_EXPIRED: "expire",
+                 Status.SHED: "shed"}
 
     def cancel(self, uid: int) -> None:
         """Ask for ``uid`` to be cancelled in the current ``serve``, at the
@@ -622,15 +928,16 @@ class ContinuousEngine:
         finished uid is a no-op. Safe from a ``progress_cb``."""
         self._cancel_uids.add(uid)
 
-    def _unadmitted(self, req: Request, status: str, now: float,
-                    results: List[RequestResult]) -> None:
+    def _unadmitted(self, sched: SlotScheduler, req: Request, status: str,
+                    now: float, results: List[RequestResult]) -> None:
         """The result of a request that leaves without a first token."""
         results.append(RequestResult(
             uid=req.uid, tokens=np.zeros((0,), np.int32), n_generated=0,
             queue_delay=now - req.arrival_time, ttft=float("inf"),
-            decode_seconds=0.0, status=status))
-        self.journal.emit(logger, self._EVENT_OF[status], uid=req.uid,
-                          status=status, queue_delay=now - req.arrival_time)
+            decode_seconds=0.0, status=status,
+            degraded=sched.degraded.pop(req.uid, None) is not None))
+        self._emit(self._EVENT_OF[status], uid=req.uid, status=status,
+                   queue_delay=now - req.arrival_time)
 
     def _finish_slot(self, sched: SlotScheduler, state: Dict[int, Any],
                      slot: int, status: str, now: float,
@@ -640,17 +947,17 @@ class ContinuousEngine:
         and ``finish`` event, for OK completion and eviction alike."""
         req = sched.release(slot)
         st = state.pop(slot)
-        reset_slot(self.cfg, self.cache, slot)
+        self._reset_dispatch(slot)
         self._park_slot_flags(slot)
         res = RequestResult(
             uid=req.uid, tokens=np.asarray(st["out"], np.int32),
             n_generated=len(st["out"]), queue_delay=st["queue_delay"],
             ttft=st["ttft"], decode_seconds=now - st["admit_time"],
-            status=status)
+            status=status,
+            degraded=sched.degraded.pop(req.uid, None) is not None)
         results.append(res)
-        self.journal.emit(logger, "finish", uid=req.uid, slot=slot,
-                          status=res.status, n=res.n_generated,
-                          ttft=res.ttft, tok_s=res.decode_tok_s)
+        self._emit("finish", uid=req.uid, slot=slot, status=res.status,
+                   n=res.n_generated, ttft=res.ttft, tok_s=res.decode_tok_s)
 
     def _abort_prefill(self, sched: SlotScheduler, slot: int) -> Request:
         """Tear down a PREFILLING slot: the lane cursor is dropped (the
@@ -659,7 +966,7 @@ class ContinuousEngine:
         if self._pf is not None and self._pf["slot"] == slot:
             self._pf = None
         req = sched.release(slot)
-        reset_slot(self.cfg, self.cache, slot)
+        self._reset_dispatch(slot)
         self._park_slot_flags(slot)
         return req
 
@@ -668,15 +975,16 @@ class ContinuousEngine:
                     results: List[RequestResult]) -> None:
         if sched.phase.get(slot) == PREFILLING:
             req = self._abort_prefill(sched, slot)
-            self._unadmitted(req, status, now, results)
+            self._unadmitted(sched, req, status, now, results)
         else:
             self._finish_slot(sched, state, slot, status, now, results)
 
     def _lifecycle(self, sched: SlotScheduler, state: Dict[int, Any],
                    results: List[RequestResult], clock) -> None:
-        """The chunk-boundary sweep (cancels, then deadlines), before
-        admission so that a doomed request never takes a prefill, and
-        before the decode chunk so that an evicted slot spends nothing."""
+        """The chunk-boundary sweep (cancels, deadlines, then shedding),
+        before admission so that a doomed request never takes a prefill,
+        and before the decode chunk so that an evicted slot spends
+        nothing."""
         now = clock()
         uids = set()
         while self._cancel_uids:            # safe against concurrent adds
@@ -684,7 +992,7 @@ class ContinuousEngine:
         for uid in uids:
             req = sched.pop_queued(uid)
             if req is not None:
-                self._unadmitted(req, Status.CANCELLED, now, results)
+                self._unadmitted(sched, req, Status.CANCELLED, now, results)
                 continue
             slot = next((s for s, r in sched.active.items() if r.uid == uid),
                         None)
@@ -692,13 +1000,16 @@ class ContinuousEngine:
                 self._end_active(sched, state, slot, Status.CANCELLED, now,
                                  results)
         for req in sched.expire_queued(now):
-            self._unadmitted(req, Status.DEADLINE_EXPIRED, now, results)
+            self._unadmitted(sched, req, Status.DEADLINE_EXPIRED, now,
+                             results)
         for slot in list(sched.active):
             req = sched.active[slot]
             if req.deadline_s is not None and \
                     now - req.arrival_time > req.deadline_s:
                 self._end_active(sched, state, slot,
                                  Status.DEADLINE_EXPIRED, now, results)
+        for req in sched.enforce_bounds(now):
+            self._unadmitted(sched, req, Status.SHED, now, results)
 
     def _check_request(self, r: Request) -> None:
         """A request the engine cannot serve right is refused at submit:
@@ -714,21 +1025,26 @@ class ContinuousEngine:
                 f"request uid={r.uid}: prompt ({len(r.tokens)}) exceeds "
                 f"the prefill-lane scratch ({self._lane_rows} rows)")
 
+    def _make_sched(self) -> SlotScheduler:
+        return SlotScheduler(self.n_slots, policy=self.admission_policy,
+                             max_queue=self.max_queue,
+                             shedding=self.shedding, journal=self.journal)
+
     def serve(self, requests: List[Request],
               progress_cb=None) -> List[RequestResult]:
         """Drain ``requests`` through the slots, honouring arrival times.
 
-        Per iteration: the lifecycle sweep (cancels, deadlines); admission
-        into free slots of the requests that have arrived (one batch-1
-        prefill each, or one lane chunk in chunked mode); one decode chunk
-        over all slots; harvest of each decoding slot's new tokens;
-        retirement of finished slots; then ``progress_cb(engine, sched)``
-        when given. When nothing is live and the lane is idle, the loop
-        sleeps until the next arrival. Returns one result per request, in
-        the order they ended (check ``status``).
+        Per iteration: the lifecycle sweep (cancels, deadlines, shedding);
+        admission into free slots of the requests that have arrived (one
+        batch-1 prefill each, or one lane chunk in chunked mode); one
+        decode chunk over all slots; harvest of each decoding slot's new
+        tokens; retirement of finished slots; then ``progress_cb(engine,
+        sched)`` when given. When nothing is live and the lane is idle, the
+        loop sleeps until the next arrival. Returns one result per request,
+        in the order they ended (check ``status``).
         """
         self._cancel_uids.clear()           # cancels of a past serve
-        sched = SlotScheduler(self.n_slots, policy=self.admission_policy)
+        sched = self._make_sched()
         for r in requests:
             self._check_request(r)
             sched.submit(r)
@@ -749,6 +1065,7 @@ class ContinuousEngine:
 
         state: Dict[int, Dict[str, Any]] = {}
         results: List[RequestResult] = []
+        self._sched = sched
         while True:
             self._lifecycle(sched, state, results, clock)
             if not sched.has_work:
@@ -784,4 +1101,6 @@ class ContinuousEngine:
                                       results)
             if progress_cb is not None:
                 progress_cb(self, sched)
+        self._sched = None
         return results
+

@@ -1045,3 +1045,131 @@ def test_chunked_continuous_matches_solo_on_card(cuda, width):
         assert eng.lane_replays == lane_replays + eng.lane_chunks > 0
         lane_replays = eng.lane_replays
     assert results[4].tokens[-1] == stop
+
+
+# ---------------------------------------------------------------------------
+# p_chunk="auto", serving tiers and the dense path on the card
+# ---------------------------------------------------------------------------
+
+def test_auto_p_chunk_on_card(cuda):
+    """``p_chunk="auto"`` at 2 layers, full width: the sweep times every
+    candidate as a graph replay, only the pick's lane graph is kept, and
+    (the pick above 16, the GEMM's wgmma regime) the chunked streams are
+    the solo streams bit for bit."""
+    from repro_torch.serving import ContinuousEngine, Request
+    cfg, params = _continuous_case(cuda, "llama3_8b")
+    eng = ContinuousEngine(cfg, params, QuantPolicy("nxfp4", "nxfp4"),
+                           n_slots=2, max_len=128, chunk=4,
+                           prefill_mode="chunked", p_chunk="auto",
+                           device=cuda)
+    assert sorted(eng.p_chunk_sweep) == [16, 32, 64, 128]
+    assert eng.p_chunk in eng.p_chunk_sweep and eng.p_chunk_decode_s > 0
+    assert set(eng._lane_graphs) == {False}
+    assert eng._lane_tok.shape == (1, eng.p_chunk)
+    rng = np.random.default_rng(12)
+    reqs = [Request(uid=i, tokens=rng.integers(0, cfg.vocab, (t,)),
+                    max_new=m, temperature=temp, seed=3)
+            for i, (t, m, temp) in enumerate([(40, 6, 0.0), (75, 9, 0.9),
+                                              (33, 5, 0.0)])]
+    results = {r.uid: r for r in eng.serve(reqs)}
+    policy = QuantPolicy(None, "nxfp4")
+    for req in reqs:
+        want = _solo_on_card(cfg, eng.params, policy, req, 128)
+        if eng.p_chunk > 16:
+            np.testing.assert_array_equal(results[req.uid].tokens, want)
+    assert eng.lane_replays == eng.lane_chunks > 0
+
+
+@pytest.mark.parametrize("mode", ["whole", "chunked"])
+def test_tiered_serve_on_card(cuda, mode):
+    """``TieredContinuousEngine(default_tiers())`` at 2 layers, full width,
+    3 slots: standard and economy streams (greedy and sampled) equal their
+    solo streams at their tier bit for bit, the economy prefill launches
+    the qq GEMM (7 a layer per prefill, or per lane-graph warm-up and
+    capture), every chunk is a graph replay, and the premium streams equal
+    the plain dense engine's serving the same traffic (the reference's
+    dense-rider guarantee)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import prefill as tprefill
+    from repro_torch.serving import (ContinuousEngine, Request,
+                                     TieredContinuousEngine, default_tiers)
+    cfg, params = _continuous_case(cuda, "llama3_8b")
+    tiers = default_tiers()
+    kw = dict(n_slots=3, max_len=128, chunk=4, device=cuda)
+    if mode == "chunked":
+        kw.update(prefill_mode="chunked", p_chunk=32)
+    eng = TieredContinuousEngine(cfg, params, tiers, **kw)
+    rng = np.random.default_rng(13)
+    names = ["premium", "standard", "economy", "economy", "standard",
+             "premium"]
+    reqs = [Request(uid=i, tokens=rng.integers(0, cfg.vocab, (t,)),
+                    max_new=m, temperature=0.9 if i in (3, 4) else 0.0,
+                    seed=5 + i, tier=names[i])
+            for i, (t, m) in enumerate([(40, 6), (75, 9), (33, 5), (50, 7),
+                                        (61, 8), (36, 5)])]
+    reset_launch_counts()
+    results = {r.uid: r for r in eng.serve(reqs)}
+    counts = launch_counts()
+    econ = [k for k in getattr(eng, "_lane_graphs", ()) if k[2] is not None]
+    want_qq = 7 * cfg.n_layers * (2 if mode == "whole" else 2 * len(econ))
+    assert counts["nxfp_qq_matmul"] == want_qq > 0
+    assert eng.replays == sum(eng.chunk_groups) and max(eng.chunk_groups) > 1
+    assert eng.lane_replays == eng.lane_chunks
+
+    class Solo(ServeEngine):
+        act_fmt = None
+
+        def _prefill(self, batch):
+            toks = torch.as_tensor(np.asarray(batch["tokens"]),
+                                   device=self.device)
+            return tprefill(cfg, self.params, {"tokens": toks},
+                            max_len=self.max_len, kv_fmt=self.policy.kv_fmt,
+                            act_fmt=self.act_fmt)
+
+    for req in reqs:
+        spec = tiers[req.tier]
+        if req.tier == "premium":
+            continue
+        solo = Solo(cfg, eng._wparams[spec.weight_fmt],
+                    QuantPolicy(None, spec.kv_fmt), max_len=128,
+                    rng_seed=req.seed, device=cuda)
+        solo.act_fmt = spec.act_fmt
+        out = solo.generate({"tokens": req.tokens[None]},
+                            max_new=req.max_new,
+                            temperature=req.temperature, loop="host")
+        np.testing.assert_array_equal(
+            results[req.uid].tokens,
+            out.tokens[0, :int(out.n_generated[0])],
+            err_msg=f"uid={req.uid} ({req.tier})")
+    dense = ContinuousEngine(cfg, eng._wparams[None], QuantPolicy(None, None),
+                             **kw)
+    ref = {r.uid: r.tokens for r in dense.serve(
+        [dataclasses.replace(r, tier=None) for r in reqs])}
+    for req in reqs:
+        if req.tier == "premium":
+            np.testing.assert_array_equal(results[req.uid].tokens,
+                                          ref[req.uid])
+
+
+@pytest.mark.parametrize("width", ["smoke", "llama3_8b"])
+def test_dense_path_rows_batch_invariant_on_card(cuda, width):
+    """The premium tier's path (bf16 weights through cuBLAS, dense KV):
+    row 0 of each row-spanning op but attention at B 4 and 8 equals the
+    same row at B 1, bit for bit: the cuBLAS projections, ``lm_head``,
+    the norm and the softmax (``scripts/batch_invariance.py --dense``).
+    Dense decode attention (an einsum, a batched cuBLAS product whose
+    reduction follows the batch) is not: 3715 of 4096 outputs of a row
+    moved at B 4, S 512, full width, on the H100 (ROADMAP C6); the smoke
+    model's held."""
+    import sys
+    import pathlib
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]
+                           / "scripts"))
+    import batch_invariance
+    cfg = _continuous_case(cuda, width)[0]
+    for op, by_b in batch_invariance.ops(cfg, None).items():
+        if op == batch_invariance.PLAIN_MEAN or (
+                op.startswith("decode_attention") and width != "smoke"):
+            continue
+        for b, r in by_b.items():
+            assert r["differ"] == 0, (op, b, r)

@@ -13,7 +13,8 @@
   chunk's logits (tolerance 1e-2, ``tests/test_torch_model.py``'s: bf16
   activations rounded per op in torch, fused in XLA).
 * The refusals of ``tests/test_prefill_chunk.py`` that apply to the dense
-  family, and the ones of the port's own (the ring lane, ``"auto"``).
+  family, and the ones of the port's own (the ring lane, ``"auto"`` with
+  no candidate width that fits).
 """
 import logging
 
@@ -482,7 +483,12 @@ def test_chunked_rejects_requests_beyond_the_cache_and_lane(setup):
 @pytest.mark.parametrize("kw,err,match", [
     (dict(p_chunk=0), ValueError, "p_chunk"),
     (dict(p_chunk=80), ValueError, "max_len"),
-    (dict(p_chunk="auto"), NotImplementedError, "auto"),
+    # "auto" is served now (tests/test_torch_shedding.py): the case keeps
+    # the id it had when "auto" raised NotImplementedError, and holds
+    # auto's refusal of candidate widths below 1
+    pytest.param(dict(p_chunk="auto", p_chunk_candidates=(0, -16)),
+                 ValueError, "no candidate",
+                 id="kw2-NotImplementedError-auto"),
     (dict(prefill_mode="lanes"), ValueError, "prefill_mode"),
 ])
 def test_chunked_rejects_bad_settings(setup, kw, err, match):

@@ -24,7 +24,8 @@ from repro_torch.kernels import build, nxfp_attention, nxfp_matmul
 from repro_torch.kernels import nxfp_qq_matmul, nxfp_quantize
 from repro_torch.kernels.ops import quantize_qtensor
 from repro_torch.models import init_cache, init_params
-from repro_torch.serving import ServeEngine
+from repro_torch.serving import (ContinuousEngine, ServeEngine,
+                                 TieredContinuousEngine, default_tiers)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
@@ -61,7 +62,9 @@ def test_import_scan_covers_the_package():
     for must in ("src/repro_torch/kernels/ops.py",
                  "src/repro_torch/serving/engine.py",
                  "src/repro_torch/convert.py", "chip_smoke.py",
-                 "scripts/profile_decode.py"):
+                 "scripts/profile_decode.py",
+                 "src/repro_torch/serving/tiers.py",
+                 "src/repro_torch/serving/snapshot.py"):
         assert must in names
 
 
@@ -87,6 +90,12 @@ ENTRY_POINTS = {
     "params_from_jax": lambda dev: params_from_jax(
         {"tok_embed": np.ones((4, 2), np.float32),
          "layers": {"wq": np.ones((2, 2, 2), np.float32)}}, device=dev),
+    "ContinuousEngine": lambda dev: ContinuousEngine(
+        _smoke(), init_params(_smoke(), seed=0, device="cpu"),
+        QuantPolicy("nxfp4", "nxfp4"), n_slots=2, max_len=16, device=dev),
+    "TieredContinuousEngine": lambda dev: TieredContinuousEngine(
+        _smoke(), init_params(_smoke(), seed=0, device="cpu"),
+        default_tiers(), n_slots=2, max_len=16, device=dev),
 }
 
 
