@@ -4,6 +4,9 @@
     python3 chip_smoke.py              # full run: 32 layers of Llama-3-8B
     python3 chip_smoke.py --layers 2   # same, with the depth cut to 2
 
+Phases 7-10 serve Llama-3-8B at ``--serving-layers`` (default 16, at most
+``--layers``); phase 11 serves its models at their full depth.
+
 Phases, each fatal on failure (exit code 1, no result line):
 
 1. Device: the card's name, count, and ``nvidia-smi`` name + power limit.
@@ -27,7 +30,17 @@ Phases, each fatal on failure (exit code 1, no result line):
    5.0, and nxfp6, phase 10's standard tier): the quantizer bitwise on a
    4096 x 14336 weight cast, the dequant GEMM at M 4, 32 and 512, the qq
    GEMM at M 512 and decode attention at S 256, each bitwise on a second
-   launch and within the tolerances above. Each is timed with CUDA events (cold L2), beside its plain
+   launch and within the tolerances above. The dense family's shapes: the
+   dequant GEMM at the (K, N) pairs of Llama-2-7B, StarCoder2-3B and
+   H2O-Danube3-4B at M 4 and 512, decode attention at G 1 (32 KV heads),
+   G 12 (2 KV heads) and head_dim 120 over a 4096-row ring, the K/V
+   write of head_dim 120 rows into that ring. The attention kernel's
+   dense-row instance (bf16 K/V, the premium tier's cache) at the same
+   head shapes: within 1e-5 of max|V| of its plain version (the
+   reference's einsum), bitwise on a second launch, a row's bits the same
+   at B 1, 4 and 8. The bf16 GEMM's route (cuBLAS on 128-row tiles above
+   16 rows): rows at M 17, 32 and 200 bitwise M 512's, timed at M 32 and
+   512 against one ``torch.mm``. Each is timed with CUDA events (cold L2), beside its plain
    version, one PyTorch library call computing the same function (a
    yardstick the port never calls) and its bound on the card.
 4. Reference on a small input: the smoke Llama through the kernels on the
@@ -113,13 +126,14 @@ Phases, each fatal on failure (exit code 1, no result line):
    solo stream (a degraded one's at max_new 8, greedy); goodput, shed
    count, queue delay. Then ``TieredContinuousEngine(default_tiers())``
    over a bf16 Llama-3-8B: first the premium path's invariance
-   (``batch_invariance.py --dense``: cuBLAS rows at B 4 and 8 vs B 1, the
-   lane at P 32 vs the whole prompt); phase 8's requests by uid % 3 over
-   premium, standard and economy, served whole and chunked (P 32), each
-   three times: standard and economy streams bitwise their solo streams
+   (``batch_invariance.py --dense``: cuBLAS rows, dense decode attention,
+   the norm and the softmax at B 4 and 8 vs B 1, the lane at P 32 vs the
+   whole prompt; every count must be 0); phase 8's requests by uid % 3
+   over premium, standard and economy, served whole and chunked (P 32),
+   each three times: every stream bitwise its solo stream
    (``ServeEngine``'s host loop at the tier; the economy prefill with
-   amxfp4 activations), premium likewise where the invariance holds, else
-   its differing streams reported; the qq GEMM launched 7 times a layer
+   amxfp4 activations); the dense-row attention launched on the premium
+   tier's path; the qq GEMM launched 7 times a layer
    per economy prefill and per lane-graph warm-up and capture, every
    decode and lane chunk a graph replay; a tier engine restricted to
    standard, and to premium, bitwise the plain engine at that policy; the
@@ -128,6 +142,18 @@ Phases, each fatal on failure (exit code 1, no result line):
    dense rows, ``degraded=True``, a ``kv-repack`` event). Printed: tok/s,
    TTFT by tier, group dispatches and ms a chunk by group count, arena and
    weight bytes, peak memory, the phase's seconds.
+
+11. The rest of the dense family at full width, nxfp4 weights and KV,
+   random weights from seed 0 cast on the card: Llama-2-7B (32 layers;
+   MHA) and StarCoder2-3B (30 layers; 2 KV heads) serve 4 requests
+   through ``ContinuousEngine`` (4 slots, chunk 16, max_len 512); H2O-
+   Danube3-4B (24 layers, head_dim 120, a 4096-row ring) serves 3
+   requests, one of 4500 prompt tokens (its ring wraps in prefill and in
+   decode), whole and through the lane at P 128, whose 4224 rows make it
+   a ring too (the chunks from offset 4224 on run the ring lane's
+   graphs). Each serve twice; every stream bitwise its solo host-loop
+   stream; the quantizer, the dequant GEMM and decode attention launched
+   on each model's path.
 
 The last three lines are the kernel table as JSON, the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.
@@ -381,8 +407,13 @@ def check_act_quantizer(timer, rows):
 
 
 # the K/V cache writes of the main path (Llama-3-8B's 8 KV heads of 128,
-# B 4, max_len 256): a decode step at ragged rows and a 4 x 128 prefill
-KV_CASES = {"decode": (1, (128, 200, 17, 255)), "prefill": (128, None)}
+# B 4, max_len 256): a decode step at ragged rows and a 4 x 128 prefill;
+# and H2O-Danube3-4B's (8 KV heads of 120, padded to 4 blocks of 32) into
+# its 4096-row ring: a decode step at rows pos % 4096 and a 128-row chunk
+KV_CASES = {"decode": (1, (128, 200, 17, 255), 128, 256),
+            "prefill": (128, None, 128, 256),
+            "decode danube": (1, (4095, 0, 17, 3000), 120, 4096),
+            "prefill danube": (128, None, 120, 4096)}
 
 
 def check_kv_write(timer, rows):
@@ -395,10 +426,10 @@ def check_kv_write(timer, rows):
     from repro_torch.kernels.decode_lib import decode_block_values
 
     fmt = get_format("nxfp4")
-    b, kvh, hd, s = 4, 8, 128, 256
-    nb = hd // fmt.block_size
+    b, kvh = 4, 8
     gen = torch.Generator(device="cuda").manual_seed(6)
-    for case, (t, pos) in KV_CASES.items():
+    for case, (t, pos, hd, s) in KV_CASES.items():
+        nb = -(-hd // fmt.block_size)
         k, v = (torch.randn((b, t, kvh, hd), generator=gen, device="cuda")
                 .to(torch.bfloat16) for _ in range(2))
         pos_t = (None if pos is None
@@ -424,8 +455,9 @@ def check_kv_write(timer, rows):
             pp, pm = plain[f"{n}_packed"], plain[f"{n}_meta"]
             diff = (kp != pp).any(-1) | (km.to(torch.int32)
                                          != pm.to(torch.int32))
-            src = torch.zeros((b, s, kvh, hd), device="cuda")
-            src[slots, at] = x.float()
+            src = torch.zeros((b, s, kvh, nb * fmt.block_size),
+                              device="cuda")
+            src[slots, at, :, :hd] = x.float()
             xb, _ = to_blocks(src, fmt.block_size, -1)
             if diff.any() and not bool(near_tie_blocks(xb[diff], fmt).all()):
                 fail(f"KV write ({case}): {int(diff.sum())} blocks differ "
@@ -435,7 +467,8 @@ def check_kv_write(timer, rows):
                 unpack_codes(kp, fmt.bits, 32), km, fmt) - decode_block_values(
                 unpack_codes(pp, fmt.bits, 32), pm, fmt)).abs().max()))
             n_cands += int(nq.evaluated_candidates(
-                x.reshape(-1, fmt.block_size), fmt).sum())
+                to_blocks(x, fmt.block_size, -1)[0].reshape(
+                    -1, fmt.block_size), fmt).sum())
         n_blocks = 2 * b * t * kvh * nb
         ms = timer(lambda: nq.nxfp_quantize_kv_rows(k, v, cache, pos_t, fmt))
         plain_ms = timer(lambda: nq.nxfp_quantize_kv_rows_plain(
@@ -444,7 +477,7 @@ def check_kv_write(timer, rows):
                    + (0 if pos_t is None else b * 4))
         b_ms, b_by = bound(n_bytes, n_cands * 32 * QUANT_OPS, PEAK_F32)
         regime = nq.quantize_plan(n_blocks, fmt.block_size).regime
-        log(f"KV write ({case}: K and V (4, {t}, 8, 128) bf16 -> nxfp4 "
+        log(f"KV write ({case}: K and V (4, {t}, 8, {hd}) bf16 -> nxfp4 "
             f"cache rows {'0..' + str(t - 1) if pos is None else list(pos)}, "
             f"{n_blocks} blocks, one launch, {regime} regime): bitwise except "
             f"{n_diff} near-tie blocks; kernel {ms:.4f} ms, plain "
@@ -452,7 +485,7 @@ def check_kv_write(timer, rows):
         rows[f"nxfp_quantize kv {case}"] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=b_by, library_ms=None, near_ties=n_diff,
-            shape=f"K, V (4, {t}, 8, 128) bf16 into an nxfp4 cache of 256 "
+            shape=f"K, V (4, {t}, 8, {hd}) bf16 into an nxfp4 cache of {s} "
                   f"rows, {n_blocks} blocks")
 
 
@@ -602,21 +635,30 @@ def check_qq_matmul(timer, rows):
 # streaming regime) and a 4 x 128 prefill (the wgmma regime)
 MATMUL_KN = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096))
 MATMUL_M = (4, 16, 512)
+# the (K, N) pairs the dense family adds (phase 11's models), at a decode
+# batch and a prefill: Llama-2-7B's w1/w3 and w2 (d_ff 11008: 344 blocks
+# of 32, 86 K tiles of 128), StarCoder2-3B's wq/wo, wk/wv (N 256), w1/w3
+# and w2, H2O-Danube3-4B's wq/wo (K 3840), wk/wv (N 960: 7.5 N tiles of
+# 128), w1/w3 and w2
+FAMILY_KN = ((4096, 11008), (11008, 4096), (3072, 3072), (3072, 256),
+             (3072, 12288), (12288, 3072), (3840, 3840), (3840, 960),
+             (3840, 10240), (10240, 3840))
+FAMILY_M = (4, 512)
 
 
-def check_matmul(timer, rows):
+def check_matmul(timer, rows, pairs=MATMUL_KN, row_counts=MATMUL_M):
     from repro_torch.core.formats import get_format
     from repro_torch.kernels import nxfp_matmul as nm
     from repro_torch.kernels.ops import quantize_qtensor
 
     fmt = get_format("nxfp4")
     gen = torch.Generator(device="cuda").manual_seed(2)
-    for k, n in MATMUL_KN:
+    for k, n in pairs:
         w = torch.randn((k, n), generator=gen, device="cuda") * 0.02
         wq = quantize_qtensor(w, fmt, axis=-2, device="cuda")
         del w
         wd = nm.dequant_weight_bf16(wq.packed, wq.meta, fmt)     # (N, K)
-        for m in MATMUL_M:
+        for m in row_counts:
             x = torch.randn((m, k), generator=gen, device="cuda").to(
                 torch.bfloat16)
             y = nm.nxfp_matmul(x, wq.packed, wq.meta, fmt)
@@ -652,11 +694,45 @@ def check_matmul(timer, rows):
                              shape=f"x ({m}, {k}) bf16 @ nxfp4 W ({k}, {n})")
 
 
-# decode attention's shapes: Llama-3-8B's heads at B 4, the main path's
-# cache (max_len 256), the continuous path's (512) and a long one (S
-# 4096), ragged lengths
-ATTENTION_CASES = ((256, (256, 200, 131, 17)), (512, (512, 300, 131, 17)),
-                   (4096, (4096, 3001, 1024, 17)))
+# decode attention's shapes: Llama-3-8B's heads (8 KV heads, G 4, D 128)
+# at B 4, the main path's cache (max_len 256), the continuous path's (512)
+# and a long one (S 4096), ragged lengths; then the dense family's heads:
+# Llama-2-7B's (32 KV heads, G 1), StarCoder2-3B's (2 KV heads, G 12) and
+# H2O-Danube3-4B's (head_dim 120, padded to 4 blocks) over its 4096-row
+# ring
+LLAMA_HEADS = (8, 4, 128)
+ATTENTION_CASES = ((LLAMA_HEADS, 256, (256, 200, 131, 17)),
+                   (LLAMA_HEADS, 512, (512, 300, 131, 17)),
+                   (LLAMA_HEADS, 4096, (4096, 3001, 1024, 17)),
+                   ((32, 1, 128), 512, (512, 300, 131, 17)),
+                   ((2, 12, 128), 512, (512, 300, 131, 17)),
+                   ((8, 4, 120), 4096, (4096, 3001, 1024, 17)))
+
+
+def _attention_key(name, heads, s):
+    if heads == LLAMA_HEADS:
+        return name + ("" if s == 256 else f" S={s}")
+    kvh, g, d = heads
+    return f"{name} KVH={kvh} G={g} D={d} S={s}"
+
+
+def _sdpa_yardstick(q, k, v, lengths):
+    """One SDPA call over f32 K/V (B, S, KVH, D), one query token a head:
+    the library's time for the same function (the port never calls it).
+    Returns (run, out)."""
+    import torch.nn.functional as F
+    b, kvh, g, d = q.shape
+    s = k.shape[1]
+    qh = q.reshape(b, kvh * g, 1, d)
+    kh = k.permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
+    vh = v.permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
+    mask = (torch.arange(s, device="cuda")[None, :]
+            < lengths[:, None])[:, None, None, :]
+
+    def run():
+        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                              scale=1.0)
+    return run, run().reshape(q.shape)
 
 
 def check_attention(timer, rows):
@@ -666,18 +742,21 @@ def check_attention(timer, rows):
     from repro_torch.kernels.ops import quantize_qtensor
 
     fmt = get_format("nxfp4")
-    b, kvh, g, d = 4, 8, 4, 128
+    b = 4
     gen = torch.Generator(device="cuda").manual_seed(3)
-    for s, lens in ATTENTION_CASES:
-        k = torch.randn((b, s, kvh, d), generator=gen, device="cuda").to(
+    for (kvh, g, hd), s, lens in ATTENTION_CASES:
+        k = torch.randn((b, s, kvh, hd), generator=gen, device="cuda").to(
             torch.bfloat16)
-        v = torch.randn((b, s, kvh, d), generator=gen, device="cuda").to(
+        v = torch.randn((b, s, kvh, hd), generator=gen, device="cuda").to(
             torch.bfloat16)
         kq = quantize_qtensor(k, fmt, axis=-1, device="cuda")
         vq = quantize_qtensor(v, fmt, axis=-1, device="cuda")
         del k, v
-        q = torch.randn((b, kvh, g, d), generator=gen, device="cuda") \
-            * d ** -0.5
+        # head_dim 120 is cast in 4 blocks of 32: q padded as
+        # ops.decode_attention pads it
+        d = kq.packed.shape[-2] * fmt.block_size
+        q = F.pad(torch.randn((b, kvh, g, hd), generator=gen, device="cuda")
+                  * hd ** -0.5, (0, d - hd))
         lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
         args = (q, kq.packed, kq.meta, vq.packed, vq.meta, lengths, fmt)
         out = na.nxfp_decode_attention(*args)
@@ -695,20 +774,13 @@ def check_attention(timer, rows):
         if not torch.equal(out, again):
             fail(f"decode attention S={s}: a second launch gave other bits")
         # yardstick: SDPA over pre-dequantized K/V, one query token per head
-        qh = q.reshape(b, kvh * g, 1, d)
-        kh = kd.permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
-        vh = vd.permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
+        lib, lib_out = _sdpa_yardstick(q, kd, vd, lengths)
         del kd, vd
-        mask = (torch.arange(s, device="cuda")[None, :]
-                < lengths[:, None])[:, None, None, :]
-        lib = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
-                                             scale=1.0)
-        lib_err = float((lib.reshape(out.shape) - ref).abs().max())
+        lib_err = float((lib_out - ref).abs().max())
         ms = timer(lambda: na.nxfp_decode_attention(*args))
         plain_ms = timer(lambda: na.nxfp_decode_attention_plain(*args), 5)
-        lib_ms = timer(lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, attn_mask=mask, scale=1.0))
-        del kh, vh
+        lib_ms = timer(lib)
+        del lib
         tot = int(lengths.sum())
         nb = d // 32
         n_bytes = (q.numel() * 4
@@ -716,17 +788,121 @@ def check_attention(timer, rows):
                    + b * 4 + out.numel() * 4)
         n_ops = 2 * 2 * tot * kvh * g * d              # QK^T and PV, f32
         b_ms, b_by = bound(n_bytes, n_ops, PEAK_F32)
-        log(f"decode attention B={b} KVH={kvh} G={g} D={d} S={s} lengths "
-            f"{list(lens)}: max err {err:.3g} (SDPA {lib_err:.3g}), "
-            f"bitwise on a second launch; kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, SDPA f32 {lib_ms:.4f} ms, bound "
+        log(f"decode attention B={b} KVH={kvh} G={g} D={d} (head_dim {hd}) "
+            f"S={s} lengths {list(lens)}: max err {err:.3g} (SDPA "
+            f"{lib_err:.3g}), bitwise on a second launch; kernel {ms:.4f} "
+            f"ms, plain {plain_ms:.4f} ms, SDPA f32 {lib_ms:.4f} ms, bound "
             f"{b_ms:.5f} ms ({b_by})")
-        key = "nxfp_decode_attention" + ("" if s == 256 else f" S={s}")
-        rows[key] = dict(
+        rows[_attention_key("nxfp_decode_attention", (kvh, g, hd), s)] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=b_by, library_ms=lib_ms,
             shape=f"q ({b}, {kvh}, {g}, {d}), nxfp4 K/V S={s}, "
                   f"lengths {list(lens)}")
+        torch.cuda.empty_cache()
+
+
+def check_dense_attention(timer, rows):
+    """The dense-row instance of the attention kernel (bf16 K/V, no
+    padding of head_dim) at every head shape of ``ATTENTION_CASES`` but
+    S 256: within 1e-5 of max|V| of its plain version (the reference's
+    einsum), bitwise on a second launch, and row 0's bits the same at B 1,
+    4 and 8 (the decode batch of a continuous engine's slots)."""
+    from repro_torch.kernels import dense_attention as da
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    for (kvh, g, d), s, lens in ATTENTION_CASES:
+        if s == 256:
+            continue
+        b = 8
+        k, v = (torch.randn((b, s, kvh, d), generator=gen, device="cuda")
+                .to(torch.bfloat16) for _ in range(2))
+        q = torch.randn((b, kvh, g, d), generator=gen, device="cuda") \
+            * d ** -0.5
+        lengths = torch.tensor(lens + (s, 77, 1, 250), dtype=torch.int32,
+                               device="cuda")
+        args4 = (q[:4], k[:4], v[:4], lengths[:4])
+        out = da.dense_decode_attention(*args4)
+        again = da.dense_decode_attention(*args4)
+        ref = da.dense_decode_attention_plain(*args4)
+        err = float((out - ref).abs().max())
+        if not err <= 1e-5 * float(v[:4].float().abs().max()):
+            fail(f"dense decode attention KVH={kvh} G={g} D={d} S={s}: "
+                 f"max error {err:.3g} exceeds 1e-5 max|V|")
+        if not torch.equal(out, again):
+            fail(f"dense decode attention KVH={kvh} G={g} D={d} S={s}: a "
+                 "second launch gave other bits")
+        row0 = {bb: da.dense_decode_attention(
+            q[:bb], k[:bb], v[:bb], lengths[:bb])[0] for bb in (1, 4, 8)}
+        moved = {bb: int((row0[bb] != row0[1]).sum()) for bb in (4, 8)}
+        if any(moved.values()):
+            fail(f"dense decode attention KVH={kvh} G={g} D={d} S={s}: row "
+                 f"0 moves with the batch ({moved} of {row0[1].numel()} "
+                 f"outputs at B 4, 8 against B 1)")
+        lib, lib_out = _sdpa_yardstick(q[:4], k[:4].float(), v[:4].float(),
+                                       lengths[:4])
+        lib_err = float((lib_out - ref).abs().max())
+        ms = timer(lambda: da.dense_decode_attention(*args4))
+        plain_ms = timer(lambda: da.dense_decode_attention_plain(*args4), 5)
+        lib_ms = timer(lib)
+        del lib
+        tot = int(lengths[:4].sum())
+        n_bytes = q[:4].numel() * 4 + 2 * tot * kvh * d * 2 + 16 \
+            + out.numel() * 4
+        b_ms, b_by = bound(n_bytes, 2 * 2 * tot * kvh * g * d, PEAK_F32)
+        log(f"dense decode attention B=4 KVH={kvh} G={g} D={d} S={s} "
+            f"lengths {list(lens)}: max err {err:.3g} (SDPA {lib_err:.3g}), "
+            f"bitwise on a second launch, row 0 the same bits at B 1/4/8; "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA f32 "
+            f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+        rows[_attention_key("dense_decode_attention", (kvh, g, d), s)] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib_ms,
+            shape=f"q (4, {kvh}, {g}, {d}), bf16 K/V S={s}, lengths "
+                  f"{list(lens)}")
+        del k, v
+        torch.cuda.empty_cache()
+
+
+# the bf16 GEMM's route (``ops._dense_matmul``, cuBLAS on 128-row tiles
+# above 16 rows): rows at these M against the same rows at M 512, and its
+# time at a lane chunk and a prefill against one torch.matmul
+DENSE_GEMM_M = (17, 32, 200)
+DENSE_GEMM_TIMED = (32, 512)
+
+
+def check_dense_gemm(timer, rows):
+    """Not a kernel of the port (the reference leaves the product to XLA):
+    the premium tier's projections. A row's bits must not follow M above
+    16; its time beside one torch.matmul of the same operands."""
+    from repro_torch.kernels.ops import _dense_matmul
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    for k, n in MATMUL_KN:
+        w = (torch.randn((k, n), generator=gen, device="cuda") * 0.02).to(
+            torch.bfloat16)
+        x = torch.randn((512, k), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        ref = _dense_matmul(x, w)
+        moved = {m: int((_dense_matmul(x[:m], w) != ref[:m]).sum())
+                 for m in DENSE_GEMM_M}
+        if any(moved.values()):
+            fail(f"dense GEMM K={k} N={n}: rows differ from M 512's at "
+                 f"{moved}")
+        for m in DENSE_GEMM_TIMED:
+            xm = x[:m].contiguous()
+            ms = timer(lambda: _dense_matmul(xm, w))
+            lib_ms = timer(lambda: torch.mm(xm, w, out_dtype=torch.float32))
+            n_bytes = k * n * 2 + m * k * 2 + m * n * 4
+            b_ms, b_by = bound(n_bytes, 2.0 * m * n * k, PEAK_BF16)
+            log(f"dense GEMM route M={m} K={k} N={n} (cuBLAS on 128-row "
+                f"tiles): rows at M {list(DENSE_GEMM_M)} bitwise M 512's; "
+                f"{ms:.4f} ms, one torch.mm {lib_ms:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by})")
+            rows[f"dense_gemm M={m} K={k} N={n}"] = dict(
+                max_abs_err=0.0, ms=ms, plain_ms=None, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms,
+                shape=f"x ({m}, {k}) bf16 @ W ({k}, {n}) bf16, f32 out")
+        del w, x
         torch.cuda.empty_cache()
 
 
@@ -1039,7 +1215,8 @@ def phase_main(n_layers: int):
             and (warm.tokens == dev.tokens).all()):
         fail("main path: graph device loop and host loop disagree")
     for name, c in counts.items():
-        if c <= 0 and name != "nxfp_qq_matmul":      # qq: phase 6's path
+        # qq: phase 6's path; the dense-row attention: phase 10's premium
+        if c <= 0 and name not in ("nxfp_qq_matmul", "dense_attention"):
             fail(f"main path: kernel {name} was never launched")
     prog = _device_loop_of(engine)
     if set(prog.graphs) != {(16, True)} or prog.replays != 4:
@@ -1171,7 +1348,7 @@ def phase_wide_serving(n_layers: int, prompts):
             fail(f"wide serving {wfmt} weights, {kvfmt} KV: graph device "
                  "loop and host loop disagree")
         for name, c in counts.items():
-            if c <= 0 and name != "nxfp_qq_matmul":
+            if c <= 0 and name not in ("nxfp_qq_matmul", "dense_attention"):
                 fail(f"wide serving {wfmt}: kernel {name} was never launched")
         log(f"wide serving: Llama-3-8B full width, {n_layers} layers, "
             f"{wfmt} weights, {kvfmt} KV, 4 x 128 prompt tokens, 16 greedy "
@@ -1221,7 +1398,7 @@ def phase_act(cfg, engine, prompts):
     if not torch.isfinite(logits).all():
         fail("qq prefill: non-finite logits")
     for name, c in counts.items():
-        if c <= 0:
+        if c <= 0 and name != "dense_attention":     # a packed cache here
             fail(f"qq prefill path: kernel {name} was never launched")
     if per_prefill["nxfp_qq_matmul"] != 7 * cfg.n_layers:
         fail(f"qq prefill: {per_prefill['nxfp_qq_matmul']} qq GEMMs, "
@@ -1878,12 +2055,16 @@ def phase_tiers(n_layers, card):
                      (f"P={TIER_P}",) + tuple(
                          f"M={m}" for m in batch_invariance.GEMM_M
                          if m >= TIER_P))
-    log(f"premium path invariance ({card}; bf16 weights through cuBLAS, "
-        f"dense KV; smoke Llama and Llama-3-8B full width, 2 layers): a "
-        f"decode row at B {list(batch_invariance.BATCHES)} vs B 1: "
-        f"{len(inv_bad)} differing ops {sorted(inv_bad)}; the lane at P "
+    log(f"premium path invariance ({card}; bf16 weights through cuBLAS on "
+        f"128-row tiles above 16 rows, dense KV through the dense-row "
+        f"attention kernel; smoke Llama and Llama-3-8B full width, 2 "
+        f"layers): a decode row at B {list(batch_invariance.BATCHES)} vs B "
+        f"1: {len(inv_bad)} differing ops {sorted(inv_bad)}; the lane at P "
         f"{TIER_P} vs the whole prompt: {len(lane_bad)} differing ops "
         f"{sorted(lane_bad)}: {json.dumps({'decode': dense_inv, 'lane': dense_lane})}")
+    if inv_bad or lane_bad:
+        fail(f"premium path invariance: {sorted(inv_bad)} "
+             f"{sorted(lane_bad)} differ")
 
     cfg = dataclasses.replace(get_config("llama3_8b"), n_layers=n_layers)
     raw = init_params(cfg, seed=0, device="cuda")
@@ -1936,10 +2117,10 @@ def phase_tiers(n_layers, card):
         fail(f"tiers: a chunk ran outside its graph (lane {lane.lane_replays}"
              f" replays / {lane.lane_chunks} chunks, decode "
              f"{lane.replays} / {sum(lane.chunk_groups)} group dispatches)")
-    held_premium = {"whole": not inv_bad, "chunked": not inv_bad
-                    and not lane_bad}
+    if counts["dense_attention"] <= 0:
+        fail("tiers: the premium tier never launched the dense-row "
+             "attention kernel")
     figures = {"whole": [], "chunked": []}
-    differ = {"whole": set(), "chunked": set()}
     for mode in ("whole", "chunked", "chunked", "whole"):
         eng = whole if mode == "whole" else lane
         torch.cuda.synchronize()
@@ -1953,9 +2134,6 @@ def phase_tiers(n_layers, card):
                 if same:
                     continue
                 tier = reqs[r.uid].tier
-                if tier == "premium" and not held_premium[mode]:
-                    differ[mode].add(r.uid)
-                    continue
                 fail(f"tiers ({mode}): uid {r.uid} ({tier}, {r.status}) "
                      f"{r.tokens[:8].tolist()} ... differs from its solo "
                      f"stream {solos[r.uid][:8].tolist()} ...")
@@ -2067,12 +2245,10 @@ def phase_tiers(n_layers, card):
     log(f"serving tiers ({card}): Llama-3-8B full width, {n_layers} layers "
         f"(bf16 model), default_tiers() {json.dumps({k: dataclasses.astuple(v) for k, v in tiers.items()})}, "
         f"{CONT_SLOTS} slots, chunk {CONT_CHUNK}, max_len {CONT_MAX_LEN}; "
-        f"phase 8's 8 requests by uid % 3 over {TIER_OF}: standard and "
-        f"economy streams equal their solo streams bitwise (economy: the "
-        f"amxfp4 prefill, whole and lane alike), premium "
-        f"{'held bitwise' if all(held_premium.values()) else 'differing streams ' + json.dumps({m: sorted(d) for m, d in differ.items()})} "
-        f"(held where the invariance above is 0: {held_premium}); one-tier "
-        f"engines vs the plain engine: {single}")
+        f"phase 8's 8 requests by uid % 3 over {TIER_OF}: every stream "
+        f"equals its solo stream bitwise, whole and chunked (economy: the "
+        f"amxfp4 prefill, whole and lane alike; premium: bf16 weights and "
+        f"dense KV); one-tier engines vs the plain engine: {single}")
     for mode in figures:
         log(f"  {mode} ({card}) 3 serves (first captures): medians "
             f"{med[mode]}; by serve {figures[mode]}")
@@ -2096,9 +2272,124 @@ def phase_tiers(n_layers, card):
     del whole, lane, model
     torch.cuda.empty_cache()
     return counts, {"tiers": med, "admit_seconds": admit_s,
-                    "group_ms": group_ms,
-                    "premium_differ": {m: sorted(d) for m, d in
-                                       differ.items()}}
+                    "group_ms": group_ms}
+
+
+# phase 11: the rest of the dense family at full width (nxfp4 weights and
+# KV, random weights from seed 0): requests served through
+# ContinuousEngine, every stream against its solo stream
+FAMILY = ("llama2_7b", "starcoder2_3b")
+FAMILY_PROMPTS, FAMILY_NEW = (48, 160, 96, 256), (16, 8, 24, 12)
+# H2O-Danube3-4B's 4096-row ring: a 4500-token prompt wraps it in prefill
+# and, 24 tokens on, again in decode; whole admission and the lane at P
+# 128, whose lane of 4224 rows is a ring too (4224 >= 4096 + 128): its
+# chunks from offset 4224 on run the ring lane
+DANUBE_MAX_LEN, DANUBE_P = 4224, 128
+DANUBE_PROMPTS, DANUBE_NEW = (4500, 200, 64), (24, 16, 8)
+
+
+def _family_requests(cfg, prompts, news):
+    import numpy as np
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(1)
+    return [Request(uid=i, tokens=rng.integers(0, cfg.vocab, (t,)),
+                    max_new=m) for i, (t, m) in enumerate(zip(prompts, news))]
+
+
+def _family_serve(arch, modes, max_len, prompts, news, card):
+    """``arch`` at full width served through ``ContinuousEngine`` in each
+    of ``modes`` ("whole", or a lane width), twice (the first serve
+    captures the graphs), every stream against its solo host-loop stream;
+    the kernels' launches over the first serves. Returns (launch counts,
+    figures)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.qtensor import QuantPolicy
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import init_params
+    from repro_torch.serving import ContinuousEngine, ServeEngine, Status
+    from repro_torch.serving.engine import load_params
+
+    cfg = get_config(arch)
+    t0 = time.time()
+    raw = init_params(cfg, seed=0, device="cuda")
+    params = load_params(raw, QuantPolicy("nxfp4", None),
+                         torch.device("cuda"))
+    del raw
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    cast_s = time.time() - t0
+    reqs = _family_requests(cfg, prompts, news)
+    policy = QuantPolicy(None, "nxfp4")         # the weights are cast
+    solos = {}
+    for req in reqs:
+        out = ServeEngine(cfg, params, policy, max_len=max_len,
+                          device="cuda").generate(
+            {"tokens": req.tokens[None]}, max_new=req.max_new, loop="host")
+        solos[req.uid] = out.tokens[0]
+    reset_launch_counts()
+    figures = {}
+    for mode in modes:
+        kw = ({} if mode == "whole" else
+              dict(prefill_mode="chunked", p_chunk=mode))
+        eng = ContinuousEngine(cfg, params, policy, n_slots=CONT_SLOTS,
+                               max_len=max_len, chunk=CONT_CHUNK,
+                               device="cuda", **kw)
+        for serve in ("first", "second"):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            results = eng.serve(reqs)
+            wall = time.perf_counter() - t1
+            for r in results:
+                if r.status != Status.OK or not np.array_equal(
+                        r.tokens, solos[r.uid]):
+                    fail(f"{arch} ({mode}, {serve} serve): uid {r.uid} "
+                         f"({r.status}) {r.tokens[:8].tolist()} ... differs "
+                         f"from its solo stream {solos[r.uid][:8].tolist()}")
+        if eng.replays == 0 or (mode != "whole"
+                                and eng.lane_replays == 0):
+            fail(f"{arch} ({mode}): no graph replays")
+        figures[str(mode)] = dict(
+            _serve_figures(eng, results, wall),
+            lane_graphs=sorted(map(str, getattr(eng, "_lane_graphs", {}))))
+        del eng
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    for name in ("nxfp_quantize", "nxfp_matmul", "nxfp_attention"):
+        if counts[name] <= 0:
+            fail(f"{arch}: kernel {name} was never launched")
+    log(f"{arch} ({card}): full width, {cfg.n_layers} layers (d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads, {cfg.n_kv_heads} KV heads, "
+        f"head_dim {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, window "
+        f"{cfg.sliding_window}), nxfp4 weights and KV, random weights "
+        f"(seed 0, cast in {cast_s:.2f} s), {CONT_SLOTS} slots, chunk "
+        f"{CONT_CHUNK}, max_len {max_len}; {len(reqs)} requests (prompts "
+        f"{list(prompts)}, max_new {list(news)}) served {list(modes)} "
+        f"twice: every stream equals its solo host-loop stream bitwise; "
+        f"second serves {figures}; launches {counts}")
+    del params
+    torch.cuda.empty_cache()
+    return counts, figures
+
+
+def phase_dense_family(card):
+    """Llama-2-7B (32 layers) and StarCoder2-3B (30) served whole, and
+    H2O-Danube3-4B (24 layers, window 4096) served whole and through the
+    ring lane at P 128 with a prompt that wraps its ring."""
+    out = {}
+    for arch in FAMILY:
+        out[arch] = _family_serve(arch, ("whole",), CONT_MAX_LEN,
+                                  FAMILY_PROMPTS, FAMILY_NEW, card)
+    counts, figures = _family_serve(
+        "h2o_danube_3_4b", ("whole", DANUBE_P), DANUBE_MAX_LEN,
+        DANUBE_PROMPTS, DANUBE_NEW, card)
+    ring = [g for g in figures[str(DANUBE_P)]["lane_graphs"] if "ring" in g]
+    if not ring:
+        fail(f"h2o_danube_3_4b: the ring lane never ran (lane graphs "
+             f"{figures[str(DANUBE_P)]['lane_graphs']})")
+    out["h2o_danube_3_4b"] = counts, figures
+    return out
 
 
 def kernel_formats(kname, rows, wide_counts):
@@ -2106,7 +2397,8 @@ def kernel_formats(kname, rows, wide_counts):
     phase-3 wide rows and the formats phase 7 served through it."""
     main = {"nxfp_quantize": ["nxfp4", "amxfp4"],
             "nxfp_matmul": ["nxfp4"], "nxfp_decode_attention": ["nxfp4"],
-            "nxfp_qq_matmul": ["amxfp4 x nxfp4"]}[kname]
+            "nxfp_qq_matmul": ["amxfp4 x nxfp4"],
+            "dense_decode_attention": ["bf16"]}[kname]
     wide = [r["fmt"] for k, r in rows.items()
             if "fmt" in r and k.split(" ")[0] == kname]
     if kname == "nxfp_qq_matmul":
@@ -2143,6 +2435,10 @@ KERNELS = {
                     "src/repro/kernels/nxfp_matmul.py:73"),
     "nxfp_decode_attention": (["src/repro_torch/csrc/nxfp_attention.cu"],
                               "src/repro/kernels/nxfp_attention.py:86"),
+    # the kernel's dense-row instance: on the card it takes the place of
+    # the reference's dense-cache einsum (XLA, no Pallas kernel)
+    "dense_decode_attention": (["src/repro_torch/csrc/nxfp_attention.cu"],
+                               "src/repro/models/kvcache.py:460"),
     "nxfp_qq_matmul": (["src/repro_torch/csrc/nxfp_qq_matmul.cu",
                         "src/repro_torch/csrc/nxfp_matmul.cu",
                         "src/repro_torch/csrc/nxfp_matmul_prefill.cu",
@@ -2155,21 +2451,32 @@ KERNELS = {
 # prefill shape, mlp_w1/w3)
 COUNTERS = {"nxfp_quantize": "nxfp_quantize", "nxfp_matmul": "nxfp_matmul",
             "nxfp_decode_attention": "nxfp_attention",
-            "nxfp_qq_matmul": "nxfp_qq_matmul"}
+            "nxfp_qq_matmul": "nxfp_qq_matmul",
+            "dense_decode_attention": "dense_attention"}
 MAIN_ROW = {"nxfp_quantize": "nxfp_quantize",
             "nxfp_matmul": "nxfp_matmul M=4 K=4096 N=14336",
             "nxfp_decode_attention": "nxfp_decode_attention",
-            "nxfp_qq_matmul": "nxfp_qq_matmul M=512 K=4096 N=14336"}
+            "nxfp_qq_matmul": "nxfp_qq_matmul M=512 K=4096 N=14336",
+            "dense_decode_attention": "dense_decode_attention S=512"}
 # the path whose launches stand for each kernel: the serving main path
-# (phase 5), or the qq prefill path (phase 6) for the qq GEMM
+# (phase 5), the qq prefill path (phase 6) for the qq GEMM, the tiered
+# path's premium tier (phase 10) for the dense-row attention
 QQ_PATH = ("nxfp_qq_matmul",)
+TIER_PATH = ("dense_decode_attention",)
+# phases 7-10 serve Llama-3-8B at this depth (the main path, phase 5, at
+# --layers): the script's clock has room for phase 11 at full depth
+SERVING_LAYERS = 16
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=32,
                     help="Llama-3-8B depth for the main path (default 32)")
+    ap.add_argument("--serving-layers", type=int, default=SERVING_LAYERS,
+                    help="Llama-3-8B depth for phases 7-10 (default "
+                         f"{SERVING_LAYERS}, at most --layers)")
     args = ap.parse_args()
+    late = min(args.layers, args.serving_layers)
     name, count, smi_line = phase_device()
     src = os.path.join(ROOT, "src")
     if not os.path.isdir(os.path.join(src, "repro_torch", "csrc")):
@@ -2186,7 +2493,10 @@ def main():
     check_kv_write(timer, rows)
     check_lane_kv_write(timer, rows)
     check_matmul(timer, rows)
+    check_matmul(timer, rows, FAMILY_KN, FAMILY_M)
     check_attention(timer, rows)
+    check_dense_attention(timer, rows)
+    check_dense_gemm(timer, rows)
     check_qq_matmul(timer, rows)
     check_wide_formats(timer, rows)
     del timer
@@ -2196,34 +2506,45 @@ def main():
     act_counts = phase_act(cfg, engine, prompts)
     del engine
     torch.cuda.empty_cache()
-    wide_counts = phase_wide_serving(args.layers, prompts)
+    t7 = time.time()
+    if late != args.layers:
+        log(f"phases 7-10: Llama-3-8B depth cut to {late} layers")
+    wide_counts = phase_wide_serving(late, prompts)
     phase_invariance()
     cont_counts, cast, reqs, solos = phase_continuous(
-        args.layers, loops["graph"], smi_line)
+        late, loops["graph"], smi_line)
     phase_chunked_invariance()
-    lane_counts = phase_lane(args.layers, cast, reqs, solos, smi_line)
+    lane_counts = phase_lane(late, cast, reqs, solos, smi_line)
     t10 = time.time()
-    auto_counts, _ = phase_auto_and_overload(args.layers, cast, reqs, solos,
+    auto_counts, _ = phase_auto_and_overload(late, cast, reqs, solos,
                                              smi_line)
     del cast
     torch.cuda.empty_cache()
-    tier_counts, _ = phase_tiers(args.layers, smi_line)
-    log(f"phase 10 seconds: {time.time() - t10:.1f}")
+    tier_counts, _ = phase_tiers(late, smi_line)
+    log(f"phases 7-9 seconds: {t10 - t7:.1f}; phase 10 seconds: "
+        f"{time.time() - t10:.1f}")
+    t11 = time.time()
+    family = phase_dense_family(smi_line)
+    log(f"phase 11 seconds: {time.time() - t11:.1f}")
 
     table = []
     for kname, (sources, replaces) in KERNELS.items():
         row = rows[MAIN_ROW[kname]]
         c = COUNTERS[kname]
+        path = (act_counts if kname in QQ_PATH else tier_counts
+                if kname in TIER_PATH else counts)
         table.append(dict(
             name=kname, route="cuda", source=sources[0], sources=sources,
             replaces=replaces,
-            launches=(act_counts if kname in QQ_PATH else counts)[c],
+            launches=path[c],
+            launches_main_path=counts[c],
             launches_qq_prefill_path=act_counts[c],
             launches_per_decode_step=per_step[c],
             launches_continuous_path=cont_counts[c],
             launches_chunked_path=lane_counts[c],
             launches_auto_path=auto_counts[c],
             launches_tiered_path=tier_counts[c],
+            launches_dense_family={a: v[0][c] for a, v in family.items()},
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],

@@ -7,6 +7,7 @@ how many rows share the call?
     python3 scripts/batch_invariance.py --device cpu # the plain path, smoke only
     python3 scripts/batch_invariance.py --chunked    # whole prefill vs the lane
     python3 scripts/batch_invariance.py --dense      # bf16 weights, dense KV
+    python3 scripts/batch_invariance.py --arch h2o_danube_3_4b  # its widths
 
 Decode (the default). Row 0 of every input equals the B = 1 input and the
 other rows are random. For B in ``BATCHES`` the script counts the elements
@@ -35,11 +36,12 @@ K/V bytes against ``prefill``'s, eagerly and (on the card) as a replay of
 a captured graph. The chunked engine's oracle (a lane-admitted stream
 equals its solo stream) needs every count of the lane's own path to be 0.
 
-``--dense``: the same with bf16 weights (cuBLAS products) and a dense KV
-cache instead of nxfp4 (the premium serving tier's path): the GEMM rows
-are ``torch.mm``'s, attention the dense einsum path of ``attend_decode``
-or ``attend_chunked``, and ``decode_step``/``prefill_chunk`` run the dense
-model.
+``--dense``: the same with bf16 weights (cuBLAS products, on fixed
+128-row tiles above 16 rows) and a dense KV cache instead of nxfp4 (the
+premium serving tier's path): the GEMM rows are ``ops._dense_matmul``'s,
+decode attention the attention kernel's dense-row instance through
+``attend_decode``, prefill attention ``attend_chunked``, and
+``decode_step``/``prefill_chunk`` run the dense model.
 
 The last line is one JSON object.
 """
@@ -228,9 +230,10 @@ def decode(cfg, params, kv) -> dict:
     return out
 
 
-def measure(n_layers: int = 2, fmt="nxfp4") -> dict:
-    """Every row-0 difference, smoke and Llama-3-8B width, weights and KV
-    at ``fmt`` (None: bf16 weights and a dense KV cache)."""
+def measure(n_layers: int = 2, fmt="nxfp4", archs=("llama3_8b",)) -> dict:
+    """Every row-0 difference, smoke Llama and ``archs`` at full width
+    (``n_layers`` deep), weights and KV at ``fmt`` (None: bf16 weights and
+    a dense KV cache)."""
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.core.qtensor import QuantPolicy
     from repro_torch.models import init_params
@@ -239,8 +242,9 @@ def measure(n_layers: int = 2, fmt="nxfp4") -> dict:
     out = {}
     models = [("smoke", get_smoke_config("llama3_8b"))]
     if DEV == "cuda":
-        models.append(("llama3_8b", dataclasses.replace(
-            get_config("llama3_8b"), n_layers=n_layers)))
+        models += [(arch, dataclasses.replace(get_config(arch),
+                                              n_layers=n_layers))
+                   for arch in archs]
     for name, cfg in models:
         params = init_params(cfg, seed=0, device=DEV)
         eng = ServeEngine(cfg, params, QuantPolicy(fmt, fmt),
@@ -423,6 +427,9 @@ def main():
                     help="whole prefill against the chunked-prefill lane")
     ap.add_argument("--dense", action="store_true",
                     help="bf16 weights and a dense KV cache (not nxfp4)")
+    ap.add_argument("--arch", action="append",
+                    help="decode: a full-width model besides the smoke "
+                         "Llama (default llama3_8b; repeatable)")
     args = ap.parse_args()
     global DEV
     DEV = args.device
@@ -430,8 +437,9 @@ def main():
         sys.exit("batch_invariance.py needs a CUDA device")
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import repro_torch  # noqa: F401  (pins the TF32 flags)
-    res = (measure_chunked if args.chunked else measure)(
-        args.layers, None if args.dense else "nxfp4")
+    fmt = None if args.dense else "nxfp4"
+    res = (measure_chunked(args.layers, fmt) if args.chunked else
+           measure(args.layers, fmt, tuple(args.arch or ("llama3_8b",))))
     for model, rows in res.items():
         for op, by_b in rows.items():
             print(f"{model} {op}: " + "; ".join(

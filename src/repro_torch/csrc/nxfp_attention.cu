@@ -42,6 +42,14 @@
 //   resets to 0) merges them in split order: M = max m_i, l = sum l_i
 //   e^(m_i - M), acc = sum acc_i e^(m_i - M). No atomics touch the output,
 //   so a second launch gives the same bits. A length-0 sequence gives 0.
+// Dense-row instance (QB = -1, entry nxfp_dense_attention_launch): the
+// same kernel over a bf16 cache, K/V (B, S, KVH, D) as the dense cache
+// lays them out, D any multiple of 8 (head_dim 120 included). Only the
+// tile loader differs: 8 bf16 values a thread per 16-byte load, widened to
+// f32 exactly. Scores, online softmax, split plan and split-order merge
+// are the packed instance's, so a row's bits do not depend on B (the
+// dense cache's einsum, a batched cuBLAS product, moved them with B). Its
+// bound is the bf16 K/V bytes over the valid length.
 // How far it got: PERF.md (the kernel table).
 #include <cuda_runtime.h>
 
@@ -95,7 +103,8 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // QB: the block size of an instance that reads whole blocks, 0 for the
-// generic instance (bs = 1 << lbs, any power of two from 8 to 128).
+// generic instance (bs = 1 << lbs, any power of two from 8 to 128), -1
+// for bf16 rows (kp/vp the bf16 caches, NB = D, lbs = 0; km/vm unused).
 template <int BITS, int QB, bool EX>
 __global__ void __launch_bounds__(kThreads)
 nxfp_decode_attention_kernel(const float* __restrict__ q,
@@ -128,7 +137,7 @@ nxfp_decode_attention_kernel(const float* __restrict__ q,
   const int r0 = split * tps * kTS, r1 = min(len, r0 + tps * kTS);
   const size_t bh = (size_t)b * KVH + h;
 
-  nxfp::fill_lut<BITS>(lut, af, tid, kThreads);
+  if constexpr (QB >= 0) nxfp::fill_lut<BITS>(lut, af, tid, kThreads);
   const float* qb = q + bh * G * D;
   for (int i = tid; i < G * D; i += kThreads) {
     qs[i] = qb[i];
@@ -154,6 +163,31 @@ nxfp_decode_attention_kernel(const float* __restrict__ q,
         } else {
 #pragma unroll
           for (int i = 0; i < QB; ++i) kd[i] = vd[i] = 0.0f;
+        }
+      }
+    } else if constexpr (QB < 0) {
+      // bf16 rows: 8 values per item, one 16-byte load each (D % 8 == 0)
+      const int no = D / 8;
+      for (int it = tid; it < kTS * no; it += kThreads) {
+        const int r = it / no, j = it % no, s = s0 + r;
+        float* kd = ks + r * DP + 8 * j;
+        float* vd = vs + r * DP + 8 * j;
+        if (s < S) {
+          const size_t at = ((((size_t)b * S + s) * KVH + h) * D + 8 * j) * 2;
+          const uint4 kw = *reinterpret_cast<const uint4*>(kp + at);
+          const uint4 vw = *reinterpret_cast<const uint4*>(vp + at);
+          const uint32_t kx[4] = {kw.x, kw.y, kw.z, kw.w};
+          const uint32_t vx[4] = {vw.x, vw.y, vw.z, vw.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            kd[2 * i] = __uint_as_float(kx[i] << 16);
+            kd[2 * i + 1] = __uint_as_float(kx[i] & 0xffff0000u);
+            vd[2 * i] = __uint_as_float(vx[i] << 16);
+            vd[2 * i + 1] = __uint_as_float(vx[i] & 0xffff0000u);
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < 8; ++i) kd[i] = vd[i] = 0.0f;
         }
       }
     } else {
@@ -334,4 +368,23 @@ extern "C" int nxfp_decode_attention_launch(
   NXFP_ATT_GEN(6) NXFP_ATT_GEN(7) NXFP_ATT_GEN(8)
 #undef NXFP_ATT_GEN
   return (int)cudaErrorInvalidValue;
+}
+
+// The dense-row instance: K/V (B, S, KVH, D) bf16, 16-byte aligned, D a
+// multiple of 8; the split plan and scratch as above.
+extern "C" int nxfp_dense_attention_launch(
+    const void* q, const void* k, const void* v, const void* lengths,
+    void* out, int B, int S, int KVH, int G, int D, int splits, int tps,
+    void* ws, void* counters, void* stream) {
+  const Args a{q, k, nullptr, v, nullptr, lengths, out, ws, counters, B, S,
+               KVH, G, D, splits, tps, 0, nxfp::FmtDesc{},
+               reinterpret_cast<cudaStream_t>(stream)};
+  if (B == 0 || KVH == 0 || G == 0) return 0;
+  const long long tiles = ((long long)S + kTS - 1) / kTS;
+  if (D < 8 || D % 8 || splits < 1 || tps < 1 || splits > 65535 ||
+      B > 65535 || (long long)(splits - 1) * tps >= (tiles > 0 ? tiles : 1) ||
+      (long long)splits * tps < tiles ||
+      (splits > 1 && (ws == nullptr || counters == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  return launch<4, -1, false>(a);
 }

@@ -132,11 +132,15 @@ def library():
         lib.nxfp_decode_attention_launch.argtypes = [vp, vp, vp, vp, vp, vp,
                                                      vp, i, i, i, i, i, vp,
                                                      i, i, vp, vp, vp]
+        lib.nxfp_dense_attention_launch.argtypes = [vp, vp, vp, vp, vp, i,
+                                                    i, i, i, i, i, i, vp, vp,
+                                                    vp]
         lib.nxfp_qq_matmul_launch.argtypes = [vp, vp, vp, vp, vp, i, i, i,
                                               vp, vp, vp, i, i, vp, vp, vp]
         for fn in (lib.nxfp_quantize_launch, lib.nxfp_matmul_launch,
                    lib.nxfp_matmul_decode_geometry,
                    lib.nxfp_decode_attention_launch,
+                   lib.nxfp_dense_attention_launch,
                    lib.nxfp_qq_matmul_launch):
             fn.restype = ctypes.c_int
         _lib = lib

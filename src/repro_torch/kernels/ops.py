@@ -16,23 +16,49 @@ import torch.nn.functional as F
 from .. import resolve_device
 from ..core.qtensor import QTensor, fmt_key
 from ..core.quantize import resolve_format, to_blocks
+from .dense_attention import dense_decode_attention
 from .nxfp_attention import nxfp_decode_attention
 from .nxfp_matmul import nxfp_matmul, plain_product
 from .nxfp_qq_matmul import nxfp_qq_matmul
 from .nxfp_quantize import nxfp_quantize_pack
 
-__all__ = ["qmatmul", "quantize_qtensor", "decode_attention"]
+__all__ = ["qmatmul", "quantize_qtensor", "decode_attention",
+           "decode_attention_dense"]
+
+# above this many rows the bf16 product runs on row tiles of this height
+DENSE_ROW_TILE = 128
+DENSE_SMALL_M = 16
 
 
 def _dense_matmul(x, w):
-    """bf16(x) @ bf16(w) with f32 accumulation and an f32 result."""
+    """bf16(x) @ bf16(w) with f32 accumulation and an f32 result.
+
+    On CUDA a plain product outside any kernel (the reference leaves it to
+    XLA): cuBLAS with f32 accumulation and an f32 output. cuBLAS picks its
+    kernel, and with it the order of a row's sums, from the shape, so
+    above ``DENSE_SMALL_M`` rows the product runs on fixed (128, K) row
+    tiles, the last one zero-padded: every call cuBLAS sees has one shape
+    whatever M is, and a prompt row gets the same bits whole or in the
+    chunked-prefill lane's chunks of more than 16 rows. Up to 16 rows (a
+    decode batch, a short lane chunk) it stays one call, whose rows hold
+    across the batch (``scripts/batch_invariance.py --dense``)."""
     xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
     if x.device.type == "cuda":
-        # a plain product outside any kernel (the reference leaves it to
-        # XLA): cuBLAS with f32 accumulation and an f32 output
         lead = xb.shape[:-1]
-        y = torch.mm(xb.reshape(-1, xb.shape[-1]), wb, out_dtype=torch.float32)
-        return y.reshape(*lead, wb.shape[-1])
+        x2 = xb.reshape(-1, xb.shape[-1])
+        m, n = x2.shape[0], wb.shape[-1]
+        if m <= DENSE_SMALL_M:
+            y = torch.mm(x2, wb, out_dtype=torch.float32)
+            return y.reshape(*lead, n)
+        tiles = -(-m // DENSE_ROW_TILE)
+        if tiles * DENSE_ROW_TILE != m:
+            x2 = F.pad(x2, (0, 0, 0, tiles * DENSE_ROW_TILE - m))
+        y = torch.empty((tiles * DENSE_ROW_TILE, n), dtype=torch.float32,
+                        device=x.device)
+        for i in range(0, tiles * DENSE_ROW_TILE, DENSE_ROW_TILE):
+            torch.mm(x2[i:i + DENSE_ROW_TILE], wb, out_dtype=torch.float32,
+                     out=y[i:i + DENSE_ROW_TILE])
+        return y[:m].reshape(*lead, n)
     # bf16 x bf16 products are exact in f32, so an f32 matmul of the
     # rounded operands is the reference's bf16 dot with f32 accumulation
     lead = x.shape[:-1]
@@ -116,3 +142,14 @@ def decode_attention(q, kq: QTensor, vq: QTensor, lengths, n_kv_heads: int):
     out = nxfp_decode_attention(qg.contiguous(), kq.packed, kq.meta,
                                 vq.packed, vq.meta, lengths, fmt)
     return out[..., :d].reshape(b, h, d)
+
+
+def decode_attention_dense(q, k, v, lengths, n_kv_heads: int):
+    """Single-token attention over a dense cache: q (B, H, D) unscaled,
+    k/v (B, S, KVH, D) bf16, lengths (B,). Returns (B, H, D) f32. The
+    query is scaled as the reference's dense branch scales it (f32, by
+    ``D ** -0.5``); head_dim is not padded."""
+    b, h, d = q.shape
+    qg = q.reshape(b, n_kv_heads, h // n_kv_heads, d).to(torch.float32) \
+        * (d ** -0.5)
+    return dense_decode_attention(qg, k, v, lengths).reshape(b, h, d)

@@ -1,4 +1,5 @@
-"""Prefill self-attention (causal, no window) and GQA projections.
+"""Prefill self-attention (causal, optionally sliding-window) and GQA
+projections.
 
 The reference runs prefill attention as a doubly chunked online softmax in
 XLA (not Pallas). Here it is plain PyTorch, the same recurrence: f32
@@ -12,8 +13,12 @@ sums follows its shape, and the whole prompt's T keys and the lane's R
 scratch rows would otherwise reduce in different orders. With fixed tiles
 a query row meets the same products whether its prompt runs whole
 (``self_attention``) or in lane chunks (``self_attention_resume``), and
-the tiles past its last key change nothing. Decode attention over the
-packed cache goes through ``kernels.ops.decode_attention``.
+the tiles past its last key change nothing. A sliding window masks keys
+``window`` or more positions back, and the whole prefill visits only the
+key tiles that meet a query chunk's band (``BANDED_SWA``): a tile masked
+for every query leaves (m, l, acc) bit-unchanged, so banded and unbanded
+attention give the same bits. Decode attention goes through
+``kernels.ops.decode_attention`` (packed) and ``decode_attention_dense``.
 """
 from __future__ import annotations
 
@@ -37,6 +42,9 @@ _NEG = -1e30
 # (ceil(max_len / P) * P rows) runs a pass a tile.
 KV_TILE = 256
 Q_TILE = 16
+# sliding-window prefill visits only the key tiles that meet the window
+# band of a query chunk (the reference's ``BANDED_SWA``)
+BANDED_SWA = True
 
 
 def _f32(x):
@@ -52,14 +60,17 @@ def _pad_rows(x, rows: int):
     return F.pad(x, (0, 0) * (x.dim() - 2) + (0, pad)) if pad else x
 
 
-def attend_chunked(q, k, v, *, q_offset=0, kv_valid=None,
+def attend_chunked(q, k, v, *, window=None, q_offset=0, kv_valid=None,
                    chunk_q: int = 1024):
     """Causal attention of q (B, Tq, KVH, G, D), rope'd and scaled, over
     k, v (B, Tk, KVH, D). Returns (B, Tq, KVH, G, D) f32.
 
-    ``q_offset`` is q[0]'s global position (an int, or an int tensor on
-    the device, as the lane's graph reads it); ``kv_valid`` (B,) int
-    tensor, the keys past which are masked (default: all Tk). Keys run in
+    ``window`` masks keys ``window`` or more positions before the query
+    (sliding-window attention); with an int ``q_offset`` only the key
+    tiles inside a query chunk's band run (``BANDED_SWA``). ``q_offset``
+    is q[0]'s global position (an int, or an int tensor on the device, as
+    the lane's graph reads it); ``kv_valid`` (B,) int tensor, the keys
+    past which are masked (default: all Tk). Keys run in
     tiles of ``KV_TILE`` (Tk zero-padded to a whole tile) through the
     reference's online softmax; a tile wholly masked for a query leaves
     its running max, sum and output bit-unchanged (alpha = exp(0) = 1,
@@ -76,35 +87,44 @@ def attend_chunked(q, k, v, *, q_offset=0, kv_valid=None,
              ).reshape(-1, 1, 1, 1, 1, rows)
     k, v = _pad_rows(k, rows), _pad_rows(v, rows)
     cq = -(-min(chunk_q, tq) // Q_TILE) * Q_TILE
+    banded = BANDED_SWA and window is not None and isinstance(q_offset, int)
     outs = []
     for q0 in range(0, tq, cq):
         n = min(cq, tq - q0)
         nq = -(-n // Q_TILE)
+        # the key tiles this chunk visits: all, or its window band (the
+        # others are masked for every query of the chunk)
+        lo, hi = 0, nk
+        if banded:
+            lo = max(0, (q_offset + q0 - window + 1) // KV_TILE)
+            hi = min(nk, (q_offset + q0 + n - 1) // KV_TILE + 1)
         qi = _pad_rows(q[:, q0:q0 + n], nq * Q_TILE)
         # (B, KVH, nq, G, QT, D): rows (G, QT) of one product each
         qt = _f32(qi.reshape(b, nq, Q_TILE, kvh, g, d).permute(
             0, 3, 1, 4, 2, 5)).reshape(-1, g * Q_TILE, d)
-        # (B, KVH, nq, nk, KT, D): each key tile once per query tile
-        kt, vt = (_f32(a.reshape(b, nk, KV_TILE, kvh, d).permute(
-            0, 3, 1, 2, 4)[:, :, None].expand(b, kvh, nq, nk, KV_TILE, d))
-            for a in (k, v))
+        # (B, KVH, nq, tiles, KT, D): each key tile once per query tile
+        kt, vt = (_f32(a[:, lo * KV_TILE:hi * KV_TILE].reshape(
+            b, hi - lo, KV_TILE, kvh, d).permute(0, 3, 1, 2, 4)[:, :, None]
+            .expand(b, kvh, nq, hi - lo, KV_TILE, d)) for a in (k, v))
         qpos = (q_offset + q0 + torch.arange(nq * Q_TILE, device=q.device)
                 ).reshape(nq, 1, Q_TILE, 1)
         mask = valid & (kpos <= qpos)              # (B|1, 1, nq, 1, QT, rows)
-        for j in range(nk):
-            s = torch.bmm(qt, kt[:, :, :, j].reshape(-1, KV_TILE, d)
+        if window is not None:
+            mask = mask & (qpos - kpos < window)
+        for j in range(lo, hi):
+            s = torch.bmm(qt, kt[:, :, :, j - lo].reshape(-1, KV_TILE, d)
                           .transpose(1, 2)).reshape(b, kvh, nq, g, Q_TILE,
                                                     KV_TILE)
             mj = mask[..., j * KV_TILE:(j + 1) * KV_TILE]
             s = torch.where(mj, s, _NEG)
             # the first tile's max(-1e30, max s) is max s: s >= -1e30
-            m_new = s.amax(dim=-1) if j == 0 else torch.maximum(
+            m_new = s.amax(dim=-1) if j == lo else torch.maximum(
                 m, s.amax(dim=-1))
             p = torch.where(mj, torch.exp(s - m_new[..., None]), 0.0)
             pv = torch.bmm(p.to(v.dtype).to(torch.float32).reshape(
-                -1, g * Q_TILE, KV_TILE), vt[:, :, :, j].reshape(
+                -1, g * Q_TILE, KV_TILE), vt[:, :, :, j - lo].reshape(
                     -1, KV_TILE, d)).reshape(b, kvh, nq, g, Q_TILE, d)
-            if j == 0:      # the reference's 0 * alpha + x, less the ops
+            if j == lo:     # the reference's 0 * alpha + x, less the ops
                 l, acc = p.sum(dim=-1), pv
             else:
                 alpha = torch.exp(m - m_new)
@@ -133,12 +153,14 @@ def gqa_project(cfg: ModelConfig, p, x, xq=None):
     return q, k, v
 
 
-def self_attention(cfg: ModelConfig, p, x, positions, act_fmt=None):
+def self_attention(cfg: ModelConfig, p, x, positions, window=None,
+                   act_fmt=None):
     """Causal full-sequence self attention (prefill). x (B, T, D).
 
-    ``act_fmt`` encodes the layer input once for Q/K/V and the attention
-    output once for W_o (qq prefill). Returns (attn out (B, T, D), rope'd
-    k, v (B, T, KVH, hd)).
+    ``window`` is the sliding window (None: full attention). ``act_fmt``
+    encodes the layer input once for Q/K/V and the attention output once
+    for W_o (qq prefill). Returns (attn out (B, T, D), rope'd k, v (B, T,
+    KVH, hd)).
     """
     b, t, _ = x.shape
     q, k, v = gqa_project(cfg, p, x, xq=qact(x, act_fmt))
@@ -146,13 +168,14 @@ def self_attention(cfg: ModelConfig, p, x, positions, act_fmt=None):
     q = apply_rope(q.reshape(b, t, -1, cfg.hd), cos, sin).reshape(q.shape)
     k = apply_rope(k, cos, sin)
     q = scale_like(q, 1.0 / math.sqrt(cfg.hd))
-    o = attend_chunked(q.to(x.dtype), k.to(x.dtype), v.to(x.dtype))
+    o = attend_chunked(q.to(x.dtype), k.to(x.dtype), v.to(x.dtype),
+                       window=window)
     o = o.reshape(b, t, cfg.n_heads * cfg.hd).to(x.dtype)
     return dense(qact(o, act_fmt), p["wo"], out_dtype=x.dtype), k, v
 
 
 def self_attention_resume(cfg: ModelConfig, p, x, lane_k, lane_v, positions,
-                          offset, kv_valid, act_fmt=None,
+                          offset, kv_valid, window=None, act_fmt=None,
                           wrapped: bool = False):
     """Resumable prefill attention: one (1, P) chunk of a prompt against
     the lane (the chunked-prefill lane's attention).
@@ -169,24 +192,43 @@ def self_attention_resume(cfg: ModelConfig, p, x, lane_k, lane_v, positions,
     the whole prefill's shapes (``attend_chunked``), so the outputs are
     the bits ``self_attention`` gives the same rows of the whole prompt.
 
-    ``wrapped``, the reference's ring lane for sliding-window prompts
-    longer than the lane, belongs to a family the port does not serve yet
-    and raises. The lane is updated in place. Returns (attn out
-    (1, P, D), rope'd chunk k, v (1, P, KVH, hd) for the cache write).
+    ``window`` is the sliding window. ``wrapped`` is the ring lane (the
+    reference's, for sliding-window prompts longer than the lane's R
+    rows; sound when R >= window + P, and only for offsets >= R): the
+    chunk's rows go to lane rows ``offset % R``, and the chunk attends
+    over a view of the lane gathered in global order from the key tile
+    that holds position ``offset + P - R`` on, so that key position x
+    sits at row x % ``KV_TILE`` of a tile, as it does in the whole
+    prefill, and its products sum as the whole prefill's do. Rows of the
+    view older than ``offset + P - R`` (stale, or aliases of later rows)
+    lie outside every query's window, and rows past ``kv_valid`` are
+    masked. The lane is updated in place. Returns (attn out (1, P, D),
+    rope'd chunk k, v (1, P, KVH, hd) for the cache write).
     """
-    if wrapped:
-        raise NotImplementedError("the ring lane serves the sliding-window "
-                                  "family, which is not ported")
+    r_lane = lane_k.shape[1]
     b, t, _ = x.shape
+    if wrapped and (window is None or r_lane < window + t):
+        raise ValueError(f"the ring lane needs a sliding window and lane "
+                         f"rows ({r_lane}) >= window ({window}) + P ({t})")
     q, k, v = gqa_project(cfg, p, x, xq=qact(x, act_fmt))
     cos, sin = rope_freqs(positions, cfg.hd, cfg.rope_theta)
     q = apply_rope(q.reshape(b, t, -1, cfg.hd), cos, sin).reshape(q.shape)
     k = apply_rope(k, cos, sin)
-    rows = (offset.reshape(()) + torch.arange(t, device=x.device)).long()
+    at = offset % r_lane if wrapped else offset
+    rows = (at.reshape(()) + torch.arange(t, device=x.device)).long()
     lane_k.index_copy_(1, rows, k.to(lane_k.dtype))
     lane_v.index_copy_(1, rows, v.to(lane_v.dtype))
     q = scale_like(q, 1.0 / math.sqrt(cfg.hd))
-    o = attend_chunked(q.to(x.dtype), lane_k.to(x.dtype), lane_v.to(x.dtype),
-                       q_offset=offset, kv_valid=kv_valid)
+    read_k, read_v, q_off, valid = lane_k, lane_v, offset, kv_valid
+    if wrapped:
+        gbase = offset + t - r_lane
+        base = gbase - gbase % KV_TILE          # a whole tile, globally
+        idx = ((base + torch.arange(r_lane + KV_TILE, device=x.device))
+               % r_lane).long()
+        read_k, read_v = (lane.index_select(1, idx)
+                          for lane in (lane_k, lane_v))
+        q_off, valid = offset - base, kv_valid - base
+    o = attend_chunked(q.to(x.dtype), read_k.to(x.dtype), read_v.to(x.dtype),
+                       window=window, q_offset=q_off, kv_valid=valid)
     o = o.reshape(b, t, cfg.n_heads * cfg.hd).to(x.dtype)
     return dense(qact(o, act_fmt), p["wo"], out_dtype=x.dtype), k, v

@@ -3,7 +3,7 @@
 
   layer_forward(cfg, p, x, positions, act_fmt)   -> (x, {"k", "v"})
   layer_prefill_chunk(cfg, p, x, lane_l, cache_l, slot, positions, offset,
-                      n_valid, kv, act_fmt)         -> x
+                      n_valid, kv, act_fmt, wrapped) -> x
   layer_decode(cfg, p, x, layer_cache, pos, kv, live) -> (x, layer_cache)
 """
 from __future__ import annotations
@@ -37,7 +37,8 @@ def layer_forward(cfg: ModelConfig, p: Params, x, positions,
     the GEMM inputs of attention and MLP (qq prefill); None keeps dense
     activations."""
     h = rmsnorm(x, p["ln1_scale"], cfg.norm_eps)
-    y, k, v = self_attention(cfg, p, h, positions, act_fmt=act_fmt)
+    y, k, v = self_attention(cfg, p, h, positions,
+                             window=cfg.sliding_window, act_fmt=act_fmt)
     x = x + y
     h2 = rmsnorm(x, p["ln2_scale"], cfg.norm_eps)
     return x + swiglu(h2, p["mlp_w1"], p["mlp_w3"], p["mlp_w2"],
@@ -47,19 +48,22 @@ def layer_forward(cfg: ModelConfig, p: Params, x, positions,
 def layer_prefill_chunk(cfg: ModelConfig, p: Params, x, lane_l, cache_l,
                         slot, positions, offset, n_valid,
                         kv_fmt: Optional[str],
-                        act_fmt: Optional[str] = None):
+                        act_fmt: Optional[str] = None,
+                        wrapped: bool = False):
     """One layer of the chunked prefill over a (1, P) chunk x, the dense
     family's ``layer_forward`` resumed: attention reads the lane's dense
     natural-order K/V scratch ``lane_l`` (earlier chunks and this one,
-    ``attention.self_attention_resume``), so every hidden row is the whole
-    prompt's, bit for bit; the chunk's rope'd K/V rows also go into slot
-    ``slot`` of the live layer cache ``cache_l`` at their global rows
+    ``attention.self_attention_resume``; ``wrapped``, its ring lane), so
+    every hidden row is the whole prompt's, bit for bit; the chunk's
+    rope'd K/V rows also go into slot ``slot`` of the live layer cache
+    ``cache_l`` at their global rows, ring rows in a sliding-window cache
     (``kvcache.write_prefill_at``; rows past ``n_valid`` dropped). Lane
     and cache are updated in place. Returns x."""
     h = rmsnorm(x, p["ln1_scale"], cfg.norm_eps)
     y, k, v = self_attention_resume(
         cfg, p, h, lane_l["k"], lane_l["v"], positions, offset,
-        offset + n_valid, act_fmt=act_fmt)
+        offset + n_valid, window=cfg.sliding_window, act_fmt=act_fmt,
+        wrapped=wrapped)
     write_prefill_at(cfg, cache_l, k, v, slot, offset, n_valid, kv_fmt)
     x = x + y
     h2 = rmsnorm(x, p["ln2_scale"], cfg.norm_eps)

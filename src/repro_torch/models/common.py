@@ -39,11 +39,20 @@ class ModelConfig:
     head_dim: int = 0              # 0 -> d_model // n_heads
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
+    sliding_window: Optional[int] = None   # SWA: a window-sized ring cache
     dtype: Any = torch.bfloat16
 
     @property
     def hd(self) -> int:
         return self.head_dim or (self.d_model // max(self.n_heads, 1))
+
+    def param_count(self) -> int:
+        """Analytic parameter count, embeddings included (the reference's
+        dense branch)."""
+        d, hd, h, kvh = self.d_model, self.hd, self.n_heads, self.n_kv_heads
+        attn = d * hd * h + 2 * d * hd * kvh + hd * h * d
+        return self.n_layers * (attn + 3 * d * self.d_ff) \
+            + 2 * self.vocab * d
 
 
 # ---------------------------------------------------------------------------

@@ -89,13 +89,16 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
 # ---------------------------------------------------------------------------
 
 def _check_p_chunk(cfg: ModelConfig, p_chunk: int) -> None:
-    """The lane chunk's static invariants. The reference's two (a chunk
-    no wider than a sliding window, a multiple of ``ssm_chunk``) belong
-    to families the port does not serve; what is left is a positive
-    width."""
+    """The lane chunk's static invariants: a positive width, no wider than
+    a sliding window (a wider chunk would write two of its rows to one
+    ring row). The reference's third (a multiple of ``ssm_chunk``)
+    belongs to a family the port does not serve."""
     _check_family(cfg)
     if p_chunk < 1:
         raise ValueError(f"p_chunk ({p_chunk}) must be >= 1")
+    if cfg.sliding_window and p_chunk > cfg.sliding_window:
+        raise ValueError(f"p_chunk ({p_chunk}) must be <= sliding_window "
+                         f"({cfg.sliding_window})")
 
 
 def init_lane(cfg: ModelConfig, max_len: int, p_chunk: int,
@@ -107,9 +110,11 @@ def init_lane(cfg: ModelConfig, max_len: int, p_chunk: int,
     attends over, which makes chunked equal to whole bit for bit also
     when the live cache is NxFP-packed. Stale rows need no reset between
     prompts: attention masks rows past the valid length to exact-zero
-    contributions. Returns ``{"layers": [{"k", "v"}, ...]}``. (The
-    reference's ``n_lanes``, one lane per shard, waits for the sharded
-    engine.)"""
+    contributions. A sliding-window prompt longer than R runs its later
+    chunks through the ring lane (``prefill_chunk(wrapped=True)``), which
+    R >= window + P allows. Returns ``{"layers": [{"k", "v"}, ...]}``.
+    (The reference's ``n_lanes``, one lane per shard, waits for the
+    sharded engine.)"""
     _check_p_chunk(cfg, p_chunk)
     dev = resolve_device(device)
     rows = -(-max_len // p_chunk) * p_chunk
@@ -126,7 +131,8 @@ def _device_int(x, device):
 
 def prefill_chunk(cfg: ModelConfig, params: Params, tokens, cache, slot,
                   offset, n_valid, lane, kv_fmt: Optional[str],
-                  with_head: bool = True, act_fmt: Optional[str] = None):
+                  with_head: bool = True, act_fmt: Optional[str] = None,
+                  wrapped: bool = False):
     """Advance an in-flight prefill by one fixed-shape (1, P) chunk.
 
     ``tokens`` (1, P) holds prompt positions [offset, offset + P),
@@ -143,6 +149,9 @@ def prefill_chunk(cfg: ModelConfig, params: Params, tokens, cache, slot,
     ``with_head=False`` skips the (D, V) head and returns the last valid
     hidden row (1, D): only the final chunk's logits are read.
     ``act_fmt`` quantizes the chunk's GEMM inputs as ``prefill``'s does.
+    ``wrapped`` selects the ring lane for a sliding-window prompt's chunks
+    at offsets past the lane's rows (``attention.self_attention_resume``):
+    a second static variant, so an engine keeps a graph for each.
     ``cache["pos"][slot]`` stays as it is (the engine parks the slot
     while it prefills and arms it after the final chunk). Cache and lane
     are updated in place. Returns (logits (1, V) f32, or the hidden row
@@ -160,7 +169,8 @@ def prefill_chunk(cfg: ModelConfig, params: Params, tokens, cache, slot,
     positions = offset + torch.arange(p, dtype=torch.int32, device=dev)
     for lp, ll, lc in zip(params["layers"], lane["layers"], cache["layers"]):
         x = layer_prefill_chunk(cfg, lp, x, ll, lc, slot, positions, offset,
-                                n_valid, kv_fmt, act_fmt=act_fmt)
+                                n_valid, kv_fmt, act_fmt=act_fmt,
+                                wrapped=wrapped)
     last = x.index_select(1, (n_valid - 1).clamp(min=0).long())
     if not with_head:
         return last[:, 0], cache, lane

@@ -26,6 +26,10 @@ temperatures 0) never touches the generator. After a sampled call the
 generator stands where the host loop leaves it, whichever loop ran
 (``_sync_key``, as the reference's), so later sampled calls do not depend
 on the loop mode.
+
+A sliding-window model's cache is a ring of ``window`` rows
+(``models/kvcache.py``), so ``max_len`` bounds nothing there: a prompt and
+its generation may run past it, as in the reference.
 """
 from __future__ import annotations
 
@@ -151,13 +155,19 @@ def sample_tokens(logits, temperature, all_greedy: bool, gens):
     return torch.where(temperature > 0, sampled, greedy)
 
 
-def capture_graph(fn, device, gens=()):
+def capture_graph(fn, device, gens=(), warm=None):
     """Capture ``fn()`` as a CUDA graph; returns (graph, outputs).
 
-    One warm-up call first, on the capture stream, so the split kernels
-    plan and allocate their per-stream scratch (``kernels/build.py:
-    split_scratch``) before the capture (their counters are back at 0
-    after every launch, so every replay starts clean). The generators in
+    One warm-up call first (``warm()``, default ``fn()``), on the capture
+    stream, so the split kernels plan and allocate their per-stream
+    scratch (``kernels/build.py:split_scratch``) before the capture (their
+    counters are back at 0 after every launch, so every replay starts
+    clean). The warm-up runs for real on the live buffers, so it must
+    write nothing the replay reads first: a decode chunk warms up with
+    one step, which writes only the K/V row its replay's first step
+    writes again with the same bits (a whole chunk's later steps would
+    overwrite rows of a full sliding-window ring that the replay's first
+    steps still attend to). The generators in
     ``gens`` are put back where they were after the warm-up and the
     capture, and registered with the graph, so that every replay draws
     from (and advances) their state at replay time. A capture that fails
@@ -167,7 +177,7 @@ def capture_graph(fn, device, gens=()):
     side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):
-        fn()                          # warm-up: plans and scratch of `side`
+        (warm or fn)()                # warm-up: plans and scratch of `side`
     torch.cuda.current_stream(device).wait_stream(side)
     for g, state in zip(gens, states):
         g.set_state(state)
@@ -244,7 +254,8 @@ class _DeviceLoop:
 
     def _capture(self, steps: int, greedy: bool):
         gens = () if greedy else (self._engine()._gen,)
-        return capture_graph(self._fn(steps, greedy), self.dev, gens)
+        return capture_graph(self._fn(steps, greedy), self.dev, gens,
+                             warm=self._fn(1, greedy))
 
     def run(self, steps: int, greedy: bool, tok, done, n_gen, temp, stop):
         """One chunk from these inputs. Returns (emitted, tok, n_gen, done)

@@ -25,7 +25,8 @@ K/V row and keeps its position), with the per-slot budget, stop and
 emission masking of ``mask_chunk_emissions``. On CUDA it is one captured
 CUDA graph per (chunk, greedy or sampled) over static buffers and the
 engine's cache, and the lane chunk is one captured CUDA graph per
-``with_head`` over its own static buffers (tokens, slot, offset, n_valid),
+``with_head`` (and, for a sliding-window model's ring lane, per
+``wrapped``) over its own static buffers (tokens, slot, offset, n_valid),
 the same cache and the lane scratch; admissions and ``reset_slot`` write
 into that cache in place between replays, and each decode chunk makes one
 host copy (emitted, tok, n_gen, done). A capture that fails raises: there
@@ -50,7 +51,13 @@ its own (1, V) row as a solo engine does. One exception on CUDA: the
 dequant GEMM runs split-K up to 16 rows and wgmma above, and the two sum
 a row in different orders, so there the chunked mode holds the oracle for
 ``p_chunk`` > 16 and prompts longer than 16 tokens (a lane chunk and the
-whole prompt then both run wgmma).
+whole prompt then both run wgmma; a bf16 weight's product runs on fixed
+128-row tiles above 16 rows, ``kernels/ops.py:_dense_matmul``).
+
+A sliding-window model's slots are rings of ``window`` rows, so a request
+may run past ``max_len``; its prompt may be longer than the lane when the
+lane is a ring too (``_lane_ring``: R >= window + P), whose chunks past R
+rows run the ring lane (``prefill_chunk(wrapped=True)``).
 
 Backpressure: with ``max_queue`` the arrived backlog is bounded at every
 chunk boundary (``SlotScheduler.enforce_bounds``); a ``SheddingPolicy``
@@ -594,15 +601,20 @@ class ContinuousEngine:
         """The lane for chunks of ``p_chunk``: its scratch and its static
         inputs (tokens, and (slot, offset, n_valid) as (1,) int32 views of
         one buffer); its graphs are captured at first use."""
-        # natural-order scratch rows: a longer prompt is refused at submit
+        # natural-order scratch rows: a longer prompt is refused at submit,
+        # unless the lane is a ring (a sliding window, and rows for a whole
+        # window plus a chunk: every key a chunk attends is still there)
         self._lane_rows = -(-self.max_len // p_chunk) * p_chunk
+        w = self.cfg.sliding_window
+        self._lane_ring = bool(w) and self._lane_rows >= w + p_chunk
         self.lane = init_lane(self.cfg, self.max_len, p_chunk,
                               device=self.device)
         self._lane_tok = torch.zeros((1, p_chunk), dtype=torch.int64,
                                      device=self.device)
         self._lane_idx = torch.zeros((3,), dtype=torch.int32,
                                      device=self.device)
-        self._lane_graphs: Dict[Any, Any] = {}   # with_head -> graph
+        # with_head -> graph; (with_head, "ring") for the ring lane's
+        self._lane_graphs: Dict[Any, Any] = {}
 
     # -- p_chunk="auto" -------------------------------------------------------
 
@@ -629,7 +641,8 @@ class ContinuousEngine:
             return self._chunk_fn(True)
         if True not in self._graphs:
             self._graphs[True] = capture_graph(self._chunk_fn(True),
-                                               self.device)
+                                               self.device,
+                                               warm=self._chunk_fn(True, 1))
         return self._graphs[True][0].replay
 
     def _lane_probe(self, p_chunk: int):
@@ -659,11 +672,14 @@ class ContinuousEngine:
         split-K, and the chunked oracle then does not hold bitwise (the
         module docstring). Results: ``p_chunk_sweep``,
         ``p_chunk_decode_s``."""
-        cands = sorted({int(p) for p in candidates if 1 <= p <= self.max_len})
+        w = self.cfg.sliding_window
+        cands = sorted({int(p) for p in candidates if 1 <= p <= self.max_len
+                        and (not w or p <= w)})
         if not cands:
             raise ValueError(f"p_chunk='auto': no candidate in "
                              f"{tuple(candidates)} fits max_len "
-                             f"({self.max_len})")
+                             f"({self.max_len}) and the sliding window "
+                             f"({w})")
         decode_s = self._time_best(self._decode_probe())
         sweep: Dict[int, float] = {}
         lanes: Dict[int, Tuple[Any, ...]] = {}
@@ -697,9 +713,11 @@ class ContinuousEngine:
 
     # -- device work ---------------------------------------------------------
 
-    def _chunk_fn(self, greedy: bool):
+    def _chunk_fn(self, greedy: bool, steps: Optional[int] = None):
+        """A decode chunk of ``steps`` (default ``chunk``) steps."""
         cfg, params, kv = self.cfg, self.params, self.policy.kv_fmt
-        n, gens, buf, cache = self.chunk, self._gens, self._buf, self.cache
+        n, gens, buf, cache = steps or self.chunk, self._gens, self._buf, \
+            self.cache
         return lambda: continuous_chunk(cfg, params, kv, n, greedy, gens,
                                         buf, cache)
 
@@ -709,13 +727,15 @@ class ContinuousEngine:
 
     def _run_chunk(self, key, make_fn, greedy: bool):
         """The chunk's outputs: on CUDA a replay of the graph under ``key``
-        (captured at first use from ``make_fn()``, the slot generators
-        registered with a sampled one), on the CPU ``make_fn()()``."""
+        (captured at first use from ``make_fn()`` after a one-step warm-up,
+        ``make_fn(1)``, the slot generators registered with a sampled one),
+        on the CPU ``make_fn()()``."""
         if self.device.type != "cuda":
             return make_fn()()
         if key not in self._graphs:
             self._graphs[key] = capture_graph(make_fn(), self.device,
-                                              () if greedy else self._gens)
+                                              () if greedy else self._gens,
+                                              warm=make_fn(1))
         graph, outs = self._graphs[key]
         graph.replay()
         self.replays += 1
@@ -743,8 +763,8 @@ class ContinuousEngine:
         live = int(h["live"].sum())
         self._upload(h)
         greedy = bool((h["temp"] == 0.0).all())
-        outs = self._run_chunk(greedy, lambda: self._chunk_fn(greedy),
-                               greedy)
+        outs = self._run_chunk(
+            greedy, lambda steps=None: self._chunk_fn(greedy, steps), greedy)
         emitted = self._fold(outs, self.cache, slice(None))
         self.chunks += 1
         self.chunk_times.append((live, time.perf_counter() - t0))
@@ -777,36 +797,41 @@ class ContinuousEngine:
         params, cache, kv_fmt, act_fmt)."""
         return (), self.params, self.cache, self.policy.kv_fmt, None
 
-    def _lane_fn(self, with_head: bool, params, cache, kv_fmt, act_fmt):
+    def _lane_fn(self, with_head: bool, params, cache, kv_fmt, act_fmt,
+                 wrapped: bool = False):
         """One lane chunk from the lane's static buffers (the reference's
-        ``_lane_chunk_fn``). Returns the logits (1, V), or the hidden row
-        (1, D) when ``with_head`` is false."""
+        ``_lane_chunk_fn``; ``wrapped``, the ring lane). Returns the logits
+        (1, V), or the hidden row (1, D) when ``with_head`` is false."""
         cfg, lane, tok, idx = self.cfg, self.lane, self._lane_tok, \
             self._lane_idx
         return lambda: prefill_chunk(cfg, params, tok, cache, idx[0:1],
                                      idx[1:2], idx[2:3], lane, kv_fmt,
-                                     with_head=with_head,
-                                     act_fmt=act_fmt)[0]
+                                     with_head=with_head, act_fmt=act_fmt,
+                                     wrapped=wrapped)[0]
 
     def _lane_dispatch(self, slot: int, tokens, offset: int,
                        final: bool):
         """Advance the lane by one chunk of ``tokens`` (n_valid <= P
         prompt tokens at ``offset``) into ``slot``: the static buffers
         filled from the host, then on CUDA a replay of the chunk's graph
-        (captured at its first use), on the CPU the eager chunk. Returns
-        the output of ``_lane_fn(final)``."""
+        (captured at its first use), on the CPU the eager chunk. A chunk at
+        an offset past the lane's rows runs the ring lane (the reference's
+        ``wrapped=off >= lane rows``), a graph of its own. Returns the
+        output of ``_lane_fn(final, wrapped)``."""
         toks = np.zeros((1, self.p_chunk), np.int64)
         toks[0, :len(tokens)] = tokens
         self._lane_tok.copy_(torch.from_numpy(toks))
         self._lane_idx.copy_(torch.tensor([slot, offset, len(tokens)],
                                           dtype=torch.int32))
         route, *how = self._lane_route(slot)
+        wrapped = offset >= self._lane_rows
         if self.device.type != "cuda":
-            return self._lane_fn(final, *how)()
-        key = route + (final,) if route else final
+            return self._lane_fn(final, *how, wrapped)()
+        head = (final, "ring") if wrapped else (final,)
+        key = route + head if route or wrapped else final
         if key not in self._lane_graphs:
-            self._lane_graphs[key] = capture_graph(self._lane_fn(final, *how),
-                                                   self.device)
+            self._lane_graphs[key] = capture_graph(
+                self._lane_fn(final, *how, wrapped), self.device)
         graph, out = self._lane_graphs[key]
         graph.replay()
         self.lane_replays += 1
@@ -1014,12 +1039,15 @@ class ContinuousEngine:
     def _check_request(self, r: Request) -> None:
         """A request the engine cannot serve right is refused at submit:
         a prompt and budget that overflow the cache (its slot would run
-        past the last row), or a prompt longer than the lane's scratch."""
-        if len(r.tokens) + r.max_new > self.max_len:
+        past the last row; a sliding-window ring wraps instead), or a
+        prompt longer than the lane's scratch (unless the lane is a ring
+        too, ``_lane_ring``)."""
+        if not self.cfg.sliding_window and \
+                len(r.tokens) + r.max_new > self.max_len:
             raise ValueError(
                 f"request uid={r.uid}: prompt ({len(r.tokens)}) + "
                 f"max_new ({r.max_new}) exceeds max_len ({self.max_len})")
-        if self.prefill_mode == "chunked" and \
+        if self.prefill_mode == "chunked" and not self._lane_ring and \
                 len(r.tokens) > self._lane_rows:
             raise ValueError(
                 f"request uid={r.uid}: prompt ({len(r.tokens)}) exceeds "

@@ -60,6 +60,7 @@ from ..kernels.ops import quantize_qtensor
 from ..models import (init_cache, prefill_into_slot, read_cache_slot,
                       reset_slot, write_cache_slot)
 from ..models.common import ModelConfig
+from ..models.kvcache import cache_rows
 from .engine import load_params
 from .scheduler import (DECODING, ContinuousEngine, Request, SlotScheduler,
                         continuous_chunk)
@@ -252,10 +253,11 @@ class TieredContinuousEngine(ContinuousEngine):
                 self._wparams[spec.weight_fmt], self._caches[spec.kv_fmt],
                 spec.kv_fmt, spec.act_fmt)
 
-    def _group_chunk_fn(self, greedy: bool, weight_fmt, kv_fmt):
+    def _group_chunk_fn(self, greedy: bool, weight_fmt, kv_fmt,
+                        steps: Optional[int] = None):
         cfg, params, cache = self.cfg, self._wparams[weight_fmt], \
             self._caches[kv_fmt]
-        n, gens, buf = self.chunk, self._gens, self._buf
+        n, gens, buf = steps or self.chunk, self._gens, self._buf
         return lambda: continuous_chunk(cfg, params, kv_fmt, n, greedy, gens,
                                         buf, cache)
 
@@ -285,7 +287,8 @@ class TieredContinuousEngine(ContinuousEngine):
                                       zip(self._gens, mask) if not m]
             outs = self._run_chunk(
                 (wf, kvf, greedy),
-                lambda: self._group_chunk_fn(greedy, wf, kvf), greedy)
+                lambda steps=None: self._group_chunk_fn(greedy, wf, kvf,
+                                                        steps), greedy)
             for g, state in kept:
                 g.set_state(state)
             emitted_all[mask] = self._fold(outs, self._caches[kvf],
@@ -313,14 +316,15 @@ class TieredContinuousEngine(ContinuousEngine):
         sched = self._sched
         if sched is None or not self._max_row_bytes:
             return 0.0
+        rows = cache_rows(self.cfg, self.max_len)    # a ring's: its window
         used = 0
         for slot, req in sched.active.items():
             if sched.phase.get(slot) != DECODING:
                 continue
             pos = len(req.tokens) + int(self._host["n_gen"][slot])
             kvf = self.tiers[self._slot_tier[slot]].kv_fmt
-            used += min(pos, self.max_len) * self._row_bytes[kvf]
-        return used / (self.n_slots * self.max_len * self._max_row_bytes)
+            used += min(pos, rows) * self._row_bytes[kvf]
+        return used / (self.n_slots * rows * self._max_row_bytes)
 
     def _lifecycle(self, sched, state, results, clock) -> None:
         super()._lifecycle(sched, state, results, clock)

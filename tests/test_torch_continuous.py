@@ -47,8 +47,8 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.convert import params_from_jax, tensor_from_numpy
 from repro_torch.core.qtensor import QuantPolicy
 from repro_torch.kernels.nxfp_quantize import nxfp_quantize_kv_rows
-from repro_torch.models import (decode_step, init_cache, prefill,
-                                read_cache_slot, reset_slot,
+from repro_torch.models import (decode_step, init_cache, init_params,
+                                prefill, read_cache_slot, reset_slot,
                                 write_cache_slot)
 from repro_torch.models.kvcache import write_token
 from repro_torch.serving import (ContinuousEngine, FifoPolicy,
@@ -61,15 +61,28 @@ TOL = 1e-2
 MAX_LEN = 64
 
 
-@pytest.fixture(scope="module")
-def setup():
-    """The reference's smoke Llama params and the port's copy of them."""
-    jcfg = jget_smoke_config("llama3_8b")
-    cfg = get_smoke_config("llama3_8b")
+@functools.lru_cache(maxsize=None)
+def _setup(arch):
+    """The reference's smoke params of ``arch`` and the port's copy."""
+    jcfg = jget_smoke_config(arch)
+    cfg = get_smoke_config(arch)
     jparams = jinit_params(jcfg, jax.random.PRNGKey(0))
     tparams = params_from_jax(jax.tree.map(np.asarray, jparams),
                               device="cpu")
     return jcfg, cfg, jparams, tparams
+
+
+@pytest.fixture(scope="module")
+def setup():
+    """The reference's smoke Llama params and the port's copy of them."""
+    return _setup("llama3_8b")
+
+
+def _port_setup(arch):
+    """``arch``'s smoke config and the port's own seeded params: the oracle
+    below holds the port against itself, and needs no reference params."""
+    cfg = get_smoke_config(arch)
+    return None, cfg, None, init_params(cfg, seed=0, device="cpu")
 
 
 def _prompts(cfg, n, t, seed=0):
@@ -109,18 +122,27 @@ def _assert_solo(setup, fmt, reqs, results):
 # the oracle: continuous == solo host loop, bit for bit
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("fmt", [None, "nxfp4"])
-def test_continuous_matches_solo_host(setup, fmt):
+@pytest.mark.parametrize("arch,fmt", [
+    pytest.param("llama3_8b", None, id="None"),
+    pytest.param("llama3_8b", "nxfp4", id="nxfp4"),
+    # sliding window 32: 30-token prompts whose decode wraps the ring
+    # (rows 30, 31, then 0, ...), 3 requests over the 2 slots (the
+    # reference's test_continuous_ring_wrap_matches_solo)
+    pytest.param("h2o_danube_3_4b", "nxfp4", id="danube-nxfp4")])
+def test_continuous_matches_solo_host(arch, fmt):
     """Greedy: 5 requests with mixed max_new over 2 slots (evictions,
     re-admissions, ragged per-slot positions mid-stream)."""
+    setup = _setup(arch) if arch == "llama3_8b" else _port_setup(arch)
     eng = _engine(setup, fmt)
+    t, news = ((30, [6, 4, 3]) if setup[1].sliding_window
+               else (8, [5, 11, 3, 8, 14]))
     reqs = [Request(uid=i, tokens=p, max_new=m)
-            for i, (p, m) in enumerate(zip(_prompts(setup[1], 5, 8),
-                                           [5, 11, 3, 8, 14]))]
+            for i, (p, m) in enumerate(zip(_prompts(setup[1], 5, t),
+                                           news))]
     results = eng.serve(reqs)
     assert all(r.n_generated == reqs[r.uid].max_new for r in results)
     _assert_solo(setup, fmt, reqs, results)
-    assert eng.chunks > 0 and len(eng.admit_seconds) == 5
+    assert eng.chunks > 0 and len(eng.admit_seconds) == len(reqs)
     assert eng.replays == 0                        # the CPU runs eagerly
 
 

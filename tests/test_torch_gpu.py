@@ -1154,13 +1154,11 @@ def test_tiered_serve_on_card(cuda, mode):
 @pytest.mark.parametrize("width", ["smoke", "llama3_8b"])
 def test_dense_path_rows_batch_invariant_on_card(cuda, width):
     """The premium tier's path (bf16 weights through cuBLAS, dense KV):
-    row 0 of each row-spanning op but attention at B 4 and 8 equals the
-    same row at B 1, bit for bit: the cuBLAS projections, ``lm_head``,
-    the norm and the softmax (``scripts/batch_invariance.py --dense``).
-    Dense decode attention (an einsum, a batched cuBLAS product whose
-    reduction follows the batch) is not: 3715 of 4096 outputs of a row
-    moved at B 4, S 512, full width, on the H100 (ROADMAP C6); the smoke
-    model's held."""
+    row 0 of each row-spanning op at B 4 and 8 equals the same row at B
+    1, bit for bit: the cuBLAS projections, ``lm_head``, dense decode
+    attention (the attention kernel's dense-row instance, whose split
+    plan follows S and the KV heads only), the norm and the softmax
+    (``scripts/batch_invariance.py --dense``)."""
     import sys
     import pathlib
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]
@@ -1168,8 +1166,185 @@ def test_dense_path_rows_batch_invariant_on_card(cuda, width):
     import batch_invariance
     cfg = _continuous_case(cuda, width)[0]
     for op, by_b in batch_invariance.ops(cfg, None).items():
-        if op == batch_invariance.PLAIN_MEAN or (
-                op.startswith("decode_attention") and width != "smoke"):
+        if op == batch_invariance.PLAIN_MEAN:
             continue
         for b, r in by_b.items():
             assert r["differ"] == 0, (op, b, r)
+
+
+# the dense family's head shapes (KV heads, G, head_dim): Llama-3-8B's,
+# Llama-2-7B's (MHA: G 1), StarCoder2-3B's (G 12), H2O-Danube3-4B's (120)
+FAMILY_HEADS = [(8, 4, 128), (32, 1, 128), (2, 12, 128), (8, 4, 120)]
+
+
+@pytest.mark.parametrize("heads", FAMILY_HEADS,
+                         ids=lambda h: "KVH{}-G{}-D{}".format(*h))
+def test_dense_attention_kernel_vs_plain(cuda, heads):
+    """The dense-row attention instance at S 512 (ragged lengths, one 0)
+    within 1e-5 of max|V| of its plain version, bitwise on a second
+    launch, and row 0's bits the same at B 1, 4 and 8."""
+    from repro_torch.kernels import dense_attention as da
+    kvh, g, d = heads
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    b, s = 8, 512
+    k, v = (torch.randn((b, s, kvh, d), generator=gen, device=cuda)
+            .to(torch.bfloat16) for _ in range(2))
+    q = torch.randn((b, kvh, g, d), generator=gen, device=cuda) * d ** -0.5
+    lens = torch.tensor([300, 512, 17, 0, 1, 33, 480, 256], device=cuda,
+                        dtype=torch.int32)
+    out = da.dense_decode_attention(q, k, v, lens)
+    assert torch.equal(out, da.dense_decode_attention(q, k, v, lens))
+    ref = da.dense_decode_attention_plain(q, k, v, lens)
+    ref[3] = 0.0                    # a length-0 row: the kernel gives 0
+    err = float((out - ref).abs().max())
+    assert err <= 1e-5 * float(v.float().abs().max()), err
+    one = da.dense_decode_attention(q[:1], k[:1], v[:1], lens[:1])
+    for bb in (4, 8):
+        got = da.dense_decode_attention(q[:bb], k[:bb], v[:bb], lens[:bb])
+        assert torch.equal(got[0], one[0]), bb
+
+
+def test_dense_attention_refuses_shapes_it_does_not_take(cuda):
+    from repro_torch.kernels import dense_attention as da
+    k = torch.zeros((1, 64, 2, 100), dtype=torch.bfloat16, device=cuda)
+    q = torch.zeros((1, 2, 2, 100), device=cuda)
+    lens = torch.ones((1,), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        da.dense_decode_attention(q, k, k, lens)
+    with pytest.raises(ValueError, match="bf16"):
+        da.dense_decode_attention(q[..., :96], k[..., :96].float(),
+                                  k[..., :96].float(), lens)
+
+
+# (K, N) pairs of the dense family's projections (Llama-2-7B, StarCoder2-3B
+# and H2O-Danube3-4B) beside Llama-3-8B's wq/wo
+FAMILY_KN = [(4096, 4096), (4096, 11008), (11008, 4096), (3072, 256),
+             (12288, 3072), (3840, 960), (10240, 3840)]
+
+
+@pytest.mark.parametrize("kn", FAMILY_KN, ids=lambda kn: "K{}-N{}".format(*kn))
+def test_dense_gemm_rows_do_not_follow_m(cuda, kn):
+    """The bf16 product (``ops._dense_matmul``): a row's bits at M 17, 32
+    and 200 are its bits at M 512 (cuBLAS on fixed 128-row tiles)."""
+    from repro_torch.kernels.ops import _dense_matmul
+    k, n = kn
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    w = (torch.randn((k, n), generator=gen, device=cuda) * 0.02).to(
+        torch.bfloat16)
+    x = torch.randn((512, k), generator=gen, device=cuda).to(torch.bfloat16)
+    ref = _dense_matmul(x, w)
+    for m in (17, 32, 200):
+        assert torch.equal(_dense_matmul(x[:m], w), ref[:m]), m
+
+
+@pytest.mark.parametrize("kn", FAMILY_KN[1:],
+                         ids=lambda kn: "K{}-N{}".format(*kn))
+@pytest.mark.parametrize("m", [4, 512])
+def test_matmul_kernel_at_family_shapes(cuda, kn, m):
+    """The dequant GEMM at the new configs' (K, N) pairs (K 11008: 86
+    tiles of 128; N 256 and a ragged N 960) within 1e-5 of sum|x||w| of
+    its plain version, bitwise on a second launch."""
+    k, n = kn
+    fmt = get_format("nxfp4")
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    wq = quantize_qtensor(torch.randn((k, n), generator=gen, device=cuda)
+                          * 0.02, fmt, axis=-2, device=cuda)
+    x = torch.randn((m, k), generator=gen, device=cuda).to(torch.bfloat16)
+    y = nm.nxfp_matmul(x, wq.packed, wq.meta, fmt)
+    assert torch.equal(y, nm.nxfp_matmul(x, wq.packed, wq.meta, fmt))
+    ref = nm.nxfp_matmul_plain(x, wq.packed, wq.meta, fmt)
+    wd = nm.dequant_weight_bf16(wq.packed, wq.meta, fmt)
+    mag = x.float().abs() @ wd.float().abs().T
+    assert float(((y - ref).abs() / mag.clamp(min=1e-30)).max()) <= 1e-5
+
+
+@pytest.mark.parametrize("heads", FAMILY_HEADS[1:],
+                         ids=lambda h: "KVH{}-G{}-D{}".format(*h))
+def test_packed_attention_at_family_shapes(cuda, heads):
+    """The packed instance at G 1, G 12 and head_dim 120 (cast in 4
+    blocks of 32, q padded as ``ops.decode_attention`` pads it) over a
+    4096-row cache: within 1e-5 of max|V|, bitwise on a second launch."""
+    import torch.nn.functional as F
+    kvh, g, hd = heads
+    fmt = get_format("nxfp4")
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    b, s = 4, 4096
+    kq, vq = (quantize_qtensor(torch.randn((b, s, kvh, hd), generator=gen,
+                                           device=cuda), fmt, axis=-1,
+                               device=cuda) for _ in range(2))
+    d = kq.packed.shape[-2] * fmt.block_size
+    q = F.pad(torch.randn((b, kvh, g, hd), generator=gen, device=cuda)
+              * hd ** -0.5, (0, d - hd))
+    lens = torch.tensor([4096, 3001, 1024, 17], dtype=torch.int32,
+                        device=cuda)
+    args = (q, kq.packed, kq.meta, vq.packed, vq.meta, lens, fmt)
+    out = na.nxfp_decode_attention(*args)
+    assert torch.equal(out, na.nxfp_decode_attention(*args))
+    ref = na.nxfp_decode_attention_plain(*args)
+    vd = na.dequant_cache(vq.packed, vq.meta, fmt)
+    assert float((out - ref).abs().max()) <= 1e-5 * float(vd.abs().max())
+    assert not out[..., hd:].any()
+
+
+@pytest.mark.parametrize("fmt", [None, "nxfp4"])
+def test_ring_serving_on_card(cuda, fmt):
+    """The sliding-window smoke model (window 32) on the card: a stream
+    that wraps the ring in decode and one whose prompt is longer than the
+    lane (the ring lane, P 32) are bitwise their solo streams, the lane
+    chunks graph replays, the ring lane a graph of its own."""
+    from repro_torch.serving import ContinuousEngine, Request
+    cfg = get_smoke_config("h2o_danube_3_4b")
+    params = init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(4)
+    reqs = [Request(uid=i, tokens=rng.integers(0, cfg.vocab, (t,)),
+                    max_new=m)
+            for i, (t, m) in enumerate([(100, 6), (40, 30), (20, 8)])]
+    pol = QuantPolicy(fmt, fmt)
+    for kw in ({}, dict(prefill_mode="chunked", p_chunk=32)):
+        eng = ContinuousEngine(cfg, params, pol, n_slots=2, max_len=64,
+                               chunk=4, device=cuda, **kw)
+        got = {r.uid: r.tokens for r in eng.serve(reqs)}
+        for req in reqs:
+            out = ServeEngine(cfg, eng.params, QuantPolicy(None, fmt),
+                              max_len=64, device=cuda).generate(
+                {"tokens": req.tokens[None]}, max_new=req.max_new,
+                loop="host")
+            np.testing.assert_array_equal(got[req.uid], out.tokens[0],
+                                          err_msg=f"uid={req.uid} {kw}")
+        if kw:
+            assert eng.lane_replays == eng.lane_chunks
+            assert (True, "ring") in eng._lane_graphs
+
+
+def test_chunk_graph_warmup_leaves_a_full_ring_intact(cuda):
+    """A decode chunk's graph is captured after a one-step warm-up on the
+    live cache: in a full sliding-window ring (window 32, 40 prompt
+    tokens) a whole chunk's warm-up would overwrite rows the replay's
+    first steps attend to. The replayed chunk's logits equal the eager
+    steps' on a copy of the cache, bit for bit."""
+    from repro_torch.models import decode_step
+    from repro_torch.serving.engine import capture_graph
+    cfg = get_smoke_config("h2o_danube_3_4b")
+    params = init_params(cfg, seed=0, device=cuda)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (2, 40))).to(cuda)
+    logits, cache = prefill(cfg, params, {"tokens": toks}, 64, "nxfp4")
+    copy = {"pos": cache["pos"].clone(),
+            "layers": [{k: v.clone() for k, v in layer.items()}
+                       for layer in cache["layers"]]}
+    tok = logits.argmax(-1).to(torch.int32)
+
+    def steps(n, c):
+        def fn():
+            out, t, cc = [], tok, c
+            for _ in range(n):
+                lg, cc = decode_step(cfg, params, t[:, None], cc, "nxfp4")
+                out.append(lg)
+                t = lg.argmax(-1).to(torch.int32)
+            return torch.stack(out)
+        return fn
+
+    want = steps(4, copy)()
+    graph, got = capture_graph(steps(4, cache), cuda, warm=steps(1, cache))
+    graph.replay()
+    assert torch.equal(got, want)

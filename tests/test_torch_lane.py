@@ -13,9 +13,13 @@
   chunk's logits (tolerance 1e-2, ``tests/test_torch_model.py``'s: bf16
   activations rounded per op in torch, fused in XLA).
 * The refusals of ``tests/test_prefill_chunk.py`` that apply to the dense
-  family, and the ones of the port's own (the ring lane, ``"auto"`` with
-  no candidate width that fits).
+  family, and the ones of the port's own (the ring lane without a window
+  or rows for it, ``"auto"`` with no candidate width that fits).
+* The sliding-window family (``h2o_danube_3_4b``, window 32): the same
+  prefill-chunk and chunked-engine checks, the ring of the live cache
+  wrapping inside the prompt.
 """
+import functools
 import logging
 
 import jax
@@ -49,15 +53,21 @@ TOL = 1e-2
 MAX_LEN = 64
 
 
-@pytest.fixture(scope="module")
-def setup():
-    """The reference's smoke Llama params and the port's copy of them."""
-    jcfg = jget_smoke_config("llama3_8b")
-    cfg = get_smoke_config("llama3_8b")
+@functools.lru_cache(maxsize=None)
+def _setup(arch):
+    """The reference's smoke params of ``arch`` and the port's copy."""
+    jcfg = jget_smoke_config(arch)
+    cfg = get_smoke_config(arch)
     jparams = jinit_params(jcfg, jax.random.PRNGKey(0))
     tparams = params_from_jax(jax.tree.map(np.asarray, jparams),
                               device="cpu")
     return jcfg, cfg, jparams, tparams
+
+
+@pytest.fixture(scope="module")
+def setup():
+    """The reference's smoke Llama params and the port's copy of them."""
+    return _setup("llama3_8b")
 
 
 def _prompt(cfg, t, seed=0):
@@ -159,13 +169,19 @@ def test_self_attention_resume_matches_reference(setup):
 
 
 def test_self_attention_resume_refuses_the_ring_lane(setup):
+    """The ring lane needs a sliding window and lane rows for a whole
+    window plus the chunk (the reference's assert)."""
     cfg, tparams = setup[1], setup[3]
     x = torch.zeros((1, 4, cfg.d_model), dtype=torch.bfloat16)
     lane = torch.zeros((1, 8, cfg.n_kv_heads, cfg.hd), dtype=torch.bfloat16)
     at = torch.tensor([0], dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ring lane"):
+    with pytest.raises(ValueError, match="ring lane"):
         self_attention_resume(cfg, tparams["layers"][0], x, lane, lane.clone(),
                               torch.arange(4), at, at + 4, wrapped=True)
+    with pytest.raises(ValueError, match="ring lane"):      # 8 < 6 + 4
+        self_attention_resume(cfg, tparams["layers"][0], x, lane, lane.clone(),
+                              torch.arange(4), at, at + 4, window=6,
+                              wrapped=True)
 
 
 # ---------------------------------------------------------------------------
@@ -250,15 +266,21 @@ def test_write_prefill_at_refuses_a_chunk_wider_than_the_cache(setup):
 # prefill_chunk: bitwise the whole prefill, near the reference
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("fmt,p_chunk,t", [(None, 4, 11), ("nxfp4", 16, 24),
-                                           ("nxfp4", 16, 17)])
-def test_prefill_chunk_matches_whole_and_reference(setup, fmt, p_chunk, t):
+@pytest.mark.parametrize("arch,fmt,p_chunk,t", [
+    pytest.param("llama3_8b", None, 4, 11, id="None-4-11"),
+    pytest.param("llama3_8b", "nxfp4", 16, 24, id="nxfp4-16-24"),
+    pytest.param("llama3_8b", "nxfp4", 16, 17, id="nxfp4-16-17"),
+    # sliding window 32: the live cache's ring wraps inside the prompt
+    pytest.param("h2o_danube_3_4b", "nxfp4", 16, 40,
+                 id="danube-nxfp4-16-40")])
+def test_prefill_chunk_matches_whole_and_reference(arch, fmt, p_chunk, t):
     """The lane's final-chunk logits are the port's whole-prompt prefill
     logits bit for bit, and the slot's K/V rows its cache rows (rows past
-    the prompt and the other slot stay zero); against the reference's
+    the prompt and the other slot stay zero; a ring's rows hold the last
+    window of the prompt at ``p % window``); against the reference's
     ``prefill_chunk`` on the same prompt, the logits agree within the model
     tolerance."""
-    jcfg, cfg, jparams, tparams = setup
+    jcfg, cfg, jparams, tparams = _setup(arch)
     toks = _prompt(cfg, t)
     want, whole = prefill(cfg, tparams, {"tokens": torch.from_numpy(
         toks[None]).long()}, MAX_LEN, fmt)
@@ -348,15 +370,24 @@ def _assert_solo(setup, fmt, reqs, results):
                                       err_msg=f"uid={r.uid}")
 
 
-@pytest.mark.parametrize("fmt,p_chunk", [(None, 4), ("nxfp4", 16)])
-def test_chunked_engine_matches_solo(setup, fmt, p_chunk):
+@pytest.mark.parametrize("arch,fmt,p_chunk", [
+    pytest.param("llama3_8b", None, 4, id="None-4"),
+    pytest.param("llama3_8b", "nxfp4", 16, id="nxfp4-16"),
+    # the sliding-window ring: a 41-token prompt wraps the live cache in
+    # prefill, beside a 17-token one (two and three lane chunks)
+    pytest.param("h2o_danube_3_4b", "nxfp4", 16, id="danube-nxfp4-16")])
+def test_chunked_engine_matches_solo(arch, fmt, p_chunk):
     """Greedy, through the full lane: prompts divisible and not, one to
     three chunks, admitted into live decode traffic (2 slots)."""
+    setup = _setup(arch)
     cfg = setup[1]
     eng = _engine(setup, fmt, p_chunk=p_chunk)
     lens = [8, 3 * p_chunk - 7, 8, 2 * p_chunk, p_chunk + 1]
+    news = [5, 11, 3, 8, 6]
+    if cfg.sliding_window:
+        lens, news = [3 * p_chunk - 7, p_chunk + 1], [6, 4]
     reqs = [Request(uid=i, tokens=_prompt(cfg, t, seed=i), max_new=m)
-            for i, (t, m) in enumerate(zip(lens, [5, 11, 3, 8, 6]))]
+            for i, (t, m) in enumerate(zip(lens, news))]
     results = eng.serve(reqs)
     assert all(r.n_generated == reqs[r.uid].max_new for r in results)
     _assert_solo(setup, fmt, reqs, results)

@@ -20,7 +20,8 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.convert import params_from_jax
 from repro_torch.core.formats import get_format
 from repro_torch.core.qtensor import QuantPolicy
-from repro_torch.kernels import build, nxfp_attention, nxfp_matmul
+from repro_torch.kernels import build, dense_attention, nxfp_attention
+from repro_torch.kernels import nxfp_matmul
 from repro_torch.kernels import nxfp_qq_matmul, nxfp_quantize
 from repro_torch.kernels.ops import quantize_qtensor
 from repro_torch.models import init_cache, init_params
@@ -121,6 +122,7 @@ def cuda_request(monkeypatch, no_cuda):
     for mod, name in ((nxfp_quantize, "nxfp_quantize_pack_plain"),
                       (nxfp_matmul, "nxfp_matmul_plain"),
                       (nxfp_attention, "nxfp_decode_attention_plain"),
+                      (dense_attention, "dense_decode_attention_plain"),
                       (nxfp_qq_matmul, "nxfp_qq_matmul_plain")):
         monkeypatch.setattr(mod, name, plain_called)
 
@@ -153,7 +155,8 @@ def _qq_args(x_fmt, w_fmt):
             _meta((n, kb), w_fmt), x_fmt, w_fmt)
 
 
-@pytest.mark.parametrize("kernel", ["quantize", "matmul", "attention", "qq"])
+@pytest.mark.parametrize("kernel", ["quantize", "matmul", "attention", "qq",
+                                    "dense_attention"])
 def test_cuda_requests_raise_instead_of_falling_back(cuda_request, kernel):
     """Symmetric and activation formats alike go to the kernel."""
     fmt, act = get_format("nxfp4"), get_format("amxfp4_ox")
@@ -165,6 +168,11 @@ def test_cuda_requests_raise_instead_of_falling_back(cuda_request, kernel):
         elif kernel == "attention":
             nxfp_attention.nxfp_decode_attention(
                 *_attention_args(get_format("mxfp4_ox")))
+        elif kernel == "dense_attention":       # head_dim 120, no padding
+            kv = torch.zeros((2, 8, 2, 120), dtype=torch.bfloat16)
+            dense_attention.dense_decode_attention(
+                torch.zeros((2, 2, 3, 120)), kv, kv.clone(),
+                torch.ones((2,), dtype=torch.int32))
         else:
             nxfp_qq_matmul.nxfp_qq_matmul(*_qq_args(act, fmt))
 
