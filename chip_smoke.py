@@ -155,6 +155,26 @@ Phases, each fatal on failure (exit code 1, no result line):
    stream; the quantizer, the dequant GEMM and decode attention launched
    on each model's path.
 
+12. The paged KV cache at full width and depth, held bitwise against the
+   dense ``ContinuousEngine`` in the same process. Llama-3-8B (32 layers,
+   nxfp4 weights and KV): 16 requests (prompts 32-512, max_new 16-64,
+   four extending one 256-token prefix) into 8 slots, max_len 2048, chunk
+   16, through ``PagedContinuousEngine`` with 32-row pages and a pool of
+   a quarter of the dense arena (129 pages), whole and through the lane
+   at P 32: every stream the dense engine's, a prefix hit, admission
+   refused on pages at least once, the high watermark within capacity,
+   the pool empty after each serve. The dense cache (``kv_fmt=None``, 4
+   of the requests) through the paged engine: the dense-row attention over
+   the gathered view. H2O-Danube3-4B (24 layers): a registrar of a
+   4000-token prompt and two claimants of it with 160 new tokens, whose
+   ring wraps into the shared pages: COW breaks, bitwise. Launches are
+   counted over the paged serves (``launches_paged_path``). Printed: KV
+   bytes of pool and arena, each engine's peak memory, tok/s and ms a
+   decode chunk of second serves in turns, the gather's share of a decode
+   step. Phase 3 holds the quantizer through a block table (decode rows
+   and a lane chunk, null-page and dropped rows) against its plain
+   version, timed beside the unpaged write.
+
 The last three lines are the kernel table as JSON, the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.
 """
@@ -562,6 +582,140 @@ def check_lane_kv_write(timer, rows):
         bound_ms=b_ms, bound_by=b_by, library_ms=None, near_ties=n_diff,
         shape=f"K, V (1, {p}, 8, 128) bf16 into slot {slot} of a (4, 512) "
               f"nxfp4 cache, {n_valid} valid rows, {n_blocks} blocks")
+
+
+def check_paged_kv_write(timer, rows):
+    """The quantizer writing through a block table (the paged cache,
+    phase 12's shapes): decode rows of 8 slots (one slot's row on a null
+    page, one not live: row S) and a lane chunk (1, 32) at rows 48 + t, t
+    < n_valid = 20, of slot 2, whose last 4 valid rows (64-67) fall on a
+    null page, into a 129-page pool of 32 rows: bitwise (up to counted
+    near-ties) against the plain version, every other pool row (the null
+    page included) as it was; its time beside the unpaged write of the
+    same rows into a (8, 2048) cache."""
+    from repro_torch.core.formats import get_format
+    from repro_torch.core.pack import unpack_codes
+    from repro_torch.core.quantize import near_tie_blocks, to_blocks
+    from repro_torch.kernels import build
+    from repro_torch.kernels import nxfp_quantize as nq
+    from repro_torch.kernels.decode_lib import decode_block_values
+
+    fmt = get_format("nxfp4")
+    cb, n_pages, page, tw, kvh, hd = 8, PAGED_POOL_PAGES, PAGED_PAGE, \
+        PAGED_MAX_LEN // PAGED_PAGE, 8, 128
+    nb = hd // fmt.block_size
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    # slot s holds pages 1 + 16 s .. 16 s + 16, bar two null entries:
+    # slot 1's third page (a decode row) and slot 2's (the chunk's tail)
+    table = torch.zeros((cb, tw), dtype=torch.int32)
+    for s in range(cb):
+        table[s, :16] = torch.arange(1 + 16 * s, 17 + 16 * s)
+    table[1, 2] = 0
+    table[2, 2] = 0
+    table = table.cuda()
+
+    def pool():
+        return {f"pool_{n}_{key}": torch.randint(
+            0, 200, (n_pages, page, kvh, nb) + tail, generator=gen,
+            device="cuda", dtype=torch.int32).to(dt)
+            for n in "kv" for key, tail, dt in (
+                ("packed", (fmt.bytes_per_block,), torch.uint8),
+                ("meta", (), torch.uint16))}
+
+    cases = {
+        # pos per slot: 300 / 70 (slot 1's null page) / S (not live) / ...
+        "decode": (1, [300, 70, PAGED_MAX_LEN, 17, 255, 480, 3, 511], None,
+                   None),
+        "chunk": (32, [48], 2, 20)}
+    for case, (t, pos, slot, n_valid) in cases.items():
+        b = len(pos)
+        k, v = (torch.randn((b, t, kvh, hd), generator=gen, device="cuda")
+                .to(torch.bfloat16) for _ in range(2))
+        pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        args = {}
+        if slot is not None:
+            args = dict(slot=torch.tensor([slot], dtype=torch.int32,
+                                          device="cuda"),
+                        n_valid=torch.tensor([n_valid], dtype=torch.int32,
+                                             device="cuda"))
+        cache = pool()
+        before = {n: a.clone() for n, a in cache.items()}
+        plain = {n: a.clone() for n, a in cache.items()}
+        nq.nxfp_quantize_kv_rows(k, v, cache, pos_t, fmt, block=table,
+                                 **args)
+        nq.nxfp_quantize_kv_rows_plain(k, v, plain, pos_t, fmt,
+                                       block=table, **args)
+        torch.cuda.synchronize()
+        # the rows the write owns: (page, row in page) of each valid row
+        owned = torch.zeros((n_pages, page), dtype=torch.bool,
+                            device="cuda")
+        src = {n: torch.zeros((n_pages, page, kvh, hd), device="cuda")
+               for n in "kv"}
+        for bi in range(b):
+            sl = bi if slot is None else slot
+            for ti in range(t if n_valid is None else n_valid):
+                r = pos[bi] + ti
+                if not 0 <= r < PAGED_MAX_LEN:
+                    continue
+                pg = int(table[sl, r // page])
+                if pg:
+                    owned[pg, r % page] = True
+                    src["k"][pg, r % page] = k[bi, ti].float()
+                    src["v"][pg, r % page] = v[bi, ti].float()
+        n_diff, err = 0, 0.0
+        for n in "kv":
+            pk, pm = cache[f"pool_{n}_packed"], cache[f"pool_{n}_meta"]
+            qk, qm = plain[f"pool_{n}_packed"], plain[f"pool_{n}_meta"]
+            diff = (pk != qk).any(-1) | (build.bit_view(pm)
+                                         != build.bit_view(qm))
+            xb, _ = to_blocks(src[n], fmt.block_size, -1)
+            if diff.any() and not bool(near_tie_blocks(xb[diff], fmt).all()):
+                fail(f"paged KV write ({case}): {int(diff.sum())} blocks "
+                     "differ from the plain version beyond a near-tie")
+            n_diff += int(diff.sum())
+            err = max(err, float((decode_block_values(
+                unpack_codes(pk, fmt.bits, 32), pm, fmt)
+                - decode_block_values(unpack_codes(qk, fmt.bits, 32), qm,
+                                      fmt)).abs().max()))
+        if owned[0].any() or not all(
+                torch.equal(build.bit_view(cache[n])[~owned],
+                            build.bit_view(before[n])[~owned])
+                for n in cache):
+            fail(f"paged KV write ({case}): a row it does not own changed")
+        n_rows = int(owned.sum())
+        n_blocks = 2 * n_rows * kvh * nb
+        n_cands = sum(int(nq.evaluated_candidates(
+            to_blocks(src[n][owned], fmt.block_size, -1)[0].reshape(
+                -1, fmt.block_size), fmt).sum()) for n in "kv")
+        ms = timer(lambda: nq.nxfp_quantize_kv_rows(
+            k, v, cache, pos_t, fmt, block=table, **args))
+        plain_ms = timer(lambda: nq.nxfp_quantize_kv_rows_plain(
+            k, v, plain, pos_t, fmt, block=table, **args), 5)
+        # the same rows into an unpaged (8, 2048) cache, for comparison
+        dense = {f"{n}_{key}": torch.zeros(
+            (cb, PAGED_MAX_LEN, kvh, nb) + tail, dtype=dt, device="cuda")
+            for n in "kv" for key, tail, dt in (
+                ("packed", (fmt.bytes_per_block,), torch.uint8),
+                ("meta", (), torch.uint16))}
+        unpaged_ms = timer(lambda: nq.nxfp_quantize_kv_rows(
+            k, v, dense, pos_t, fmt, **args))
+        n_bytes = (2 * n_rows * kvh * hd * 2 + n_blocks * (
+            fmt.bytes_per_block + 2) + 4 * (b + n_rows))
+        b_ms, b_by = bound(n_bytes, n_cands * 32 * QUANT_OPS, PEAK_F32)
+        log(f"paged KV write ({case}: K and V ({b}, {t}, 8, 128) bf16 "
+            f"through a ({cb}, {tw}) block table into a {n_pages}-page "
+            f"nxfp4 pool of {page} rows, {n_rows} rows written, null-page "
+            f"and dropped rows skipped, one launch): bitwise except {n_diff} "
+            f"near-tie blocks, every other row untouched; kernel {ms:.4f} "
+            f"ms, unpaged {unpaged_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {b_ms:.5f} ms ({b_by})")
+        rows[f"nxfp_quantize kv paged {case}"] = dict(
+            max_abs_err=err, ms=ms,
+            unpaged_ms=unpaged_ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=None, near_ties=n_diff,
+            shape=f"K, V ({b}, {t}, 8, 128) bf16 through a ({cb}, {tw}) "
+                  f"table into a {n_pages} x {page}-row nxfp4 pool, "
+                  f"{n_rows} rows written")
 
 
 # the qq GEMM's rows: a 4 x 128 prefill (the wgmma regime), 32 rows (the
@@ -2392,6 +2546,292 @@ def phase_dense_family(card):
     return out
 
 
+# phase 12: the paged KV cache at full width and depth
+PAGED_SLOTS, PAGED_MAX_LEN, PAGED_PAGE, PAGED_P = 8, 2048, 32, 32
+# a quarter of the dense arena's pages (8 slots x 64 pages) and the null
+# page
+PAGED_POOL_PAGES = PAGED_SLOTS * (PAGED_MAX_LEN // PAGED_PAGE) // 4 + 1
+# uids 0-7: long prompts whose pages (17-18 each) overrun the quarter pool
+# together, so admission waits on pages; 8-11: a 256-token shared prefix
+# and a tail each (8 shared pages); 12-15 short prompts
+PAGED_PROMPTS = (512, 500, 490, 480, 512, 470, 505, 495,
+                 None, None, None, None, 32, 64, 128, 200)
+PAGED_NEW = (64, 64, 48, 64, 56, 64, 40, 64, 32, 16, 24, 48, 16, 24, 32, 40)
+PAGED_PREFIX, PAGED_TAILS = 256, (16, 48, 80, 128)
+PAGED_DENSE_KV_UIDS = (12, 13, 14, 15)   # the dense-KV (kv_fmt None) serve
+# Danube: a registrar and two claimants of one 4000-token prompt; the
+# claimants' 160 new tokens wrap the 4096-row ring into the shared pages
+PAGED_DANUBE_PROMPT, PAGED_DANUBE_NEW = 4000, (4, 160, 160)
+
+
+def _paged_requests(cfg):
+    import numpy as np
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(12)
+    prefix = rng.integers(0, cfg.vocab, (PAGED_PREFIX,))
+    tails = iter(PAGED_TAILS)
+    reqs = []
+    for uid, (t, m) in enumerate(zip(PAGED_PROMPTS, PAGED_NEW)):
+        toks = (np.concatenate([prefix, rng.integers(0, cfg.vocab,
+                                                     (next(tails),))])
+                if t is None else rng.integers(0, cfg.vocab, (t,)))
+        reqs.append(Request(uid=uid, tokens=toks, max_new=m))
+    return reqs
+
+
+def _arena_bytes(cache) -> int:
+    """KV bytes of a cache's layer buffers (pool or arena; not the
+    table)."""
+    return sum(buf.numel() * buf.element_size()
+               for layer in cache["layers"] for name, buf in layer.items()
+               if name != "block")
+
+
+def _serve_checked(eng, reqs, want, what):
+    """One serve; every stream must be ``want``'s bitwise. Returns
+    (results, wall seconds)."""
+    import numpy as np
+    from repro_torch.serving import Status
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = eng.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if len(results) != len(reqs):
+        fail(f"{what}: {len(results)} results for {len(reqs)} requests")
+    for r in results:
+        if r.status != Status.OK or (want is not None and not np.array_equal(
+                r.tokens, want[r.uid])):
+            fail(f"{what}: uid {r.uid} ({r.status}) {r.tokens[:8].tolist()}"
+                 f" ... differs from the dense engine's stream "
+                 f"{want[r.uid][:8].tolist() if want else None} ...")
+    return results, wall
+
+
+def _chunk_ms(eng) -> float:
+    """Median host-clock ms of the serve's decode chunks with every slot
+    live (all chunks when none had)."""
+    full = [s for live, s in eng.chunk_times if live == eng.n_slots]
+    return round(statistics.median(full or [s for _, s in eng.chunk_times])
+                 * 1e3, 3)
+
+
+def _engine_run(make, reqs, want, what):
+    """Build an engine and serve ``reqs`` once (the serve captures its
+    graphs): (engine, results, wall, peak device bytes of the engine over
+    construction and serve, above what was allocated before)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    eng = make()
+    results, wall = _serve_checked(eng, reqs, want, what)
+    return eng, results, wall, torch.cuda.max_memory_allocated() - base
+
+
+def phase_paged(card: str, timer):
+    """The paged KV cache (``PagedContinuousEngine``) at full width and
+    depth, every stream held bitwise against the dense ``ContinuousEngine``
+    in the same process: Llama-3-8B (nxfp4 weights and KV; 16 requests
+    into 8 slots, max_len 2048, chunk 16, a pool of a quarter of the dense
+    arena) whole and through the lane at P 32, the dense-KV cache (4 of
+    the requests), and H2O-Danube3-4B's ring wrapping into shared pages
+    (COW). The kernels' launches are counted over the paged serves only.
+    Returns (launch counts, figures)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.qtensor import QuantPolicy
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import init_params
+    from repro_torch.models.kvcache import paged_layer_view
+    from repro_torch.serving import (ContinuousEngine,
+                                     PagedContinuousEngine)
+    from repro_torch.serving.engine import load_params
+
+    t0 = time.time()
+    fig = {}
+
+    def cast(arch):
+        cfg = get_config(arch)
+        raw = init_params(cfg, seed=0, device="cuda")
+        params = load_params(raw, QuantPolicy("nxfp4", None),
+                             torch.device("cuda"))
+        del raw
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return cfg, params
+
+    cfg, params = cast("llama3_8b")
+    reqs = _paged_requests(cfg)
+    dense_kv_reqs = [reqs[u] for u in PAGED_DENSE_KV_UIDS]
+    packed, dense_kv = QuantPolicy(None, "nxfp4"), QuantPolicy(None, None)
+    base_kw = dict(n_slots=PAGED_SLOTS, max_len=PAGED_MAX_LEN,
+                   chunk=CONT_CHUNK, device="cuda")
+    paged_kw = dict(base_kw, page_size=PAGED_PAGE,
+                    n_pages=PAGED_POOL_PAGES)
+    # the oracles: the dense engine's streams
+    dense, res, wall, peak_dense = _engine_run(
+        lambda: ContinuousEngine(cfg, params, packed, **base_kw), reqs, None,
+        "dense engine")
+    want = {r.uid: r.tokens for r in res}
+    dense_bytes = _arena_bytes(dense.cache)
+    eng_kv, res, _, _ = _engine_run(
+        lambda: ContinuousEngine(cfg, params, dense_kv, **base_kw),
+        dense_kv_reqs, None, "dense engine, dense KV")
+    want_kv = {r.uid: r.tokens for r in res}
+    del eng_kv
+    dcfg, dparams = cast("h2o_danube_3_4b")
+    dprompt = np.random.default_rng(13).integers(0, dcfg.vocab,
+                                                 (PAGED_DANUBE_PROMPT,))
+    from repro_torch.serving import Request
+    dreqs = [Request(uid=i, tokens=dprompt.copy(), max_new=m)
+             for i, m in enumerate(PAGED_DANUBE_NEW)]
+    dkw = dict(n_slots=2, max_len=dcfg.sliding_window, chunk=CONT_CHUNK,
+               device="cuda")
+    eng_d, res, _, _ = _engine_run(
+        lambda: ContinuousEngine(dcfg, dparams, packed, **dkw), dreqs, None,
+        "Danube dense engine")
+    want_d = {r.uid: r.tokens for r in res}
+    del eng_d
+
+    # the paged serves, counted
+    reset_launch_counts()
+    gate_log = []
+
+    def gated(eng):
+        gate = eng._admission_gate
+
+        def spy(req, shard, resumable):
+            ok = gate(req, shard, resumable)
+            gate_log.append(ok)
+            return ok
+        eng._admission_gate = spy
+        return eng
+
+    paged, _, wall_p, peak_paged = _engine_run(
+        lambda: gated(PagedContinuousEngine(cfg, params, packed,
+                                            **paged_kw)),
+        reqs, want, "paged engine (whole)")
+    st = paged.pool_stats()[0]
+    pool_bytes = _arena_bytes(paged.cache)
+    if st["prefix_hits"] < 1:
+        fail(f"paged engine: no prefix hit ({st})")
+    if False not in gate_log:
+        fail("paged engine: admission never waited on pages")
+    if st["high_watermark"] > paged.pool.capacity:
+        fail(f"paged engine: high watermark {st['high_watermark']} over "
+             f"capacity {paged.pool.capacity}")
+    paged.pool.assert_empty()
+    if 4 * pool_bytes > dense_bytes + 4 * pool_bytes // PAGED_POOL_PAGES:
+        fail(f"paged pool {pool_bytes} B is over a quarter of the dense "
+             f"arena {dense_bytes} B (plus the null page)")
+    fig["whole"] = dict(pool_stats=st, gate_refusals=gate_log.count(False))
+    lane, _, wall_l, _ = _engine_run(
+        lambda: PagedContinuousEngine(cfg, params, packed,
+                                      prefill_mode="chunked",
+                                      p_chunk=PAGED_P, **paged_kw),
+        reqs, want, f"paged engine (lane, P {PAGED_P})")
+    if lane.lane_replays == 0:
+        fail("paged engine (lane): no lane graph replays")
+    lane.pool.assert_empty()
+    fig["lane"] = dict(pool_stats=lane.pool_stats()[0],
+                       lane_chunks=lane.lane_chunks, seconds=round(wall_l, 3))
+    del lane
+    pkv, _, _, _ = _engine_run(
+        lambda: PagedContinuousEngine(cfg, params, dense_kv, **paged_kw),
+        dense_kv_reqs, want_kv, "paged engine (dense KV)")
+    pkv.pool.assert_empty()
+    del pkv
+    dpaged, _, _, _ = _engine_run(
+        lambda: PagedContinuousEngine(dcfg, dparams, packed,
+                                      page_size=PAGED_PAGE, **dkw),
+        dreqs, want_d, "Danube paged engine")
+    dst = dpaged.pool_stats()[0]
+    if dst["prefix_hits"] < 1 or dst["cow_breaks"] < 1:
+        fail(f"Danube paged engine: no prefix hit or COW break ({dst})")
+    dpaged.pool.assert_empty()
+    fig["danube"] = dst
+    del dpaged, dparams
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    for name in ("nxfp_quantize", "nxfp_matmul", "nxfp_attention",
+                 "dense_attention"):
+        if counts[name] <= 0:
+            fail(f"paged path: kernel {name} was never launched")
+
+    # C4: the two engines' later serves in turns (paged, dense, dense,
+    # paged); ms a decode chunk with every slot live, host clock
+    rounds = {"paged": [], "dense": []}
+    for name, eng in (("paged", paged), ("dense", dense), ("dense", dense),
+                      ("paged", paged)):
+        res, wall = _serve_checked(eng, reqs, want, f"{name} (timed)")
+        n_tok = sum(r.n_generated for r in res)
+        rounds[name].append(dict(tok_s=round(n_tok / wall, 2),
+                                 chunk_ms=_chunk_ms(eng),
+                                 seconds=round(wall, 3)))
+    paged.pool.assert_empty()
+    # the gather's share of a decode step: the 32 layers' views of 8 full
+    # slots (every table entry a page), one layer alive at a time as in
+    # the decode graph, replayed as a CUDA graph (device time, CUDA
+    # events), against a paged decode step of the timed serves
+    for slot in range(PAGED_SLOTS):
+        paged._write_table(slot, list(range(1 + 16 * slot, 17 + 16 * slot))
+                           * 4)
+    layers = paged.cache["layers"]
+
+    def gather_all():
+        out = None
+        for layer in layers:
+            out = paged_layer_view(layer)
+        return out
+
+    from repro_torch.serving.engine import capture_graph
+    graph, _ = capture_graph(gather_all, torch.device("cuda"))
+    gather_ms = _replay_ms(graph)
+    eager_ms = timer(gather_all, 5)
+    del graph
+    for slot in range(PAGED_SLOTS):
+        paged._write_table(slot, [])
+    step_ms = statistics.median(r["chunk_ms"] for r in rounds["paged"]) \
+        / CONT_CHUNK
+    fig.update(rounds=rounds, gather_ms=round(gather_ms, 4),
+               gather_eager_ms=round(eager_ms, 4),
+               gather_share=round(gather_ms / step_ms, 4),
+               pool_bytes=pool_bytes, arena_bytes=dense_bytes,
+               peak_paged=peak_paged, peak_dense=peak_dense,
+               seconds=round(time.time() - t0, 1))
+    log(f"paged KV ({card}): Llama-3-8B full width, 32 layers, nxfp4 weights"
+        f" and KV, {PAGED_SLOTS} slots, chunk {CONT_CHUNK}, max_len "
+        f"{PAGED_MAX_LEN}, page {PAGED_PAGE}, {PAGED_POOL_PAGES} pages; 16 "
+        f"requests (prompts 32-512, max_new 16-64, uids 8-11 extending one "
+        f"{PAGED_PREFIX}-token prefix): every stream equals the dense "
+        f"engine's bitwise, whole and through the lane at P {PAGED_P}; "
+        f"dense KV (uids {list(PAGED_DENSE_KV_UIDS)}) bitwise too; "
+        f"H2O-Danube3-4B (24 layers) registrar + 2 claimants of a "
+        f"{PAGED_DANUBE_PROMPT}-token prompt, ring wrapped into shared "
+        f"pages: bitwise; every pool empty after its serve")
+    log(f"  pool ({card}): {fig['whole']['pool_stats']}; admission refused "
+        f"on pages {fig['whole']['gate_refusals']} times; lane "
+        f"{fig['lane']}; Danube {fig['danube']}")
+    log(f"  KV bytes: pool {pool_bytes} (paged) vs arena {dense_bytes} "
+        f"(dense), {pool_bytes / dense_bytes:.4f}; peak device memory above"
+        f" the weights ({card}), construction and first serve: paged "
+        f"{peak_paged}, dense {peak_dense}")
+    log(f"  second serves in turns ({card}): {rounds}")
+    log(f"  the gather ({card}): 32 layers' views of 8 slots x "
+        f"{PAGED_MAX_LEN} rows, {2 * PAGED_SLOTS * PAGED_MAX_LEN * 1152 * 32}"
+        f" bytes read and written, {gather_ms:.4f} ms a step as a graph "
+        f"replay ({eager_ms:.4f} ms eager, launches included), "
+        f"{fig['gather_share']:.4f} of a paged decode step ({step_ms:.3f} "
+        f"ms, the timed serves' median chunk / {CONT_CHUNK})")
+    log(f"  launches on the paged path (the paged serves' first serves, "
+        f"graph warm-ups and captures included): {counts}; phase 12 "
+        f"{fig['seconds']} s")
+    del paged, dense, params
+    torch.cuda.empty_cache()
+    return counts, fig
+
+
 def kernel_formats(kname, rows, wide_counts):
     """The formats ``kname`` ran in this run: its main-path formats, its
     phase-3 wide rows and the formats phase 7 served through it."""
@@ -2492,6 +2932,7 @@ def main():
     check_act_quantizer(timer, rows)
     check_kv_write(timer, rows)
     check_lane_kv_write(timer, rows)
+    check_paged_kv_write(timer, rows)
     check_matmul(timer, rows)
     check_matmul(timer, rows, FAMILY_KN, FAMILY_M)
     check_attention(timer, rows)
@@ -2526,6 +2967,9 @@ def main():
     t11 = time.time()
     family = phase_dense_family(smi_line)
     log(f"phase 11 seconds: {time.time() - t11:.1f}")
+    t12 = time.time()
+    paged_counts, _ = phase_paged(smi_line, Timer("cuda"))
+    log(f"phase 12 seconds: {time.time() - t12:.1f}")
 
     table = []
     for kname, (sources, replaces) in KERNELS.items():
@@ -2545,6 +2989,7 @@ def main():
             launches_auto_path=auto_counts[c],
             launches_tiered_path=tier_counts[c],
             launches_dense_family={a: v[0][c] for a, v in family.items()},
+            launches_paged_path=paged_counts[c],
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],

@@ -4,13 +4,17 @@ Same layout as the reference: per quantization block, code ``i`` sits at
 bit offset ``i*bits``, little-endian, so a block of 32 k-bit codes is
 exactly ``4*k`` bytes and a code straddles at most two bytes. Plain
 integer shifts on int32 (uint8 shifts in torch promote in surprising ways).
+``pack_layout`` is the one static layout every pack and unpack here reads.
 """
 from __future__ import annotations
 
+from functools import lru_cache
+
+import numpy as np
 import torch
 
 __all__ = ["bytes_per_block", "pack_codes", "pack_codes_scatter",
-           "unpack_codes"]
+           "unpack_codes", "pack_tile", "pack_layout", "byte_fold"]
 
 
 def bytes_per_block(block_size: int, bits: int) -> int:
@@ -21,19 +25,52 @@ def bytes_per_block(block_size: int, bits: int) -> int:
     return total // 8
 
 
-def _layout(block_size: int, bits: int, device):
-    """(lo byte, spill byte clamped to the last byte, bit offset) per code."""
-    bpb = bytes_per_block(block_size, bits)
-    p = torch.arange(block_size, device=device) * bits
+def pack_tile(bits: int, block_size: int = 32):
+    """The kernels' pack-tile granularity, (codes, bytes), as the
+    reference's: a block for in-byte widths (4 and 8 bits), two adjacent
+    blocks for the byte-straddling ones. A whole block is a whole number of
+    bytes, so a two-block tile's bytes are its blocks' bytes in a row: the
+    tile is a kernel's choice and never changes the packed layout."""
+    blocks = 1 if bits in (4, 8) else 2
+    return blocks * block_size, blocks * bytes_per_block(block_size, bits)
+
+
+@lru_cache(maxsize=None)
+def pack_layout(block_size: int, bits: int):
+    """The static layout of (block_size, bits), the reference's numpy
+    arrays: (off (B,) int32, the bit offset of code i in its low byte;
+    lo_route (B, bpb) f32 0/1, code i's low byte; hi_route (B, bpb) f32
+    0/1, its spill byte, clamped to the last byte where it has none (its
+    spill is 0 there); bpb)."""
+    p = np.arange(block_size) * bits
     lo = p // 8
-    return lo, torch.clamp(lo + 1, max=bpb - 1), (p % 8).to(torch.int32), bpb
+    off = (p % 8).astype(np.int32)
+    bpb = bytes_per_block(block_size, bits)
+    hi = np.minimum(lo + 1, bpb - 1)
+    lo_route = np.zeros((block_size, bpb), np.float32)
+    hi_route = np.zeros((block_size, bpb), np.float32)
+    lo_route[np.arange(block_size), lo] = 1.0
+    hi_route[np.arange(block_size), hi] = 1.0
+    return off, lo_route, hi_route, bpb
+
+
+def _byte_index(block_size: int, bits: int, device):
+    """``pack_layout`` as indices on ``device``: (low byte, spill byte, bit
+    offset) per code, and bpb."""
+    off, lo_route, hi_route, bpb = pack_layout(block_size, bits)
+
+    def idx(a):
+        return torch.from_numpy(a).to(device)
+
+    return (idx(lo_route.argmax(1)), idx(hi_route.argmax(1)), idx(off),
+            bpb)
 
 
 def pack_codes(codes, bits: int):
     """(..., nb, B) uint8 codes -> (..., nb, B*bits//8) uint8 bytes."""
     if bits == 8:
         return codes.to(torch.uint8)
-    lo, hi, off, bpb = _layout(codes.shape[-1], bits, codes.device)
+    lo, hi, off, bpb = _byte_index(codes.shape[-1], bits, codes.device)
     shifted = codes.to(torch.int32) << off
     out = torch.zeros(*codes.shape[:-1], bpb, dtype=torch.int32,
                       device=codes.device)
@@ -49,7 +86,7 @@ def pack_codes_scatter(codes, bits: int):
     pack_codes_scatter``), its oracle for the packed layout: each code's
     low-byte and spill contributions added into their bytes by index
     (the spill index clamped to the last byte, where it adds 0)."""
-    lo, hi, off, bpb = _layout(codes.shape[-1], bits, codes.device)
+    lo, hi, off, bpb = _byte_index(codes.shape[-1], bits, codes.device)
     shifted = codes.to(torch.int32) << off
     out = torch.zeros(*codes.shape[:-1], bpb, dtype=torch.int32,
                       device=codes.device)
@@ -63,7 +100,7 @@ def unpack_codes(packed, bits: int, block_size: int):
     """(..., nb, bpb) uint8 bytes -> (..., nb, block_size) uint8 codes."""
     if bits == 8:
         return packed.to(torch.uint8)
-    lo, hi, off, bpb = _layout(block_size, bits, packed.device)
+    lo, hi, off, bpb = _byte_index(block_size, bits, packed.device)
     if packed.shape[-1] != bpb:
         raise ValueError(f"packed block is {packed.shape[-1]} bytes, "
                          f"expected {bpb}")
@@ -71,3 +108,21 @@ def unpack_codes(packed, bits: int, block_size: int):
     # the clamped spill byte of a no-spill code only feeds bits the mask drops
     word = b[..., lo] | (b[..., hi] << 8)
     return ((word >> off) & ((1 << bits) - 1)).to(torch.uint8)
+
+
+def byte_fold(x, keep_dims: int):
+    """The reference's position-weighted integrity fold: one uint32 per
+    index of the first ``keep_dims`` axes, ``sum_j x[j] * (2j + 1) mod
+    2^32`` over the flattened rest. Floats are bit-cast to unsigned ints of
+    their width first, so the fold is of bits, not values. Summed in int64,
+    where wrap-around keeps the low 32 bits exact; returns torch.uint32."""
+    lead = tuple(x.shape[:keep_dims])
+    flat = x.contiguous().reshape(lead + (-1,))
+    if flat.dtype.is_floating_point:
+        flat = flat.view({2: torch.int16, 4: torch.int32}[flat.element_size()])
+    mask = (1 << (8 * flat.element_size())) - 1
+    flat = flat.to(torch.int64) & mask
+    w = 2 * torch.arange(flat.shape[-1], dtype=torch.int64,
+                         device=x.device) + 1
+    prod = (flat * w) & 0xFFFFFFFF
+    return (prod.sum(dim=-1) & 0xFFFFFFFF).to(torch.uint32)

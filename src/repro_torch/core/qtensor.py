@@ -11,7 +11,7 @@ from .formats import BlockFormat, get_format
 from .pack import unpack_codes
 from .quantize import dequantize_blocks, from_blocks
 
-__all__ = ["QTensor", "QuantPolicy", "direct_cast_tree",
+__all__ = ["QTensor", "QuantPolicy", "direct_cast_tree", "dense_like",
            "tree_footprint_bytes", "fmt_key"]
 
 
@@ -125,6 +125,14 @@ def direct_cast_tree(params, policy: QuantPolicy, quantize_fn):
         return leaf
 
     return _map_with_path(cast, params)
+
+
+def dense_like(qparams):
+    """Every QTensor leaf decoded back to bf16, the rest as it is (the
+    reference's paper-style evaluation of a cast tree)."""
+    return _map_with_path(
+        lambda _, leaf: leaf.dequantize() if isinstance(leaf, QTensor)
+        else leaf, qparams)
 
 
 def tree_footprint_bytes(params) -> int:

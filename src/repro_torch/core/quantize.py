@@ -2,8 +2,10 @@
 
 Port of the reference's arithmetic encoder (``arith_encode_blocks`` /
 ``_encode_candidate_arith``), of its table-driven encoder
-(``quantize_blocks``, which serves custom recycle values) and of its
-decode (``dequantize_blocks``). Every
+(``quantize_blocks``, which serves custom recycle values), of its
+gather-free variant (``quantize_blocks_gatherfree``), of its decode
+(``dequantize_blocks``) and of the dense-tensor helpers over them
+(``quantize``, ``dequantize``, ``fake_quant``). Every
 operation repeats the reference's f32 arithmetic step for step so that
 codes, meta words and decoded values are bitwise equal:
 
@@ -33,6 +35,8 @@ after a view as int32.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -44,7 +48,9 @@ __all__ = ["pow2i", "floor_log2_bits", "meta_fields", "meta_int32",
            "arith_encode_blocks", "quantize_blocks_arith", "quantize_blocks",
            "arith_ok", "encode_blocks", "recycled_value",
            "dequantize_blocks", "to_blocks", "from_blocks", "candidates",
-           "near_tie_blocks", "ox_emax", "ox_substitute", "block_maxima"]
+           "near_tie_blocks", "ox_emax", "ox_substitute", "block_maxima",
+           "quantize", "dequantize", "quantize_blocks_gatherfree",
+           "fake_quant"]
 
 _E_BIAS = 128
 _F32_TINY = float(np.finfo(np.float32).tiny)
@@ -448,3 +454,66 @@ def from_blocks(xb, orig_len: int, axis: int = -1):
 
 def resolve_format(fmt) -> BlockFormat:
     return get_format(fmt) if isinstance(fmt, str) else fmt
+
+
+def quantize(x, fmt, axis: int = -1):
+    """Quantize a dense tensor along ``axis`` with the reference's encoder
+    (``quantize_blocks``). Returns (codes (..., nb, B) uint8, meta (...,
+    nb), orig_len)."""
+    fmt = resolve_format(fmt)
+    xb, n = to_blocks(x, fmt.block_size, axis)
+    codes, meta = quantize_blocks(xb, fmt)
+    return codes, meta, n
+
+
+def dequantize(codes, meta, fmt, orig_len: int, axis: int = -1,
+               dtype=torch.float32):
+    """The inverse of ``quantize``: decoded values in the original layout."""
+    fmt = resolve_format(fmt)
+    return from_blocks(dequantize_blocks(codes, meta, fmt, dtype), orig_len,
+                       axis)
+
+
+def quantize_blocks_gatherfree(xb, fmt: BlockFormat):
+    """The reference's gather-free encoder (``core/quantize.py:
+    quantize_blocks_gatherfree``): a scaled value's level is the count of
+    midpoints below it, and its code and value are one-hot sums over the
+    level grid instead of lookups. Symmetric scales only, as there (an
+    asym or ox format is encoded with one scale a block). Returns (codes
+    uint8 (..., nb, B), meta uint16 (..., nb)), ``quantize_blocks``'s for
+    the symmetric formats."""
+    xb, sides = block_maxima(xb, dataclasses.replace(fmt, asym=False))
+    vmax, vmax_e = sides[0]
+    best_codes = best_meta = best_mse = None
+    dev = xb.device
+    for ci, (fmt_bit, table, nano_mode) in enumerate(candidates(fmt)):
+        e_sh, nano, scale = _side(vmax, vmax_e, nano_mode, table)
+        vp = xb * torch.reciprocal(scale)[..., None]
+        bounds = torch.from_numpy(table.boundaries).to(dev)
+        idx = (vp[..., None] > bounds).to(torch.int32).sum(-1)
+        onehot = idx[..., None] == torch.arange(table.num_levels,
+                                                dtype=torch.int32,
+                                                device=dev)
+        values = (onehot.to(torch.float32)
+                  * torch.from_numpy(table.values_sorted).to(dev)).sum(-1)
+        codes = (onehot.to(torch.int32) * torch.from_numpy(
+            table.codes_sorted.astype(np.int32)).to(dev)).sum(-1)
+        mse = _block_mean(torch.square(values * scale[..., None] - xb))
+        meta = (e_sh + _E_BIAS) | (nano << 8) | (fmt_bit << 10)
+        if ci == 0:
+            # the first candidate unconditionally: inf-MSE blocks encode
+            best_codes, best_meta, best_mse = codes, meta, mse
+            continue
+        take = mse < best_mse
+        best_codes = torch.where(take[..., None], codes, best_codes)
+        best_meta = torch.where(take, meta, best_meta)
+        best_mse = torch.where(take, mse, best_mse)
+    return best_codes.to(torch.uint8), best_meta.to(torch.uint16)
+
+
+def fake_quant(x, fmt, axis: int = -1):
+    """The direct-cast round trip (``quantize``, then ``dequantize``) in
+    the original layout and dtype: the values a quantized buffer holds."""
+    fmt = resolve_format(fmt)
+    codes, meta, n = quantize(x, fmt, axis)
+    return dequantize(codes, meta, fmt, n, axis).to(x.dtype)

@@ -19,8 +19,12 @@ constexpr int kMaxCands = 8;  // candidates of a format at most
 // zero-padded), encoded into packed (b, s, kvh, nb, bpb) uint8 and meta
 // (cb, s, kvh, nb) at cache rows pos[bb] + tt (pos null: rows from 0) of
 // slot slot[bb] (slot null: slot bb); a row outside [0, s), a slot outside
-// [0, cb) and a row tt >= n_valid[bb] are not written. A plain (T, BS) block array is the
-// case b = T, t = kvh = s = nb = 1, hd = BS.
+// [0, cb) and a row tt >= n_valid[bb] are not written. With a block table
+// (block non-null: the paged cache) slot sl's logical row r lands at row
+// r % page of physical page block[sl * tw + r / page] of a (n_pages, page,
+// kvh, nb[, bpb]) pool, s = tw * page; a row whose page is the null page 0
+// (or lies outside [1, n_pages)) is not written either. A plain (T, BS)
+// block array is the case b = T, t = kvh = s = nb = 1, hd = BS.
 struct Job {
   const void* src[2];
   void* packed[2];
@@ -32,7 +36,9 @@ struct Job {
   int n_tensors;
   int in_bf16;
   int b, t, kvh, hd, nb, s;
-  int cb;  // the cache's slots (b when slot is null)
+  int cb;  // the cache's slots (b when slot is null); the table's rows
+  const int* block;  // (cb, tw) page table of a paged cache; null: dense
+  int page, tw, n_pages;
 };
 
 // The candidate list in runtime terms; the element formats themselves are

@@ -278,11 +278,12 @@ __device__ __forceinline__ int mode_of(int nm, int k) {
 // ---------------------------------------------------------------------------
 
 // Cache block of source block lb (of one tensor); ok false for a row
-// outside [0, s), a slot outside [0, cb) or a row past n_valid.
+// outside [0, s), a slot outside [0, cb), a row past n_valid or, paged, a
+// row whose table entry is the null page.
 __device__ __forceinline__ long long dest_block(const Job& job, unsigned lb,
                                                 bool& ok) {
   if (job.pos == nullptr && job.slot == nullptr && job.n_valid == nullptr &&
-      job.t == 1 && job.kvh == 1 && job.nb == 1) {
+      job.block == nullptr && job.t == 1 && job.kvh == 1 && job.nb == 1) {
     ok = true;
     return lb;
   }
@@ -294,7 +295,14 @@ __device__ __forceinline__ long long dest_block(const Job& job, unsigned lb,
   const int sl = job.slot ? job.slot[bb] : (int)bb;
   ok = p >= 0 && p < job.s && sl >= 0 && sl < job.cb &&
        (job.n_valid == nullptr || (int)tt < job.n_valid[bb]);
-  return (((long long)sl * job.s + p) * job.kvh + hh) * job.nb + nbi;
+  if (job.block == nullptr)
+    return (((long long)sl * job.s + p) * job.kvh + hh) * job.nb + nbi;
+  if (!ok) return 0;
+  // paged: through the slot's table row; the null page is never written
+  const int pg = job.block[sl * job.tw + p / job.page];
+  ok = pg > 0 && pg < job.n_pages;
+  return (((long long)pg * job.page + p % job.page) * job.kvh + hh) * job.nb +
+         nbi;
 }
 
 // Value i of source block lb of tensor w (0 past hd), as f32.

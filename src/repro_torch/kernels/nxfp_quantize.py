@@ -18,7 +18,10 @@ a shared-memory tile otherwise. ``nxfp_quantize_kv_rows`` encodes a
 layer's K and V in one launch straight into its cache rows ``pos[b] + t``
 of slot ``slot[b]``, dropping rows past ``n_valid[b]`` (the chunked-prefill
 lane writes one (1, P) chunk into a live slot); its plain version is the
-codec followed by the same row writes.
+codec followed by the same row writes. With a block table (the paged
+cache) the rows land in pool pages instead: row r of slot s at row r %
+page of page ``block[s, r // page]``, dropped where that entry is the null
+page 0.
 """
 from __future__ import annotations
 
@@ -75,7 +78,9 @@ class _Job(ctypes.Structure):
                 ("slot", ctypes.c_void_p), ("n_valid", ctypes.c_void_p),
                 ("n_per", ctypes.c_longlong)] + [
         (n, ctypes.c_int) for n in ("n_tensors", "in_bf16", "b", "t", "kvh",
-                                    "hd", "nb", "s", "cb")]
+                                    "hd", "nb", "s", "cb")] + [
+        ("block", ctypes.c_void_p), ("page", ctypes.c_int),
+        ("tw", ctypes.c_int), ("n_pages", ctypes.c_int)]
 
 
 def recycle_window(elem_name: str, recycle):
@@ -250,9 +255,12 @@ def nxfp_quantize_pack(xb, fmt: BlockFormat, plan: QuantPlan | None = None):
 
 
 def _row_targets(b: int, t: int, s: int, cb: int, pos, slot, n_valid,
-                 device):
+                 device, block=None, n_pages: int = 0):
     """(slot (B, T), row (B, T), written (B, T) bool) of the K/V rows'
-    cache targets, as the kernel computes them (``dest_block``)."""
+    cache targets, as the kernel computes them (``dest_block``). With a
+    block table (CB, P) over ``n_pages`` pages of s // P rows: (physical
+    page, row in the page, written), a row whose entry is the null page 0
+    not written."""
     at = torch.arange(t, device=device)[None, :].expand(b, t)
     row = at if pos is None else pos[:, None].long() + at
     sl = (torch.arange(b, device=device) if slot is None
@@ -260,17 +268,34 @@ def _row_targets(b: int, t: int, s: int, cb: int, pos, slot, n_valid,
     ok = (row >= 0) & (row < s) & (sl >= 0) & (sl < cb)
     if n_valid is not None:
         ok &= at < n_valid[:, None]
-    return sl, row, ok
+    if block is None:
+        return sl, row, ok
+    page = s // block.shape[1]
+    pg = block[sl.clamp(0, cb - 1), (row // page).clamp(0, block.shape[1] - 1)]
+    ok &= (pg > 0) & (pg < n_pages)
+    return pg.long(), row % page, ok
+
+
+def _targets_shape(cache: dict, block):
+    """(key prefix, CB, S, n_pages) of a dense or paged layer cache: a paged
+    one's buffers are ``pool_*`` (n_pages, page, ...), its slots the
+    table's rows and its rows P * page."""
+    if block is None:
+        cb, s = cache["k_packed"].shape[:2]
+        return "", cb, s, 0
+    n_pages, page = cache["pool_k_packed"].shape[:2]
+    return "pool_", block.shape[0], block.shape[1] * page, n_pages
 
 
 def nxfp_quantize_kv_rows_plain(k, v, cache: dict, pos, fmt: BlockFormat,
-                                slot=None, n_valid=None):
+                                slot=None, n_valid=None, block=None):
     """The codec on K and V (B, T, KVH, hd), then row writes into the
     layer cache, to the rows the kernel writes (``nxfp_quantize_kv_rows``)
     and no others. In place; returns ``cache``."""
     b, t = k.shape[:2]
-    cb, s = cache["k_packed"].shape[:2]
-    sl, row, ok = _row_targets(b, t, s, cb, pos, slot, n_valid, k.device)
+    pre, cb, s, n_pages = _targets_shape(cache, block)
+    sl, row, ok = _row_targets(b, t, s, cb, pos, slot, n_valid, k.device,
+                               block, n_pages)
     for name, x in (("k", k), ("v", v)):
         xb, _ = to_blocks(x, fmt.block_size, -1)
         packed, meta = nxfp_quantize_pack_plain(
@@ -278,13 +303,13 @@ def nxfp_quantize_kv_rows_plain(k, v, cache: dict, pos, fmt: BlockFormat,
         rows = {f"{name}_packed": packed.reshape(*xb.shape[:-1], -1),
                 f"{name}_meta": meta.reshape(xb.shape[:-1])}
         for key, val in rows.items():
-            buf = build.bit_view(cache[key])
+            buf = build.bit_view(cache[pre + key])
             buf[sl[ok], row[ok]] = build.bit_view(val)[ok]
     return cache
 
 
 def nxfp_quantize_kv_rows(k, v, cache: dict, pos, fmt: BlockFormat,
-                          slot=None, n_valid=None):
+                          slot=None, n_valid=None, block=None):
     """Encode K and V (B, T, KVH, hd), bf16 or f32, into the layer cache's
     ``k_packed``/``k_meta``/``v_packed``/``v_meta`` (CB, S, KVH, NB[, bpb])
     at rows ``pos[b] + t`` (``pos`` (B,) int32 on the device, read there:
@@ -292,15 +317,20 @@ def nxfp_quantize_kv_rows(k, v, cache: dict, pos, fmt: BlockFormat,
     ((B,) int32; None: slot b, and then CB must be B). ``n_valid`` (B,)
     int32 drops rows t >= ``n_valid[b]`` (the chunked-prefill lane's
     padded tail; None keeps them all). A row outside [0, S) or a slot
-    outside [0, CB) is not written either. CUDA tensors: one launch for K
-    and V. CPU tensors: the plain version. Returns ``cache``, updated in
+    outside [0, CB) is not written either. ``block`` (CB, P) int32 on the
+    device makes the cache paged: its buffers are ``pool_k_packed``...
+    (n_pages, page, KVH, NB[, bpb]), S is P * page, and row r of slot s
+    lands at row r % page of page ``block[s, r // page]``, not written
+    where that is the null page 0. CUDA tensors: one launch for K and V.
+    CPU tensors: the plain version. Returns ``cache``, updated in
     place."""
-    tensors = [k, v] + [cache[f"{n}_{key}"] for n in "kv"
+    pre, cb, s, n_pages = _targets_shape(cache, block)
+    tensors = [k, v] + [cache[f"{pre}{n}_{key}"] for n in "kv"
                         for key in ("packed", "meta")]
-    tensors += [x for x in (pos, slot, n_valid) if x is not None]
+    tensors += [x for x in (pos, slot, n_valid, block) if x is not None]
     if not build.on_cuda(*tensors):
         return nxfp_quantize_kv_rows_plain(k, v, cache, pos, fmt, slot,
-                                           n_valid)
+                                           n_valid, block)
     _require_kernel(fmt)
     b, t, kvh, hd = k.shape
     build.require(v.shape == k.shape and v.dtype == k.dtype,
@@ -309,19 +339,24 @@ def nxfp_quantize_kv_rows(k, v, cache: dict, pos, fmt: BlockFormat,
     _check_input(k, "K")
     _check_input(v, "V")
     nb = -(-hd // fmt.block_size)
-    cb, s = cache["k_packed"].shape[:2]
     build.require(slot is not None or cb == b,
                   f"cache has {cb} slots, K {b} rows: pass slot")
     bpb = bytes_per_block(fmt.block_size, fmt.bits)
+    lead = (cb, s) if block is None else (n_pages, s // block.shape[1])
     for key, tail, dtype in (("packed", (nb, bpb), torch.uint8),
                              ("meta", (nb,), build.meta_dtype(fmt))):
         for name in "kv":
-            buf = cache[f"{name}_{key}"]
-            build.require(buf.shape == (cb, s, kvh) + tail
+            buf = cache[f"{pre}{name}_{key}"]
+            build.require(buf.shape == lead + (kvh,) + tail
                           and buf.dtype == dtype and buf.is_contiguous(),
-                          f"cache {name}_{key}: {tuple(buf.shape)} "
-                          f"{buf.dtype}, expected {(cb, s, kvh) + tail} "
+                          f"cache {pre}{name}_{key}: {tuple(buf.shape)} "
+                          f"{buf.dtype}, expected {lead + (kvh,) + tail} "
                           f"{dtype}, contiguous")
+    if block is not None:
+        build.require(block.dim() == 2 and block.dtype == torch.int32
+                      and block.is_contiguous(),
+                      f"block table must be (CB, P) int32, got "
+                      f"{tuple(block.shape)} {block.dtype}")
     for arg, val in (("pos", pos), ("slot", slot), ("n_valid", n_valid)):
         if val is not None:
             build.require(val.shape == (b,) and val.dtype == torch.int32
@@ -334,12 +369,15 @@ def nxfp_quantize_kv_rows(k, v, cache: dict, pos, fmt: BlockFormat,
         return None if x is None else x.data_ptr()
 
     job = _Job(src=(k.data_ptr(), v.data_ptr()),
-               packed=(cache["k_packed"].data_ptr(),
-                       cache["v_packed"].data_ptr()),
-               meta=(cache["k_meta"].data_ptr(), cache["v_meta"].data_ptr()),
+               packed=(cache[pre + "k_packed"].data_ptr(),
+                       cache[pre + "v_packed"].data_ptr()),
+               meta=(cache[pre + "k_meta"].data_ptr(),
+                     cache[pre + "v_meta"].data_ptr()),
                pos=ptr(pos), slot=ptr(slot), n_valid=ptr(n_valid),
                n_per=n_per, n_tensors=2,
                in_bf16=int(k.dtype == torch.bfloat16), b=b, t=t, kvh=kvh,
-               hd=hd, nb=nb, s=s, cb=cb)
+               hd=hd, nb=nb, s=s, cb=cb, block=ptr(block),
+               page=0 if block is None else s // block.shape[1],
+               tw=0 if block is None else block.shape[1], n_pages=n_pages)
     _launch(job, fmt, 2 * n_per, k.device, None)
     return cache

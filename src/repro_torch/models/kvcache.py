@@ -18,6 +18,15 @@ Unlike the reference, ``write_token`` updates the layer's buffers in place
 per-step copies of the whole cache. A packed cache is written by the
 quantizer itself: K and V of a layer in one launch, straight into rows
 ``pos[b] + t`` (``kernels/nxfp_quantize.py:nxfp_quantize_kv_rows``).
+
+The paged cache (the paged engine, ``serving/paged_engine.py``) keeps each
+buffer <name> as a pool twin ``pool_<name>`` of shape (NP, page, ...tail)
+and a ``block`` (B, P) int32 table, one tensor shared by every layer's
+dict: logical row r of slot b lives at ``pool[block[b, r // page], r %
+page]``, and physical page 0 is the null page, never written (a write that
+resolves to it is dropped). A slot's logical rows are the dense cache's
+(``cache_rows``), so decode attention runs on the gathered view
+``pool[block]`` with the dense cache's shape, split plan and bits.
 """
 from __future__ import annotations
 
@@ -61,6 +70,93 @@ def attn_cache_init(cfg: ModelConfig, batch: int, max_len: int,
             "v_meta": z(nb, dtype=torch.uint16)}
 
 
+# the pool twin of a dense buffer <name> is "pool_<name>"
+_POOL_PREFIX = "pool_"
+
+
+def paged_attn_cache_init(cfg: ModelConfig, batch: int, max_len: int,
+                          kv_fmt: Optional[str], n_pages: int,
+                          page_size: int, device: torch.device, block=None):
+    """One layer's zeroed paged attention cache: the dense buffers' pool
+    twins of ``n_pages`` pages of ``page_size`` rows, and ``block``, the
+    (batch, P) int32 table (all null pages; pass one table to share it
+    between layers). ``page_size`` must divide ``cache_rows``."""
+    rows = cache_rows(cfg, max_len)
+    if rows % page_size:
+        raise ValueError(f"page_size {page_size} must divide the slot row "
+                         f"capacity {rows} (sliding window or max_len)")
+    if block is None:
+        block = torch.zeros((batch, rows // page_size), dtype=torch.int32,
+                            device=device)
+    dense = attn_cache_init(cfg, 1, 1, kv_fmt, device)
+    out = {"block": block}
+    for name, buf in dense.items():
+        out[_POOL_PREFIX + name] = torch.zeros(
+            (n_pages, page_size) + tuple(buf.shape[2:]), dtype=buf.dtype,
+            device=device)
+    return out
+
+
+def paged_layer_view(layer_cache):
+    """One layer's paged pool gathered into the dense (B, S, ...) layout:
+    ``pool[block]`` reshaped to (B, P * page, ...), the dense buffers'
+    shape, so attention over it is the dense cache's program. Rows mapped
+    through the null page (or a stale page) hold garbage bytes, only where
+    attention gives them an exactly zero share. A new tensor per call."""
+    blk = layer_cache["block"]
+    out = {}
+    for name, pool in layer_cache.items():
+        if name.startswith(_POOL_PREFIX):
+            g = _page_words(pool).index_select(0, blk.reshape(-1))
+            out[name[len(_POOL_PREFIX):]] = g.view(pool.dtype).reshape(
+                blk.shape[0], blk.shape[1] * pool.shape[1], *pool.shape[2:])
+    return out
+
+
+def _page_words(pool):
+    """A pool as (NP, words): each page's bytes as the widest integers that
+    tile it, so a gather moves pages in 8-byte words and not in elements
+    (a packed page is bytes, a meta page uint16, which CUDA cannot index)."""
+    n = pool[0].numel() * pool.element_size()
+    word = next(dt for dt in (torch.int64, torch.int32, torch.int16,
+                              torch.uint8) if n % dt.itemsize == 0)
+    return pool.view(pool.shape[0], -1).view(word)
+
+
+def _pool_dims(layer_cache):
+    """(block table, n_pages, page_size) of one layer's paged cache."""
+    pool0 = next(v for n, v in layer_cache.items()
+                 if n.startswith(_POOL_PREFIX))
+    return layer_cache["block"], pool0.shape[0], pool0.shape[1]
+
+
+def _logical_rows(layer_cache, kv_fmt) -> int:
+    """A slot's rows S of a dense or paged layer cache (P * page)."""
+    if "block" in layer_cache:
+        blk, _, page = _pool_dims(layer_cache)
+        return blk.shape[1] * page
+    return layer_cache["k" if kv_fmt is None else "k_packed"].shape[1]
+
+
+def _paged_put(layer_cache, slot, row, keep, vals):
+    """Dense-KV paged write: logical rows ``row`` (N,) of slots ``slot``
+    (N,) take ``vals[name]`` (N, KVH, hd) where ``keep`` (N,) holds and
+    their page is not the null page. Capturable (no host sync): a dropped
+    row writes the value it reads back at its target, null page included,
+    whose bytes do not change."""
+    blk, n_pages, page = _pool_dims(layer_cache)
+    pg = blk[slot.clamp(0, blk.shape[0] - 1),
+             (row // page).clamp(0, blk.shape[1] - 1)].long()
+    keep = keep & (row >= 0) & (row < blk.shape[1] * page) & (pg > 0)
+    flat = pg * page + row.clamp(min=0) % page
+    for name, val in vals.items():
+        pool = layer_cache[_POOL_PREFIX + name]
+        view = pool.view(n_pages * page, *pool.shape[2:])
+        view[flat] = torch.where(keep[:, None, None], val.to(pool.dtype),
+                                 view[flat])
+    return layer_cache
+
+
 def _ring_place(x, window: int, t: int):
     """The last ``window`` rows of x (B, T, ...) at their ring rows
     (position p at row p % window), (B, window, ...); T <= window pads."""
@@ -102,10 +198,13 @@ def write_prefill_at(cfg: ModelConfig, layer_cache, k, v, slot, offset,
     from ``offset % window`` up to the ring's end, then the rest from row
     0, each launch dropping the other's rows); its blocks run along
     head_dim, inside one row, so the bytes are a whole-prompt cast's.
-    ``n_valid = 0`` writes nothing. Returns ``layer_cache``."""
+    ``n_valid = 0`` writes nothing. A paged cache takes the same rows
+    through its block table (rows on the null page dropped too). Returns
+    ``layer_cache``."""
     p = k.shape[1]
     w = cfg.sliding_window
-    s = layer_cache["k" if kv_fmt is None else "k_packed"].shape[1]
+    block = layer_cache.get("block")
+    s = _logical_rows(layer_cache, kv_fmt)
     if p > s:
         raise ValueError(f"chunk of {p} rows over a cache of {s}")
     if kv_fmt is not None:
@@ -114,9 +213,17 @@ def write_prefill_at(cfg: ModelConfig, layer_cache, k, v, slot, offset,
         at = offset % w if w else offset
         for start in ((at, at - w) if w else (at,)):
             nxfp_quantize_kv_rows(k, v, layer_cache, start, fmt, slot=slot,
-                                  n_valid=n_valid)
+                                  n_valid=n_valid, block=block)
         return layer_cache
     i = torch.arange(p, device=k.device)
+    if block is not None:
+        row = offset.long() + i
+        row = row % w if w else row
+        keep = (i < n_valid) & (row < s)
+        # as below: a row past the cache reads and writes back row - P
+        row = torch.where(row < s, row, row - p)
+        return _paged_put(layer_cache, slot.long().expand(p), row, keep,
+                          {"k": k[0], "v": v[0]})
     if w:
         row = (offset.long() + i) % w
         keep = i < n_valid
@@ -150,15 +257,23 @@ def write_token(cfg: ModelConfig, layer_cache, k1, v1, pos,
     writes past its end only after its request finished (it decodes on to
     the end of the chunk), and the next admission overwrites the whole
     slot, so skipping and clamping cannot be told apart. Live rows are
-    bit-identical to ``live=None``."""
-    s = layer_cache["k" if kv_fmt is None else "k_packed"].shape[1]
+    bit-identical to ``live=None``. A paged cache takes the rows through
+    its block table, dropping rows on the null page."""
+    block = layer_cache.get("block")
+    s = _logical_rows(layer_cache, kv_fmt)
     if cfg.sliding_window:
         pos = pos % cfg.sliding_window
     if live is not None:
         pos = torch.where(live, pos, s)
     if kv_fmt is not None:
         return nxfp_quantize_kv_rows(k1.contiguous(), v1.contiguous(),
-                                     layer_cache, pos, resolve_format(kv_fmt))
+                                     layer_cache, pos, resolve_format(kv_fmt),
+                                     block=block)
+    if block is not None:
+        slots = torch.arange(k1.shape[0], device=k1.device)
+        return _paged_put(layer_cache, slots, pos.long(),
+                          torch.ones_like(slots, dtype=torch.bool),
+                          {"k": k1[:, 0], "v": v1[:, 0]})
     # rows outside the cache write their old value back: no host sync, so
     # the write stays capturable in a CUDA graph
     slots = torch.arange(k1.shape[0], device=k1.device)
@@ -177,12 +292,16 @@ def attend_decode(cfg: ModelConfig, layer_cache, q, pos,
     valid length ``pos[b] + 1`` (``min(pos[b] + 1, window)`` in a ring,
     on the device). Dense or packed, the kernel's split plan follows the
     cache rows and never the batch, so a row's bits do not depend on the
-    other slots. Returns (B, H, hd) f32."""
+    other slots. A paged cache is gathered into the dense layout first
+    (``paged_layer_view``: the same shape, so the same split plan and
+    bits). Returns (B, H, hd) f32."""
     b, h, hd = q.shape
     kvh = cfg.n_kv_heads
     lengths = pos + 1
     if cfg.sliding_window:
         lengths = torch.clamp(lengths, max=cfg.sliding_window)
+    if "block" in layer_cache:
+        layer_cache = paged_layer_view(layer_cache)
 
     if kv_fmt is not None:
         fmt = resolve_format(kv_fmt)

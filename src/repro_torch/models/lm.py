@@ -3,7 +3,9 @@ prefill's lane chunk, decode.
 
 Layers are a Python list of per-layer dicts (params) and of per-layer
 caches; prefill and decode loop over them. The cache is
-``{"pos": (B,) int32, "layers": [layer cache, ...]}``.
+``{"pos": (B,) int32, "layers": [layer cache, ...]}``; a paged cache
+(``init_paged_cache``) has pool buffers and one block table shared by
+every layer's dict.
 """
 from __future__ import annotations
 
@@ -12,10 +14,12 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from .. import resolve_device
+from ..kernels.build import bit_view
 from .blocks import (init_layer, layer_decode, layer_forward,
                      layer_prefill_chunk)
 from .common import ModelConfig, dense, ninit, rmsnorm
-from .kvcache import attn_cache_init, write_prefill
+from .kvcache import (_POOL_PREFIX, attn_cache_init, paged_attn_cache_init,
+                      paged_layer_view, write_prefill)
 
 Params = Dict[str, Any]
 
@@ -228,17 +232,73 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                        for _ in range(cfg.n_layers)]}
 
 
+def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
+                     kv_fmt: Optional[str], n_pages: int, page_size: int,
+                     device=None) -> Dict[str, Any]:
+    """The paged engine's arena: every slot at position 0, per layer the
+    pool buffers of ``n_pages`` pages of ``page_size`` rows, and one
+    (batch, P) int32 block table, all null pages, shared by every layer's
+    dict (the reference replicates it over L for its scan). A slot's
+    logical rows are ``init_cache``'s, so ``decode_step`` and
+    ``prefill_chunk`` run on it unchanged."""
+    _check_family(cfg)
+    dev = resolve_device(device)
+    first = paged_attn_cache_init(cfg, batch, max_len, kv_fmt, n_pages,
+                                  page_size, dev)
+    layers = [first] + [
+        paged_attn_cache_init(cfg, batch, max_len, kv_fmt, n_pages,
+                              page_size, dev, block=first["block"])
+        for _ in range(cfg.n_layers - 1)]
+    return {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
+            "layers": layers}
+
+
 # ---------------------------------------------------------------------------
 # slot surgery: one slot of a live B-slot cache (the continuous engine)
 # ---------------------------------------------------------------------------
+
+def _paged_slot_table(layer, slot: int):
+    """Slot ``slot``'s block-table row (P,) of a paged layer cache."""
+    return layer["block"][slot]
+
+
+def _write_paged_group(dst: Dict[str, Any], src: Dict[str, Any],
+                       slot: int) -> None:
+    """Copy a dense-layout batch-1 layer cache ``src`` (k/v/k_packed/...,
+    (1, S, ...)) into slot ``slot`` of a paged layer cache, page by page
+    through the slot's table: rows on a null page (past the slot's
+    reservation) are dropped. Reads the table row on the host."""
+    row = _paged_slot_table(dst, slot)
+    keep = torch.nonzero(row).flatten()
+    pages = row[keep].long()
+    for name, pool in dst.items():
+        if name.startswith(_POOL_PREFIX):
+            vals = src[name[len(_POOL_PREFIX):]][0]
+            vals = vals.reshape(row.shape[0], pool.shape[1], *vals.shape[1:])
+            bit_view(pool).index_copy_(0, pages, bit_view(
+                vals.index_select(0, keep).to(pool.dtype)))
+
+
+def _read_paged_group(layer: Dict[str, Any], slot: int) -> Dict[str, Any]:
+    """Slot ``slot`` of a paged layer cache gathered into the dense
+    batch-1 layout under the dense names (the inverse of
+    ``_write_paged_group`` on the reserved rows)."""
+    return paged_layer_view(
+        dict(layer, block=_paged_slot_table(layer, slot)[None]))
+
 
 def write_cache_slot(cache: Dict[str, Any], solo: Dict[str, Any],
                      slot: int) -> Dict[str, Any]:
     """Copy a batch-1 cache (a batch-1 ``prefill``'s) into slot ``slot``,
     in place: every layer buffer's ``slot:slot+1`` (contiguous) and
-    ``pos[slot]``. Neighbour slots are untouched. Returns ``cache``."""
+    ``pos[slot]``; a paged layer through the slot's block table
+    (``_write_paged_group``). Neighbour slots are untouched. Returns
+    ``cache``."""
     cache["pos"][slot:slot + 1].copy_(solo["pos"])
     for dst, src in zip(cache["layers"], solo["layers"]):
+        if "block" in dst:
+            _write_paged_group(dst, src, slot)
+            continue
         for name, buf in dst.items():
             buf[slot:slot + 1].copy_(src[name])
     return cache
@@ -246,10 +306,12 @@ def write_cache_slot(cache: Dict[str, Any], solo: Dict[str, Any],
 
 def read_cache_slot(cache: Dict[str, Any], slot: int) -> Dict[str, Any]:
     """Slot ``slot`` as a batch-1 cache (a copy; the inverse of
-    ``write_cache_slot``, bit for bit: packed bytes are copied raw)."""
+    ``write_cache_slot``, bit for bit: packed bytes are copied raw). A
+    paged layer comes back in the dense layout (``_read_paged_group``)."""
     return {"pos": cache["pos"][slot:slot + 1].clone(),
-            "layers": [{name: buf[slot:slot + 1].clone()
-                        for name, buf in layer.items()}
+            "layers": [_read_paged_group(layer, slot) if "block" in layer
+                       else {name: buf[slot:slot + 1].clone()
+                             for name, buf in layer.items()}
                        for layer in cache["layers"]]}
 
 

@@ -1,8 +1,10 @@
 """Serving: the batched engine, the continuous-batching engine (with
-bounded-queue shedding and per-slot tiers) over direct-cast weights and KV
-cache, and the JSONL event journal."""
+bounded-queue shedding, per-slot tiers and a paged KV cache) over
+direct-cast weights and KV cache, and the JSONL event journal."""
 from .engine import GenerationResult, ServeEngine, mask_chunk_emissions
 from .events import EVENT_KINDS, Journal, emit, parse_event, replay
+from .paged import NULL_PAGE, PagePool, auto_page_size
+from .paged_engine import PagedContinuousEngine
 from .scheduler import (DECODING, PREFILLING, AdmissionPolicy,
                         ContinuousEngine, DegradeOverBudget, DropOldest,
                         FifoPolicy, PriorityAdmission, RejectNew, Request,
@@ -18,6 +20,8 @@ __all__ = ["ServeEngine", "GenerationResult", "mask_chunk_emissions",
            "Status", "AdmissionPolicy", "FifoPolicy", "ShortestPromptFirst",
            "PriorityAdmission", "TtftDeadline", "PREFILLING", "DECODING",
            "SheddingPolicy", "RejectNew", "DropOldest", "DegradeOverBudget",
+           "PagedContinuousEngine", "PagePool", "auto_page_size",
+           "NULL_PAGE",
            "TieredContinuousEngine", "TierSpec", "default_tiers",
            "kv_row_bytes", "repack_kv", "pack_device_state",
            "unpack_device_state", "slot_row_capacity",

@@ -68,8 +68,11 @@ picks the lane width from a sweep of the engine's own graphs at
 construction (``_autotune_p_chunk``, the reference's rule). Per-slot
 serving tiers are ``serving/tiers.py``.
 
+The paged engine (``serving/paged_engine.py``) gates admission on free
+KV pages through ``SlotScheduler.admission_gate``.
+
 Left for later slices: quarantine, suspension, preemption, snapshots,
-paging, speculation and sharding.
+speculation and sharding.
 """
 from __future__ import annotations
 
@@ -356,9 +359,19 @@ class SlotScheduler:
         # uid -> (max_new_cap, force_greedy): degrade markers, applied at
         # admission (``_take``) and popped into RequestResult.degraded
         self.degraded: Dict[int, Tuple[Optional[int], bool]] = {}
-        # () -> KV occupancy in [0, 1], for a policy's pool_watermark (set
-        # by the tiered engine)
+        # engine hooks, both optional: admission_gate(req, shard,
+        # resumable) -> bool vetoes a policy pick whose KV pages do not fit
+        # now (the paged engine: a free slot is no longer enough);
+        # pool_monitor() -> KV occupancy in [0, 1] feeds a policy's
+        # pool_watermark (the paged and the tiered engine)
+        self.admission_gate = None
         self.pool_monitor = None
+
+    def _gate(self, req: Request, shard: Optional[int],
+              resumable: bool) -> bool:
+        if self.admission_gate is None:
+            return True
+        return bool(self.admission_gate(req, shard, resumable))
 
     def submit(self, req: Request) -> None:
         self.queue.append(req)
@@ -379,11 +392,15 @@ class SlotScheduler:
         return slot, req
 
     def next_admission(self, now: float) -> Optional[Tuple[int, Request]]:
-        """Pop (slot, request) if a slot is free and the policy picks one."""
+        """Pop (slot, request) if a slot is free, the policy picks one and
+        the admission gate (pages, for the paged engine) accepts it.
+        (Suspension, which makes a request resumable, is not ported.)"""
         if not self.free or not self.queue:
             return None
         idx = self.policy.select(self.queue, now)
         if idx is None:
+            return None
+        if not self._gate(self.queue[idx], None, False):
             return None
         return self._take(idx, self.free[0])
 
@@ -700,6 +717,8 @@ class ContinuousEngine:
                 b for layer in self.lane["layers"] for b in layer.values())):
             buf.zero_()
         for layer in self.cache["layers"]:
+            if "block" in layer:      # paged: slot 0 maps no page yet, so
+                continue              # the probe's rows were dropped
             for buf in layer.values():
                 buf[0].zero_()
         reset_slot(self.cfg, self.cache, 0)

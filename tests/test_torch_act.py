@@ -51,6 +51,8 @@ from repro_torch.kernels.nxfp_matmul import dequant_weight_bf16
 from repro_torch.kernels.nxfp_qq_matmul import nxfp_qq_matmul_plain
 from repro_torch.models import prefill
 
+import _torch_helpers  # noqa: F401  (one intra-op thread a process)
+
 # the formats of tests/test_act_quant.py
 ACT_FMTS = ["amxfp4", "amxfp4_nm", "amxfp4_ox", "mxfp4_ox"]
 # (activation fmt, weight fmt): the PAIRS of tests/test_qq_matmul.py

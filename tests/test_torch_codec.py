@@ -26,6 +26,8 @@ from repro_torch.core.pack import pack_codes, unpack_codes
 from repro_torch.core import quantize as tquant
 from repro_torch.kernels.ops import quantize_qtensor
 
+import _torch_helpers  # noqa: F401  (one intra-op thread a process)
+
 # the reference codec, jitted once per (shape, format) instead of op by op
 jquantize_blocks_arith = jax.jit(quantize_blocks_arith, static_argnums=1)
 jdequantize_blocks = jax.jit(dequantize_blocks, static_argnums=2)

@@ -52,10 +52,12 @@ from repro_torch.models import (decode_step, init_cache, init_params,
                                 write_cache_slot)
 from repro_torch.models.kvcache import write_token
 from repro_torch.serving import (ContinuousEngine, FifoPolicy,
-                                 PriorityAdmission, Request, ServeEngine,
+                                 PriorityAdmission, Request,
                                  ShortestPromptFirst, SlotScheduler,
                                  mask_chunk_emissions, replay)
 from repro_torch.serving import events
+
+from _torch_helpers import solo_stream  # one intra-op thread a process
 
 TOL = 1e-2
 MAX_LEN = 64
@@ -99,12 +101,10 @@ def _engine(setup, fmt, **kw):
 
 
 def _solo(setup, fmt, req):
-    """The oracle: the request served alone by the port's host loop."""
-    eng = ServeEngine(setup[1], setup[3], QuantPolicy(fmt, fmt),
-                      max_len=MAX_LEN, rng_seed=req.seed, device="cpu")
-    return eng.generate({"tokens": req.tokens[None]}, max_new=req.max_new,
-                        temperature=req.temperature,
-                        stop_token=req.stop_token, loop="host")
+    """The oracle: the request served alone by the port's host loop (once
+    a process per request, format and params)."""
+    return solo_stream(setup[1], setup[3], QuantPolicy(fmt, fmt), req,
+                       MAX_LEN)
 
 
 def _assert_solo(setup, fmt, reqs, results):

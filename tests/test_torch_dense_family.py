@@ -53,6 +53,8 @@ from repro_torch.models.kvcache import (_ring_place, write_prefill,
                                         write_prefill_at, write_token)
 from repro_torch.serving import ContinuousEngine, Request, ServeEngine
 
+import _torch_helpers  # noqa: F401  (one intra-op thread a process)
+
 TOL = 1e-2
 MAX_LEN = 64
 NEW = ("llama2_7b", "starcoder2_3b", "deepseek_67b", "llama3_405b",

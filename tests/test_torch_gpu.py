@@ -1348,3 +1348,160 @@ def test_chunk_graph_warmup_leaves_a_full_ring_intact(cuda):
     graph, got = capture_graph(steps(4, cache), cuda, warm=steps(1, cache))
     graph.replay()
     assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the paged KV cache: the quantizer through a block table, the paged engine
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("fname", ["nxfp4", "mxfp6", "amxfp4"])
+@pytest.mark.parametrize("case", ["decode", "chunk"])
+def test_kv_rows_kernel_block_table(cuda, fname, case):
+    """K/V rows through a block table: row r of slot s at row r % page of
+    page ``block[s, r // page]``, one launch, the pool equal to the plain
+    version's everywhere (bitwise, up to counted near-ties), rows on the
+    null page, past ``n_valid`` or outside [0, S) not written."""
+    fmt = get_format(fname)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    n_pages, page, kvh, hd, cb, tw = 11, 4, 2, 64, 3, 4
+    nb = -(-hd // fmt.block_size)
+    meta_top = 1 << (31 if fmt.meta_dtype == "uint32" else 15)
+    pool = {}
+    for name in "kv":
+        pool[f"pool_{name}_packed"] = torch.randint(
+            0, 256, (n_pages, page, kvh, nb, fmt.bytes_per_block),
+            generator=g, device=cuda, dtype=torch.uint8)
+        meta = torch.randint(0, meta_top, (n_pages, page, kvh, nb),
+                             generator=g, device=cuda, dtype=torch.int32)
+        pool[f"pool_{name}_meta"] = (meta.view(torch.uint32)
+                                     if fmt.meta_dtype == "uint32"
+                                     else meta.to(torch.uint16))
+    block = torch.tensor([[3, 0, 7, 1], [5, 9, 0, 0], [0, 0, 0, 0]],
+                         dtype=torch.int32, device=cuda)
+    i32 = dict(dtype=torch.int32, device=cuda)
+    if case == "decode":
+        k, v = (torch.randn((cb, 1, kvh, hd), generator=g, device=cuda)
+                .to(torch.bfloat16) for _ in range(2))
+        # slot 0 row 9 (page 7), slot 1 row 6 (page 9), slot 2 null
+        args = dict(pos=torch.tensor([9, 6, 2], **i32))
+    else:
+        k, v = (torch.randn((1, 8, kvh, hd), generator=g, device=cuda)
+                .to(torch.bfloat16) for _ in range(2))
+        # rows 2..9 of slot 0, 6 valid: rows 4..7 are on its null page
+        args = dict(pos=torch.tensor([2], **i32),
+                    slot=torch.tensor([0], **i32),
+                    n_valid=torch.tensor([6], **i32))
+    before = {n: a.clone() for n, a in pool.items()}
+    plain = {n: a.clone() for n, a in pool.items()}
+    launches = nq.LAUNCHES
+    nq.nxfp_quantize_kv_rows(k, v, pool, fmt=fmt, block=block, **args)
+    assert nq.LAUNCHES == launches + 1
+    nq.nxfp_quantize_kv_rows_plain(k, v, plain, fmt=fmt, block=block,
+                                   **args)
+    n_diff = 0
+    for name in "kv":
+        pk, pm = pool[f"pool_{name}_packed"], pool[f"pool_{name}_meta"]
+        diff = ((pk != plain[f"pool_{name}_packed"]).any(-1)
+                | (meta_int32(pm) != meta_int32(plain[f"pool_{name}_meta"])))
+        n_diff += int(diff.sum())
+    assert n_diff == 0, n_diff
+    changed = torch.zeros((n_pages, page), dtype=torch.bool, device=cuda)
+    for name in pool:
+        a, b = pool[name], before[name]
+        if a.dtype in (torch.uint16, torch.uint32):
+            a, b = meta_int32(a), meta_int32(b)
+        changed |= (a != b).reshape(n_pages, page, -1).any(-1)
+    assert not changed[0].any()                       # the null page
+    want = {"decode": {(7, 1), (9, 2)},
+            "chunk": {(3, 2), (3, 3)}}[case]
+    assert {tuple(i) for i in changed.nonzero().tolist()} == want
+
+
+@pytest.mark.parametrize("fmt", [None, "nxfp4"])
+def test_paged_engine_matches_dense_on_card(cuda, fmt):
+    """Eager: ``decode_step`` over a paged cache gives the dense cache's
+    logits bit for bit. Graphed: the paged engine's streams (whole, the
+    lane at P 32, prefix sharing on) equal the dense engine's, every pool
+    empty after its serve, the decode chunks graph replays."""
+    from repro_torch.models import (init_cache, init_paged_cache,
+                                    write_cache_slot)
+    from repro_torch.serving import (ContinuousEngine, PagedContinuousEngine,
+                                     Request)
+    cfg = get_smoke_config("llama3_8b")
+    params = init_params(cfg, seed=0, device=cuda)
+    rng = np.random.default_rng(6)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 20))).to(cuda)
+    _, solo = prefill(cfg, params, {"tokens": toks}, 64, fmt)
+    dense = init_cache(cfg, 2, 64, fmt, device=cuda)
+    paged = init_paged_cache(cfg, 2, 64, fmt, 9, 8, device=cuda)
+    paged["layers"][0]["block"].copy_(torch.tensor(
+        [[2, 5, 1, 0, 0, 0, 0, 0], [3, 8, 4, 6, 0, 0, 0, 0]],
+        dtype=torch.int32))
+    for s in range(2):
+        one = {"pos": solo["pos"][s:s + 1],
+               "layers": [{n: b[s:s + 1] for n, b in layer.items()}
+                          for layer in solo["layers"]]}
+        write_cache_slot(dense, one, s)
+        write_cache_slot(paged, one, s)
+    tok = toks[:, -1:]
+    for _ in range(4):
+        ld, dense = decode_step(cfg, params, tok, dense, fmt)
+        lp, paged = decode_step(cfg, params, tok, paged, fmt)
+        assert torch.equal(ld, lp)
+        tok = ld.argmax(-1, keepdim=True)
+    shared = rng.integers(0, cfg.vocab, (24,))
+    reqs = [Request(uid=i, tokens=np.concatenate(
+        [shared, rng.integers(0, cfg.vocab, (t,))]), max_new=m)
+        for i, (t, m) in enumerate([(4, 9), (20, 5), (9, 12), (30, 7)])]
+    kw = dict(n_slots=2, max_len=64, chunk=4, device=cuda)
+    pol = QuantPolicy(fmt, fmt)
+    want = {r.uid: r.tokens
+            for r in ContinuousEngine(cfg, params, pol, **kw).serve(reqs)}
+    for mode in ({}, dict(prefill_mode="chunked", p_chunk=32)):
+        eng = PagedContinuousEngine(cfg, params, pol, page_size=8, **kw,
+                                    **mode)
+        got = {r.uid: r.tokens for r in eng.serve(reqs)}
+        for uid in want:
+            np.testing.assert_array_equal(got[uid], want[uid],
+                                          err_msg=f"uid={uid} {mode}")
+        assert eng.replays > 0 and eng.pool_stats()[0]["prefix_hits"] >= 1
+        eng.pool.assert_empty()
+
+
+@pytest.mark.parametrize("fmt", [None, "nxfp4"])
+@pytest.mark.parametrize("mode", ["whole", "chunked"])
+def test_paged_claimant_across_gemm_regimes_on_card(cuda, fmt, mode):
+    """``page_size`` 8, a live registrar of 20 tokens, a claimant of 12
+    tokens on its first page (at most 16 rows: the GEMMs' small-M regime,
+    whose rows are other bits than the registrar's prefill gives) and one
+    of 24 tokens on its first two pages. Every stream, the registrar's
+    included, is bitwise the dense engine's of the same prefill mode (the
+    lane at P 8). Whole admission shares only the 24-token claimant; the
+    lane runs every chunk at P 8, and shares both."""
+    from repro_torch.kernels.ops import DENSE_SMALL_M
+    from repro_torch.serving import (ContinuousEngine, PagedContinuousEngine,
+                                     Request)
+    assert nm.decode_geometry().max_m == DENSE_SMALL_M
+    cfg = get_smoke_config("llama3_8b")
+    params = init_params(cfg, seed=0, device=cuda)
+    rng = np.random.default_rng(11)
+    base = rng.integers(0, cfg.vocab, (20,))
+    reqs = [Request(uid=0, tokens=base, max_new=16),
+            Request(uid=1, tokens=np.concatenate(
+                [base[:8], rng.integers(0, cfg.vocab, (4,))]), max_new=3),
+            Request(uid=2, tokens=np.concatenate(
+                [base[:16], rng.integers(0, cfg.vocab, (8,))]), max_new=4)]
+    kw = dict(n_slots=2, max_len=64, chunk=4, device=cuda, prefill_mode=mode)
+    if mode == "chunked":
+        kw["p_chunk"] = 8
+    pol = QuantPolicy(fmt, fmt)
+    want = {r.uid: r.tokens
+            for r in ContinuousEngine(cfg, params, pol, **kw).serve(reqs)}
+    eng = PagedContinuousEngine(cfg, params, pol, page_size=8, **kw)
+    got = {r.uid: r.tokens for r in eng.serve(reqs)}
+    for uid in want:
+        np.testing.assert_array_equal(got[uid], want[uid],
+                                      err_msg=f"uid={uid} {mode}")
+    st = eng.pool_stats()[0]
+    assert st["prefix_hits"] == (1 if mode == "whole" else 2)
+    eng.pool.assert_empty()

@@ -19,6 +19,8 @@ from repro_torch.core.qtensor import QTensor
 from repro_torch.kernels import ops
 from repro_torch.kernels.nxfp_matmul import dequant_weight_bf16
 
+import _torch_helpers  # noqa: F401  (one intra-op thread a process)
+
 
 # the reference's cast, jitted once per (shape, format) instead of op by op
 _jquantize = jax.jit(jops.quantize_qtensor, static_argnums=(1, 2),

@@ -30,6 +30,8 @@ from repro_torch.kernels import nxfp_quantize as nq
 from repro_torch.kernels.ops import quantize_qtensor
 from repro_torch.models import kvcache
 
+import _torch_helpers  # noqa: F401  (one intra-op thread a process)
+
 KV_FMTS = ["nxfp4", "mxfp6", "nxfp4_bs16"]
 
 

@@ -46,8 +46,10 @@ from repro_torch.models import (init_cache, init_lane, prefill,
 from repro_torch.models.attention import (KV_TILE, attend_chunked,
                                           self_attention_resume)
 from repro_torch.models.kvcache import attn_cache_init, write_prefill_at
-from repro_torch.serving import (ContinuousEngine, Request, ServeEngine,
+from repro_torch.serving import (ContinuousEngine, Request,
                                  ShortestPromptFirst, SlotScheduler, events)
+
+from _torch_helpers import solo_stream  # one intra-op thread a process
 
 TOL = 1e-2
 MAX_LEN = 64
@@ -352,11 +354,10 @@ def _engine(setup, fmt, **kw):
 
 
 def _solo(setup, fmt, req):
-    eng = ServeEngine(setup[1], setup[3], QuantPolicy(fmt, fmt),
-                      max_len=MAX_LEN, rng_seed=req.seed, device="cpu")
-    return eng.generate({"tokens": req.tokens[None]}, max_new=req.max_new,
-                        temperature=req.temperature,
-                        stop_token=req.stop_token, loop="host")
+    """The request served alone by the port's host loop (once a process
+    per request, format and params)."""
+    return solo_stream(setup[1], setup[3], QuantPolicy(fmt, fmt), req,
+                       MAX_LEN)
 
 
 def _assert_solo(setup, fmt, reqs, results):

@@ -21,6 +21,8 @@ from repro_torch.models import decode_loop, init_params, prefill
 from repro_torch.serving import ServeEngine, mask_chunk_emissions
 from repro_torch.serving import engine as engine_mod
 
+import _torch_helpers  # noqa: F401  (one intra-op thread a process)
+
 
 @pytest.fixture(scope="module")
 def cfg():

@@ -41,6 +41,8 @@ from repro_torch.models import decode_step, prefill
 from repro_torch.models.attention import attend_chunked
 from repro_torch.serving import ServeEngine, mask_chunk_emissions
 
+import _torch_helpers  # noqa: F401  (one intra-op thread a process)
+
 TOL = 1e-2
 
 

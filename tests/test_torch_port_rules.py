@@ -24,9 +24,10 @@ from repro_torch.kernels import build, dense_attention, nxfp_attention
 from repro_torch.kernels import nxfp_matmul
 from repro_torch.kernels import nxfp_qq_matmul, nxfp_quantize
 from repro_torch.kernels.ops import quantize_qtensor
-from repro_torch.models import init_cache, init_params
-from repro_torch.serving import (ContinuousEngine, ServeEngine,
-                                 TieredContinuousEngine, default_tiers)
+from repro_torch.models import init_cache, init_paged_cache, init_params
+from repro_torch.serving import (ContinuousEngine, PagedContinuousEngine,
+                                 ServeEngine, TieredContinuousEngine,
+                                 default_tiers)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
@@ -65,7 +66,9 @@ def test_import_scan_covers_the_package():
                  "src/repro_torch/convert.py", "chip_smoke.py",
                  "scripts/profile_decode.py",
                  "src/repro_torch/serving/tiers.py",
-                 "src/repro_torch/serving/snapshot.py"):
+                 "src/repro_torch/serving/snapshot.py",
+                 "src/repro_torch/serving/paged.py",
+                 "src/repro_torch/serving/paged_engine.py"):
         assert must in names
 
 
@@ -97,6 +100,11 @@ ENTRY_POINTS = {
     "TieredContinuousEngine": lambda dev: TieredContinuousEngine(
         _smoke(), init_params(_smoke(), seed=0, device="cpu"),
         default_tiers(), n_slots=2, max_len=16, device=dev),
+    "init_paged_cache": lambda dev: init_paged_cache(
+        _smoke(), 2, 16, "nxfp4", 5, 8, device=dev),
+    "PagedContinuousEngine": lambda dev: PagedContinuousEngine(
+        _smoke(), init_params(_smoke(), seed=0, device="cpu"),
+        QuantPolicy("nxfp4", "nxfp4"), n_slots=2, max_len=16, device=dev),
 }
 
 
@@ -156,13 +164,21 @@ def _qq_args(x_fmt, w_fmt):
 
 
 @pytest.mark.parametrize("kernel", ["quantize", "matmul", "attention", "qq",
-                                    "dense_attention"])
+                                    "dense_attention", "kv_rows_paged"])
 def test_cuda_requests_raise_instead_of_falling_back(cuda_request, kernel):
-    """Symmetric and activation formats alike go to the kernel."""
+    """Symmetric and activation formats alike go to the kernel, and a K/V
+    write through a block table (the paged cache) too."""
     fmt, act = get_format("nxfp4"), get_format("amxfp4_ox")
     with pytest.raises(RuntimeError, match="CUDA"):
         if kernel == "quantize":
             nxfp_quantize.nxfp_quantize_pack(torch.zeros((4, 32)), act)
+        elif kernel == "kv_rows_paged":
+            layer = init_paged_cache(_smoke(), 2, 16, "nxfp4", 5, 8,
+                                     device="cpu")["layers"][0]
+            kv = torch.zeros((2, 1, _smoke().n_kv_heads, _smoke().hd))
+            nxfp_quantize.nxfp_quantize_kv_rows(
+                kv, kv.clone(), layer, torch.zeros((2,), dtype=torch.int32),
+                fmt, block=layer["block"])
         elif kernel == "matmul":
             nxfp_matmul.nxfp_matmul(*_matmul_args(fmt))
         elif kernel == "attention":

@@ -32,9 +32,11 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.convert import params_from_jax
 from repro_torch.core.qtensor import QuantPolicy
 from repro_torch.serving import (ContinuousEngine, DegradeOverBudget,
-                                 DropOldest, RejectNew, Request, ServeEngine,
+                                 DropOldest, RejectNew, Request,
                                  SheddingPolicy, SlotScheduler, Status,
                                  events)
+
+from _torch_helpers import solo_stream  # one intra-op thread a process
 
 MAX_LEN = 64
 
@@ -201,10 +203,10 @@ def _burst(cfg, n=7):
 
 
 def _solo(setup, fmt, req):
-    eng = ServeEngine(setup[1], setup[3], QuantPolicy(fmt, fmt),
-                      max_len=MAX_LEN, rng_seed=req.seed, device="cpu")
-    out = eng.generate({"tokens": req.tokens[None]}, max_new=req.max_new,
-                       temperature=req.temperature, loop="host")
+    """The request's tokens served alone by the port's host loop (once a
+    process per request, format and params)."""
+    out = solo_stream(setup[1], setup[3], QuantPolicy(fmt, fmt), req,
+                      MAX_LEN)
     return out.tokens[0, :int(out.n_generated[0])]
 
 

@@ -25,6 +25,8 @@ from repro_torch.kernels import nxfp_attention as na
 from repro_torch.kernels.nxfp_matmul import (dequant_weight_bf16,
                                              nxfp_matmul_plain)
 
+import _torch_helpers  # noqa: F401  (one intra-op thread a process)
+
 _jquantize = jax.jit(jops.quantize_qtensor, static_argnums=(1, 2),
                      static_argnames=("impl",))
 _NEG = -1e30

@@ -49,6 +49,8 @@ from repro_torch.serving import (ContinuousEngine, DegradeOverBudget,
                                  kv_row_bytes, pack_device_state, repack_kv,
                                  slot_row_capacity, unpack_device_state)
 
+from _torch_helpers import solo_stream  # one intra-op thread a process
+
 ACT_TOL = 2e-2
 MAX_LEN = 64
 
@@ -91,12 +93,11 @@ class _TierSolo(ServeEngine):
 
 
 def _solo(setup, spec, req):
-    eng = _TierSolo(setup[1], setup[3],
-                    QuantPolicy(spec.weight_fmt, spec.kv_fmt),
-                    max_len=MAX_LEN, rng_seed=req.seed, device="cpu",
-                    act_fmt=spec.act_fmt)
-    out = eng.generate({"tokens": req.tokens[None]}, max_new=req.max_new,
-                       temperature=req.temperature, loop="host")
+    """The request's tokens served alone at the tier (once a process per
+    request, tier formats and params)."""
+    out = solo_stream(setup[1], setup[3],
+                      QuantPolicy(spec.weight_fmt, spec.kv_fmt), req, MAX_LEN,
+                      engine=_TierSolo, act_fmt=spec.act_fmt)
     return out.tokens[0, :int(out.n_generated[0])]
 
 

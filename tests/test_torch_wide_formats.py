@@ -29,6 +29,8 @@ from repro_torch.core import quantize as tquant
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_lib import decode_block_values
 
+import _torch_helpers  # noqa: F401  (one intra-op thread a process)
+
 jquantize_blocks_arith = jax.jit(quantize_blocks_arith, static_argnums=1)
 jquantize_blocks = jax.jit(quantize_blocks, static_argnums=1)
 jdequantize_blocks = jax.jit(dequantize_blocks, static_argnums=2)

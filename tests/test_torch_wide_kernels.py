@@ -33,6 +33,8 @@ from repro_torch.kernels.nxfp_attention import dequant_cache
 from repro_torch.kernels.nxfp_matmul import dequant_weight_bf16
 from repro_torch.kernels.nxfp_qq_matmul import nxfp_qq_matmul_plain
 
+import _torch_helpers  # noqa: F401  (one intra-op thread a process)
+
 _jquantize = jax.jit(jops.quantize_qtensor, static_argnums=(1, 2),
                      static_argnames=("impl",))
 
