@@ -4,8 +4,8 @@
     python3 chip_smoke.py              # full run: 32 layers of Llama-3-8B
     python3 chip_smoke.py --layers 2   # same, with the depth cut to 2
 
-Phases 7-10 serve Llama-3-8B at ``--serving-layers`` (default 16, at most
-``--layers``); phase 11 serves its models at their full depth.
+Phases 7-10 serve Llama-3-8B at ``--serving-layers`` (default 8, at most
+``--layers``); phases 11-13 serve their models at their full depth.
 
 Phases, each fatal on failure (exit code 1, no result line):
 
@@ -175,6 +175,27 @@ Phases, each fatal on failure (exit code 1, no result line):
    and a lane chunk, null-page and dropped rows) against its plain
    version, timed beside the unpaged write.
 
+13. The SSM and hybrid families at full width and depth, nxfp4 weights
+   (random from seed 0, cast on the card). Falcon-Mamba-7B (64 Mamba
+   layers, attention-free): ``ServeEngine`` 4 x 128 tokens, 32 new, the
+   graph device loop bitwise the host loop (ms a step, tok/s, launches a
+   step); 3 requests (prompts 1000, 300, 64) through ``ContinuousEngine``
+   whole and at P 256 (max_len 2048) and ``PagedContinuousEngine`` (no
+   pages: no attention), every stream bitwise its solo host-loop stream.
+   Hymba-1.5B (32 layers, windowed attention and a Mamba head, nxfp4 KV
+   in a 1024-row ring): 3 requests (2600, 300, 64) whole and at P 256
+   picked by ``p_chunk="auto"`` (the only candidate that is a multiple of
+   ``ssm_chunk``; max_len 1280: the chunks from offset 1280 on run the
+   ring lane), and
+   4 requests extending one 512-token prefix through the paged engine at
+   P 256 (a prefix hit), bitwise the dense engine's. For each family a
+   decode step's rows (logits, ``h``, ``conv``) bitwise at B 4 and B 1
+   and as a graph replay, and the whole prefill's state bitwise the
+   lane's at P 256. Printed: per-slot state bytes against the KV bytes,
+   peak memory, launches on each family's path. Phase 3 holds the kernels
+   at these families' shapes (``SSM_KN``, ``SSM_ATTENTION``,
+   ``SSM_CASTS``, ``SSM_KV``); their rows join the kernel table.
+
 The last three lines are the kernel table as JSON, the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.
 """
@@ -182,6 +203,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import logging
 import os
@@ -326,7 +348,9 @@ def _quantizer_traits(nq, flat, fmt):
             nq.quantize_plan(flat.shape[0], fmt.block_size).regime)
 
 
-def check_quantizer(timer, rows):
+def check_quantizer(timer, rows, shape=(4096, 14336), key="nxfp_quantize"):
+    """A weight cast (K, N) f32 -> nxfp4 blocks along K (padded to whole
+    blocks), bitwise up to counted candidate near-ties."""
     from repro_torch.core.formats import get_format
     from repro_torch.core.quantize import near_tie_blocks, to_blocks
     from repro_torch.kernels import nxfp_quantize as nq
@@ -335,7 +359,7 @@ def check_quantizer(timer, rows):
 
     fmt = get_format("nxfp4")
     gen = torch.Generator(device="cuda").manual_seed(1)
-    w = torch.randn((4096, 14336), generator=gen, device="cuda") * 0.02
+    w = torch.randn(shape, generator=gen, device="cuda") * 0.02
     xb, _ = to_blocks(w, fmt.block_size, -2)            # the weight cast
     flat = xb.reshape(-1, fmt.block_size).contiguous()
     kp, km = nq.nxfp_quantize_pack(flat, fmt)
@@ -360,16 +384,16 @@ def check_quantizer(timer, rows):
     ms = timer(lambda: nq.nxfp_quantize_pack(flat, fmt))
     plain_ms = timer(lambda: nq.nxfp_quantize_pack_plain(flat, fmt), 3)
     b_ms, b_by = bound(n_bytes, n_ops, PEAK_F32)
-    log(f"quantizer (4096x14336 f32 weight, {t} blocks, {regime} "
+    log(f"quantizer ({shape[0]}x{shape[1]} f32 weight, {t} blocks, {regime} "
         f"regime): packed+meta bitwise "
         f"except {n_diff} near-tie blocks; {n_cands / t:.4f} of 4 "
         f"candidates evaluated per block; kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    rows["nxfp_quantize"] = dict(
+    rows[key] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=None, near_ties=n_diff,
         candidates_per_block=n_cands / t,
-        shape=f"(4096, 14336) f32 weight, {t} blocks of 32, nxfp4")
+        shape=f"{tuple(shape)} f32 weight, {t} blocks of 32, nxfp4")
 
 
 def check_act_quantizer(timer, rows):
@@ -430,13 +454,14 @@ def check_act_quantizer(timer, rows):
 # B 4, max_len 256): a decode step at ragged rows and a 4 x 128 prefill;
 # and H2O-Danube3-4B's (8 KV heads of 120, padded to 4 blocks of 32) into
 # its 4096-row ring: a decode step at rows pos % 4096 and a 128-row chunk
-KV_CASES = {"decode": (1, (128, 200, 17, 255), 128, 256),
-            "prefill": (128, None, 128, 256),
-            "decode danube": (1, (4095, 0, 17, 3000), 120, 4096),
-            "prefill danube": (128, None, 120, 4096)}
+# (T, rows, head_dim, S, KV heads)
+KV_CASES = {"decode": (1, (128, 200, 17, 255), 128, 256, 8),
+            "prefill": (128, None, 128, 256, 8),
+            "decode danube": (1, (4095, 0, 17, 3000), 120, 4096, 8),
+            "prefill danube": (128, None, 120, 4096, 8)}
 
 
-def check_kv_write(timer, rows):
+def check_kv_write(timer, rows, cases=KV_CASES):
     """K and V encoded in one launch straight into the layer cache's rows,
     bitwise (up to counted near-ties) against the codec + row writes."""
     from repro_torch.core.formats import get_format
@@ -446,9 +471,9 @@ def check_kv_write(timer, rows):
     from repro_torch.kernels.decode_lib import decode_block_values
 
     fmt = get_format("nxfp4")
-    b, kvh = 4, 8
+    b = 4
     gen = torch.Generator(device="cuda").manual_seed(6)
-    for case, (t, pos, hd, s) in KV_CASES.items():
+    for case, (t, pos, hd, s, kvh) in cases.items():
         nb = -(-hd // fmt.block_size)
         k, v = (torch.randn((b, t, kvh, hd), generator=gen, device="cuda")
                 .to(torch.bfloat16) for _ in range(2))
@@ -497,7 +522,7 @@ def check_kv_write(timer, rows):
                    + (0 if pos_t is None else b * 4))
         b_ms, b_by = bound(n_bytes, n_cands * 32 * QUANT_OPS, PEAK_F32)
         regime = nq.quantize_plan(n_blocks, fmt.block_size).regime
-        log(f"KV write ({case}: K and V (4, {t}, 8, {hd}) bf16 -> nxfp4 "
+        log(f"KV write ({case}: K and V (4, {t}, {kvh}, {hd}) bf16 -> nxfp4 "
             f"cache rows {'0..' + str(t - 1) if pos is None else list(pos)}, "
             f"{n_blocks} blocks, one launch, {regime} regime): bitwise except "
             f"{n_diff} near-tie blocks; kernel {ms:.4f} ms, plain "
@@ -505,7 +530,7 @@ def check_kv_write(timer, rows):
         rows[f"nxfp_quantize kv {case}"] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=b_by, library_ms=None, near_ties=n_diff,
-            shape=f"K, V (4, {t}, 8, {hd}) bf16 into an nxfp4 cache of {s} "
+            shape=f"K, V (4, {t}, {kvh}, {hd}) bf16 into an nxfp4 cache of {s} "
                   f"rows, {n_blocks} blocks")
 
 
@@ -801,6 +826,9 @@ FAMILY_M = (4, 512)
 
 
 def check_matmul(timer, rows, pairs=MATMUL_KN, row_counts=MATMUL_M):
+    """The dequant GEMM at each (K, N) and M: x (M, K) bf16 (zero-padded to
+    the weight's blocks where quantization padded K, as ``ops.qmatmul``
+    pads it) against its plain version, bitwise on a second launch."""
     from repro_torch.core.formats import get_format
     from repro_torch.kernels import nxfp_matmul as nm
     from repro_torch.kernels.ops import quantize_qtensor
@@ -815,6 +843,7 @@ def check_matmul(timer, rows, pairs=MATMUL_KN, row_counts=MATMUL_M):
         for m in row_counts:
             x = torch.randn((m, k), generator=gen, device="cuda").to(
                 torch.bfloat16)
+            x = torch.nn.functional.pad(x, (0, wd.shape[1] - k))
             y = nm.nxfp_matmul(x, wq.packed, wq.meta, fmt)
             again = nm.nxfp_matmul(x, wq.packed, wq.meta, fmt)
             y_plain = nm.nxfp_matmul_plain(x, wq.packed, wq.meta, fmt)
@@ -889,7 +918,7 @@ def _sdpa_yardstick(q, k, v, lengths):
     return run, run().reshape(q.shape)
 
 
-def check_attention(timer, rows):
+def check_attention(timer, rows, cases=ATTENTION_CASES):
     import torch.nn.functional as F
     from repro_torch.core.formats import get_format
     from repro_torch.kernels import nxfp_attention as na
@@ -898,7 +927,7 @@ def check_attention(timer, rows):
     fmt = get_format("nxfp4")
     b = 4
     gen = torch.Generator(device="cuda").manual_seed(3)
-    for (kvh, g, hd), s, lens in ATTENTION_CASES:
+    for (kvh, g, hd), s, lens in cases:
         k = torch.randn((b, s, kvh, hd), generator=gen, device="cuda").to(
             torch.bfloat16)
         v = torch.randn((b, s, kvh, hd), generator=gen, device="cuda").to(
@@ -1022,12 +1051,19 @@ def check_dense_attention(timer, rows):
 # time at a lane chunk and a prefill against one torch.matmul
 DENSE_GEMM_M = (17, 32, 200)
 DENSE_GEMM_TIMED = (32, 512)
+# the bf16 heads that stay dense (Llama-3-8B's on every decode step of
+# phase 5, Hymba's): up to 16 rows the route is one product on exactly 16
+# rows, zero-padded, timed at a decode batch beside one torch.mm of the
+# unpadded rows (the route before the pad)
+DENSE_HEADS = {"llama3_8b lm_head": (4096, 128256),
+               "hymba lm_head": (1600, 32001)}
+DENSE_HEAD_M = (1, 4)
 
 
 def check_dense_gemm(timer, rows):
     """Not a kernel of the port (the reference leaves the product to XLA):
-    the premium tier's projections. A row's bits must not follow M above
-    16; its time beside one torch.matmul of the same operands."""
+    the premium tier's projections and the dense heads. A row's bits must
+    not follow M; its time beside one torch.matmul of the same operands."""
     from repro_torch.kernels.ops import _dense_matmul
 
     gen = torch.Generator(device="cuda").manual_seed(14)
@@ -1056,6 +1092,33 @@ def check_dense_gemm(timer, rows):
                 max_abs_err=0.0, ms=ms, plain_ms=None, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib_ms,
                 shape=f"x ({m}, {k}) bf16 @ W ({k}, {n}) bf16, f32 out")
+        del w, x
+        torch.cuda.empty_cache()
+    for name, (k, n) in DENSE_HEADS.items():
+        w = (torch.randn((k, n), generator=gen, device="cuda") * 0.02).to(
+            torch.bfloat16)
+        x = torch.randn((16, k), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        ref = _dense_matmul(x, w)
+        moved = {m: int((_dense_matmul(x[:m], w) != ref[:m]).sum())
+                 for m in DENSE_HEAD_M}
+        if any(moved.values()):
+            fail(f"dense GEMM {name}: rows differ from M 16's at {moved}")
+        for m in DENSE_HEAD_M:
+            xm = x[:m].contiguous()
+            ms = timer(lambda: _dense_matmul(xm, w))
+            lib_ms = timer(lambda: torch.mm(xm, w, out_dtype=torch.float32))
+            n_bytes = k * n * 2 + m * k * 2 + m * n * 4
+            b_ms, b_by = bound(n_bytes, 2.0 * m * n * k, PEAK_BF16)
+            log(f"dense GEMM route {name} M={m} K={k} N={n} (one cuBLAS "
+                f"product on 16 rows): rows at M {list(DENSE_HEAD_M)} "
+                f"bitwise M 16's; {ms:.4f} ms, one torch.mm of the {m} rows "
+                f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+            rows[f"dense_gemm {name} M={m} K={k} N={n}"] = dict(
+                max_abs_err=0.0, ms=ms, plain_ms=None, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms,
+                shape=f"x ({m}, {k}) bf16 @ W ({k}, {n}) bf16, f32 out, "
+                      f"run on 16 rows")
         del w, x
         torch.cuda.empty_cache()
 
@@ -2619,7 +2682,10 @@ def _chunk_ms(eng) -> float:
 def _engine_run(make, reqs, want, what):
     """Build an engine and serve ``reqs`` once (the serve captures its
     graphs): (engine, results, wall, peak device bytes of the engine over
-    construction and serve, above what was allocated before)."""
+    construction and serve, above what was allocated before: the cycle
+    collector runs first, else an earlier engine freed mid-serve hides
+    part of the peak)."""
+    gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
@@ -2832,6 +2898,463 @@ def phase_paged(card: str, timer):
     return counts, fig
 
 
+# phase 13: the SSM and hybrid families at full width and depth (nxfp4
+# weights, random from seed 0; Hymba's KV nxfp4 in its 1024-row ring)
+FALCON, HYMBA = "falcon_mamba_7b", "hymba_1_5b"
+SSM_P = 256                  # the lane's width: ssm_chunk at full width
+FALCON_MAX_LEN, HYMBA_MAX_LEN = 2048, 1280
+# several lane chunks and ragged tails; Hymba's 2600 tokens wrap its ring,
+# and its lane of 1280 rows (>= 1024 + 256) is a ring: the chunks from
+# offset 1280 on run the ring lane
+FALCON_PROMPTS, FALCON_NEW = (1000, 300, 64), (8, 16, 8)
+HYMBA_PROMPTS, HYMBA_NEW = (2600, 300, 64), (8, 16, 8)
+# the whole prefill's state against the lane's: two lane chunks with a
+# ragged tail, and a prompt shorter than ssm_chunk
+SSM_LANE_PROMPTS = (300, 64)
+# Hymba's paged serve: four requests extending one 512-token prefix
+HYMBA_PREFIX, HYMBA_TAILS, HYMBA_PAGED_NEW = 512, (40, 100, 180, 260), \
+    (8, 16, 12, 8)
+SSM_STEPS = 32               # ServeEngine: 4 x 128-token prompts, 32 new
+SSM_ROWS = (128, 100, 64, 37)   # the decode step's rows (prompt lengths)
+# the kernels at the families' shapes: the dequant GEMM's (K, N) pairs
+# (Falcon's ssm_in_w, ssm_x_w (N 288), ssm_dt_w, ssm_out_w; Hymba's wq/wo,
+# wk/wv, w1/w3, w2, ssm_in_w, ssm_x_w (N 132), ssm_dt_w (K 100, padded to
+# 128), ssm_out_w) at a decode batch and a prefill, decode attention at
+# Hymba's heads over its ring, the quantizer on two of the casts and on
+# Hymba's K/V writes (head_dim 64: 2 blocks) into the ring
+SSM_KN = ((4096, 16384), (8192, 288), (256, 8192), (8192, 4096),
+          (1600, 1600), (1600, 320), (1600, 5504), (5504, 1600),
+          (1600, 6400), (3200, 132), (100, 3200), (3200, 1600))
+SSM_M = (4, 512)
+SSM_ATTENTION = (((5, 5, 64), 1024, (1024, 700, 33, 1)),)
+SSM_CASTS = {"nxfp_quantize falcon ssm_in_w": (4096, 16384),
+             "nxfp_quantize hymba ssm_dt_w": (100, 3200)}
+SSM_KV = {"decode hymba": (1, (1023, 0, 17, 700), 64, 1024, 5),
+          "prefill hymba": (256, None, 64, 1024, 5)}
+
+
+def check_ssm_kernels(timer, rows):
+    """Every kernel at the SSM and hybrid families' new shapes, held and
+    timed as the rows above are."""
+    check_matmul(timer, rows, SSM_KN, SSM_M)
+    check_attention(timer, rows, SSM_ATTENTION)
+    for key, shape in SSM_CASTS.items():
+        check_quantizer(timer, rows, shape, key)
+    check_kv_write(timer, rows, SSM_KV)
+    torch.cuda.empty_cache()
+
+
+def _cast_family(arch):
+    """``arch`` at full width and depth: random weights from seed 0, cast to
+    nxfp4 on the card (``load_params``). Returns (cfg, params, seconds)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.qtensor import QuantPolicy
+    from repro_torch.models import init_params
+    from repro_torch.serving.engine import load_params
+    cfg = get_config(arch)
+    t0 = time.time()
+    raw = init_params(cfg, seed=0, device="cuda")
+    params = load_params(raw, QuantPolicy("nxfp4", None),
+                         torch.device("cuda"))
+    del raw
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return cfg, params, time.time() - t0
+
+
+def _solo_streams(cfg, params, reqs, max_len):
+    """Each request served alone by ``ServeEngine``'s host loop."""
+    from repro_torch.core.qtensor import QuantPolicy
+    from repro_torch.serving import ServeEngine
+    eng = ServeEngine(cfg, params, QuantPolicy(None, "nxfp4"),
+                      max_len=max_len, device="cuda")
+    return {r.uid: eng.generate({"tokens": r.tokens[None]},
+                                max_new=r.max_new, loop="host").tokens[0]
+            for r in reqs}
+
+
+def _clone_cache(cache):
+    return {"pos": cache["pos"].clone(),
+            "layers": [{k: v.clone() for k, v in lc.items()}
+                       for lc in cache["layers"]]}
+
+
+def _ssm_invariance(cfg, params, what):
+    """One decode step of rows prefilled alone (``SSM_ROWS`` tokens): each
+    row's f32 logits and every layer's ``h``/``conv`` at B 4 against B 1,
+    bitwise, and the step as a captured CUDA graph against the eager
+    step (its warm-up puts the state back: no step integrated twice)."""
+    import numpy as np
+    from repro_torch.models import decode_step, prefill, recurrent_state
+    from repro_torch.serving.engine import capture_graph
+    rng = np.random.default_rng(21)
+    rows = []
+    for t in SSM_ROWS:
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab, (1, t)),
+                               device="cuda")
+        logits, cache = prefill(cfg, params, {"tokens": toks}, max_len=256,
+                                kv_fmt="nxfp4")
+        rows.append((logits.argmax(-1).to(torch.int32), cache))
+
+    def batch(idx):
+        cache = {"pos": torch.cat([rows[i][1]["pos"] for i in idx]),
+                 "layers": [{k: torch.cat([rows[i][1]["layers"][li][k]
+                                           for i in idx])
+                             for k in rows[0][1]["layers"][li]}
+                            for li in range(cfg.n_layers)]}
+        return torch.cat([rows[i][0] for i in idx])[:, None], cache
+
+    tok4, c4 = batch(range(4))
+    static = _clone_cache(c4)
+    l4, c4 = decode_step(cfg, params, tok4, c4, "nxfp4")
+    moved = []
+    for i in range(4):
+        tok1, c1 = batch([i])
+        l1, c1 = decode_step(cfg, params, tok1, c1, "nxfp4")
+        if not torch.equal(l4[i], l1[0]):
+            moved.append(f"row {i} logits")
+        for li, (a, b) in enumerate(zip(c4["layers"], c1["layers"])):
+            for name in ("h", "conv"):
+                if not torch.equal(a[name][i:i + 1], b[name]):
+                    moved.append(f"row {i} layer {li} {name}")
+    if moved:
+        fail(f"{what}: a decode row at B 4 differs from B 1: {moved[:8]}")
+    graph, out = capture_graph(
+        lambda: decode_step(cfg, params, tok4, static, "nxfp4")[0],
+        torch.device("cuda"), keep=recurrent_state(static))
+    graph.replay()
+    if not torch.equal(out, l4) or not all(
+            torch.equal(a[n], b[n]) for a, b in zip(static["layers"],
+                                                    c4["layers"])
+            for n in ("h", "conv")):
+        fail(f"{what}: the decode step's graph replay differs from the "
+             "eager step")
+    # where a step's time goes: the step's replay against a replay of its
+    # dequant GEMMs alone (every layer's, at B 4) and one of the head
+    step_ms = _replay_ms(graph)
+    from repro_torch.kernels.ops import qmatmul
+    xs = {}
+
+    def gemms():
+        for lp in params["layers"]:
+            for name, w in lp.items():
+                if hasattr(w, "packed"):
+                    k = w.shape[0]
+                    if k not in xs:
+                        xs[k] = torch.ones((4, k), dtype=torch.bfloat16,
+                                           device="cuda")
+                    qmatmul(xs[k], w)
+
+    def head():
+        qmatmul(torch.ones((4, cfg.d_model), dtype=torch.bfloat16,
+                           device="cuda"), params["lm_head"])
+
+    shares = {"step_ms": step_ms}
+    for key, fn in (("gemm_ms", gemms), ("head_ms", head)):
+        g, _ = capture_graph(fn, torch.device("cuda"))
+        shares[key] = _replay_ms(g)
+        del g
+    shares["rest_share"] = round(
+        1 - (shares["gemm_ms"] + shares["head_ms"]) / step_ms, 4)
+    del graph, out, static
+    return shares
+
+
+def _lane_state_check(cfg, params, prompts, max_len, what):
+    """Each prompt's whole prefill against the lane at ``SSM_P``: the final
+    chunk's logits and the slot's ``h``/``conv`` in every layer, bitwise
+    (a prompt shorter than ``ssm_chunk`` scans its length whole and
+    ``SSM_P`` steps with an identity tail in the lane)."""
+    import numpy as np
+    from repro_torch.models import (init_cache, init_lane, prefill,
+                                    prefill_chunk)
+    rng = np.random.default_rng(22)
+    lane = init_lane(cfg, max_len, SSM_P, device="cuda")
+    for t in prompts:
+        toks = rng.integers(0, cfg.vocab, (t,))
+        want, whole = prefill(cfg, params, {"tokens": torch.as_tensor(
+            toks[None], device="cuda")}, max_len, "nxfp4")
+        cache = init_cache(cfg, 2, max_len, "nxfp4", device="cuda")
+        for off in range(0, t, SSM_P):
+            n = min(SSM_P, t - off)
+            chunk = np.zeros((1, SSM_P), np.int64)
+            chunk[0, :n] = toks[off:off + n]
+            logits, cache, lane = prefill_chunk(
+                cfg, params, torch.as_tensor(chunk, device="cuda"), cache,
+                1, off, n, lane, "nxfp4", with_head=off + n >= t)
+        bad = [f"layer {li} {name}"
+               for li, (a, b) in enumerate(zip(cache["layers"],
+                                               whole["layers"]))
+               for name in ("h", "conv") if not torch.equal(a[name][1],
+                                                            b[name][0])]
+        if not torch.equal(logits, want) or bad:
+            fail(f"{what}: a {t}-token prompt's lane (P {SSM_P}) differs "
+                 f"from its whole prefill: logits "
+                 f"{torch.equal(logits, want)}, state {bad[:6]}")
+        del cache, whole
+    del lane
+    torch.cuda.empty_cache()
+
+
+def _state_bytes(cfg) -> int:
+    """A slot's Mamba state over all layers: h (f32) and the conv tail."""
+    return cfg.n_layers * (cfg.dinner * cfg.ssm_state * 4
+                           + (cfg.conv_width - 1) * cfg.dinner
+                           * torch.finfo(cfg.dtype).bits // 8)
+
+
+def _checked_serves(make, reqs, want, what):
+    """Build an engine and serve ``reqs`` once (the serve captures the
+    graphs), every stream ``want``'s bitwise. Returns (the engine, the
+    serve's figures with ``peak``: device bytes of the engine over
+    construction and serve, above what was allocated before)."""
+    eng, results, wall, peak = _engine_run(make, reqs, want, what)
+    return eng, dict(_serve_figures(eng, results, wall), peak=peak)
+
+
+def _family_requests_of(cfg, prompts, news, seed):
+    import numpy as np
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(seed)
+    return [Request(uid=i, tokens=rng.integers(0, cfg.vocab, (t,)),
+                    max_new=m) for i, (t, m) in enumerate(zip(prompts, news))]
+
+
+def _counted(fn, into):
+    """Run ``fn`` with every launch count set to 0 just before it; add the
+    counts read just after it to ``into``. Returns ``fn()``."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    out = fn()
+    for k, v in launch_counts().items():
+        into[k] = into.get(k, 0) + v
+    return out
+
+
+def _sum_counts(*parts):
+    return {k: sum(p[k] for p in parts) for k in parts[0]}
+
+
+def phase_falcon(card):
+    """Falcon-Mamba-7B (64 layers, attention-free) at full width: the
+    graph device loop against the host loop, the decode step's invariance
+    and the lane's state, then ``ContinuousEngine`` whole and at P 256 and
+    ``PagedContinuousEngine`` (no pages: no attention), every stream its
+    solo host-loop stream. Launches are counted around the cast, the
+    device loops and the engines' serves alone, never around an oracle.
+    Returns (launch counts by path, figures)."""
+    import numpy as np
+    from repro_torch.core.qtensor import QuantPolicy
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.serving import (ContinuousEngine, PagedContinuousEngine,
+                                     ServeEngine)
+    t0 = time.time()
+    # free what earlier phases left to the cycle collector: else it may
+    # free it during the cast and the weights' bytes read too low
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    counts = {"cast": {}, "graph_loop": {}, "engines": {}}
+    cfg, params, cast_s = _counted(lambda: _cast_family(FALCON),
+                                   counts["cast"])
+    peak_cast = torch.cuda.max_memory_allocated() - base
+    weights = torch.cuda.memory_allocated() - base
+    policy = QuantPolicy(None, "nxfp4")          # the weights are cast
+    fig = dict(cast_s=round(cast_s, 2))
+    # ServeEngine: the graph device loop against the host loop
+    eng = ServeEngine(cfg, params, policy, max_len=256, device="cuda")
+    batch = {"tokens": np.random.default_rng(20).integers(
+        0, cfg.vocab, (4, 128))}
+    runs = _counted(lambda: [
+        eng.generate(batch, max_new=SSM_STEPS, loop="device", chunk=16)
+        for _ in range(3)], counts["graph_loop"])
+    host = eng.generate(batch, max_new=SSM_STEPS, loop="host")
+    for r in runs:
+        if not np.array_equal(r.tokens, host.tokens) or not (
+                r.n_generated == SSM_STEPS).all():
+            fail("falcon: the graph device loop and the host loop disagree")
+    graph_ms = statistics.median(r.decode_seconds for r in runs[1:]) \
+        / SSM_STEPS * 1e3
+    fig.update(graph_ms_step=round(graph_ms, 3),
+               host_ms_step=round(host.decode_seconds / SSM_STEPS * 1e3, 3),
+               tok_s=round(4e3 / graph_ms, 2),
+               prefill_s=round(runs[-1].prefill_seconds, 4))
+    logits, cache = prefill(cfg, params, {"tokens": torch.as_tensor(
+        batch["tokens"], device="cuda")}, max_len=256, kv_fmt="nxfp4")
+    fig["launches_per_step"] = {}
+    _counted(lambda: decode_step(
+        cfg, params, logits.argmax(-1).to(torch.int32)[:, None], cache,
+        "nxfp4"), fig["launches_per_step"])
+    if fig["launches_per_step"]["nxfp_matmul"] != 4 * cfg.n_layers:
+        fail(f"falcon: {fig['launches_per_step']} launches a decode step, "
+             f"expected 4 GEMMs a layer")
+    del eng, cache, logits, runs, host
+    fig["step_split"] = _ssm_invariance(cfg, params, "falcon")
+    _lane_state_check(cfg, params, SSM_LANE_PROMPTS, FALCON_MAX_LEN,
+                      "falcon")
+    reqs = _family_requests_of(cfg, FALCON_PROMPTS, FALCON_NEW, 23)
+    solos = _solo_streams(cfg, params, reqs, FALCON_MAX_LEN)
+    kw = dict(n_slots=CONT_SLOTS, max_len=FALCON_MAX_LEN, chunk=CONT_CHUNK,
+              device="cuda")
+    serves = {}
+    for mode, extra in (("whole", {}), (f"P {SSM_P}", dict(
+            prefill_mode="chunked", p_chunk=SSM_P))):
+        ceng, serves[mode] = _counted(lambda: _checked_serves(
+            lambda: ContinuousEngine(cfg, params, policy, **kw, **extra),
+            reqs, solos, f"falcon {mode}"), counts["engines"])
+        if ceng.replays == 0 or (extra and ceng.lane_replays == 0):
+            fail(f"falcon {mode}: no graph replays")
+        del ceng
+    peng, serves["paged"] = _counted(lambda: _checked_serves(
+        lambda: PagedContinuousEngine(cfg, params, policy, **kw), reqs,
+        solos, "falcon paged"), counts["engines"])
+    if any("block" in lc or any(n.startswith("pool_") for n in lc)
+           for lc in peng.cache["layers"]) or peng.pool.stats()["used"]:
+        fail("falcon paged: an attention-free cache holds pages")
+    del peng
+    # an attention-free model quantizes only in the cast (no K/V)
+    for path, name in (("cast", "nxfp_quantize"),
+                       ("graph_loop", "nxfp_matmul"),
+                       ("engines", "nxfp_matmul")):
+        if counts[path][name] <= 0:
+            fail(f"falcon: kernel {name} was never launched ({path})")
+    fig.update(serves=serves, peak_cast=peak_cast, weights=weights,
+               base=base, state_bytes_slot=_state_bytes(cfg),
+               seconds=round(time.time() - t0, 1))
+    log(f"falcon_mamba_7b ({card}): full width, {cfg.n_layers} layers "
+        f"(d_model {cfg.d_model}, d_inner {cfg.dinner}, ssm_state "
+        f"{cfg.ssm_state}, dt_rank {cfg.dtrank}, vocab {cfg.vocab}), nxfp4 "
+        f"weights (seed 0, init + cast {cast_s:.2f} s, peak {peak_cast} "
+        f"bytes above the {base} bytes allocated before, {weights} bytes "
+        f"kept); ServeEngine 4 x 128 tokens, {SSM_STEPS} new: graph device "
+        f"loop == host loop; decode {fig['graph_ms_step']} ms/step (graph, "
+        f"{fig['tok_s']} tok/s) vs host loop {fig['host_ms_step']} ms/step; "
+        f"launches a decode step {fig['launches_per_step']}; a decode row "
+        f"at B 4 == B 1 and graph replay == eager (logits and h/conv, "
+        f"bitwise); whole prefill's state == the lane's at P {SSM_P} "
+        f"({' and '.join(map(str, SSM_LANE_PROMPTS))} tokens); a B 4 "
+        f"decode step as graph replays (CUDA events): {fig['step_split']} "
+        f"(the step, its dequant GEMMs alone, the head alone, the rest's "
+        f"share: the Mamba step's elementwise work and the norms)")
+    log(f"  falcon serves ({card}; prompts {list(FALCON_PROMPTS)}, max_new "
+        f"{list(FALCON_NEW)}, {CONT_SLOTS} slots, max_len "
+        f"{FALCON_MAX_LEN}): whole, P {SSM_P} and paged (no pages) every "
+        f"stream == its solo host-loop stream: {serves}; launches (each "
+        f"path counted alone, oracles outside): {counts}; phase 13 falcon "
+        f"{fig['seconds']} s")
+    del params
+    torch.cuda.empty_cache()
+    return counts, fig
+
+
+def phase_hymba(card):
+    """Hymba-1.5B (32 layers, windowed attention and a Mamba head) at full
+    width: the decode step's invariance and the lane's state, then
+    ``ContinuousEngine`` whole and at P 256 (a prompt that wraps the ring
+    and runs the ring lane), and ``PagedContinuousEngine`` at P 256 with
+    four requests extending one prefix, every stream bitwise its oracle.
+    Launches are counted around the cast and the engines' serves alone.
+    Returns (launch counts by path, figures)."""
+    import numpy as np
+    from repro_torch.core.qtensor import QuantPolicy
+    from repro_torch.serving import (ContinuousEngine, PagedContinuousEngine,
+                                     Request)
+    t0 = time.time()
+    counts = {"cast": {}, "engines": {}}
+    cfg, params, cast_s = _counted(lambda: _cast_family(HYMBA),
+                                   counts["cast"])
+    policy = QuantPolicy(None, "nxfp4")
+    step_split = _ssm_invariance(cfg, params, "hymba")
+    _lane_state_check(cfg, params, SSM_LANE_PROMPTS, HYMBA_MAX_LEN, "hymba")
+    reqs = _family_requests_of(cfg, HYMBA_PROMPTS, HYMBA_NEW, 24)
+    solos = _solo_streams(cfg, params, reqs, HYMBA_MAX_LEN)
+    kw = dict(n_slots=CONT_SLOTS, max_len=HYMBA_MAX_LEN, chunk=CONT_CHUNK,
+              device="cuda")
+    lane_kw = dict(prefill_mode="chunked", p_chunk=SSM_P)
+    # the lane through p_chunk="auto": of the default candidates and 256
+    # only 256 is a multiple of ssm_chunk, so the sweep times one width
+    auto_kw = dict(prefill_mode="chunked", p_chunk="auto",
+                   p_chunk_candidates=(16, 32, 64, 128, SSM_P))
+    prefix = np.random.default_rng(25).integers(0, cfg.vocab, (HYMBA_PREFIX,))
+    tails = np.random.default_rng(26)
+    preqs = [Request(uid=i, tokens=np.concatenate(
+        [prefix, tails.integers(0, cfg.vocab, (t,))]), max_new=m)
+        for i, (t, m) in enumerate(zip(HYMBA_TAILS, HYMBA_PAGED_NEW))]
+    serves = {}
+    for mode, extra in (("whole", {}), (f"P {SSM_P} (auto)", auto_kw)):
+        eng, serves[mode] = _counted(lambda: _checked_serves(
+            lambda: ContinuousEngine(cfg, params, policy, **kw, **extra),
+            reqs, solos, f"hymba {mode}"), counts["engines"])
+        if extra and (eng.p_chunk != SSM_P
+                      or sorted(eng.p_chunk_sweep) != [SSM_P]):
+            fail(f"hymba: p_chunk='auto' swept {eng.p_chunk_sweep} and "
+                 f"picked {eng.p_chunk}, expected {SSM_P} alone")
+        if extra:
+            graphs = sorted(map(str, eng._lane_graphs))
+            serves[mode]["lane_graphs"] = graphs
+            if not any("ring" in g for g in graphs):
+                fail(f"hymba: the ring lane never ran (lane graphs "
+                     f"{graphs})")
+            # the paged serve's oracle (not counted): the dense engine at
+            # the lane's P
+            want = {r.uid: r.tokens for r in eng.serve(preqs)}
+        if eng.replays == 0 or (extra and eng.lane_replays == 0):
+            fail(f"hymba {mode}: no graph replays")
+        arena = _arena_bytes(eng.cache)
+        del eng
+    peng, serves["paged"] = _counted(lambda: _checked_serves(
+        lambda: PagedContinuousEngine(cfg, params, policy, **kw, **lane_kw),
+        preqs, want, "hymba paged"), counts["engines"])
+    st = peng.pool_stats()[0]
+    if st["prefix_hits"] < 1:
+        fail(f"hymba paged: no prefix hit ({st})")
+    peng.pool.assert_empty()
+    serves["paged"]["pool_stats"] = st
+    del peng
+    for name in ("nxfp_quantize", "nxfp_matmul", "nxfp_attention"):
+        if counts["engines"][name] <= 0:
+            fail(f"hymba: kernel {name} was never launched by the engines")
+    kv_slot = arena // CONT_SLOTS - _state_bytes(cfg)
+    fig = dict(cast_s=round(cast_s, 2), serves=serves, step_split=step_split,
+               state_bytes_slot=_state_bytes(cfg), kv_bytes_slot=kv_slot,
+               seconds=round(time.time() - t0, 1))
+    log(f"hymba_1_5b ({card}): full width, {cfg.n_layers} layers (d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads, {cfg.n_kv_heads} KV heads, "
+        f"head_dim {cfg.hd}, window {cfg.sliding_window}, d_ff {cfg.d_ff}, "
+        f"d_inner {cfg.dinner}, vocab {cfg.vocab}), nxfp4 weights and KV "
+        f"(seed 0, init + cast {cast_s:.2f} s); a decode row at B 4 == B 1 "
+        f"and graph replay == eager (logits and h/conv, bitwise); whole "
+        f"prefill's state == the lane's at P {SSM_P} "
+        f"({' and '.join(map(str, SSM_LANE_PROMPTS))} tokens); a B 4 "
+        f"decode step as graph replays: {step_split}")
+    log(f"  hymba serves ({card}; prompts {list(HYMBA_PROMPTS)}, max_new "
+        f"{list(HYMBA_NEW)}, {CONT_SLOTS} slots, max_len {HYMBA_MAX_LEN}; "
+        f"paged: {len(preqs)} requests extending one {HYMBA_PREFIX}-token "
+        f"prefix, P {SSM_P}, against the dense engine): every stream "
+        f"bitwise its oracle: {serves}; launches (each path counted alone, "
+        f"oracles outside): {counts}; phase 13 hymba {fig['seconds']} s")
+    del params
+    torch.cuda.empty_cache()
+    return counts, fig
+
+
+def phase_ssm_family(card):
+    """Phase 13: Falcon-Mamba-7B, then Hymba-1.5B."""
+    t0 = time.time()
+    fcounts, ffig = phase_falcon(card)
+    hcounts, hfig = phase_hymba(card)
+    llama_kv = 2048 * 36864        # Llama-3-8B's nxfp4 KV, 36,864 B a token
+    log(f"  state per slot ({card}): falcon {ffig['state_bytes_slot']} bytes"
+        f" of h and conv (Llama-3-8B's nxfp4 KV at 2048 tokens: {llama_kv};"
+        f" equal at {ffig['state_bytes_slot'] / 36864:.0f} tokens); hymba "
+        f"{hfig['state_bytes_slot']} bytes of h and conv + "
+        f"{hfig['kv_bytes_slot']} bytes of nxfp4 KV in its ring; phase 13 "
+        f"seconds {time.time() - t0:.1f}")
+    return {FALCON: (fcounts, ffig), HYMBA: (hcounts, hfig)}
+
+
 def kernel_formats(kname, rows, wide_counts):
     """The formats ``kname`` ran in this run: its main-path formats, its
     phase-3 wide rows and the formats phase 7 served through it."""
@@ -2904,8 +3427,8 @@ MAIN_ROW = {"nxfp_quantize": "nxfp_quantize",
 QQ_PATH = ("nxfp_qq_matmul",)
 TIER_PATH = ("dense_decode_attention",)
 # phases 7-10 serve Llama-3-8B at this depth (the main path, phase 5, at
-# --layers): the script's clock has room for phase 11 at full depth
-SERVING_LAYERS = 16
+# --layers): the script's clock has room for phases 11-13 at full depth
+SERVING_LAYERS = 8
 
 
 def main():
@@ -2940,6 +3463,9 @@ def main():
     check_dense_gemm(timer, rows)
     check_qq_matmul(timer, rows)
     check_wide_formats(timer, rows)
+    ssm_rows = set(rows)
+    check_ssm_kernels(timer, rows)
+    ssm_rows = [k for k in rows if k not in ssm_rows]
     del timer
     torch.cuda.empty_cache()
     phase_reference()
@@ -2970,6 +3496,9 @@ def main():
     t12 = time.time()
     paged_counts, _ = phase_paged(smi_line, Timer("cuda"))
     log(f"phase 12 seconds: {time.time() - t12:.1f}")
+    t13 = time.time()
+    ssm = phase_ssm_family(smi_line)
+    log(f"phase 13 seconds: {time.time() - t13:.1f}")
 
     table = []
     for kname, (sources, replaces) in KERNELS.items():
@@ -2990,13 +3519,35 @@ def main():
             launches_tiered_path=tier_counts[c],
             launches_dense_family={a: v[0][c] for a, v in family.items()},
             launches_paged_path=paged_counts[c],
+            launches_ssm_family={a: {path: n[c] for path, n in v[0].items()}
+                                 for a, v in ssm.items()},
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             formats=kernel_formats(kname, rows, wide_counts),
             shape=row["shape"]))
+    # the rows at the SSM and hybrid families' shapes (phase 13), each
+    # with its kernel's launches on those families' paths (the cast, the
+    # graph device loop, the engines' serves), summed and by path
+    ssm_paths = {a: _sum_counts(*v[0].values()) for a, v in ssm.items()}
+    for key in ssm_rows:
+        kname = next(k for k in KERNELS if key.split(" ")[0] in (
+            k, COUNTERS[k]))
+        sources, replaces = KERNELS[kname]
+        r = rows[key]
+        table.append(dict(
+            name=key, kernel=kname, route="cuda", source=sources[0],
+            replaces=replaces,
+            launches=sum(ssm_paths[a][COUNTERS[kname]] for a in ssm),
+            launches_ssm_family={a: {path: n[COUNTERS[kname]]
+                                     for path, n in v[0].items()}
+                                 for a, v in ssm.items()},
+            **{f: r[f] for f in ("max_abs_err", "ms", "plain_ms",
+                                 "bound_ms", "bound_by", "library_ms",
+                                 "shape")}))
     extra = [dict(name=k, **{f: v for f, v in r.items()})
-             for k, r in rows.items() if k not in MAIN_ROW.values()]
+             for k, r in rows.items()
+             if k not in MAIN_ROW.values() and k not in ssm_rows]
     log(f"other shapes: {json.dumps(extra)}")
     log(f"total seconds: {time.time() - t_start:.1f}")
     print(json.dumps({"kernels": table}), flush=True)

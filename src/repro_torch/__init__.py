@@ -3,7 +3,7 @@ the reference it is held against).
 
 Layout mirrors the reference: ``core`` (formats, codec, packing, QTensor),
 ``kernels`` (hand-written CUDA kernels for Hopper + their plain PyTorch
-versions), ``models`` (dense GQA family), ``configs``, ``serving``.
+versions), ``models`` (dense, SSM and hybrid families), ``configs``, ``serving``.
 
 Entry points run on ``cuda`` by default and raise when CUDA is absent
 unless the caller passes ``device="cpu"`` (as the CPU tests do). The

@@ -59,7 +59,9 @@ def _leaf(name: str, leaf, device, index=None):
 
 
 def params_from_jax(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
-    """Reference dense-family parameter tree (numpy leaves) -> port tree."""
+    """Reference parameter tree (numpy leaves) of a dense, ssm or hybrid
+    model -> port tree: every stacked layer leaf (attention, MLP and the
+    Mamba block's ``ssm_*`` leaves, cast or dense) split on L."""
     dev = resolve_device(device)
     out = {name: _leaf(name, leaf, dev) for name, leaf in tree.items()
            if name != "layers"}

@@ -40,16 +40,21 @@ def _dense_matmul(x, w):
     tiles, the last one zero-padded: every call cuBLAS sees has one shape
     whatever M is, and a prompt row gets the same bits whole or in the
     chunked-prefill lane's chunks of more than 16 rows. Up to 16 rows (a
-    decode batch, a short lane chunk) it stays one call, whose rows hold
-    across the batch (``scripts/batch_invariance.py --dense``)."""
+    decode batch, a short lane chunk) it is one call on exactly 16 rows,
+    those past x's zero: cuBLAS may take another kernel at one row than
+    at four (Hymba's head, N 32001, gave other bits at B 1 and B 4), and
+    one shape keeps a row's bits whatever the batch
+    (``scripts/batch_invariance.py --dense``)."""
     xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
     if x.device.type == "cuda":
         lead = xb.shape[:-1]
         x2 = xb.reshape(-1, xb.shape[-1])
         m, n = x2.shape[0], wb.shape[-1]
         if m <= DENSE_SMALL_M:
+            if m < DENSE_SMALL_M:
+                x2 = F.pad(x2, (0, 0, 0, DENSE_SMALL_M - m))
             y = torch.mm(x2, wb, out_dtype=torch.float32)
-            return y.reshape(*lead, n)
+            return y[:m].reshape(*lead, n)
         tiles = -(-m // DENSE_ROW_TILE)
         if tiles * DENSE_ROW_TILE != m:
             x2 = F.pad(x2, (0, 0, 0, tiles * DENSE_ROW_TILE - m))

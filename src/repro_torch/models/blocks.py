@@ -1,7 +1,10 @@
-"""Dense transformer layer: full-sequence (prefill), one prefill chunk
-(the chunked-prefill lane) and one-token decode.
+"""Per-family layers: full-sequence (prefill), one prefill chunk (the
+chunked-prefill lane) and one-token decode. A layer's kind is its
+family's: ``dense`` (GQA attention and a SwiGLU MLP), ``ssm`` (a Mamba
+block alone) or ``hybrid`` (attention and a Mamba head in parallel,
+averaged, then the MLP).
 
-  layer_forward(cfg, p, x, positions, act_fmt)   -> (x, {"k", "v"})
+  layer_forward(cfg, p, x, positions, act_fmt)   -> (x, cache entries)
   layer_prefill_chunk(cfg, p, x, lane_l, cache_l, slot, positions, offset,
                       n_valid, kv, act_fmt, wrapped) -> x
   layer_decode(cfg, p, x, layer_cache, pos, kv, live) -> (x, layer_cache)
@@ -16,33 +19,59 @@ from .attention import gqa_project, self_attention, self_attention_resume
 from .common import (ModelConfig, apply_rope, dense, init_attn, init_mlp,
                      rmsnorm, rope_freqs, swiglu)
 from .kvcache import attend_decode, write_prefill_at, write_token
+from .ssm import init_mamba, mamba_block, mamba_step
 
 Params = Dict[str, Any]
 
 
 def init_layer(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    """One layer's weights, by the config's family (dense | ssm |
+    hybrid)."""
     d = cfg.d_model
     dev = gen.device
     p: Params = {"ln1_scale": torch.ones((d,), dtype=torch.float32,
                                          device=dev)}
+    if cfg.family == "ssm":
+        p.update(init_mamba(gen, cfg))
+        return p
     p.update(init_attn(gen, cfg))
     p["ln2_scale"] = torch.ones((d,), dtype=torch.float32, device=dev)
+    if cfg.family == "hybrid":
+        p.update(init_mamba(gen, cfg))
     p.update(init_mlp(gen, d, cfg.d_ff, cfg.n_layers))
     return p
 
 
-def layer_forward(cfg: ModelConfig, p: Params, x, positions,
-                  act_fmt: Optional[str] = None):
-    """x (B, T, D) -> (x, {"k", "v"}) for the cache. ``act_fmt`` quantizes
-    the GEMM inputs of attention and MLP (qq prefill); None keeps dense
-    activations."""
-    h = rmsnorm(x, p["ln1_scale"], cfg.norm_eps)
-    y, k, v = self_attention(cfg, p, h, positions,
-                             window=cfg.sliding_window, act_fmt=act_fmt)
-    x = x + y
+def _mix(cfg: ModelConfig, p: Params, x, attn_y, ssm_y,
+         act_fmt: Optional[str] = None):
+    """The residual add of a layer's attention and/or Mamba outputs (a
+    hybrid layer averages the two), then the MLP where the family has
+    one."""
+    if attn_y is None:
+        return x + ssm_y
+    x = x + (attn_y if ssm_y is None else 0.5 * (attn_y + ssm_y))
     h2 = rmsnorm(x, p["ln2_scale"], cfg.norm_eps)
     return x + swiglu(h2, p["mlp_w1"], p["mlp_w3"], p["mlp_w2"],
-                      act_fmt=act_fmt), {"k": k, "v": v}
+                      act_fmt=act_fmt)
+
+
+def layer_forward(cfg: ModelConfig, p: Params, x, positions,
+                  act_fmt: Optional[str] = None):
+    """x (B, T, D) -> (x, cache entries): ``k``/``v`` of attention,
+    ``ssm_h``/``ssm_conv`` of the Mamba block (the state after the last
+    token). ``act_fmt`` quantizes the GEMM inputs of attention and MLP
+    (qq prefill); the Mamba block keeps dense activations, as in the
+    reference. None keeps dense activations."""
+    h = rmsnorm(x, p["ln1_scale"], cfg.norm_eps)
+    out: Dict[str, Any] = {}
+    attn_y = ssm_y = None
+    if not cfg.attn_free:
+        attn_y, out["k"], out["v"] = self_attention(
+            cfg, p, h, positions, window=cfg.sliding_window,
+            act_fmt=act_fmt)
+    if cfg.has_mamba:
+        ssm_y, out["ssm_h"], out["ssm_conv"] = mamba_block(cfg, p, h)
+    return _mix(cfg, p, x, attn_y, ssm_y, act_fmt), out
 
 
 def layer_prefill_chunk(cfg: ModelConfig, p: Params, x, lane_l, cache_l,
@@ -50,25 +79,40 @@ def layer_prefill_chunk(cfg: ModelConfig, p: Params, x, lane_l, cache_l,
                         kv_fmt: Optional[str],
                         act_fmt: Optional[str] = None,
                         wrapped: bool = False):
-    """One layer of the chunked prefill over a (1, P) chunk x, the dense
-    family's ``layer_forward`` resumed: attention reads the lane's dense
+    """One layer of the chunked prefill over a (1, P) chunk x,
+    ``layer_forward`` resumed. Attention reads the lane's dense
     natural-order K/V scratch ``lane_l`` (earlier chunks and this one,
     ``attention.self_attention_resume``; ``wrapped``, its ring lane), so
     every hidden row is the whole prompt's, bit for bit; the chunk's
     rope'd K/V rows also go into slot ``slot`` of the live layer cache
     ``cache_l`` at their global rows, ring rows in a sliding-window cache
-    (``kvcache.write_prefill_at``; rows past ``n_valid`` dropped). Lane
-    and cache are updated in place. Returns x."""
+    (``kvcache.write_prefill_at``; rows past ``n_valid`` dropped). The
+    Mamba block resumes from the lane's recurrent carry (``h``, ``conv``;
+    zeros at offset 0, the whole prompt's start), steps past ``n_valid``
+    are identity steps, and the carry it leaves also goes into the slot's
+    state in the live cache every chunk (a prefilling slot is frozen in
+    decode, so the final chunk's carry is what it decodes from). Lane and
+    cache are updated in place. Returns x."""
     h = rmsnorm(x, p["ln1_scale"], cfg.norm_eps)
-    y, k, v = self_attention_resume(
-        cfg, p, h, lane_l["k"], lane_l["v"], positions, offset,
-        offset + n_valid, window=cfg.sliding_window, act_fmt=act_fmt,
-        wrapped=wrapped)
-    write_prefill_at(cfg, cache_l, k, v, slot, offset, n_valid, kv_fmt)
-    x = x + y
-    h2 = rmsnorm(x, p["ln2_scale"], cfg.norm_eps)
-    return x + swiglu(h2, p["mlp_w1"], p["mlp_w3"], p["mlp_w2"],
-                      act_fmt=act_fmt)
+    attn_y = ssm_y = None
+    if not cfg.attn_free:
+        attn_y, k, v = self_attention_resume(
+            cfg, p, h, lane_l["k"], lane_l["v"], positions, offset,
+            offset + n_valid, window=cfg.sliding_window, act_fmt=act_fmt,
+            wrapped=wrapped)
+        write_prefill_at(cfg, cache_l, k, v, slot, offset, n_valid, kv_fmt)
+    if cfg.has_mamba:
+        first = (offset == 0).reshape(1, 1, 1)
+        h0 = torch.where(first, 0.0, lane_l["h"])
+        conv0 = torch.where(first, 0.0, lane_l["conv"])
+        ssm_y, hf, conv = mamba_block(cfg, p, h, h0=h0, conv0=conv0,
+                                      n_valid=n_valid)
+        lane_l["h"].copy_(hf)
+        lane_l["conv"].copy_(conv)
+        sl = slot.to(torch.int64)
+        cache_l["h"].index_copy_(0, sl, hf)
+        cache_l["conv"].index_copy_(0, sl, conv)
+    return _mix(cfg, p, x, attn_y, ssm_y, act_fmt)
 
 
 def _attn_decode(cfg: ModelConfig, p: Params, h, layer_cache, pos,
@@ -88,13 +132,30 @@ def _attn_decode(cfg: ModelConfig, p: Params, h, layer_cache, pos,
     return dense(o, p["wo"])
 
 
+def _put_state(buf, new, live):
+    """Write a layer's new recurrent state into its cache buffer (B, ...)
+    in place, keeping a not-live slot's (``live`` (B,) bool; None: every
+    slot takes it)."""
+    if live is not None:
+        new = torch.where(live.reshape((-1,) + (1,) * (new.dim() - 1)),
+                          new, buf)
+    buf.copy_(new)
+
+
 def layer_decode(cfg: ModelConfig, p: Params, x, layer_cache, pos,
                  kv_fmt: Optional[str], live=None):
-    """x (B, 1, D) -> (x, layer_cache), the cache updated in place.
-    ``live`` (B,) bool: a not-live slot runs through the batch but writes
-    no K/V row (``kvcache.write_token``)."""
+    """x (B, 1, D) -> (x, layer_cache), the cache updated in place: the
+    token's K/V row, and the Mamba state ``h``/``conv`` (the buffers keep
+    their storage, so a captured CUDA graph carries them). ``live`` (B,)
+    bool: a not-live slot runs through the batch but writes no K/V row
+    (``kvcache.write_token``) and keeps its recurrent state."""
     h = rmsnorm(x, p["ln1_scale"], cfg.norm_eps)
-    x = x + _attn_decode(cfg, p, h, layer_cache, pos, kv_fmt, live)
-    h2 = rmsnorm(x, p["ln2_scale"], cfg.norm_eps)
-    return (x + swiglu(h2, p["mlp_w1"], p["mlp_w3"], p["mlp_w2"]),
-            layer_cache)
+    attn_y = ssm_y = None
+    if not cfg.attn_free:
+        attn_y = _attn_decode(cfg, p, h, layer_cache, pos, kv_fmt, live)
+    if cfg.has_mamba:
+        ssm_y, hf, conv = mamba_step(cfg, p, h, layer_cache["h"],
+                                     layer_cache["conv"])
+        _put_state(layer_cache["h"], hf, live)
+        _put_state(layer_cache["conv"], conv, live)
+    return _mix(cfg, p, x, attn_y, ssm_y), layer_cache

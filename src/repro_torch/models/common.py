@@ -26,10 +26,13 @@ Params = Dict[str, Any]
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The dense-family subset of the reference's ModelConfig."""
+    """The reference's ModelConfig for the families the port serves:
+    dense (Llama-style GQA, optionally sliding-window), ssm (Mamba-1,
+    attention-free) and hybrid (windowed GQA and a Mamba head in
+    parallel in every layer)."""
 
     name: str
-    family: str                    # dense (the one family ported so far)
+    family: str                    # dense | ssm | hybrid
     n_layers: int
     d_model: int
     n_heads: int
@@ -40,19 +43,48 @@ class ModelConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     sliding_window: Optional[int] = None   # SWA: a window-sized ring cache
+    # --- SSM (mamba-1) ---
+    ssm_state: int = 0
+    d_inner: int = 0               # 0 -> 2 * d_model
+    dt_rank: int = 0               # 0 -> ceil(d_model / 16)
+    conv_width: int = 4
+    ssm_chunk: int = 256           # the selective scan's chunk length
     dtype: Any = torch.bfloat16
 
     @property
     def hd(self) -> int:
         return self.head_dim or (self.d_model // max(self.n_heads, 1))
 
+    @property
+    def dinner(self) -> int:
+        return self.d_inner or 2 * self.d_model
+
+    @property
+    def dtrank(self) -> int:
+        return self.dt_rank or -(-self.d_model // 16)
+
+    @property
+    def attn_free(self) -> bool:
+        """No attention and no K/V cache: the ssm family."""
+        return self.family == "ssm"
+
+    @property
+    def has_mamba(self) -> bool:
+        """Every layer runs a Mamba block: the ssm and hybrid families."""
+        return self.family in ("ssm", "hybrid")
+
     def param_count(self) -> int:
         """Analytic parameter count, embeddings included (the reference's
-        dense branch)."""
+        dense, ssm and hybrid branches)."""
         d, hd, h, kvh = self.d_model, self.hd, self.n_heads, self.n_kv_heads
         attn = d * hd * h + 2 * d * hd * kvh + hd * h * d
-        return self.n_layers * (attn + 3 * d * self.d_ff) \
-            + 2 * self.vocab * d
+        mlp = 3 * d * self.d_ff
+        di, n, dr = self.dinner, self.ssm_state, self.dtrank
+        mamba = (d * 2 * di + di * (dr + 2 * n) + dr * di
+                 + di * self.conv_width + di * n + 2 * di + di * d)
+        per_layer = {"ssm": mamba, "hybrid": attn + mamba + mlp}.get(
+            self.family, attn + mlp)
+        return self.n_layers * per_layer + 2 * self.vocab * d
 
 
 # ---------------------------------------------------------------------------

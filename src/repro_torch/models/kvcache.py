@@ -27,6 +27,11 @@ page]``, and physical page 0 is the null page, never written (a write that
 resolves to it is dropped). A slot's logical rows are the dense cache's
 (``cache_rows``), so decode attention runs on the gathered view
 ``pool[block]`` with the dense cache's shape, split plan and bits.
+
+A Mamba block's layer (the ``ssm`` and ``hybrid`` families) holds its
+recurrent state beside the K/V buffers (``ssm_cache_init``): ``h``
+(B, d_inner, N) f32 and ``conv`` (B, cw - 1, d_inner), per slot in the
+paged cache too.
 """
 from __future__ import annotations
 
@@ -68,6 +73,18 @@ def attn_cache_init(cfg: ModelConfig, batch: int, max_len: int,
             "k_meta": z(nb, dtype=torch.uint16),
             "v_packed": z(nb, bpb, dtype=torch.uint8),
             "v_meta": z(nb, dtype=torch.uint16)}
+
+
+def ssm_cache_init(cfg: ModelConfig, batch: int, device: torch.device):
+    """One layer's zeroed Mamba state: ``h`` (B, d_inner, ssm_state) f32
+    and the conv tail ``conv`` (B, conv_width - 1, d_inner) in the
+    activation dtype (the prefill emits it so). Constant in the context
+    length."""
+    di, n, cw = cfg.dinner, cfg.ssm_state, cfg.conv_width
+    return {"h": torch.zeros((batch, di, n), dtype=torch.float32,
+                             device=device),
+            "conv": torch.zeros((batch, cw - 1, di), dtype=cfg.dtype,
+                                device=device)}
 
 
 # the pool twin of a dense buffer <name> is "pool_<name>"

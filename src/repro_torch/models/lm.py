@@ -1,11 +1,14 @@
-"""Model assembly for the dense family: init, prefill, the chunked
-prefill's lane chunk, decode.
+"""Model assembly for the dense, SSM and hybrid families: init, prefill,
+the chunked prefill's lane chunk, decode.
 
 Layers are a Python list of per-layer dicts (params) and of per-layer
 caches; prefill and decode loop over them. The cache is
-``{"pos": (B,) int32, "layers": [layer cache, ...]}``; a paged cache
-(``init_paged_cache``) has pool buffers and one block table shared by
-every layer's dict.
+``{"pos": (B,) int32, "layers": [layer cache, ...]}``: a layer cache holds
+the attention K/V (``kvcache.attn_cache_init``) where the family has
+attention, and the Mamba state ``h``/``conv`` (``kvcache.ssm_cache_init``)
+where it has a Mamba block. A paged cache (``init_paged_cache``) has pool
+buffers and one block table shared by every layer's dict; its Mamba state
+stays per slot.
 """
 from __future__ import annotations
 
@@ -19,14 +22,34 @@ from .blocks import (init_layer, layer_decode, layer_forward,
                      layer_prefill_chunk)
 from .common import ModelConfig, dense, ninit, rmsnorm
 from .kvcache import (_POOL_PREFIX, attn_cache_init, paged_attn_cache_init,
-                      paged_layer_view, write_prefill)
+                      paged_layer_view, ssm_cache_init, write_prefill)
+from .ssm import reset_state_slot
 
 Params = Dict[str, Any]
 
+# the families the port serves (the reference's scanned-stack families
+# less MoE)
+FAMILIES = ("dense", "ssm", "hybrid")
+
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} is not ported")
+
+
+def _state_entries(cfg: ModelConfig, batch: int, dev):
+    """A layer's zeroed Mamba state where the family has a Mamba block."""
+    if cfg.has_mamba:
+        return ssm_cache_init(cfg, batch, dev)
+    return {}
+
+
+def recurrent_state(*trees):
+    """The recurrent-state tensors (each layer's ``h`` and ``conv``) of
+    caches and lanes: what a CUDA graph's warm-up must leave as it found
+    (``serving.engine.capture_graph(keep=)``)."""
+    return [buf for tree in trees for layer in tree["layers"]
+            for name, buf in layer.items() if name in ("h", "conv")]
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
@@ -79,8 +102,13 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
     layers = []
     for lp in params["layers"]:
         x, out = layer_forward(cfg, lp, x, positions, act_fmt=act_fmt)
-        layers.append(write_prefill(cfg, out["k"], out["v"], kv_fmt,
-                                    max_len))
+        entries = {}
+        if "k" in out:
+            entries.update(write_prefill(cfg, out["k"], out["v"], kv_fmt,
+                                         max_len))
+        if "ssm_h" in out:
+            entries.update(h=out["ssm_h"], conv=out["ssm_conv"])
+        layers.append(entries)
     cache = {"pos": torch.full((b,), t, dtype=torch.int32,
                                device=tokens.device),
              "layers": layers}
@@ -95,14 +123,18 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
 def _check_p_chunk(cfg: ModelConfig, p_chunk: int) -> None:
     """The lane chunk's static invariants: a positive width, no wider than
     a sliding window (a wider chunk would write two of its rows to one
-    ring row). The reference's third (a multiple of ``ssm_chunk``)
-    belongs to a family the port does not serve."""
+    ring row), and for a Mamba block a multiple of ``ssm_chunk`` (the
+    scan's chunks must fall where the whole prompt's fall, or the chunked
+    prefill would give other bits, silently)."""
     _check_family(cfg)
     if p_chunk < 1:
         raise ValueError(f"p_chunk ({p_chunk}) must be >= 1")
     if cfg.sliding_window and p_chunk > cfg.sliding_window:
         raise ValueError(f"p_chunk ({p_chunk}) must be <= sliding_window "
                          f"({cfg.sliding_window})")
+    if cfg.has_mamba and p_chunk % cfg.ssm_chunk:
+        raise ValueError(f"p_chunk ({p_chunk}) must be a multiple of "
+                         f"ssm_chunk ({cfg.ssm_chunk})")
 
 
 def init_lane(cfg: ModelConfig, max_len: int, p_chunk: int,
@@ -116,16 +148,25 @@ def init_lane(cfg: ModelConfig, max_len: int, p_chunk: int,
     prompts: attention masks rows past the valid length to exact-zero
     contributions. A sliding-window prompt longer than R runs its later
     chunks through the ring lane (``prefill_chunk(wrapped=True)``), which
-    R >= window + P allows. Returns ``{"layers": [{"k", "v"}, ...]}``.
+    R >= window + P allows. A Mamba block's layer also carries the
+    recurrent state between chunks (``h``, ``conv``, batch 1), which
+    ``prefill_chunk`` zeroes at offset 0; an attention-free layer has no
+    K/V scratch. Returns ``{"layers": [{"k", "v", "h", "conv"}, ...]}``.
     (The reference's ``n_lanes``, one lane per shard, waits for the
     sharded engine.)"""
     _check_p_chunk(cfg, p_chunk)
     dev = resolve_device(device)
     rows = -(-max_len // p_chunk) * p_chunk
     shape = (1, rows, cfg.n_kv_heads, cfg.hd)
-    return {"layers": [{"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
-                        "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
-                       for _ in range(cfg.n_layers)]}
+
+    def layer():
+        out = _state_entries(cfg, 1, dev)
+        if not cfg.attn_free:
+            out.update(k=torch.zeros(shape, dtype=cfg.dtype, device=dev),
+                       v=torch.zeros(shape, dtype=cfg.dtype, device=dev))
+        return out
+
+    return {"layers": [layer() for _ in range(cfg.n_layers)]}
 
 
 def _device_int(x, device):
@@ -145,9 +186,10 @@ def prefill_chunk(cfg: ModelConfig, params: Params, tokens, cache, slot,
     quantizer), the lane keeps the dense attention scratch for the next
     chunk, and the hidden row at the chunk's last valid position goes
     through the head: on the prompt's final chunk, the whole-prompt
-    ``prefill``'s last-token logits, bit for bit. ``slot``, ``offset``
-    and ``n_valid`` are ints or (1,) int32 tensors on the device, read
-    there: the shapes do not depend on them and nothing syncs with the
+    ``prefill``'s last-token logits, bit for bit; a Mamba block's state
+    rides the lane across chunks and goes into the slot's state. ``slot``,
+    ``offset`` and ``n_valid`` are ints or (1,) int32 tensors on the
+    device, read there: the shapes do not depend on them and nothing syncs with the
     host, so one captured CUDA graph serves every chunk of every prompt.
 
     ``with_head=False`` skips the (D, V) head and returns the last valid
@@ -188,9 +230,10 @@ def decode_step(cfg: ModelConfig, params: Params, tokens, cache,
     advanced). The layer caches are updated in place.
 
     ``live`` (B,) bool (the continuous engine) freezes a not-live slot: it
-    writes no K/V row and its ``pos`` stays; live slots are bit-identical
-    to ``live=None``. A row's logits do not depend on the other rows of
-    the batch (``tests/test_torch_continuous.py`` holds it bitwise)."""
+    writes no K/V row, its Mamba state and its ``pos`` stay; live slots
+    are bit-identical to ``live=None``. A row's logits do not depend on
+    the other rows of the batch (``tests/test_torch_continuous.py`` holds
+    it bitwise)."""
     pos = cache["pos"]
     x = _embed(cfg, params, tokens)
     for lp, lc in zip(params["layers"], cache["layers"]):
@@ -224,12 +267,20 @@ def decode_loop(cfg: ModelConfig, params: Params, tok, cache, n_steps: int,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                kv_fmt: Optional[str], device=None) -> Dict[str, Any]:
-    """A zeroed cache with every slot at position 0."""
+    """A zeroed cache with every slot at position 0: per layer the
+    attention K/V (not for the attention-free ``ssm`` family) and the
+    Mamba state (``ssm`` and ``hybrid``)."""
     _check_family(cfg)
     dev = resolve_device(device)
+
+    def layer():
+        out = _state_entries(cfg, batch, dev)
+        if not cfg.attn_free:
+            out.update(attn_cache_init(cfg, batch, max_len, kv_fmt, dev))
+        return out
+
     return {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
-            "layers": [attn_cache_init(cfg, batch, max_len, kv_fmt, dev)
-                       for _ in range(cfg.n_layers)]}
+            "layers": [layer() for _ in range(cfg.n_layers)]}
 
 
 def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -240,15 +291,19 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
     (batch, P) int32 block table, all null pages, shared by every layer's
     dict (the reference replicates it over L for its scan). A slot's
     logical rows are ``init_cache``'s, so ``decode_step`` and
-    ``prefill_chunk`` run on it unchanged."""
+    ``prefill_chunk`` run on it unchanged. The Mamba state has no sequence
+    axis and stays per slot (``init_cache``'s); an attention-free model
+    has no pool and no table at all."""
     _check_family(cfg)
     dev = resolve_device(device)
-    first = paged_attn_cache_init(cfg, batch, max_len, kv_fmt, n_pages,
-                                  page_size, dev)
-    layers = [first] + [
-        paged_attn_cache_init(cfg, batch, max_len, kv_fmt, n_pages,
-                              page_size, dev, block=first["block"])
-        for _ in range(cfg.n_layers - 1)]
+    layers = [_state_entries(cfg, batch, dev) for _ in range(cfg.n_layers)]
+    if not cfg.attn_free:
+        block = None
+        for layer in layers:
+            layer.update(paged_attn_cache_init(
+                cfg, batch, max_len, kv_fmt, n_pages, page_size, dev,
+                block=block))
+            block = layer["block"]
     return {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
             "layers": layers}
 
@@ -267,12 +322,17 @@ def _write_paged_group(dst: Dict[str, Any], src: Dict[str, Any],
     """Copy a dense-layout batch-1 layer cache ``src`` (k/v/k_packed/...,
     (1, S, ...)) into slot ``slot`` of a paged layer cache, page by page
     through the slot's table: rows on a null page (past the slot's
-    reservation) are dropped. Reads the table row on the host."""
+    reservation) are dropped. The per-slot buffers beside the pool (the
+    Mamba state) take the slot's row. Reads the table row on the host."""
     row = _paged_slot_table(dst, slot)
     keep = torch.nonzero(row).flatten()
     pages = row[keep].long()
     for name, pool in dst.items():
-        if name.startswith(_POOL_PREFIX):
+        if name == "block":
+            continue
+        if not name.startswith(_POOL_PREFIX):       # the Mamba state
+            pool[slot:slot + 1].copy_(src[name])
+        else:
             vals = src[name[len(_POOL_PREFIX):]][0]
             vals = vals.reshape(row.shape[0], pool.shape[1], *vals.shape[1:])
             bit_view(pool).index_copy_(0, pages, bit_view(
@@ -282,9 +342,14 @@ def _write_paged_group(dst: Dict[str, Any], src: Dict[str, Any],
 def _read_paged_group(layer: Dict[str, Any], slot: int) -> Dict[str, Any]:
     """Slot ``slot`` of a paged layer cache gathered into the dense
     batch-1 layout under the dense names (the inverse of
-    ``_write_paged_group`` on the reserved rows)."""
-    return paged_layer_view(
+    ``_write_paged_group`` on the reserved rows), with its per-slot
+    buffers' rows."""
+    out = paged_layer_view(
         dict(layer, block=_paged_slot_table(layer, slot)[None]))
+    out.update({name: buf[slot:slot + 1].clone()
+                for name, buf in layer.items()
+                if name != "block" and not name.startswith(_POOL_PREFIX)})
+    return out
 
 
 def write_cache_slot(cache: Dict[str, Any], solo: Dict[str, Any],
@@ -336,9 +401,13 @@ def prefill_into_slot(cfg: ModelConfig, params: Params,
 
 def reset_slot(cfg: ModelConfig, cache: Dict[str, Any],
                slot: int) -> Dict[str, Any]:
-    """Park a finished slot, in place: ``pos[slot] = 0``. Its K/V rows
-    stay stale on purpose: reads are masked to ``pos`` and an admission
-    overwrites the whole slot. (``cfg`` is the reference's signature; the
-    dense family has no recurrent state to zero.) Returns ``cache``."""
+    """Park a finished slot, in place: ``pos[slot] = 0`` and its Mamba
+    state zeroed (``ssm.reset_state_slot``: the recurrent state feeds
+    forward unmasked). Its K/V rows stay stale on purpose: reads are
+    masked to ``pos`` and an admission overwrites the whole slot. Returns
+    ``cache``."""
     cache["pos"][slot] = 0
+    if cfg.has_mamba:
+        for layer in cache["layers"]:
+            reset_state_slot(layer["h"], layer["conv"], slot)
     return cache

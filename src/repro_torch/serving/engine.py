@@ -47,7 +47,7 @@ from .. import resolve_device
 from ..core.qtensor import (QTensor, QuantPolicy, _map_with_path,
                             direct_cast_tree, tree_footprint_bytes)
 from ..kernels.ops import quantize_qtensor
-from ..models import decode_loop, decode_step, prefill
+from ..models import decode_loop, decode_step, prefill, recurrent_state
 from ..models.common import ModelConfig
 
 logger = logging.getLogger("repro_torch.serving")
@@ -155,7 +155,7 @@ def sample_tokens(logits, temperature, all_greedy: bool, gens):
     return torch.where(temperature > 0, sampled, greedy)
 
 
-def capture_graph(fn, device, gens=(), warm=None):
+def capture_graph(fn, device, gens=(), warm=None, keep=()):
     """Capture ``fn()`` as a CUDA graph; returns (graph, outputs).
 
     One warm-up call first (``warm()``, default ``fn()``), on the capture
@@ -167,18 +167,26 @@ def capture_graph(fn, device, gens=(), warm=None):
     one step, which writes only the K/V row its replay's first step
     writes again with the same bits (a whole chunk's later steps would
     overwrite rows of a full sliding-window ring that the replay's first
-    steps still attend to). The generators in
+    steps still attend to). A recurrent state is read and then advanced,
+    so the tensors in ``keep`` (the Mamba state of cache and lane,
+    ``models.recurrent_state``) are put back after the warm-up: without
+    that the replay would integrate the warm-up's step a second time.
+    The generators in
     ``gens`` are put back where they were after the warm-up and the
     capture, and registered with the graph, so that every replay draws
     from (and advances) their state at replay time. A capture that fails
     raises."""
     states = [g.get_state() for g in gens]
+    saved = [t.clone() for t in keep]
     graph = torch.cuda.CUDAGraph()
     side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):
         (warm or fn)()                # warm-up: plans and scratch of `side`
+        for t, s in zip(keep, saved):
+            t.copy_(s)
     torch.cuda.current_stream(device).wait_stream(side)
+    del saved
     for g, state in zip(gens, states):
         g.set_state(state)
         graph.register_generator_state(g)
@@ -255,7 +263,8 @@ class _DeviceLoop:
     def _capture(self, steps: int, greedy: bool):
         gens = () if greedy else (self._engine()._gen,)
         return capture_graph(self._fn(steps, greedy), self.dev, gens,
-                             warm=self._fn(1, greedy))
+                             warm=self._fn(1, greedy),
+                             keep=recurrent_state(self.cache))
 
     def run(self, steps: int, greedy: bool, tok, done, n_gen, temp, stop):
         """One chunk from these inputs. Returns (emitted, tok, n_gen, done)

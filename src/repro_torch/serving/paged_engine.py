@@ -52,6 +52,14 @@ is copy-on-write-privatized (``_cow_sweep``) before any dispatch whose
 write horizon could wrap into shared pages: registry pages are never
 overwritten, and the break can never find the pool exhausted.
 
+Families: the pages hold attention K/V only. A hybrid model
+(``hymba_1_5b``) shares and copies its attention pages as the dense family
+does, while its Mamba state stays per slot: a claimant's prefill still
+computes its own state over the whole prompt. An attention-free model
+(``falcon_mamba_7b``) has no K/V rows, so it has no pages, no table and no
+page gate (every page step returns early, ``cfg.attn_free``), and the
+engine serves as ``ContinuousEngine`` does.
+
 Left for later: the sharded paged engine, suspension and checkpoints
 (``_restore_dispatch``), the ``kv_integrity`` refusal (the port has no KV
 canary yet) and paged tiers (the reference has none).
@@ -162,7 +170,10 @@ class PagedContinuousEngine(ContinuousEngine):
     # -- sizing and sharing policy --------------------------------------------
 
     def _pages_for(self, tokens_len: int, max_new: int) -> int:
-        """Logical pages a request needs for its whole tenancy."""
+        """Logical pages a request needs for its whole tenancy (none for
+        an attention-free model)."""
+        if self.cfg.attn_free:
+            return 0
         rows = tokens_len + max_new
         w = self.cfg.sliding_window
         if w:
@@ -192,7 +203,8 @@ class PagedContinuousEngine(ContinuousEngine):
         """
         t = len(req.tokens)
         w = self.cfg.sliding_window
-        if not (self.prefix_sharing and t >= self.page_size
+        if not (self.prefix_sharing and not self.cfg.attn_free
+                and t >= self.page_size
                 and (not w or t <= w)
                 and (self.prefill_mode == "chunked" or t > DENSE_SMALL_M)):
             return None, False, False
@@ -202,6 +214,8 @@ class PagedContinuousEngine(ContinuousEngine):
     def _admission_gate(self, req: Request, shard: Optional[int],
                         resumable: bool) -> bool:
         """Page-availability gate the scheduler consults after its pick."""
+        if self.cfg.attn_free:
+            return True
         n = self._pages_for(len(req.tokens), req.max_new)
         if resumable:           # restores never share (divergent rows)
             return self.pool.would_fit(n)
@@ -229,6 +243,8 @@ class PagedContinuousEngine(ContinuousEngine):
         """Pin a request's pages and mirror them into the block table, the
         claimed entries as ``NULL_PAGE`` until ``_arm_slot`` (the prefill
         writes only the slot's private pages)."""
+        if self.cfg.attn_free:
+            return
         pool = self.pool
         n = self._pages_for(len(req.tokens), req.max_new)
         tokens, reserve, _ = (self._share_terms(req) if share
@@ -258,6 +274,8 @@ class PagedContinuousEngine(ContinuousEngine):
 
     def _make_sched(self) -> SlotScheduler:
         sched = super()._make_sched()
+        if self.cfg.attn_free:
+            return sched
         # reclaim what an aborted serve left (an exception mid-flight):
         # release its pages and null its table rows, so that a parked
         # slot's writes drop instead of landing in pages a new request
@@ -272,6 +290,8 @@ class PagedContinuousEngine(ContinuousEngine):
 
     def _reset_dispatch(self, slot: int) -> None:
         super()._reset_dispatch(slot)
+        if self.cfg.attn_free:
+            return
         self._unarmed_claims.discard(slot)
         if self.pool.holds(slot):
             self.pool.release(slot)
@@ -289,6 +309,8 @@ class PagedContinuousEngine(ContinuousEngine):
 
     def _arm_slot(self, slot: int, req: Request, tok0: int) -> None:
         super()._arm_slot(slot, req, tok0)
+        if self.cfg.attn_free:
+            return
         if slot in self._unarmed_claims:    # its prefill is written: map
             self._unarmed_claims.discard(slot)          # the shared pages
             self._write_table(slot, self.pool.slot_pages(slot))
@@ -314,7 +336,7 @@ class PagedContinuousEngine(ContinuousEngine):
         holds shared pages.
         """
         w = self.cfg.sliding_window
-        if not w or not self.prefix_sharing:
+        if not w or not self.prefix_sharing or self.cfg.attn_free:
             return
         holders = [s for s in range(self.n_slots) if self.pool.has_shared(s)]
         if not holders:

@@ -71,6 +71,14 @@ serving tiers are ``serving/tiers.py``.
 The paged engine (``serving/paged_engine.py``) gates admission on free
 KV pages through ``SlotScheduler.admission_gate``.
 
+Families: dense, ssm and hybrid. A Mamba block's slot holds recurrent
+state (``h``, ``conv``) beside or instead of K/V rows: a not-live slot
+keeps it through decode chunks, ``reset_slot`` zeroes it at park and
+admission overwrites it, the lane carries it between chunks, and a graph's
+warm-up puts it back (``capture_graph(keep=)``). The lane's width must be
+a multiple of ``ssm_chunk`` there, so the scan's chunks fall where the
+whole prompt's fall.
+
 Left for later slices: quarantine, suspension, preemption, snapshots,
 speculation and sharding.
 """
@@ -87,7 +95,7 @@ import torch
 from .. import resolve_device
 from ..core.qtensor import QuantPolicy
 from ..models import (decode_loop, init_cache, init_lane, prefill_chunk,
-                      prefill_into_slot, reset_slot)
+                      prefill_into_slot, recurrent_state, reset_slot)
 from ..models.common import ModelConfig
 from .engine import (_sync, capture_graph, load_params,
                      mask_chunk_emissions, sample_tokens)
@@ -657,9 +665,10 @@ class ContinuousEngine:
         if self.device.type != "cuda":
             return self._chunk_fn(True)
         if True not in self._graphs:
-            self._graphs[True] = capture_graph(self._chunk_fn(True),
-                                               self.device,
-                                               warm=self._chunk_fn(True, 1))
+            self._graphs[True] = capture_graph(
+                self._chunk_fn(True), self.device,
+                warm=self._chunk_fn(True, 1),
+                keep=recurrent_state(self.cache))
         return self._graphs[True][0].replay
 
     def _lane_probe(self, p_chunk: int):
@@ -670,10 +679,12 @@ class ContinuousEngine:
         self._lane_tok.zero_()
         self._lane_idx.copy_(torch.tensor([0, 0, p_chunk],
                                           dtype=torch.int32))
-        fn = self._lane_fn(False, *self._lane_route(0)[1:])
+        how = self._lane_route(0)[1:]
+        fn = self._lane_fn(False, *how)
         if self.device.type != "cuda":
             return fn
-        self._lane_graphs[False] = capture_graph(fn, self.device)
+        self._lane_graphs[False] = capture_graph(
+            fn, self.device, keep=recurrent_state(how[1], self.lane))
         return self._lane_graphs[False][0].replay
 
     def _autotune_p_chunk(self, candidates: Sequence[int],
@@ -685,18 +696,24 @@ class ContinuousEngine:
         candidate of the highest ``p / t_p`` among those whose lane chunk
         costs at most ``stall_factor`` decode chunks; if none does, the
         smallest. The winner keeps its lane scratch and graph; the others
-        are dropped. On CUDA a pick of 16 or less runs the lane's GEMMs
-        split-K, and the chunked oracle then does not hold bitwise (the
-        module docstring). Results: ``p_chunk_sweep``,
+        are dropped. Candidates the lane cannot take are dropped first: wider
+        than ``max_len`` or the sliding window, or (a Mamba block) not a
+        multiple of ``ssm_chunk``, which at full width (256) leaves none of
+        the default candidates. On CUDA a pick of 16 or less runs the lane's
+        GEMMs split-K, and the chunked oracle then does not hold bitwise
+        (the module docstring). Results: ``p_chunk_sweep``,
         ``p_chunk_decode_s``."""
-        w = self.cfg.sliding_window
+        cfg = self.cfg
+        w = cfg.sliding_window
         cands = sorted({int(p) for p in candidates if 1 <= p <= self.max_len
-                        and (not w or p <= w)})
+                        and (not w or p <= w)
+                        and (not cfg.has_mamba
+                             or p % cfg.ssm_chunk == 0)})
         if not cands:
             raise ValueError(f"p_chunk='auto': no candidate in "
                              f"{tuple(candidates)} fits max_len "
-                             f"({self.max_len}) and the sliding window "
-                             f"({w})")
+                             f"({self.max_len}), the sliding window "
+                             f"({w}) and ssm_chunk ({cfg.ssm_chunk})")
         decode_s = self._time_best(self._decode_probe())
         sweep: Dict[int, float] = {}
         lanes: Dict[int, Tuple[Any, ...]] = {}
@@ -752,9 +769,9 @@ class ContinuousEngine:
         if self.device.type != "cuda":
             return make_fn()()
         if key not in self._graphs:
-            self._graphs[key] = capture_graph(make_fn(), self.device,
-                                              () if greedy else self._gens,
-                                              warm=make_fn(1))
+            self._graphs[key] = capture_graph(
+                make_fn(), self.device, () if greedy else self._gens,
+                warm=make_fn(1), keep=recurrent_state(self.cache))
         graph, outs = self._graphs[key]
         graph.replay()
         self.replays += 1
@@ -850,7 +867,8 @@ class ContinuousEngine:
         key = route + head if route or wrapped else final
         if key not in self._lane_graphs:
             self._lane_graphs[key] = capture_graph(
-                self._lane_fn(final, *how, wrapped), self.device)
+                self._lane_fn(final, *how, wrapped), self.device,
+                keep=recurrent_state(how[1], self.lane))
         graph, out = self._lane_graphs[key]
         graph.replay()
         self.lane_replays += 1

@@ -42,7 +42,8 @@ Guarantees (``tests/test_torch_tiers.py``): a tier engine restricted to
 one tier emits the plain ``ContinuousEngine``'s tokens at that policy,
 bit for bit; each stream of a mixed-tier serve is the stream of its
 request served alone at its tier. Refused at init: ``p_chunk="auto"``
-(the sweep times one arena's graphs).
+(the sweep times one arena's graphs) and the ``ssm`` and ``hybrid``
+families (their Mamba state is not in the slot-state helpers yet).
 """
 from __future__ import annotations
 
@@ -164,6 +165,13 @@ class TieredContinuousEngine(ContinuousEngine):
                  degrade_kv_to: Optional[str] = None, **kw):
         if not tiers:
             raise ValueError("tiers must name at least one TierSpec")
+        if cfg.has_mamba:
+            # the slot-state helpers (serving/snapshot.py) and
+            # kv_row_bytes carry no Mamba state yet
+            raise NotImplementedError(
+                f"TieredContinuousEngine does not serve family "
+                f"{cfg.family!r} yet (ROADMAP A13's follow-up: tiers for "
+                f"the ssm and hybrid families)")
         if kw.get("p_chunk") == "auto":
             raise ValueError("p_chunk='auto' probes the single-arena "
                              "cache; pick a static p_chunk")

@@ -128,7 +128,12 @@ def _assert_solo(setup, fmt, reqs, results):
     # sliding window 32: 30-token prompts whose decode wraps the ring
     # (rows 30, 31, then 0, ...), 3 requests over the 2 slots (the
     # reference's test_continuous_ring_wrap_matches_solo)
-    pytest.param("h2o_danube_3_4b", "nxfp4", id="danube-nxfp4")])
+    pytest.param("h2o_danube_3_4b", "nxfp4", id="danube-nxfp4"),
+    # the hybrid family: the ring and the Mamba state reset on reuse; the
+    # attention-free family: slots of recurrent state only (the
+    # reference's rows)
+    pytest.param("hymba_1_5b", "nxfp4", id="hymba-nxfp4"),
+    pytest.param("falcon_mamba_7b", None, id="falcon-None")])
 def test_continuous_matches_solo_host(arch, fmt):
     """Greedy: 5 requests with mixed max_new over 2 slots (evictions,
     re-admissions, ragged per-slot positions mid-stream)."""

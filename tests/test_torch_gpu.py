@@ -1505,3 +1505,116 @@ def test_paged_claimant_across_gemm_regimes_on_card(cuda, fmt, mode):
     st = eng.pool_stats()[0]
     assert st["prefix_hits"] == (1 if mode == "whole" else 2)
     eng.pool.assert_empty()
+
+
+# ---------------------------------------------------------------------------
+# the SSM and hybrid families: the kernels at their shapes, the Mamba step
+# ---------------------------------------------------------------------------
+
+# (K, N) of the families' narrow and padded GEMMs: Hymba's ssm_x_w (N 132,
+# a 4-column last tile of the wgmma regime's 128), Falcon's ssm_x_w (N
+# 288) and Hymba's ssm_dt_w (K 100, quantization pads it to 4 blocks)
+SSM_KN = ((3200, 132), (8192, 288), (100, 3200))
+
+
+@pytest.mark.parametrize("k,n", SSM_KN)
+def test_matmul_ssm_shapes_match_plain_and_rows_hold_across_m(cuda, k, n):
+    """The dequant GEMM through ``ops.qmatmul`` (which pads x to the
+    weight's blocks) at the SSM families' narrow and padded shapes: 1e-5
+    of sum|x||w| against the plain version at M 4 and 512, and a row's
+    bits the same at every M inside one regime (M 1, 4 and 8 against 16
+    in split-K; M 17, 64 and 256 against 512 in wgmma)."""
+    from repro_torch.kernels.ops import qmatmul
+    fmt = get_format("nxfp4")
+    g = torch.Generator(device=cuda).manual_seed(k + n)
+    wq = quantize_qtensor(torch.randn((k, n), generator=g, device=cuda)
+                          * 0.02, fmt, axis=-2, device=cuda)
+    x = torch.randn((512, k), generator=g, device=cuda).to(torch.bfloat16)
+    k_pad = wq.packed.shape[1] * fmt.block_size
+    xp = torch.nn.functional.pad(x, (0, k_pad - k))
+    for m in (4, 512):
+        _assert_matmul_close(xp[:m], wq, fmt, qmatmul(x[:m], wq))
+    for ref_m, ms in ((16, (1, 4, 8)), (512, (17, 64, 256))):
+        ref = qmatmul(x[:ref_m], wq)
+        for m in ms:
+            assert torch.equal(qmatmul(x[:m], wq), ref[:m]), (ref_m, m)
+
+
+def test_attention_hymba_heads_match_plain(cuda):
+    """Decode attention at Hymba's heads (5 KV heads, G 5 over 4 warps, head
+    dim 64: two blocks of 32) over its 1024-row ring, ragged lengths:
+    1e-5 of max|V|, bitwise on a second launch, row 0 the same bits at
+    B 1 and 4."""
+    args = _attention_case(cuda, "nxfp4", (1024, 700, 33, 1), 1024, seed=5,
+                           kvh=5, grp=5, hd=64)
+    out = na.nxfp_decode_attention(*args)
+    ref = na.nxfp_decode_attention_plain(*args)
+    vmax = float(na.dequant_cache(args[3], args[4], args[6]).abs().max())
+    assert float((out - ref).abs().max()) <= 1e-5 * vmax
+    assert torch.equal(out, na.nxfp_decode_attention(*args))
+    one = na.nxfp_decode_attention(*(a[:1] if torch.is_tensor(a) else a
+                                     for a in args))
+    assert torch.equal(one[0], out[0])
+
+
+def _ssm_case(cuda, arch):
+    """(cfg, nxfp4 params) of ``arch`` at full width, 2 layers, or its smoke
+    config; random weights from seed 1."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import load_params
+    if arch.endswith("smoke"):
+        cfg = get_smoke_config(arch[:-len("-smoke")])
+    else:
+        cfg = dataclasses.replace(get_config(arch), n_layers=2)
+    return cfg, load_params(init_params(cfg, seed=1, device=cuda),
+                            QuantPolicy("nxfp4", None), cuda)
+
+
+@pytest.mark.parametrize("arch", ["falcon_mamba_7b-smoke", "hymba_1_5b-smoke",
+                                  "falcon_mamba_7b", "hymba_1_5b"])
+def test_mamba_decode_step_invariant_on_card(cuda, arch):
+    """A decode step's rows (f32 logits, every layer's ``h`` and ``conv``)
+    at B 4 equal the same rows at B 1, bit for bit, and a captured CUDA
+    graph of the step replays the eager step's bits (its warm-up leaves
+    the state as it found it: no step is integrated twice)."""
+    from repro_torch.models import recurrent_state
+    from repro_torch.serving.engine import capture_graph
+    cfg, params = _ssm_case(cuda, arch)
+    rng = np.random.default_rng(9)
+    rows = []
+    for t in (40, 17, 29, 33):
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab, (1, t)),
+                               device=cuda)
+        logits, cache = prefill(cfg, params, {"tokens": toks}, max_len=64,
+                                kv_fmt="nxfp4")
+        rows.append((logits.argmax(-1).to(torch.int32), cache))
+
+    def batch(b):
+        cache = {"pos": torch.cat([c["pos"] for _, c in rows[:b]]),
+                 "layers": [{k: torch.cat([c["layers"][i][k]
+                                           for _, c in rows[:b]])
+                             for k in rows[0][1]["layers"][i]}
+                            for i in range(cfg.n_layers)]}
+        return torch.cat([t for t, _ in rows[:b]])[:, None], cache
+
+    tok1, c1 = batch(1)
+    tok4, c4 = batch(4)
+    l1, c1 = decode_step(cfg, params, tok1, c1, "nxfp4")
+    static = {"pos": c4["pos"].clone(),
+              "layers": [{k: v.clone() for k, v in lc.items()}
+                         for lc in c4["layers"]]}
+    l4, c4 = decode_step(cfg, params, tok4, c4, "nxfp4")
+    assert torch.equal(l4[0], l1[0])
+    for a, b in zip(c4["layers"], c1["layers"]):
+        for name in ("h", "conv"):
+            assert torch.equal(a[name][:1], b[name]), name
+
+    def step():
+        return decode_step(cfg, params, tok4, static, "nxfp4")[0]
+
+    graph, out = capture_graph(step, cuda, keep=recurrent_state(static))
+    graph.replay()
+    assert torch.equal(out, l4)
+    for a, b in zip(static["layers"], c4["layers"]):
+        for name in ("h", "conv"):
+            assert torch.equal(a[name], b[name]), name

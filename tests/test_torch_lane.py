@@ -274,12 +274,17 @@ def test_write_prefill_at_refuses_a_chunk_wider_than_the_cache(setup):
     pytest.param("llama3_8b", "nxfp4", 16, 17, id="nxfp4-16-17"),
     # sliding window 32: the live cache's ring wraps inside the prompt
     pytest.param("h2o_danube_3_4b", "nxfp4", 16, 40,
-                 id="danube-nxfp4-16-40")])
+                 id="danube-nxfp4-16-40"),
+    # the Mamba state rides the lane (the reference's rows): hybrid, and
+    # attention-free with a ragged final chunk
+    pytest.param("hymba_1_5b", "nxfp4", 16, 24, id="hymba-nxfp4-16-24"),
+    pytest.param("falcon_mamba_7b", None, 16, 17, id="falcon-None-16-17")])
 def test_prefill_chunk_matches_whole_and_reference(arch, fmt, p_chunk, t):
     """The lane's final-chunk logits are the port's whole-prompt prefill
     logits bit for bit, and the slot's K/V rows its cache rows (rows past
     the prompt and the other slot stay zero; a ring's rows hold the last
-    window of the prompt at ``p % window``); against the reference's
+    window of the prompt at ``p % window``; a Mamba block's slot state
+    ``h``/``conv`` is the whole prefill's); against the reference's
     ``prefill_chunk`` on the same prompt, the logits agree within the model
     tolerance."""
     jcfg, cfg, jparams, tparams = _setup(arch)
@@ -301,6 +306,10 @@ def test_prefill_chunk_matches_whole_and_reference(arch, fmt, p_chunk, t):
     assert torch.equal(logits, want)
     for lc, wc in zip(cache["layers"], whole["layers"]):
         for name, buf in lc.items():
+            if name in ("h", "conv"):        # the Mamba state: the slot's
+                assert torch.equal(buf[1], wc[name][0]), name
+                assert not buf[0].any(), name
+                continue
             assert torch.equal(buf[1, :t], wc[name][0, :t]), name
             assert not buf[1, t:].any() and not buf[0].any(), name
     assert not cache["pos"].any()            # pos stays parked
@@ -376,7 +385,10 @@ def _assert_solo(setup, fmt, reqs, results):
     pytest.param("llama3_8b", "nxfp4", 16, id="nxfp4-16"),
     # the sliding-window ring: a 41-token prompt wraps the live cache in
     # prefill, beside a 17-token one (two and three lane chunks)
-    pytest.param("h2o_danube_3_4b", "nxfp4", 16, id="danube-nxfp4-16")])
+    pytest.param("h2o_danube_3_4b", "nxfp4", 16, id="danube-nxfp4-16"),
+    # the hybrid and attention-free families (the reference's rows)
+    pytest.param("hymba_1_5b", "nxfp4", 16, id="hymba-nxfp4-16"),
+    pytest.param("falcon_mamba_7b", None, 16, id="falcon-None-16")])
 def test_chunked_engine_matches_solo(arch, fmt, p_chunk):
     """Greedy, through the full lane: prompts divisible and not, one to
     three chunks, admitted into live decode traffic (2 slots)."""

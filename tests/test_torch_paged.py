@@ -490,14 +490,16 @@ MATRIX = [
     ("llama3_8b",       None,     "chunked", 8),
     ("h2o_danube_3_4b", "nxfp4",  "whole",   None),
     ("h2o_danube_3_4b", None,     "chunked", 16),
+    ("hymba_1_5b",      "nxfp4",  "chunked", 16),
+    ("falcon_mamba_7b", None,     "whole",   None),
 ]
 
 
 @pytest.mark.parametrize("arch,fmt,mode,p_chunk", MATRIX)
 def test_paged_engine_matches_dense_engine(arch, fmt, mode, p_chunk):
-    """The reference's matrix (its dense family rows): same requests, same
-    weights, every stream bitwise the dense engine's, the pool empty after
-    the serve."""
+    """The reference's matrix: same requests, same weights, every stream
+    bitwise the dense engine's, the pool empty after the serve (the
+    attention-free model's pool is never touched: it has no pages)."""
     cfg, _ = _model(arch)
     kw = dict(n_slots=2, max_len=64, chunk=4, prefill_mode=mode)
     if mode == "chunked":
