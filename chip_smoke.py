@@ -4,8 +4,10 @@
     python3 chip_smoke.py              # full run: 32 layers of Llama-3-8B
     python3 chip_smoke.py --layers 2   # same, with the depth cut to 2
 
-Phases 7-10 serve Llama-3-8B at ``--serving-layers`` (default 8, at most
-``--layers``); phases 11-13 serve their models at their full depth.
+Phases 7-10 and 12 serve Llama-3-8B at ``--serving-layers`` (default 8,
+at most ``--layers``); phases 11 and 13 serve their models at their full
+depth, and phase 14 Llama-3-8B and Hymba-1.5B at theirs, Falcon-Mamba-7B
+at ``--serving-layers``.
 
 Phases, each fatal on failure (exit code 1, no result line):
 
@@ -76,7 +78,7 @@ Phases, each fatal on failure (exit code 1, no result line):
    loop's, and the quantizer, the dequant GEMM and decode attention run
    at those formats.
 
-8. Continuous serving: first a decode row at B 4 and 8 against the same
+8. Continuous serving: first a decode row at B 4, 8 and 16 against the same
    row at B 1, bitwise, for every row-spanning op and ``decode_step``'s
    logits (``scripts/batch_invariance.py``, the smoke Llama and a 2-layer
    Llama-3-8B at full width). Then Llama-3-8B at full width (depth of
@@ -155,9 +157,10 @@ Phases, each fatal on failure (exit code 1, no result line):
    stream; the quantizer, the dequant GEMM and decode attention launched
    on each model's path.
 
-12. The paged KV cache at full width and depth, held bitwise against the
-   dense ``ContinuousEngine`` in the same process. Llama-3-8B (32 layers,
-   nxfp4 weights and KV): 16 requests (prompts 32-512, max_new 16-64,
+12. The paged KV cache at full width, held bitwise against the dense
+   ``ContinuousEngine`` in the same process. Llama-3-8B (at
+   ``--serving-layers`` since phase 14 came, 32 before; nxfp4 weights and
+   KV): 16 requests (prompts 32-512, max_new 16-64,
    four extending one 256-token prefix) into 8 slots, max_len 2048, chunk
    16, through ``PagedContinuousEngine`` with 32-row pages and a pool of
    a quarter of the dense arena (129 pages), whole and through the lane
@@ -195,6 +198,25 @@ Phases, each fatal on failure (exit code 1, no result line):
    peak memory, launches on each family's path. Phase 3 holds the kernels
    at these families' shapes (``SSM_KN``, ``SSM_ATTENTION``,
    ``SSM_CASTS``, ``SSM_KV``); their rows join the kernel table.
+
+14. Self-speculative decoding (``ContinuousEngine(speculative=
+   SpeculativeConfig(k=4))``), every greedy stream bitwise the plain
+   engine's in the same call. Llama-3-8B at full width and depth:
+   ``verify_step`` at B 4, Q 5 (logits, and the cache after a commit of 1,
+   3, 5 and ragged [1, 2, 5, 3] rows) bitwise 5 sequential
+   ``decode_step`` calls; 8 staggered requests (prompts 32-256, max_new
+   32-64, 4 slots, chunk 16, max_len 512) under two pairings: nxfp4
+   weights and KV with ``draft="recycled"`` (the bf16 tensors the codes
+   decode to), and bf16 weights and dense KV with ``draft="nxfp4"``; a
+   seeded sampled request served twice equal to itself; a request whose
+   prompt + max_new fills max_len. Hymba-1.5B (full depth): a 1000-token
+   prompt whose 64 new tokens wrap its 1024-row ring mid-speculation,
+   beside two short ones, whole and at P 256. Falcon-Mamba-7B at
+   ``--serving-layers``: three requests. Launches are counted around the
+   speculative serves alone (the plain engines' serves, the oracles, run
+   outside) and every kernel of each path must launch. Printed for each
+   pairing: accept rate, ms a speculative chunk and a round, tok/s
+   against the plain engine (second serves in turns).
 
 The last three lines are the kernel table as JSON, the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.
@@ -2609,7 +2631,8 @@ def phase_dense_family(card):
     return out
 
 
-# phase 12: the paged KV cache at full width and depth
+# phase 12: the paged KV cache at full width (Llama-3-8B at
+# --serving-layers, Danube at full depth)
 PAGED_SLOTS, PAGED_MAX_LEN, PAGED_PAGE, PAGED_P = 8, 2048, 32, 32
 # a quarter of the dense arena's pages (8 slots x 64 pages) and the null
 # page
@@ -2695,7 +2718,7 @@ def _engine_run(make, reqs, want, what):
     return eng, results, wall, torch.cuda.max_memory_allocated() - base
 
 
-def phase_paged(card: str, timer):
+def phase_paged(card: str, timer, n_layers: int):
     """The paged KV cache (``PagedContinuousEngine``) at full width and
     depth, every stream held bitwise against the dense ``ContinuousEngine``
     in the same process: Llama-3-8B (nxfp4 weights and KV; 16 requests
@@ -2717,8 +2740,10 @@ def phase_paged(card: str, timer):
     t0 = time.time()
     fig = {}
 
-    def cast(arch):
+    def cast(arch, depth=None):
         cfg = get_config(arch)
+        if depth is not None:
+            cfg = dataclasses.replace(cfg, n_layers=depth)
         raw = init_params(cfg, seed=0, device="cuda")
         params = load_params(raw, QuantPolicy("nxfp4", None),
                              torch.device("cuda"))
@@ -2727,7 +2752,7 @@ def phase_paged(card: str, timer):
         torch.cuda.empty_cache()
         return cfg, params
 
-    cfg, params = cast("llama3_8b")
+    cfg, params = cast("llama3_8b", n_layers)
     reqs = _paged_requests(cfg)
     dense_kv_reqs = [reqs[u] for u in PAGED_DENSE_KV_UIDS]
     packed, dense_kv = QuantPolicy(None, "nxfp4"), QuantPolicy(None, None)
@@ -2836,7 +2861,7 @@ def phase_paged(card: str, timer):
                                  chunk_ms=_chunk_ms(eng),
                                  seconds=round(wall, 3)))
     paged.pool.assert_empty()
-    # the gather's share of a decode step: the 32 layers' views of 8 full
+    # the gather's share of a decode step: every layer's views of 8 full
     # slots (every table entry a page), one layer alive at a time as in
     # the decode graph, replayed as a CUDA graph (device time, CUDA
     # events), against a paged decode step of the timed serves
@@ -2866,7 +2891,8 @@ def phase_paged(card: str, timer):
                pool_bytes=pool_bytes, arena_bytes=dense_bytes,
                peak_paged=peak_paged, peak_dense=peak_dense,
                seconds=round(time.time() - t0, 1))
-    log(f"paged KV ({card}): Llama-3-8B full width, 32 layers, nxfp4 weights"
+    log(f"paged KV ({card}): Llama-3-8B full width, {cfg.n_layers} layers, "
+        f"nxfp4 weights"
         f" and KV, {PAGED_SLOTS} slots, chunk {CONT_CHUNK}, max_len "
         f"{PAGED_MAX_LEN}, page {PAGED_PAGE}, {PAGED_POOL_PAGES} pages; 16 "
         f"requests (prompts 32-512, max_new 16-64, uids 8-11 extending one "
@@ -2884,8 +2910,9 @@ def phase_paged(card: str, timer):
         f" the weights ({card}), construction and first serve: paged "
         f"{peak_paged}, dense {peak_dense}")
     log(f"  second serves in turns ({card}): {rounds}")
-    log(f"  the gather ({card}): 32 layers' views of 8 slots x "
-        f"{PAGED_MAX_LEN} rows, {2 * PAGED_SLOTS * PAGED_MAX_LEN * 1152 * 32}"
+    log(f"  the gather ({card}): {cfg.n_layers} layers' views of 8 slots x "
+        f"{PAGED_MAX_LEN} rows, "
+        f"{2 * PAGED_SLOTS * PAGED_MAX_LEN * 1152 * cfg.n_layers}"
         f" bytes read and written, {gather_ms:.4f} ms a step as a graph "
         f"replay ({eager_ms:.4f} ms eager, launches included), "
         f"{fig['gather_share']:.4f} of a paged decode step ({step_ms:.3f} "
@@ -3355,6 +3382,299 @@ def phase_ssm_family(card):
     return {FALCON: (fcounts, ffig), HYMBA: (hcounts, hfig)}
 
 
+# phase 14: self-speculative decoding at full width (Llama-3-8B at 32
+# layers under two pairings, Hymba-1.5B at full depth, Falcon-Mamba-7B at
+# --serving-layers), every greedy stream bitwise the plain engine's
+SPEC_K = 4
+SPEC_MAX_LEN = 512
+SPEC_PROMPTS = (32, 64, 128, 256, 32, 64, 128, 256)
+SPEC_NEW = (32, 40, 48, 56, 64, 32, 40, 48)
+SPEC_SAMPLED = (0.9, 31)            # one sampled request: temperature, seed
+SPEC_FULL = 448                     # + 64 new == SPEC_MAX_LEN
+SPEC_VERIFY_B, SPEC_VERIFY_Q, SPEC_VERIFY_T = 4, 5, 128
+SPEC_RAGGED = (1, 2, 5, 3)
+SPEC_ROUNDS = 1                     # timed serves: (spec, plain, plain, spec)
+HYMBA_SPEC_PROMPTS, HYMBA_SPEC_NEW = (1000, 40, 64), (64, 16, 16)
+FALCON_SPEC_PROMPTS, FALCON_SPEC_NEW = (300, 64, 32), (16, 16, 16)
+# the kernels a speculative serve runs: the dequant GEMM (the verify's row
+# groups, the format draft), decode attention Q times a layer (packed KV;
+# the dense-row instance for dense KV), the quantizer on every packed K/V
+# write
+SPEC_KERNELS = {"llama nxfp4, recycled": ("nxfp_quantize", "nxfp_matmul",
+                                          "nxfp_attention"),
+                "llama bf16, nxfp4 draft": ("nxfp_matmul",
+                                            "dense_attention"),
+                "hymba": ("nxfp_quantize", "nxfp_matmul", "nxfp_attention"),
+                "falcon": ("nxfp_matmul",)}
+
+
+def _spec_verify_check(cfg, params, kv):
+    """``verify_step`` at B 4, Q 5 against 5 sequential ``decode_step``
+    calls from the same prefilled cache: logits bitwise, and the cache
+    tree after a commit of n = 1, 3, 5 and ragged [1, 2, 5, 3] rows bitwise
+    the one n sequential steps leave."""
+    import numpy as np
+    from repro_torch.models import (commit_verify, decode_step, prefill,
+                                    verify_step)
+    b, q = SPEC_VERIFY_B, SPEC_VERIFY_Q
+    rng = np.random.default_rng(41)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (b, SPEC_VERIFY_T)),
+                           device="cuda")
+    cands = torch.as_tensor(rng.integers(0, cfg.vocab, (b, q)),
+                            dtype=torch.int32, device="cuda")
+    _, cache = prefill(cfg, params, {"tokens": toks}, 256, kv)
+    seq, logits, after = _clone_cache(cache), [], {}
+    for i in range(q):
+        lg, seq = decode_step(cfg, params, cands[:, i:i + 1], seq, kv)
+        logits.append(lg)
+        after[i + 1] = _clone_cache(seq)
+    del seq
+    vlogits, pending = verify_step(cfg, params, cands, cache, kv)
+    if not torch.equal(vlogits, torch.stack(logits, 1)):
+        d = (vlogits - torch.stack(logits, 1)).abs()
+        fail(f"speculative verify: logits differ from sequential decode in "
+             f"{int((d > 0).sum())} of {d.numel()} (max {float(d.max())})")
+
+    def same(got, n, rows=slice(None)):
+        want = after[n]
+        bad = [] if torch.equal(got["pos"][rows], want["pos"][rows]) \
+            else ["pos"]
+        bad += [f"layer {li} {name}"
+                for li, (a, w) in enumerate(zip(got["layers"],
+                                                want["layers"]))
+                for name in a if not torch.equal(a[name][rows],
+                                                 w[name][rows])]
+        return bad
+
+    bad = {}
+    for n in (1, 3, q):
+        got = commit_verify(cfg, _clone_cache(cache), pending,
+                            torch.full((b,), n, device="cuda"), kv)
+        bad[n] = same(got, n)
+    got = commit_verify(cfg, _clone_cache(cache), pending,
+                        torch.tensor(SPEC_RAGGED, device="cuda"), kv)
+    bad["ragged"] = [f"slot {s}: {x}" for s, n in enumerate(SPEC_RAGGED)
+                     for x in same(got, n, s)]
+    if any(bad.values()):
+        fail(f"speculative commit: the cache differs from sequential decode:"
+             f" { {k: v[:4] for k, v in bad.items() if v} }")
+    del cache, pending, after, got
+    torch.cuda.empty_cache()
+
+
+def _spec_requests(cfg, prompts, news, seed, arrivals=True):
+    import numpy as np
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(seed)
+    return [Request(uid=i, tokens=rng.integers(0, cfg.vocab, (t,)),
+                    max_new=m, arrival_time=0.0 if i < 4 or not arrivals
+                    else 0.05 * (i - 3))
+            for i, (t, m) in enumerate(zip(prompts, news))]
+
+
+def _spec_serve(cfg, params, policy, spec, reqs, what, counts, **kw):
+    """The plain engine's streams (the oracle, not counted), then the
+    speculative engine's first serve, its launches counted alone and every
+    stream bitwise the plain one's. Returns (plain engine, speculative
+    engine, oracle, figures)."""
+    from repro_torch.serving import ContinuousEngine
+    kw = dict(n_slots=CONT_SLOTS, chunk=CONT_CHUNK, device="cuda", **kw)
+    plain, res, _, _ = _engine_run(
+        lambda: ContinuousEngine(cfg, params, policy, **kw), reqs, None,
+        f"{what} plain")
+    want = {r.uid: r.tokens for r in res}
+    eng, res, wall, peak = _counted(lambda: _engine_run(
+        lambda: ContinuousEngine(cfg, params, policy, speculative=spec,
+                                 **kw), reqs, want, f"{what} speculative"),
+        counts)
+    if eng.replays == 0 or not eng.spec_rounds:
+        fail(f"{what}: no speculative graph replays")
+    fig = dict(first_serve_s=round(wall, 3), peak=peak,
+               graphs=sorted(str(k) for k in eng._graphs),
+               accept_rate=round(eng.spec_stats()["accept_rate"], 4))
+    return plain, eng, want, fig
+
+
+def _spec_rounds_timed(plain, eng, reqs, want, what):
+    """Second serves in turns, ``SPEC_ROUNDS`` rounds of (spec, plain,
+    plain, spec): tok/s, the median host-clock ms of a chunk with every
+    slot live and, for the speculative engine, of a round, the accept
+    rate of its serves and the round shapes it ran."""
+    out = {"spec": [], "plain": []}
+    acc0 = (eng.spec_accepted, eng.spec_offered)
+    for _ in range(SPEC_ROUNDS):
+        for name, e in (("spec", eng), ("plain", plain), ("plain", plain),
+                        ("spec", eng)):
+            res, wall = _serve_checked(e, reqs, want, f"{what} {name} "
+                                       "(timed)")
+            n_tok = sum(r.n_generated for r in res)
+            rec = dict(tok_s=round(n_tok / wall, 2), chunk_ms=_chunk_ms(e),
+                       chunks=e.chunks)
+            if name == "spec":
+                rounds = statistics.median(n for _, n in e.spec_rounds)
+                rec.update(round_ms=round(rec["chunk_ms"] / rounds, 3),
+                           shapes=sorted(set(e.spec_rounds)))
+            out[name].append(rec)
+    acc = (eng.spec_accepted - acc0[0]) / max(eng.spec_offered - acc0[1], 1)
+    med = {name: {key: statistics.median(r[key] for r in recs)
+                  for key in ("tok_s", "chunk_ms")}
+           for name, recs in out.items()}
+    return dict(rounds=out, median=med, accept_rate=round(acc, 4),
+                round_ms=round(statistics.median(r["round_ms"]
+                                                 for r in out["spec"]), 3),
+                tok_s_ratio=round(med["spec"]["tok_s"]
+                                  / med["plain"]["tok_s"], 4))
+
+
+def phase_speculative(card: str, serving_layers: int):
+    """Phase 14: self-speculative decoding through ``ContinuousEngine``.
+    Llama-3-8B at full width and depth: ``verify_step`` + ``commit_verify``
+    bitwise sequential decode, then 8 staggered requests under two
+    pairings (nxfp4 weights and KV with the recycled bf16 draft; bf16
+    weights and dense KV with an nxfp4 draft), a sampled request served
+    twice, a request that fills ``max_len``; Hymba-1.5B (a 1000-token
+    prompt whose 64 new tokens wrap its 1024-row ring) whole and at P 256;
+    Falcon-Mamba-7B at ``serving_layers``. Every greedy stream bitwise the
+    plain engine's; launches counted around the speculative serves alone.
+    Returns (launch counts by path, figures)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.qtensor import QuantPolicy
+    from repro_torch.models import init_params
+    from repro_torch.serving import ContinuousEngine, Request
+    from repro_torch.serving import SpeculativeConfig as Spec
+    from repro_torch.serving.engine import load_params
+    t0 = time.time()
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts = {name: {} for name in SPEC_KERNELS}
+    fig = {}
+    cfg = get_config("llama3_8b")
+    raw = init_params(cfg, seed=0, device="cuda")
+    nx = load_params(raw, QuantPolicy("nxfp4", None), torch.device("cuda"))
+    bf = load_params(raw, QuantPolicy(None, None), torch.device("cuda"))
+    del raw
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    fig["cast_s"] = round(time.time() - t0, 2)
+    t1 = time.time()
+    _spec_verify_check(cfg, nx, "nxfp4")
+    fig["verify_check_s"] = round(time.time() - t1, 2)
+    reqs = _spec_requests(cfg, SPEC_PROMPTS, SPEC_NEW, 40)
+    pairings = {"llama nxfp4, recycled": (nx, QuantPolicy("nxfp4", "nxfp4"),
+                                          Spec(k=SPEC_K, draft="recycled")),
+                "llama bf16, nxfp4 draft": (bf, QuantPolicy(None, None),
+                                            Spec(k=SPEC_K, draft="nxfp4"))}
+    for name, (params, policy, spec) in pairings.items():
+        plain, eng, want, f = _spec_serve(cfg, params, policy, spec, reqs,
+                                          name, counts[name],
+                                          max_len=SPEC_MAX_LEN)
+        f.update(_spec_rounds_timed(plain, eng, reqs, want, name))
+        if name.startswith("llama nxfp4"):
+            # a sampled request served twice equals itself; a request whose
+            # prompt + max_new fills max_len equals the plain engine's
+            rng = np.random.default_rng(42)
+            samp = Request(uid=100, tokens=rng.integers(0, cfg.vocab, (64,)),
+                           max_new=48, temperature=SPEC_SAMPLED[0],
+                           seed=SPEC_SAMPLED[1])
+            full = Request(uid=101, tokens=rng.integers(
+                0, cfg.vocab, (SPEC_FULL,)), max_new=SPEC_MAX_LEN - SPEC_FULL)
+            want_full = {r.uid: r.tokens for r in plain.serve([full])}
+            first, _ = _serve_checked(eng, [samp, full], None, "sampled")
+            again, _ = _serve_checked(eng, [samp, full], None, "sampled")
+            a = {r.uid: r for r in first}
+            b = {r.uid: r for r in again}
+            if not np.array_equal(a[100].tokens, b[100].tokens) or \
+                    a[100].n_generated != 48:
+                fail("speculative: a seeded sampled request served twice "
+                     "differs from itself")
+            for r in (a[101], b[101]):
+                if not np.array_equal(r.tokens, want_full[101]) or \
+                        r.n_generated != SPEC_MAX_LEN - SPEC_FULL:
+                    fail("speculative: the request filling max_len differs "
+                         "from the plain engine's stream")
+        fig[name] = f
+        del plain, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    del nx, bf
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Hymba-1.5B at full depth: the ring wraps mid-speculation
+    t2 = time.time()
+    hcfg, hparams, _ = _cast_family(HYMBA)
+    hreqs = _spec_requests(hcfg, HYMBA_SPEC_PROMPTS, HYMBA_SPEC_NEW, 43,
+                           arrivals=False)
+    hpol = QuantPolicy("nxfp4", "nxfp4")
+    for mode, extra in (("whole", {}), (f"P {SSM_P}", dict(
+            prefill_mode="chunked", p_chunk=SSM_P))):
+        plain, eng, want, f = _spec_serve(
+            hcfg, hparams, hpol, Spec(k=SPEC_K), hreqs, f"hymba {mode}",
+            counts["hymba"], max_len=HYMBA_MAX_LEN, **extra)
+        f["accept_rate"] = round(eng.spec_stats()["accept_rate"], 4)
+        fig[f"hymba {mode}"] = f
+        del plain, eng
+    del hparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    fig["hymba_s"] = round(time.time() - t2, 1)
+
+    # Falcon-Mamba-7B at serving_layers
+    t3 = time.time()
+    fcfg = dataclasses.replace(get_config(FALCON), n_layers=serving_layers)
+    raw = init_params(fcfg, seed=0, device="cuda")
+    fparams = load_params(raw, QuantPolicy("nxfp4", None),
+                          torch.device("cuda"))
+    del raw
+    freqs = _spec_requests(fcfg, FALCON_SPEC_PROMPTS, FALCON_SPEC_NEW, 44,
+                           arrivals=False)
+    plain, eng, want, f = _spec_serve(
+        fcfg, fparams, QuantPolicy("nxfp4", None), Spec(k=SPEC_K), freqs,
+        "falcon", counts["falcon"], max_len=FALCON_MAX_LEN)
+    fig["falcon"] = f
+    del plain, eng, fparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    fig["falcon_s"] = round(time.time() - t3, 1)
+
+    for path, names in SPEC_KERNELS.items():
+        for name in names:
+            if counts[path].get(name, 0) <= 0:
+                fail(f"speculative path ({path}): kernel {name} was never "
+                     f"launched")
+    fig["seconds"] = round(time.time() - t0, 1)
+    for name in pairings:
+        f = fig[name]
+        log(f"speculative {name} ({card}): Llama-3-8B full width, 32 "
+            f"layers, k {SPEC_K}, {CONT_SLOTS} slots, chunk {CONT_CHUNK}, "
+            f"max_len {SPEC_MAX_LEN}; 8 requests (prompts 32-256, max_new "
+            f"32-64): every stream bitwise the plain engine's; accept rate "
+            f"{f['accept_rate']}; ms a speculative chunk "
+            f"{f['median']['spec']['chunk_ms']} ({f['round_ms']} a round) "
+            f"vs a plain chunk {f['median']['plain']['chunk_ms']}; tok/s "
+            f"{f['median']['spec']['tok_s']} vs plain "
+            f"{f['median']['plain']['tok_s']} ({f['tok_s_ratio']}x); "
+            f"{SPEC_ROUNDS} rounds of (spec, plain, plain, spec): "
+            f"{f['rounds']}; first serve {f['first_serve_s']} s, peak "
+            f"{f['peak']} bytes above the weights, graphs {f['graphs']}")
+    log(f"  speculative checks ({card}): verify_step at B {SPEC_VERIFY_B}, "
+        f"Q {SPEC_VERIFY_Q} == {SPEC_VERIFY_Q} sequential decode steps "
+        f"(logits; cache after n = 1, 3, 5, ragged {list(SPEC_RAGGED)}) "
+        f"bitwise ({fig['verify_check_s']} s); a sampled request served "
+        f"twice == itself; prompt {SPEC_FULL} + {SPEC_MAX_LEN - SPEC_FULL} "
+        f"new == max_len bitwise the plain engine's; init + casts "
+        f"{fig['cast_s']} s")
+    for name in (f"hymba whole", f"hymba P {SSM_P}", "falcon"):
+        log(f"  speculative {name} ({card}): every stream bitwise the plain "
+            f"engine's: {fig[name]}")
+    log(f"  launches on the speculative paths (the speculative serves "
+        f"alone): {counts}; hymba {fig['hymba_s']} s, falcon "
+        f"({serving_layers} layers) {fig['falcon_s']} s; phase 14 "
+        f"{fig['seconds']} s")
+    return counts, fig
+
+
 def kernel_formats(kname, rows, wide_counts):
     """The formats ``kname`` ran in this run: its main-path formats, its
     phase-3 wide rows and the formats phase 7 served through it."""
@@ -3426,8 +3746,9 @@ MAIN_ROW = {"nxfp_quantize": "nxfp_quantize",
 # path's premium tier (phase 10) for the dense-row attention
 QQ_PATH = ("nxfp_qq_matmul",)
 TIER_PATH = ("dense_decode_attention",)
-# phases 7-10 serve Llama-3-8B at this depth (the main path, phase 5, at
-# --layers): the script's clock has room for phases 11-13 at full depth
+# phases 7-10 and 12 serve Llama-3-8B at this depth (the main path, phase
+# 5, at --layers): the script's clock has room for phases 11 and 13 at full
+# depth and for phase 14's 32-layer Llama-3-8B
 SERVING_LAYERS = 8
 
 
@@ -3436,7 +3757,8 @@ def main():
     ap.add_argument("--layers", type=int, default=32,
                     help="Llama-3-8B depth for the main path (default 32)")
     ap.add_argument("--serving-layers", type=int, default=SERVING_LAYERS,
-                    help="Llama-3-8B depth for phases 7-10 (default "
+                    help="Llama-3-8B depth for phases 7-10 and 12, and "
+                         "Falcon-Mamba-7B's for phase 14 (default "
                          f"{SERVING_LAYERS}, at most --layers)")
     args = ap.parse_args()
     late = min(args.layers, args.serving_layers)
@@ -3475,7 +3797,7 @@ def main():
     torch.cuda.empty_cache()
     t7 = time.time()
     if late != args.layers:
-        log(f"phases 7-10: Llama-3-8B depth cut to {late} layers")
+        log(f"phases 7-10 and 12: Llama-3-8B depth cut to {late} layers")
     wide_counts = phase_wide_serving(late, prompts)
     phase_invariance()
     cont_counts, cast, reqs, solos = phase_continuous(
@@ -3494,11 +3816,14 @@ def main():
     family = phase_dense_family(smi_line)
     log(f"phase 11 seconds: {time.time() - t11:.1f}")
     t12 = time.time()
-    paged_counts, _ = phase_paged(smi_line, Timer("cuda"))
+    paged_counts, _ = phase_paged(smi_line, Timer("cuda"), late)
     log(f"phase 12 seconds: {time.time() - t12:.1f}")
     t13 = time.time()
     ssm = phase_ssm_family(smi_line)
     log(f"phase 13 seconds: {time.time() - t13:.1f}")
+    t14 = time.time()
+    spec_counts, _ = phase_speculative(smi_line, late)
+    log(f"phase 14 seconds: {time.time() - t14:.1f}")
 
     table = []
     for kname, (sources, replaces) in KERNELS.items():
@@ -3521,6 +3846,8 @@ def main():
             launches_paged_path=paged_counts[c],
             launches_ssm_family={a: {path: n[c] for path, n in v[0].items()}
                                  for a, v in ssm.items()},
+            launches_speculative_path={path: n.get(c, 0)
+                                       for path, n in spec_counts.items()},
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],

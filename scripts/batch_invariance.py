@@ -18,7 +18,7 @@ comparison; the dequant GEMM at the four Llama-3-8B (K, N) pairs, the
 ``lm_head`` product, decode attention at S 512 with per-row lengths, the
 sampler's softmax) and for ``decode_step``'s logits end to end (nxfp4
 weights and KV; the smoke Llama and Llama-3-8B at full width, ``lm_head``
-included). On the card ``lm_head`` and ``decode_step`` at B 4 and 8 also
+included). On the card ``lm_head`` and ``decode_step`` at each B also
 run as a replay of a captured CUDA graph (as the engines' chunks do)
 against B 1 eager. The continuous engine holds a request's stream bitwise
 to its solo stream, which needs every count but the plain
@@ -59,7 +59,9 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEV = "cuda"          # --device cpu runs the plain path (smoke only)
-BATCHES = (4, 8)
+# 16: the most rows the decode GEMM's split-K regime takes (its plan is
+# one plan for 1-16 rows) and the most slots the engines' oracle covers
+BATCHES = (4, 8, 16)
 MAX_LEN = 512
 KN = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096))
 LANE_P = (16, 32, 64, 128)    # --chunked: the lane widths
@@ -203,7 +205,8 @@ def decode(cfg, params, kv) -> dict:
     from repro_torch.models import decode_step, prefill
 
     rng = np.random.default_rng(0)
-    lens = [200] + [37 + 61 * i for i in range(1, max(BATCHES))]
+    # ragged lengths below MAX_LEN (the first seven as before B 16 came)
+    lens = [200] + [37 + 61 * i % 440 for i in range(1, max(BATCHES))]
     solo = []
     for t in lens:
         toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, t))).to(DEV)

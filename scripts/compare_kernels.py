@@ -4,6 +4,7 @@
     python3 scripts/compare_kernels.py               # this checkout
     python3 scripts/compare_kernels.py --tree DIR    # another checkout
     python3 scripts/compare_kernels.py --only attention   # one kernel's rows
+                                           # (matmul, quantize, attention)
 
 Builds the kernels of ``DIR/src/repro_torch`` and times them on one GPU
 with the ``Timer`` and ``bound`` of the ``chip_smoke.py`` beside this
@@ -151,9 +152,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tree", default=ROOT,
                     help="root of the checkout whose kernels to time")
-    ap.add_argument("--only", choices=("quantize", "attention"),
-                    help="time the quantizer's or decode attention's rows "
-                         "alone")
+    ap.add_argument("--only", choices=("matmul", "quantize", "attention"),
+                    help="time the dequant GEMM's, the quantizer's or "
+                         "decode attention's rows alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("compare_kernels: needs a CUDA device")
@@ -173,9 +174,9 @@ def main():
     one = torch.zeros(1, device="cuda")
     floor_ms = timer(lambda: one.add_(1.0))
     cs.log(f"timer floor (a one-element add): {floor_ms:.4f} ms")
-    rows = {} if args.only else time_matmul(cs, timer)
+    rows = time_matmul(cs, timer) if args.only in (None, "matmul") else {}
     rows["timer floor"] = {"ms": floor_ms}
-    if args.only != "attention":
+    if args.only in (None, "quantize"):
         cs.check_quantizer(timer, rows)
         cs.check_act_quantizer(timer, rows)
         from repro_torch.kernels import nxfp_quantize
@@ -183,7 +184,7 @@ def main():
             cs.check_kv_write(timer, rows)
             rows.update(time_quantize_regimes(cs, timer))
             rows["quantizer sass"] = quantizer_sass(cs, info["path"])
-    if args.only != "quantize":
+    if args.only in (None, "attention"):
         cs.check_attention(timer, rows)
     if not args.only:
         cs.check_qq_matmul(timer, rows)

@@ -51,7 +51,11 @@ namespace {
 constexpr int kThreads = 256;             // eight warps
 constexpr int kBN = kThreads / 32 * 8;    // 64 columns per CTA
 constexpr int kMaxM = 16;                 // x rows: one m16n8k16 A fragment
-constexpr int kXSliceBytes = 32768;       // the most x bytes a CTA stages
+// The most x bytes a CTA stages: the split plan caps a chunk for kMaxM
+// rows at every M, so that a row's sums do not depend on M (64 blocks of
+// 32 at 16 rows, above every main-path chunk at M 4); past the 48 KB a
+// launch gets unasked, so launch() raises the function's limit.
+constexpr int kXSliceBytes = 65536;
 
 __device__ __forceinline__ void mma_m16n8k16(float* d, const unsigned* a,
                                              const unsigned* b) {
@@ -202,9 +206,17 @@ int launch(const void* x, const void* packed, const void* meta, void* y,
            int M, int N, int KB, int splits, int chunk, void* ws,
            void* counters, int KBm, int lbs, const nxfp::FmtDesc& fd,
            cudaStream_t st) {
+  auto kernel = nxfp_matmul_decode_kernel<BITS, QB, EX, GEN>;
+  static bool attr = false;  // once per instance
+  if (!attr) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kXSliceBytes);
+    if (e != cudaSuccess) return (int)e;
+    attr = true;
+  }
   const dim3 grid((N + kBN - 1) / kBN, splits);
   const size_t smem = (size_t)M * chunk * QB * sizeof(__nv_bfloat16);
-  nxfp_matmul_decode_kernel<BITS, QB, EX, GEN><<<grid, kThreads, smem, st>>>(
+  kernel<<<grid, kThreads, smem, st>>>(
       reinterpret_cast<const __nv_bfloat16*>(x),
       reinterpret_cast<const uint8_t*>(packed), meta,
       reinterpret_cast<float*>(y), reinterpret_cast<float*>(ws),
@@ -242,7 +254,7 @@ int nxfp_matmul_decode(const void* x, const void* packed, const void* meta,
   const int KU = gen ? (int)((long long)KB * bs / 32) : KB;
   const int qb = gen ? 32 : bs;
   // every split holds at least one K block and the splits cover KU once;
-  // the x slice fits the 48 KB of shared memory a launch gets unasked
+  // the x slice fits kXSliceBytes
   if (M < 1 || M > kMaxM || chunk < 4 || chunk % 4 != 0 || splits < 1 ||
       (long long)(splits - 1) * chunk >= KU ||
       (long long)splits * chunk < KU ||

@@ -70,11 +70,18 @@ def decode_split(m: int, n: int, kb: int, block_size: int,
     ``CTAS_PER_SM`` CTAs per SM, with chunks of at least ``MIN_CHUNK``
     blocks and an x slice (m * chunk * block_size bf16) of at most
     ``geom.x_slice_bytes``.
+
+    The plan is a function of (n, kb, block_size) alone: the x slice is
+    capped for ``geom.max_m`` rows whatever ``m`` is, so a row's f32 sums
+    run in one order at every m from 1 to 16 (a slot of a 16-slot engine,
+    or a row of the speculative verify's 16-row groups, gets the bits of
+    the request served alone). ``m`` is checked, never planned with.
     """
     if not 1 <= m <= geom.max_m or n < 1 or kb < 1:
         raise ValueError(f"no decode split for m={m} n={n} kb={kb}")
     n_tiles = -(-n // geom.tile_n)
-    max_chunk = max(4, geom.x_slice_bytes // (2 * m * block_size) // 4 * 4)
+    max_chunk = max(4, geom.x_slice_bytes // (2 * geom.max_m * block_size)
+                    // 4 * 4)
     want = max(1, -(-CTAS_PER_SM * n_sm // n_tiles))
     chunk = -(-kb // want)
     chunk = min(max(-(-chunk // 4) * 4, MIN_CHUNK), max_chunk)

@@ -1,13 +1,14 @@
 """The dense (Llama-style GQA), SSM (Mamba-1) and hybrid families on
 torch."""
 from .common import ModelConfig
-from .lm import (decode_loop, decode_step, init_cache, init_lane,
-                 init_paged_cache, init_params, prefill, prefill_chunk,
-                 prefill_into_slot, read_cache_slot, recurrent_state,
-                 reset_slot, write_cache_slot)
+from .lm import (commit_verify, decode_loop, decode_step, draft_loop,
+                 init_cache, init_lane, init_paged_cache, init_params,
+                 prefill, prefill_chunk, prefill_into_slot, read_cache_slot,
+                 recurrent_state, reset_slot, verify_step, write_cache_slot)
 
 __all__ = ["ModelConfig", "init_params", "prefill", "decode_step",
            "decode_loop", "init_cache", "init_lane", "init_paged_cache",
            "prefill_chunk",
            "prefill_into_slot", "read_cache_slot", "recurrent_state",
-           "reset_slot", "write_cache_slot"]
+           "reset_slot", "write_cache_slot", "draft_loop", "verify_step",
+           "commit_verify"]

@@ -137,19 +137,19 @@ def attend_chunked(q, k, v, *, window=None, q_offset=0, kv_valid=None,
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
-def gqa_project(cfg: ModelConfig, p, x, xq=None):
+def gqa_project(cfg: ModelConfig, p, x, xq=None, mm=dense):
     """x (B, T, D) -> q (B, T, KVH, G, hd), k, v (B, T, KVH, hd).
 
     ``xq``, a quantized encoding of ``x`` (QTensor, axis -1), feeds all
     three projections from one encode; ``x`` still gives shapes and dtype.
+    ``mm`` is the product (``dense_rows`` in the speculative verify).
     """
     b, t, _ = x.shape
     hd, h, kvh = cfg.hd, cfg.n_heads, cfg.n_kv_heads
     src = x if xq is None else xq
-    q = dense(src, p["wq"], out_dtype=x.dtype).reshape(b, t, kvh, h // kvh,
-                                                       hd)
-    k = dense(src, p["wk"], out_dtype=x.dtype).reshape(b, t, kvh, hd)
-    v = dense(src, p["wv"], out_dtype=x.dtype).reshape(b, t, kvh, hd)
+    q = mm(src, p["wq"], out_dtype=x.dtype).reshape(b, t, kvh, h // kvh, hd)
+    k = mm(src, p["wk"], out_dtype=x.dtype).reshape(b, t, kvh, hd)
+    v = mm(src, p["wv"], out_dtype=x.dtype).reshape(b, t, kvh, hd)
     return q, k, v
 
 

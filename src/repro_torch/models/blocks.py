@@ -8,6 +8,7 @@ averaged, then the MLP).
   layer_prefill_chunk(cfg, p, x, lane_l, cache_l, slot, positions, offset,
                       n_valid, kv, act_fmt, wrapped) -> x
   layer_decode(cfg, p, x, layer_cache, pos, kv, live) -> (x, layer_cache)
+  layer_verify(cfg, p, x, layer_cache, pos, kv, live) -> (x, pending)
 """
 from __future__ import annotations
 
@@ -16,9 +17,9 @@ from typing import Any, Dict, Optional
 import torch
 
 from .attention import gqa_project, self_attention, self_attention_resume
-from .common import (ModelConfig, apply_rope, dense, init_attn, init_mlp,
-                     rmsnorm, rope_freqs, swiglu)
-from .kvcache import attend_decode, write_prefill_at, write_token
+from .common import (ModelConfig, apply_rope, dense, dense_rows, init_attn,
+                     init_mlp, rmsnorm, rope_freqs, swiglu)
+from .kvcache import attend_decode, save_rows, write_prefill_at, write_token
 from .ssm import init_mamba, mamba_block, mamba_step
 
 Params = Dict[str, Any]
@@ -43,16 +44,16 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig) -> Params:
 
 
 def _mix(cfg: ModelConfig, p: Params, x, attn_y, ssm_y,
-         act_fmt: Optional[str] = None):
+         act_fmt: Optional[str] = None, mm=dense):
     """The residual add of a layer's attention and/or Mamba outputs (a
     hybrid layer averages the two), then the MLP where the family has
-    one."""
+    one (its products ``mm``)."""
     if attn_y is None:
         return x + ssm_y
     x = x + (attn_y if ssm_y is None else 0.5 * (attn_y + ssm_y))
     h2 = rmsnorm(x, p["ln2_scale"], cfg.norm_eps)
     return x + swiglu(h2, p["mlp_w1"], p["mlp_w3"], p["mlp_w2"],
-                      act_fmt=act_fmt)
+                      act_fmt=act_fmt, mm=mm)
 
 
 def layer_forward(cfg: ModelConfig, p: Params, x, positions,
@@ -159,3 +160,79 @@ def layer_decode(cfg: ModelConfig, p: Params, x, layer_cache, pos,
         _put_state(layer_cache["h"], hf, live)
         _put_state(layer_cache["conv"], conv, live)
     return _mix(cfg, p, x, attn_y, ssm_y), layer_cache
+
+
+# ---------------------------------------------------------------------------
+# the speculative verify: Q candidate rows a slot in one batched forward
+# ---------------------------------------------------------------------------
+
+def _attn_verify(cfg: ModelConfig, p: Params, h, layer_cache, pos,
+                 kv_fmt: Optional[str], live=None):
+    """h (B, Q, D) -> attn out (B, Q, D); row i's K/V written at
+    ``pos + i``, in place.
+
+    The q/k/v/o products run once over the B * Q rows, in row groups of
+    at most 16 (``dense_rows``: each row the bits of a decode step's row).
+    Then row by row the exact decode ops at (B, 1): rope at ``pos + i``,
+    ``write_token``, ``attend_decode``. Row i is written before query i
+    reads and rows past i are not written yet: a sequential decode's
+    memory, sliding-window ring included. A not-live slot writes
+    nothing."""
+    b, qn, _ = h.shape
+    q, k1, v1 = gqa_project(cfg, p, h, mm=dense_rows)
+    outs = []
+    for i in range(qn):
+        pi = pos + i
+        cos, sin = rope_freqs(pi.reshape(b, 1), cfg.hd, cfg.rope_theta)
+        qi = apply_rope(q[:, i:i + 1].reshape(b, 1, -1, cfg.hd), cos, sin)
+        write_token(cfg, layer_cache, apply_rope(k1[:, i:i + 1], cos, sin),
+                    v1[:, i:i + 1], pi, kv_fmt, live=live)
+        outs.append(attend_decode(cfg, layer_cache,
+                                  qi.reshape(b, cfg.n_heads, cfg.hd), pi,
+                                  kv_fmt))
+    o = torch.stack(outs, dim=1).reshape(b, qn, cfg.n_heads * cfg.hd)
+    return dense_rows(o.to(h.dtype), p["wo"])
+
+
+def _ssm_verify(cfg: ModelConfig, p: Params, h, h0, conv0):
+    """h (B, Q, D) -> (out (B, Q, D), states h (B, Q, di, N), conv (B, Q,
+    cw - 1, di)): Q ``mamba_step`` calls at the decode shapes (the
+    recurrence does not batch; the same op keeps each step the sequential
+    decode's bits), every step's state kept so that a commit can jump each
+    slot to the state after its own accepted length. Writes nothing."""
+    ys, hs, convs = [], [], []
+    hh, cc = h0, conv0
+    for i in range(h.shape[1]):
+        y, hh, cc = mamba_step(cfg, p, h[:, i:i + 1], hh, cc)
+        ys.append(y)
+        hs.append(hh)
+        convs.append(cc)
+    return (torch.cat(ys, dim=1), torch.stack(hs, dim=1),
+            torch.stack(convs, dim=1))
+
+
+def layer_verify(cfg: ModelConfig, p: Params, x, layer_cache, pos,
+                 kv_fmt: Optional[str], live=None):
+    """x (B, Q, D) -> (x, pending): one layer of the speculative verify,
+    Q candidate rows a slot at positions ``pos[b] + i``.
+
+    Norms and the MLP run over the (B, Q, D) rows, the products in row
+    groups of at most 16 (``dense_rows``); attention and the Mamba
+    recurrence run row by row through the exact decode ops. Each row's
+    output is the sequential ``layer_decode``'s, bit for bit. Attention
+    writes the Q K/V rows into the cache in place; ``pending`` holds what
+    ``lm.commit_verify`` needs to land an accepted prefix: the rows those
+    writes replaced (``rows``, from ``kvcache.save_rows``) and the Mamba
+    state after every step (``h``, ``conv``; the cache's state is not
+    touched)."""
+    h = rmsnorm(x, p["ln1_scale"], cfg.norm_eps)
+    pending: Dict[str, Any] = {}
+    attn_y = ssm_y = None
+    if not cfg.attn_free:
+        pending["rows"] = save_rows(cfg, layer_cache, pos, x.shape[1],
+                                    kv_fmt)
+        attn_y = _attn_verify(cfg, p, h, layer_cache, pos, kv_fmt, live)
+    if cfg.has_mamba:
+        ssm_y, pending["h"], pending["conv"] = _ssm_verify(
+            cfg, p, h, layer_cache["h"], layer_cache["conv"])
+    return _mix(cfg, p, x, attn_y, ssm_y, mm=dense_rows), pending

@@ -171,6 +171,23 @@ def dense(x, w, out_dtype=None):
     return qmatmul(x, w).to(out_dtype or x.dtype)
 
 
+def dense_rows(x, w, out_dtype=None):
+    """``dense`` on groups of at most ``ROW_GROUP`` rows of x (..., K).
+
+    Used by the speculative verify alone (``blocks.layer_verify``), whose
+    B * Q rows must each get the bits a decode step's B rows get: on the
+    card a decode step runs every product at M = B <= 16, where the
+    dequant GEMM takes its split-K regime (its plan the same at every M up
+    to 16) and a bf16 weight one product on exactly 16 rows; more rows in
+    one call would run wgmma, or cuBLAS on 128-row tiles, which sum a row
+    in another order. The weights are read once per group, ceil(B * Q /
+    16) times."""
+    rows = x.reshape(-1, x.shape[-1])
+    out = torch.cat([dense(rows[i:i + ROW_GROUP], w, out_dtype=out_dtype)
+                     for i in range(0, rows.shape[0], ROW_GROUP)])
+    return out.reshape(*x.shape[:-1], out.shape[-1])
+
+
 def qact(x, act_fmt: Optional[str]):
     """Quantize an activation along its feature axis for the qq GEMM, on
     the device it lies on; ``act_fmt=None`` is the identity."""
@@ -205,11 +222,12 @@ def apply_rope(x, cos, sin):
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
 
 
-def swiglu(x, w1, w3, w2, act_fmt: Optional[str] = None):
+def swiglu(x, w1, w3, w2, act_fmt: Optional[str] = None, mm=dense):
     """SwiGLU MLP: silu(x W1) * (x W3), then W2; SiLU in f32 on the
     bf16-rounded projections. ``act_fmt`` encodes the input once for W1
-    and W3 and the gated hidden once for W2 (qq prefill)."""
+    and W3 and the gated hidden once for W2 (qq prefill). ``mm`` is the
+    product (``dense_rows`` in the speculative verify)."""
     xq = qact(x, act_fmt)
-    h = (F.silu(dense(xq, w1, out_dtype=x.dtype).to(torch.float32))
-         * dense(xq, w3, out_dtype=x.dtype).to(torch.float32))
-    return dense(qact(h.to(x.dtype), act_fmt), w2, out_dtype=x.dtype)
+    h = (F.silu(mm(xq, w1, out_dtype=x.dtype).to(torch.float32))
+         * mm(xq, w3, out_dtype=x.dtype).to(torch.float32))
+    return mm(qact(h.to(x.dtype), act_fmt), w2, out_dtype=x.dtype)

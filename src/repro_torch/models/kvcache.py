@@ -42,6 +42,7 @@ import torch
 from ..core.pack import bytes_per_block
 from ..core.qtensor import QTensor, fmt_key
 from ..core.quantize import resolve_format
+from ..kernels.build import bit_view
 from ..kernels.nxfp_quantize import nxfp_quantize_kv_rows
 from ..kernels.ops import decode_attention, decode_attention_dense
 from .common import ModelConfig
@@ -300,6 +301,58 @@ def write_token(cfg: ModelConfig, layer_cache, k1, v1, pos,
         buf = layer_cache[name]
         buf[slots, row] = torch.where(inside, val[:, 0].to(buf.dtype),
                                       buf[slots, row])
+    return layer_cache
+
+
+def _round_rows(cfg: ModelConfig, layer_cache, pos, q: int, kv_fmt):
+    """The rows ``pos[b] + i`` (i < q) of every slot, as ``write_token``
+    places them: (rows (B, q) int64, inside (B, q) bool). A ring's rows are
+    ``% window`` (distinct: q <= window). A row outside [0, S) is never
+    written; it is handed ``row - q``, below the slot's q rows and distinct
+    from them, clamped into the cache, so a scatter over the rows has
+    distinct indices wherever it writes something new."""
+    if "block" in layer_cache:
+        raise NotImplementedError(
+            "a speculative round's rows on a paged cache (ROADMAP A12's "
+            "remainder)")
+    s = _logical_rows(layer_cache, kv_fmt)
+    if q > s:
+        raise ValueError(f"{q} rows a round over a cache of {s}")
+    row = pos.long()[:, None] + torch.arange(q, device=pos.device)[None, :]
+    if cfg.sliding_window:
+        return row % cfg.sliding_window, torch.ones_like(row, dtype=torch.bool)
+    inside = (row >= 0) & (row < s)
+    return torch.where(inside, row, row - q).clamp(0, s - 1), inside
+
+
+def save_rows(cfg: ModelConfig, layer_cache, pos, q: int,
+              kv_fmt: Optional[str]):
+    """Copies of the rows a speculative round may write (``pos[b] + i``,
+    i < q; ring rows in a ring) of every K/V buffer of one layer cache:
+    {name: (B, q, ...)}, packed bytes and meta raw. ``restore_rows`` puts
+    them back."""
+    rows, _ = _round_rows(cfg, layer_cache, pos, q, kv_fmt)
+    slots = torch.arange(rows.shape[0], device=rows.device)[:, None]
+    return {name: bit_view(buf)[slots, rows]
+            for name, buf in layer_cache.items()
+            if name in ("k", "v", "k_packed", "k_meta", "v_packed",
+                        "v_meta")}
+
+
+def restore_rows(cfg: ModelConfig, layer_cache, saved, pos, keep,
+                 kv_fmt: Optional[str]):
+    """Put back, in place, the saved rows ``pos[b] + i`` of slot b where
+    ``keep`` (B, q) holds and the row lies in the cache; every other row
+    keeps what it holds. No host sync (capturable). Returns
+    ``layer_cache``."""
+    q = keep.shape[1]
+    rows, inside = _round_rows(cfg, layer_cache, pos, q, kv_fmt)
+    keep = keep & inside
+    slots = torch.arange(rows.shape[0], device=rows.device)[:, None]
+    for name, val in saved.items():
+        buf = bit_view(layer_cache[name])
+        mask = keep.reshape(keep.shape + (1,) * (val.dim() - 2))
+        buf[slots, rows] = torch.where(mask, val, buf[slots, rows])
     return layer_cache
 
 

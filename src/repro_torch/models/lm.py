@@ -18,11 +18,12 @@ import torch
 
 from .. import resolve_device
 from ..kernels.build import bit_view
-from .blocks import (init_layer, layer_decode, layer_forward,
-                     layer_prefill_chunk)
-from .common import ModelConfig, dense, ninit, rmsnorm
+from .blocks import (_put_state, init_layer, layer_decode, layer_forward,
+                     layer_prefill_chunk, layer_verify)
+from .common import ModelConfig, dense, dense_rows, ninit, rmsnorm
 from .kvcache import (_POOL_PREFIX, attn_cache_init, paged_attn_cache_init,
-                      paged_layer_view, ssm_cache_init, write_prefill)
+                      paged_layer_view, restore_rows, save_rows,
+                      ssm_cache_init, write_prefill)
 from .ssm import reset_state_slot
 
 Params = Dict[str, Any]
@@ -263,6 +264,137 @@ def decode_loop(cfg: ModelConfig, params: Params, tok, cache, n_steps: int,
                                     live)
         tok = sample_fn(logits).to(torch.int32)
     return torch.stack(out, dim=1), tok, cache
+
+
+# ---------------------------------------------------------------------------
+# self-speculative decoding: draft (cheap weights) and verify (target weights)
+# ---------------------------------------------------------------------------
+#
+# The reference gets the rollback of a round for free: its draft and verify
+# write into functional copies of the cache that it drops. The port's cache
+# is written in place (``kvcache.write_token``, ``blocks._put_state``), so
+# a round saves the K/V rows it can write (``kvcache.save_rows``: rows
+# ``pos + i``, ring rows in a ring, packed bytes and meta raw) and puts
+# them back: all of them after the draft, those past the accepted prefix
+# after the verify. Rows outside [0, S) are neither written nor put back.
+
+
+def save_round(cfg: ModelConfig, cache, q: int, kv_fmt: Optional[str]):
+    """What ``q`` decode steps from ``cache["pos"]`` can write, copied:
+    every attention layer's rows ``pos + i`` (i < q; ``kvcache.save_rows``)
+    and the recurrent state. ``restore_round`` puts it back."""
+    pos = cache["pos"]
+    return {"pos": pos.clone(),
+            "rows": [None if cfg.attn_free else
+                     save_rows(cfg, lc, pos, q, kv_fmt)
+                     for lc in cache["layers"]],
+            "state": [t.clone() for t in recurrent_state(cache)]}
+
+
+def restore_round(cfg: ModelConfig, cache, saved,
+                  kv_fmt: Optional[str]) -> None:
+    """Put back, in place, what ``save_round`` copied: the cache is then
+    bit for bit the one it was saved from (``pos`` is never moved in
+    place)."""
+    pos = saved["pos"]
+    for lc, rows in zip(cache["layers"], saved["rows"]):
+        if rows is not None:
+            q = next(iter(rows.values())).shape[1]
+            keep = torch.ones((pos.shape[0], q), dtype=torch.bool,
+                              device=pos.device)
+            restore_rows(cfg, lc, rows, pos, keep, kv_fmt)
+    for t, state in zip(recurrent_state(cache), saved["state"]):
+        t.copy_(state)
+
+
+def draft_loop(cfg: ModelConfig, draft_params: Params, tok, cache,
+               n_steps: int, kv_fmt: Optional[str],
+               sample_fn: Callable[[torch.Tensor], torch.Tensor], live=None,
+               with_logits: bool = False):
+    """Draft ``n_steps`` candidate tokens a slot with the draft weights,
+    leaving the cache as it found it.
+
+    ``n_steps`` decode steps of ``draft_params`` from ``tok`` (B,), each
+    successor drawn by ``sample_fn(logits (B, V) f32)`` (``live`` is
+    ``decode_step``'s). The steps write their K/V rows and Mamba state
+    into the cache in place, as decode does; afterwards the rows they
+    wrote and the recurrent state are put back (``save_round``,
+    ``restore_round``), bit for bit, and ``cache["pos"]`` never moves. Returns
+    (candidates (B, n_steps) int32, the draft logits (n_steps, B, V) f32
+    with ``with_logits``, else None): residual sampling reads the draft
+    distribution at each candidate."""
+    saved = save_round(cfg, cache, n_steps, kv_fmt)
+    c, cands, logits_all = cache, [], []
+    for _ in range(n_steps):
+        logits, c = decode_step(cfg, draft_params, tok[:, None], c, kv_fmt,
+                                live)
+        if with_logits:
+            logits_all.append(logits)
+        tok = sample_fn(logits).to(torch.int32)
+        cands.append(tok)
+    restore_round(cfg, cache, saved, kv_fmt)
+    return (torch.stack(cands, dim=1),
+            torch.stack(logits_all) if with_logits else None)
+
+
+def verify_step(cfg: ModelConfig, params: Params, tokens, cache,
+                kv_fmt: Optional[str], live=None):
+    """Score Q candidate rows a slot in one batched target-weight forward.
+
+    ``tokens`` (B, Q) holds [c_0, c_1, .., c_{Q-1}], the last committed
+    token then the draft's candidates, at positions ``pos[b] .. pos[b] + Q
+    - 1``. Row i's logits are the bits a sequential ``decode_step`` gives
+    after rows < i (``blocks.layer_verify``: products in groups of at most
+    16 rows, attention and the recurrence row by row through the decode
+    ops), so greedy acceptance emits the plain engine's tokens.
+
+    The Q K/V rows are written into the cache in place (not for a slot
+    whose ``live`` entry is false); the Mamba state and ``pos`` are not
+    touched. ``commit_verify`` lands an accepted prefix and puts the rest
+    back. Returns (logits (B, Q, V) f32, pending)."""
+    _check_family(cfg)
+    pos = cache["pos"]
+    x = _embed(cfg, params, tokens)
+    pending = []
+    for lp, lc in zip(params["layers"], cache["layers"]):
+        x, pend = layer_verify(cfg, lp, x, lc, pos, kv_fmt, live)
+        pending.append(pend)
+    x = rmsnorm(x, params["final_scale"], cfg.norm_eps)
+    logits = dense_rows(x, params["lm_head"], out_dtype=torch.float32)
+    return logits, {"pos": pos, "layers": pending}
+
+
+def commit_verify(cfg: ModelConfig, cache, pending, n_commit,
+                  kv_fmt: Optional[str], live=None):
+    """Land each slot's accepted prefix of a ``verify_step``, in place.
+
+    ``n_commit`` (B,) int in [0, Q]: rows ``pos .. pos + n_commit - 1``
+    keep the target K/V the verify wrote, every row past them gets back
+    the bytes it held before the verify, the Mamba state jumps to the one
+    after the slot's ``n_commit`` steps, and ``pos`` advances by
+    ``n_commit``. A slot with ``n_commit == 0`` or ``live`` false keeps
+    everything. Afterwards the whole cache is the one ``n_commit``
+    sequential ``decode_step`` calls leave, bit for bit. Returns the cache
+    (a new ``pos`` tensor, the layers updated in place)."""
+    pos = pending["pos"]
+    b = pos.shape[0]
+    n_commit = n_commit.to(torch.int32)
+    live_b = (torch.ones((b,), dtype=torch.bool, device=pos.device)
+              if live is None else live)
+    commit_any = live_b & (n_commit > 0)
+    ar = torch.arange(b, device=pos.device)
+    for lc, pend in zip(cache["layers"], pending["layers"]):
+        if "rows" in pend:
+            q = next(iter(pend["rows"].values())).shape[1]
+            i = torch.arange(q, device=pos.device)
+            keep = live_b[:, None] & (i[None, :] >= n_commit[:, None])
+            restore_rows(cfg, lc, pend["rows"], pos, keep, kv_fmt)
+        if "h" in pend:
+            idx = (n_commit.long() - 1).clamp(0, pend["h"].shape[1] - 1)
+            _put_state(lc["h"], pend["h"][ar, idx], commit_any)
+            _put_state(lc["conv"], pend["conv"][ar, idx], commit_any)
+    return {"pos": pos + torch.where(live_b, n_commit, 0).to(pos.dtype),
+            "layers": cache["layers"]}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

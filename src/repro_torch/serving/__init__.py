@@ -1,6 +1,7 @@
 """Serving: the batched engine, the continuous-batching engine (with
-bounded-queue shedding, per-slot tiers and a paged KV cache) over
-direct-cast weights and KV cache, and the JSONL event journal."""
+bounded-queue shedding, per-slot tiers, a paged KV cache and
+self-speculative decoding) over direct-cast weights and KV cache, and the
+JSONL event journal."""
 from .engine import GenerationResult, ServeEngine, mask_chunk_emissions
 from .events import EVENT_KINDS, Journal, emit, parse_event, replay
 from .paged import NULL_PAGE, PagePool, auto_page_size
@@ -12,6 +13,7 @@ from .scheduler import (DECODING, PREFILLING, AdmissionPolicy,
                         SlotScheduler, Status, TtftDeadline)
 from .snapshot import (pack_device_state, slot_row_capacity,
                        unpack_device_state)
+from .speculative import SpeculativeConfig
 from .tiers import (TieredContinuousEngine, TierSpec, default_tiers,
                     kv_row_bytes, repack_kv)
 
@@ -26,4 +28,4 @@ __all__ = ["ServeEngine", "GenerationResult", "mask_chunk_emissions",
            "kv_row_bytes", "repack_kv", "pack_device_state",
            "unpack_device_state", "slot_row_capacity",
            "Journal", "emit", "parse_event", "replay",
-           "EVENT_KINDS"]
+           "EVENT_KINDS", "SpeculativeConfig"]

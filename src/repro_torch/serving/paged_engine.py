@@ -119,6 +119,10 @@ class PagedContinuousEngine(ContinuousEngine):
                  n_pages: Optional[int] = None,
                  page_size: Optional[int] = None,
                  prefix_sharing: bool = True, **kw):
+        if kw.get("speculative") is not None:
+            raise NotImplementedError(
+                "PagedContinuousEngine does not run speculative rounds yet "
+                "(ROADMAP A12's remainder: the paged engine's rounds)")
         rows = cfg.sliding_window if cfg.sliding_window else max_len
         if page_size is None:
             page_size = auto_page_size(rows)
@@ -182,8 +186,9 @@ class PagedContinuousEngine(ContinuousEngine):
 
     def _horizon_bound(self) -> int:
         """Rows one slot may write past ``pos`` in one decode dispatch,
-        overshoot after it finished included (the port has no speculative
-        rounds: the chunk)."""
+        overshoot after it finished included: the chunk (the engine refuses
+        ``speculative=`` until ROADMAP A12's remainder, whose rounds also
+        write k + 1 verify rows past ``pos``)."""
         return self.chunk
 
     def _share_terms(self, req: Request):

@@ -79,8 +79,15 @@ warm-up puts it back (``capture_graph(keep=)``). The lane's width must be
 a multiple of ``ssm_chunk`` there, so the scan's chunks fall where the
 whole prompt's fall.
 
-Left for later slices: quarantine, suspension, preemption, snapshots,
-speculation and sharding.
+Self-speculative decoding (``speculative=SpeculativeConfig(...)``,
+``serving/speculative.py``): each decode chunk runs ``n_rounds`` rounds of
+draft, batched verify and commit instead of ``chunk`` steps; on CUDA one
+captured graph per (k, n_rounds, greedy). A greedy stream is the plain
+engine's, bit for bit.
+
+Left for later slices: quarantine, suspension, preemption, snapshots
+(and with them ``spec_k`` in a snapshot), sharding, and the paged
+engine's speculative rounds.
 """
 from __future__ import annotations
 
@@ -93,13 +100,17 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..core.qtensor import QuantPolicy
+from ..core.qtensor import QuantPolicy, dense_like
 from ..models import (decode_loop, init_cache, init_lane, prefill_chunk,
                       prefill_into_slot, recurrent_state, reset_slot)
 from ..models.common import ModelConfig
+from ..models.kvcache import cache_rows
+from ..models.lm import FAMILIES, restore_round, save_round
 from .engine import (_sync, capture_graph, load_params,
                      mask_chunk_emissions, sample_tokens)
 from .events import Journal
+from .speculative import (AdaptiveK, SpeculativeConfig, pack_emissions,
+                          spec_round)
 
 logger = logging.getLogger("repro_torch.serving.scheduler")
 
@@ -511,6 +522,36 @@ def continuous_chunk(cfg: ModelConfig, params, kv_fmt: Optional[str],
     return emitted, tok, n_gen, done, new["pos"]
 
 
+def speculative_chunk(cfg: ModelConfig, params, draft_params,
+                      kv_fmt: Optional[str], k: int, n_rounds: int,
+                      greedy: bool, gens, buf, cache, spec_k):
+    """The speculative decode chunk (the reference's ``_spec_chunk_fn``):
+    ``n_rounds`` rounds of ``spec_round`` from the static buffers ``buf``,
+    each slot advancing by its own accepted length (``spec_k`` (B,) caps a
+    slot's acceptance), emission, stop and budget masking round by round,
+    the rounds' ragged emissions left-packed into each slot's prefix.
+    Returns (emitted (B, n_rounds * (k+1)), tok, n_gen, done, pos, acc,
+    off): ``acc`` and ``off`` are each slot's accepted and offered
+    candidates over the chunk, the adaptive-k signal."""
+    tok, done, n_gen = buf["tok"], buf["done"], buf["n_gen"]
+    acc = torch.zeros_like(n_gen)
+    off = torch.zeros_like(n_gen)
+    c = cache
+    toks_r, n_r = [], []
+    for _ in range(n_rounds):
+        live_r = buf["live"] & ~done
+        emitted, n_emit, tok, c, done, n_gen, a = spec_round(
+            cfg, params, draft_params, tok, c, done, n_gen, buf["max_new"],
+            buf["temp"], buf["stop"], live_r, spec_k, gens, kv_fmt=kv_fmt,
+            k=k, greedy=greedy)
+        acc = acc + torch.where(live_r, a, 0)
+        off = off + torch.where(live_r, torch.clamp(spec_k, max=k), 0)
+        toks_r.append(emitted)
+        n_r.append(n_emit)
+    emitted = pack_emissions(torch.stack(toks_r), torch.stack(n_r))
+    return emitted, tok, n_gen, done, c["pos"], acc, off
+
+
 class ContinuousEngine:
     """Continuous batching over one persistent ``n_slots`` cache.
 
@@ -529,7 +570,19 @@ class ContinuousEngine:
     enforce_bounds``). ``serve`` drains a list of requests, honouring
     their arrival times, deadlines and ``cancel`` calls, and returns one
     ``RequestResult`` per request. The bitwise oracle holds up to 16 slots
-    (``models.common.ROW_GROUP``, the decode GEMM's regime).
+    (``models.common.ROW_GROUP``): up to 16 rows the dequant GEMM runs
+    split-K with one plan whatever the row count (``decode_split``).
+
+    ``speculative`` (a ``SpeculativeConfig``) makes every decode chunk
+    ``n_rounds = max(1, chunk // (k + 1))`` rounds of draft, batched
+    verify and commit (``speculative_chunk``; k the most live
+    ``spec_k``, which ``AdaptiveK`` moves per slot). The draft weights
+    are the cast weights decoded to bf16 (``draft="recycled"``, which
+    needs a ``weight_fmt``) or the weights cast to ``draft``, on the
+    engine's device. Counters: ``spec_accepted`` and ``spec_offered``
+    since construction (``spec_stats()``), and for the last ``serve``
+    ``spec_rounds`` (each chunk's (k, n_rounds)); a slot's k moving is a
+    ``spec-k`` event.
 
     Counters for the caller: ``replays`` and ``lane_replays`` (decode and
     lane CUDA graph replays since construction); for the last ``serve``,
@@ -551,6 +604,7 @@ class ContinuousEngine:
                  p_chunk_candidates: Sequence[int] = (16, 32, 64, 128),
                  max_queue: Optional[int] = None,
                  shedding: Optional[SheddingPolicy] = None,
+                 speculative: Optional[SpeculativeConfig] = None,
                  device=None):
         if chunk < 1 or n_slots < 1:
             raise ValueError(f"chunk ({chunk}) and n_slots ({n_slots}) "
@@ -574,7 +628,12 @@ class ContinuousEngine:
         self.max_queue = max_queue
         self.shedding = shedding
         self.device = resolve_device(device)
+        self.speculative = speculative
+        if speculative is not None:
+            self._check_speculative(cfg, policy, speculative, max_len)
         self.params = self._load_weights(params)
+        if speculative is not None:
+            self._init_speculative(params, speculative, n_slots)
         self.cache = self._init_slot_cache()
         self.journal = Journal()
         self._gens = [torch.Generator(device=self.device)
@@ -608,6 +667,107 @@ class ContinuousEngine:
             else:
                 self._build_lane(p_chunk)
         self.p_chunk = p_chunk
+
+    # -- speculative decoding --------------------------------------------------
+
+    @staticmethod
+    def _check_speculative(cfg: ModelConfig, policy: QuantPolicy,
+                           spec: SpeculativeConfig, max_len: int) -> None:
+        """The reference's refusals (a family outside the verify's
+        contract; a recycled draft with nothing cast to recycle); and a
+        round's k + 1 rows must fit a slot's cache."""
+        if cfg.family not in FAMILIES:
+            raise ValueError(f"speculative decode does not serve "
+                             f"family={cfg.family!r}")
+        if spec.draft == "recycled" and not policy.weight_fmt:
+            raise ValueError(
+                "draft='recycled' dequantizes the engine's cast weights: it "
+                "needs a quantized product (policy.weight_fmt)")
+        if not cfg.attn_free and spec.k + 1 > cache_rows(cfg, max_len):
+            raise ValueError(f"a speculative round's {spec.k + 1} rows do "
+                             f"not fit a slot's cache")
+
+    def _init_speculative(self, raw_params, spec: SpeculativeConfig,
+                          n_slots: int) -> None:
+        """The draft weights on the engine's device, the controller, the
+        counters and the static ``spec_k`` buffer."""
+        if spec.draft == "recycled":
+            self.draft_params = dense_like(self.params)
+        else:
+            self.draft_params = load_params(
+                raw_params, dataclasses.replace(self.policy,
+                                                weight_fmt=spec.draft),
+                self.device)
+        self._adaptive = AdaptiveK(spec, n_slots)
+        self._spec_k = torch.zeros((n_slots,), dtype=torch.int32,
+                                   device=self.device)
+        self.spec_accepted = 0        # candidates accepted (all chunks)
+        self.spec_offered = 0         # candidates offered (all chunks)
+        self.spec_rounds: List[Tuple[int, int]] = []
+
+    def _spec_round_shape(self) -> Tuple[int, int]:
+        """(k, n_rounds) of the next speculative chunk: k the most live
+        slot's ``spec_k``, and as many rounds as keep a fully accepted
+        chunk's advance near ``chunk``."""
+        h = self._host
+        k = self._adaptive.round_k(h["live"] & ~h["done"])
+        return k, max(1, self.chunk // (k + 1))
+
+    def _spec_chunk_fn(self, greedy: bool, k: int, n_rounds: int,
+                       warm: bool = False):
+        """A speculative chunk of ``n_rounds`` rounds of k. ``warm``: one
+        round that then puts back every row and recurrent state it wrote
+        (``save_round``/``restore_round``), a graph capture's warm-up: a
+        kept row of the round would be one a ring's first replayed round
+        still reads."""
+        cfg, kv = self.cfg, self.policy.kv_fmt
+
+        def run(rounds):
+            return speculative_chunk(cfg, self.params, self.draft_params, kv,
+                                     k, rounds, greedy, self._gens,
+                                     self._buf, self.cache, self._spec_k)
+        if not warm:
+            return lambda: run(n_rounds)
+
+        def one_round():
+            saved = save_round(cfg, self.cache, k + 1, kv)
+            run(1)
+            restore_round(cfg, self.cache, saved, kv)
+        return one_round
+
+    def _dispatch_spec_chunk(self, greedy: bool) -> np.ndarray:
+        """Run one speculative chunk from the uploaded slot state and fold
+        its results and acceptance counts back into the host state and the
+        controller. Returns emitted (B, n_rounds * (k+1))."""
+        k, n_rounds = self._spec_round_shape()
+        self.spec_rounds.append((k, n_rounds))
+        self._spec_k.copy_(torch.from_numpy(self._adaptive.k.astype(np.int32)))
+        outs = self._run_chunk(
+            ("spec", k, n_rounds, greedy),
+            lambda steps=None: self._spec_chunk_fn(greedy, k, n_rounds,
+                                                   warm=steps is not None),
+            greedy)
+        got = self._fold(outs, self.cache, slice(None))
+        emitted, acc, off = got[:, :-2], got[:, -2], got[:, -1]
+        self.spec_accepted += int(acc.sum())
+        self.spec_offered += int(off.sum())
+        old_k = self._adaptive.k.copy()
+        self._adaptive.update(self._host["live"], acc, off)
+        for s in np.nonzero(self._adaptive.k != old_k)[0]:
+            self._emit("spec-k", slot=int(s), k=int(self._adaptive.k[s]),
+                       ema=round(float(self._adaptive.ema[s]), 3),
+                       chunk=self.chunks)
+        return emitted
+
+    def spec_stats(self) -> Dict[str, Any]:
+        """Acceptance over every chunk since construction: accepted and
+        offered candidates and their ratio."""
+        if self.speculative is None:
+            raise ValueError("engine was built without speculative=")
+        return {"accepted": self.spec_accepted,
+                "offered": self.spec_offered,
+                "accept_rate": self.spec_accepted
+                / max(self.spec_offered, 1)}
 
     # -- construction hooks (the tiered engine overrides these) ------------
 
@@ -778,18 +938,23 @@ class ContinuousEngine:
         return outs
 
     def _fold(self, outs, cache, rows) -> np.ndarray:
-        """Fold a chunk's results into ``cache["pos"]`` and the host state
-        of ``rows`` (a bool mask or a slice). Returns emitted (B, chunk)."""
-        emitted, tok, n_gen, done, pos = outs
+        """Fold a chunk's results (emitted (B, n), tok, n_gen, done, pos,
+        then any (B,) extra columns: a speculative chunk's acc and off) into
+        ``cache["pos"]`` and the host state of ``rows`` (a bool mask or a
+        slice), in one host copy. Returns emitted, then the extra columns:
+        (B, n + extras)."""
+        emitted, tok, n_gen, done, pos, *extra = outs
         cache["pos"].copy_(pos)
-        n = self.chunk
-        got = torch.cat([emitted, tok[:, None], n_gen[:, None],
-                         done[:, None].to(torch.int32)], dim=1).cpu().numpy()
+        n = emitted.shape[1]
+        got = torch.cat([emitted.to(torch.int32), tok[:, None],
+                         n_gen[:, None], done[:, None].to(torch.int32)]
+                        + [e[:, None].to(torch.int32) for e in extra],
+                        dim=1).cpu().numpy()
         h = self._host
         h["tok"][rows] = got[rows, n]
         h["n_gen"][rows] = got[rows, n + 1]
         h["done"][rows] = got[rows, n + 2] != 0
-        return got[:, :n]
+        return np.concatenate([got[:, :n], got[:, n + 3:]], axis=1)
 
     def _dispatch_chunk(self) -> np.ndarray:
         """Run one decode chunk from the host slot state and fold its
@@ -799,9 +964,13 @@ class ContinuousEngine:
         live = int(h["live"].sum())
         self._upload(h)
         greedy = bool((h["temp"] == 0.0).all())
-        outs = self._run_chunk(
-            greedy, lambda steps=None: self._chunk_fn(greedy, steps), greedy)
-        emitted = self._fold(outs, self.cache, slice(None))
+        if self.speculative is not None:
+            emitted = self._dispatch_spec_chunk(greedy)
+        else:
+            outs = self._run_chunk(
+                greedy, lambda steps=None: self._chunk_fn(greedy, steps),
+                greedy)
+            emitted = self._fold(outs, self.cache, slice(None))
         self.chunks += 1
         self.chunk_times.append((live, time.perf_counter() - t0))
         return emitted
@@ -892,6 +1061,8 @@ class ContinuousEngine:
         h["max_new"][slot] = req.max_new
         h["temp"][slot] = req.temperature
         h["stop"][slot] = -1 if req.stop_token is None else req.stop_token
+        if self.speculative is not None:
+            self._adaptive.arm(slot)
 
     def _park_slot_flags(self, slot: int) -> None:
         """Host flags of a slot leaving service or prefilling in the lane:
@@ -1122,6 +1293,8 @@ class ContinuousEngine:
         self.lane_chunks = 0
         self.lane_seconds = []
         self.stall_seconds = []
+        if self.speculative is not None:
+            self.spec_rounds = []
         chunked = self.prefill_mode == "chunked"
         t0 = time.time()
 

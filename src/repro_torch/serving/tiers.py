@@ -165,6 +165,9 @@ class TieredContinuousEngine(ContinuousEngine):
                  degrade_kv_to: Optional[str] = None, **kw):
         if not tiers:
             raise ValueError("tiers must name at least one TierSpec")
+        if kw.get("speculative") is not None:
+            raise ValueError("tiered serving does not compose with "
+                             "speculative=")
         if cfg.has_mamba:
             # the slot-state helpers (serving/snapshot.py) and
             # kv_row_bytes carry no Mamba state yet

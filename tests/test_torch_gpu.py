@@ -235,12 +235,65 @@ def test_matmul_kernel_ragged_split_k(cuda, fname):
     split of 2; N 72 leaves a ragged N tile."""
     fmt, x, wq = _matmul_case(cuda, fname, 4, 4160, 72, 7)
     # the geometry test_torch_kernels.py plans with on the CPU
-    assert tuple(nm.decode_geometry()) == (16, 64, 32768)
+    assert tuple(nm.decode_geometry()) == (16, 64, 65536)
     _, splits, chunk = nm.decode_split(4, 72, wq.packed.shape[1],
                                        fmt.block_size, nm.decode_geometry())
     assert splits > 1 and (splits - 1) * chunk < wq.packed.shape[1]
     _assert_matmul_close(x, wq, fmt, nm.nxfp_matmul(x, wq.packed, wq.meta,
                                                     fmt))
+
+
+@pytest.mark.parametrize("fname", ["nxfp4", "nxfp4_bs16", "nxfp4_bs64"])
+def test_matmul_decode_row_independent_of_m(cuda, fname):
+    """A Llama-3-8B ``w2``-shaped product (K 14336, N 4096): row 0 of an
+    M-row call is the M-1 call's row, bit for bit, at every M up to 16
+    (one split plan for all of them: a 16-slot engine's row, or a row of
+    the speculative verify's 16-row groups, is the request served
+    alone)."""
+    fmt, x, wq = _matmul_case(cuda, fname, 16, 14336, 4096, 13)
+    ref = nm.nxfp_matmul(x[:1], wq.packed, wq.meta, fmt)
+    for m in (2, 4, 9, 10, 12, 15, 16):
+        got = nm.nxfp_matmul(x[:m], wq.packed, wq.meta, fmt)
+        assert torch.equal(got[:1], ref), m
+
+
+@pytest.mark.parametrize("arch,kv", [("llama3_8b", "nxfp4"),
+                                     ("llama3_8b", None),
+                                     ("hymba_1_5b", "nxfp4")])
+def test_verify_step_matches_sequential_decode_on_card(cuda, arch, kv):
+    """The speculative verify on the card (B 4, Q 5: 20 rows, two row
+    groups): logits bitwise 5 sequential ``decode_step`` calls, and a
+    commit of 3 rows leaves their cache tree."""
+    from repro_torch.models import commit_verify, verify_step
+    from repro_torch.serving.engine import load_params
+    cfg = get_smoke_config(arch)
+    params = load_params(init_params(cfg, seed=0, device=cuda),
+                         QuantPolicy("nxfp4", kv), cuda)
+    rng = np.random.default_rng(1)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (4, 16)), device=cuda)
+    cands = torch.as_tensor(rng.integers(0, cfg.vocab, (4, 5)),
+                            dtype=torch.int32, device=cuda)
+    _, cache = prefill(cfg, params, {"tokens": toks}, 96, kv)
+
+    def clone(c):
+        return {"pos": c["pos"].clone(),
+                "layers": [{k: v.clone() for k, v in lc.items()}
+                           for lc in c["layers"]]}
+
+    seq, logits = clone(cache), []
+    for i in range(5):
+        lg, seq = decode_step(cfg, params, cands[:, i:i + 1], seq, kv)
+        logits.append(lg)
+        if i == 2:
+            after3 = clone(seq)
+    vlogits, pending = verify_step(cfg, params, cands, cache, kv)
+    assert torch.equal(vlogits, torch.stack(logits, 1))
+    got = commit_verify(cfg, cache, pending,
+                        torch.full((4,), 3, device=cuda), kv)
+    assert torch.equal(got["pos"], after3["pos"])
+    for a, b in zip(got["layers"], after3["layers"]):
+        for name in a:
+            assert torch.equal(a[name], b[name]), name
 
 
 @pytest.mark.parametrize("m", [4, 16, 512])

@@ -101,7 +101,7 @@ def test_decode_attention_plain_matches_pallas(fname, hd):
 MAIN_PATH_KN = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
 # the decode kernel's geometry as csrc/nxfp_matmul_decode.cu reports it
 # (test_torch_gpu.py checks the built library against these numbers)
-DECODE_GEOMETRY = (16, 64, 32768)
+DECODE_GEOMETRY = (16, 64, 65536)
 
 
 @pytest.mark.parametrize("k,n", MAIN_PATH_KN)
@@ -127,6 +127,59 @@ def test_decode_split_covers_k_once(k, n, m):
     assert covered == list(range(kb))                    # each block once
     assert m * chunk * 32 * 2 <= geom.x_slice_bytes
     assert n_tiles * splits >= 132
+
+
+def _weight_kn(cfg, head=True):
+    """Every (K, N) a config's layers put through the GEMM, and with
+    ``head`` its head's (a dense bf16 product unless a policy casts it)."""
+    d, hd, h, kvh = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    di, n, dr = cfg.dinner, cfg.ssm_state, cfg.dtrank
+    attn = [(d, h * hd), (d, kvh * hd), (h * hd, d), (d, cfg.d_ff),
+            (cfg.d_ff, d)]
+    mamba = [(d, 2 * di), (di, dr + 2 * n), (dr, di), (di, d)]
+    kn = {"dense": attn, "ssm": mamba, "hybrid": attn + mamba}[cfg.family]
+    return kn + [(d, cfg.vocab)] if head else kn
+
+
+# the configs the engines serve on the card (chip_smoke.py); the other two
+# (deepseek_67b, llama3_405b) do not fit one
+SERVED = ("llama3_8b", "llama2_7b", "starcoder2_3b", "h2o_danube_3_4b",
+          "falcon_mamba_7b", "hymba_1_5b")
+
+
+@pytest.mark.parametrize("bs", [8, 16, 32, 64, 128])
+def test_decode_split_plan_independent_of_m(bs):
+    """The decode regime's plan is one plan for m = 1 .. 16 at every
+    weight of every config: a row's f32 sums then run in one order
+    whatever the batch (a 16-slot engine's row, or a speculative verify's
+    16-row group, equals the row served alone)."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.kernels import nxfp_matmul as nm
+    geom = nm.DecodeGeometry(*DECODE_GEOMETRY)
+    for arch in ARCH_IDS:
+        for k, n in _weight_kn(get_config(arch)):
+            kb = -(-k // bs)
+            plans = {nm.decode_split(m, n, kb, bs, geom, n_sm=132)
+                     for m in range(1, geom.max_m + 1)}
+            assert len(plans) == 1, (arch, k, n, bs, plans)
+
+
+def test_decode_split_keeps_the_served_m4_plans():
+    """Capping the x slice for 16 rows cut no served shape's chunk: each
+    nxfp4 (bs 32) weight the default policy casts in the served configs
+    (the layers' weights; the head stays bf16) keeps the plan it had at
+    M 4 when the cap followed m (an x slice of 32768 bytes for m rows,
+    the cap of 128 blocks at M 4 that a 16-row geometry of 131072 bytes
+    reproduces)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import nxfp_matmul as nm
+    geom = nm.DecodeGeometry(*DECODE_GEOMETRY)
+    old_m4 = nm.DecodeGeometry(16, 64, 32768 * 16 // 4)
+    for arch in SERVED:
+        for k, n in _weight_kn(get_config(arch), head=False):
+            kb = -(-k // 32)
+            assert nm.decode_split(4, n, kb, 32, geom) == \
+                nm.decode_split(4, n, kb, 32, old_m4), (arch, k, n)
 
 
 @pytest.mark.parametrize("kb,n,bs", [(130, 72, 32), (1, 8, 32), (2, 200, 16),
