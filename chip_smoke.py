@@ -6,8 +6,8 @@
 
 Phases 7-10 and 12 serve Llama-3-8B at ``--serving-layers`` (default 8,
 at most ``--layers``); phases 11 and 13 serve their models at their full
-depth, and phase 14 Llama-3-8B and Hymba-1.5B at theirs, Falcon-Mamba-7B
-at ``--serving-layers``.
+depth, and phases 14 and 15 Llama-3-8B and Hymba-1.5B at theirs,
+Falcon-Mamba-7B at ``--serving-layers``.
 
 Phases, each fatal on failure (exit code 1, no result line):
 
@@ -217,6 +217,33 @@ Phases, each fatal on failure (exit code 1, no result line):
    outside) and every kernel of each path must launch. Printed for each
    pairing: accept rate, ms a speculative chunk and a round, tok/s
    against the plain engine (second serves in turns).
+
+15. The paged engine's speculative rounds and tiered serving for the SSM
+   and hybrid families. Llama-3-8B at full width and depth (nxfp4 weights
+   and KV, recycled draft, k 4, 4 slots, chunk 16, max_len 512, pages of
+   32 rows, prefix sharing): 6 requests, four on one 96-token prefix,
+   through ``PagedContinuousEngine(speculative=)``: every stream bitwise
+   the dense speculative engine's and the plain paged engine's,
+   ``spec_stats()`` equal to the dense engine's, a prefix hit, page 0
+   all zeros, the pool empty; tok/s and ms a chunk against the plain paged
+   engine in turns. Hymba-1.5B at full depth: a registrar of a 990-token
+   prompt and two claimants whose speculative rounds wrap the 1024-row
+   ring into its pages at chunk 1 (the round's k + 1 rows the write
+   horizon): streams bitwise the dense speculative engine's, every COW
+   break inside that horizon, one where the chunk's row alone would not
+   have broken. ``TieredContinuousEngine(default_tiers())``
+   over bf16 models of Hymba-1.5B (full depth) and Falcon-Mamba-7B
+   (``--serving-layers``): 6 requests by uid % 3 over premium, standard
+   and economy, whole and at P 256, every stream bitwise its solo stream
+   at its tier; qq GEMM launches around the serves 7 a layer per economy
+   prefill on Hymba and none on Falcon; the standard tier alone bitwise
+   the plain engine, whole and at P 256; on Hymba the degrade rung's
+   repack (``DegradeOverBudget(pool_watermark=0.05)``): the moved slot's
+   ``h``/``conv`` bitwise, its K/V rows ``repack_kv``'s of the source rows
+   through the plain codec. Launches are counted around the engines under
+   test alone (``launches_phase15_path``). Phase 3 holds the quantizer's
+   paged verify write ((4, 1) rows, one on a null page) and the qq GEMM
+   at Hymba's (K, N) pairs at M 256 and 512; their rows join the table.
 
 The last three lines are the kernel table as JSON, the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.
@@ -631,7 +658,7 @@ def check_lane_kv_write(timer, rows):
               f"nxfp4 cache, {n_valid} valid rows, {n_blocks} blocks")
 
 
-def check_paged_kv_write(timer, rows):
+def check_paged_kv_write(timer, rows, cases=None):
     """The quantizer writing through a block table (the paged cache,
     phase 12's shapes): decode rows of 8 slots (one slot's row on a null
     page, one not live: row S) and a lane chunk (1, 32) at rows 48 + t, t
@@ -639,7 +666,8 @@ def check_paged_kv_write(timer, rows):
     null page, into a 129-page pool of 32 rows: bitwise (up to counted
     near-ties) against the plain version, every other pool row (the null
     page included) as it was; its time beside the unpaged write of the
-    same rows into a (8, 2048) cache."""
+    same rows into a (8, 2048) cache. ``cases`` ({name: (rows a slot,
+    pos, slot, n_valid)}) replaces the two (phase 15's verify rows)."""
     from repro_torch.core.formats import get_format
     from repro_torch.core.pack import unpack_codes
     from repro_torch.core.quantize import near_tie_blocks, to_blocks
@@ -669,13 +697,17 @@ def check_paged_kv_write(timer, rows):
                 ("packed", (fmt.bytes_per_block,), torch.uint8),
                 ("meta", (), torch.uint16))}
 
-    cases = {
-        # pos per slot: 300 / 70 (slot 1's null page) / S (not live) / ...
-        "decode": (1, [300, 70, PAGED_MAX_LEN, 17, 255, 480, 3, 511], None,
-                   None),
-        "chunk": (32, [48], 2, 20)}
+    if cases is None:
+        cases = {
+            # pos per slot: 300 / 70 (slot 1's null page) / S (not live) /
+            "decode": (1, [300, 70, PAGED_MAX_LEN, 17, 255, 480, 3, 511],
+                       None, None),
+            "chunk": (32, [48], 2, 20)}
     for case, (t, pos, slot, n_valid) in cases.items():
         b = len(pos)
+        # rows of b slots (decode, verify) read the table's first b rows
+        blk = table if slot is not None else table[:b]
+        ncb = blk.shape[0]
         k, v = (torch.randn((b, t, kvh, hd), generator=gen, device="cuda")
                 .to(torch.bfloat16) for _ in range(2))
         pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
@@ -688,10 +720,10 @@ def check_paged_kv_write(timer, rows):
         cache = pool()
         before = {n: a.clone() for n, a in cache.items()}
         plain = {n: a.clone() for n, a in cache.items()}
-        nq.nxfp_quantize_kv_rows(k, v, cache, pos_t, fmt, block=table,
+        nq.nxfp_quantize_kv_rows(k, v, cache, pos_t, fmt, block=blk,
                                  **args)
         nq.nxfp_quantize_kv_rows_plain(k, v, plain, pos_t, fmt,
-                                       block=table, **args)
+                                       block=blk, **args)
         torch.cuda.synchronize()
         # the rows the write owns: (page, row in page) of each valid row
         owned = torch.zeros((n_pages, page), dtype=torch.bool,
@@ -704,7 +736,7 @@ def check_paged_kv_write(timer, rows):
                 r = pos[bi] + ti
                 if not 0 <= r < PAGED_MAX_LEN:
                     continue
-                pg = int(table[sl, r // page])
+                pg = int(blk[sl, r // page])
                 if pg:
                     owned[pg, r % page] = True
                     src["k"][pg, r % page] = k[bi, ti].float()
@@ -735,12 +767,12 @@ def check_paged_kv_write(timer, rows):
             to_blocks(src[n][owned], fmt.block_size, -1)[0].reshape(
                 -1, fmt.block_size), fmt).sum()) for n in "kv")
         ms = timer(lambda: nq.nxfp_quantize_kv_rows(
-            k, v, cache, pos_t, fmt, block=table, **args))
+            k, v, cache, pos_t, fmt, block=blk, **args))
         plain_ms = timer(lambda: nq.nxfp_quantize_kv_rows_plain(
-            k, v, plain, pos_t, fmt, block=table, **args), 5)
-        # the same rows into an unpaged (8, 2048) cache, for comparison
+            k, v, plain, pos_t, fmt, block=blk, **args), 5)
+        # the same rows into an unpaged (ncb, 2048) cache, for comparison
         dense = {f"{n}_{key}": torch.zeros(
-            (cb, PAGED_MAX_LEN, kvh, nb) + tail, dtype=dt, device="cuda")
+            (ncb, PAGED_MAX_LEN, kvh, nb) + tail, dtype=dt, device="cuda")
             for n in "kv" for key, tail, dt in (
                 ("packed", (fmt.bytes_per_block,), torch.uint8),
                 ("meta", (), torch.uint16))}
@@ -750,7 +782,7 @@ def check_paged_kv_write(timer, rows):
             fmt.bytes_per_block + 2) + 4 * (b + n_rows))
         b_ms, b_by = bound(n_bytes, n_cands * 32 * QUANT_OPS, PEAK_F32)
         log(f"paged KV write ({case}: K and V ({b}, {t}, 8, 128) bf16 "
-            f"through a ({cb}, {tw}) block table into a {n_pages}-page "
+            f"through a ({ncb}, {tw}) block table into a {n_pages}-page "
             f"nxfp4 pool of {page} rows, {n_rows} rows written, null-page "
             f"and dropped rows skipped, one launch): bitwise except {n_diff} "
             f"near-tie blocks, every other row untouched; kernel {ms:.4f} "
@@ -760,7 +792,7 @@ def check_paged_kv_write(timer, rows):
             max_abs_err=err, ms=ms,
             unpaged_ms=unpaged_ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=b_by, library_ms=None, near_ties=n_diff,
-            shape=f"K, V ({b}, {t}, 8, 128) bf16 through a ({cb}, {tw}) "
+            shape=f"K, V ({b}, {t}, 8, 128) bf16 through a ({ncb}, {tw}) "
                   f"table into a {n_pages} x {page}-row nxfp4 pool, "
                   f"{n_rows} rows written")
 
@@ -773,11 +805,11 @@ def check_paged_kv_write(timer, rows):
 QQ_M = (16, 32, 512)
 
 
-def check_qq_matmul(timer, rows):
-    """amxfp4 activations x nxfp4 weights at the four projections' (K, N)
-    pairs and the rows of ``QQ_M``, held to the bits of ``nxfp_matmul``
-    fed the plain-decoded X (the kernel runs that GEMM on its own decode
-    of X)."""
+def check_qq_matmul(timer, rows, pairs=None, row_counts=QQ_M):
+    """amxfp4 activations x nxfp4 weights at the (K, N) pairs (default
+    ``MATMUL_KN``, the four projections') and ``row_counts`` rows, held to
+    the bits of ``nxfp_matmul`` fed the plain-decoded X (the kernel runs
+    that GEMM on its own decode of X)."""
     from repro_torch.core.formats import get_format
     from repro_torch.kernels import nxfp_matmul as nm
     from repro_torch.kernels import nxfp_qq_matmul as nqq
@@ -785,12 +817,12 @@ def check_qq_matmul(timer, rows):
 
     x_fmt, w_fmt = get_format("amxfp4"), get_format("nxfp4")
     gen = torch.Generator(device="cuda").manual_seed(5)
-    for k, n in MATMUL_KN:
+    for k, n in pairs or MATMUL_KN:
         w = torch.randn((k, n), generator=gen, device="cuda") * 0.02
         wq = quantize_qtensor(w, w_fmt, axis=-2, device="cuda")
         del w
         wd = nm.dequant_weight_bf16(wq.packed, wq.meta, w_fmt)   # (N, K)
-        for m in QQ_M:
+        for m in row_counts:
             x = torch.randn((m, k), generator=gen, device="cuda").to(
                 torch.bfloat16)
             xq = quantize_qtensor(x, x_fmt, axis=-1, device="cuda")
@@ -2082,9 +2114,10 @@ class _TierSolo:
     the tier's weights (already cast), its prefill with the tier's
     ``act_fmt`` (the economy tier's quantized activations)."""
 
-    def __init__(self, cfg, params, kv_fmt, act_fmt):
+    def __init__(self, cfg, params, kv_fmt, act_fmt, max_len=CONT_MAX_LEN):
         self.cfg, self.params = cfg, params
         self.kv_fmt, self.act_fmt = kv_fmt, act_fmt
+        self.max_len = max_len
 
     def __call__(self, req, greedy_cap=None):
         import numpy as np
@@ -2102,7 +2135,7 @@ class _TierSolo:
                                kv_fmt=self.policy.kv_fmt, act_fmt=act)
 
         eng = Solo(cfg, self.params, QuantPolicy(None, self.kv_fmt),
-                   max_len=CONT_MAX_LEN, rng_seed=req.seed, device="cuda")
+                   max_len=self.max_len, rng_seed=req.seed, device="cuda")
         max_new, temp = req.max_new, req.temperature
         if greedy_cap is not None:
             max_new, temp = min(max_new, greedy_cap), 0.0
@@ -2263,6 +2296,38 @@ def phase_auto_and_overload(n_layers, params, reqs, solos, card):
                     "whole": med["whole"], "overload": overload}
 
 
+def _check_repack(cfg, before, after, max_len, what):
+    """A slot the degrade rung moved from a dense-KV arena into an nxfp4
+    one: its K/V rows (up to ``pos``; a ring's: its window) bitwise
+    ``repack_kv`` of the source's dense rows through the plain codec (on
+    the CPU), its Mamba state (``h``, ``conv``) bitwise the source's.
+    Returns (pos, rows held, K/V bytes held)."""
+    from repro_torch.models.kvcache import cache_rows
+    from repro_torch.serving import (pack_device_state, repack_kv,
+                                     unpack_device_state)
+    rows = cache_rows(cfg, max_len)
+    pos = int(before["pos"][0])
+    used = min(pos, rows)
+    cpu = {"pos": before["pos"].cpu(),
+           "layers": [{k: v.cpu() for k, v in layer.items()}
+                      for layer in before["layers"]]}
+    want = repack_kv(cfg, unpack_device_state(pack_device_state(cpu, used),
+                                              rows), None, "nxfp4")
+    n_bytes = 0
+    for mine, src, ref in zip(after["layers"], cpu["layers"],
+                              want["layers"]):
+        for name, buf in mine.items():
+            if name in ("h", "conv"):
+                if not torch.equal(buf.cpu(), src[name]):
+                    fail(f"{what}: the moved slot's {name} changed")
+                continue
+            if not torch.equal(buf[:, :used].cpu(), ref[name][:, :used]):
+                fail(f"{what}: the repacked slot's {name} rows differ "
+                     f"from the plain codec's encode of its dense rows")
+            n_bytes += buf[:, :used].numel() * buf.element_size()
+    return pos, used, n_bytes
+
+
 def phase_tiers(n_layers, card):
     """``TieredContinuousEngine(default_tiers())`` at full width: phase
     8's requests spread over premium, standard and economy, both admission
@@ -2277,9 +2342,7 @@ def phase_tiers(n_layers, card):
     from repro_torch.models import init_params, read_cache_slot
     from repro_torch.serving import (ContinuousEngine, DegradeOverBudget,
                                      Status, TieredContinuousEngine,
-                                     default_tiers, kv_row_bytes,
-                                     pack_device_state, repack_kv,
-                                     unpack_device_state)
+                                     default_tiers, kv_row_bytes)
     from repro_torch.serving.engine import load_params
 
     # (c): the premium tier's bf16 weights (cuBLAS) and dense KV, a row at
@@ -2450,20 +2513,9 @@ def phase_tiers(n_layers, card):
              f"results {[(r.uid, r.status, r.degraded) for r in rung.values()]}")
     if not np.array_equal(rung[1].tokens, solos[1]):
         fail("degrade rung: the standard neighbour's stream moved")
-    slot, before, after = repacked[0]
-    pos = int(before["pos"][0])
-    cpu = {"pos": before["pos"].cpu(),
-           "layers": [{k: v.cpu() for k, v in layer.items()}
-                      for layer in before["layers"]]}
-    want = repack_kv(cfg, unpack_device_state(pack_device_state(cpu, pos),
-                                              CONT_MAX_LEN), None, "nxfp4")
-    n_bytes = 0
-    for mine, ref in zip(after["layers"], want["layers"]):
-        for name, buf in mine.items():
-            if not torch.equal(buf[:, :pos].cpu(), ref[name][:, :pos]):
-                fail(f"degrade rung: the repacked slot's {name} rows differ "
-                     f"from the plain codec's encode of its dense rows")
-            n_bytes += buf[:, :pos].numel() * buf.element_size()
+    _, before, after = repacked[0]
+    pos, _, n_bytes = _check_repack(cfg, before, after, CONT_MAX_LEN,
+                                    "degrade rung")
     peak = torch.cuda.max_memory_allocated()
     arenas = {str(k): sum(b.numel() * b.element_size()
                           for layer in c["layers"] for b in layer.values())
@@ -3675,6 +3727,408 @@ def phase_speculative(card: str, serving_layers: int):
     return counts, fig
 
 
+# phase 15: the paged engine's speculative rounds (Llama-3-8B and
+# Hymba-1.5B at full depth) and TieredContinuousEngine on the SSM and
+# hybrid families (Hymba-1.5B at full depth, Falcon-Mamba-7B at
+# --serving-layers)
+P15_K = 4
+P15_MAX_LEN, P15_PAGE = 512, 32
+# Llama-3-8B: four requests on one 96-token prefix (more than the GEMMs'
+# 16-row regime: a whole prompt takes part in sharing) and two of their
+# own. Every budget ends at least k - 1 rows short of its last page, so no
+# live round reaches the null page and spec_stats() compares with the
+# dense engine's (a round's rows past a reservation read the null page:
+# the candidates it accepts there, past the budget, may differ)
+P15_PREFIX, P15_TAILS = 96, (40, 8, 100, 60)
+P15_OTHERS = (200, 64)
+P15_NEW = (48, 40, 32, 56, 40, 24)
+# Hymba-1.5B: a registrar of a 990-token prompt that never wraps its
+# 1024-row ring and two claimants of its first 960 tokens (30 pages; one
+# the whole prompt, one 3 tokens of its own after 985) whose 64 new tokens
+# wrap the ring into the shared pages, and a short request; chunk 1 (one
+# round a chunk, as at 4), so the round's k + 1 rows are the dispatch's
+# write horizon: a COW at pos 1020-1023 is one the chunk's row alone
+# would not have made
+P15_HYMBA_PROMPT, P15_HYMBA_NEW, P15_HYMBA_CHUNK = 990, (8, 64, 64, 16), 1
+# the tiered serves: six requests by uid % 3 over premium, standard and
+# economy, whole and at P 256; the degrade rung on Hymba
+P15_TIER_PROMPTS = (300, 64, 200, 400, 100, 48)
+P15_TIER_NEW = (16, 24, 8, 16, 24, 8)
+P15_REPACK_WATERMARK = 0.05
+# the kernels at the shapes phase 15 adds: the qq GEMM at Hymba's
+# attention and MLP (K, N) pairs (wq/wo, wk/wv, w1/w3, w2), at a lane
+# chunk's M (P 256) and a prefill's; the quantizer's paged verify write
+HYMBA_QQ_KN = ((1600, 1600), (1600, 320), (1600, 5504), (5504, 1600))
+HYMBA_QQ_M = (SSM_P, 512)
+PAGED_VERIFY = {"verify": (1, [301, 70, 480, 18], None, None)}
+# the kernels each phase-15 path must launch
+P15_KERNELS = {"llama paged speculative": ("nxfp_quantize", "nxfp_matmul",
+                                           "nxfp_attention"),
+               "hymba paged speculative": ("nxfp_quantize", "nxfp_matmul",
+                                           "nxfp_attention"),
+               "hymba tiers": ("nxfp_quantize", "nxfp_matmul",
+                               "nxfp_attention", "dense_attention",
+                               "nxfp_qq_matmul"),
+               "falcon tiers": ("nxfp_matmul",)}
+
+
+def check_phase15_kernels(timer, rows):
+    """The kernels at the shapes phase 15 adds, held and timed as the rows
+    above are: the quantizer's verify write of (4, 1) rows through a block
+    table (slot 1's row on a null page) and the qq GEMM at Hymba's
+    attention and MLP pairs."""
+    check_paged_kv_write(timer, rows, PAGED_VERIFY)
+    check_qq_matmul(timer, rows, HYMBA_QQ_KN, HYMBA_QQ_M)
+    torch.cuda.empty_cache()
+
+
+def _null_page_clean(eng) -> bool:
+    """Page 0 of every pool buffer is all zeros."""
+    from repro_torch.kernels.build import bit_view
+    return all(not bool(bit_view(buf)[0].any())
+               for layer in eng.cache["layers"]
+               for name, buf in layer.items() if name.startswith("pool_"))
+
+
+def _paged_spec_llama(card, counts):
+    """Llama-3-8B (32 layers, nxfp4 weights and KV, recycled draft): the
+    paged speculative engine against the dense speculative engine and the
+    plain paged engine, then second serves in turns."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.qtensor import QuantPolicy
+    from repro_torch.models import init_params
+    from repro_torch.serving import (ContinuousEngine, PagedContinuousEngine,
+                                     Request)
+    from repro_torch.serving import SpeculativeConfig as Spec
+    from repro_torch.serving.engine import load_params
+    cfg = get_config("llama3_8b")
+    raw = init_params(cfg, seed=0, device="cuda")
+    params = load_params(raw, QuantPolicy("nxfp4", None),
+                         torch.device("cuda"))
+    del raw
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(50)
+    prefix = rng.integers(0, cfg.vocab, (P15_PREFIX,))
+    prompts = [np.concatenate([prefix, rng.integers(0, cfg.vocab, (t,))])
+               for t in P15_TAILS]
+    prompts += [rng.integers(0, cfg.vocab, (t,)) for t in P15_OTHERS]
+    reqs = [Request(uid=i, tokens=p, max_new=m,
+                    arrival_time=0.0 if i < 4 else 0.05 * (i - 3))
+            for i, (p, m) in enumerate(zip(prompts, P15_NEW))]
+    for r in reqs:
+        end = len(r.tokens) + r.max_new
+        if -(-end // P15_PAGE) * P15_PAGE - end < P15_K - 1:
+            fail(f"paged speculative: uid {r.uid}'s budget ends within "
+                 f"k - 1 rows of its last page")
+    policy = QuantPolicy("nxfp4", "nxfp4")
+    spec = Spec(k=P15_K, draft="recycled")
+    kw = dict(n_slots=CONT_SLOTS, chunk=CONT_CHUNK, max_len=P15_MAX_LEN,
+              device="cuda")
+    dense, res, _, _ = _engine_run(
+        lambda: ContinuousEngine(cfg, params, policy, speculative=spec,
+                                 **kw), reqs, None,
+        "llama dense speculative")
+    want = {r.uid: r.tokens for r in res}
+    dense_stats = dense.spec_stats()
+    del dense
+    plain, _, _, _ = _engine_run(
+        lambda: PagedContinuousEngine(cfg, params, policy,
+                                      page_size=P15_PAGE, **kw),
+        reqs, want, "llama plain paged")
+    eng, res, wall, peak = _counted(lambda: _engine_run(
+        lambda: PagedContinuousEngine(cfg, params, policy, speculative=spec,
+                                      page_size=P15_PAGE, **kw),
+        reqs, want, "llama paged speculative"), counts)
+    if eng.spec_stats() != dense_stats:
+        fail(f"paged speculative: spec_stats {eng.spec_stats()} differ from "
+             f"the dense speculative engine's {dense_stats}")
+    st = eng.pool_stats()[0]
+    if st["prefix_hits"] < 1 or eng.replays == 0 or not eng.spec_rounds:
+        fail(f"paged speculative: no prefix hit or no graph replay ({st}, "
+             f"{eng.replays} replays)")
+    if not _null_page_clean(eng):
+        fail("paged speculative: the null page was written")
+    eng.pool.assert_empty()
+    fig = dict(first_serve_s=round(wall, 3), peak=peak, pool_stats=st,
+               spec_stats=eng.spec_stats(),
+               graphs=sorted(str(k) for k in eng._graphs))
+    fig.update(_spec_rounds_timed(plain, eng, reqs, want,
+                                  "llama paged speculative"))
+    if not _null_page_clean(eng):
+        fail("paged speculative: the null page was written")
+    log(f"paged speculative Llama-3-8B ({card}): full width, {cfg.n_layers} "
+        f"layers, "
+        f"nxfp4 weights and KV, recycled draft, k {P15_K}, {CONT_SLOTS} "
+        f"slots, chunk {CONT_CHUNK}, max_len {P15_MAX_LEN}, pages of "
+        f"{P15_PAGE} rows, prefix sharing; {len(reqs)} requests (4 on one "
+        f"{P15_PREFIX}-token prefix): every stream bitwise the dense "
+        f"speculative engine's and the plain paged engine's, spec_stats "
+        f"equal ({dense_stats}), page 0 all zeros, the pool empty; accept "
+        f"rate {fig['accept_rate']}; ms a chunk "
+        f"{fig['median']['spec']['chunk_ms']} ({fig['round_ms']} a round) "
+        f"vs the plain paged engine's {fig['median']['plain']['chunk_ms']};"
+        f" tok/s {fig['median']['spec']['tok_s']} vs "
+        f"{fig['median']['plain']['tok_s']} ({fig['tok_s_ratio']}x); "
+        f"{fig}")
+    del plain, eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return fig
+
+
+def _paged_spec_hymba(card, counts):
+    """Hymba-1.5B (32 layers, nxfp4): a registrar and two claimants of a
+    990-token prompt whose rounds wrap the 1024-row ring into the shared
+    pages, against the dense speculative engine."""
+    import numpy as np
+    from repro_torch.core.qtensor import QuantPolicy
+    from repro_torch.serving import (ContinuousEngine, PagedContinuousEngine,
+                                     Request)
+    from repro_torch.serving import SpeculativeConfig as Spec
+    cfg, params, _ = _cast_family(HYMBA)
+    rng = np.random.default_rng(51)
+    prompt = rng.integers(0, cfg.vocab, (P15_HYMBA_PROMPT,))
+    prompts = [prompt, prompt, np.concatenate(
+        [prompt[:985], rng.integers(0, cfg.vocab, (3,))]),
+        rng.integers(0, cfg.vocab, (64,))]
+    reqs = [Request(uid=i, tokens=p, max_new=m)
+            for i, (p, m) in enumerate(zip(prompts, P15_HYMBA_NEW))]
+    policy = QuantPolicy("nxfp4", "nxfp4")
+    spec = Spec(k=P15_K, draft="recycled")
+    kw = dict(n_slots=CONT_SLOTS, chunk=P15_HYMBA_CHUNK,
+              max_len=HYMBA_MAX_LEN, device="cuda")
+    dense, res, dwall, _ = _engine_run(
+        lambda: ContinuousEngine(cfg, params, policy, speculative=spec,
+                                 **kw), reqs, None,
+        "hymba dense speculative")
+    want = {r.uid: r.tokens for r in res}
+    dense_fig = dict(_serve_figures(dense, res, dwall),
+                     chunk_ms=_chunk_ms(dense))
+    del dense
+    plain, res, pwall, _ = _engine_run(
+        lambda: PagedContinuousEngine(cfg, params, policy, **kw), reqs,
+        want, "hymba plain paged")
+    plain_fig = dict(_serve_figures(plain, res, pwall),
+                     chunk_ms=_chunk_ms(plain))
+    del plain
+    journal = _Journal()
+    n0 = len(journal.records)
+    eng, res, wall, peak = _counted(lambda: _engine_run(
+        lambda: PagedContinuousEngine(cfg, params, policy, speculative=spec,
+                                      **kw), reqs, want,
+        "hymba paged speculative"), counts)
+    journal.log.removeHandler(journal)
+    w, hz = cfg.sliding_window, eng._horizon_bound()
+    breaks = [e for e in journal.records[n0:] if e["event"] == "cow-break"]
+    st = eng.pool_stats()[0]
+    if hz != P15_K + 1 or not breaks or st["prefix_hits"] < 1:
+        fail(f"hymba paged speculative: horizon {hz}, cow-breaks {breaks}, "
+             f"pool {st}")
+    late = [e for e in breaks if not w - hz < e["pos"] <= w]
+    round_only = [e for e in breaks if e["pos"] + P15_HYMBA_CHUNK <= w]
+    if late or not round_only:
+        fail(f"hymba paged speculative: COWs {breaks}: each must fire "
+             f"within the round's horizon ({hz} rows), one where the "
+             f"chunk's {P15_HYMBA_CHUNK} would not have")
+    if not _null_page_clean(eng):
+        fail("hymba paged speculative: the null page was written")
+    eng.pool.assert_empty()
+    fig = dict(_serve_figures(eng, res, wall), peak=peak, pool_stats=st,
+               cow_breaks=[(e["slot"], e["pos"], e["pages"])
+                           for e in breaks],
+               round_horizon_only=len(round_only),
+               accept_rate=round(eng.spec_stats()["accept_rate"], 4),
+               chunk_ms=_chunk_ms(eng), dense=dense_fig,
+               plain_paged=plain_fig)
+    log(f"paged speculative Hymba-1.5B ({card}): full width, {cfg.n_layers} "
+        f"layers, "
+        f"nxfp4 KV in a {w}-row ring, k {P15_K}, chunk {P15_HYMBA_CHUNK} "
+        f"(write horizon {hz} = k + 1), a registrar of {P15_HYMBA_PROMPT} "
+        f"tokens and two claimants wrapping into its pages: every stream "
+        f"bitwise the dense speculative engine's and the plain paged "
+        f"engine's (first serves, {fig['tok_s']} tok/s against "
+        f"{plain_fig['tok_s']}), COW at pos "
+        f"{[e['pos'] for e in breaks]} (each > {w} - {hz}; "
+        f"{len(round_only)} where the chunk's horizon alone would not have "
+        f"broken), page 0 all zeros; {fig}")
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return fig
+
+
+def _tier_requests(cfg, seed):
+    import numpy as np
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(seed)
+    return [Request(uid=i, tokens=rng.integers(0, cfg.vocab, (t,)),
+                    max_new=m, tier=TIER_OF[i % 3])
+            for i, (t, m) in enumerate(zip(P15_TIER_PROMPTS, P15_TIER_NEW))]
+
+
+def _tiers_family(card, cfg, what, counts):
+    """``TieredContinuousEngine(default_tiers())`` over ``cfg`` (a bf16
+    model from seed 0): the mixed serve whole and at P 256 against each
+    request's solo stream at its tier, qq launches around the economy
+    prefill, the one-tier engine against the plain engine whole and at
+    P 256, and (with attention) the degrade rung's repack. Launches of the
+    mixed serves are added to ``counts``."""
+    import numpy as np
+    from repro_torch.core.qtensor import QuantPolicy
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import init_params, read_cache_slot
+    from repro_torch.serving import (ContinuousEngine, DegradeOverBudget,
+                                     TieredContinuousEngine, default_tiers)
+    from repro_torch.serving.engine import load_params
+    t0 = time.time()
+    raw = init_params(cfg, seed=0, device="cuda")
+    model = load_params(raw, QuantPolicy(None, None), torch.device("cuda"))
+    del raw
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    tiers = default_tiers()
+    reqs = _tier_requests(cfg, 52)
+    lane_kw = dict(prefill_mode="chunked", p_chunk=SSM_P)
+    kw = dict(n_slots=CONT_SLOTS, max_len=P15_MAX_LEN, chunk=CONT_CHUNK,
+              device="cuda")
+    fig = {"cast_s": round(time.time() - t0, 2)}
+    n_econ = sum(r.tier == "economy" for r in reqs)
+    solos = None
+    for mode, extra in (("whole", {}), (f"P {SSM_P}", lane_kw)):
+        eng = TieredContinuousEngine(cfg, model, tiers, **kw, **extra)
+        if solos is None:
+            solo_of = {name: _TierSolo(cfg, eng._wparams[spec.weight_fmt],
+                                       spec.kv_fmt, spec.act_fmt,
+                                       P15_MAX_LEN)
+                       for name, spec in tiers.items()}
+            solos = {r.uid: solo_of[r.tier](r) for r in reqs}
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        res, wall = _serve_checked(eng, reqs, solos, f"{what} tiers {mode}")
+        torch.cuda.synchronize()
+        got = launch_counts()
+        for k, v in got.items():
+            counts[k] = counts.get(k, 0) + v
+        qq = got["nxfp_qq_matmul"]
+        want_qq = 0 if cfg.attn_free else 7 * cfg.n_layers * n_econ
+        if (mode == "whole" and qq != want_qq) or \
+                (mode != "whole" and (qq > 0) == cfg.attn_free):
+            fail(f"{what} tiers {mode}: {qq} qq GEMM launches around "
+                 f"{n_econ} economy prefills (want "
+                 f"{'0' if cfg.attn_free else f'7 a layer: {want_qq}'})")
+        if eng.replays != sum(eng.chunk_groups) or max(eng.chunk_groups) < 2:
+            fail(f"{what} tiers {mode}: {eng.replays} replays for "
+                 f"{sum(eng.chunk_groups)} group dispatches")
+        res2, wall2 = _serve_checked(eng, reqs, solos,
+                                     f"{what} tiers {mode} (second)")
+        fig[mode] = dict(_serve_figures(eng, res2, wall2), qq=qq,
+                         chunk_ms=_chunk_ms(eng),
+                         group_dispatches=sum(eng.chunk_groups),
+                         first_serve_s=round(wall, 3))
+        if mode == "whole":
+            whole = eng
+        else:
+            del eng
+    # the tier engine restricted to one tier is the plain engine
+    one_tier = "standard"
+    spec = tiers[one_tier]
+    untiered = [dataclasses.replace(r, tier=None) for r in reqs]
+    for mode, extra in (("whole", {}), (f"P {SSM_P}", lane_kw)):
+        one = TieredContinuousEngine(cfg, model, {one_tier: spec}, **kw,
+                                     **extra)
+        base = ContinuousEngine(cfg, one._wparams[spec.weight_fmt],
+                                QuantPolicy(None, spec.kv_fmt), **kw,
+                                **extra)
+        b_res, b_wall = _serve_checked(base, untiered, None, f"{what} plain")
+        want = {r.uid: r.tokens for r in b_res}
+        o_res, o_wall = _serve_checked(one, untiered, want,
+                                       f"{what} one tier ({mode})")
+        fig[f"one tier {mode}"] = dict(
+            tok_s=round(sum(r.n_generated for r in o_res) / o_wall, 2),
+            chunk_ms=_chunk_ms(one),
+            plain_tok_s=round(sum(r.n_generated for r in b_res) / b_wall, 2),
+            plain_chunk_ms=_chunk_ms(base))
+        del one, base
+        gc.collect()
+        torch.cuda.empty_cache()
+    if not cfg.attn_free:
+        # the degrade rung: a premium request over the watermark repacked
+        # into the standard arena; its h/conv moved bit for bit
+        repacked = []
+        repack = whole._repack_slot
+
+        def spy(sched, slot, dst):
+            before = read_cache_slot(whole._slot_cache(slot), slot)
+            repack(sched, slot, dst)
+            repacked.append((before, read_cache_slot(whole._slot_cache(slot),
+                                                     slot)))
+
+        whole._repack_slot = spy
+        whole.degrade_kv_to = "standard"
+        whole.shedding = DegradeOverBudget(
+            max_new_cap=None, pool_watermark=P15_REPACK_WATERMARK)
+        # premium (400 tokens, decoding for 3 chunks), standard
+        pair = [dataclasses.replace(reqs[3], max_new=3 * CONT_CHUNK), reqs[1]]
+        rung = {r.uid: r for r in whole.serve(pair)}
+        whole._repack_slot, whole.degrade_kv_to, whole.shedding = \
+            repack, None, None
+        if len(repacked) != 1 or not rung[3].degraded or \
+                rung[1].degraded or not np.array_equal(rung[1].tokens,
+                                                       solos[1]):
+            fail(f"{what} degrade rung: {len(repacked)} repacks, results "
+                 f"{[(r.uid, r.status, r.degraded) for r in rung.values()]}")
+        pos, used, n_bytes = _check_repack(cfg, *repacked[0], P15_MAX_LEN,
+                                           f"{what} degrade rung")
+        fig["repack"] = dict(pos=pos, rows=used, kv_bytes=n_bytes,
+                             state="bitwise")
+    del whole, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    fig["seconds"] = round(time.time() - t0, 1)
+    log(f"tiered serving {what} ({card}): full width, {cfg.n_layers} layers"
+        f", default_tiers() over a bf16 model (seed 0), {CONT_SLOTS} slots, "
+        f"chunk {CONT_CHUNK}, max_len {P15_MAX_LEN}; {len(reqs)} requests "
+        f"by uid % 3 over {TIER_OF}, whole and at P {SSM_P}: every stream "
+        f"bitwise its solo stream at its tier; one-tier ({one_tier}) engines "
+        f"bitwise the plain engine; {fig}")
+    return fig
+
+
+def phase_paged_spec_and_tiers(card: str, serving_layers: int):
+    """Phase 15: the paged engine's speculative rounds (Llama-3-8B and
+    Hymba-1.5B at full depth), then ``TieredContinuousEngine`` on Hymba-1.5B
+    (full depth) and Falcon-Mamba-7B (``serving_layers``). Launches are
+    counted around the engines under test alone. Returns (launch counts by
+    path, figures)."""
+    from repro_torch.configs import get_config
+    t0 = time.time()
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts = {name: {} for name in P15_KERNELS}
+    fig = {"llama paged speculative": _paged_spec_llama(
+        card, counts["llama paged speculative"])}
+    fig["hymba paged speculative"] = _paged_spec_hymba(
+        card, counts["hymba paged speculative"])
+    fig["hymba tiers"] = _tiers_family(card, get_config(HYMBA), "hymba",
+                                       counts["hymba tiers"])
+    fcfg = dataclasses.replace(get_config(FALCON), n_layers=serving_layers)
+    fig["falcon tiers"] = _tiers_family(card, fcfg, "falcon",
+                                        counts["falcon tiers"])
+    for path, names in P15_KERNELS.items():
+        for name in names:
+            if counts[path].get(name, 0) <= 0:
+                fail(f"phase 15 ({path}): kernel {name} was never launched")
+    if counts["falcon tiers"].get("nxfp_qq_matmul", 0):
+        fail("phase 15: Falcon's tiers launched the qq GEMM")
+    fig["seconds"] = round(time.time() - t0, 1)
+    log(f"  launches on phase 15's paths (the engines under test alone; "
+        f"Falcon at {serving_layers} layers): {counts}; phase 15 "
+        f"{fig['seconds']} s")
+    return counts, fig
+
+
 def kernel_formats(kname, rows, wide_counts):
     """The formats ``kname`` ran in this run: its main-path formats, its
     phase-3 wide rows and the formats phase 7 served through it."""
@@ -3758,7 +4212,7 @@ def main():
                     help="Llama-3-8B depth for the main path (default 32)")
     ap.add_argument("--serving-layers", type=int, default=SERVING_LAYERS,
                     help="Llama-3-8B depth for phases 7-10 and 12, and "
-                         "Falcon-Mamba-7B's for phase 14 (default "
+                         "Falcon-Mamba-7B's for phases 14 and 15 (default "
                          f"{SERVING_LAYERS}, at most --layers)")
     args = ap.parse_args()
     late = min(args.layers, args.serving_layers)
@@ -3788,6 +4242,9 @@ def main():
     ssm_rows = set(rows)
     check_ssm_kernels(timer, rows)
     ssm_rows = [k for k in rows if k not in ssm_rows]
+    p15_rows = set(rows)
+    check_phase15_kernels(timer, rows)
+    p15_rows = [k for k in rows if k not in p15_rows]
     del timer
     torch.cuda.empty_cache()
     phase_reference()
@@ -3824,6 +4281,9 @@ def main():
     t14 = time.time()
     spec_counts, _ = phase_speculative(smi_line, late)
     log(f"phase 14 seconds: {time.time() - t14:.1f}")
+    t15 = time.time()
+    p15_counts, _ = phase_paged_spec_and_tiers(smi_line, late)
+    log(f"phase 15 seconds: {time.time() - t15:.1f}")
 
     table = []
     for kname, (sources, replaces) in KERNELS.items():
@@ -3848,6 +4308,8 @@ def main():
                                  for a, v in ssm.items()},
             launches_speculative_path={path: n.get(c, 0)
                                        for path, n in spec_counts.items()},
+            launches_phase15_path={path: n.get(c, 0)
+                                   for path, n in p15_counts.items()},
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
@@ -3872,9 +4334,27 @@ def main():
             **{f: r[f] for f in ("max_abs_err", "ms", "plain_ms",
                                  "bound_ms", "bound_by", "library_ms",
                                  "shape")}))
+    # the rows at the shapes phase 15 adds (the qq GEMM at Hymba's pairs,
+    # the paged verify write), each with its kernel's launches on phase
+    # 15's paths
+    for key in p15_rows:
+        kname = ("nxfp_qq_matmul" if key.startswith("nxfp_qq_matmul")
+                 else "nxfp_quantize")
+        sources, replaces = KERNELS[kname]
+        r = rows[key]
+        by_path = {path: n.get(COUNTERS[kname], 0)
+                   for path, n in p15_counts.items()}
+        table.append(dict(
+            name=key, kernel=kname, route="cuda", source=sources[0],
+            replaces=replaces, launches=sum(by_path.values()),
+            launches_phase15_path=by_path,
+            **{f: r[f] for f in ("max_abs_err", "ms", "plain_ms",
+                                 "bound_ms", "bound_by", "library_ms",
+                                 "shape")}))
     extra = [dict(name=k, **{f: v for f, v in r.items()})
              for k, r in rows.items()
-             if k not in MAIN_ROW.values() and k not in ssm_rows]
+             if k not in MAIN_ROW.values() and k not in ssm_rows
+             and k not in p15_rows]
     log(f"other shapes: {json.dumps(extra)}")
     log(f"total seconds: {time.time() - t_start:.1f}")
     print(json.dumps({"kernels": table}), flush=True)

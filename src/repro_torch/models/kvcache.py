@@ -90,6 +90,8 @@ def ssm_cache_init(cfg: ModelConfig, batch: int, device: torch.device):
 
 # the pool twin of a dense buffer <name> is "pool_<name>"
 _POOL_PREFIX = "pool_"
+# a layer cache's K/V buffers: the leaves with a sequence-row axis (1)
+_KV_LEAVES = ("k", "v", "k_packed", "k_meta", "v_packed", "v_meta")
 
 
 def paged_attn_cache_init(cfg: ModelConfig, batch: int, max_len: int,
@@ -306,53 +308,80 @@ def write_token(cfg: ModelConfig, layer_cache, k1, v1, pos,
 
 def _round_rows(cfg: ModelConfig, layer_cache, pos, q: int, kv_fmt):
     """The rows ``pos[b] + i`` (i < q) of every slot, as ``write_token``
-    places them: (rows (B, q) int64, inside (B, q) bool). A ring's rows are
-    ``% window`` (distinct: q <= window). A row outside [0, S) is never
+    places them: (index, inside (B, q) bool), ``index`` a tuple that picks
+    the (B, q) rows out of each buffer of ``_row_buffers``. A ring's rows
+    are ``% window`` (distinct: q <= window). A row outside [0, S) is never
     written; it is handed ``row - q``, below the slot's q rows and distinct
     from them, clamped into the cache, so a scatter over the rows has
-    distinct indices wherever it writes something new."""
-    if "block" in layer_cache:
-        raise NotImplementedError(
-            "a speculative round's rows on a paged cache (ROADMAP A12's "
-            "remainder)")
+    distinct indices wherever it writes something new.
+
+    A paged cache's rows are flat pool rows ``page * page_size + r %
+    page_size`` through the slot's block table, read on the device (a
+    round runs inside a captured graph). A row past S or whose entry is
+    the null page is not inside (the K/V write drops it) and is handed its
+    null-page row ``r % page_size``: every inside row lies on a page of
+    its own slot (a shared page is privatized before a round can reach
+    it), so the only indices that repeat are the null page's, whose bytes
+    a scatter writes back as it read them."""
     s = _logical_rows(layer_cache, kv_fmt)
     if q > s:
         raise ValueError(f"{q} rows a round over a cache of {s}")
     row = pos.long()[:, None] + torch.arange(q, device=pos.device)[None, :]
+    slots = torch.arange(row.shape[0], device=row.device)[:, None]
     if cfg.sliding_window:
-        return row % cfg.sliding_window, torch.ones_like(row, dtype=torch.bool)
-    inside = (row >= 0) & (row < s)
-    return torch.where(inside, row, row - q).clamp(0, s - 1), inside
+        row = row % cfg.sliding_window
+        inside = torch.ones_like(row, dtype=torch.bool)
+    else:
+        inside = (row >= 0) & (row < s)
+    if "block" in layer_cache:
+        blk, _, page = _pool_dims(layer_cache)
+        row = row.clamp(0, s - 1)
+        pg = blk[slots, row // page].long()
+        inside = inside & (pg > 0)
+        return (torch.where(inside, pg * page, 0) + row % page,), inside
+    if not cfg.sliding_window:
+        row = torch.where(inside, row, row - q).clamp(0, s - 1)
+    return (slots, row), inside
+
+
+def _row_buffers(layer_cache):
+    """One layer's K/V buffers under the dense names, as ``bit_view``
+    sees them: a dense cache's (B, S, ...) as they are, a paged cache's
+    pools as flat (NP * page, ...) views."""
+    if "block" not in layer_cache:
+        return {name: bit_view(buf) for name, buf in layer_cache.items()
+                if name in _KV_LEAVES}
+    return {name[len(_POOL_PREFIX):]: bit_view(pool).view(
+        pool.shape[0] * pool.shape[1], *pool.shape[2:])
+        for name, pool in layer_cache.items()
+        if name.startswith(_POOL_PREFIX)}
 
 
 def save_rows(cfg: ModelConfig, layer_cache, pos, q: int,
               kv_fmt: Optional[str]):
     """Copies of the rows a speculative round may write (``pos[b] + i``,
     i < q; ring rows in a ring) of every K/V buffer of one layer cache:
-    {name: (B, q, ...)}, packed bytes and meta raw. ``restore_rows`` puts
-    them back."""
-    rows, _ = _round_rows(cfg, layer_cache, pos, q, kv_fmt)
-    slots = torch.arange(rows.shape[0], device=rows.device)[:, None]
-    return {name: bit_view(buf)[slots, rows]
-            for name, buf in layer_cache.items()
-            if name in ("k", "v", "k_packed", "k_meta", "v_packed",
-                        "v_meta")}
+    {name: (B, q, ...)}, packed bytes and meta raw. A paged cache's rows
+    are read through the block table, under the dense names (a row on the
+    null page reads its bytes and is never put back). ``restore_rows``
+    puts them back."""
+    at, _ = _round_rows(cfg, layer_cache, pos, q, kv_fmt)
+    return {name: buf[at] for name, buf in _row_buffers(layer_cache).items()}
 
 
 def restore_rows(cfg: ModelConfig, layer_cache, saved, pos, keep,
                  kv_fmt: Optional[str]):
     """Put back, in place, the saved rows ``pos[b] + i`` of slot b where
-    ``keep`` (B, q) holds and the row lies in the cache; every other row
-    keeps what it holds. No host sync (capturable). Returns
-    ``layer_cache``."""
+    ``keep`` (B, q) holds and the row lies in the cache (a paged cache's:
+    on a page of the slot's, not the null page); every other row keeps
+    what it holds. No host sync (capturable). Returns ``layer_cache``."""
     q = keep.shape[1]
-    rows, inside = _round_rows(cfg, layer_cache, pos, q, kv_fmt)
+    at, inside = _round_rows(cfg, layer_cache, pos, q, kv_fmt)
     keep = keep & inside
-    slots = torch.arange(rows.shape[0], device=rows.device)[:, None]
-    for name, val in saved.items():
-        buf = bit_view(layer_cache[name])
+    for name, buf in _row_buffers(layer_cache).items():
+        val = saved[name]
         mask = keep.reshape(keep.shape + (1,) * (val.dim() - 2))
-        buf[slots, rows] = torch.where(mask, val, buf[slots, rows])
+        buf[at] = torch.where(mask, val, buf[at])
     return layer_cache
 
 

@@ -60,6 +60,19 @@ computes its own state over the whole prompt. An attention-free model
 page gate (every page step returns early, ``cfg.attn_free``), and the
 engine serves as ``ContinuousEngine`` does.
 
+Speculative rounds (``speculative=``, the dense engine's option, its
+graphs and counters): a round's draft and verify write rows ``pos .. pos
++ k`` through the block table, and what the round must put back is saved
+and restored on the pools (``kvcache.save_rows``/``restore_rows``, the
+table read on the device inside the round's graph). Reservations stay
+tenancy-sized: a row past a request's pages maps to the null page, where
+the K/V write drops it and nothing is saved or put back. The write
+horizon of a dispatch is ``max(chunk, k + 1)`` (``_horizon_bound``), which
+a ring claimant's reservation and the COW sweep read. The streams are the
+dense engine's; ``spec_stats()`` is too, unless a live round reaches past
+a request's pages: its rows there read the null page, and the candidates
+it accepts past the budget (counted, never emitted) may differ.
+
 Left for later: the sharded paged engine, suspension and checkpoints
 (``_restore_dispatch``), the ``kv_integrity`` refusal (the port has no KV
 canary yet) and paged tiers (the reference has none).
@@ -119,10 +132,6 @@ class PagedContinuousEngine(ContinuousEngine):
                  n_pages: Optional[int] = None,
                  page_size: Optional[int] = None,
                  prefix_sharing: bool = True, **kw):
-        if kw.get("speculative") is not None:
-            raise NotImplementedError(
-                "PagedContinuousEngine does not run speculative rounds yet "
-                "(ROADMAP A12's remainder: the paged engine's rounds)")
         rows = cfg.sliding_window if cfg.sliding_window else max_len
         if page_size is None:
             page_size = auto_page_size(rows)
@@ -186,10 +195,12 @@ class PagedContinuousEngine(ContinuousEngine):
 
     def _horizon_bound(self) -> int:
         """Rows one slot may write past ``pos`` in one decode dispatch,
-        overshoot after it finished included: the chunk (the engine refuses
-        ``speculative=`` until ROADMAP A12's remainder, whose rounds also
-        write k + 1 verify rows past ``pos``)."""
-        return self.chunk
+        overshoot after it finished included: the chunk, and for a
+        speculative round the k + 1 rows its verify writes (a chunk of
+        ``max(1, chunk // (k + 1))`` rounds writes no further)."""
+        if self.speculative is None:
+            return self.chunk
+        return max(self.chunk, self.speculative.k + 1)
 
     def _share_terms(self, req: Request):
         """(claim tokens, reserve, register_ok) of one fresh admission.

@@ -83,11 +83,12 @@ Self-speculative decoding (``speculative=SpeculativeConfig(...)``,
 ``serving/speculative.py``): each decode chunk runs ``n_rounds`` rounds of
 draft, batched verify and commit instead of ``chunk`` steps; on CUDA one
 captured graph per (k, n_rounds, greedy). A greedy stream is the plain
-engine's, bit for bit.
+engine's, bit for bit. The paged engine runs the same rounds over its
+pools (``serving/paged_engine.py``); the tiered engine refuses
+``speculative=``, as the reference's does.
 
 Left for later slices: quarantine, suspension, preemption, snapshots
-(and with them ``spec_k`` in a snapshot), sharding, and the paged
-engine's speculative rounds.
+(and with them ``spec_k`` in a snapshot) and sharding.
 """
 from __future__ import annotations
 
@@ -921,17 +922,20 @@ class ContinuousEngine:
         for name, arr in host.items():
             self._buf[name].copy_(torch.from_numpy(arr))
 
-    def _run_chunk(self, key, make_fn, greedy: bool):
+    def _run_chunk(self, key, make_fn, greedy: bool, cache=None):
         """The chunk's outputs: on CUDA a replay of the graph under ``key``
         (captured at first use from ``make_fn()`` after a one-step warm-up,
-        ``make_fn(1)``, the slot generators registered with a sampled one),
-        on the CPU ``make_fn()()``."""
+        ``make_fn(1)``, the slot generators registered with a sampled one,
+        the recurrent state of ``cache``, the chunk's arena (default the
+        engine's), put back after the warm-up), on the CPU
+        ``make_fn()()``."""
         if self.device.type != "cuda":
             return make_fn()()
         if key not in self._graphs:
             self._graphs[key] = capture_graph(
                 make_fn(), self.device, () if greedy else self._gens,
-                warm=make_fn(1), keep=recurrent_state(self.cache))
+                warm=make_fn(1),
+                keep=recurrent_state(self.cache if cache is None else cache))
         graph, outs = self._graphs[key]
         graph.replay()
         self.replays += 1

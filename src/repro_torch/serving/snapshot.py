@@ -18,11 +18,11 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from ..models.kvcache import _KV_LEAVES
+
 __all__ = ["pack_device_state", "unpack_device_state", "slot_row_capacity"]
 
-# a layer cache's leaves with a sequence-row axis (1)
-_ROW_LEAVES = frozenset(("k", "v", "k_packed", "k_meta", "v_packed",
-                         "v_meta"))
+_ROW_LEAVES = frozenset(_KV_LEAVES)  # leaves with a sequence-row axis (1)
 
 
 def slot_row_capacity(cache: Dict[str, Any]) -> Optional[int]:

@@ -38,12 +38,20 @@ and re-encoded (``repack_kv``), moved between arenas, and the slot decodes
 on under the cheap tier's weights and KV. Such a request finishes with
 ``degraded=True`` and a ``kv-repack`` event.
 
-Guarantees (``tests/test_torch_tiers.py``): a tier engine restricted to
-one tier emits the plain ``ContinuousEngine``'s tokens at that policy,
-bit for bit; each stream of a mixed-tier serve is the stream of its
-request served alone at its tier. Refused at init: ``p_chunk="auto"``
-(the sweep times one arena's graphs) and the ``ssm`` and ``hybrid``
-families (their Mamba state is not in the slot-state helpers yet).
+Families: dense, ssm and hybrid. A Mamba block's state (``h``, ``conv``)
+lives in its slot's tier arena beside the K/V rows (none in the
+attention-free ``ssm`` family): admission writes it there, a park zeroes
+it there, a repack moves it bit for bit with the rows, and a group's
+graph warm-up puts its arena's state back (``capture_graph(keep=)``). An
+attention-free model has no KV to price (``kv_row_bytes`` 0), so its
+degrade rung never fires.
+
+Guarantees (``tests/test_torch_tiers.py``,
+``tests/test_torch_tiers_ssm.py``): a tier engine restricted to one tier
+emits the plain ``ContinuousEngine``'s tokens at that policy, bit for
+bit; each stream of a mixed-tier serve is the stream of its request
+served alone at its tier. Refused at init: ``p_chunk="auto"`` (the sweep times one arena's
+graphs) and ``speculative=`` (as the reference's).
 """
 from __future__ import annotations
 
@@ -65,6 +73,7 @@ from ..models.kvcache import cache_rows
 from .engine import load_params
 from .scheduler import (DECODING, ContinuousEngine, Request, SlotScheduler,
                         continuous_chunk)
+from .snapshot import _ROW_LEAVES
 
 __all__ = ["TierSpec", "TieredContinuousEngine", "default_tiers",
            "repack_kv", "kv_row_bytes"]
@@ -105,8 +114,12 @@ def default_tiers(act_fmt: str = "amxfp4") -> Dict[str, TierSpec]:
 
 
 def kv_row_bytes(cfg: ModelConfig, kv_fmt: Optional[str]) -> int:
-    """Bytes one token's K and V rows take across all layers of a slot."""
+    """Bytes one token's K and V rows take across all layers of a slot (0
+    for the attention-free family: its state does not grow with
+    tokens)."""
     kvh, hd, n_layers = cfg.n_kv_heads, cfg.hd, cfg.n_layers
+    if cfg.attn_free:
+        return 0
     if kv_fmt is None:
         return 2 * n_layers * kvh * hd * (torch.finfo(cfg.dtype).bits // 8)
     fmt = get_format(kv_fmt)
@@ -122,8 +135,10 @@ def repack_kv(cfg: ModelConfig, solo: Dict[str, Any],
     ``cfg.dtype`` (dense rows as they are), then encoded by the quantizer.
     Blocks run along head_dim inside one row, so every row is encoded on
     its own. Rows past ``pos`` should be zeros, so that nothing stale is
-    encoded. ``pos`` passes through."""
-    if src_fmt == dst_fmt:
+    encoded. ``pos`` and the Mamba state (``h``, ``conv``) pass through; a
+    slice without attention K/V (the ``ssm`` family) is returned as it
+    is."""
+    if src_fmt == dst_fmt or cfg.attn_free:
         return solo
     kvh, hd = cfg.n_kv_heads, cfg.hd
     layers = []
@@ -168,13 +183,6 @@ class TieredContinuousEngine(ContinuousEngine):
         if kw.get("speculative") is not None:
             raise ValueError("tiered serving does not compose with "
                              "speculative=")
-        if cfg.has_mamba:
-            # the slot-state helpers (serving/snapshot.py) and
-            # kv_row_bytes carry no Mamba state yet
-            raise NotImplementedError(
-                f"TieredContinuousEngine does not serve family "
-                f"{cfg.family!r} yet (ROADMAP A13's follow-up: tiers for "
-                f"the ssm and hybrid families)")
         if kw.get("p_chunk") == "auto":
             raise ValueError("p_chunk='auto' probes the single-arena "
                              "cache; pick a static p_chunk")
@@ -199,6 +207,9 @@ class TieredContinuousEngine(ContinuousEngine):
         self._row_bytes = {spec.kv_fmt: kv_row_bytes(cfg, spec.kv_fmt)
                            for spec in self.tiers.values()}
         self._max_row_bytes = max(self._row_bytes.values())
+        # a slot's KV rows (a ring's: its window); None without attention
+        self._row_cap = (None if cfg.attn_free
+                         else cache_rows(cfg, self.max_len))
         self.chunk_groups: List[int] = []
         self.repacks = 0
 
@@ -299,7 +310,8 @@ class TieredContinuousEngine(ContinuousEngine):
             outs = self._run_chunk(
                 (wf, kvf, greedy),
                 lambda steps=None: self._group_chunk_fn(greedy, wf, kvf,
-                                                        steps), greedy)
+                                                        steps), greedy,
+                self._caches[kvf])
             for g, state in kept:
                 g.set_state(state)
             emitted_all[mask] = self._fold(outs, self._caches[kvf],
@@ -324,10 +336,9 @@ class TieredContinuousEngine(ContinuousEngine):
         """The share of the KV budget the decoding slots hold, each slot's
         rows priced at its own tier (budget: every slot full at the
         dearest tier)."""
-        sched = self._sched
-        if sched is None or not self._max_row_bytes:
+        sched, rows = self._sched, self._row_cap
+        if sched is None or rows is None or not self._max_row_bytes:
             return 0.0
-        rows = cache_rows(self.cfg, self.max_len)    # a ring's: its window
         used = 0
         for slot, req in sched.active.items():
             if sched.phase.get(slot) != DECODING:
@@ -365,9 +376,9 @@ class TieredContinuousEngine(ContinuousEngine):
     def _repack_slot(self, sched: SlotScheduler, slot: int,
                      dst_name: str) -> None:
         """Move a decoding slot to ``dst_name`` at a chunk boundary: its
-        K/V rows re-encoded into the destination arena, the source arena's
-        slot parked, the tier flipped; it decodes on under the cheap tier
-        from the next chunk."""
+        K/V rows re-encoded into the destination arena, its Mamba state
+        moved as it is, the source arena's slot parked, the tier flipped;
+        it decodes on under the cheap tier from the next chunk."""
         src_name = self._slot_tier[slot]
         src = self.tiers[src_name].kv_fmt
         dst = self.tiers[dst_name].kv_fmt
@@ -377,8 +388,9 @@ class TieredContinuousEngine(ContinuousEngine):
             solo = read_cache_slot(self._caches[src], slot)   # a copy
             pos = int(solo["pos"][0])
             for layer in solo["layers"]:     # nothing stale is encoded
-                for buf in layer.values():
-                    buf[:, pos:].zero_()
+                for name, buf in layer.items():
+                    if name in _ROW_LEAVES:
+                        buf[:, pos:].zero_()
             write_cache_slot(self._caches[dst],
                              repack_kv(self.cfg, solo, src, dst), slot)
             reset_slot(self.cfg, self._caches[src], slot)

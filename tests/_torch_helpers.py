@@ -6,6 +6,7 @@ oversubscribes the cores."""
 import numpy as np
 import torch
 
+from repro_torch.models import prefill
 from repro_torch.serving import ServeEngine
 
 torch.set_num_threads(1)
@@ -31,3 +32,20 @@ def solo_stream(cfg, params, policy, req, max_len, engine=ServeEngine, **kw):
             temperature=req.temperature, stop_token=req.stop_token,
             loop="host"))
     return _SOLOS[key][1]
+
+
+class TierSolo(ServeEngine):
+    """``ServeEngine`` whose prefill quantizes its activations to
+    ``act_fmt``: a request served alone at a serving tier (the tiers
+    tests' oracle, through ``solo_stream(engine=TierSolo, act_fmt=)``)."""
+
+    def __init__(self, *args, act_fmt=None, **kw):
+        super().__init__(*args, **kw)
+        self.act_fmt = act_fmt
+
+    def _prefill(self, batch):
+        tokens = torch.as_tensor(np.asarray(batch["tokens"]),
+                                 dtype=torch.int64)
+        return prefill(self.cfg, self.params, {"tokens": tokens},
+                       max_len=self.max_len, kv_fmt=self.policy.kv_fmt,
+                       act_fmt=self.act_fmt)

@@ -1671,3 +1671,105 @@ def test_mamba_decode_step_invariant_on_card(cuda, arch):
     for a, b in zip(static["layers"], c4["layers"]):
         for name in ("h", "conv"):
             assert torch.equal(a[name], b[name]), name
+
+
+# ---------------------------------------------------------------------------
+# the paged engine's speculative rounds; the qq GEMM at Hymba's shapes
+# ---------------------------------------------------------------------------
+
+def _pool_bytes(cache):
+    """Every pool buffer of a paged cache, as raw bytes (a copy)."""
+    return {(i, name): buf.view(torch.uint8).clone()
+            for i, layer in enumerate(cache["layers"])
+            for name, buf in layer.items() if name.startswith("pool_")}
+
+
+@pytest.mark.parametrize("kv", [None, "nxfp4"])
+def test_paged_round_rows_in_a_graph(cuda, kv):
+    """A speculative round's save, verify and restore over a paged cache,
+    captured as one CUDA graph (the block table read on the device): a
+    replay leaves every pool byte as it was; slot 0's rows 24-25 lie past
+    its reservation (a null table entry). A ragged commit through a graph
+    leaves every mapped row equal to the dense cache's after the same
+    eager commit, and the null page all zeros."""
+    from repro_torch.models import (commit_verify, init_paged_cache,
+                                    read_cache_slot, verify_step,
+                                    write_cache_slot)
+    from repro_torch.models.kvcache import paged_layer_view
+    from repro_torch.models.lm import restore_round, save_round
+    from repro_torch.serving.engine import capture_graph
+    cfg = get_smoke_config("llama3_8b")
+    params = init_params(cfg, seed=0, device=cuda)
+    b, t, q, page, max_len = 2, 21, 5, 8, 32
+    rng = np.random.default_rng(12)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (b, t)), device=cuda)
+    cands = torch.as_tensor(rng.integers(0, cfg.vocab, (b, q)),
+                            dtype=torch.int32, device=cuda)
+    _, dense = prefill(cfg, params, {"tokens": toks}, max_len, kv)
+    paged = init_paged_cache(cfg, b, max_len, kv, n_pages=2 * 4 + 1,
+                             page_size=page, device=cuda)
+    table = torch.tensor([[1, 2, 3, 0], [4, 5, 6, 7]], dtype=torch.int32)
+    paged["layers"][0]["block"].copy_(table.to(cuda))
+    for s in range(b):
+        write_cache_slot(paged, read_cache_slot(dense, s), s)
+    before = _pool_bytes(paged)
+
+    def round_trip():
+        saved = save_round(cfg, paged, q, kv)
+        verify_step(cfg, params, cands, paged, kv)
+        restore_round(cfg, paged, saved, kv)
+
+    graph, _ = capture_graph(round_trip, cuda)
+    graph.replay()
+    torch.cuda.synchronize()
+    after = _pool_bytes(paged)
+    assert all(torch.equal(after[k], v) for k, v in before.items())
+
+    n = torch.tensor([2, 5], dtype=torch.int32, device=cuda)
+
+    def commit():
+        _, pend = verify_step(cfg, params, cands, paged, kv)
+        return commit_verify(cfg, paged, pend, n, kv)["pos"]
+
+    graph, pos = capture_graph(commit, cuda)
+    graph.replay()
+    _, pend = verify_step(cfg, params, cands, dense, kv)
+    want = commit_verify(cfg, dense, pend, n, kv)
+    torch.cuda.synchronize()
+    assert torch.equal(pos, want["pos"])
+    mapped = (table != 0).repeat_interleave(page, dim=1).to(cuda)
+    for pl, dl in zip(paged["layers"], dense["layers"]):
+        view = paged_layer_view(pl)
+        for name, buf in dl.items():
+            a, d = view[name].view(torch.uint8), buf.view(torch.uint8)
+            assert torch.equal(a[mapped], d[mapped]), name
+        for name, buf in pl.items():
+            if name.startswith("pool_"):
+                assert not buf[0].view(torch.uint8).any(), name
+
+
+HYMBA_QQ = [(1600, 1600), (1600, 320), (1600, 5504), (5504, 1600)]
+
+
+@pytest.mark.parametrize("k,n", HYMBA_QQ)
+@pytest.mark.parametrize("m", [256, 512])
+def test_qq_kernel_at_hymba_shapes(cuda, k, n, m):
+    """The qq GEMM at Hymba-1.5B's attention and MLP pairs (the economy
+    tier's prefill at M 512 and its lane chunk at M 256): within 1e-5 of
+    sum|x||w| of its plain version and the bits of ``nxfp_matmul`` on the
+    plain-decoded X."""
+    x_fmt, w_fmt = get_format("amxfp4"), get_format("nxfp4")
+    g = torch.Generator(device=cuda).manual_seed(k + n + m)
+    x = torch.randn((m, k), generator=g, device=cuda).to(torch.bfloat16)
+    w = torch.randn((k, n), generator=g, device=cuda) * 0.02
+    xq = quantize_qtensor(x, x_fmt, axis=-1, device=cuda)
+    wq = quantize_qtensor(w, w_fmt, axis=-2, device=cuda)
+    args = (xq.packed, xq.meta, wq.packed, wq.meta, x_fmt, w_fmt)
+    y = nqq.nxfp_qq_matmul(*args)
+    yp = nqq.nxfp_qq_matmul_plain(*args)
+    xd = nm.dequant_weight_bf16(xq.packed, xq.meta, x_fmt)
+    wd = nm.dequant_weight_bf16(wq.packed, wq.meta, w_fmt).float()
+    assert y.shape == (m, n) and torch.isfinite(y).all()
+    assert ((y - yp).abs() <= 1e-5 * (xd.float().abs() @ wd.abs().T)
+            + 1e-30).all()
+    assert torch.equal(y, nm.nxfp_matmul(xd, wq.packed, wq.meta, w_fmt))

@@ -40,9 +40,9 @@ from repro_torch.convert import params_from_jax
 from repro_torch.core.qtensor import QuantPolicy
 from repro_torch.models import (commit_verify, decode_step, draft_loop,
                                 init_params, prefill, verify_step)
-from repro_torch.serving import (ContinuousEngine, PagedContinuousEngine,
-                                 Request, SpeculativeConfig,
-                                 TieredContinuousEngine, default_tiers)
+from repro_torch.serving import (ContinuousEngine, Request,
+                                 SpeculativeConfig, TieredContinuousEngine,
+                                 default_tiers)
 from repro_torch.serving import speculative as spec
 from repro_torch.serving.events import parse_event
 
@@ -485,8 +485,7 @@ def test_speculative_stop_token_and_seeded_sampling():
 
 def test_speculative_refusals():
     """A recycled draft needs cast weights; the tiered engine does not
-    compose with speculation (as the reference's); the paged engine's
-    rounds are ROADMAP A12's remainder."""
+    compose with speculation (as the reference's)."""
     cfg, params = _port_params("llama3_8b")
     kw = dict(n_slots=2, max_len=MAX_LEN, chunk=4, device="cpu",
               speculative=SpeculativeConfig(k=4))
@@ -494,6 +493,3 @@ def test_speculative_refusals():
         ContinuousEngine(cfg, params, QuantPolicy(None, None), **kw)
     with pytest.raises(ValueError, match="speculative"):
         TieredContinuousEngine(cfg, params, default_tiers(), **kw)
-    with pytest.raises(NotImplementedError, match="A12"):
-        PagedContinuousEngine(cfg, params, QuantPolicy("nxfp4", "nxfp4"),
-                              **kw)

@@ -18,8 +18,8 @@
 * The port's own invariants: the lane at P 16 bitwise the whole prefill
   (``tests/test_torch_lane.py`` holds the reference's rows), ``decode_step
   (live=)`` freezing a slot's ``h``/``conv``, ``reset_slot`` zeroing them,
-  the ``p_chunk % ssm_chunk`` refusal and ``"auto"``'s filter, and the
-  tiered engine's refusal.
+  the ``p_chunk % ssm_chunk`` refusal and ``"auto"``'s filter. The
+  tiered engine on these families: ``tests/test_torch_tiers_ssm.py``.
 """
 import functools
 
@@ -45,8 +45,7 @@ from repro_torch.models import (decode_step, init_cache, init_lane,
                                 init_params, prefill, prefill_chunk,
                                 reset_slot, write_cache_slot)
 from repro_torch.models import ssm
-from repro_torch.serving import (ContinuousEngine, ServeEngine,
-                                 TieredContinuousEngine, default_tiers)
+from repro_torch.serving import ContinuousEngine, ServeEngine
 
 import _torch_helpers  # noqa: F401  (one intra-op thread a process)
 
@@ -361,14 +360,6 @@ def test_p_chunk_must_align_with_ssm_chunk(arch):
                            device="cpu")
     assert sorted(eng.p_chunk_sweep) == [16, 32]
     assert eng.p_chunk in (16, 32)
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_tiered_engine_refuses_the_family(arch):
-    _, cfg, _, tparams = _setup(arch)
-    with pytest.raises(NotImplementedError, match="A13"):
-        TieredContinuousEngine(cfg, tparams, default_tiers(), n_slots=1,
-                               max_len=MAX_LEN, device="cpu")
 
 
 def test_init_params_shapes():

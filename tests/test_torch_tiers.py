@@ -44,12 +44,12 @@ from repro_torch.core.qtensor import QuantPolicy
 from repro_torch.models import (init_cache, prefill, prefill_into_slot,
                                 read_cache_slot)
 from repro_torch.serving import (ContinuousEngine, DegradeOverBudget,
-                                 Request, ServeEngine, TieredContinuousEngine,
+                                 Request, TieredContinuousEngine,
                                  TierSpec, default_tiers, events,
                                  kv_row_bytes, pack_device_state, repack_kv,
                                  slot_row_capacity, unpack_device_state)
 
-from _torch_helpers import solo_stream  # one intra-op thread a process
+from _torch_helpers import TierSolo, solo_stream  # one intra-op thread
 
 ACT_TOL = 2e-2
 MAX_LEN = 64
@@ -76,28 +76,12 @@ def _reqs(cfg, lens, max_news, tiers=None, sampled=()):
                     tiers or [None] * len(lens)))]
 
 
-class _TierSolo(ServeEngine):
-    """``ServeEngine`` whose prefill quantizes its activations to
-    ``act_fmt``: a request served alone at a tier."""
-
-    def __init__(self, *args, act_fmt=None, **kw):
-        super().__init__(*args, **kw)
-        self.act_fmt = act_fmt
-
-    def _prefill(self, batch):
-        tokens = torch.as_tensor(np.asarray(batch["tokens"]),
-                                 dtype=torch.int64)
-        return prefill(self.cfg, self.params, {"tokens": tokens},
-                       max_len=self.max_len, kv_fmt=self.policy.kv_fmt,
-                       act_fmt=self.act_fmt)
-
-
 def _solo(setup, spec, req):
     """The request's tokens served alone at the tier (once a process per
     request, tier formats and params)."""
     out = solo_stream(setup[1], setup[3],
                       QuantPolicy(spec.weight_fmt, spec.kv_fmt), req, MAX_LEN,
-                      engine=_TierSolo, act_fmt=spec.act_fmt)
+                      engine=TierSolo, act_fmt=spec.act_fmt)
     return out.tokens[0, :int(out.n_generated[0])]
 
 
