@@ -6,8 +6,9 @@
 
 Phases 7-10 and 12 serve Llama-3-8B at ``--serving-layers`` (default 8,
 at most ``--layers``); phases 11 and 13 serve their models at their full
-depth, and phases 14 and 15 Llama-3-8B and Hymba-1.5B at theirs,
-Falcon-Mamba-7B at ``--serving-layers``.
+depth, and phases 14 to 16 Llama-3-8B and Hymba-1.5B at theirs,
+Falcon-Mamba-7B (and phase 15's paged speculative Llama-3-8B and phase
+16's tiers) at ``--serving-layers``.
 
 Phases, each fatal on failure (exit code 1, no result line):
 
@@ -219,7 +220,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    against the plain engine (second serves in turns).
 
 15. The paged engine's speculative rounds and tiered serving for the SSM
-   and hybrid families. Llama-3-8B at full width and depth (nxfp4 weights
+   and hybrid families. Llama-3-8B at full width and ``--serving-layers``
+   depth (32 layers until phase 16 came; nxfp4 weights
    and KV, recycled draft, k 4, 4 slots, chunk 16, max_len 512, pages of
    32 rows, prefix sharing): 6 requests, four on one 96-token prefix,
    through ``PagedContinuousEngine(speculative=)``: every stream bitwise
@@ -244,6 +246,30 @@ Phases, each fatal on failure (exit code 1, no result line):
    test alone (``launches_phase15_path``). Phase 3 holds the quantizer's
    paged verify write ((4, 1) rows, one on a null page) and the qq GEMM
    at Hymba's (K, N) pairs at M 256 and 512; their rows join the table.
+
+16. Suspension, preemption, slot snapshots and checkpoints
+   (``phase_suspend_resume``), every interrupted stream bitwise the same
+   engine's uninterrupted stream (served in turn in the same process, so
+   the graphs are captured once). Llama-3-8B at full width and depth
+   (nxfp4 weights and KV, 4 slots, chunk 16, max_len 512): four batch
+   requests at priority 0 and two interactive ones at priority 1 arriving
+   at 0.2 s under ``PriorityPreemption`` (a preemption and a resume
+   required), tok/s against the uninterrupted serve in turns; a sampled
+   request suspended by ``suspend()`` resuming in another slot, the
+   restored slot read back bitwise its snapshot; its snapshot bytes at
+   nxfp4 and at bf16 KV; two slots of a speculative engine (k 4, recycled
+   draft) suspended, the streams the plain engine's and ``spec_k`` back
+   (one set to 2 first); a checkpoint after the second chunk, a crash (an
+   exception out of ``progress_cb``), then ``restore`` on a fresh dense and
+   a fresh paged engine. Hymba-1.5B (32 layers; its 1000-token prompt's
+   ring wrapped) and Falcon-Mamba-7B (``--serving-layers``), whole and at
+   P 256: a request suspended after 32 tokens, its ``h``/``conv`` and K/V
+   rows bitwise across the round trip, the decode graphs captured afresh
+   after the resume. ``TieredContinuousEngine(default_tiers())`` on
+   Llama-3-8B at ``--serving-layers``: an economy request back in its
+   arena in another slot. Printed: suspend and resume ms, checkpoint bytes
+   and write seconds, snapshot and state bytes, launches counted around
+   the interrupted serves alone (``launches_phase16_path``).
 
 The last three lines are the kernel table as JSON, the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.
@@ -3290,7 +3316,7 @@ def phase_falcon(card):
         lambda: PagedContinuousEngine(cfg, params, policy, **kw), reqs,
         solos, "falcon paged"), counts["engines"])
     if any("block" in lc or any(n.startswith("pool_") for n in lc)
-           for lc in peng.cache["layers"]) or peng.pool.stats()["used"]:
+           for lc in peng.cache["layers"]) or peng.pool is not None:
         fail("falcon paged: an attention-free cache holds pages")
     del peng
     # an attention-free model quantizes only in the cast (no K/V)
@@ -3790,10 +3816,10 @@ def _null_page_clean(eng) -> bool:
                for name, buf in layer.items() if name.startswith("pool_"))
 
 
-def _paged_spec_llama(card, counts):
-    """Llama-3-8B (32 layers, nxfp4 weights and KV, recycled draft): the
-    paged speculative engine against the dense speculative engine and the
-    plain paged engine, then second serves in turns."""
+def _paged_spec_llama(card, counts, n_layers):
+    """Llama-3-8B (``n_layers`` layers, nxfp4 weights and KV, recycled
+    draft): the paged speculative engine against the dense speculative
+    engine and the plain paged engine, then second serves in turns."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.core.qtensor import QuantPolicy
@@ -3802,7 +3828,7 @@ def _paged_spec_llama(card, counts):
                                      Request)
     from repro_torch.serving import SpeculativeConfig as Spec
     from repro_torch.serving.engine import load_params
-    cfg = get_config("llama3_8b")
+    cfg = dataclasses.replace(get_config("llama3_8b"), n_layers=n_layers)
     raw = init_params(cfg, seed=0, device="cuda")
     params = load_params(raw, QuantPolicy("nxfp4", None),
                          torch.device("cuda"))
@@ -4097,18 +4123,18 @@ def _tiers_family(card, cfg, what, counts):
 
 
 def phase_paged_spec_and_tiers(card: str, serving_layers: int):
-    """Phase 15: the paged engine's speculative rounds (Llama-3-8B and
-    Hymba-1.5B at full depth), then ``TieredContinuousEngine`` on Hymba-1.5B
-    (full depth) and Falcon-Mamba-7B (``serving_layers``). Launches are
-    counted around the engines under test alone. Returns (launch counts by
-    path, figures)."""
+    """Phase 15: the paged engine's speculative rounds (Llama-3-8B at
+    ``serving_layers``, Hymba-1.5B at full depth), then
+    ``TieredContinuousEngine`` on Hymba-1.5B (full depth) and
+    Falcon-Mamba-7B (``serving_layers``). Launches are counted around the
+    engines under test alone. Returns (launch counts by path, figures)."""
     from repro_torch.configs import get_config
     t0 = time.time()
     gc.collect()
     torch.cuda.empty_cache()
     counts = {name: {} for name in P15_KERNELS}
     fig = {"llama paged speculative": _paged_spec_llama(
-        card, counts["llama paged speculative"])}
+        card, counts["llama paged speculative"], serving_layers)}
     fig["hymba paged speculative"] = _paged_spec_hymba(
         card, counts["hymba paged speculative"])
     fig["hymba tiers"] = _tiers_family(card, get_config(HYMBA), "hymba",
@@ -4124,8 +4150,521 @@ def phase_paged_spec_and_tiers(card: str, serving_layers: int):
         fail("phase 15: Falcon's tiers launched the qq GEMM")
     fig["seconds"] = round(time.time() - t0, 1)
     log(f"  launches on phase 15's paths (the engines under test alone; "
-        f"Falcon at {serving_layers} layers): {counts}; phase 15 "
+        f"Llama and Falcon at {serving_layers} layers): {counts}; phase 15 "
         f"{fig['seconds']} s")
+    return counts, fig
+
+
+# phase 16: suspension, preemption, slot snapshots and checkpoints
+# Llama-3-8B at full width and depth (nxfp4 weights and KV, 4 slots, chunk
+# 16, max_len 512): four batch requests at priority 0, then two
+# interactive ones at priority 1 arriving once the slots are full
+P16_BATCH = ((32, 64), (96, 56), (160, 48), (256, 64))      # (prompt, new)
+P16_INTERACTIVE = ((48, 24), (128, 32))
+P16_ARRIVAL = 0.2                    # s: the interactive requests' arrival
+P16_ROUNDS = 1                       # (uninterrupted, preempted) x 2 a round
+# the suspend serve: a sampled request (uid 1) suspended after its first
+# chunk resumes in another slot (uid 4 takes its own meanwhile)
+P16_SUSPEND = ((64, 48), (128, 64), (32, 32), (200, 48), (96, 32))
+P16_SAMPLED = (0.9, 31)
+# Hymba-1.5B (32 layers) and Falcon-Mamba-7B (--serving-layers): a long
+# request suspended after 2 chunks (Hymba's 1000-token prompt has wrapped
+# its 1024-row ring by then) beside two short ones, in 4 slots
+P16_HYMBA = ((1000, 64), (300, 32), (64, 48))
+P16_FALCON = ((300, 48), (64, 32), (32, 16))
+P16_SSM_AFTER = 32                   # tokens decoded before the suspension
+# the tiers: Llama-3-8B at --serving-layers, default_tiers() over a bf16
+# model, default tier standard, 2 slots; an economy request suspended
+P16_TIERS = ((64, 48, "economy"), (96, 32, None), (48, 48, "economy"))
+# the kernels each phase-16 path must launch through its wrappers. The
+# preempted and suspended Llama serves and the tiered one replay the
+# decode graphs their engine's uninterrupted serve captured (every decode
+# chunk must be a replay), so their counters see the prefills' kernels
+# only
+P16_KERNELS = {"llama preemption": ("nxfp_quantize", "nxfp_matmul"),
+               "llama suspend": ("nxfp_quantize", "nxfp_matmul"),
+               "llama restore dense": ("nxfp_quantize", "nxfp_matmul",
+                                       "nxfp_attention"),
+               "llama restore paged": ("nxfp_quantize", "nxfp_matmul",
+                                       "nxfp_attention"),
+               "llama speculative": ("nxfp_quantize", "nxfp_matmul",
+                                     "nxfp_attention"),
+               "hymba": ("nxfp_quantize", "nxfp_matmul", "nxfp_attention"),
+               "falcon": ("nxfp_matmul",),
+               "tiers": ("nxfp_quantize", "nxfp_matmul", "nxfp_qq_matmul")}
+
+
+class _Crash(Exception):
+    """The simulated crash of phase 16's checkpoint case."""
+
+
+def _p16_requests(cfg, spec, seed, **kw):
+    import numpy as np
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(seed)
+    return [Request(uid=i, tokens=rng.integers(0, cfg.vocab, (t,)),
+                    max_new=m, **kw) for i, (t, m) in enumerate(spec)]
+
+
+def _p16_events(fn):
+    """``fn()`` with the serving journal captured: (its result, the event
+    records)."""
+    from repro_torch.serving import parse_event
+    recs = []
+
+    class Grab(logging.Handler):
+        def emit(self, rec):
+            e = parse_event(rec.getMessage())
+            if e is not None:
+                recs.append(e)
+
+    h, log_ = Grab(), logging.getLogger("repro_torch.serving")
+    level = log_.level
+    log_.addHandler(h)
+    log_.setLevel(logging.INFO)
+    try:
+        return fn(), recs
+    finally:
+        log_.removeHandler(h)
+        log_.setLevel(level)
+
+
+def _p16_spy(eng, times, box=None):
+    """Time every suspend (``_suspend_slot``) and resume (``_resume``) of
+    ``eng`` on the host clock, the device synchronised around each; with
+    ``box``, keep each resume's slot and the slot's state read back right
+    after the restore, before any chunk."""
+    from repro_torch.models import read_cache_slot
+    from repro_torch.serving import pack_device_state
+    suspend, resume = eng._suspend_slot, eng._resume
+
+    def timed(fn, key):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(*a, **k)
+            torch.cuda.synchronize()
+            times.setdefault(key, []).append(time.perf_counter() - t0)
+        return run
+
+    def resumed(sched, state, slot, req, snap, clock, **kw):
+        timed(resume, "resume")(sched, state, slot, req, snap, clock, **kw)
+        if box is not None:
+            box.setdefault("to", {})[req.uid] = slot
+            box.setdefault("back", {})[req.uid] = pack_device_state(
+                read_cache_slot(eng._slot_cache(slot), slot), snap.used_rows)
+
+    eng._suspend_slot = timed(suspend, "suspend")
+    eng._resume = resumed
+
+
+def _p16_suspender(uid, after, box, clear_graphs=False):
+    """A ``progress_cb`` that suspends ``uid`` once it has decoded
+    ``after`` tokens, keeping its snapshot and slot in ``box``; with
+    ``clear_graphs`` it also drops the decode graphs, so the chunk after
+    the resume captures them afresh with the restored slot live."""
+    from repro_torch.serving import DECODING
+
+    def cb(engine, sched):
+        slot = next((s for s, r in sched.active.items() if r.uid == uid),
+                    None)
+        if "snap" in box or slot is None or sched.phase[slot] != DECODING \
+                or engine._host["n_gen"][slot] < after:
+            return
+        box["snap"], box["from"] = engine.snapshot_slot(slot), slot
+        engine.suspend(uid)
+        if clear_graphs:
+            engine._graphs.clear()
+    return cb
+
+
+def _same_payload(a, b) -> bool:
+    return torch.equal(a["pos"], b["pos"]) and all(
+        set(x) == set(y) and all(torch.equal(x[n], y[n]) for n in x)
+        for x, y in zip(a["layers"], b["layers"]))
+
+
+def _p16_check(got, want, what):
+    import numpy as np
+    from repro_torch.serving import Status
+    if set(got) != set(want):
+        fail(f"{what}: results for {sorted(got)}, expected {sorted(want)}")
+    for uid, r in got.items():
+        if r.status != Status.OK or not np.array_equal(r.tokens, want[uid]):
+            fail(f"{what}: uid {uid} ({r.status}) {r.tokens[:8].tolist()} "
+                 f"... differs from the uninterrupted stream "
+                 f"{want[uid][:8].tolist()} ...")
+
+
+def _p16_llama(counts, tmp):
+    """Llama-3-8B (32 layers): preemption, a sampled request moved between
+    slots, the snapshot bytes at nxfp4 and bf16 KV, speculative suspension
+    with ``spec_k`` kept, then a checkpoint, a crash and restores on fresh
+    dense and paged engines."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.qtensor import QuantPolicy
+    from repro_torch.models import init_params
+    from repro_torch.serving import (ContinuousEngine, PagedContinuousEngine,
+                                     PriorityPreemption)
+    from repro_torch.serving import SpeculativeConfig as Spec
+    from repro_torch.serving.engine import load_params
+    fig = {}
+    t0 = time.time()
+    cfg = get_config("llama3_8b")
+    raw = init_params(cfg, seed=0, device="cuda")
+    nx = load_params(raw, QuantPolicy("nxfp4", None), torch.device("cuda"))
+    del raw
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    fig["cast_s"] = round(time.time() - t0, 2)
+    pol = QuantPolicy("nxfp4", "nxfp4")
+    kw = dict(n_slots=CONT_SLOTS, chunk=CONT_CHUNK, max_len=CONT_MAX_LEN,
+              device="cuda")
+    eng = ContinuousEngine(cfg, nx, pol, **kw)
+    times, box = {}, {}
+    _p16_spy(eng, times, box)
+
+    # preemption: the uninterrupted serve (the oracle, its graphs captured)
+    # then (uninterrupted, preempted, preempted, uninterrupted) in turns
+    reqs = (_p16_requests(cfg, P16_BATCH, 60)
+            + _p16_requests(cfg, P16_INTERACTIVE, 61, priority=1,
+                            arrival_time=P16_ARRIVAL))
+    reqs = [dataclasses.replace(r, uid=i) for i, r in enumerate(reqs)]
+    want = {r.uid: r.tokens for r in eng.serve(reqs)}
+    runs = {"uninterrupted": [], "preempted": []}
+    for _ in range(P16_ROUNDS):
+        for name in ("uninterrupted", "preempted", "preempted",
+                     "uninterrupted"):
+            eng.preemption = PriorityPreemption() if name == "preempted" \
+                else None
+            torch.cuda.synchronize()
+            replays = eng.replays
+            t1 = time.perf_counter()
+            res, evs = _p16_events(lambda: _counted(
+                lambda: eng.serve(reqs), counts["llama preemption"])
+                if name == "preempted" else eng.serve(reqs))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            _p16_check({r.uid: r for r in res}, want, f"llama {name}")
+            if eng.replays - replays != eng.chunks:
+                fail(f"llama {name}: a decode chunk was not a graph replay")
+            kinds = [e["event"] for e in evs]
+            if name == "preempted" and (kinds.count("preempt") < 1 or
+                                        kinds.count("resume") < 1):
+                fail(f"llama preemption: no preemption happened ({kinds})")
+            runs[name].append(dict(
+                tok_s=round(sum(r.n_generated for r in res) / wall, 2),
+                preempts=kinds.count("preempt")))
+    eng.preemption = None
+    fig["preemption_s"] = round(time.time() - t0, 1)
+    fig["preemption"] = dict(runs=runs, **{
+        f"{k}_tok_s": statistics.median(r["tok_s"] for r in v)
+        for k, v in runs.items()})
+
+    # a sampled request suspended by suspend() resumes in another slot
+    sreqs = _p16_requests(cfg, P16_SUSPEND, 62)
+    sreqs[1] = dataclasses.replace(sreqs[1], temperature=P16_SAMPLED[0],
+                                   seed=P16_SAMPLED[1])
+    swant = {r.uid: r.tokens for r in eng.serve(sreqs)}
+    box.clear()
+    replays = eng.replays
+    res = _counted(lambda: eng.serve(sreqs, progress_cb=_p16_suspender(
+        1, CONT_CHUNK, box)), counts["llama suspend"])
+    _p16_check({r.uid: r for r in res}, swant, "llama sampled suspend")
+    if eng.replays - replays != eng.chunks:
+        fail("llama sampled suspend: a decode chunk was not a graph replay")
+    if box["to"][1] == box["from"]:
+        fail("llama sampled suspend: the request resumed in its own slot")
+    if not _same_payload(box["back"][1], box["snap"].device):
+        fail("llama sampled suspend: the restored slot differs from its "
+             "snapshot")
+    snap = box["snap"]
+    fig["snapshot_nxfp4"] = dict(nbytes=snap.nbytes, pos=snap.pos,
+                                 rows=snap.used_rows,
+                                 per_row_layer=_row_layer_bytes(snap, cfg))
+    fig["suspend_ms"] = round(statistics.median(times["suspend"]) * 1e3, 3)
+    fig["resume_ms"] = round(statistics.median(times["resume"]) * 1e3, 3)
+    fig["moves"] = dict(suspends=len(times["suspend"]),
+                        resumes=len(times["resume"]))
+
+    # the same request's snapshot at bf16 KV, at the same boundary
+    bf_eng = ContinuousEngine(cfg, nx, QuantPolicy("nxfp4", None), **kw)
+    bbox = {}
+    bf_eng.serve([dataclasses.replace(sreqs[1], temperature=0.0)],
+                 progress_cb=_p16_suspender(1, CONT_CHUNK, bbox))
+    bsnap = bbox["snap"]
+    fig["snapshot_bf16"] = dict(nbytes=bsnap.nbytes, pos=bsnap.pos,
+                                rows=bsnap.used_rows,
+                                per_row_layer=_row_layer_bytes(bsnap, cfg))
+    fig["bf16_over_nxfp4"] = round(
+        fig["snapshot_bf16"]["per_row_layer"]
+        / fig["snapshot_nxfp4"]["per_row_layer"], 4)
+    del bf_eng
+
+    fig["suspend_s"] = round(time.time() - t0, 1)
+    # speculative (k 4, recycled draft): two slots suspended after the
+    # second chunk, one's draft length set to 2 first; the streams are the
+    # plain engine's (the preemption serve's), spec_k comes back
+    spec = ContinuousEngine(cfg, nx, pol, speculative=Spec(
+        k=SPEC_K, draft="recycled"), **kw)
+    armed, seen = {}, {"n": 0}
+    sresume = spec._resume
+
+    def spec_resume(sched, state, slot, req, snap, clock, **k):
+        sresume(sched, state, slot, req, snap, clock, **k)
+        armed[req.uid] = (snap.spec_k, int(spec._adaptive.k[slot]))
+    spec._resume = spec_resume
+
+    def spec_cb(engine, sched):
+        seen["n"] += 1
+        if seen["n"] == 2:
+            live = sorted(s for s in sched.active
+                          if sched.phase[s] == "DECODING")[:2]
+            engine._adaptive.k[live[0]] = 2
+            for s in live:
+                engine.suspend(sched.active[s].uid)
+    res = _counted(lambda: spec.serve(reqs, progress_cb=spec_cb),
+                   counts["llama speculative"])
+    _p16_check({r.uid: r for r in res}, want, "llama speculative suspend")
+    if len(armed) != 2 or sorted(a for a, _ in armed.values())[0] != 2 or \
+            any(a != b for a, b in armed.values()):
+        fail(f"llama speculative: spec_k did not come back: {armed}")
+    fig["speculative"] = dict(spec_k=armed, replays=spec.replays,
+                              accept_rate=round(
+                                  spec.spec_stats()["accept_rate"], 4))
+    del spec
+
+    fig["speculative_s"] = round(time.time() - t0, 1)
+    # a checkpoint mid-serve, a crash, restores on fresh engines
+    path = os.path.join(tmp, "serve.ck")
+    ck_fig = {}
+
+    def crash(engine, sched):
+        if engine.chunks == 2:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ck = engine.checkpoint(path)
+            ck_fig.update(write_s=round(time.perf_counter() - t1, 4),
+                          bytes=os.path.getsize(path),
+                          live=len(ck["snapshots"]),
+                          queued=len(ck["queued"]))
+            raise _Crash
+    try:
+        eng.serve(sreqs, progress_cb=crash)
+    except _Crash:
+        pass
+    else:
+        fail("llama checkpoint: the serve ended before its crash")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, cls, extra in (
+            ("llama restore dense", ContinuousEngine, {}),
+            ("llama restore paged", PagedContinuousEngine,
+             dict(page_size=P15_PAGE))):
+        fresh = cls(cfg, nx, pol, **kw, **extra)
+        pending, prior = fresh.restore(path)
+        got = {r.uid: r for r in prior}
+        got.update({r.uid: r for r in _counted(lambda: fresh.serve(pending),
+                                               counts[name])})
+        _p16_check(got, swant, name)
+        if cls is PagedContinuousEngine:
+            fresh.pool.assert_empty()
+        ck_fig[name] = dict(pending=len(pending), prior=len(prior),
+                            replays=fresh.replays)
+        del fresh
+        gc.collect()
+        torch.cuda.empty_cache()
+    fig["checkpoint"] = ck_fig
+    del nx
+    gc.collect()
+    torch.cuda.empty_cache()
+    fig["seconds"] = round(time.time() - t0, 1)
+    return fig
+
+
+def _row_layer_bytes(snap, cfg) -> float:
+    """A snapshot's K/V bytes per row and layer (its payload less ``pos``
+    and any Mamba state, over its rows and layers)."""
+    kv = sum(int(leaf.nbytes) for layer in snap.device["layers"]
+             for name, leaf in layer.items() if name not in ("h", "conv"))
+    return round(kv / max(snap.used_rows, 1) / cfg.n_layers, 2)
+
+
+def _p16_family(cfg, params, spec, what, counts, max_len):
+    """A long request suspended after ``P16_SSM_AFTER`` tokens beside two
+    short ones, whole and at P 256: the uninterrupted serve first, then
+    the interrupted one with the decode graphs dropped at the suspension
+    (the chunk after the resume captures them afresh with the restored
+    slot live); the state read back after the restore (``h``, ``conv``,
+    K/V rows) bitwise the snapshot's, every stream the uninterrupted
+    one's."""
+    from repro_torch.core.qtensor import QuantPolicy
+    from repro_torch.serving import ContinuousEngine
+    reqs = _p16_requests(cfg, spec, 63)
+    pol = QuantPolicy("nxfp4", None if cfg.attn_free else "nxfp4")
+    out = {}
+    for mode, extra in (("whole", {}), (f"P {SSM_P}", dict(
+            prefill_mode="chunked", p_chunk=SSM_P))):
+        eng = ContinuousEngine(cfg, params, pol, n_slots=CONT_SLOTS,
+                               chunk=CONT_CHUNK, max_len=max_len,
+                               device="cuda", **extra)
+        want = {r.uid: r.tokens for r in eng.serve(reqs)}
+        times, box = {}, {}
+        _p16_spy(eng, times, box)
+        res = _counted(lambda: eng.serve(reqs, progress_cb=_p16_suspender(
+            0, P16_SSM_AFTER, box, clear_graphs=True)), counts)
+        _p16_check({r.uid: r for r in res}, want, f"{what} {mode}")
+        snap = box["snap"]
+        if box["to"][0] == box["from"] or not eng._graphs:
+            fail(f"{what} {mode}: the request resumed in its own slot, or "
+                 f"no graph was captured after the resume")
+        if not _same_payload(box["back"][0], snap.device):
+            fail(f"{what} {mode}: h/conv or K/V rows differ across the "
+                 f"round trip")
+        w = cfg.sliding_window
+        if w and not (snap.pos > w and snap.used_rows == w):
+            fail(f"{what} {mode}: the ring had not wrapped at the suspension"
+                 f" (pos {snap.pos}, rows {snap.used_rows})")
+        state = sum(int(leaf.nbytes) for layer in snap.device["layers"]
+                    for name, leaf in layer.items() if name in ("h", "conv"))
+        out[mode] = dict(pos=snap.pos, rows=snap.used_rows,
+                         nbytes=snap.nbytes, state_bytes=state,
+                         state_per_layer=state // cfg.n_layers,
+                         suspend_ms=round(times["suspend"][0] * 1e3, 3),
+                         resume_ms=round(times["resume"][0] * 1e3, 3))
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _p16_tiers(cfg, counts):
+    """An economy request on ``TieredContinuousEngine(default_tiers())``
+    (default tier standard, 2 slots) suspended after its first chunk: it
+    resumes in the other slot, into the economy arena, and every stream is
+    the same engine's uninterrupted one."""
+    from repro_torch.core.qtensor import QuantPolicy
+    from repro_torch.models import init_params
+    from repro_torch.serving import TieredContinuousEngine, default_tiers
+    from repro_torch.serving.engine import load_params
+    raw = init_params(cfg, seed=0, device="cuda")
+    model = load_params(raw, QuantPolicy(None, None), torch.device("cuda"))
+    del raw
+    reqs = _p16_requests(cfg, [(t, m) for t, m, _ in P16_TIERS], 64)
+    reqs = [dataclasses.replace(r, tier=tier)
+            for r, (_, _, tier) in zip(reqs, P16_TIERS)]
+    eng = TieredContinuousEngine(cfg, model, default_tiers(),
+                                 default_tier="standard", n_slots=2,
+                                 chunk=CONT_CHUNK, max_len=CONT_MAX_LEN,
+                                 device="cuda")
+    want = {r.uid: r.tokens for r in eng.serve(reqs)}
+    times, box = {}, {}
+    _p16_spy(eng, times, box)
+    tiers = []
+    resume = eng._resume
+
+    def spy(sched, state, slot, req, snap, clock, **kw):
+        resume(sched, state, slot, req, snap, clock, **kw)
+        tiers.append(eng._slot_tier[slot])
+    eng._resume = spy
+    replays = eng.replays
+    res = _counted(lambda: eng.serve(reqs, progress_cb=_p16_suspender(
+        0, CONT_CHUNK, box)), counts)
+    _p16_check({r.uid: r for r in res}, want, "tiers")
+    if eng.replays - replays != sum(eng.chunk_groups):
+        fail("tiers: a group's decode chunk was not a graph replay")
+    if tiers != ["economy"] or box["to"][0] == box["from"] or \
+            not _same_payload(box["back"][0], box["snap"].device):
+        fail(f"tiers: the economy request did not come back into its arena "
+             f"in another slot ({tiers}, {box.get('to')}, "
+             f"{box.get('from')})")
+    fig = dict(pos=box["snap"].pos, nbytes=box["snap"].nbytes,
+               suspend_ms=round(times["suspend"][0] * 1e3, 3),
+               resume_ms=round(times["resume"][0] * 1e3, 3))
+    del eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return fig
+
+
+def phase_suspend_resume(card: str, serving_layers: int):
+    """Phase 16: suspension, preemption, slot snapshots and checkpoints,
+    every interrupted stream bitwise the same engine's uninterrupted
+    stream, inside the captured graphs. Llama-3-8B at full width and depth
+    (``_p16_llama``), Hymba-1.5B at full depth and Falcon-Mamba-7B at
+    ``serving_layers`` (``_p16_family``), the economy tier on Llama-3-8B at
+    ``serving_layers`` (``_p16_tiers``). Launches are counted around the
+    interrupted serves and the restored engines' serves alone. Returns
+    (launch counts by path, figures)."""
+    import tempfile
+    from repro_torch.configs import get_config
+    t0 = time.time()
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts = {name: {} for name in P16_KERNELS}
+    fig = {}
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        fig["llama"] = _p16_llama(counts, tmp)
+    t1 = time.time()
+    hcfg, hparams, _ = _cast_family(HYMBA)
+    fig["hymba"] = _p16_family(hcfg, hparams, P16_HYMBA, "hymba",
+                               counts["hymba"], HYMBA_MAX_LEN)
+    del hparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    fig["hymba_s"] = round(time.time() - t1, 1)
+    t2 = time.time()
+    from repro_torch.core.qtensor import QuantPolicy
+    from repro_torch.models import init_params
+    from repro_torch.serving.engine import load_params
+    fcfg = dataclasses.replace(get_config(FALCON), n_layers=serving_layers)
+    raw = init_params(fcfg, seed=0, device="cuda")
+    fparams = load_params(raw, QuantPolicy("nxfp4", None),
+                          torch.device("cuda"))
+    del raw
+    fig["falcon"] = _p16_family(fcfg, fparams, P16_FALCON, "falcon",
+                                counts["falcon"], FALCON_MAX_LEN)
+    del fparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    fig["falcon_s"] = round(time.time() - t2, 1)
+    t3 = time.time()
+    tcfg = dataclasses.replace(get_config("llama3_8b"),
+                               n_layers=serving_layers)
+    fig["tiers"] = _p16_tiers(tcfg, counts["tiers"])
+    fig["tiers_s"] = round(time.time() - t3, 1)
+    fig["seconds"] = round(time.time() - t0, 1)
+    lf = fig["llama"]
+    log(f"suspension ({card}): Llama-3-8B full width, 32 layers, nxfp4 "
+        f"weights and KV, {CONT_SLOTS} slots, chunk {CONT_CHUNK}, max_len "
+        f"{CONT_MAX_LEN}: every preempted, suspended, speculative-suspended "
+        f"and restored stream bitwise the uninterrupted one; preempted vs "
+        f"uninterrupted tok/s {lf['preemption']['preempted_tok_s']} vs "
+        f"{lf['preemption']['uninterrupted_tok_s']} (rounds in turns: "
+        f"{lf['preemption']['runs']}); snapshot of the sampled request at "
+        f"pos {lf['snapshot_nxfp4']['pos']}: nxfp4 {lf['snapshot_nxfp4']} "
+        f"vs bf16 KV {lf['snapshot_bf16']} ({lf['bf16_over_nxfp4']}x the "
+        f"bytes a row and layer); suspend {lf['suspend_ms']} ms, resume "
+        f"{lf['resume_ms']} ms (medians of {lf['moves']}); checkpoint "
+        f"{lf['checkpoint']}; speculative {lf['speculative']}; cast "
+        f"{lf['cast_s']} s, {lf['seconds']} s")
+    for name in ("hymba", "falcon"):
+        log(f"  suspension {name} ({card}): state and K/V bitwise across the"
+            f" round trip, a graph captured after the resume, streams "
+            f"bitwise: {fig[name]}")
+    log(f"  suspension tiers ({card}): the economy request back in its "
+        f"arena in another slot, streams bitwise: {fig['tiers']}")
+    log(f"  launches on phase 16's paths (the interrupted serves alone; "
+        f"Falcon and the tiers at {serving_layers} layers): {counts}; "
+        f"hymba {fig['hymba_s']} s, falcon {fig['falcon_s']} s, tiers "
+        f"{fig['tiers_s']} s; phase 16 {fig['seconds']} s")
+    for path, names in P16_KERNELS.items():
+        for name in names:
+            if counts[path].get(name, 0) <= 0:
+                fail(f"phase 16 ({path}): kernel {name} was never launched")
+    if counts["falcon"].get("nxfp_quantize", 0):
+        fail("phase 16: Falcon's serves launched the quantizer (no K/V)")
     return counts, fig
 
 
@@ -4200,9 +4739,10 @@ MAIN_ROW = {"nxfp_quantize": "nxfp_quantize",
 # path's premium tier (phase 10) for the dense-row attention
 QQ_PATH = ("nxfp_qq_matmul",)
 TIER_PATH = ("dense_decode_attention",)
-# phases 7-10 and 12 serve Llama-3-8B at this depth (the main path, phase
-# 5, at --layers): the script's clock has room for phases 11 and 13 at full
-# depth and for phase 14's 32-layer Llama-3-8B
+# phases 7-10 and 12, phase 15's paged speculative serve and phase 16's
+# tiers serve Llama-3-8B at this depth (the main path, phase 5, at
+# --layers): the script's clock has room for phases 11 and 13 at full depth
+# and for phases 14 and 16's 32-layer Llama-3-8B
 SERVING_LAYERS = 8
 
 
@@ -4211,9 +4751,10 @@ def main():
     ap.add_argument("--layers", type=int, default=32,
                     help="Llama-3-8B depth for the main path (default 32)")
     ap.add_argument("--serving-layers", type=int, default=SERVING_LAYERS,
-                    help="Llama-3-8B depth for phases 7-10 and 12, and "
-                         "Falcon-Mamba-7B's for phases 14 and 15 (default "
-                         f"{SERVING_LAYERS}, at most --layers)")
+                    help="Llama-3-8B depth for phases 7-10 and 12, phase "
+                         "15's paged speculative serve and phase 16's "
+                         "tiers, and Falcon-Mamba-7B's for phases 14-16 "
+                         f"(default {SERVING_LAYERS}, at most --layers)")
     args = ap.parse_args()
     late = min(args.layers, args.serving_layers)
     name, count, smi_line = phase_device()
@@ -4284,6 +4825,9 @@ def main():
     t15 = time.time()
     p15_counts, _ = phase_paged_spec_and_tiers(smi_line, late)
     log(f"phase 15 seconds: {time.time() - t15:.1f}")
+    t16 = time.time()
+    p16_counts, _ = phase_suspend_resume(smi_line, late)
+    log(f"phase 16 seconds: {time.time() - t16:.1f}")
 
     table = []
     for kname, (sources, replaces) in KERNELS.items():
@@ -4310,6 +4854,8 @@ def main():
                                        for path, n in spec_counts.items()},
             launches_phase15_path={path: n.get(c, 0)
                                    for path, n in p15_counts.items()},
+            launches_phase16_path={path: n.get(c, 0)
+                                   for path, n in p16_counts.items()},
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],

@@ -1,6 +1,7 @@
 """Serving: the batched engine, the continuous-batching engine (with
-bounded-queue shedding, per-slot tiers, a paged KV cache and
-self-speculative decoding) over direct-cast weights and KV cache, and the
+bounded-queue shedding, per-slot tiers, a paged KV cache,
+self-speculative decoding, and suspension, preemption and checkpoints
+through slot snapshots) over direct-cast weights and KV cache, and the
 JSONL event journal."""
 from .engine import GenerationResult, ServeEngine, mask_chunk_emissions
 from .events import EVENT_KINDS, Journal, emit, parse_event, replay
@@ -8,10 +9,12 @@ from .paged import NULL_PAGE, PagePool, auto_page_size
 from .paged_engine import PagedContinuousEngine
 from .scheduler import (DECODING, PREFILLING, AdmissionPolicy,
                         ContinuousEngine, DegradeOverBudget, DropOldest,
-                        FifoPolicy, PriorityAdmission, RejectNew, Request,
+                        FifoPolicy, PreemptionPolicy, PriorityAdmission,
+                        PriorityPreemption, RejectNew, Request,
                         RequestResult, SheddingPolicy, ShortestPromptFirst,
                         SlotScheduler, Status, TtftDeadline)
-from .snapshot import (pack_device_state, slot_row_capacity,
+from .snapshot import (SlotSnapshot, load_checkpoint, pack_device_state,
+                       save_checkpoint, slot_row_capacity,
                        unpack_device_state)
 from .speculative import SpeculativeConfig
 from .tiers import (TieredContinuousEngine, TierSpec, default_tiers,
@@ -22,6 +25,8 @@ __all__ = ["ServeEngine", "GenerationResult", "mask_chunk_emissions",
            "Status", "AdmissionPolicy", "FifoPolicy", "ShortestPromptFirst",
            "PriorityAdmission", "TtftDeadline", "PREFILLING", "DECODING",
            "SheddingPolicy", "RejectNew", "DropOldest", "DegradeOverBudget",
+           "PreemptionPolicy", "PriorityPreemption", "SlotSnapshot",
+           "save_checkpoint", "load_checkpoint",
            "PagedContinuousEngine", "PagePool", "auto_page_size",
            "NULL_PAGE",
            "TieredContinuousEngine", "TierSpec", "default_tiers",

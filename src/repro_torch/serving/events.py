@@ -22,10 +22,9 @@ from typing import Iterable, List, Optional, Tuple
 
 __all__ = ["emit", "parse_event", "Journal", "replay", "EVENT_KINDS"]
 
-# Every kind the reference's engines and scheduler emit (the port's
-# continuous engine emits admit, prefill-start, prefill-done, cancel,
-# expire and finish so far): recovery kinds
-# (suspend through restore), paged-KV memory kinds (pool, cow-break,
+# Every kind the reference's engines and scheduler emit (the port emits
+# all but fault, quarantine, requeue, migrate and drain so far): recovery
+# kinds (suspend through restore), paged-KV memory kinds (pool, cow-break,
 # prefix-hit) and the tiered engine's kv-repack.
 EVENT_KINDS = ("admit", "prefill-start", "prefill-done", "degrade",
                "shed", "expire", "cancel", "fault", "quarantine",

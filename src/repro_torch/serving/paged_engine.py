@@ -56,9 +56,10 @@ Families: the pages hold attention K/V only. A hybrid model
 (``hymba_1_5b``) shares and copies its attention pages as the dense family
 does, while its Mamba state stays per slot: a claimant's prefill still
 computes its own state over the whole prompt. An attention-free model
-(``falcon_mamba_7b``) has no K/V rows, so it has no pages, no table and no
-page gate (every page step returns early, ``cfg.attn_free``), and the
-engine serves as ``ContinuousEngine`` does.
+(``falcon_mamba_7b``) has no K/V rows, so it has no pages: the engine
+builds no pool (``pool`` is None), no table and no page gate, and keeps
+``ContinuousEngine``'s steps (``_PAGE_STEPS``), decided once at
+construction.
 
 Speculative rounds (``speculative=``, the dense engine's option, its
 graphs and counters): a round's draft and verify write rows ``pos .. pos
@@ -73,9 +74,16 @@ dense engine's; ``spec_stats()`` is too, unless a live round reaches past
 a request's pages: its rows there read the null page, and the candidates
 it accepts past the budget (counted, never emitted) may differ.
 
-Left for later: the sharded paged engine, suspension and checkpoints
-(``_restore_dispatch``), the ``kv_integrity`` refusal (the port has no KV
-canary yet) and paged tiers (the reference has none).
+Suspension and checkpoints: a snapshot of a paged slot is read through
+its table into the dense layout (``models.read_cache_slot``), so it is the
+dense engine's snapshot byte for byte, and a restore (``_restore_dispatch``)
+allocates the slot's pages unshared (its rows leave any registered prefix
+as soon as it decodes on) and writes the rows through the table; the
+zero padding past the allocation drops on null entries. A checkpoint taken
+on either layout restores on the other.
+
+Left for later: the sharded paged engine, the ``kv_integrity`` refusal
+(the port has no KV canary yet) and paged tiers (the reference has none).
 """
 from __future__ import annotations
 
@@ -93,6 +101,12 @@ from .paged import NULL_PAGE, PagePool, auto_page_size
 from .scheduler import ContinuousEngine, Request, SlotScheduler
 
 __all__ = ["PagedContinuousEngine"]
+
+# the steps the pages change; an attention-free model keeps
+# ContinuousEngine's (it has no K/V rows to page)
+_PAGE_STEPS = ("_init_slot_cache", "_make_sched", "_reset_dispatch",
+               "_admit_dispatch", "_start_prefill", "_arm_slot",
+               "_dispatch_chunk", "_restore_dispatch")
 
 
 def _copy_page_fn(cache, src: int, dst: int):
@@ -145,7 +159,13 @@ class PagedContinuousEngine(ContinuousEngine):
         self.n_pages = int(n_pages)
         self.prefix_sharing = bool(prefix_sharing)
         self._table_width = rows // self.page_size
-        self._make_pools()
+        if cfg.attn_free:
+            self.pool = None
+            for name in _PAGE_STEPS:
+                setattr(self, name,
+                        getattr(ContinuousEngine, name).__get__(self))
+        else:
+            self._make_pools()
         super().__init__(cfg, params, policy, n_slots=n_slots,
                          max_len=max_len, **kw)
 
@@ -183,10 +203,7 @@ class PagedContinuousEngine(ContinuousEngine):
     # -- sizing and sharing policy --------------------------------------------
 
     def _pages_for(self, tokens_len: int, max_new: int) -> int:
-        """Logical pages a request needs for its whole tenancy (none for
-        an attention-free model)."""
-        if self.cfg.attn_free:
-            return 0
+        """Logical pages a request needs for its whole tenancy."""
         rows = tokens_len + max_new
         w = self.cfg.sliding_window
         if w:
@@ -219,8 +236,7 @@ class PagedContinuousEngine(ContinuousEngine):
         """
         t = len(req.tokens)
         w = self.cfg.sliding_window
-        if not (self.prefix_sharing and not self.cfg.attn_free
-                and t >= self.page_size
+        if not (self.prefix_sharing and t >= self.page_size
                 and (not w or t <= w)
                 and (self.prefill_mode == "chunked" or t > DENSE_SMALL_M)):
             return None, False, False
@@ -230,8 +246,6 @@ class PagedContinuousEngine(ContinuousEngine):
     def _admission_gate(self, req: Request, shard: Optional[int],
                         resumable: bool) -> bool:
         """Page-availability gate the scheduler consults after its pick."""
-        if self.cfg.attn_free:
-            return True
         n = self._pages_for(len(req.tokens), req.max_new)
         if resumable:           # restores never share (divergent rows)
             return self.pool.would_fit(n)
@@ -259,8 +273,6 @@ class PagedContinuousEngine(ContinuousEngine):
         """Pin a request's pages and mirror them into the block table, the
         claimed entries as ``NULL_PAGE`` until ``_arm_slot`` (the prefill
         writes only the slot's private pages)."""
-        if self.cfg.attn_free:
-            return
         pool = self.pool
         n = self._pages_for(len(req.tokens), req.max_new)
         tokens, reserve, _ = (self._share_terms(req) if share
@@ -290,8 +302,6 @@ class PagedContinuousEngine(ContinuousEngine):
 
     def _make_sched(self) -> SlotScheduler:
         sched = super()._make_sched()
-        if self.cfg.attn_free:
-            return sched
         # reclaim what an aborted serve left (an exception mid-flight):
         # release its pages and null its table rows, so that a parked
         # slot's writes drop instead of landing in pages a new request
@@ -306,8 +316,6 @@ class PagedContinuousEngine(ContinuousEngine):
 
     def _reset_dispatch(self, slot: int) -> None:
         super()._reset_dispatch(slot)
-        if self.cfg.attn_free:
-            return
         self._unarmed_claims.discard(slot)
         if self.pool.holds(slot):
             self.pool.release(slot)
@@ -323,10 +331,17 @@ class PagedContinuousEngine(ContinuousEngine):
         self._alloc_slot(slot, req)
         return super()._start_prefill(sched, slot, req, now)
 
+    def _restore_dispatch(self, slot: int, snap) -> None:
+        """A restored slot re-enters unshared (its rows leave any
+        registered prefix as soon as it decodes on): its pages are
+        allocated fresh, then the snapshot, padded to the slot's capacity,
+        is written through the table, and the rows past the allocation
+        drop on null entries."""
+        self._alloc_slot(slot, snap.req, share=False)
+        super()._restore_dispatch(slot, snap)
+
     def _arm_slot(self, slot: int, req: Request, tok0: int) -> None:
         super()._arm_slot(slot, req, tok0)
-        if self.cfg.attn_free:
-            return
         if slot in self._unarmed_claims:    # its prefill is written: map
             self._unarmed_claims.discard(slot)          # the shared pages
             self._write_table(slot, self.pool.slot_pages(slot))
@@ -352,7 +367,7 @@ class PagedContinuousEngine(ContinuousEngine):
         holds shared pages.
         """
         w = self.cfg.sliding_window
-        if not w or not self.prefix_sharing or self.cfg.attn_free:
+        if not w or not self.prefix_sharing:
             return
         holders = [s for s in range(self.n_slots) if self.pool.has_shared(s)]
         if not holders:

@@ -87,15 +87,30 @@ engine's, bit for bit. The paged engine runs the same rounds over its
 pools (``serving/paged_engine.py``); the tiered engine refuses
 ``speculative=``, as the reference's does.
 
-Left for later slices: quarantine, suspension, preemption, snapshots
-(and with them ``spec_k`` in a snapshot) and sharding.
+Suspension, preemption and checkpoints (``serving/snapshot.py``): at a
+chunk boundary a DECODING slot can be snapshotted (``SlotSnapshot``: its
+K/V rows as packed bytes, its Mamba state, ``pos``, the next token, the
+slot generator's state, the budget counters, the learned draft length)
+and its request requeued as resumable; when the admission policy next
+picks it, the snapshot is written into whichever slot is free and the
+stream continues bit for bit. ``suspend(uid)`` asks for it; a
+``PreemptionPolicy`` (``PriorityPreemption``: interactive overtakes
+batch) picks victims for waiting requests; ``checkpoint(path)`` writes
+every live slot's snapshot, the queue and the results so far, and a fresh
+engine's ``restore(path)`` hands them back to ``serve``, on the dense or
+the paged layout alike. ``restore_from_journal`` rebuilds the unfinished
+requests from the event log alone. A PREFILLING request that is
+suspended aborts its lane and requeues plain.
+
+Left for later slices: faults, quarantine and the KV canaries, and
+sharding.
 """
 from __future__ import annotations
 
 import dataclasses
 import logging
 import time
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -103,13 +118,17 @@ import torch
 from .. import resolve_device
 from ..core.qtensor import QuantPolicy, dense_like
 from ..models import (decode_loop, init_cache, init_lane, prefill_chunk,
-                      prefill_into_slot, recurrent_state, reset_slot)
+                      prefill_into_slot, read_cache_slot, recurrent_state,
+                      reset_slot, write_cache_slot)
 from ..models.common import ModelConfig
 from ..models.kvcache import cache_rows
 from ..models.lm import FAMILIES, restore_round, save_round
 from .engine import (_sync, capture_graph, load_params,
                      mask_chunk_emissions, sample_tokens)
-from .events import Journal
+from .events import Journal, replay
+from .snapshot import (SlotSnapshot, load_checkpoint, pack_device_state,
+                       save_checkpoint, slot_row_capacity,
+                       unpack_device_state)
 from .speculative import (AdaptiveK, SpeculativeConfig, pack_emissions,
                           spec_round)
 
@@ -345,6 +364,59 @@ class DegradeOverBudget(SheddingPolicy):
 
 
 # ---------------------------------------------------------------------------
+# preemption: which decoding slot yields when a more urgent request waits?
+# ---------------------------------------------------------------------------
+
+class PreemptionPolicy:
+    """Decides which DECODING slots to suspend for waiting requests.
+
+    ``victims`` returns the slots to suspend at this chunk boundary; each
+    is snapshotted (``SlotSnapshot``) and its request requeued as
+    resumable, so a preemption costs a pause and no work: the resumed
+    stream is the uninterrupted one, bit for bit. This base policy never
+    preempts."""
+
+    name = "none"
+
+    def victims(self, sched: "SlotScheduler", now: float) -> List[int]:
+        return []
+
+
+class PriorityPreemption(PreemptionPolicy):
+    """Suspend the lowest-priority decoding slot for a waiter of strictly
+    higher priority (interactive overtakes batch).
+
+    Waiters take the free slots first (preemption is the last resort);
+    then each remaining arrived waiter, most urgent first, may displace
+    the lowest-priority decoding slot if its own priority is strictly
+    higher. The strict comparison keeps it from thrashing: a suspended
+    request requeues at its old priority and can never preempt its
+    preemptor back. A PREFILLING slot is never a victim (its lane would
+    restart from chunk 0: there is nothing resumable to save)."""
+
+    name = "priority"
+
+    def victims(self, sched, now):
+        waiting = sorted((r for r in sched.queue if r.arrival_time <= now),
+                         key=lambda r: (-r.priority, r.arrival_time))
+        if not waiting:
+            return []
+        pool = sorted((r.priority, s) for s, r in sched.active.items()
+                      if sched.phase.get(s) == DECODING)
+        budget = len(sched.free)
+        out: List[int] = []
+        for w in waiting:
+            if budget > 0:
+                budget -= 1
+                continue
+            if pool and pool[0][0] < w.priority:
+                out.append(pool.pop(0)[1])
+            else:
+                break
+        return out
+
+
+# ---------------------------------------------------------------------------
 # slot bookkeeping
 # ---------------------------------------------------------------------------
 
@@ -379,6 +451,11 @@ class SlotScheduler:
         # uid -> (max_new_cap, force_greedy): degrade markers, applied at
         # admission (``_take``) and popped into RequestResult.degraded
         self.degraded: Dict[int, Tuple[Optional[int], bool]] = {}
+        # uid -> SlotSnapshot: queued requests that are resumable (they
+        # re-enter by a snapshot restore, not a prefill). Every path that
+        # takes a queued request out (admission, shedding, expiry,
+        # cancellation) consumes its snapshot with it.
+        self.resumable: Dict[int, SlotSnapshot] = {}
         # engine hooks, both optional: admission_gate(req, shard,
         # resumable) -> bool vetoes a policy pick whose KV pages do not fit
         # now (the paged engine: a free slot is no longer enough);
@@ -413,14 +490,29 @@ class SlotScheduler:
 
     def next_admission(self, now: float) -> Optional[Tuple[int, Request]]:
         """Pop (slot, request) if a slot is free, the policy picks one and
-        the admission gate (pages, for the paged engine) accepts it.
-        (Suspension, which makes a request resumable, is not ported.)"""
+        the admission gate (pages, for the paged engine) accepts it."""
         if not self.free or not self.queue:
             return None
         idx = self.policy.select(self.queue, now)
         if idx is None:
             return None
-        if not self._gate(self.queue[idx], None, False):
+        req = self.queue[idx]
+        if not self._gate(req, None, req.uid in self.resumable):
+            return None
+        return self._take(idx, self.free[0])
+
+    def next_resume(self, now: float) -> Optional[Tuple[int, Request]]:
+        """Pop (slot, request) only if the policy's pick is resumable.
+
+        A resume is one restore, not a prompt, so the engine drains these
+        before lane work; but strictly in the policy's order: a resumable
+        request never jumps a request the policy ranks higher."""
+        if not self.free or not self.queue or not self.resumable:
+            return None
+        idx = self.policy.select(self.queue, now)
+        if idx is None or self.queue[idx].uid not in self.resumable:
+            return None
+        if not self._gate(self.queue[idx], None, True):
             return None
         return self._take(idx, self.free[0])
 
@@ -484,6 +576,13 @@ class SlotScheduler:
         req = self.active.pop(slot)
         self.phase.pop(slot, None)
         self.free.append(slot)
+        return req
+
+    def suspend_to_queue(self, slot: int, snap: SlotSnapshot) -> Request:
+        """Release ``slot`` and requeue its request as resumable."""
+        req = self.release(slot)
+        self.resumable[req.uid] = snap
+        self.queue.append(req)
         return req
 
     def mark_prefilling(self, slot: int) -> None:
@@ -585,6 +684,15 @@ class ContinuousEngine:
     ``spec_rounds`` (each chunk's (k, n_rounds)); a slot's k moving is a
     ``spec-k`` event.
 
+    ``suspend(uid)`` and ``preemption`` (a ``PreemptionPolicy``) park a
+    decoding request as a ``SlotSnapshot`` and requeue it resumable; it
+    resumes in whichever slot is free, bit for bit, its learned draft
+    length kept. ``snapshot_slot`` reads a live slot without disturbing
+    it, ``checkpoint(path)`` writes the live serve to a file from a
+    ``progress_cb``, and a fresh engine's ``restore(path)`` (or
+    ``restore_from_journal``, with the event log alone) returns the
+    requests to hand to ``serve``.
+
     Counters for the caller: ``replays`` and ``lane_replays`` (decode and
     lane CUDA graph replays since construction); for the last ``serve``,
     ``chunks`` (decode chunks), ``chunk_times`` (each chunk's live slots
@@ -606,6 +714,7 @@ class ContinuousEngine:
                  max_queue: Optional[int] = None,
                  shedding: Optional[SheddingPolicy] = None,
                  speculative: Optional[SpeculativeConfig] = None,
+                 preemption: Optional[PreemptionPolicy] = None,
                  device=None):
         if chunk < 1 or n_slots < 1:
             raise ValueError(f"chunk ({chunk}) and n_slots ({n_slots}) "
@@ -628,6 +737,7 @@ class ContinuousEngine:
         self.prefill_mode = prefill_mode
         self.max_queue = max_queue
         self.shedding = shedding
+        self.preemption = preemption
         self.device = resolve_device(device)
         self.speculative = speculative
         if speculative is not None:
@@ -654,8 +764,16 @@ class ContinuousEngine:
         self.replays = 0
         self.lane_replays = 0
         self._pf: Optional[Dict[str, Any]] = None    # the lane's cursor
-        self._sched: Optional[SlotScheduler] = None  # the serve's, live
+        # the live serve, for progress_cb introspection (checkpoint,
+        # snapshot_slot): its scheduler, slot states, results and clock
+        self._sched: Optional[SlotScheduler] = None
+        self._state: Optional[Dict[int, Dict[str, Any]]] = None
+        self._results: Optional[List[RequestResult]] = None
+        self._clock = None
         self._cancel_uids: set = set()
+        self._suspend_uids: set = set()
+        # uid -> SlotSnapshot a restore hands to the next serve
+        self._pending_resume: Dict[int, SlotSnapshot] = {}
         self.chunks = 0
         self.chunk_times: List[Tuple[int, float]] = []
         self.admit_seconds: List[float] = []
@@ -1082,7 +1200,7 @@ class ContinuousEngine:
                         clock) -> Dict[str, Any]:
         return {"admit_time": admit_time, "out": [], "prev_n_gen": 0,
                 "queue_delay": admit_time - req.arrival_time,
-                "ttft": clock() - req.arrival_time}
+                "ttft": clock() - req.arrival_time, "decode_spent": 0.0}
 
     def _admit(self, slot: int, req: Request, now: float,
                clock) -> Dict[str, Any]:
@@ -1096,13 +1214,18 @@ class ContinuousEngine:
 
     def _admit_ready(self, sched: SlotScheduler, state: Dict[int, Any],
                      now: float, clock) -> None:
-        """Whole-prompt admission: every (free slot, arrived request) pair."""
+        """Whole-prompt admission: every (free slot, arrived request) pair.
+        A pick with a snapshot resumes from it instead of prefilling."""
         while True:
             adm = sched.next_admission(now)
             if adm is None:
                 return
             slot, req = adm
-            state[slot] = self._admit(slot, req, now, clock)
+            snap = sched.resumable.pop(req.uid, None)
+            if snap is not None:
+                self._resume(sched, state, slot, req, snap, clock)
+            else:
+                state[slot] = self._admit(slot, req, now, clock)
 
     def _start_prefill(self, sched: SlotScheduler, slot: int, req: Request,
                        now: float) -> Dict[str, Any]:
@@ -1122,12 +1245,17 @@ class ContinuousEngine:
         one lane chunk (``p_chunk`` prompt tokens at most). After the final
         chunk, the first token and ``pos[slot] = T`` arm the slot as a
         whole admission would."""
-        if self._pf is None:
-            now = clock()
+        now = clock()
+        while self._pf is None:
             adm = sched.next_admission(now)
             if adm is None:
                 return
-            self._pf = self._start_prefill(sched, *adm, now)
+            slot, req = adm
+            snap = sched.resumable.pop(req.uid, None)
+            if snap is not None:    # a resume takes no lane: admit on
+                self._resume(sched, state, slot, req, snap, clock)
+                continue
+            self._pf = self._start_prefill(sched, slot, req, now)
         t0 = time.perf_counter()
         pf = self._pf
         slot, req, off = pf["slot"], pf["req"], pf["offset"]
@@ -1165,13 +1293,31 @@ class ContinuousEngine:
         finished uid is a no-op. Safe from a ``progress_cb``."""
         self._cancel_uids.add(uid)
 
+    def suspend(self, uid: int) -> None:
+        """Ask for ``uid`` to be suspended at the next chunk boundary: a
+        decoding request is snapshotted (``SlotSnapshot``) and requeued
+        resumable, and when the admission policy next picks it (a slot
+        free) it resumes bit for bit as if it had never left; a prefilling
+        one aborts its lane and requeues plain (its prompt restarts from
+        chunk 0). A queued, unknown or finished uid is a no-op. Safe from
+        a ``progress_cb``."""
+        self._suspend_uids.add(uid)
+
     def _unadmitted(self, sched: SlotScheduler, req: Request, status: str,
                     now: float, results: List[RequestResult]) -> None:
-        """The result of a request that leaves without a first token."""
+        """The result of a request that leaves the queue: one that never
+        had a first token, or a suspended one, whose snapshot is consumed
+        here into its partial output and realized timings."""
+        snap = sched.resumable.pop(req.uid, None)
+        out = (np.asarray(snap.out, np.int32) if snap is not None
+               else np.zeros((0,), np.int32))
         results.append(RequestResult(
-            uid=req.uid, tokens=np.zeros((0,), np.int32), n_generated=0,
-            queue_delay=now - req.arrival_time, ttft=float("inf"),
-            decode_seconds=0.0, status=status,
+            uid=req.uid, tokens=out, n_generated=len(out),
+            queue_delay=(snap.queue_delay if snap is not None
+                         else now - req.arrival_time),
+            ttft=snap.ttft if snap is not None else float("inf"),
+            decode_seconds=snap.decode_spent if snap is not None else 0.0,
+            status=status,
             degraded=sched.degraded.pop(req.uid, None) is not None))
         self._emit(self._EVENT_OF[status], uid=req.uid, status=status,
                    queue_delay=now - req.arrival_time)
@@ -1186,10 +1332,13 @@ class ContinuousEngine:
         st = state.pop(slot)
         self._reset_dispatch(slot)
         self._park_slot_flags(slot)
+        # occupied seconds only: this tenancy's and those before any
+        # suspension (the parked wall time never counts)
         res = RequestResult(
             uid=req.uid, tokens=np.asarray(st["out"], np.int32),
             n_generated=len(st["out"]), queue_delay=st["queue_delay"],
-            ttft=st["ttft"], decode_seconds=now - st["admit_time"],
+            ttft=st["ttft"],
+            decode_seconds=st["decode_spent"] + now - st["admit_time"],
             status=status,
             degraded=sched.degraded.pop(req.uid, None) is not None)
         results.append(res)
@@ -1216,12 +1365,219 @@ class ContinuousEngine:
         else:
             self._finish_slot(sched, state, slot, status, now, results)
 
+    # -- slot snapshots: suspend, resume, preempt -----------------------------
+
+    def _snap_dispatch(self, slot: int) -> Dict[str, Any]:
+        """Slot ``slot`` of its arena as a batch-1 cache (a device copy,
+        a paged slot gathered into the dense layout)."""
+        return read_cache_slot(self._slot_cache(slot), slot)
+
+    def _restore_dispatch(self, slot: int, snap: SlotSnapshot) -> None:
+        """Write a snapshot's payload into ``slot``: its trimmed rows copied
+        to the device, zero-padded there back to the slot's capacity (the
+        padding lies past ``pos``), then one ``write_cache_slot`` of the
+        whole slot, packed bytes verbatim, no dequantize."""
+        cache = self._slot_cache(slot)
+        dev = snap.device
+        dev = {"pos": dev["pos"].to(self.device),
+               "layers": [{name: leaf.to(self.device)
+                           for name, leaf in layer.items()}
+                          for layer in dev["layers"]]}
+        write_cache_slot(cache, unpack_device_state(
+            dev, slot_row_capacity(cache)), slot)
+
+    def _snapshot_slot(self, sched: SlotScheduler, state: Dict[int, Any],
+                       slot: int, clock) -> SlotSnapshot:
+        """A read-only ``SlotSnapshot`` of a DECODING slot: the slot goes on
+        decoding undisturbed, which lets ``checkpoint`` read a running
+        engine. K/V rows are trimmed to ``min(pos, capacity)``: the rows
+        below an unwrapped ring pointer, the whole ring once it wrapped."""
+        req = sched.active[slot]
+        solo = self._snap_dispatch(slot)
+        pos = int(solo["pos"][0])
+        rows = slot_row_capacity(solo)
+        used = min(pos, rows) if rows is not None else 0
+        st, h = state[slot], self._host
+        return SlotSnapshot(
+            req=req, pos=pos, used_rows=used,
+            device=pack_device_state(solo, used),
+            tok=int(h["tok"][slot]), key=self._gens[slot].get_state(),
+            n_gen=int(h["n_gen"][slot]), max_new=int(h["max_new"][slot]),
+            temp=float(h["temp"][slot]), stop=int(h["stop"][slot]),
+            out=list(st["out"]), queue_delay=st["queue_delay"],
+            ttft=st["ttft"],
+            decode_spent=st["decode_spent"] + (clock() - st["admit_time"]),
+            spec_k=(int(self._adaptive.k[slot])
+                    if self.speculative is not None else 0))
+
+    def snapshot_slot(self, slot: int) -> SlotSnapshot:
+        """A read-only snapshot of a live decoding slot, mid-serve (from a
+        ``progress_cb``)."""
+        if self._sched is None or slot not in self._state:
+            raise ValueError(f"slot {slot} holds no live request")
+        return self._snapshot_slot(self._sched, self._state, slot,
+                                   self._clock)
+
+    def _suspend_slot(self, sched: SlotScheduler, state: Dict[int, Any],
+                      slot: int, clock, event: str = "suspend") -> None:
+        """Snapshot a DECODING slot, park it and requeue its request
+        resumable."""
+        snap = self._snapshot_slot(sched, state, slot, clock)
+        req = sched.suspend_to_queue(slot, snap)
+        state.pop(slot, None)
+        self._reset_dispatch(slot)
+        self._park_slot_flags(slot)
+        self._emit(event, uid=req.uid, slot=slot, n_gen=snap.n_gen,
+                   pos=snap.pos, nbytes=snap.nbytes)
+
+    def _resume(self, sched: SlotScheduler, state: Dict[int, Any],
+                slot: int, req: Request, snap: SlotSnapshot, clock,
+                event: str = "resume") -> None:
+        """Restore a snapshot into ``slot`` and rejoin the decode chunk.
+        Everything a chunk reads comes back as it was suspended: K/V rows,
+        ring pointer, Mamba state, next token, the generator's state (set
+        into this slot's generator, which every sampled graph has
+        registered: the next replay draws from it), the budget counters,
+        the sampling row and the learned draft length."""
+        self._restore_dispatch(slot, snap)
+        h = self._host
+        h["tok"][slot] = snap.tok
+        h["done"][slot] = False
+        h["live"][slot] = True
+        h["n_gen"][slot] = snap.n_gen
+        h["max_new"][slot] = snap.max_new
+        h["temp"][slot] = snap.temp
+        h["stop"][slot] = snap.stop
+        self._gens[slot].set_state(snap.key)
+        if self.speculative is not None:
+            self._adaptive.arm(slot, snap.spec_k)
+        sched.mark_decoding(slot)
+        state[slot] = {"admit_time": clock(), "out": list(snap.out),
+                       "prev_n_gen": snap.n_gen,
+                       "queue_delay": snap.queue_delay, "ttft": snap.ttft,
+                       "decode_spent": snap.decode_spent}
+        self._emit(event, uid=req.uid, slot=slot, n_gen=snap.n_gen,
+                   pos=snap.pos)
+
+    def _resume_ready(self, sched: SlotScheduler, state: Dict[int, Any],
+                      clock) -> None:
+        """Resume the resumable requests the policy picks, into free slots,
+        before any lane or admission work: a resume is one restore, so it
+        never waits behind a prompt."""
+        now = clock()
+        while True:
+            adm = sched.next_resume(now)
+            if adm is None:
+                return
+            slot, req = adm
+            self._resume(sched, state, slot, req,
+                         sched.resumable.pop(req.uid), clock)
+
+    def _preempt_sweep(self, sched: SlotScheduler, state: Dict[int, Any],
+                       clock) -> None:
+        """Apply the preemption policy at the chunk boundary."""
+        if self.preemption is None:
+            return
+        for slot in self.preemption.victims(sched, clock()):
+            self._suspend_slot(sched, state, slot, clock, event="preempt")
+
+    # -- crash recovery: checkpoint, restore ----------------------------------
+
+    def checkpoint(self, path) -> Dict[str, Any]:
+        """Write the running serve's resumable state to ``path``, from a
+        ``progress_cb`` (a chunk boundary, the engine's one consistent
+        point): a read-only ``SlotSnapshot`` of every decoding slot (the
+        slots decode on), the queue with its pending snapshots, the
+        prefilling requests as plain restarts, the results so far and the
+        journal cursor. The write is atomic (write, then rename). A fresh
+        engine's ``restore(path)`` then ``serve`` finishes the work."""
+        sched, state = self._sched, self._state
+        if sched is None:
+            raise RuntimeError("checkpoint() runs mid-serve: call it from a "
+                               "progress_cb")
+        snaps, restarts = [], []
+        for slot in list(sched.active):
+            if sched.phase.get(slot) == PREFILLING:
+                restarts.append(sched.active[slot])
+            else:
+                snaps.append(self._snapshot_slot(sched, state, slot,
+                                                 self._clock))
+        self._emit("checkpoint", path=str(path), live=len(snaps),
+                   queued=len(sched.queue), chunk=self.chunks)
+        ck = {"version": 1, "cfg": self.cfg.name, "kv": self.policy.kv_fmt,
+              "n_slots": self.n_slots, "max_len": self.max_len,
+              "seq": self.journal.seq, "chunk_idx": self.chunks,
+              "snapshots": snaps, "prefilling": restarts,
+              "queued": list(sched.queue),
+              "resumable": dict(sched.resumable),
+              "results": list(self._results)}
+        save_checkpoint(path, ck)
+        return ck
+
+    def restore(self, path) -> Tuple[List[Request], List[RequestResult]]:
+        """Load a checkpoint into this (fresh) engine. Returns (requests,
+        prior results): hand ``requests`` to ``serve`` (the suspended and
+        the decoding ones resume from their snapshots, the others admit
+        as usual) and join its results to ``prior`` (those that ended
+        before the checkpoint). Arrival times are rebased to 0 (their
+        waits happened; the snapshots carry the realized timings); the
+        journal goes on from the checkpoint's cursor. A checkpoint of
+        another model or KV format, or of a larger ``max_len``, is
+        refused."""
+        ck = load_checkpoint(path)
+        if ck["cfg"] != self.cfg.name or ck["kv"] != self.policy.kv_fmt:
+            raise ValueError(
+                f"checkpoint was taken on cfg={ck['cfg']!r} kv={ck['kv']!r};"
+                f" this engine is cfg={self.cfg.name!r} "
+                f"kv={self.policy.kv_fmt!r}")
+        if ck["max_len"] > self.max_len:
+            raise ValueError(f"checkpoint max_len {ck['max_len']} exceeds "
+                             f"this engine's {self.max_len}")
+        self.journal.seq = ck["seq"]
+        self._pending_resume = dict(ck["resumable"])
+        reqs: List[Request] = []
+        for snap in ck["snapshots"]:
+            self._pending_resume[snap.req.uid] = snap
+            reqs.append(snap.req)
+        reqs.extend(ck["prefilling"])
+        reqs.extend(ck["queued"])
+        reqs = [dataclasses.replace(r, arrival_time=0.0) for r in reqs]
+        self._emit("restore", path=str(path), n=len(reqs),
+                   chunk=ck["chunk_idx"])
+        return reqs, list(ck["results"])
+
+    # the journal kinds that end a request (a uid that reached one needs
+    # no replay)
+    _TERMINAL_KINDS = frozenset(("finish", "cancel", "expire", "shed"))
+
+    def restore_from_journal(self, requests: Sequence[Request],
+                             messages: Iterable[str]
+                             ) -> Tuple[List[Request], List[int]]:
+        """Rebuild a crashed serve's pending work from its event log alone
+        (no checkpoint). Returns the ``requests`` that reached no terminal
+        record, rebased to arrival 0 (each re-enters by a fresh prefill:
+        its tokens are generated again, bit for bit), and the sequence gaps
+        ``events.replay`` found (a gap means the log lost records, and the
+        pending set may serve too much). The journal goes on past the
+        highest replayed record."""
+        events, gaps = replay(messages)
+        done = {e["uid"] for e in events
+                if e.get("event") in self._TERMINAL_KINDS and "uid" in e}
+        seqs = [e["seq"] for e in events if isinstance(e.get("seq"), int)]
+        if seqs:
+            self.journal.seq = max(self.journal.seq, max(seqs) + 1)
+        pending = [dataclasses.replace(r, arrival_time=0.0)
+                   for r in requests if r.uid not in done]
+        self._emit("restore", source="journal", n=len(pending),
+                   replayed=len(events), gaps=len(gaps))
+        return pending, gaps
+
     def _lifecycle(self, sched: SlotScheduler, state: Dict[int, Any],
                    results: List[RequestResult], clock) -> None:
-        """The chunk-boundary sweep (cancels, deadlines, then shedding),
-        before admission so that a doomed request never takes a prefill,
-        and before the decode chunk so that an evicted slot spends
-        nothing."""
+        """The chunk-boundary sweep (cancels, deadlines, shedding, then
+        suspensions), before admission so that a doomed request never
+        takes a prefill, and before the decode chunk so that an evicted
+        slot spends nothing."""
         now = clock()
         uids = set()
         while self._cancel_uids:            # safe against concurrent adds
@@ -1247,6 +1603,19 @@ class ContinuousEngine:
                                  Status.DEADLINE_EXPIRED, now, results)
         for req in sched.enforce_bounds(now):
             self._unadmitted(sched, req, Status.SHED, now, results)
+        uids = set()
+        while self._suspend_uids:           # safe against concurrent adds
+            uids.add(self._suspend_uids.pop())
+        for uid in uids:
+            slot = next((s for s, r in sched.active.items() if r.uid == uid),
+                        None)
+            if slot is None:                # queued, unknown or finished
+                continue
+            if sched.phase.get(slot) == PREFILLING:
+                sched.queue.append(self._abort_prefill(sched, slot))
+                self._emit("suspend", uid=uid, slot=slot, resumable=False)
+            else:
+                self._suspend_slot(sched, state, slot, clock)
 
     def _check_request(self, r: Request) -> None:
         """A request the engine cannot serve right is refused at submit:
@@ -1266,24 +1635,34 @@ class ContinuousEngine:
                 f"the prefill-lane scratch ({self._lane_rows} rows)")
 
     def _make_sched(self) -> SlotScheduler:
-        return SlotScheduler(self.n_slots, policy=self.admission_policy,
-                             max_queue=self.max_queue,
-                             shedding=self.shedding, journal=self.journal)
+        sched = SlotScheduler(self.n_slots, policy=self.admission_policy,
+                              max_queue=self.max_queue,
+                              shedding=self.shedding, journal=self.journal)
+        self._seed_sched(sched)
+        return sched
+
+    def _seed_sched(self, sched: SlotScheduler) -> None:
+        """Hand a restore's pending snapshots to the serve's scheduler."""
+        sched.resumable.update(self._pending_resume)
+        self._pending_resume = {}
 
     def serve(self, requests: List[Request],
               progress_cb=None) -> List[RequestResult]:
         """Drain ``requests`` through the slots, honouring arrival times.
 
-        Per iteration: the lifecycle sweep (cancels, deadlines, shedding);
-        admission into free slots of the requests that have arrived (one
-        batch-1 prefill each, or one lane chunk in chunked mode); one
+        Per iteration: the lifecycle sweep (cancels, deadlines, shedding,
+        suspensions); the preemption policy's victims suspended; the
+        resumable requests the policy picks resumed; admission into free
+        slots of the requests that have arrived (one batch-1 prefill each,
+        or one lane chunk in chunked mode); one
         decode chunk over all slots; harvest of each decoding slot's new
         tokens; retirement of finished slots; then ``progress_cb(engine,
         sched)`` when given. When nothing is live and the lane is idle, the
         loop sleeps until the next arrival. Returns one result per request,
         in the order they ended (check ``status``).
         """
-        self._cancel_uids.clear()           # cancels of a past serve
+        self._cancel_uids.clear()           # cancels and suspensions of a
+        self._suspend_uids.clear()          # past serve
         sched = self._make_sched()
         for r in requests:
             self._check_request(r)
@@ -1307,11 +1686,14 @@ class ContinuousEngine:
 
         state: Dict[int, Dict[str, Any]] = {}
         results: List[RequestResult] = []
-        self._sched = sched
+        self._sched, self._state = sched, state
+        self._results, self._clock = results, clock
         while True:
             self._lifecycle(sched, state, results, clock)
             if not sched.has_work:
                 break
+            self._preempt_sweep(sched, state, clock)
+            self._resume_ready(sched, state, clock)
             waiting = bool(self._host["live"].any())
             marks = len(self.admit_seconds), len(self.lane_seconds)
             if chunked:
@@ -1343,6 +1725,6 @@ class ContinuousEngine:
                                       results)
             if progress_cb is not None:
                 progress_cb(self, sched)
-        self._sched = None
+        self._sched = self._state = self._results = self._clock = None
         return results
 

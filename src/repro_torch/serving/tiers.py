@@ -46,12 +46,18 @@ graph warm-up puts its arena's state back (``capture_graph(keep=)``). An
 attention-free model has no KV to price (``kv_row_bytes`` 0), so its
 degrade rung never fires.
 
+Suspension: ``suspend(uid)`` snapshots a slot out of its tier's arena,
+and the resume writes it back into the arena of the request's tier (a
+request the degrade rung moved comes back in its degraded tier), in
+whichever slot is free, bit for bit.
+
 Guarantees (``tests/test_torch_tiers.py``,
 ``tests/test_torch_tiers_ssm.py``): a tier engine restricted to one tier
 emits the plain ``ContinuousEngine``'s tokens at that policy, bit for
 bit; each stream of a mixed-tier serve is the stream of its request
-served alone at its tier. Refused at init: ``p_chunk="auto"`` (the sweep times one arena's
-graphs) and ``speculative=`` (as the reference's).
+served alone at its tier. Refused at init: ``p_chunk="auto"`` (the sweep
+times one arena's graphs), ``speculative=`` and ``preemption=`` (as the
+reference's).
 """
 from __future__ import annotations
 
@@ -180,9 +186,10 @@ class TieredContinuousEngine(ContinuousEngine):
                  degrade_kv_to: Optional[str] = None, **kw):
         if not tiers:
             raise ValueError("tiers must name at least one TierSpec")
-        if kw.get("speculative") is not None:
-            raise ValueError("tiered serving does not compose with "
-                             "speculative=")
+        for bad in ("speculative", "preemption"):
+            if kw.get(bad) is not None:
+                raise ValueError(
+                    f"tiered serving does not compose with {bad}=")
         if kw.get("p_chunk") == "auto":
             raise ValueError("p_chunk='auto' probes the single-arena "
                              "cache; pick a static p_chunk")
@@ -268,6 +275,12 @@ class TieredContinuousEngine(ContinuousEngine):
                        now: float) -> Dict[str, Any]:
         self._slot_tier[slot] = self._tier_of(req)
         return super()._start_prefill(sched, slot, req, now)
+
+    def _restore_dispatch(self, slot: int, snap) -> None:
+        """A snapshot goes back into the arena of its request's tier (its
+        degraded tier after a repack); the slot takes that tier."""
+        self._slot_tier[slot] = self._tier_of(snap.req)
+        super()._restore_dispatch(slot, snap)
 
     def _lane_route(self, slot: int):
         spec = self.tiers[self._slot_tier[slot]]

@@ -1773,3 +1773,159 @@ def test_qq_kernel_at_hymba_shapes(cuda, k, n, m):
     assert ((y - yp).abs() <= 1e-5 * (xd.float().abs() @ wd.abs().T)
             + 1e-30).all()
     assert torch.equal(y, nm.nxfp_matmul(xd, wq.packed, wq.meta, w_fmt))
+
+
+# ---------------------------------------------------------------------------
+# suspension and slot snapshots on the card
+# ---------------------------------------------------------------------------
+
+def _suspend_when(uid, n_gen, box, clear_graphs=False):
+    """A ``progress_cb`` that suspends ``uid`` once it has decoded
+    ``n_gen`` tokens, keeping its snapshot and slot in ``box`` (and, with
+    ``clear_graphs``, dropping the engine's decode graphs, so the first
+    chunk after the resume captures anew)."""
+    from repro_torch.serving import DECODING
+
+    def cb(engine, sched):
+        slot = next((s for s, r in sched.active.items() if r.uid == uid),
+                    None)
+        if "snap" in box or slot is None or \
+                sched.phase[slot] != DECODING or \
+                engine._host["n_gen"][slot] < n_gen:
+            return
+        box["snap"], box["from"] = engine.snapshot_slot(slot), slot
+        engine.suspend(uid)
+        if clear_graphs:
+            engine._graphs.clear()
+    return cb
+
+
+def _spy_resume(eng, box):
+    """Record each resume's slot and the slot's state read back right
+    after the restore (before any chunk)."""
+    from repro_torch.models import read_cache_slot
+    from repro_torch.serving import pack_device_state
+    resume = eng._resume
+
+    def spy(sched, state, slot, req, snap, clock, **kw):
+        resume(sched, state, slot, req, snap, clock, **kw)
+        box["to"] = slot
+        box["back"] = pack_device_state(
+            read_cache_slot(eng._slot_cache(slot), slot), snap.used_rows)
+    eng._resume = spy
+
+
+def _same_payload(a, b):
+    return torch.equal(a["pos"], b["pos"]) and all(
+        set(x) == set(y) and all(torch.equal(x[n], y[n]) for n in x)
+        for x, y in zip(a["layers"], b["layers"]))
+
+
+@pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "sampled"])
+def test_suspend_resume_in_graph_on_card(cuda, sampled):
+    """A slot suspended mid-stream resumes in the other slot (a waiting
+    request took its own meanwhile), its generator state moved into that
+    slot's generator: every stream is the same engine's uninterrupted
+    stream bit for bit, every decode chunk a graph replay (a sampled
+    request's absence makes some chunks greedy, a graph of their own),
+    and a sampled stream is also its solo host-loop stream."""
+    from repro_torch.serving import ContinuousEngine, Request
+    cfg, params = _continuous_case(cuda, "smoke")
+    policy = QuantPolicy("nxfp4", "nxfp4")
+    rng = np.random.default_rng(12)
+    reqs = [Request(uid=i, tokens=rng.integers(0, cfg.vocab, (8,)),
+                    max_new=m) for i, m in enumerate((10, 20, 8))]
+    if sampled:
+        reqs[1] = dataclasses.replace(reqs[1], temperature=1.2, seed=21)
+    eng = ContinuousEngine(cfg, params, policy, n_slots=2, max_len=64,
+                           chunk=4, device=cuda)
+    want = {r.uid: r.tokens for r in eng.serve(reqs)}
+    box = {}
+    _spy_resume(eng, box)
+    replays = eng.replays
+    got = {r.uid: r.tokens for r in eng.serve(
+        reqs, progress_cb=_suspend_when(1, 8, box))}
+    for uid in want:
+        np.testing.assert_array_equal(got[uid], want[uid],
+                                      err_msg=f"uid={uid}")
+    assert box["to"] != box["from"]
+    assert _same_payload(box["back"], box["snap"].device)
+    assert eng.replays == replays + eng.chunks
+    if sampled:
+        np.testing.assert_array_equal(
+            got[1], _solo_on_card(cfg, params, policy, reqs[1], 64))
+
+
+def test_hymba_state_round_trip_then_first_capture_on_card(cuda):
+    """Hymba (smoke; a 32-row ring that has wrapped, the Mamba state): the
+    slot's ``h``, ``conv`` and K/V rows read back after the resume are the
+    snapshot's bit for bit; the decode graphs are then captured afresh
+    with the restored slot live (their warm-up puts its state back), and
+    every stream is the uninterrupted one."""
+    from repro_torch.serving import ContinuousEngine, Request
+    cfg, params = _ssm_case(cuda, "hymba_1_5b-smoke")
+    rng = np.random.default_rng(13)
+    reqs = [Request(uid=i, tokens=rng.integers(0, cfg.vocab, (8,)),
+                    max_new=m) for i, m in enumerate((40, 12, 20))]
+    eng = ContinuousEngine(cfg, params, QuantPolicy("nxfp4", "nxfp4"),
+                           n_slots=4, max_len=64, chunk=4, device=cuda)
+    want = {r.uid: r.tokens for r in eng.serve(reqs)}
+    box = {}
+    _spy_resume(eng, box)
+    got = {r.uid: r.tokens for r in eng.serve(
+        reqs, progress_cb=_suspend_when(0, 28, box, clear_graphs=True))}
+    snap = box["snap"]
+    assert snap.pos > cfg.sliding_window == snap.used_rows
+    assert box["to"] != box["from"]
+    assert _same_payload(box["back"], snap.device)
+    for uid in want:
+        np.testing.assert_array_equal(got[uid], want[uid],
+                                      err_msg=f"uid={uid}")
+    assert eng._graphs                  # captured after the resume
+
+
+def test_paged_restore_through_table_on_card(cuda):
+    """``PagedContinuousEngine._restore_dispatch`` of a full-capacity
+    payload (seeded bytes in the rows past the request's pages): the
+    slot's pages are allocated unshared, its rows read back through the
+    table are the payload's, the rows past the allocation land on the null
+    page and drop, and page 0 stays all zeros."""
+    from repro_torch.kernels.build import bit_view
+    from repro_torch.models import read_cache_slot
+    from repro_torch.serving import (ContinuousEngine, PagedContinuousEngine,
+                                     Request, pack_device_state)
+    cfg = get_smoke_config("llama3_8b")
+    params = init_params(cfg, seed=0, device=cuda)
+    policy = QuantPolicy(None, "nxfp4")
+    rng = np.random.default_rng(14)
+    req = Request(uid=0, tokens=rng.integers(0, cfg.vocab, (8,)), max_new=16)
+    box = {}
+    ContinuousEngine(cfg, params, policy, n_slots=2, max_len=64, chunk=4,
+                     device=cuda).serve([req],
+                                        progress_cb=_suspend_when(0, 8, box))
+    snap = box["snap"]
+    rows = 24                               # 8 + 16: three 8-row pages
+    g = torch.Generator().manual_seed(3)
+    for layer in snap.device["layers"]:
+        for name, buf in list(layer.items()):
+            raw = bit_view(buf)             # uint16 meta as int16
+            full = torch.randint(1, 127, (1, 64) + tuple(buf.shape[2:]),
+                                 generator=g).to(raw.dtype)
+            full[:, :buf.shape[1]] = raw
+            layer[name] = full.view(buf.dtype)
+    snap.used_rows = 64
+    eng = PagedContinuousEngine(cfg, params, policy, n_slots=2, max_len=64,
+                                chunk=4, page_size=8, device=cuda)
+    eng._sched = eng._make_sched()
+    eng._restore_dispatch(1, snap)
+    torch.cuda.synchronize()
+    assert len(eng.pool.slot_pages(1)) == 3 and not eng.pool.has_shared(1)
+    back = pack_device_state(read_cache_slot(eng.cache, 1), rows)
+    want = {"pos": snap.device["pos"],
+            "layers": [{n: b[:, :rows] for n, b in layer.items()}
+                       for layer in snap.device["layers"]]}
+    assert _same_payload(back, want)
+    for layer in eng.cache["layers"]:
+        for name, buf in layer.items():
+            if name.startswith("pool_"):
+                assert not buf[0].view(torch.uint8).any(), name

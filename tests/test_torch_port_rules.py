@@ -26,8 +26,8 @@ from repro_torch.kernels import nxfp_qq_matmul, nxfp_quantize
 from repro_torch.kernels.ops import quantize_qtensor
 from repro_torch.models import init_cache, init_paged_cache, init_params
 from repro_torch.serving import (ContinuousEngine, PagedContinuousEngine,
-                                 ServeEngine, TieredContinuousEngine,
-                                 default_tiers)
+                                 PriorityPreemption, ServeEngine,
+                                 TieredContinuousEngine, default_tiers)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
@@ -97,6 +97,10 @@ ENTRY_POINTS = {
     "ContinuousEngine": lambda dev: ContinuousEngine(
         _smoke(), init_params(_smoke(), seed=0, device="cpu"),
         QuantPolicy("nxfp4", "nxfp4"), n_slots=2, max_len=16, device=dev),
+    "ContinuousEngine(preemption=)": lambda dev: ContinuousEngine(
+        _smoke(), init_params(_smoke(), seed=0, device="cpu"),
+        QuantPolicy("nxfp4", "nxfp4"), n_slots=2, max_len=16,
+        preemption=PriorityPreemption(), device=dev),
     "TieredContinuousEngine": lambda dev: TieredContinuousEngine(
         _smoke(), init_params(_smoke(), seed=0, device="cpu"),
         default_tiers(), n_slots=2, max_len=16, device=dev),
