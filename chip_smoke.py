@@ -4,11 +4,10 @@
     python3 chip_smoke.py              # full run: 32 layers of Llama-3-8B
     python3 chip_smoke.py --layers 2   # same, with the depth cut to 2
 
-Phases 7-10 and 12 serve Llama-3-8B at ``--serving-layers`` (default 8,
-at most ``--layers``); phases 11 and 13 serve their models at their full
-depth, and phases 14 to 16 Llama-3-8B and Hymba-1.5B at theirs,
-Falcon-Mamba-7B (and phase 15's paged speculative Llama-3-8B and phase
-16's tiers) at ``--serving-layers``.
+Phases 7-10, 12 and 14-17 serve their models at ``--serving-layers``
+(default 8, at most ``--layers``; phases 14-16 served Llama-3-8B and
+Hymba-1.5B at full depth until phase 17 came); phases 11 and 13 serve
+theirs at full depth.
 
 Phases, each fatal on failure (exit code 1, no result line):
 
@@ -202,7 +201,8 @@ Phases, each fatal on failure (exit code 1, no result line):
 
 14. Self-speculative decoding (``ContinuousEngine(speculative=
    SpeculativeConfig(k=4))``), every greedy stream bitwise the plain
-   engine's in the same call. Llama-3-8B at full width and depth:
+   engine's in the same call. Llama-3-8B at full width and
+   ``--serving-layers`` depth (32 layers until phase 17 came):
    ``verify_step`` at B 4, Q 5 (logits, and the cache after a commit of 1,
    3, 5 and ragged [1, 2, 5, 3] rows) bitwise 5 sequential
    ``decode_step`` calls; 8 staggered requests (prompts 32-256, max_new
@@ -210,7 +210,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    weights and KV with ``draft="recycled"`` (the bf16 tensors the codes
    decode to), and bf16 weights and dense KV with ``draft="nxfp4"``; a
    seeded sampled request served twice equal to itself; a request whose
-   prompt + max_new fills max_len. Hymba-1.5B (full depth): a 1000-token
+   prompt + max_new fills max_len. Hymba-1.5B (``--serving-layers``): a
+   1000-token
    prompt whose 64 new tokens wrap its 1024-row ring mid-speculation,
    beside two short ones, whole and at P 256. Falcon-Mamba-7B at
    ``--serving-layers``: three requests. Launches are counted around the
@@ -228,14 +229,16 @@ Phases, each fatal on failure (exit code 1, no result line):
    the dense speculative engine's and the plain paged engine's,
    ``spec_stats()`` equal to the dense engine's, a prefix hit, page 0
    all zeros, the pool empty; tok/s and ms a chunk against the plain paged
-   engine in turns. Hymba-1.5B at full depth: a registrar of a 990-token
+   engine in turns. Hymba-1.5B at ``--serving-layers``: a registrar of a
+   990-token
    prompt and two claimants whose speculative rounds wrap the 1024-row
    ring into its pages at chunk 1 (the round's k + 1 rows the write
    horizon): streams bitwise the dense speculative engine's, every COW
    break inside that horizon, one where the chunk's row alone would not
    have broken. ``TieredContinuousEngine(default_tiers())``
-   over bf16 models of Hymba-1.5B (full depth) and Falcon-Mamba-7B
-   (``--serving-layers``): 6 requests by uid % 3 over premium, standard
+   over bf16 models of Hymba-1.5B and Falcon-Mamba-7B, both at
+   ``--serving-layers`` (Hymba at full depth until phase 17 came): 6
+   requests by uid % 3 over premium, standard
    and economy, whole and at P 256, every stream bitwise its solo stream
    at its tier; qq GEMM launches around the serves 7 a layer per economy
    prefill on Hymba and none on Falcon; the standard tier alone bitwise
@@ -250,9 +253,10 @@ Phases, each fatal on failure (exit code 1, no result line):
 16. Suspension, preemption, slot snapshots and checkpoints
    (``phase_suspend_resume``), every interrupted stream bitwise the same
    engine's uninterrupted stream (served in turn in the same process, so
-   the graphs are captured once). Llama-3-8B at full width and depth
-   (nxfp4 weights and KV, 4 slots, chunk 16, max_len 512): four batch
-   requests at priority 0 and two interactive ones at priority 1 arriving
+   the graphs are captured once). Llama-3-8B at full width and
+   ``--serving-layers`` depth (32 layers until phase 17 came; nxfp4
+   weights and KV, 4 slots, chunk 16, max_len 512): four batch requests
+   at priority 0 and two interactive ones at priority 1 arriving
    at 0.2 s under ``PriorityPreemption`` (a preemption and a resume
    required), tok/s against the uninterrupted serve in turns; a sampled
    request suspended by ``suspend()`` resuming in another slot, the
@@ -261,7 +265,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    draft) suspended, the streams the plain engine's and ``spec_k`` back
    (one set to 2 first); a checkpoint after the second chunk, a crash (an
    exception out of ``progress_cb``), then ``restore`` on a fresh dense and
-   a fresh paged engine. Hymba-1.5B (32 layers; its 1000-token prompt's
+   a fresh paged engine. Hymba-1.5B (``--serving-layers``; its 1000-token
+   prompt's
    ring wrapped) and Falcon-Mamba-7B (``--serving-layers``), whole and at
    P 256: a request suspended after 32 tokens, its ``h``/``conv`` and K/V
    rows bitwise across the round trip, the decode graphs captured afresh
@@ -270,6 +275,25 @@ Phases, each fatal on failure (exit code 1, no result line):
    arena in another slot. Printed: suspend and resume ms, checkpoint bytes
    and write seconds, snapshot and state bytes, launches counted around
    the interrupted serves alone (``launches_phase16_path``).
+
+17. Faults, quarantine and the KV/SSM canaries (``phase_faults``), at
+   full width and ``--serving-layers``. Llama-3-8B (nxfp4 weights and KV,
+   4 slots, chunk 16, max_len 512, ``kv_integrity=True``) under a seeded
+   ``FaultPlan``: ``nan_logits`` on uid 1 at chunk 1 (one retry: it heals
+   to its solo stream), ``kv_flip`` of 2 bytes on uid 2 at chunk 2 (no
+   retry: FAILED with a prefix of its fault-free stream; the K/V canary
+   must trip) and a 0.05 s delay; every other stream bitwise the same
+   engine's fault-free serve, every chunk a graph replay. Then the same
+   serve with the canaries off and on in turns, three times (its wall a
+   chunk, the canary work a chunk and its share of a chunk's dispatch and
+   of that wall), one fold's CUDA-event ms, the
+   quarantine-to-requeue ms; the speculative (k 4, recycled draft) and
+   paged engines under ``nan_logits`` (the victim failed, the pool back to
+   its fault-free count); Falcon-Mamba-7B with an at-rest ``h`` upset
+   quarantined as ``ssm_integrity`` and healed; an economy request of
+   ``TieredContinuousEngine(default_tiers())`` poisoned and healed.
+   Launches are counted around the faulted serves alone, each of which
+   captures its decode graphs afresh (``launches_phase17_path``).
 
 The last three lines are the kernel table as JSON, the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.
@@ -3049,14 +3073,17 @@ def check_ssm_kernels(timer, rows):
     torch.cuda.empty_cache()
 
 
-def _cast_family(arch):
-    """``arch`` at full width and depth: random weights from seed 0, cast to
-    nxfp4 on the card (``load_params``). Returns (cfg, params, seconds)."""
+def _cast_family(arch, n_layers=None):
+    """``arch`` at full width and depth (or ``n_layers``): random weights
+    from seed 0, cast to nxfp4 on the card (``load_params``). Returns (cfg,
+    params, seconds)."""
     from repro_torch.configs import get_config
     from repro_torch.core.qtensor import QuantPolicy
     from repro_torch.models import init_params
     from repro_torch.serving.engine import load_params
     cfg = get_config(arch)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     t0 = time.time()
     raw = init_params(cfg, seed=0, device="cuda")
     params = load_params(raw, QuantPolicy("nxfp4", None),
@@ -3460,9 +3487,9 @@ def phase_ssm_family(card):
     return {FALCON: (fcounts, ffig), HYMBA: (hcounts, hfig)}
 
 
-# phase 14: self-speculative decoding at full width (Llama-3-8B at 32
-# layers under two pairings, Hymba-1.5B at full depth, Falcon-Mamba-7B at
-# --serving-layers), every greedy stream bitwise the plain engine's
+# phase 14: self-speculative decoding at full width and --serving-layers
+# (Llama-3-8B under two pairings, Hymba-1.5B, Falcon-Mamba-7B), every
+# greedy stream bitwise the plain engine's
 SPEC_K = 4
 SPEC_MAX_LEN = 512
 SPEC_PROMPTS = (32, 64, 128, 256, 32, 64, 128, 256)
@@ -3606,13 +3633,13 @@ def _spec_rounds_timed(plain, eng, reqs, want, what):
 
 def phase_speculative(card: str, serving_layers: int):
     """Phase 14: self-speculative decoding through ``ContinuousEngine``.
-    Llama-3-8B at full width and depth: ``verify_step`` + ``commit_verify``
-    bitwise sequential decode, then 8 staggered requests under two
-    pairings (nxfp4 weights and KV with the recycled bf16 draft; bf16
-    weights and dense KV with an nxfp4 draft), a sampled request served
-    twice, a request that fills ``max_len``; Hymba-1.5B (a 1000-token
-    prompt whose 64 new tokens wrap its 1024-row ring) whole and at P 256;
-    Falcon-Mamba-7B at ``serving_layers``. Every greedy stream bitwise the
+    At full width and ``serving_layers``: Llama-3-8B's ``verify_step`` +
+    ``commit_verify`` bitwise sequential decode, then 8 staggered requests
+    under two pairings (nxfp4 weights and KV with the recycled bf16 draft;
+    bf16 weights and dense KV with an nxfp4 draft), a sampled request
+    served twice, a request that fills ``max_len``; Hymba-1.5B (a
+    1000-token prompt whose 64 new tokens wrap its 1024-row ring) whole
+    and at P 256; Falcon-Mamba-7B. Every greedy stream bitwise the
     plain engine's; launches counted around the speculative serves alone.
     Returns (launch counts by path, figures)."""
     import numpy as np
@@ -3627,7 +3654,8 @@ def phase_speculative(card: str, serving_layers: int):
     torch.cuda.empty_cache()
     counts = {name: {} for name in SPEC_KERNELS}
     fig = {}
-    cfg = get_config("llama3_8b")
+    cfg = dataclasses.replace(get_config("llama3_8b"),
+                              n_layers=serving_layers)
     raw = init_params(cfg, seed=0, device="cuda")
     nx = load_params(raw, QuantPolicy("nxfp4", None), torch.device("cuda"))
     bf = load_params(raw, QuantPolicy(None, None), torch.device("cuda"))
@@ -3679,9 +3707,9 @@ def phase_speculative(card: str, serving_layers: int):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # Hymba-1.5B at full depth: the ring wraps mid-speculation
+    # Hymba-1.5B at serving_layers: the ring wraps mid-speculation
     t2 = time.time()
-    hcfg, hparams, _ = _cast_family(HYMBA)
+    hcfg, hparams, _ = _cast_family(HYMBA, serving_layers)
     hreqs = _spec_requests(hcfg, HYMBA_SPEC_PROMPTS, HYMBA_SPEC_NEW, 43,
                            arrivals=False)
     hpol = QuantPolicy("nxfp4", "nxfp4")
@@ -3724,10 +3752,11 @@ def phase_speculative(card: str, serving_layers: int):
     fig["seconds"] = round(time.time() - t0, 1)
     for name in pairings:
         f = fig[name]
-        log(f"speculative {name} ({card}): Llama-3-8B full width, 32 "
-            f"layers, k {SPEC_K}, {CONT_SLOTS} slots, chunk {CONT_CHUNK}, "
-            f"max_len {SPEC_MAX_LEN}; 8 requests (prompts 32-256, max_new "
-            f"32-64): every stream bitwise the plain engine's; accept rate "
+        log(f"speculative {name} ({card}): Llama-3-8B full width, "
+            f"{serving_layers} layers, k {SPEC_K}, {CONT_SLOTS} slots, "
+            f"chunk {CONT_CHUNK}, max_len {SPEC_MAX_LEN}; 8 requests "
+            f"(prompts 32-256, max_new 32-64): every stream bitwise the "
+            f"plain engine's; accept rate "
             f"{f['accept_rate']}; ms a speculative chunk "
             f"{f['median']['spec']['chunk_ms']} ({f['round_ms']} a round) "
             f"vs a plain chunk {f['median']['plain']['chunk_ms']}; tok/s "
@@ -3754,9 +3783,8 @@ def phase_speculative(card: str, serving_layers: int):
 
 
 # phase 15: the paged engine's speculative rounds (Llama-3-8B and
-# Hymba-1.5B at full depth) and TieredContinuousEngine on the SSM and
-# hybrid families (Hymba-1.5B at full depth, Falcon-Mamba-7B at
-# --serving-layers)
+# Hymba-1.5B) and TieredContinuousEngine on the SSM and hybrid families
+# (Hymba-1.5B and Falcon-Mamba-7B), all at --serving-layers
 P15_K = 4
 P15_MAX_LEN, P15_PAGE = 512, 32
 # Llama-3-8B: four requests on one 96-token prefix (more than the GEMMs'
@@ -3904,8 +3932,8 @@ def _paged_spec_llama(card, counts, n_layers):
     return fig
 
 
-def _paged_spec_hymba(card, counts):
-    """Hymba-1.5B (32 layers, nxfp4): a registrar and two claimants of a
+def _paged_spec_hymba(card, counts, n_layers):
+    """Hymba-1.5B (``n_layers``, nxfp4): a registrar and two claimants of a
     990-token prompt whose rounds wrap the 1024-row ring into the shared
     pages, against the dense speculative engine."""
     import numpy as np
@@ -3913,7 +3941,7 @@ def _paged_spec_hymba(card, counts):
     from repro_torch.serving import (ContinuousEngine, PagedContinuousEngine,
                                      Request)
     from repro_torch.serving import SpeculativeConfig as Spec
-    cfg, params, _ = _cast_family(HYMBA)
+    cfg, params, _ = _cast_family(HYMBA, n_layers)
     rng = np.random.default_rng(51)
     prompt = rng.integers(0, cfg.vocab, (P15_HYMBA_PROMPT,))
     prompts = [prompt, prompt, np.concatenate(
@@ -4124,9 +4152,9 @@ def _tiers_family(card, cfg, what, counts):
 
 def phase_paged_spec_and_tiers(card: str, serving_layers: int):
     """Phase 15: the paged engine's speculative rounds (Llama-3-8B at
-    ``serving_layers``, Hymba-1.5B at full depth), then
-    ``TieredContinuousEngine`` on Hymba-1.5B (full depth) and
-    Falcon-Mamba-7B (``serving_layers``). Launches are counted around the
+    ``serving_layers``, Hymba-1.5B too), then
+    ``TieredContinuousEngine`` on Hymba-1.5B and Falcon-Mamba-7B at
+    ``serving_layers``. Launches are counted around the
     engines under test alone. Returns (launch counts by path, figures)."""
     from repro_torch.configs import get_config
     t0 = time.time()
@@ -4136,8 +4164,9 @@ def phase_paged_spec_and_tiers(card: str, serving_layers: int):
     fig = {"llama paged speculative": _paged_spec_llama(
         card, counts["llama paged speculative"], serving_layers)}
     fig["hymba paged speculative"] = _paged_spec_hymba(
-        card, counts["hymba paged speculative"])
-    fig["hymba tiers"] = _tiers_family(card, get_config(HYMBA), "hymba",
+        card, counts["hymba paged speculative"], serving_layers)
+    hcfg = dataclasses.replace(get_config(HYMBA), n_layers=serving_layers)
+    fig["hymba tiers"] = _tiers_family(card, hcfg, "hymba",
                                        counts["hymba tiers"])
     fcfg = dataclasses.replace(get_config(FALCON), n_layers=serving_layers)
     fig["falcon tiers"] = _tiers_family(card, fcfg, "falcon",
@@ -4150,14 +4179,14 @@ def phase_paged_spec_and_tiers(card: str, serving_layers: int):
         fail("phase 15: Falcon's tiers launched the qq GEMM")
     fig["seconds"] = round(time.time() - t0, 1)
     log(f"  launches on phase 15's paths (the engines under test alone; "
-        f"Llama and Falcon at {serving_layers} layers): {counts}; phase 15 "
+        f"all at {serving_layers} layers): {counts}; phase 15 "
         f"{fig['seconds']} s")
     return counts, fig
 
 
 # phase 16: suspension, preemption, slot snapshots and checkpoints
-# Llama-3-8B at full width and depth (nxfp4 weights and KV, 4 slots, chunk
-# 16, max_len 512): four batch requests at priority 0, then two
+# Llama-3-8B at full width and --serving-layers (nxfp4 weights and KV, 4
+# slots, chunk 16, max_len 512): four batch requests at priority 0, then two
 # interactive ones at priority 1 arriving once the slots are full
 P16_BATCH = ((32, 64), (96, 56), (160, 48), (256, 64))      # (prompt, new)
 P16_INTERACTIVE = ((48, 24), (128, 32))
@@ -4167,7 +4196,7 @@ P16_ROUNDS = 1                       # (uninterrupted, preempted) x 2 a round
 # chunk resumes in another slot (uid 4 takes its own meanwhile)
 P16_SUSPEND = ((64, 48), (128, 64), (32, 32), (200, 48), (96, 32))
 P16_SAMPLED = (0.9, 31)
-# Hymba-1.5B (32 layers) and Falcon-Mamba-7B (--serving-layers): a long
+# Hymba-1.5B and Falcon-Mamba-7B (--serving-layers): a long
 # request suspended after 2 chunks (Hymba's 1000-token prompt has wrapped
 # its 1024-row ring by then) beside two short ones, in 4 slots
 P16_HYMBA = ((1000, 64), (300, 32), (64, 48))
@@ -4296,8 +4325,8 @@ def _p16_check(got, want, what):
                  f"{want[uid][:8].tolist()} ...")
 
 
-def _p16_llama(counts, tmp):
-    """Llama-3-8B (32 layers): preemption, a sampled request moved between
+def _p16_llama(counts, tmp, n_layers):
+    """Llama-3-8B (``n_layers``): preemption, a sampled request moved between
     slots, the snapshot bytes at nxfp4 and bf16 KV, speculative suspension
     with ``spec_k`` kept, then a checkpoint, a crash and restores on fresh
     dense and paged engines."""
@@ -4310,7 +4339,7 @@ def _p16_llama(counts, tmp):
     from repro_torch.serving.engine import load_params
     fig = {}
     t0 = time.time()
-    cfg = get_config("llama3_8b")
+    cfg = dataclasses.replace(get_config("llama3_8b"), n_layers=n_layers)
     raw = init_params(cfg, seed=0, device="cuda")
     nx = load_params(raw, QuantPolicy("nxfp4", None), torch.device("cuda"))
     del raw
@@ -4591,8 +4620,8 @@ def _p16_tiers(cfg, counts):
 def phase_suspend_resume(card: str, serving_layers: int):
     """Phase 16: suspension, preemption, slot snapshots and checkpoints,
     every interrupted stream bitwise the same engine's uninterrupted
-    stream, inside the captured graphs. Llama-3-8B at full width and depth
-    (``_p16_llama``), Hymba-1.5B at full depth and Falcon-Mamba-7B at
+    stream, inside the captured graphs. Llama-3-8B at full width and
+    ``serving_layers`` (``_p16_llama``), Hymba-1.5B and Falcon-Mamba-7B at
     ``serving_layers`` (``_p16_family``), the economy tier on Llama-3-8B at
     ``serving_layers`` (``_p16_tiers``). Launches are counted around the
     interrupted serves and the restored engines' serves alone. Returns
@@ -4605,9 +4634,9 @@ def phase_suspend_resume(card: str, serving_layers: int):
     counts = {name: {} for name in P16_KERNELS}
     fig = {}
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
-        fig["llama"] = _p16_llama(counts, tmp)
+        fig["llama"] = _p16_llama(counts, tmp, serving_layers)
     t1 = time.time()
-    hcfg, hparams, _ = _cast_family(HYMBA)
+    hcfg, hparams, _ = _cast_family(HYMBA, serving_layers)
     fig["hymba"] = _p16_family(hcfg, hparams, P16_HYMBA, "hymba",
                                counts["hymba"], HYMBA_MAX_LEN)
     del hparams
@@ -4636,7 +4665,8 @@ def phase_suspend_resume(card: str, serving_layers: int):
     fig["tiers_s"] = round(time.time() - t3, 1)
     fig["seconds"] = round(time.time() - t0, 1)
     lf = fig["llama"]
-    log(f"suspension ({card}): Llama-3-8B full width, 32 layers, nxfp4 "
+    log(f"suspension ({card}): Llama-3-8B full width, {serving_layers} "
+        f"layers, nxfp4 "
         f"weights and KV, {CONT_SLOTS} slots, chunk {CONT_CHUNK}, max_len "
         f"{CONT_MAX_LEN}: every preempted, suspended, speculative-suspended "
         f"and restored stream bitwise the uninterrupted one; preempted vs "
@@ -4656,7 +4686,8 @@ def phase_suspend_resume(card: str, serving_layers: int):
     log(f"  suspension tiers ({card}): the economy request back in its "
         f"arena in another slot, streams bitwise: {fig['tiers']}")
     log(f"  launches on phase 16's paths (the interrupted serves alone; "
-        f"Falcon and the tiers at {serving_layers} layers): {counts}; "
+        f"Llama, Falcon and the tiers at {serving_layers} layers): "
+        f"{counts}; "
         f"hymba {fig['hymba_s']} s, falcon {fig['falcon_s']} s, tiers "
         f"{fig['tiers_s']} s; phase 16 {fig['seconds']} s")
     for path, names in P16_KERNELS.items():
@@ -4665,6 +4696,398 @@ def phase_suspend_resume(card: str, serving_layers: int):
                 fail(f"phase 16 ({path}): kernel {name} was never launched")
     if counts["falcon"].get("nxfp_quantize", 0):
         fail("phase 16: Falcon's serves launched the quantizer (no K/V)")
+    return counts, fig
+
+
+# ---------------------------------------------------------------------------
+# phase 17: faults, quarantine and the KV/SSM canaries
+# ---------------------------------------------------------------------------
+
+P17_REQS = ((64, 48), (128, 64), (96, 48), (32, 40), (160, 32))  # (T, new)
+P17_NAN_UID, P17_FLIP_UID = 1, 2   # uid 1 gets one retry, uid 2 none
+P17_FLIP_BYTES = 2
+P17_DELAY = 0.05                   # s
+P17_ROUNDS = 3                     # timed serves: (off, on, on, off) x 3
+P17_FOLDS = 20                     # timed folds (CUDA events, median)
+P17_FALCON = ((300, 48), (64, 32), (32, 16))
+P17_TIERS = ((64, 32, "economy"), (96, 32, None), (48, 32, "economy"))
+P17_KERNELS = {"llama faulted": ("nxfp_quantize", "nxfp_matmul",
+                                 "nxfp_attention"),
+               "llama speculative": ("nxfp_quantize", "nxfp_matmul",
+                                     "nxfp_attention"),
+               "llama paged": ("nxfp_quantize", "nxfp_matmul",
+                               "nxfp_attention"),
+               "falcon": ("nxfp_matmul",),
+               "tiers": ("nxfp_quantize", "nxfp_matmul", "nxfp_qq_matmul")}
+
+
+def _p17_plan(*faults):
+    from repro_torch.serving import Fault, FaultPlan
+    return FaultPlan([Fault(**f) for f in faults], seed=17)
+
+
+def _p17_nan(uid):
+    return dict(kind="nan_logits", chunk=1, uid=uid)
+
+
+def _p17_contained(got, want, victims, what, healed=None):
+    """``victims`` (uids) ended FAILED with a prefix of their fault-free
+    stream ``want``, the others OK and bitwise ``want``; ``healed`` (uid ->
+    stream): those ended OK with that stream."""
+    import numpy as np
+    from repro_torch.serving import Status
+    healed = healed or {}
+    if set(got) != set(want):
+        fail(f"{what}: results for {sorted(got)}, expected {sorted(want)}")
+    for uid, r in got.items():
+        if uid in victims:
+            ok = r.status == Status.FAILED and r.n_generated < len(
+                want[uid]) and np.array_equal(r.tokens,
+                                              want[uid][:r.n_generated])
+        else:
+            ok = r.status == Status.OK and np.array_equal(
+                r.tokens, healed.get(uid, want[uid]))
+        if not ok:
+            fail(f"{what}: uid {uid} ({r.status}, {r.n_generated} tokens) "
+                 f"{r.tokens[:8].tolist()} ... against the fault-free "
+                 f"{want[uid][:8].tolist()} ... (victims {sorted(victims)})")
+
+
+def _p17_timed(eng, name, times):
+    """Time every call of ``eng.<name>`` on the host clock, the device
+    synchronised around it."""
+    fn = getattr(eng, name)
+
+    def run(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        times.setdefault(name, []).append(time.perf_counter() - t0)
+        return out
+    setattr(eng, name, run)
+
+
+def _event_ms(fn, n=P17_FOLDS) -> float:
+    """Median CUDA-event ms of ``fn()`` (one call first, not timed)."""
+    fn()
+    out = []
+    for _ in range(n):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b))
+    return round(statistics.median(out), 4)
+
+
+def _p17_llama(cfg, counts):
+    """Llama-3-8B: the containment serve under the plan (``kv_integrity``),
+    the canaries' cost in turns, the speculative and paged engines under
+    ``nan_logits``."""
+    import numpy as np
+    from repro_torch.core.qtensor import QuantPolicy
+    from repro_torch.models import init_params
+    from repro_torch.models.kvcache import kv_slot_checksum
+    from repro_torch.serving import ContinuousEngine, PagedContinuousEngine
+    from repro_torch.serving import SpeculativeConfig as Spec
+    from repro_torch.serving.engine import load_params
+    fig = {}
+    t0 = time.time()
+    raw = init_params(cfg, seed=0, device="cuda")
+    nx = load_params(raw, QuantPolicy("nxfp4", None), torch.device("cuda"))
+    del raw
+    torch.cuda.empty_cache()
+    pol = QuantPolicy("nxfp4", "nxfp4")
+    kw = dict(n_slots=CONT_SLOTS, chunk=CONT_CHUNK, max_len=CONT_MAX_LEN,
+              device="cuda")
+    reqs = _p16_requests(cfg, P17_REQS, 70)
+    reqs[P17_NAN_UID] = dataclasses.replace(reqs[P17_NAN_UID], retries=1)
+    solos = _solo_streams(cfg, nx, reqs, CONT_MAX_LEN)
+    eng = ContinuousEngine(cfg, nx, pol, kv_integrity=True, **kw)
+    want = {r.uid: r.tokens for r in eng.serve(reqs)}
+    for uid, toks in want.items():
+        if not np.array_equal(toks, solos[uid]):
+            fail(f"phase 17: the fault-free uid {uid} differs from its solo "
+                 f"stream")
+    times, trips = {}, []
+    _p17_timed(eng, "_quarantine", times)
+    verify = eng._kv_verify
+
+    def spy_verify():
+        out = verify()
+        trips.append(out.copy())
+        return out
+    eng._kv_verify = spy_verify
+    eng._graphs.clear()     # the faulted serve captures its own graphs
+    plan = _p17_plan(_p17_nan(P17_NAN_UID),
+                     dict(kind="kv_flip", chunk=2, uid=P17_FLIP_UID,
+                          n_bytes=P17_FLIP_BYTES),
+                     dict(kind="delay", chunk=1, seconds=P17_DELAY, shard=0))
+    replays = eng.replays
+    t1 = time.perf_counter()
+    res, evs = _p16_events(lambda: _counted(
+        lambda: eng.serve(reqs, fault_plan=plan), counts["llama faulted"]))
+    wall = time.perf_counter() - t1
+    eng._kv_verify = verify
+    got = {r.uid: r for r in res}
+    _p17_contained(got, want, {P17_FLIP_UID}, "llama faulted",
+                   healed={P17_NAN_UID: solos[P17_NAN_UID]})
+    if eng.replays - replays != eng.chunks:
+        fail("llama faulted: a decode chunk was not a graph replay")
+    quar = [(e["uid"], e["cause"]) for e in evs if e["event"] == "quarantine"]
+    if len(quar) != 2 or quar[0] != (P17_NAN_UID, "nan_logits") \
+            or quar[1][0] != P17_FLIP_UID:
+        fail(f"llama faulted: quarantines {quar}")
+    if not any(t.any() for t in trips):
+        fail("llama faulted: the K/V canary never tripped on the flip")
+    if wall < P17_DELAY:
+        fail("llama faulted: the delay did not delay")
+    fig["quarantines"] = quar
+    fig["statuses"] = {u: r.status for u, r in got.items()}
+    fig["failed_prefix"] = got[P17_FLIP_UID].n_generated
+    fig["quarantine_ms"] = [round(t * 1e3, 3) for t in times["_quarantine"]]
+    fig["faulted_s"] = round(wall, 3)
+
+    # the canaries' cost: the same serve with kv_integrity off and on in
+    # turns (off, on, on, off), its wall a decode chunk (host clock), the
+    # canary work inside it (two folds, two host syncs) and, once over all
+    # serves, a chunk's dispatch (its one host copy included), which the
+    # canaries do not touch
+    runs, dispatch = {"off": [], "on": []}, []
+    for _ in range(P17_ROUNDS):
+        for mode in ("off", "on", "on", "off"):
+            eng.kv_integrity = mode == "on"
+            ctimes = {}
+            for name in ("_kv_refresh", "_kv_verify", "_ssm_rearm"):
+                _p17_timed(eng, name, ctimes)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            res = eng.serve(reqs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            for name in ("_kv_refresh", "_kv_verify", "_ssm_rearm"):
+                eng.__dict__.pop(name)
+            _p16_check({r.uid: r for r in res}, want, f"llama canary {mode}")
+            dispatch += [t for _, t in eng.chunk_times]
+            canary = sum(sum(v) for v in ctimes.values())
+            runs[mode].append(dict(
+                canary_ms_a_chunk=round(canary / eng.chunks * 1e3, 3),
+                wall_ms_a_chunk=round(wall / eng.chunks * 1e3, 3)))
+    eng.kv_integrity = True
+    walls = {m: [r["wall_ms_a_chunk"] for r in runs[m]] for m in runs}
+    cn = fig["canary"] = dict(
+        runs=runs,
+        wall_ms_a_chunk_off=round(statistics.median(walls["off"]), 4),
+        wall_ms_a_chunk_on=round(statistics.median(walls["on"]), 4),
+        resolved=min(walls["on"]) > max(walls["off"]),
+        canary_ms_a_chunk=round(statistics.median(
+            r["canary_ms_a_chunk"] for r in runs["on"]), 4),
+        dispatch_ms=round(statistics.median(dispatch) * 1e3, 4))
+    cn["share_of_dispatch"] = round(
+        cn["canary_ms_a_chunk"] / cn["dispatch_ms"], 4)
+    cn["share_of_wall"] = round(
+        cn["canary_ms_a_chunk"] / cn["wall_ms_a_chunk_off"], 4)
+    # one fold of every slot's rows at the cache's depth (CUDA events)
+    upto = torch.full((CONT_SLOTS,), CONT_MAX_LEN - CONT_CHUNK,
+                      dtype=torch.int64, device=eng.cache["pos"].device)
+    fig["fold_ms"] = _event_ms(lambda: kv_slot_checksum(
+        cfg, eng.cache, upto, CONT_CHUNK))
+    fig["fold_bytes"] = sum(
+        int(b.nbytes) for lc in eng.cache["layers"] for b in lc.values())
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    fig["llama_s"] = round(time.time() - t0, 1)
+
+    # the speculative engine (k 4, recycled draft) under nan_logits: its
+    # verify logits poisoned, the victim failed, the others bitwise
+    sreqs = [dataclasses.replace(r, retries=0) for r in reqs[:4]]
+    spec = ContinuousEngine(cfg, nx, pol, speculative=Spec(
+        k=SPEC_K, draft="recycled"), **kw)
+    swant = {r.uid: r.tokens for r in spec.serve(sreqs)}
+    spec._graphs.clear()
+    res = _counted(lambda: spec.serve(sreqs, fault_plan=_p17_plan(
+        _p17_nan(P17_NAN_UID))), counts["llama speculative"])
+    _p17_contained({r.uid: r for r in res}, swant, {P17_NAN_UID},
+                   "llama speculative")
+    for uid in swant:
+        if uid != P17_NAN_UID and not np.array_equal(swant[uid],
+                                                     solos[uid]):
+            fail(f"llama speculative: uid {uid} is not the plain stream")
+    del spec
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the paged engine under nan_logits: the victim's pages come back
+    paged = PagedContinuousEngine(cfg, nx, pol, page_size=P15_PAGE, **kw)
+    pwant = {r.uid: r.tokens for r in paged.serve(sreqs)}
+    free = paged.pool.free
+    paged._graphs.clear()
+    res = _counted(lambda: paged.serve(sreqs, fault_plan=_p17_plan(
+        _p17_nan(P17_NAN_UID))), counts["llama paged"])
+    _p17_contained({r.uid: r for r in res}, pwant, {P17_NAN_UID},
+                   "llama paged")
+    if paged.pool.free != free or any(
+            not np.array_equal(pwant[u], want[u]) for u in pwant):
+        fail(f"llama paged: free pages {paged.pool.free} after the faulted "
+             f"serve, {free} after the fault-free one, or a stream is not "
+             f"the dense engine's")
+    paged.pool.assert_empty()
+    del paged, nx
+    gc.collect()
+    torch.cuda.empty_cache()
+    fig["seconds"] = round(time.time() - t0, 1)
+    return fig
+
+
+def _p17_falcon(cfg, params, counts):
+    """Falcon-Mamba-7B with ``kv_integrity``: uid 0's ``h`` changed at rest
+    (between two chunks, in place, from ``progress_cb``) is quarantined as
+    ``ssm_integrity`` before the next chunk and healed by its retry, every
+    stream bitwise the fault-free serve's."""
+    from repro_torch.core.qtensor import QuantPolicy
+    from repro_torch.models.kvcache import ssm_state_checksum
+    from repro_torch.serving import ContinuousEngine
+    reqs = _p16_requests(cfg, P17_FALCON, 71)
+    reqs[0] = dataclasses.replace(reqs[0], retries=1)
+    eng = ContinuousEngine(cfg, params, QuantPolicy("nxfp4", None),
+                           n_slots=CONT_SLOTS, chunk=CONT_CHUNK,
+                           max_len=FALCON_MAX_LEN, kv_integrity=True,
+                           device="cuda")
+    want = {r.uid: r.tokens for r in eng.serve(reqs)}
+    seen = {"n": 0}
+
+    def upset(engine, sched):
+        seen["n"] += 1
+        if seen["n"] == 2:
+            slot = next(s for s, r in sched.active.items() if r.uid == 0)
+            engine.cache["layers"][0]["h"][slot, 0, 0] += 1.0
+    res, evs = _p16_events(lambda: _counted(
+        lambda: eng.serve(reqs, progress_cb=upset), counts))
+    _p16_check({r.uid: r for r in res}, want, "falcon ssm canary")
+    quar = [(e["uid"], e["cause"]) for e in evs if e["event"] == "quarantine"]
+    if quar != [(0, "ssm_integrity")]:
+        fail(f"falcon ssm canary: quarantines {quar}")
+    fold = _event_ms(lambda: ssm_state_checksum(cfg, eng.cache))
+    state = sum(int(b.nbytes) for lc in eng.cache["layers"]
+                for b in lc.values())
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(quarantines=quar, fold_ms=fold, state_bytes=state)
+
+
+def _p17_tiers(cfg, counts):
+    """``TieredContinuousEngine(default_tiers())``: an economy request
+    poisoned and healed by its retry, the other tier's stream and the
+    other economy stream bitwise the fault-free serve's."""
+    from repro_torch.core.qtensor import QuantPolicy
+    from repro_torch.models import init_params
+    from repro_torch.serving import TieredContinuousEngine, default_tiers
+    from repro_torch.serving.engine import load_params
+    raw = init_params(cfg, seed=0, device="cuda")
+    model = load_params(raw, QuantPolicy(None, None), torch.device("cuda"))
+    del raw
+    reqs = _p16_requests(cfg, [(t, m) for t, m, _ in P17_TIERS], 72)
+    reqs = [dataclasses.replace(r, tier=tier)
+            for r, (_, _, tier) in zip(reqs, P17_TIERS)]
+    reqs[0] = dataclasses.replace(reqs[0], retries=1)
+    eng = TieredContinuousEngine(cfg, model, default_tiers(),
+                                 default_tier="standard", n_slots=2,
+                                 chunk=CONT_CHUNK, max_len=CONT_MAX_LEN,
+                                 device="cuda")
+    want = {r.uid: r.tokens for r in eng.serve(reqs)}
+    res, evs = _p16_events(lambda: _counted(lambda: eng.serve(
+        reqs, fault_plan=_p17_plan(dict(kind="nan_logits", chunk=1,
+                                        uid=0))), counts))
+    _p16_check({r.uid: r for r in res}, want, "tiers faulted")
+    quar = [(e["uid"], e["cause"]) for e in evs if e["event"] == "quarantine"]
+    if quar != [(0, "nan_logits")]:
+        fail(f"tiers faulted: quarantines {quar}")
+    del eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(quarantines=quar)
+
+
+def phase_faults(card: str, serving_layers: int):
+    """Phase 17: seeded faults, quarantine and the KV/SSM canaries through
+    the engines the port serves, at full width and ``serving_layers``:
+    Llama-3-8B (nxfp4 weights and KV, 4 slots, chunk 16, max_len 512,
+    ``kv_integrity``) under nan_logits (uid 1, one retry), kv_flip (uid 2,
+    2 bytes) and a delay, the speculative and paged engines under
+    nan_logits, Falcon-Mamba-7B's at-rest ``h`` upset (``ssm_integrity``),
+    the economy tier under nan_logits. Every healthy stream bitwise its
+    fault-free serve, every healed one its solo stream, every victim's
+    output a prefix. Launches are counted around the faulted serves alone;
+    the Llama engines' faulted serves capture their decode graphs afresh
+    (a replay counts no launch). Returns (launch counts by path,
+    figures)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.qtensor import QuantPolicy
+    from repro_torch.models import init_params
+    from repro_torch.serving.engine import load_params
+    t0 = time.time()
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts = {name: {} for name in P17_KERNELS}
+    cfg = dataclasses.replace(get_config("llama3_8b"),
+                              n_layers=serving_layers)
+    fig = {"llama": _p17_llama(cfg, counts)}
+    t1 = time.time()
+    fcfg = dataclasses.replace(get_config(FALCON), n_layers=serving_layers)
+    raw = init_params(fcfg, seed=0, device="cuda")
+    fparams = load_params(raw, QuantPolicy("nxfp4", None),
+                          torch.device("cuda"))
+    del raw
+    fig["falcon"] = _p17_falcon(fcfg, fparams, counts["falcon"])
+    del fparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    fig["falcon_s"] = round(time.time() - t1, 1)
+    t2 = time.time()
+    fig["tiers"] = _p17_tiers(cfg, counts["tiers"])
+    fig["tiers_s"] = round(time.time() - t2, 1)
+    fig["seconds"] = round(time.time() - t0, 1)
+    lf = fig["llama"]
+    cn = lf["canary"]
+    log(f"faults ({card}): Llama-3-8B full width, {serving_layers} layers, "
+        f"nxfp4 weights and KV, {CONT_SLOTS} slots, chunk {CONT_CHUNK}, "
+        f"max_len {CONT_MAX_LEN}, kv_integrity: statuses {lf['statuses']}, "
+        f"quarantines {lf['quarantines']}, uid {P17_FLIP_UID} failed after "
+        f"{lf['failed_prefix']} tokens (its prefix bitwise), uid "
+        f"{P17_NAN_UID} healed bitwise its solo stream, the others bitwise "
+        f"their fault-free serve; speculative and paged engines contained "
+        f"nan_logits; {lf['seconds']} s")
+    log(f"  canary fold ({card}): {lf['fold_ms']} ms for {CONT_SLOTS} slots "
+        f"x {CONT_MAX_LEN} rows x {serving_layers} layers "
+        f"({lf['fold_bytes']} B of packed K/V), CUDA events, median of "
+        f"{P17_FOLDS}")
+    log(f"  canary chunk ({card}): canary work {cn['canary_ms_a_chunk']} ms "
+        f"a chunk (two folds, two host syncs), {cn['share_of_dispatch']} of "
+        f"a chunk's dispatch ({cn['dispatch_ms']} ms, every serve) and "
+        f"{cn['share_of_wall']} of the serve wall a chunk; serve wall a "
+        f"chunk {cn['wall_ms_a_chunk_off']} off vs {cn['wall_ms_a_chunk_on']}"
+        f" on, {'resolved' if cn['resolved'] else 'unresolved'} (ranges of "
+        f"{2 * P17_ROUNDS} serves a mode in turns: {cn['runs']})")
+    log(f"  quarantine to requeue ({card}): {lf['quarantine_ms']} ms "
+        f"(host clock, synchronised: the event, release, reset_slot, park, "
+        f"requeue)")
+    log(f"  faults falcon ({card}): {serving_layers} layers, at-rest h "
+        f"upset quarantined and healed, streams bitwise: {fig['falcon']} "
+        f"(fold: CUDA events); tiers: {fig['tiers']}")
+    log(f"  launches on phase 17's paths (the faulted serves alone): "
+        f"{counts}; falcon {fig['falcon_s']} s, tiers {fig['tiers_s']} s; "
+        f"phase 17 {fig['seconds']} s")
+    for path, names in P17_KERNELS.items():
+        for name in names:
+            if counts[path].get(name, 0) <= 0:
+                fail(f"phase 17 ({path}): kernel {name} was never launched")
+    if counts["falcon"].get("nxfp_quantize", 0):
+        fail("phase 17: Falcon's serves launched the quantizer (no K/V)")
     return counts, fig
 
 
@@ -4739,10 +5162,9 @@ MAIN_ROW = {"nxfp_quantize": "nxfp_quantize",
 # path's premium tier (phase 10) for the dense-row attention
 QQ_PATH = ("nxfp_qq_matmul",)
 TIER_PATH = ("dense_decode_attention",)
-# phases 7-10 and 12, phase 15's paged speculative serve and phase 16's
-# tiers serve Llama-3-8B at this depth (the main path, phase 5, at
-# --layers): the script's clock has room for phases 11 and 13 at full depth
-# and for phases 14 and 16's 32-layer Llama-3-8B
+# phases 7-10 and 12, 14-17 serve Llama-3-8B at this depth (the main
+# path, phase 5, at --layers): the script's clock has room for phases 11
+# and 13 at full depth
 SERVING_LAYERS = 8
 
 
@@ -4828,6 +5250,9 @@ def main():
     t16 = time.time()
     p16_counts, _ = phase_suspend_resume(smi_line, late)
     log(f"phase 16 seconds: {time.time() - t16:.1f}")
+    t17 = time.time()
+    p17_counts, _ = phase_faults(smi_line, late)
+    log(f"phase 17 seconds: {time.time() - t17:.1f}")
 
     table = []
     for kname, (sources, replaces) in KERNELS.items():
@@ -4856,6 +5281,8 @@ def main():
                                    for path, n in p15_counts.items()},
             launches_phase16_path={path: n.get(c, 0)
                                    for path, n in p16_counts.items()},
+            launches_phase17_path={path: n.get(c, 0)
+                                   for path, n in p17_counts.items()},
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],

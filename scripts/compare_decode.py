@@ -5,6 +5,7 @@ two trees in one call.
     python3 scripts/compare_decode.py               # this checkout
     python3 scripts/compare_decode.py --tree DIR    # another checkout
     python3 scripts/compare_decode.py --prefill     # the prefill instead
+    python3 scripts/compare_decode.py --continuous  # ContinuousEngine's chunk
 
 Builds the kernels of ``DIR/src/repro_torch``, then Llama-3-8B at full
 width (random weights, seed 0; ``--layers`` cuts the depth) behind
@@ -17,8 +18,15 @@ prefill instead (``models.prefill``, nxfp4 weights and KV, host clock
 around a synchronized call, after two warm-ups): phase 5/6's 4 x 128
 tokens and phase 8's largest admission, 1 x 256, ``--rounds`` each in
 turns, then 3 of each under ``torch.profiler`` for the CUDA kernels and
-the device-busy ms per prefill. Run it in one call on the card for each tree, in the order parent,
-change, change, parent. The last line is one JSON object.
+the device-busy ms per prefill. ``--continuous`` times
+``ContinuousEngine`` (4 slots, chunk 16, max_len 512, nxfp4 weights and
+KV, no ``kv_integrity``) serving ``chip_smoke.py`` phase 8's 8 greedy
+requests: each serve's median dispatch ms of the chunks with every slot
+live (host clock, the chunk's one host copy included) and its wall a
+chunk, ``--rounds`` serves after one that captures the graphs, then 2
+serves under ``torch.profiler``: a serve's CUDA kernels and device-busy
+ms (prefills included) over its chunks. Run it in one call on the card for each tree, in the order
+parent, change, change, parent. The last line is one JSON object.
 """
 from __future__ import annotations
 
@@ -34,6 +42,8 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STEPS, CHUNK = 32, 16
+CONT_PROMPTS = (32, 64, 128, 256, 32, 64, 128, 256)     # chip_smoke phase 8
+CONT_MAX_NEW = (8, 16, 24, 32, 40, 48, 56, 64)
 
 
 def main():
@@ -44,6 +54,8 @@ def main():
     ap.add_argument("--rounds", type=int, default=8)
     ap.add_argument("--prefill", action="store_true",
                     help="time the dense prefill, not the decode loop")
+    ap.add_argument("--continuous", action="store_true",
+                    help="time ContinuousEngine's decode chunks instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("compare_decode: needs a CUDA device")
@@ -61,6 +73,11 @@ def main():
     build.build()
     cfg = dataclasses.replace(get_config("llama3_8b"), n_layers=args.layers)
     params = init_params(cfg, seed=0, device="cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    if args.continuous:
+        return time_continuous(cfg, params, args.rounds, tree, smi)
     engine = ServeEngine(cfg, params, QuantPolicy("nxfp4", "nxfp4"),
                          max_len=256, device="cuda")
     del params
@@ -68,9 +85,6 @@ def main():
     gen = torch.Generator().manual_seed(0)
     batch = {"tokens": torch.randint(0, cfg.vocab, (4, 128),
                                      generator=gen).numpy()}
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip()
     if args.prefill:
         return time_prefill(cfg, engine, gen, args.rounds, tree, smi)
     first = engine.generate(batch, max_new=STEPS, loop="device", chunk=CHUNK)
@@ -123,6 +137,56 @@ def time_prefill(cfg, engine, gen, rounds: int, tree: str, smi: str):
     print(json.dumps({"tree": tree, "layers": cfg.n_layers,
                       "prefill_seconds": secs, "median": med,
                       "traced": traced, "card": smi}), flush=True)
+
+
+def time_continuous(cfg, params, rounds: int, tree: str, smi: str):
+    """ms of ``ContinuousEngine``'s decode chunks over ``rounds`` serves of
+    phase 8's requests; every serve's streams equal the first's."""
+    import time
+    import numpy as np
+    from repro_torch.core.qtensor import QuantPolicy
+    from repro_torch.serving import ContinuousEngine, Request
+    from repro_torch.serving.engine import load_params
+
+    nx = load_params(params, QuantPolicy("nxfp4", None), torch.device("cuda"))
+    del params
+    torch.cuda.empty_cache()
+    eng = ContinuousEngine(cfg, nx, QuantPolicy("nxfp4", "nxfp4"),
+                           n_slots=4, chunk=16, max_len=512, device="cuda")
+    rng = np.random.default_rng(0)
+    reqs = [Request(uid=i, max_new=n,
+                    tokens=rng.integers(0, cfg.vocab, t, dtype=np.int32))
+            for i, (t, n) in enumerate(zip(CONT_PROMPTS, CONT_MAX_NEW))]
+
+    def serve():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eng.serve(reqs)
+        torch.cuda.synchronize()
+        return ({r.uid: r.tokens.tolist() for r in res},
+                time.perf_counter() - t0)
+
+    first = serve()[0]
+    chunk, wall = [], []
+    for _ in range(rounds):
+        toks, sec = serve()
+        if toks != first:
+            sys.exit("compare_decode: a serve's streams differ")
+        full = [t for live, t in eng.chunk_times if live == eng.n_slots]
+        chunk.append(round(statistics.median(full) * 1e3, 4))
+        wall.append(round(sec / eng.chunks * 1e3, 4))
+    n_kernels, busy = kernels_per_prefill(lambda: serve(), n=2)
+    traced = (round(n_kernels / eng.chunks, 1), round(busy / eng.chunks, 4))
+    med = {"chunk_ms": statistics.median(chunk),
+           "wall_ms_a_chunk": statistics.median(wall)}
+    print(f"tree {tree}: ContinuousEngine chunk ms {chunk}, wall a chunk "
+          f"{wall}, medians {med}; a serve's CUDA kernels and device-busy ms "
+          f"over its {eng.chunks} chunks (traced) {traced} ({smi})",
+          flush=True)
+    print(json.dumps({"tree": tree, "layers": cfg.n_layers,
+                      "chunk_ms": chunk, "wall_ms_a_chunk": wall,
+                      "median": med, "traced": traced, "card": smi}),
+          flush=True)
 
 
 def kernels_per_prefill(fn, n: int = 3):

@@ -110,19 +110,35 @@ def unpack_codes(packed, bits: int, block_size: int):
     return ((word >> off) & ((1 << bits) - 1)).to(torch.uint8)
 
 
+_M32 = 0xFFFFFFFF
+
+
+@lru_cache(maxsize=64)
+def _byte_weights(n: int, size: int, device: torch.device) -> torch.Tensor:
+    """(n * size,) int64: byte k of element j weighs ``(2j + 1) * 256^k
+    mod 2^32``. Built on the host once per layout and device."""
+    w = ((2 * np.arange(n, dtype=np.int64)[:, None] + 1)
+         << (8 * np.arange(size, dtype=np.int64))) & _M32
+    return torch.from_numpy(w.reshape(-1)).to(device)
+
+
+def byte_fold_wide(x, keep_dims: int) -> torch.Tensor:
+    """``byte_fold`` before its final ``mod 2^32``: int64, whose low 32
+    bits are the fold. Sums of these may be taken before one reduction."""
+    lead = tuple(x.shape[:keep_dims])
+    rows = x.contiguous().view(torch.uint8).reshape(lead + (-1,))
+    size = x.element_size()
+    w = _byte_weights(rows.shape[-1] // size, size, rows.device)
+    return (rows * w).sum(dim=-1)
+
+
 def byte_fold(x, keep_dims: int):
     """The reference's position-weighted integrity fold: one uint32 per
     index of the first ``keep_dims`` axes, ``sum_j x[j] * (2j + 1) mod
-    2^32`` over the flattened rest. Floats are bit-cast to unsigned ints of
-    their width first, so the fold is of bits, not values. Summed in int64,
-    where wrap-around keeps the low 32 bits exact; returns torch.uint32."""
-    lead = tuple(x.shape[:keep_dims])
-    flat = x.contiguous().reshape(lead + (-1,))
-    if flat.dtype.is_floating_point:
-        flat = flat.view({2: torch.int16, 4: torch.int32}[flat.element_size()])
-    mask = (1 << (8 * flat.element_size())) - 1
-    flat = flat.to(torch.int64) & mask
-    w = 2 * torch.arange(flat.shape[-1], dtype=torch.int64,
-                         device=x.device) + 1
-    prod = (flat * w) & 0xFFFFFFFF
-    return (prod.sum(dim=-1) & 0xFFFFFFFF).to(torch.uint32)
+    2^32`` over the flattened rest, of unsigned ints of the element's
+    width (floats by their bits). Folded as bytes: an element is the
+    little-endian sum of its bytes, so byte k of element j weighs
+    ``(2j + 1) * 256^k`` (``_byte_weights``) and one product and one sum
+    make the fold, with no per-dtype widening. Summed in int64, where
+    wrap-around keeps the low 32 bits exact; returns torch.uint32."""
+    return (byte_fold_wide(x, keep_dims) & _M32).to(torch.uint32)

@@ -39,7 +39,7 @@ from typing import Optional
 
 import torch
 
-from ..core.pack import bytes_per_block
+from ..core.pack import byte_fold_wide, bytes_per_block
 from ..core.qtensor import QTensor, fmt_key
 from ..core.quantize import resolve_format
 from ..kernels.build import bit_view
@@ -383,6 +383,75 @@ def restore_rows(cfg: ModelConfig, layer_cache, saved, pos, keep,
         mask = keep.reshape(keep.shape + (1,) * (val.dim() - 2))
         buf[at] = torch.where(mask, val, buf[at])
     return layer_cache
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _layer_fold(layer_cache, names, keep: int) -> torch.Tensor:
+    """One layer's leaves ``names`` folded (``byte_fold_wide``) and added:
+    int64, not yet reduced mod 2^32."""
+    folds = [byte_fold_wide(layer_cache[n], keep) for n in names
+             if n in layer_cache]
+    return sum(folds[1:], folds[0])
+
+
+def kv_slot_checksum(cfg: ModelConfig, cache, upto, horizon=None):
+    """(B,) int64 canary, values in [0, 2^32), over each slot's K/V rows
+    that the next decode chunk cannot write: the reference's uint32
+    ``kv_slot_checksum``, bit for bit.
+
+    Decode appends at ``pos``, so the rows a chunk does not write must
+    read back the same after it, or the slot's cache was corrupted. Each
+    (layer, slot, row) is folded by ``byte_fold`` (bits: packed bytes,
+    meta words, bf16 alike) and weighted by the odd ``2 * row + 1``, so a
+    flipped byte and two swapped rows both change the sum (mod 2^32).
+    ``upto`` (B,) holds each slot's ``pos`` (0: the slot contributes 0).
+    With ``horizon`` None the fold covers the prefix ``[0, upto)``; with
+    ``horizon`` (scalar or (B,): the most rows the next chunk may write a
+    slot) it covers the occupied rows (``row < min(upto, S)``, the whole
+    ring once wrapped) less those within ``horizon`` of the write pointer
+    in ring distance (``(row - upto) mod S``, floor-mod).
+
+    The folds run a layer at a time (a whole-cache fold would widen
+    every byte to 8 at once), in int64 (``byte_fold_wide``). Everything
+    is mod 2^32, so the sums may be regrouped: the layers' row folds are
+    added first, weighted by row once. A cache without K/V buffers
+    returns zeros."""
+    pos = cache["pos"]
+    b, dev = pos.shape[0], pos.device
+    folds = [_layer_fold(lc, _KV_LEAVES, 2) for lc in cache["layers"]
+             if any(n in lc for n in _KV_LEAVES)]
+    if not folds:
+        return torch.zeros((b,), dtype=torch.int64, device=dev)
+    s = folds[0].shape[1]
+    upto = torch.as_tensor(upto, device=dev).to(torch.int64).reshape(b, 1)
+    r = torch.arange(s, dtype=torch.int64, device=dev)[None, :]
+    if horizon is None:
+        mask = r < upto
+    else:
+        hz = torch.as_tensor(horizon, device=dev).to(torch.int64)
+        mask = (r < upto.clamp(max=s)) & (
+            torch.remainder(r - upto, s) >= hz.reshape(-1, 1))
+    f = (torch.stack(folds) & _M32).sum(dim=0) & _M32        # (B, S)
+    return ((f * ((2 * r + 1) * mask)) & _M32).sum(dim=1) & _M32
+
+
+def ssm_state_checksum(cfg: ModelConfig, cache):
+    """(B,) int64 canary, values in [0, 2^32), over each slot's recurrent
+    state (``h``, ``conv``): the reference's uint32 ``ssm_state_checksum``,
+    bit for bit. The state changes inside a chunk, so this pins it at
+    rest: the fold taken after one chunk must match right before the next
+    (the engine disarms a slot whose state it writes in between). Every
+    element folds (no row mask), a layer at a time; a cache without
+    Mamba state returns zeros."""
+    pos = cache["pos"]
+    folds = [_layer_fold(lc, ("h", "conv"), 1) for lc in cache["layers"]
+             if "h" in lc or "conv" in lc]
+    if not folds:
+        return torch.zeros((pos.shape[0],), dtype=torch.int64,
+                           device=pos.device)
+    return (torch.stack(folds) & _M32).sum(dim=0) & _M32
 
 
 def attend_decode(cfg: ModelConfig, layer_cache, q, pos,

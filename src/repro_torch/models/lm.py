@@ -247,23 +247,35 @@ def decode_step(cfg: ModelConfig, params: Params, tokens, cache,
 def decode_loop(cfg: ModelConfig, params: Params, tok, cache, n_steps: int,
                 kv_fmt: Optional[str],
                 sample_fn: Callable[[torch.Tensor], torch.Tensor],
-                live=None):
+                live=None, logits_fn=None, probe_fn=None):
     """``n_steps`` decode steps on the device, sampling included.
 
     ``tok`` (B,) is the token entering the loop (already sampled from the
     previous logits). Each step records it, advances the model and samples
     the successor with ``sample_fn(logits (B, V) f32) -> (B,)``. Nothing is
     copied to the host. ``live`` is ``decode_step``'s, for every step.
-    Returns (tokens (B, n_steps), tok, cache): the emitted tokens start
-    with the entering token; the returned ``tok`` enters the next chunk.
+    ``logits_fn`` (optional) rewrites each step's logits before sampling
+    (the serving engines' fault hook: a ``torch.where`` on an all-False
+    mask returns them bit for bit); ``probe_fn`` (optional) maps each
+    step's rewritten logits to a per-step result (the finite-logits
+    sentinel), returned stacked on axis 0 as a fourth element.
+    Returns (tokens (B, n_steps), tok, cache[, probes]): the emitted tokens
+    start with the entering token; the returned ``tok`` enters the next
+    chunk.
     """
-    out = []
+    out, aux = [], []
     for _ in range(n_steps):
         out.append(tok)
         logits, cache = decode_step(cfg, params, tok[:, None], cache, kv_fmt,
                                     live)
+        if logits_fn is not None:
+            logits = logits_fn(logits)
+        if probe_fn is not None:
+            aux.append(probe_fn(logits))
         tok = sample_fn(logits).to(torch.int32)
-    return torch.stack(out, dim=1), tok, cache
+    if probe_fn is None:
+        return torch.stack(out, dim=1), tok, cache
+    return torch.stack(out, dim=1), tok, cache, torch.stack(aux)
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,12 @@
 """Serving: the batched engine, the continuous-batching engine (with
 bounded-queue shedding, per-slot tiers, a paged KV cache,
-self-speculative decoding, and suspension, preemption and checkpoints
-through slot snapshots) over direct-cast weights and KV cache, and the
-JSONL event journal."""
+self-speculative decoding, suspension, preemption and checkpoints
+through slot snapshots, and seeded faults with quarantine and the KV/SSM
+canaries) over direct-cast weights and KV cache, and the JSONL event
+journal."""
 from .engine import GenerationResult, ServeEngine, mask_chunk_emissions
 from .events import EVENT_KINDS, Journal, emit, parse_event, replay
+from .faults import Fault, FaultPlan, flip_kv_bytes
 from .paged import NULL_PAGE, PagePool, auto_page_size
 from .paged_engine import PagedContinuousEngine
 from .scheduler import (DECODING, PREFILLING, AdmissionPolicy,
@@ -33,4 +35,5 @@ __all__ = ["ServeEngine", "GenerationResult", "mask_chunk_emissions",
            "kv_row_bytes", "repack_kv", "pack_device_state",
            "unpack_device_state", "slot_row_capacity",
            "Journal", "emit", "parse_event", "replay",
-           "EVENT_KINDS", "SpeculativeConfig"]
+           "EVENT_KINDS", "SpeculativeConfig", "Fault", "FaultPlan",
+           "flip_kv_bytes"]

@@ -23,8 +23,9 @@ from typing import Iterable, List, Optional, Tuple
 __all__ = ["emit", "parse_event", "Journal", "replay", "EVENT_KINDS"]
 
 # Every kind the reference's engines and scheduler emit (the port emits
-# all but fault, quarantine, requeue, migrate and drain so far): recovery
-# kinds (suspend through restore), paged-KV memory kinds (pool, cow-break,
+# all but migrate and drain, which belong to the sharded engine): fault
+# and containment kinds (fault, quarantine, requeue), recovery kinds
+# (suspend through restore), paged-KV memory kinds (pool, cow-break,
 # prefix-hit) and the tiered engine's kv-repack.
 EVENT_KINDS = ("admit", "prefill-start", "prefill-done", "degrade",
                "shed", "expire", "cancel", "fault", "quarantine",

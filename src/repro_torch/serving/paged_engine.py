@@ -82,8 +82,15 @@ as soon as it decodes on) and writes the rows through the table; the
 zero padding past the allocation drops on null entries. A checkpoint taken
 on either layout restores on the other.
 
-Left for later: the sharded paged engine, the ``kv_integrity`` refusal
-(the port has no KV canary yet) and paged tiers (the reference has none).
+Faults: the finite-logits sentinel and quarantine run through the paged
+dispatch, plain and speculative; a quarantined slot's pages go back to
+the pool through ``_reset_dispatch``. ``kv_integrity`` is refused, as the
+reference's: the K/V canary pins a slot-private stable prefix, which
+prefix sharing breaks on purpose (and ``flip_kv_bytes`` raises on the
+pools).
+
+Left for later: the sharded paged engine and paged tiers (the reference
+has none).
 """
 from __future__ import annotations
 
@@ -146,6 +153,11 @@ class PagedContinuousEngine(ContinuousEngine):
                  n_pages: Optional[int] = None,
                  page_size: Optional[int] = None,
                  prefix_sharing: bool = True, **kw):
+        if kw.get("kv_integrity"):
+            raise ValueError(
+                "kv_integrity is not served by the paged engine: the KV "
+                "canary pins a slot-private stable prefix, which prefix "
+                "sharing deliberately violates")
         rows = cfg.sliding_window if cfg.sliding_window else max_len
         if page_size is None:
             page_size = auto_page_size(rows)
@@ -349,9 +361,9 @@ class PagedContinuousEngine(ContinuousEngine):
         if register_ok and self.pool.register_prefix(req.tokens, slot):
             self._emit_pool()
 
-    def _dispatch_chunk(self) -> np.ndarray:
+    def _dispatch_chunk(self, poison: np.ndarray):
         self._cow_sweep()
-        return super()._dispatch_chunk()
+        return super()._dispatch_chunk(poison)
 
     def _cow_sweep(self) -> None:
         """Privatize the shared pages of any slot whose next dispatch could

@@ -102,8 +102,26 @@ the paged layout alike. ``restore_from_journal`` rebuilds the unfinished
 requests from the event log alone. A PREFILLING request that is
 suspended aborts its lane and requeues plain.
 
-Left for later slices: faults, quarantine and the KV canaries, and
-sharding.
+Faults and containment: ``serve(fault_plan=)`` takes a seeded
+``FaultPlan`` (``serving/faults.py``) that poisons a slot's logits, flips
+bytes of its packed K/V rows in place or sleeps at a chunk boundary. Every
+decode chunk returns ``finite``, each slot's AND of ``isfinite`` over its
+logits (the sentinel, always on, riding the chunk's one host copy), and
+with ``kv_integrity=True`` two canaries run around it: a fold of each
+slot's K/V rows that the chunk cannot write, taken before and checked
+after it (``kvcache.kv_slot_checksum``, window-aware for a ring), and a
+fold of each slot's Mamba state after a chunk, checked before the next
+(``ssm_state_checksum``: nothing but decode may move it at rest; every
+path that writes a slot between chunks disarms it first). A slot that
+trips one is quarantined before its chunk is harvested: its tokens are
+dropped, the slot is reset and freed, and the request is requeued with
+``retries - 1`` (a fresh prefill replays it to its full stream) or ends
+``FAILED`` with its pre-fault prefix. The neighbours' streams do not
+change: decode rows are independent. The poison mask is a static buffer
+written before each replay, so the all-False default runs today's graphs
+on today's inputs.
+
+Left for a later slice: sharding.
 """
 from __future__ import annotations
 
@@ -121,11 +139,13 @@ from ..models import (decode_loop, init_cache, init_lane, prefill_chunk,
                       prefill_into_slot, read_cache_slot, recurrent_state,
                       reset_slot, write_cache_slot)
 from ..models.common import ModelConfig
-from ..models.kvcache import cache_rows
+from ..models.kvcache import (cache_rows, kv_slot_checksum,
+                               ssm_state_checksum)
 from ..models.lm import FAMILIES, restore_round, save_round
 from .engine import (_sync, capture_graph, load_params,
                      mask_chunk_emissions, sample_tokens)
 from .events import Journal, replay
+from .faults import FaultPlan, flip_kv_bytes
 from .snapshot import (SlotSnapshot, load_checkpoint, pack_device_state,
                        save_checkpoint, slot_row_capacity,
                        unpack_device_state)
@@ -143,12 +163,14 @@ class Status:
     queued request leaves with no tokens, a decoding one with its partial
     output), CANCELLED (``ContinuousEngine.cancel``, the same partial-
     output rule), SHED (bounded-queue backpressure turned it away
-    unstarted). The reference's FAILED comes with quarantine."""
+    unstarted), FAILED (its slot tripped a containment check and its
+    retry budget was spent: the tokens are the pre-fault prefix)."""
 
     OK = "OK"
     DEADLINE_EXPIRED = "DEADLINE_EXPIRED"
     CANCELLED = "CANCELLED"
     SHED = "SHED"
+    FAILED = "FAILED"
 
 
 @dataclasses.dataclass
@@ -161,8 +183,10 @@ class Request:
     generator: a sampled request reproduces ``ServeEngine(rng_seed=seed)``
     serving it alone. ``deadline_s`` is an end-to-end budget from arrival:
     once it is exceeded the request is ended at the next chunk boundary
-    with what it generated so far. ``priority`` (higher = more urgent)
-    feeds ``PriorityAdmission``. ``tier`` names a serving tier of a
+    with what it generated so far. ``retries`` is the quarantine budget:
+    how many times a containment trip requeues the request instead of
+    failing it. ``priority`` (higher = more urgent) feeds
+    ``PriorityAdmission``. ``tier`` names a serving tier of a
     ``TieredContinuousEngine`` (None: its default tier); the plain engine
     ignores it.
     """
@@ -174,6 +198,7 @@ class Request:
     arrival_time: float = 0.0
     seed: int = 0
     deadline_s: Optional[float] = None
+    retries: int = 0
     priority: int = 0
     tier: Optional[str] = None
 
@@ -606,20 +631,33 @@ class SlotScheduler:
 def continuous_chunk(cfg: ModelConfig, params, kv_fmt: Optional[str],
                      n_steps: int, greedy: bool, gens, buf, cache):
     """One decode chunk of the continuous engine (the reference's
-    ``_chunk_fn`` without its fault hooks): ``n_steps`` decode steps of
-    every slot from the static buffers ``buf``, live-gated, then the
-    chunk's emission, stop and per-slot budget masking. A sampled chunk
-    (``greedy`` false) draws each slot's noise over its own (1, V) row
-    with its own generator, as a solo engine does. Returns (emitted
-    (B, n), tok, n_gen, done, pos)."""
+    ``_chunk_fn``): ``n_steps`` decode steps of every slot from the static
+    buffers ``buf``, live-gated, then the chunk's emission, stop and
+    per-slot budget masking. A sampled chunk (``greedy`` false) draws each
+    slot's noise over its own (1, V) row with its own generator, as a solo
+    engine does. ``buf["poison"]`` (B,) bool makes a slot's logits NaN at
+    every step (the fault hook; all False leaves them bit for bit).
+    Returns (emitted (B, n), tok, n_gen, done, pos, finite): ``finite``
+    (B,) is each slot's AND of ``isfinite`` over every step's logits, the
+    containment sentinel (a NaN at any step trips it)."""
+    poison = buf["poison"]
+
     def sample(logits):
         return sample_tokens(logits, buf["temp"], greedy, gens)
 
-    toks, tok, new = decode_loop(cfg, params, buf["tok"], cache, n_steps,
-                                 kv_fmt, sample, live=buf["live"])
+    def inject(logits):
+        return torch.where(poison[:, None], float("nan"), logits)
+
+    def probe(logits):
+        return torch.isfinite(logits).all(dim=-1)
+
+    toks, tok, new, aux = decode_loop(cfg, params, buf["tok"], cache,
+                                      n_steps, kv_fmt, sample,
+                                      live=buf["live"], logits_fn=inject,
+                                      probe_fn=probe)
     emitted, n_gen, done = mask_chunk_emissions(
         toks, buf["done"], buf["n_gen"], buf["stop"], buf["max_new"])
-    return emitted, tok, n_gen, done, new["pos"]
+    return emitted, tok, n_gen, done, new["pos"], aux.all(dim=0)
 
 
 def speculative_chunk(cfg: ModelConfig, params, draft_params,
@@ -630,26 +668,30 @@ def speculative_chunk(cfg: ModelConfig, params, draft_params,
     each slot advancing by its own accepted length (``spec_k`` (B,) caps a
     slot's acceptance), emission, stop and budget masking round by round,
     the rounds' ragged emissions left-packed into each slot's prefix.
-    Returns (emitted (B, n_rounds * (k+1)), tok, n_gen, done, pos, acc,
-    off): ``acc`` and ``off`` are each slot's accepted and offered
-    candidates over the chunk, the adaptive-k signal."""
+    ``buf["poison"]`` NaNs a slot's verify logits in every round. Returns
+    (emitted (B, n_rounds * (k+1)), tok, n_gen, done, pos, finite, acc,
+    off): ``finite`` is the sentinel over every round's verify logits,
+    ``acc`` and ``off`` each slot's accepted and offered candidates over
+    the chunk, the adaptive-k signal."""
     tok, done, n_gen = buf["tok"], buf["done"], buf["n_gen"]
     acc = torch.zeros_like(n_gen)
     off = torch.zeros_like(n_gen)
+    finite = torch.ones_like(done)
     c = cache
     toks_r, n_r = [], []
     for _ in range(n_rounds):
         live_r = buf["live"] & ~done
-        emitted, n_emit, tok, c, done, n_gen, a = spec_round(
+        emitted, n_emit, tok, c, done, n_gen, fin_r, a = spec_round(
             cfg, params, draft_params, tok, c, done, n_gen, buf["max_new"],
-            buf["temp"], buf["stop"], live_r, spec_k, gens, kv_fmt=kv_fmt,
-            k=k, greedy=greedy)
+            buf["temp"], buf["stop"], live_r, buf["poison"], spec_k, gens,
+            kv_fmt=kv_fmt, k=k, greedy=greedy)
+        finite = finite & fin_r
         acc = acc + torch.where(live_r, a, 0)
         off = off + torch.where(live_r, torch.clamp(spec_k, max=k), 0)
         toks_r.append(emitted)
         n_r.append(n_emit)
     emitted = pack_emissions(torch.stack(toks_r), torch.stack(n_r))
-    return emitted, tok, n_gen, done, c["pos"], acc, off
+    return emitted, tok, n_gen, done, c["pos"], finite, acc, off
 
 
 class ContinuousEngine:
@@ -693,6 +735,12 @@ class ContinuousEngine:
     ``restore_from_journal``, with the event log alone) returns the
     requests to hand to ``serve``.
 
+    ``serve(fault_plan=)`` injects a seeded ``FaultPlan``; the finite-
+    logits sentinel always runs, and ``kv_integrity=True`` adds the K/V
+    and SSM-state canaries (``_kv_refresh``, ``_kv_verify``,
+    ``_ssm_rearm``). A tripped slot is quarantined (``_quarantine``):
+    requeued while ``Request.retries`` lasts, else ``Status.FAILED``.
+
     Counters for the caller: ``replays`` and ``lane_replays`` (decode and
     lane CUDA graph replays since construction); for the last ``serve``,
     ``chunks`` (decode chunks), ``chunk_times`` (each chunk's live slots
@@ -715,7 +763,7 @@ class ContinuousEngine:
                  shedding: Optional[SheddingPolicy] = None,
                  speculative: Optional[SpeculativeConfig] = None,
                  preemption: Optional[PreemptionPolicy] = None,
-                 device=None):
+                 kv_integrity: bool = False, device=None):
         if chunk < 1 or n_slots < 1:
             raise ValueError(f"chunk ({chunk}) and n_slots ({n_slots}) "
                              "must be >= 1")
@@ -738,6 +786,7 @@ class ContinuousEngine:
         self.max_queue = max_queue
         self.shedding = shedding
         self.preemption = preemption
+        self.kv_integrity = kv_integrity
         self.device = resolve_device(device)
         self.speculative = speculative
         if speculative is not None:
@@ -760,6 +809,22 @@ class ContinuousEngine:
             "stop": np.full((n_slots,), -1, np.int32)}
         self._buf = {k: torch.from_numpy(v.copy()).to(self.device)
                      for k, v in self._host.items()}
+        # the fault hook: slots whose logits the next chunk makes NaN
+        self._buf["poison"] = torch.zeros((n_slots,), dtype=torch.bool,
+                                          device=self.device)
+        # the canaries (kv_integrity): the K/V fold pins each slot's rows
+        # that a chunk cannot write (vacuous without attention), the SSM
+        # fold its Mamba state at rest between chunks
+        self._has_attn_kv = not cfg.attn_free
+        self._has_ssm = cfg.has_mamba
+        self._kv_armed = np.zeros((n_slots,), bool)
+        self._kv_sum = np.zeros((n_slots,), np.int64)
+        self._kv_upto = np.zeros((n_slots,), np.int64)
+        self._kv_horizon = chunk
+        self._ssm_armed = np.zeros((n_slots,), bool)
+        self._ssm_sum = np.zeros((n_slots,), np.int64)
+        self._ssm_bad = np.zeros((n_slots,), bool)
+        self._fault_plan: Optional[FaultPlan] = None
         self._graphs: Dict[Any, Any] = {}    # key -> (graph, outputs)
         self.replays = 0
         self.lane_replays = 0
@@ -854,10 +919,10 @@ class ContinuousEngine:
             restore_round(cfg, self.cache, saved, kv)
         return one_round
 
-    def _dispatch_spec_chunk(self, greedy: bool) -> np.ndarray:
+    def _dispatch_spec_chunk(self, greedy: bool):
         """Run one speculative chunk from the uploaded slot state and fold
         its results and acceptance counts back into the host state and the
-        controller. Returns emitted (B, n_rounds * (k+1))."""
+        controller. Returns (emitted (B, n_rounds * (k+1)), finite (B,))."""
         k, n_rounds = self._spec_round_shape()
         self.spec_rounds.append((k, n_rounds))
         self._spec_k.copy_(torch.from_numpy(self._adaptive.k.astype(np.int32)))
@@ -867,7 +932,8 @@ class ContinuousEngine:
                                                    warm=steps is not None),
             greedy)
         got = self._fold(outs, self.cache, slice(None))
-        emitted, acc, off = got[:, :-2], got[:, -2], got[:, -1]
+        emitted, finite = got[:, :-3], got[:, -3] != 0
+        acc, off = got[:, -2], got[:, -1]
         self.spec_accepted += int(acc.sum())
         self.spec_offered += int(off.sum())
         old_k = self._adaptive.k.copy()
@@ -876,7 +942,7 @@ class ContinuousEngine:
             self._emit("spec-k", slot=int(s), k=int(self._adaptive.k[s]),
                        ema=round(float(self._adaptive.ema[s]), 3),
                        chunk=self.chunks)
-        return emitted
+        return emitted, finite
 
     def spec_stats(self) -> Dict[str, Any]:
         """Acceptance over every chunk since construction: accepted and
@@ -1061,10 +1127,10 @@ class ContinuousEngine:
 
     def _fold(self, outs, cache, rows) -> np.ndarray:
         """Fold a chunk's results (emitted (B, n), tok, n_gen, done, pos,
-        then any (B,) extra columns: a speculative chunk's acc and off) into
-        ``cache["pos"]`` and the host state of ``rows`` (a bool mask or a
-        slice), in one host copy. Returns emitted, then the extra columns:
-        (B, n + extras)."""
+        then the (B,) extra columns: ``finite``, and a speculative chunk's
+        acc and off) into ``cache["pos"]`` and the host state of ``rows``
+        (a bool mask or a slice), in one host copy. Returns emitted, then
+        the extra columns: (B, n + extras)."""
         emitted, tok, n_gen, done, pos, *extra = outs
         cache["pos"].copy_(pos)
         n = emitted.shape[1]
@@ -1078,24 +1144,26 @@ class ContinuousEngine:
         h["done"][rows] = got[rows, n + 2] != 0
         return np.concatenate([got[:, :n], got[:, n + 3:]], axis=1)
 
-    def _dispatch_chunk(self) -> np.ndarray:
-        """Run one decode chunk from the host slot state and fold its
-        results back into it. Returns emitted (B, chunk) as numpy."""
+    def _dispatch_chunk(self, poison: np.ndarray):
+        """Run one decode chunk from the host slot state, ``poison`` (B,)
+        written into its static buffer, and fold its results back into the
+        host state. Returns (emitted (B, chunk), finite (B,)) as numpy."""
         t0 = time.perf_counter()
         h = self._host
         live = int(h["live"].sum())
-        self._upload(h)
+        self._upload(dict(h, poison=poison))
         greedy = bool((h["temp"] == 0.0).all())
         if self.speculative is not None:
-            emitted = self._dispatch_spec_chunk(greedy)
+            emitted, finite = self._dispatch_spec_chunk(greedy)
         else:
             outs = self._run_chunk(
                 greedy, lambda steps=None: self._chunk_fn(greedy, steps),
                 greedy)
-            emitted = self._fold(outs, self.cache, slice(None))
+            got = self._fold(outs, self.cache, slice(None))
+            emitted, finite = got[:, :-1], got[:, -1] != 0
         self.chunks += 1
         self.chunk_times.append((live, time.perf_counter() - t0))
-        return emitted
+        return emitted, finite
 
     def _first_token(self, slot: int, req: Request, logits) -> int:
         """A request's first token off its prefill logits (1, V), shared by
@@ -1166,6 +1234,7 @@ class ContinuousEngine:
         return out
 
     def _reset_dispatch(self, slot: int) -> None:
+        self._disarm(slot)
         reset_slot(self.cfg, self._slot_cache(slot), slot)
 
     # -- host loop -----------------------------------------------------------
@@ -1183,18 +1252,27 @@ class ContinuousEngine:
         h["max_new"][slot] = req.max_new
         h["temp"][slot] = req.temperature
         h["stop"][slot] = -1 if req.stop_token is None else req.stop_token
+        self._disarm(slot)
         if self.speculative is not None:
             self._adaptive.arm(slot)
 
     def _park_slot_flags(self, slot: int) -> None:
         """Host flags of a slot leaving service or prefilling in the lane:
         not live, done, greedy (a parked slot never holds the chunk in
-        sampled mode), no stop."""
+        sampled mode), no stop, the canaries disarmed."""
         h = self._host
         h["live"][slot] = False
         h["done"][slot] = True
         h["temp"][slot] = 0.0
         h["stop"][slot] = -1
+        self._disarm(slot)
+
+    def _disarm(self, slot: int) -> None:
+        """Disarm a slot's canaries: every path that writes its state
+        between chunks (admission, the lane, a restore, a reset, a park)
+        calls this first, so the write is not taken for corruption."""
+        self._kv_armed[slot] = False
+        self._ssm_armed[slot] = False
 
     def _decoding_state(self, req: Request, admit_time: float,
                         clock) -> Dict[str, Any]:
@@ -1377,6 +1455,7 @@ class ContinuousEngine:
         to the device, zero-padded there back to the slot's capacity (the
         padding lies past ``pos``), then one ``write_cache_slot`` of the
         whole slot, packed bytes verbatim, no dequantize."""
+        self._disarm(slot)
         cache = self._slot_cache(slot)
         dev = snap.device
         dev = {"pos": dev["pos"].to(self.device),
@@ -1481,6 +1560,160 @@ class ContinuousEngine:
         for slot in self.preemption.victims(sched, clock()):
             self._suspend_slot(sched, state, slot, clock, event="preempt")
 
+    def drain_shard(self, shard: int) -> None:
+        """Take ``shard`` out of rotation: sharded engines only (the
+        reference's ``ShardedContinuousEngine``; the port has none yet),
+        so a ``shard_down`` fault is refused loudly here."""
+        raise ValueError("drain_shard needs a sharded engine "
+                         "(ShardedContinuousEngine)")
+
+    # -- containment: quarantine, the canaries, fault injection ---------------
+
+    def _quarantine(self, sched: SlotScheduler, state: Dict[int, Any],
+                    results: List[RequestResult], bad: np.ndarray,
+                    cause: Dict[int, str], clock) -> None:
+        """Contain the slots that tripped a detector this chunk.
+
+        Runs before the harvest, so the faulted chunk's tokens are dropped.
+        The slot is released, reset and parked, and the victim either
+        requeues (``retries`` left: a fresh prefill replays it from its
+        prompt, so a one-shot fault yields the full fault-free stream) or
+        ends ``FAILED`` with its pre-fault prefix. Healthy slots are not
+        touched: decode rows are independent, so their tokens and cache
+        are the fault-free run's, bit for bit."""
+        for slot in [s for s in list(sched.active) if bad[s]]:
+            req = sched.active[slot]
+            self._emit("quarantine", uid=req.uid, slot=slot,
+                       cause=cause.get(slot), retries_left=req.retries,
+                       chunk=self.chunks - 1)
+            if req.retries <= 0:
+                self._finish_slot(sched, state, slot, Status.FAILED, clock(),
+                                  results)
+                continue
+            sched.release(slot)
+            state.pop(slot)
+            self._reset_dispatch(slot)
+            self._park_slot_flags(slot)
+            sched.submit(dataclasses.replace(req, retries=req.retries - 1))
+            self._emit("requeue", uid=req.uid, retries_left=req.retries - 1)
+
+    def _chunk_horizon(self) -> int:
+        """The most K/V rows one slot may write in the next decode chunk
+        (the K/V canary leaves the ring rows inside it out)."""
+        if self.speculative is None:
+            return self.chunk
+        k, n_rounds = self._spec_round_shape()
+        return n_rounds * (k + 1)
+
+    def _kv_check(self) -> np.ndarray:
+        return kv_slot_checksum(
+            self.cfg, self.cache, torch.from_numpy(self._kv_upto),
+            self._kv_horizon).cpu().numpy()
+
+    def _ssm_check(self) -> np.ndarray:
+        return ssm_state_checksum(self.cfg, self.cache).cpu().numpy()
+
+    def _kv_refresh(self) -> None:
+        """Before the chunk: fold each live slot's K/V rows that the chunk
+        cannot write (``kv_slot_checksum``, window-aware: a wrapped ring's
+        rows outside the write horizon stay covered; only a horizon
+        spanning the whole window disarms). Also the check of the SSM
+        at-rest canary: the state folded after the last chunk
+        (``_ssm_rearm``) must read back the same, since nothing but decode
+        moves an armed slot's state; a trip joins this chunk's
+        containment."""
+        if self._has_attn_kv:
+            pos = self.cache["pos"].cpu().numpy()
+            armed = self._host["live"].copy()
+            hz = self._chunk_horizon()
+            w = self.cfg.sliding_window
+            if w and hz >= w:
+                armed[:] = False    # the whole ring is writable: vacuous
+            self._kv_armed = armed
+            self._kv_horizon = hz
+            self._kv_upto = np.where(armed, pos, 0).astype(np.int64)
+            self._kv_sum = self._kv_check()
+        if self._has_ssm:
+            self._ssm_bad = ((self._ssm_check() != self._ssm_sum)
+                             & self._ssm_armed & self._host["live"])
+        else:
+            self._ssm_bad[:] = False
+
+    def _kv_verify(self) -> np.ndarray:
+        """(B,) bool: armed slots whose pinned K/V rows changed bits."""
+        if not self._has_attn_kv:
+            return np.zeros((self.n_slots,), bool)
+        return (self._kv_check() != self._kv_sum) & self._kv_armed
+
+    def _ssm_rearm(self) -> None:
+        """After the chunk: fold the live slots' recurrent state and arm
+        them for the next ``_kv_refresh``'s at-rest check."""
+        self._ssm_sum = self._ssm_check()
+        self._ssm_armed = self._host["live"].copy()
+
+    def _inject_faults(self, sched: SlotScheduler) -> np.ndarray:
+        """Apply the due faults of the serve's ``FaultPlan``; returns the
+        chunk's (B,) poison mask. Without a plan, all False and nothing
+        else. A fault aimed at a request waits, unfired, until that request
+        decodes (one aimed at a queued request fires after its admission).
+        A K/V flip edits the cache's buffers in place, so the next replay
+        reads it."""
+        poison = np.zeros((self.n_slots,), bool)
+        plan = self._fault_plan
+        if plan is None:
+            return poison
+        ci, live = self.chunks, self._host["live"]
+        for i, f in plan.pending("delay", ci):
+            plan.fire(i)
+            self._emit("fault", kind="delay", shard=f.shard,
+                       seconds=f.seconds, chunk=ci)
+            time.sleep(f.seconds)
+        for i, f in plan.pending("shard_down", ci):
+            plan.fire(i)
+            self._emit("fault", kind="shard_down", shard=f.shard, chunk=ci)
+            self.drain_shard(f.shard)
+        uid2slot = {r.uid: s for s, r in sched.active.items()}
+        for i, f in plan.pending("nan_logits", ci):
+            s = uid2slot.get(f.uid)
+            if s is None or not live[s]:
+                continue
+            plan.fire(i)
+            poison[s] = True
+            self._emit("fault", kind="nan_logits", uid=f.uid, slot=s,
+                       chunk=ci)
+        for i, f in plan.pending("kv_flip", ci):
+            s = uid2slot.get(f.uid)
+            if s is None or not live[s]:
+                continue
+            n_rows = int(self._slot_cache(s)["pos"][s])
+            if n_rows <= 0:
+                continue
+            plan.fire(i)
+            flip_kv_bytes(self._slot_cache(s), s, n_rows, plan.rng(i),
+                          n_bytes=f.n_bytes)
+            self._emit("fault", kind="kv_flip", uid=f.uid, slot=s,
+                       n_bytes=f.n_bytes, chunk=ci)
+        return poison
+
+    def _contain(self, sched: SlotScheduler, state: Dict[int, Any],
+                 results: List[RequestResult], finite: np.ndarray,
+                 clock) -> None:
+        """After a chunk, before its harvest: the sentinel (always) and the
+        canaries (``kv_integrity``) name the bad live slots, each with its
+        first cause, and ``_quarantine`` contains them."""
+        live = self._host["live"]
+        bad = ~finite & live
+        cause = {int(s): "nan_logits" for s in np.nonzero(bad)[0]}
+        if self.kv_integrity:
+            for name, trip in (("kv_integrity", self._kv_verify()),
+                               ("ssm_integrity", self._ssm_bad)):
+                trip = trip & live
+                for s in np.nonzero(trip & ~bad)[0]:
+                    cause[int(s)] = name
+                bad = bad | trip
+        if bad.any():
+            self._quarantine(sched, state, results, bad, cause, clock)
+
     # -- crash recovery: checkpoint, restore ----------------------------------
 
     def checkpoint(self, path) -> Dict[str, Any]:
@@ -1547,7 +1780,8 @@ class ContinuousEngine:
         return reqs, list(ck["results"])
 
     # the journal kinds that end a request (a uid that reached one needs
-    # no replay)
+    # no replay): finish covers OK and FAILED; a requeue after a
+    # quarantine is not terminal, the retry's later finish is
     _TERMINAL_KINDS = frozenset(("finish", "cancel", "expire", "shed"))
 
     def restore_from_journal(self, requests: Sequence[Request],
@@ -1646,21 +1880,29 @@ class ContinuousEngine:
         sched.resumable.update(self._pending_resume)
         self._pending_resume = {}
 
-    def serve(self, requests: List[Request],
-              progress_cb=None) -> List[RequestResult]:
+    def serve(self, requests: List[Request], progress_cb=None,
+              fault_plan: Optional[FaultPlan] = None) -> List[RequestResult]:
         """Drain ``requests`` through the slots, honouring arrival times.
 
         Per iteration: the lifecycle sweep (cancels, deadlines, shedding,
         suspensions); the preemption policy's victims suspended; the
         resumable requests the policy picks resumed; admission into free
         slots of the requests that have arrived (one batch-1 prefill each,
-        or one lane chunk in chunked mode); one
-        decode chunk over all slots; harvest of each decoding slot's new
-        tokens; retirement of finished slots; then ``progress_cb(engine,
+        or one lane chunk in chunked mode); the canaries' fold before the
+        chunk (``kv_integrity``), the plan's due faults, one decode chunk
+        over all slots, the containment checks and quarantine; harvest of
+        each decoding slot's new tokens; retirement of finished slots; the
+        SSM canary's fold after the chunk; then ``progress_cb(engine,
         sched)`` when given. When nothing is live and the lane is idle, the
         loop sleeps until the next arrival. Returns one result per request,
-        in the order they ended (check ``status``).
+        in the order they ended (check ``status``). ``fault_plan`` (a
+        ``FaultPlan``, re-armed here) injects seeded faults; None leaves
+        every hook a no-op and the streams bit for bit today's.
         """
+        if fault_plan is not None:
+            fault_plan.reset()
+            requests = fault_plan.apply_arrivals(requests)
+        self._fault_plan = fault_plan
         self._cancel_uids.clear()           # cancels and suspensions of a
         self._suspend_uids.clear()          # past serve
         sched = self._make_sched()
@@ -1710,8 +1952,12 @@ class ContinuousEngine:
                 self.stall_seconds.append(
                     sum(self.admit_seconds[marks[0]:])
                     + sum(self.lane_seconds[marks[1]:]))
-            emitted = self._dispatch_chunk()
+            if self.kv_integrity:
+                self._kv_refresh()
+            poison = self._inject_faults(sched)
+            emitted, finite = self._dispatch_chunk(poison)
             now = clock()
+            self._contain(sched, state, results, finite, clock)
             n_gen, done = self._host["n_gen"], self._host["done"]
             for slot in list(sched.active):
                 st = state.get(slot)
@@ -1723,8 +1969,11 @@ class ContinuousEngine:
                 if done[slot]:
                     self._finish_slot(sched, state, slot, Status.OK, now,
                                       results)
+            if self.kv_integrity and self._has_ssm:
+                self._ssm_rearm()
             if progress_cb is not None:
                 progress_cb(self, sched)
+        self._fault_plan = None
         self._sched = self._state = self._results = self._clock = None
         return results
 

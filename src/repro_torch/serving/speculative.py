@@ -187,17 +187,21 @@ def pack_emissions(toks_r, n_r):
 
 
 def spec_round(cfg, params, draft_params, tok, cache, done, n_gen, max_new,
-               temperature, stop, live_r, spec_k, gens: Sequence,
+               temperature, stop, live_r, poison, spec_k, gens: Sequence,
                *, kv_fmt: Optional[str], k: int, greedy: bool):
     """One draft -> verify -> accept -> commit round, on the device.
 
     ``live_r`` (B,) gates every cache write: a parked, prefilling or done
-    slot rides the batch and keeps its rows, state and ``pos``. ``greedy``
-    (static: no sampled slot is live) skips the draft's sampling, the
-    residual acceptance and every generator. ``cache`` is updated in place
-    (its ``pos`` is a new tensor, as ``decode_step``'s). Returns (emitted
-    (B, k+1), n_emit, tok', cache, done', n_gen', a (B,)): ``a`` is each
-    slot's accepted candidate count, the adaptive-k signal.
+    slot rides the batch and keeps its rows, state and ``pos``. ``poison``
+    (B,) bool makes a slot's verify logits NaN (the authoritative ones: a
+    poisoned draft would only propose tokens the verify corrects); the
+    all-False mask leaves them bit for bit. ``greedy`` (static: no sampled
+    slot is live) skips the draft's sampling, the residual acceptance and
+    every generator. ``cache`` is updated in place (its ``pos`` is a new
+    tensor, as ``decode_step``'s). Returns (emitted (B, k+1), n_emit,
+    tok', cache, done', n_gen', finite (B,), a (B,)): ``finite`` is each
+    slot's AND of ``isfinite`` over its verify logits (the containment
+    sentinel), ``a`` its accepted candidate count (the adaptive-k signal).
     """
     from ..models.lm import commit_verify, draft_loop, verify_step
     from .engine import sample_tokens
@@ -211,6 +215,8 @@ def spec_round(cfg, params, draft_params, tok, cache, done, n_gen, max_new,
     vlogits, pending = verify_step(
         cfg, params, torch.cat([tok[:, None].to(cands.dtype), cands], dim=1),
         cache, kv_fmt, live=live_r)
+    vlogits = torch.where(poison[:, None, None], float("nan"), vlogits)
+    finite = torch.isfinite(vlogits).all(dim=2).all(dim=1)
     a, out_toks, nxt = accept_greedy(tok, cands, vlogits, spec_k)
     if not greedy:
         a_s, out_s, nxt_s = accept_residual(tok, cands, vlogits, dlogits,
@@ -225,7 +231,7 @@ def spec_round(cfg, params, draft_params, tok, cache, done, n_gen, max_new,
                           torch.where(live_r, n_emit, 0), kv_fmt,
                           live=live_r)
     tok = torch.where(live_r, nxt, tok.to(torch.int32))
-    return emitted, n_emit, tok, cache, done, n_gen, a
+    return emitted, n_emit, tok, cache, done, n_gen, finite, a
 
 
 class AdaptiveK:

@@ -56,8 +56,12 @@ Guarantees (``tests/test_torch_tiers.py``,
 emits the plain ``ContinuousEngine``'s tokens at that policy, bit for
 bit; each stream of a mixed-tier serve is the stream of its request
 served alone at its tier. Refused at init: ``p_chunk="auto"`` (the sweep
-times one arena's graphs), ``speculative=`` and ``preemption=`` (as the
-reference's).
+times one arena's graphs), ``speculative=``, ``preemption=`` and
+``kv_integrity=`` (as the reference's: the canaries fold one arena).
+
+Faults: each group's dispatch takes the poison mask of its own rows
+(``poison & mask``) and folds back only its own rows' ``finite``, so the
+finite-logits sentinel and quarantine run as in the plain engine.
 """
 from __future__ import annotations
 
@@ -190,6 +194,9 @@ class TieredContinuousEngine(ContinuousEngine):
             if kw.get(bad) is not None:
                 raise ValueError(
                     f"tiered serving does not compose with {bad}=")
+        if kw.get("kv_integrity"):
+            raise ValueError("tiered serving does not run the KV canaries "
+                             "(per-arena checksums are a follow-up)")
         if kw.get("p_chunk") == "auto":
             raise ValueError("p_chunk='auto' probes the single-arena "
                              "cache; pick a static p_chunk")
@@ -296,17 +303,19 @@ class TieredContinuousEngine(ContinuousEngine):
         return lambda: continuous_chunk(cfg, params, kv_fmt, n, greedy, gens,
                                         buf, cache)
 
-    def _dispatch_chunk(self) -> np.ndarray:
+    def _dispatch_chunk(self, poison: np.ndarray):
         """One decode dispatch per (weight_fmt, kv_fmt) group among the
         live slots, each over the full batch with the other slots done and
-        not live; only the group's rows fold back into the host state, and
-        ``pos`` (which the riders keep) into the group's arena. A sampled
-        dispatch draws from every slot's generator: the others' are put
-        back after it. A single-tier engine makes exactly the plain
-        engine's one dispatch."""
+        not live and poisoned only where the group's rows are; only the
+        group's rows fold back into the host state (``finite`` included),
+        and ``pos`` (which the riders keep) into the group's arena. A
+        sampled dispatch draws from every slot's generator: the others'
+        are put back after it. A single-tier engine makes exactly the
+        plain engine's one dispatch. Returns (emitted, finite)."""
         t0 = time.perf_counter()
         h = self._host
         emitted_all = np.zeros((self.n_slots, self.chunk), np.int32)
+        finite_all = np.ones((self.n_slots,), bool)
         groups: Dict[Any, List[int]] = {}
         for s in np.nonzero(h["live"])[0]:
             spec = self.tiers[self._slot_tier[int(s)]]
@@ -317,7 +326,7 @@ class TieredContinuousEngine(ContinuousEngine):
             mask[groups[(wf, kvf)]] = True
             greedy = bool((np.where(mask, h["temp"], 0.0) == 0.0).all())
             self._upload(dict(h, done=h["done"] | ~mask,
-                              live=h["live"] & mask))
+                              live=h["live"] & mask, poison=poison & mask))
             kept = [] if greedy else [(g, g.get_state()) for g, m in
                                       zip(self._gens, mask) if not m]
             outs = self._run_chunk(
@@ -327,13 +336,14 @@ class TieredContinuousEngine(ContinuousEngine):
                 self._caches[kvf])
             for g, state in kept:
                 g.set_state(state)
-            emitted_all[mask] = self._fold(outs, self._caches[kvf],
-                                           mask)[mask]
+            got = self._fold(outs, self._caches[kvf], mask)
+            emitted_all[mask] = got[mask, :-1]
+            finite_all[mask] = got[mask, -1] != 0
         self.chunks += 1
         self.chunk_groups.append(len(groups))
         self.chunk_times.append((int(h["live"].sum()),
                                  time.perf_counter() - t0))
-        return emitted_all
+        return emitted_all, finite_all
 
     # -- the degraded-KV rung -----------------------------------------------
 

@@ -1929,3 +1929,132 @@ def test_paged_restore_through_table_on_card(cuda):
         for name, buf in layer.items():
             if name.startswith("pool_"):
                 assert not buf[0].view(torch.uint8).any(), name
+
+
+def _spy_chunks(eng, log):
+    """Record each decode dispatch's (poison, finite, emitted, live)."""
+    dispatch = eng._dispatch_chunk
+
+    def spy(poison):
+        emitted, finite = dispatch(poison)
+        log.append((poison.copy(), finite.copy(), emitted.copy(),
+                    eng._host["live"].copy()))
+        return emitted, finite
+    eng._dispatch_chunk = spy
+
+
+def _fault_case(cuda, sampled=False):
+    cfg, params = _continuous_case(cuda, "smoke")
+    rng = np.random.default_rng(15)
+    from repro_torch.serving import Request
+    reqs = [Request(uid=i, tokens=rng.integers(0, cfg.vocab, (8,)),
+                    max_new=m) for i, m in enumerate((10, 24, 8))]
+    if sampled:
+        reqs[0] = dataclasses.replace(reqs[0], temperature=0.9, seed=7)
+    return cfg, params, reqs
+
+
+@pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "sampled"])
+def test_all_false_poison_is_transparent_on_card(cuda, sampled):
+    """With no plan and with a spent plan the poison buffer stays all
+    False: every chunk is a graph replay and every stream is its solo
+    host-loop stream, bit for bit."""
+    from repro_torch.serving import ContinuousEngine, Fault, FaultPlan
+    cfg, params, reqs = _fault_case(cuda, sampled)
+    policy = QuantPolicy("nxfp4", "nxfp4")
+    eng = ContinuousEngine(cfg, params, policy, n_slots=3, max_len=64,
+                           chunk=4, kv_integrity=True, device=cuda)
+    spent = FaultPlan((Fault("nan_logits", uid=0),))
+    spent.fire(0)
+    spent.reset = lambda: None
+    for plan in (None, spent):
+        replays = eng.replays
+        got = {r.uid: r for r in eng.serve(reqs, fault_plan=plan)}
+        assert eng.replays == replays + eng.chunks
+        assert not eng._buf["poison"].any()
+        for r in reqs:
+            assert got[r.uid].status == "OK"
+            np.testing.assert_array_equal(
+                got[r.uid].tokens,
+                _solo_on_card(cfg, params, policy, r, 64),
+                err_msg=f"uid={r.uid}")
+
+
+@pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "sampled"])
+def test_poisoned_slot_trips_finite_on_card(cuda, sampled):
+    """The chunk that poisons uid 1's slot returns ``finite`` False there
+    and True for the other live slots, whose emitted rows are the
+    fault-free serve's rows of the same chunk bit for bit; the victim ends
+    FAILED with its prefix, the neighbours with their whole streams."""
+    from repro_torch.serving import ContinuousEngine, Fault, FaultPlan
+    cfg, params, reqs = _fault_case(cuda, sampled)
+    eng = ContinuousEngine(cfg, params, QuantPolicy("nxfp4", "nxfp4"),
+                           n_slots=3, max_len=64, chunk=4, device=cuda)
+    clean, faulted = [], []
+    _spy_chunks(eng, clean)
+    want = {r.uid: r.tokens for r in eng.serve(reqs)}
+    eng._dispatch_chunk = type(eng)._dispatch_chunk.__get__(eng)
+    _spy_chunks(eng, faulted)
+    got = {r.uid: r for r in eng.serve(
+        reqs, fault_plan=FaultPlan((Fault("nan_logits", chunk=1, uid=1),)))}
+    i = next(j for j, c in enumerate(faulted) if c[0].any())
+    poison, finite, emitted, live = faulted[i]
+    victim = int(np.nonzero(poison)[0][0])
+    assert not finite[victim] and finite[live & ~poison].all()
+    assert clean[i][1].all()
+    for s in np.nonzero(live & ~poison)[0]:
+        np.testing.assert_array_equal(emitted[s], clean[i][2][s])
+    assert got[1].status == "FAILED"
+    np.testing.assert_array_equal(got[1].tokens,
+                                  want[1][:got[1].n_generated])
+    for uid in (0, 2):
+        assert got[uid].status == "OK"
+        np.testing.assert_array_equal(got[uid].tokens, want[uid])
+
+
+def test_kv_flip_between_replays_is_read_on_card(cuda):
+    """A flip of the victim's packed K/V bytes between two replays edits
+    the buffers the captured graph reads (no buffer is replaced): without
+    the canary the victim's next replays read 512 flipped bytes (its
+    result is no longer the fault-free one), with ``kv_integrity`` the
+    canary trips on 2 and the victim fails; the neighbours stay bitwise
+    either way."""
+    from repro_torch.serving import (ContinuousEngine, Fault, FaultPlan,
+                                     parse_event)
+    import logging
+    cfg, params, reqs = _fault_case(cuda)
+    for integrity, n_bytes in ((False, 512), (True, 2)):
+        eng = ContinuousEngine(cfg, params, QuantPolicy("nxfp4", "nxfp4"),
+                               n_slots=3, max_len=64, chunk=4,
+                               kv_integrity=integrity, device=cuda)
+        want = {r.uid: r.tokens for r in eng.serve(reqs)}
+        trips = []
+        if integrity:
+            verify = eng._kv_verify
+            eng._kv_verify = lambda: trips.append(verify()) or trips[-1]
+        ptrs = [{n: b.data_ptr() for n, b in lc.items()}
+                for lc in eng.cache["layers"]]
+        msgs = []
+        h = logging.Handler()
+        h.emit = lambda rec: msgs.append(rec.getMessage())
+        log = logging.getLogger("repro_torch.serving")
+        old = log.level
+        log.addHandler(h)
+        log.setLevel(logging.INFO)
+        try:
+            got = {r.uid: r for r in eng.serve(reqs, fault_plan=FaultPlan(
+                (Fault("kv_flip", chunk=1, uid=1, n_bytes=n_bytes),)))}
+        finally:
+            log.removeHandler(h)
+            log.setLevel(old)
+        assert [{n: b.data_ptr() for n, b in lc.items()}
+                for lc in eng.cache["layers"]] == ptrs
+        assert got[1].status != "OK" or \
+            not np.array_equal(got[1].tokens, want[1])
+        for uid in (0, 2):
+            np.testing.assert_array_equal(got[uid].tokens, want[uid])
+        causes = [e["cause"] for e in map(parse_event, msgs)
+                  if e and e["event"] == "quarantine"]
+        if integrity:       # the canary trips (the sentinel may too,
+            assert got[1].status == "FAILED"    # and is then the cause)
+            assert len(causes) == 1 and any(t.any() for t in trips)

@@ -68,7 +68,8 @@ def test_import_scan_covers_the_package():
                  "src/repro_torch/serving/tiers.py",
                  "src/repro_torch/serving/snapshot.py",
                  "src/repro_torch/serving/paged.py",
-                 "src/repro_torch/serving/paged_engine.py"):
+                 "src/repro_torch/serving/paged_engine.py",
+                 "src/repro_torch/serving/faults.py"):
         assert must in names
 
 
@@ -101,6 +102,10 @@ ENTRY_POINTS = {
         _smoke(), init_params(_smoke(), seed=0, device="cpu"),
         QuantPolicy("nxfp4", "nxfp4"), n_slots=2, max_len=16,
         preemption=PriorityPreemption(), device=dev),
+    "ContinuousEngine(kv_integrity=)": lambda dev: ContinuousEngine(
+        _smoke(), init_params(_smoke(), seed=0, device="cpu"),
+        QuantPolicy("nxfp4", "nxfp4"), n_slots=2, max_len=16,
+        kv_integrity=True, device=dev),
     "TieredContinuousEngine": lambda dev: TieredContinuousEngine(
         _smoke(), init_params(_smoke(), seed=0, device="cpu"),
         default_tiers(), n_slots=2, max_len=16, device=dev),
