@@ -4,10 +4,11 @@
     python3 chip_smoke.py              # full run: 32 layers of Llama-3-8B
     python3 chip_smoke.py --layers 2   # same, with the depth cut to 2
 
-Phases 7-10, 12 and 14-17 serve their models at ``--serving-layers``
-(default 8, at most ``--layers``; phases 14-16 served Llama-3-8B and
-Hymba-1.5B at full depth until phase 17 came); phases 11 and 13 serve
-theirs at full depth.
+Phases 7-12, 14-17, phase 13's Falcon-Mamba-7B and phase 18's paged and
+tiered engines serve their models at ``--serving-layers`` (default 8, at
+most ``--layers``; phases 14-16 served Llama-3-8B and Hymba-1.5B at full
+depth until phase 17 came, phases 11 and 13 theirs until phase 18 came);
+phase 13's Hymba-1.5B and phase 18's models serve at full depth.
 
 Phases, each fatal on failure (exit code 1, no result line):
 
@@ -145,11 +146,12 @@ Phases, each fatal on failure (exit code 1, no result line):
    TTFT by tier, group dispatches and ms a chunk by group count, arena and
    weight bytes, peak memory, the phase's seconds.
 
-11. The rest of the dense family at full width, nxfp4 weights and KV,
-   random weights from seed 0 cast on the card: Llama-2-7B (32 layers;
-   MHA) and StarCoder2-3B (30 layers; 2 KV heads) serve 4 requests
+11. The rest of the dense family at full width and ``--serving-layers``
+   (their full depths until phase 18 came), nxfp4 weights and KV,
+   random weights from seed 0 cast on the card: Llama-2-7B (MHA) and
+   StarCoder2-3B (2 KV heads) serve 4 requests
    through ``ContinuousEngine`` (4 slots, chunk 16, max_len 512); H2O-
-   Danube3-4B (24 layers, head_dim 120, a 4096-row ring) serves 3
+   Danube3-4B (head_dim 120, a 4096-row ring) serves 3
    requests, one of 4500 prompt tokens (its ring wraps in prefill and in
    decode), whole and through the lane at P 128, whose 4224 rows make it
    a ring too (the chunks from offset 4224 on run the ring lane's
@@ -178,9 +180,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    and a lane chunk, null-page and dropped rows) against its plain
    version, timed beside the unpaged write.
 
-13. The SSM and hybrid families at full width and depth, nxfp4 weights
-   (random from seed 0, cast on the card). Falcon-Mamba-7B (64 Mamba
-   layers, attention-free): ``ServeEngine`` 4 x 128 tokens, 32 new, the
+13. The SSM and hybrid families at full width, nxfp4 weights (random
+   from seed 0, cast on the card). Falcon-Mamba-7B (attention-free; at
+   ``--serving-layers``, its 64 Mamba layers until phase 18 came): ``ServeEngine`` 4 x 128 tokens, 32 new, the
    graph device loop bitwise the host loop (ms a step, tok/s, launches a
    step); 3 requests (prompts 1000, 300, 64) through ``ContinuousEngine``
    whole and at P 256 (max_len 2048) and ``PagedContinuousEngine`` (no
@@ -294,6 +296,27 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``TieredContinuousEngine(default_tiers())`` poisoned and healed.
    Launches are counted around the faulted serves alone, each of which
    captures its decode graphs afresh (``launches_phase17_path``).
+18. The weights built a layer at a time and the MoE family
+   (``phase_moe``), at full width. Llama-3-8B (32 layers, nxfp4): the
+   whole f32 build and its cast against ``init_params(policy=)``, every
+   QTensor bitwise, both peaks above what was allocated before (the
+   layered one must stay under the packed bytes plus two layers of f32).
+   DeepSeek-67B (95 layers) and Phi-3.5-MoE (32 layers), built a layer at
+   a time at nxfp4: ServeEngine on 4 x 128 prompt tokens, 16 new, graph
+   loop bitwise the host loop. Qwen1.5-MoE-A2.7B (24 layers): the same
+   with 32 new, then ``ContinuousEngine`` (6 staggered requests, 4 slots,
+   chunk 16) under whole admission, every stream bitwise its solo
+   host-loop stream, and chunked admission (P 32), which warns and serves.
+   Qwen-MoE at ``--serving-layers``: ``PagedContinuousEngine`` (no shared
+   prefix: bitwise the solos; a shared 96-token prefix: statuses and
+   prefix hits), ``TieredContinuousEngine(default_tiers())`` under whole
+   admission (the tiers' solo streams, one-tier == plain, the degrade
+   rung), ``speculative=`` refused. The dequant GEMM's grouped instance
+   (routed experts' rows) at Qwen's decode and prefill shapes and Phi's
+   decode shapes: within 1e-5 of its plain version, bitwise on a second
+   launch, every row bitwise ``ops.qmatmul`` of its expert's rows at up
+   to 16, timed beside its bound and ``torch.matmul`` of each routed
+   expert's rows (``launches_phase18_path``).
 
 The last three lines are the kernel table as JSON, the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.
@@ -325,6 +348,12 @@ PEAK_F32 = 67e12
 # sign select, dequant multiply, subtract, square, add; counted over the
 # candidates the kernel evaluates for this data (evaluated_candidates)
 QUANT_OPS = 13
+
+
+# kernels a dense model's packed serving path does not launch: the qq GEMM
+# (the qq prefill, phase 6), the dense-row attention (bf16 KV) and the
+# dequant GEMM's grouped instance (the MoE experts, phase 18)
+NOT_DENSE_PATH = ("nxfp_qq_matmul", "dense_attention", "nxfp_matmul_grouped")
 
 
 def fail(msg: str) -> None:
@@ -1536,8 +1565,9 @@ def phase_main(n_layers: int):
             and (warm.tokens == dev.tokens).all()):
         fail("main path: graph device loop and host loop disagree")
     for name, c in counts.items():
-        # qq: phase 6's path; the dense-row attention: phase 10's premium
-        if c <= 0 and name not in ("nxfp_qq_matmul", "dense_attention"):
+        # qq: phase 6's path; the dense-row attention: phase 10's premium;
+        # the grouped GEMM: the MoE experts (phase 18)
+        if c <= 0 and name not in NOT_DENSE_PATH:
             fail(f"main path: kernel {name} was never launched")
     prog = _device_loop_of(engine)
     if set(prog.graphs) != {(16, True)} or prog.replays != 4:
@@ -1669,7 +1699,7 @@ def phase_wide_serving(n_layers: int, prompts):
             fail(f"wide serving {wfmt} weights, {kvfmt} KV: graph device "
                  "loop and host loop disagree")
         for name, c in counts.items():
-            if c <= 0 and name not in ("nxfp_qq_matmul", "dense_attention"):
+            if c <= 0 and name not in NOT_DENSE_PATH:
                 fail(f"wide serving {wfmt}: kernel {name} was never launched")
         log(f"wide serving: Llama-3-8B full width, {n_layers} layers, "
             f"{wfmt} weights, {kvfmt} KV, 4 x 128 prompt tokens, 16 greedy "
@@ -1719,7 +1749,8 @@ def phase_act(cfg, engine, prompts):
     if not torch.isfinite(logits).all():
         fail("qq prefill: non-finite logits")
     for name, c in counts.items():
-        if c <= 0 and name != "dense_attention":     # a packed cache here
+        # a packed cache here; no MoE expert
+        if c <= 0 and name not in ("dense_attention", "nxfp_matmul_grouped"):
             fail(f"qq prefill path: kernel {name} was never launched")
     if per_prefill["nxfp_qq_matmul"] != 7 * cfg.n_layers:
         fail(f"qq prefill: {per_prefill['nxfp_qq_matmul']} qq GEMMs, "
@@ -2637,8 +2668,9 @@ def _family_requests(cfg, prompts, news):
                     max_new=m) for i, (t, m) in enumerate(zip(prompts, news))]
 
 
-def _family_serve(arch, modes, max_len, prompts, news, card):
-    """``arch`` at full width served through ``ContinuousEngine`` in each
+def _family_serve(arch, modes, max_len, prompts, news, card, n_layers):
+    """``arch`` at full width and ``n_layers`` deep served through
+    ``ContinuousEngine`` in each
     of ``modes`` ("whole", or a lane width), twice (the first serve
     captures the graphs), every stream against its solo host-loop stream;
     the kernels' launches over the first serves. Returns (launch counts,
@@ -2651,7 +2683,7 @@ def _family_serve(arch, modes, max_len, prompts, news, card):
     from repro_torch.serving import ContinuousEngine, ServeEngine, Status
     from repro_torch.serving.engine import load_params
 
-    cfg = get_config(arch)
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
     t0 = time.time()
     raw = init_params(cfg, seed=0, device="cuda")
     params = load_params(raw, QuantPolicy("nxfp4", None),
@@ -2714,17 +2746,19 @@ def _family_serve(arch, modes, max_len, prompts, news, card):
     return counts, figures
 
 
-def phase_dense_family(card):
-    """Llama-2-7B (32 layers) and StarCoder2-3B (30) served whole, and
-    H2O-Danube3-4B (24 layers, window 4096) served whole and through the
-    ring lane at P 128 with a prompt that wraps its ring."""
+def phase_dense_family(card, n_layers):
+    """Llama-2-7B and StarCoder2-3B served whole, and H2O-Danube3-4B
+    (window 4096) served whole and through the ring lane at P 128 with a
+    prompt that wraps its ring, each at full width and ``n_layers`` deep
+    (``--serving-layers``; their full depths, 32, 30 and 24, until phase
+    18 came)."""
     out = {}
     for arch in FAMILY:
         out[arch] = _family_serve(arch, ("whole",), CONT_MAX_LEN,
-                                  FAMILY_PROMPTS, FAMILY_NEW, card)
+                                  FAMILY_PROMPTS, FAMILY_NEW, card, n_layers)
     counts, figures = _family_serve(
         "h2o_danube_3_4b", ("whole", DANUBE_P), DANUBE_MAX_LEN,
-        DANUBE_PROMPTS, DANUBE_NEW, card)
+        DANUBE_PROMPTS, DANUBE_NEW, card, n_layers)
     ring = [g for g in figures[str(DANUBE_P)]["lane_graphs"] if "ring" in g]
     if not ring:
         fail(f"h2o_danube_3_4b: the ring lane never ran (lane graphs "
@@ -3267,8 +3301,9 @@ def _sum_counts(*parts):
     return {k: sum(p[k] for p in parts) for k in parts[0]}
 
 
-def phase_falcon(card):
-    """Falcon-Mamba-7B (64 layers, attention-free) at full width: the
+def phase_falcon(card, n_layers):
+    """Falcon-Mamba-7B (attention-free) at full width and ``n_layers``
+    deep (``--serving-layers``; its 64 until phase 18 came): the
     graph device loop against the host loop, the decode step's invariance
     and the lane's state, then ``ContinuousEngine`` whole and at P 256 and
     ``PagedContinuousEngine`` (no pages: no attention), every stream its
@@ -3289,7 +3324,7 @@ def phase_falcon(card):
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     counts = {"cast": {}, "graph_loop": {}, "engines": {}}
-    cfg, params, cast_s = _counted(lambda: _cast_family(FALCON),
+    cfg, params, cast_s = _counted(lambda: _cast_family(FALCON, n_layers),
                                    counts["cast"])
     peak_cast = torch.cuda.max_memory_allocated() - base
     weights = torch.cuda.memory_allocated() - base
@@ -3472,10 +3507,11 @@ def phase_hymba(card):
     return counts, fig
 
 
-def phase_ssm_family(card):
-    """Phase 13: Falcon-Mamba-7B, then Hymba-1.5B."""
+def phase_ssm_family(card, falcon_layers):
+    """Phase 13: Falcon-Mamba-7B (``falcon_layers`` deep), then Hymba-1.5B
+    (32 layers)."""
     t0 = time.time()
-    fcounts, ffig = phase_falcon(card)
+    fcounts, ffig = phase_falcon(card, falcon_layers)
     hcounts, hfig = phase_hymba(card)
     llama_kv = 2048 * 36864        # Llama-3-8B's nxfp4 KV, 36,864 B a token
     log(f"  state per slot ({card}): falcon {ffig['state_bytes_slot']} bytes"
@@ -4022,13 +4058,15 @@ def _tier_requests(cfg, seed):
             for i, (t, m) in enumerate(zip(P15_TIER_PROMPTS, P15_TIER_NEW))]
 
 
-def _tiers_family(card, cfg, what, counts):
+def _tiers_family(card, cfg, what, counts, modes=("whole", f"P {SSM_P}")):
     """``TieredContinuousEngine(default_tiers())`` over ``cfg`` (a bf16
-    model from seed 0): the mixed serve whole and at P 256 against each
-    request's solo stream at its tier, qq launches around the economy
-    prefill, the one-tier engine against the plain engine whole and at
-    P 256, and (with attention) the degrade rung's repack. Launches of the
-    mixed serves are added to ``counts``."""
+    model from seed 0): the mixed serve in ``modes`` (whole, at P 256)
+    against each request's solo stream at its tier, qq launches around the
+    economy prefill (7 a layer: attention's 4 and the MLP's 3; an MoE
+    layer's experts keep dense activations, 4), the one-tier engine
+    against the plain engine in ``modes``, and (with attention) the
+    degrade rung's repack. Launches of the mixed serves are added to
+    ``counts``."""
     import numpy as np
     from repro_torch.core.qtensor import QuantPolicy
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -4049,8 +4087,11 @@ def _tiers_family(card, cfg, what, counts):
               device="cuda")
     fig = {"cast_s": round(time.time() - t0, 2)}
     n_econ = sum(r.tier == "economy" for r in reqs)
+    qq_layer = 0 if cfg.attn_free else 4 if cfg.family == "moe" else 7
+    runs = [(m, x) for m, x in (("whole", {}), (f"P {SSM_P}", lane_kw))
+            if m in modes]
     solos = None
-    for mode, extra in (("whole", {}), (f"P {SSM_P}", lane_kw)):
+    for mode, extra in runs:
         eng = TieredContinuousEngine(cfg, model, tiers, **kw, **extra)
         if solos is None:
             solo_of = {name: _TierSolo(cfg, eng._wparams[spec.weight_fmt],
@@ -4066,12 +4107,12 @@ def _tiers_family(card, cfg, what, counts):
         for k, v in got.items():
             counts[k] = counts.get(k, 0) + v
         qq = got["nxfp_qq_matmul"]
-        want_qq = 0 if cfg.attn_free else 7 * cfg.n_layers * n_econ
+        want_qq = qq_layer * cfg.n_layers * n_econ
         if (mode == "whole" and qq != want_qq) or \
                 (mode != "whole" and (qq > 0) == cfg.attn_free):
             fail(f"{what} tiers {mode}: {qq} qq GEMM launches around "
-                 f"{n_econ} economy prefills (want "
-                 f"{'0' if cfg.attn_free else f'7 a layer: {want_qq}'})")
+                 f"{n_econ} economy prefills (want {qq_layer} a layer: "
+                 f"{want_qq})")
         if eng.replays != sum(eng.chunk_groups) or max(eng.chunk_groups) < 2:
             fail(f"{what} tiers {mode}: {eng.replays} replays for "
                  f"{sum(eng.chunk_groups)} group dispatches")
@@ -4089,7 +4130,7 @@ def _tiers_family(card, cfg, what, counts):
     one_tier = "standard"
     spec = tiers[one_tier]
     untiered = [dataclasses.replace(r, tier=None) for r in reqs]
-    for mode, extra in (("whole", {}), (f"P {SSM_P}", lane_kw)):
+    for mode, extra in runs:
         one = TieredContinuousEngine(cfg, model, {one_tier: spec}, **kw,
                                      **extra)
         base = ContinuousEngine(cfg, one._wparams[spec.weight_fmt],
@@ -4144,7 +4185,7 @@ def _tiers_family(card, cfg, what, counts):
     log(f"tiered serving {what} ({card}): full width, {cfg.n_layers} layers"
         f", default_tiers() over a bf16 model (seed 0), {CONT_SLOTS} slots, "
         f"chunk {CONT_CHUNK}, max_len {P15_MAX_LEN}; {len(reqs)} requests "
-        f"by uid % 3 over {TIER_OF}, whole and at P {SSM_P}: every stream "
+        f"by uid % 3 over {TIER_OF}, {' and '.join(modes)}: every stream "
         f"bitwise its solo stream at its tier; one-tier ({one_tier}) engines "
         f"bitwise the plain engine; {fig}")
     return fig
@@ -5091,6 +5132,416 @@ def phase_faults(card: str, serving_layers: int):
     return counts, fig
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the weights built a layer at a time (A18), the MoE family
+# ---------------------------------------------------------------------------
+
+QWEN, PHI, DEEPSEEK = "qwen2_moe_a2_7b", "phi3_5_moe_42b", "deepseek_67b"
+P18_SERVE = (4, 128)                  # ServeEngine: B 4 x 128 prompt tokens
+P18_QWEN_NEW, P18_NEW = 32, 16        # new tokens: Qwen's, the others'
+P18_MAX_LEN = 512
+# ContinuousEngine on Qwen-MoE: (prompt, max_new, arrival s), 4 slots
+P18_CONT = ((128, 24, 0.0), (64, 40, 0.0), (200, 16, 0.0), (96, 32, 0.0),
+            (48, 24, 0.05), (160, 8, 0.1))
+P18_LANE_P = 32
+P18_PREFIX, P18_TAILS, P18_PAGED_NEW = 96, (40, 8, 60), 16
+# the grouped instance at the MoE paths' shapes: (arch, tokens, K, N); R =
+# tokens * k rows, k and E the arch's
+P18_GROUPED = {"qwen decode w1/w3": (QWEN, 4, 2048, 1408),
+               "qwen decode w2": (QWEN, 4, 1408, 2048),
+               "qwen prefill w1/w3": (QWEN, 512, 2048, 1408),
+               "phi decode w1/w3": (PHI, 4, 4096, 6400),
+               "phi decode w2": (PHI, 4, 6400, 4096)}
+P18_MAIN_ROW = "nxfp_matmul_grouped qwen decode w1/w3"
+P18_KERNELS = {"qwen serve": ("nxfp_quantize", "nxfp_matmul",
+                              "nxfp_attention", "nxfp_matmul_grouped"),
+               "qwen continuous": ("nxfp_matmul_grouped",),
+               "qwen chunked": ("nxfp_matmul_grouped",),
+               "phi serve": ("nxfp_matmul_grouped",),
+               "qwen paged": ("nxfp_matmul_grouped",),
+               "qwen tiered": ("nxfp_matmul_grouped", "nxfp_qq_matmul"),
+               "deepseek serve": ("nxfp_matmul", "nxfp_attention"),
+               "llama layered cast": ("nxfp_quantize",)}
+
+
+def _free():
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _same_tree(a, b, what):
+    """Every QTensor's packed bytes and meta and every other leaf bitwise."""
+    from repro_torch.core.qtensor import QTensor, _leaves
+    from repro_torch.kernels.build import bit_view
+    la, lb = _leaves(a), _leaves(b)
+    if len(la) != len(lb):
+        fail(f"{what}: {len(la)} leaves against {len(lb)}")
+    n_q = 0
+    for x, y in zip(la, lb):
+        if isinstance(x, QTensor):
+            n_q += 1
+            if not (isinstance(y, QTensor) and x.shape == y.shape
+                    and torch.equal(x.packed, y.packed)
+                    and torch.equal(bit_view(x.meta), bit_view(y.meta))):
+                fail(f"{what}: a QTensor differs")
+        elif not (x.dtype == y.dtype and torch.equal(x, y)):
+            fail(f"{what}: a dense leaf differs")
+    return n_q
+
+
+def _layer_f32_bytes(layer) -> int:
+    """A layer's weights as f32 (what a layer-at-a-time build holds)."""
+    from repro_torch.core.qtensor import _leaves
+    return sum(4 * torch.Size(leaf.shape).numel() for leaf in _leaves(layer))
+
+
+def _build_layered(cfg, counts=None):
+    """``init_params(policy=)``: nxfp4, a layer at a time, on the card.
+    Returns (params, figures: seconds, peak above what was allocated
+    before, bytes kept, packed bytes, one layer's f32 bytes)."""
+    from repro_torch.core.qtensor import QuantPolicy, tree_footprint_bytes
+    from repro_torch.models import init_params
+    _free()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+
+    def build():
+        p = init_params(cfg, seed=0, device="cuda",
+                        policy=QuantPolicy("nxfp4", "nxfp4"))
+        torch.cuda.synchronize()
+        return p
+
+    params = build() if counts is None else _counted(build, counts)
+    fig = dict(seconds=round(time.time() - t0, 2),
+               peak=torch.cuda.max_memory_allocated() - base,
+               kept=torch.cuda.memory_allocated() - base,
+               packed=tree_footprint_bytes(params),
+               layer_f32=_layer_f32_bytes(params["layers"][0]))
+    fig["bound"] = fig["packed"] + 2 * fig["layer_f32"]
+    return params, fig
+
+
+def _p18_llama(counts):
+    """(a) Llama-3-8B at full width and depth: the whole f32 build and its
+    cast (``load_params``) against the layer-at-a-time build, bitwise, and
+    both peaks."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.qtensor import QuantPolicy
+    from repro_torch.models import init_params
+    from repro_torch.serving.engine import load_params
+    cfg = get_config("llama3_8b")
+    _free()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    raw = init_params(cfg, seed=0, device="cuda")
+    whole = load_params(raw, QuantPolicy("nxfp4", "nxfp4"),
+                        torch.device("cuda"))
+    del raw
+    torch.cuda.synchronize()
+    fig = {"whole": dict(seconds=round(time.time() - t0, 2),
+                         peak=torch.cuda.max_memory_allocated() - base)}
+    layered, fig["layered"] = _build_layered(cfg, counts)
+    n_q = _same_tree(whole, layered, "llama3_8b layered build")
+    lf = fig["layered"]
+    if lf["peak"] > lf["bound"]:
+        fail(f"llama3_8b layered build: peak {lf['peak']} bytes above the "
+             f"packed bytes + 2 layers of f32 ({lf['bound']})")
+    fig["qtensors"] = n_q
+    del whole, layered
+    _free()
+    return fig
+
+
+def _graph_vs_host(cfg, params, n_new, what, counts):
+    """ServeEngine on B 4 x 128 prompt tokens: the graph device loop
+    (twice; launches counted) bitwise the host loop. Returns figures."""
+    import numpy as np
+    from repro_torch.core.qtensor import QuantPolicy
+    from repro_torch.serving import ServeEngine
+    eng = ServeEngine(cfg, params, QuantPolicy("nxfp4", "nxfp4"),
+                      max_len=P18_MAX_LEN, device="cuda")
+    batch = {"tokens": np.random.default_rng(18).integers(
+        0, cfg.vocab, P18_SERVE)}
+    runs = _counted(lambda: [
+        eng.generate(batch, max_new=n_new, loop="device", chunk=16)
+        for _ in range(2)], counts)
+    host = eng.generate(batch, max_new=n_new, loop="host")
+    for r in runs:
+        if not np.array_equal(r.tokens, host.tokens) or not (
+                r.n_generated == n_new).all():
+            fail(f"{what}: the graph device loop and the host loop disagree")
+    ms = runs[-1].decode_seconds / n_new * 1e3
+    return dict(graph_ms_step=round(ms, 3),
+                host_ms_step=round(host.decode_seconds / n_new * 1e3, 3),
+                tok_s=round(P18_SERVE[0] * 1e3 / ms, 2),
+                prefill_s=round(runs[-1].prefill_seconds, 4))
+
+
+def _p18_serve(arch, n_new, counts):
+    """(b), (d): ``arch`` at full size, built a layer at a time, through
+    ServeEngine's graph loop against its host loop."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    params, fig = _build_layered(cfg)
+    fig.update(_graph_vs_host(cfg, params, n_new, arch, counts))
+    del params
+    _free()
+    return fig
+
+
+class _Warnings(logging.Handler):
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def _p18_qwen(counts):
+    """(c) Qwen1.5-MoE-A2.7B at full size: ServeEngine graph == host;
+    ContinuousEngine under whole admission, every stream bitwise its solo
+    host-loop stream; chunked admission (P 32) warns and serves."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.qtensor import QuantPolicy
+    from repro_torch.serving import ContinuousEngine, Request, Status
+    cfg = get_config(QWEN)
+    params, fig = _build_layered(cfg)
+    fig.update(_graph_vs_host(cfg, params, P18_QWEN_NEW, QWEN,
+                              counts["qwen serve"]))
+    rng = np.random.default_rng(28)
+    reqs = [Request(uid=i, tokens=rng.integers(0, cfg.vocab, (t,)),
+                    max_new=m, arrival_time=a)
+            for i, (t, m, a) in enumerate(P18_CONT)]
+    solos = _solo_streams(cfg, params, reqs, P18_MAX_LEN)
+    policy = QuantPolicy("nxfp4", "nxfp4")
+    kw = dict(n_slots=CONT_SLOTS, max_len=P18_MAX_LEN, chunk=CONT_CHUNK,
+              device="cuda")
+    eng, fig["continuous"] = _counted(lambda: _checked_serves(
+        lambda: ContinuousEngine(cfg, params, policy, **kw), reqs, solos,
+        "qwen continuous whole"), counts["qwen continuous"])
+    if eng.replays == 0:
+        fail("qwen continuous: no graph replays")
+    del eng
+    _free()
+    catch = _Warnings()
+    log_ = logging.getLogger("repro_torch.serving")
+    log_.addHandler(catch)
+    try:
+        eng = ContinuousEngine(cfg, params, policy, prefill_mode="chunked",
+                               p_chunk=P18_LANE_P, **kw)
+    finally:
+        log_.removeHandler(catch)
+    if not any("chunk-local" in m and "moe" in m for m in catch.messages):
+        fail(f"qwen chunked: no chunk-local warning ({catch.messages})")
+    res = _counted(lambda: eng.serve(reqs), counts["qwen chunked"])
+    if any(r.status != Status.OK for r in res) or any(
+            r.n_generated != reqs[r.uid].max_new for r in res):
+        fail(f"qwen chunked: {[(r.uid, r.status, r.n_generated) for r in res]}")
+    fig["chunked"] = dict(statuses=sorted({r.status for r in res}),
+                          lane_chunks=eng.lane_chunks,
+                          same_as_whole=sum(np.array_equal(
+                              r.tokens, solos[r.uid]) for r in res))
+    del eng, params
+    _free()
+    return fig
+
+
+def _p18_qwen_engines(card, serving_layers, counts):
+    """(e) Qwen-MoE at ``serving_layers``: PagedContinuousEngine (no shared
+    prefix: bitwise the solos; a shared prefix: statuses and prefix hits),
+    the tiered engine over its three tiers (whole admission: the MoE lane
+    is outside the bitwise contract), ``speculative=`` refused."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.qtensor import QuantPolicy
+    from repro_torch.serving import (ContinuousEngine, PagedContinuousEngine,
+                                     Request, SpeculativeConfig, Status)
+    cfg = dataclasses.replace(get_config(QWEN), n_layers=serving_layers)
+    params, _ = _build_layered(cfg)
+    policy = QuantPolicy("nxfp4", "nxfp4")
+    rng = np.random.default_rng(38)
+    reqs = [Request(uid=i, tokens=rng.integers(0, cfg.vocab, (t,)),
+                    max_new=m, arrival_time=a)
+            for i, (t, m, a) in enumerate(P18_CONT[:4])]
+    solos = _solo_streams(cfg, params, reqs, P18_MAX_LEN)
+    kw = dict(n_slots=CONT_SLOTS, max_len=P18_MAX_LEN, chunk=CONT_CHUNK,
+              device="cuda")
+    fig = {}
+    eng, fig["paged"] = _counted(lambda: _checked_serves(
+        lambda: PagedContinuousEngine(cfg, params, policy, page_size=32,
+                                      **kw), reqs, solos, "qwen paged"),
+        counts["qwen paged"])
+    prefix = rng.integers(0, cfg.vocab, (P18_PREFIX,))
+    shared = [Request(uid=i, tokens=np.concatenate(
+        [prefix, rng.integers(0, cfg.vocab, (t,))]), max_new=P18_PAGED_NEW)
+        for i, t in enumerate(P18_TAILS)]
+    hits = eng.pool.prefix_hits
+    res = _counted(lambda: eng.serve(shared), counts["qwen paged"])
+    if any(r.status != Status.OK for r in res):
+        fail(f"qwen paged shared prefix: {[(r.uid, r.status) for r in res]}")
+    eng.pool.assert_empty()
+    fig["paged_shared"] = dict(statuses=sorted({r.status for r in res}),
+                               prefix_hits=eng.pool.prefix_hits - hits)
+    del eng
+    try:
+        ContinuousEngine(cfg, params, policy, speculative=SpeculativeConfig(
+            k=4), **kw)
+        fail("qwen: speculative= was not refused")
+    except ValueError as e:
+        if "family" not in str(e):
+            raise
+        fig["speculative"] = str(e)
+    del params
+    _free()
+    fig["tiers"] = _tiers_family(card, cfg, "qwen-moe", counts["qwen tiered"],
+                                 modes=("whole",))
+    return fig
+
+
+def _grouped_case(name, arch, tokens, k_dim, n_dim, timer, rows):
+    """The grouped instance at one shape: random weights (E, K, N) cast to
+    nxfp4, the routing of random router logits (top-k, the capacity of
+    ``tokens`` tokens when more than one decode batch), x (R, K) bf16."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.formats import get_format
+    from repro_torch.core.qtensor import QTensor
+    from repro_torch.kernels import nxfp_matmul as nm
+    from repro_torch.kernels import nxfp_matmul_grouped as ng
+    from repro_torch.kernels.ops import expert_matmul, qmatmul
+    from repro_torch.kernels.ops import quantize_qtensor
+    from repro_torch.models import moe
+    cfg = get_config(arch)
+    e, k = cfg.n_experts, cfg.n_experts_active
+    fmt = get_format("nxfp4")
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    w = torch.randn((e, k_dim, n_dim), generator=gen, device="cuda") * 0.02
+    wq = quantize_qtensor(w, fmt, axis=-2, device="cuda")
+    del w
+    logits = torch.randn((tokens, e), generator=gen, device="cuda")
+    idx = torch.topk(logits, k, dim=-1).indices
+    cap = moe.capacity(cfg, tokens) if tokens > 16 else tokens
+    expert, _ = moe.dispatch(cfg, idx, cap)
+    r = tokens * k
+    x = torch.randn((r, k_dim), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    y = expert_matmul(x, expert, wq)
+    again = expert_matmul(x, expert, wq)
+    if not torch.equal(y, again):
+        fail(f"grouped {name}: a second launch gave other bits")
+    plain = ng.nxfp_matmul_grouped_plain(x, expert, wq.packed, wq.meta, fmt)
+    ex = expert.cpu()
+    routed = sorted(set(ex.tolist()) - {-1})
+    deq = {i: nm.dequant_weight_bf16(wq.packed[i], wq.meta[i], fmt).T
+           .contiguous() for i in routed}                      # (K, N)
+    sel = {i: torch.nonzero(ex == i).flatten().to("cuda") for i in routed}
+    mag = torch.zeros_like(plain)
+    for i in routed:
+        mag[sel[i]] = x[sel[i]].float().abs() @ deq[i].float().abs()
+    err = float((y - plain).abs().max())
+    rel = float(((y - plain).abs() / mag.clamp(min=1e-30)).max())
+    if not rel <= 1e-5:
+        fail(f"grouped {name}: error {rel:.3g} of sum|x||w| exceeds 1e-5")
+    if bool(y[ex == -1].any()):
+        fail(f"grouped {name}: a dropped row is not zero")
+    # each row's bits: ops.qmatmul of its expert's rows, up to 16 at once
+    for i in routed:
+        wi = QTensor(wq.packed[i], wq.meta[i], wq.fmt_name, wq.shape[1:],
+                     wq.axis, wq.orig_len)
+        for g0 in range(0, len(sel[i]), 16):
+            rr = sel[i][g0:g0 + 16]
+            if not torch.equal(y[rr], qmatmul(x[rr], wi)):
+                fail(f"grouped {name}: expert {i}'s rows differ from "
+                     f"ops.qmatmul's at M {len(rr)}")
+    ms = timer(lambda: expert_matmul(x, expert, wq))
+    plain_ms = timer(lambda: ng.nxfp_matmul_grouped_plain(
+        x, expert, wq.packed, wq.meta, fmt), 5)
+
+    def library():
+        for i in routed:
+            torch.matmul(x[sel[i]], deq[i])
+    lib_ms = timer(library)
+    kept = int((ex >= 0).sum())
+    n_bytes = (sum(wq.packed[i].numel() + wq.meta[i].numel() * 2
+                   for i in routed) + r * k_dim * 2 + r * n_dim * 4 + r * 4)
+    b_ms, b_by = bound(n_bytes, 2.0 * kept * k_dim * n_dim, PEAK_BF16)
+    log(f"grouped {name}: R {r} (kept {kept}, {len(routed)} of {e} experts "
+        f"routed) K {k_dim} N {n_dim}: max err {err:.3g} ({rel:.3g} of "
+        f"sum|x||w|), bitwise on a second launch and row for row "
+        f"ops.qmatmul's; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"torch.matmul of each routed expert's rows (bf16, dequantized) "
+        f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    rows[f"nxfp_matmul_grouped {name}"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib_ms,
+        shape=f"x ({r}, {k_dim}) bf16 @ nxfp4 W ({e}, {k_dim}, {n_dim}), "
+              f"{len(routed)} experts routed, {kept} rows kept")
+    del wq, deq, x, y, again, plain, mag
+    _free()
+
+
+def phase_moe(card: str, serving_layers: int, rows):
+    """Phase 18: the weights built and cast a layer at a time, then the MoE
+    family through the engines, at full width: (a) Llama-3-8B's layered
+    build bitwise the whole build's cast, both peaks; (b) DeepSeek-67B (95
+    layers) and (d) Phi-3.5-MoE (32 layers) built a layer at a time,
+    ServeEngine's graph loop bitwise its host loop; (c) Qwen1.5-MoE-A2.7B
+    (24 layers): the same, ContinuousEngine under whole admission bitwise
+    the solos, chunked admission warned and served; (e) Qwen-MoE at
+    ``serving_layers`` through the paged and the tiered engines, the
+    speculative refusal; (f) the grouped instance against its plain
+    version, ``ops.qmatmul``'s rows and ``torch.matmul``. Launches are
+    counted around each path alone. Returns (counts by path, figures)."""
+    t0 = time.time()
+    counts = {path: {} for path in P18_KERNELS}
+    fig = {"llama": _p18_llama(counts["llama layered cast"])}
+    fig["deepseek"] = _p18_serve(DEEPSEEK, P18_NEW, counts["deepseek serve"])
+    fig["qwen"] = _p18_qwen(counts)
+    fig["phi"] = _p18_serve(PHI, P18_NEW, counts["phi serve"])
+    fig["qwen engines"] = _p18_qwen_engines(card, serving_layers, counts)
+    timer = Timer("cuda")
+    for name, case in P18_GROUPED.items():
+        _grouped_case(name, *case, timer, rows)
+    del timer
+    _free()
+    fig["seconds"] = round(time.time() - t0, 1)
+    la, ll = fig["llama"]["whole"], fig["llama"]["layered"]
+    log(f"layered build ({card}): Llama-3-8B full width, 32 layers, nxfp4: "
+        f"the layer-at-a-time build bitwise the whole build's cast "
+        f"({fig['llama']['qtensors']} QTensors); peak above what was "
+        f"allocated before: whole f32 build + cast {la['peak']} bytes "
+        f"({la['seconds']} s), layer at a time {ll['peak']} bytes "
+        f"({ll['seconds']} s) against packed {ll['packed']} + 2 x one "
+        f"layer's f32 {ll['layer_f32']} = {ll['bound']} bytes")
+    for arch in ("deepseek", "qwen", "phi"):
+        f = fig[arch]
+        log(f"  {arch} ({card}): full size, built a layer at a time in "
+            f"{f['seconds']} s, peak {f['peak']} bytes against packed "
+            f"{f['packed']} + 2 x {f['layer_f32']} = {f['bound']}; weights "
+            f"kept {f['kept']} bytes; ServeEngine {P18_SERVE[0]} x "
+            f"{P18_SERVE[1]} tokens: graph loop == host loop, decode "
+            f"{f['graph_ms_step']} ms/step ({f['tok_s']} tok/s) vs host "
+            f"loop {f['host_ms_step']} ms/step, prefill {f['prefill_s']} s")
+    q = fig["qwen"]
+    log(f"  qwen ContinuousEngine ({card}): {len(P18_CONT)} requests "
+        f"{list(P18_CONT)} over {CONT_SLOTS} slots, chunk {CONT_CHUNK}, "
+        f"whole admission, every stream bitwise its solo host-loop stream: "
+        f"{q['continuous']}; chunked P {P18_LANE_P}: warned, {q['chunked']}")
+    log(f"  qwen engines at {serving_layers} layers ({card}): "
+        f"{fig['qwen engines']}")
+    log(f"  launches on phase 18's paths: {counts}; phase 18 "
+        f"{fig['seconds']} s")
+    for path, names in P18_KERNELS.items():
+        for name in names:
+            if counts[path].get(name, 0) <= 0:
+                fail(f"phase 18 ({path}): kernel {name} was never launched")
+    return counts, fig
+
+
 def kernel_formats(kname, rows, wide_counts):
     """The formats ``kname`` ran in this run: its main-path formats, its
     phase-3 wide rows and the formats phase 7 served through it."""
@@ -5163,8 +5614,10 @@ MAIN_ROW = {"nxfp_quantize": "nxfp_quantize",
 QQ_PATH = ("nxfp_qq_matmul",)
 TIER_PATH = ("dense_decode_attention",)
 # phases 7-10 and 12, 14-17 serve Llama-3-8B at this depth (the main
-# path, phase 5, at --layers): the script's clock has room for phases 11
-# and 13 at full depth
+# path, phase 5, at --layers), phase 11 its dense family, phase 13
+# Falcon-Mamba-7B and phase 18 Qwen-MoE's paged and tiered engines: the
+# script's clock keeps full depth for phase 13's Hymba and phase 18's
+# models
 SERVING_LAYERS = 8
 
 
@@ -5173,10 +5626,12 @@ def main():
     ap.add_argument("--layers", type=int, default=32,
                     help="Llama-3-8B depth for the main path (default 32)")
     ap.add_argument("--serving-layers", type=int, default=SERVING_LAYERS,
-                    help="Llama-3-8B depth for phases 7-10 and 12, phase "
-                         "15's paged speculative serve and phase 16's "
-                         "tiers, and Falcon-Mamba-7B's for phases 14-16 "
-                         f"(default {SERVING_LAYERS}, at most --layers)")
+                    help="Llama-3-8B depth for phases 7-10, 12 and "
+                         "14-17, the dense family's for phase 11, "
+                         "Falcon-Mamba-7B's for phases 13-17 and "
+                         "Qwen-MoE's for phase 18's paged and tiered "
+                         f"engines (default {SERVING_LAYERS}, at most "
+                         "--layers)")
     args = ap.parse_args()
     late = min(args.layers, args.serving_layers)
     name, count, smi_line = phase_device()
@@ -5233,13 +5688,13 @@ def main():
     log(f"phases 7-9 seconds: {t10 - t7:.1f}; phase 10 seconds: "
         f"{time.time() - t10:.1f}")
     t11 = time.time()
-    family = phase_dense_family(smi_line)
+    family = phase_dense_family(smi_line, late)
     log(f"phase 11 seconds: {time.time() - t11:.1f}")
     t12 = time.time()
     paged_counts, _ = phase_paged(smi_line, Timer("cuda"), late)
     log(f"phase 12 seconds: {time.time() - t12:.1f}")
     t13 = time.time()
-    ssm = phase_ssm_family(smi_line)
+    ssm = phase_ssm_family(smi_line, late)
     log(f"phase 13 seconds: {time.time() - t13:.1f}")
     t14 = time.time()
     spec_counts, _ = phase_speculative(smi_line, late)
@@ -5253,6 +5708,11 @@ def main():
     t17 = time.time()
     p17_counts, _ = phase_faults(smi_line, late)
     log(f"phase 17 seconds: {time.time() - t17:.1f}")
+    t18 = time.time()
+    p18_rows = set(rows)
+    p18_counts, _ = phase_moe(smi_line, late, rows)
+    p18_rows = [k for k in rows if k not in p18_rows]
+    log(f"phase 18 seconds: {time.time() - t18:.1f}")
 
     table = []
     for kname, (sources, replaces) in KERNELS.items():
@@ -5283,6 +5743,8 @@ def main():
                                    for path, n in p16_counts.items()},
             launches_phase17_path={path: n.get(c, 0)
                                    for path, n in p17_counts.items()},
+            launches_phase18_path={path: n.get(c, 0)
+                                   for path, n in p18_counts.items()},
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
@@ -5324,10 +5786,25 @@ def main():
             **{f: r[f] for f in ("max_abs_err", "ms", "plain_ms",
                                  "bound_ms", "bound_by", "library_ms",
                                  "shape")}))
+    # the dequant GEMM's grouped instance (the MoE experts' rows), each
+    # shape phase 18 holds, with its launches on phase 18's paths
+    by_path = {path: n.get("nxfp_matmul_grouped", 0)
+               for path, n in p18_counts.items()}
+    sources, replaces = KERNELS["nxfp_matmul"]
+    for key in sorted(p18_rows, key=lambda k: k != P18_MAIN_ROW):
+        r = rows[key]
+        table.append(dict(
+            name=key, kernel="nxfp_matmul", route="cuda",
+            source="src/repro_torch/csrc/nxfp_matmul_decode.cu",
+            replaces=replaces, launches=sum(by_path.values()),
+            launches_phase18_path=by_path,
+            **{f: r[f] for f in ("max_abs_err", "ms", "plain_ms",
+                                 "bound_ms", "bound_by", "library_ms",
+                                 "shape")}))
     extra = [dict(name=k, **{f: v for f, v in r.items()})
              for k, r in rows.items()
              if k not in MAIN_ROW.values() and k not in ssm_rows
-             and k not in p15_rows]
+             and k not in p15_rows and k not in p18_rows]
     log(f"other shapes: {json.dumps(extra)}")
     log(f"total seconds: {time.time() - t_start:.1f}")
     print(json.dumps({"kernels": table}), flush=True)

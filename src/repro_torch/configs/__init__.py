@@ -2,7 +2,8 @@
 
 ``get_config(arch)`` -> full ModelConfig; ``get_smoke_config(arch)`` -> a
 tiny same-family variant for CPU tests. The dense family
-(``h2o_danube_3_4b`` with its sliding-window ring cache), the SSM family
+(``h2o_danube_3_4b`` with its sliding-window ring cache), the MoE family
+(``qwen2_moe_a2_7b``, ``phi3_5_moe_42b``), the SSM family
 (``falcon_mamba_7b``) and the hybrid family (``hymba_1_5b``) are ported.
 """
 from __future__ import annotations
@@ -14,7 +15,8 @@ from repro_torch.models.common import ModelConfig
 
 ARCH_IDS: List[str] = ["llama3_8b", "llama2_7b", "starcoder2_3b",
                        "deepseek_67b", "llama3_405b", "h2o_danube_3_4b",
-                   "falcon_mamba_7b", "hymba_1_5b"]
+                   "falcon_mamba_7b", "hymba_1_5b", "qwen2_moe_a2_7b",
+                   "phi3_5_moe_42b"]
 
 _ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
 

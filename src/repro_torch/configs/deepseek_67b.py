@@ -1,8 +1,9 @@
 """DeepSeek-67B [arXiv:2401.02954; dense llama-arch GQA].
 
 95L d_model=8192 64H (GQA kv=8) d_ff=22016 vocab=102400. At nxfp4 its
-projections take ~38 GB, but the random bf16 weights they are cast from
-do not fit one 80 GB card; the port serves its smoke config.
+projections take ~38 GB; its f32 weights (~268 GB) do not fit one 80 GB
+card, so the port builds and casts it a layer at a time
+(``models.lm.init_params(policy=)``) and serves it at full size.
 """
 from repro_torch.models.common import ModelConfig
 

@@ -6,8 +6,10 @@ The input is a tree of numpy arrays, e.g.
 ``jax.tree.map(np.asarray, init_params(cfg, PRNGKey(0)))``. Already-cast
 QTensor leaves (anything with ``packed``/``meta`` children and the
 QTensor aux fields) carry across with their exact bytes, split on ``L``,
-so the kernels can be fed the reference's own packed weights. Nothing
-here imports JAX.
+so the kernels can be fed the reference's own packed weights: an MoE
+expert stack (L, E, D, F) cast along axis -2 becomes one QTensor of
+logical shape (E, D, F) a layer, packed (E, F, KB, bpb). Nothing here
+imports JAX.
 """
 from __future__ import annotations
 
@@ -59,9 +61,10 @@ def _leaf(name: str, leaf, device, index=None):
 
 
 def params_from_jax(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
-    """Reference parameter tree (numpy leaves) of a dense, ssm or hybrid
-    model -> port tree: every stacked layer leaf (attention, MLP and the
-    Mamba block's ``ssm_*`` leaves, cast or dense) split on L."""
+    """Reference parameter tree (numpy leaves) of a dense, moe, ssm or
+    hybrid model -> port tree: every stacked layer leaf (attention, MLP,
+    the MoE router, experts and shared MLP, and the Mamba block's
+    ``ssm_*`` leaves, cast or dense) split on L."""
     dev = resolve_device(device)
     out = {name: _leaf(name, leaf, dev) for name, leaf in tree.items()
            if name != "layers"}

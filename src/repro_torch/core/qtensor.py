@@ -12,7 +12,7 @@ from .pack import unpack_codes
 from .quantize import dequantize_blocks, from_blocks
 
 __all__ = ["QTensor", "QuantPolicy", "direct_cast_tree", "dense_like",
-           "tree_footprint_bytes", "fmt_key"]
+           "tree_footprint_bytes", "fmt_key", "cast_formats"]
 
 
 def fmt_key(fmt: BlockFormat):
@@ -133,6 +133,13 @@ def dense_like(qparams):
     return _map_with_path(
         lambda _, leaf: leaf.dequantize() if isinstance(leaf, QTensor)
         else leaf, qparams)
+
+
+def cast_formats(params) -> set:
+    """The names of the formats a tree's QTensor leaves are cast to (empty
+    for an uncast tree)."""
+    return {leaf.fmt.name for leaf in _leaves(params)
+            if isinstance(leaf, QTensor)}
 
 
 def tree_footprint_bytes(params) -> int:

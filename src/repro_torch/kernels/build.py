@@ -129,6 +129,9 @@ def library():
         lib.nxfp_matmul_launch.argtypes = [vp, vp, vp, vp, i, i, i, vp, i, i,
                                            vp, vp, vp]
         lib.nxfp_matmul_decode_geometry.argtypes = [vp, vp, vp]
+        lib.nxfp_matmul_grouped_launch.argtypes = [vp, vp, vp, vp, vp, i, i,
+                                                   i, i, vp, i, i, vp, vp,
+                                                   vp]
         lib.nxfp_decode_attention_launch.argtypes = [vp, vp, vp, vp, vp, vp,
                                                      vp, i, i, i, i, i, vp,
                                                      i, i, vp, vp, vp]
@@ -139,6 +142,7 @@ def library():
                                               vp, vp, vp, i, i, vp, vp, vp]
         for fn in (lib.nxfp_quantize_launch, lib.nxfp_matmul_launch,
                    lib.nxfp_matmul_decode_geometry,
+                   lib.nxfp_matmul_grouped_launch,
                    lib.nxfp_decode_attention_launch,
                    lib.nxfp_dense_attention_launch,
                    lib.nxfp_qq_matmul_launch):
@@ -157,21 +161,32 @@ def stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+_OUTGROWN: list = []   # split scratch replaced by larger buffers
+
+
 def split_scratch(cache: dict, device: torch.device, n_partials: int,
                   n_counters: int):
     """A split kernel's f32 partials and int32 counters for the current
     stream of ``device``, kept in ``cache`` per (device, stream) and grown
-    when too small. The counters are zeroed once, at allocation; each
-    launch leaves them at 0 (the last CTA of each group resets its own; a
-    fault inside a launch leaves the CUDA context unusable, so no later
-    launch meets a counter left off). Only launches on the stream that
-    owns them use them, so they run one after another."""
+    (at least doubled) when too small. An outgrown buffer stays
+    referenced (``_OUTGROWN``): a CUDA graph captured before the growth
+    still launches on it, so its memory must not go to another tensor.
+    The counters are zeroed once, at allocation; each launch leaves them
+    at 0 (the last CTA of each group resets its own; a fault inside a
+    launch leaves the CUDA context unusable, so no later launch meets a
+    counter left off). Only launches on the stream that owns them use
+    them, so they run one after another."""
     key = (device, stream_handle(device))
     ws, counters = cache.get(key, (None, None))
     if ws is None or ws.numel() < n_partials:
-        ws = torch.empty(max(n_partials, 1 << 20), dtype=torch.float32,
-                         device=device)
+        if ws is not None:
+            _OUTGROWN.append(ws)
+        ws = torch.empty(max(n_partials, 1 << 20,
+                             2 * (0 if ws is None else ws.numel())),
+                         dtype=torch.float32, device=device)
     if counters is None or counters.numel() < n_counters:
+        if counters is not None:
+            _OUTGROWN.append(counters)
         counters = torch.zeros(max(n_counters, 4096), dtype=torch.int32,
                                device=device)
     cache[key] = (ws, counters)

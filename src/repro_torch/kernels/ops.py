@@ -19,19 +19,22 @@ from ..core.quantize import resolve_format, to_blocks
 from .dense_attention import dense_decode_attention
 from .nxfp_attention import nxfp_decode_attention
 from .nxfp_matmul import nxfp_matmul, plain_product
+from .nxfp_matmul_grouped import nxfp_matmul_grouped
 from .nxfp_qq_matmul import nxfp_qq_matmul
 from .nxfp_quantize import nxfp_quantize_pack
 
 __all__ = ["qmatmul", "quantize_qtensor", "decode_attention",
-           "decode_attention_dense"]
+           "decode_attention_dense", "router_matmul", "expert_matmul",
+           "expert_bmm"]
 
 # above this many rows the bf16 product runs on row tiles of this height
 DENSE_ROW_TILE = 128
 DENSE_SMALL_M = 16
 
 
-def _dense_matmul(x, w):
-    """bf16(x) @ bf16(w) with f32 accumulation and an f32 result.
+def _dense_matmul(x, w, dtype=torch.bfloat16):
+    """dtype(x) @ dtype(w) with f32 accumulation and an f32 result (bf16
+    by default; the MoE router's product runs in f32).
 
     On CUDA a plain product outside any kernel (the reference leaves it to
     XLA): cuBLAS with f32 accumulation and an f32 output. cuBLAS picks its
@@ -45,15 +48,16 @@ def _dense_matmul(x, w):
     at four (Hymba's head, N 32001, gave other bits at B 1 and B 4), and
     one shape keeps a row's bits whatever the batch
     (``scripts/batch_invariance.py --dense``)."""
-    xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    xb, wb = x.to(dtype), w.to(dtype)
     if x.device.type == "cuda":
+        kw = {} if dtype == torch.float32 else {"out_dtype": torch.float32}
         lead = xb.shape[:-1]
         x2 = xb.reshape(-1, xb.shape[-1])
         m, n = x2.shape[0], wb.shape[-1]
         if m <= DENSE_SMALL_M:
             if m < DENSE_SMALL_M:
                 x2 = F.pad(x2, (0, 0, 0, DENSE_SMALL_M - m))
-            y = torch.mm(x2, wb, out_dtype=torch.float32)
+            y = torch.mm(x2, wb, **kw)
             return y[:m].reshape(*lead, n)
         tiles = -(-m // DENSE_ROW_TILE)
         if tiles * DENSE_ROW_TILE != m:
@@ -61,14 +65,23 @@ def _dense_matmul(x, w):
         y = torch.empty((tiles * DENSE_ROW_TILE, n), dtype=torch.float32,
                         device=x.device)
         for i in range(0, tiles * DENSE_ROW_TILE, DENSE_ROW_TILE):
-            torch.mm(x2[i:i + DENSE_ROW_TILE], wb, out_dtype=torch.float32,
-                     out=y[i:i + DENSE_ROW_TILE])
+            torch.mm(x2[i:i + DENSE_ROW_TILE], wb, out=y[i:i + DENSE_ROW_TILE],
+                     **kw)
         return y[:m].reshape(*lead, n)
     # bf16 x bf16 products are exact in f32, so an f32 matmul of the
     # rounded operands is the reference's bf16 dot with f32 accumulation
     lead = x.shape[:-1]
     y = plain_product(xb.float().reshape(-1, x.shape[-1]), wb.float())
     return y.reshape(*lead, w.shape[-1])
+
+
+def router_matmul(x, w):
+    """The MoE router's f32 product x (..., D) @ w (D, E), f32 throughout
+    (TF32 is off: ``repro_torch`` pins it). It runs as ``_dense_matmul``
+    does, on 16 zero-padded rows up to 16 and fixed 128-row tiles above,
+    so a row routes to the same experts at every batch size: a slot's
+    stream stays its solo stream."""
+    return _dense_matmul(x, w, torch.float32)
 
 
 def qmatmul(x, w):
@@ -90,6 +103,35 @@ def qmatmul(x, w):
     if x2.shape[-1] < k_pad:  # quantization padded K to a block multiple
         x2 = F.pad(x2, (0, k_pad - x2.shape[-1]))
     return nxfp_matmul(x2, w.packed, w.meta, w.fmt).reshape(*lead, n)
+
+
+def expert_matmul(x, expert, w: QTensor):
+    """Routed rows through their experts' quantized weights: x (R, K), one
+    row per (token, routed expert); expert (R,) int32, the row's expert or
+    -1 for a dropped row; w an expert stack (E, K, N) cast along axis -2.
+    Returns (R, N) f32, zero rows where ``expert`` is -1. On CUDA one
+    launch of the dequant GEMM's grouped instance, which reads the routing
+    on the device; each row has the bits ``qmatmul`` gives it against its
+    expert's weight at up to 16 rows."""
+    kb = w.packed.shape[-2]
+    k_pad = kb * w.fmt.block_size
+    if x.shape[-1] < k_pad:  # quantization padded K to a block multiple
+        x = F.pad(x, (0, k_pad - x.shape[-1]))
+    return nxfp_matmul_grouped(x, expert, w.packed, w.meta, w.fmt)
+
+
+def expert_bmm(x, w):
+    """Dense (bf16) experts: x (E, C, K) @ w (E, K, N) -> (E, C, N) f32,
+    both rounded to bf16, f32 accumulation. On CUDA one ``torch.bmm`` (a
+    plain product outside any kernel, as the reference's XLA einsum is);
+    a row's bits depend on C, which the caller keeps fixed where they must
+    not follow the batch. On the CPU one product a row (``plain_product``)
+    per expert."""
+    xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    if x.device.type == "cuda":
+        return torch.bmm(xb, wb, out_dtype=torch.float32)
+    return torch.stack([plain_product(xb[e].float(), wb[e].float())
+                        for e in range(xb.shape[0])])
 
 
 def _qact_matmul(xq: QTensor, w):

@@ -1,8 +1,9 @@
 """Per-family layers: full-sequence (prefill), one prefill chunk (the
 chunked-prefill lane) and one-token decode. A layer's kind is its
-family's: ``dense`` (GQA attention and a SwiGLU MLP), ``ssm`` (a Mamba
-block alone) or ``hybrid`` (attention and a Mamba head in parallel,
-averaged, then the MLP).
+family's: ``dense`` (GQA attention and a SwiGLU MLP), ``moe`` (GQA
+attention and the routed-expert FFN, ``models/moe.py``), ``ssm`` (a
+Mamba block alone) or ``hybrid`` (attention and a Mamba head in
+parallel, averaged, then the MLP).
 
   layer_forward(cfg, p, x, positions, act_fmt)   -> (x, cache entries)
   layer_prefill_chunk(cfg, p, x, lane_l, cache_l, slot, positions, offset,
@@ -20,13 +21,14 @@ from .attention import gqa_project, self_attention, self_attention_resume
 from .common import (ModelConfig, apply_rope, dense, dense_rows, init_attn,
                      init_mlp, rmsnorm, rope_freqs, swiglu)
 from .kvcache import attend_decode, save_rows, write_prefill_at, write_token
+from .moe import init_moe, moe_ffn, moe_ffn_decode
 from .ssm import init_mamba, mamba_block, mamba_step
 
 Params = Dict[str, Any]
 
 
 def init_layer(gen: torch.Generator, cfg: ModelConfig) -> Params:
-    """One layer's weights, by the config's family (dense | ssm |
+    """One layer's weights, by the config's family (dense | moe | ssm |
     hybrid)."""
     d = cfg.d_model
     dev = gen.device
@@ -37,6 +39,9 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig) -> Params:
         return p
     p.update(init_attn(gen, cfg))
     p["ln2_scale"] = torch.ones((d,), dtype=torch.float32, device=dev)
+    if cfg.family == "moe":
+        p.update(init_moe(gen, cfg))
+        return p
     if cfg.family == "hybrid":
         p.update(init_mamba(gen, cfg))
     p.update(init_mlp(gen, d, cfg.d_ff, cfg.n_layers))
@@ -44,14 +49,18 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig) -> Params:
 
 
 def _mix(cfg: ModelConfig, p: Params, x, attn_y, ssm_y,
-         act_fmt: Optional[str] = None, mm=dense):
+         act_fmt: Optional[str] = None, mm=dense, ffn=None):
     """The residual add of a layer's attention and/or Mamba outputs (a
-    hybrid layer averages the two), then the MLP where the family has
-    one (its products ``mm``)."""
+    hybrid layer averages the two), then the FFN where the family has
+    one: the MLP (its products ``mm``), or ``ffn(h2)`` (the MoE FFN,
+    whose experts keep dense activations under ``act_fmt``, as in the
+    reference)."""
     if attn_y is None:
         return x + ssm_y
     x = x + (attn_y if ssm_y is None else 0.5 * (attn_y + ssm_y))
     h2 = rmsnorm(x, p["ln2_scale"], cfg.norm_eps)
+    if ffn is not None:
+        return x + ffn(h2)
     return x + swiglu(h2, p["mlp_w1"], p["mlp_w3"], p["mlp_w2"],
                       act_fmt=act_fmt, mm=mm)
 
@@ -60,19 +69,24 @@ def layer_forward(cfg: ModelConfig, p: Params, x, positions,
                   act_fmt: Optional[str] = None):
     """x (B, T, D) -> (x, cache entries): ``k``/``v`` of attention,
     ``ssm_h``/``ssm_conv`` of the Mamba block (the state after the last
-    token). ``act_fmt`` quantizes the GEMM inputs of attention and MLP
-    (qq prefill); the Mamba block keeps dense activations, as in the
-    reference. None keeps dense activations."""
+    token), ``moe_aux`` of the MoE FFN (its load-balance loss). ``act_fmt``
+    quantizes the GEMM inputs of attention and MLP (qq prefill); the Mamba
+    block and the MoE FFN keep dense activations, as in the reference.
+    None keeps dense activations."""
     h = rmsnorm(x, p["ln1_scale"], cfg.norm_eps)
     out: Dict[str, Any] = {}
-    attn_y = ssm_y = None
+    attn_y = ssm_y = ffn = None
     if not cfg.attn_free:
         attn_y, out["k"], out["v"] = self_attention(
             cfg, p, h, positions, window=cfg.sliding_window,
             act_fmt=act_fmt)
     if cfg.has_mamba:
         ssm_y, out["ssm_h"], out["ssm_conv"] = mamba_block(cfg, p, h)
-    return _mix(cfg, p, x, attn_y, ssm_y, act_fmt), out
+    if cfg.family == "moe":
+        def ffn(h2):
+            y, out["moe_aux"] = moe_ffn(cfg, p, h2)
+            return y
+    return _mix(cfg, p, x, attn_y, ssm_y, act_fmt, ffn=ffn), out
 
 
 def layer_prefill_chunk(cfg: ModelConfig, p: Params, x, lane_l, cache_l,
@@ -113,7 +127,13 @@ def layer_prefill_chunk(cfg: ModelConfig, p: Params, x, lane_l, cache_l,
         sl = slot.to(torch.int64)
         cache_l["h"].index_copy_(0, sl, hf)
         cache_l["conv"].index_copy_(0, sl, conv)
-    return _mix(cfg, p, x, attn_y, ssm_y, act_fmt)
+    ffn = None
+    if cfg.family == "moe":
+        valid = torch.arange(x.shape[1], device=x.device) < n_valid
+
+        def ffn(h2):
+            return moe_ffn(cfg, p, h2, valid=valid)[0]
+    return _mix(cfg, p, x, attn_y, ssm_y, act_fmt, ffn=ffn)
 
 
 def _attn_decode(cfg: ModelConfig, p: Params, h, layer_cache, pos,
@@ -159,7 +179,11 @@ def layer_decode(cfg: ModelConfig, p: Params, x, layer_cache, pos,
                                      layer_cache["conv"])
         _put_state(layer_cache["h"], hf, live)
         _put_state(layer_cache["conv"], conv, live)
-    return _mix(cfg, p, x, attn_y, ssm_y), layer_cache
+    ffn = None
+    if cfg.family == "moe":
+        def ffn(h2):
+            return moe_ffn_decode(cfg, p, h2)[0]
+    return _mix(cfg, p, x, attn_y, ssm_y, ffn=ffn), layer_cache
 
 
 # ---------------------------------------------------------------------------
@@ -224,7 +248,14 @@ def layer_verify(cfg: ModelConfig, p: Params, x, layer_cache, pos,
     ``lm.commit_verify`` needs to land an accepted prefix: the rows those
     writes replaced (``rows``, from ``kvcache.save_rows``) and the Mamba
     state after every step (``h``, ``conv``; the cache's state is not
-    touched)."""
+    touched).
+
+    MoE raises NotImplementedError, as in the reference: its capacity is
+    resolved per dispatch, so a (B * Q)-row verify drops other assignments
+    than Q one-row decode steps, and no batched verify is bitwise."""
+    if cfg.family == "moe":
+        raise NotImplementedError("speculative verify does not support "
+                                  "kind='moe'")
     h = rmsnorm(x, p["ln1_scale"], cfg.norm_eps)
     pending: Dict[str, Any] = {}
     attn_y = ssm_y = None

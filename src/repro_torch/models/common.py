@@ -18,7 +18,8 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from ..core.qtensor import QTensor
+from ..core.qtensor import QTensor, QuantPolicy, _map_with_path
+from ..core.quantize import resolve_format
 from ..kernels.ops import qmatmul, quantize_qtensor
 
 Params = Dict[str, Any]
@@ -27,12 +28,13 @@ Params = Dict[str, Any]
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """The reference's ModelConfig for the families the port serves:
-    dense (Llama-style GQA, optionally sliding-window), ssm (Mamba-1,
-    attention-free) and hybrid (windowed GQA and a Mamba head in
-    parallel in every layer)."""
+    dense (Llama-style GQA, optionally sliding-window), moe (GQA and a
+    routed-expert SwiGLU FFN, optionally a shared MLP beside it), ssm
+    (Mamba-1, attention-free) and hybrid (windowed GQA and a Mamba head
+    in parallel in every layer)."""
 
     name: str
-    family: str                    # dense | ssm | hybrid
+    family: str                    # dense | moe | ssm | hybrid
     n_layers: int
     d_model: int
     n_heads: int
@@ -43,6 +45,13 @@ class ModelConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     sliding_window: Optional[int] = None   # SWA: a window-sized ring cache
+    # --- MoE ---
+    n_experts: int = 0
+    n_experts_active: int = 0
+    n_experts_padded: int = 0      # dead-expert padding; 0 -> n_experts
+    n_shared_experts: int = 0
+    shared_d_ff: int = 0
+    capacity_factor: float = 1.25
     # --- SSM (mamba-1) ---
     ssm_state: int = 0
     d_inner: int = 0               # 0 -> 2 * d_model
@@ -75,15 +84,17 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Analytic parameter count, embeddings included (the reference's
-        dense, ssm and hybrid branches)."""
+        dense, moe, ssm and hybrid branches)."""
         d, hd, h, kvh = self.d_model, self.hd, self.n_heads, self.n_kv_heads
         attn = d * hd * h + 2 * d * hd * kvh + hd * h * d
         mlp = 3 * d * self.d_ff
         di, n, dr = self.dinner, self.ssm_state, self.dtrank
         mamba = (d * 2 * di + di * (dr + 2 * n) + dr * di
                  + di * self.conv_width + di * n + 2 * di + di * d)
-        per_layer = {"ssm": mamba, "hybrid": attn + mamba + mlp}.get(
-            self.family, attn + mlp)
+        moe = (self.n_experts * 3 * d * self.d_ff + 3 * d * self.shared_d_ff
+               + d * self.n_experts)
+        per_layer = {"ssm": mamba, "hybrid": attn + mamba + mlp,
+                     "moe": attn + moe}.get(self.family, attn + mlp)
         return self.n_layers * per_layer + 2 * self.vocab * d
 
 
@@ -117,6 +128,47 @@ def init_attn(gen: torch.Generator, cfg: ModelConfig):
         "wv": ninit(gen, (d, kvh * hd)),
         "wo": ninit(gen, (h * hd, d), scale=out_scale),
     }
+
+
+def cast_params(tree, policy: QuantPolicy, device, path: str = ""):
+    """The leaves of a parameter (sub)tree as the engines store them under
+    ``policy``, on ``device``; ``path`` is the subtree's path in the whole
+    tree (``"layers/3"``), which the policy's patterns read.
+
+    With a weight format, the leaves the policy matches are direct-cast
+    there by the fused quantizer (``kernels.ops.quantize_qtensor``), one
+    at a time. Without one, the leaves a cast would replace are stored in
+    bf16: each only ever enters a GEMM that rounds it to bf16 first, so the
+    stored rounding changes no result and halves an f32 tree. Other leaves
+    keep their dtype. A leaf that is already a QTensor passes through as
+    it is (a tree built cast, ``lm.init_params(policy=)``, or one cast
+    before; a policy without a weight format serves it as it is cast),
+    unless the policy's weight format is another: that raises ValueError,
+    naming the leaf, since re-casting a cast leaf would quantize twice."""
+    want = policy.weight_fmt and resolve_format(policy.weight_fmt)
+
+    def leaf(name, x):
+        if isinstance(x, QTensor):
+            if want and x.fmt != want:
+                raise ValueError(
+                    f"{name} is cast to {x.fmt.name}; the policy asks for "
+                    f"weight_fmt={policy.weight_fmt!r}: cast the f32 "
+                    "weights instead")
+            return dataclasses.replace(x, packed=x.packed.to(device),
+                                       meta=x.meta.to(device))
+        if not isinstance(x, torch.Tensor):
+            return x
+        if not want:
+            if policy.castable(name, x):
+                return x.to(device=device, dtype=torch.bfloat16)
+            return x.to(device)
+        x = x.to(device)
+        if policy.matches(name, x):
+            return quantize_qtensor(x, policy.weight_fmt, policy.axis,
+                                    device=device)
+        return x
+
+    return _map_with_path(leaf, tree, path)
 
 
 # ---------------------------------------------------------------------------

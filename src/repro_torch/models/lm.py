@@ -1,5 +1,5 @@
-"""Model assembly for the dense, SSM and hybrid families: init, prefill,
-the chunked prefill's lane chunk, decode.
+"""Model assembly for the dense, MoE, SSM and hybrid families: init,
+prefill, the chunked prefill's lane chunk, decode.
 
 Layers are a Python list of per-layer dicts (params) and of per-layer
 caches; prefill and decode loop over them. The cache is
@@ -20,7 +20,8 @@ from .. import resolve_device
 from ..kernels.build import bit_view
 from .blocks import (_put_state, init_layer, layer_decode, layer_forward,
                      layer_prefill_chunk, layer_verify)
-from .common import ModelConfig, dense, dense_rows, ninit, rmsnorm
+from .common import (ModelConfig, cast_params, dense, dense_rows, ninit,
+                     rmsnorm)
 from .kvcache import (_POOL_PREFIX, attn_cache_init, paged_attn_cache_init,
                       paged_layer_view, restore_rows, save_rows,
                       ssm_cache_init, write_prefill)
@@ -28,9 +29,8 @@ from .ssm import reset_state_slot
 
 Params = Dict[str, Any]
 
-# the families the port serves (the reference's scanned-stack families
-# less MoE)
-FAMILIES = ("dense", "ssm", "hybrid")
+# the families the port serves (the reference's scanned-stack families)
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -53,13 +53,24 @@ def recurrent_state(*trees):
             for name, buf in layer.items() if name in ("h", "conv")]
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
+def init_params(cfg: ModelConfig, seed: int = 0, device=None,
+                policy=None) -> Params:
     """Random weights from a ``torch.Generator`` seeded with ``seed``.
 
     Matmul weights and norms are f32, as in the reference. ``tok_embed``
     and ``lm_head`` are stored in bf16: the default policy keeps both
     dense and every use rounds them to bf16, so storing them rounded
     changes no result (the footprint counts what is stored).
+
+    ``policy`` (a ``QuantPolicy`` with a ``weight_fmt``) builds the tree
+    the engines serve a layer at a time: each layer is drawn, its leaves
+    are cast at once on the device (``common.cast_params``, what
+    ``serving.engine.load_params`` does to the whole tree) and its f32
+    leaves are dropped before the next layer is drawn. The draws are the
+    same, in the same order, so the result is bitwise ``load_params(
+    init_params(cfg, seed), policy)``, and the f32 model never exists:
+    the build peaks near the packed bytes plus a layer's f32 weights. A
+    policy without a weight format leaves the f32 tree as it is.
     """
     _check_family(cfg)
     dev = resolve_device(device)
@@ -71,7 +82,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
                                   device=dev),
         "lm_head": ninit(gen, (cfg.d_model, cfg.vocab), dtype=cfg.dtype),
     }
-    p["layers"] = [init_layer(gen, cfg) for _ in range(cfg.n_layers)]
+    if policy is None or not policy.weight_fmt:
+        p["layers"] = [init_layer(gen, cfg) for _ in range(cfg.n_layers)]
+        return p
+    p = cast_params(p, policy, dev)
+    p["layers"] = [cast_params(init_layer(gen, cfg), policy, dev,
+                               f"layers/{i}") for i in range(cfg.n_layers)]
     return p
 
 

@@ -44,11 +44,9 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..core.qtensor import (QTensor, QuantPolicy, _map_with_path,
-                            direct_cast_tree, tree_footprint_bytes)
-from ..kernels.ops import quantize_qtensor
+from ..core.qtensor import QuantPolicy, tree_footprint_bytes
 from ..models import decode_loop, decode_step, prefill, recurrent_state
-from ..models.common import ModelConfig
+from ..models.common import ModelConfig, cast_params
 
 logger = logging.getLogger("repro_torch.serving")
 
@@ -453,33 +451,17 @@ def load_params(params, policy: QuantPolicy, device: torch.device):
     Without one, the leaves a cast would replace are stored in bf16: each
     only ever enters a GEMM that rounds it to bf16 first
     (``kernels/ops.py``), so the stored rounding changes no result and
-    halves an f32 tree. Other leaves keep their dtype."""
-    if not policy.weight_fmt:
-        def leaf(path, x):
-            if isinstance(x, torch.Tensor) and policy.castable(path, x):
-                return x.to(device=device, dtype=torch.bfloat16)
-            return _to_device(x, device)
+    halves an f32 tree. Other leaves keep their dtype
+    (``models.common.cast_params``).
 
-        return _map_with_path(leaf, params)
-    params = _to_device(params, device)
-    return direct_cast_tree(
-        params, policy, quantize_fn=lambda leaf, fmt, axis:
-        quantize_qtensor(leaf, fmt, axis, device=device))
+    A tree built cast (``models.init_params(policy=)``) passes through:
+    its QTensor leaves stay as they are when their format is the policy's
+    ``weight_fmt`` (or the policy has none: a tree cast before is served
+    as it is); a leaf cast to another format raises ValueError naming the
+    leaf."""
+    return cast_params(params, policy, device)
 
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-
-
-def _to_device(tree, device):
-    if isinstance(tree, QTensor):
-        return dataclasses.replace(tree, packed=tree.packed.to(device),
-                                   meta=tree.meta.to(device))
-    if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_to_device(v, device) for v in tree)
-    if isinstance(tree, torch.Tensor):
-        return tree.to(device)
-    return tree

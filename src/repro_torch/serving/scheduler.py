@@ -134,14 +134,14 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..core.qtensor import QuantPolicy, dense_like
+from ..core.qtensor import QuantPolicy, cast_formats, dense_like
 from ..models import (decode_loop, init_cache, init_lane, prefill_chunk,
                       prefill_into_slot, read_cache_slot, recurrent_state,
                       reset_slot, write_cache_slot)
 from ..models.common import ModelConfig
 from ..models.kvcache import (cache_rows, kv_slot_checksum,
                                ssm_state_checksum)
-from ..models.lm import FAMILIES, restore_round, save_round
+from ..models.lm import restore_round, save_round
 from .engine import (_sync, capture_graph, load_params,
                      mask_chunk_emissions, sample_tokens)
 from .events import Journal, replay
@@ -153,6 +153,11 @@ from .speculative import (AdaptiveK, SpeculativeConfig, pack_emissions,
                           spec_round)
 
 logger = logging.getLogger("repro_torch.serving.scheduler")
+
+# the families speculative decoding serves: MoE's capacity is resolved per
+# dispatch, so a (B, k + 1)-row verify drops other assignments than k + 1
+# one-row decode steps (the reference's refusal)
+_SPEC_FAMILIES = ("dense", "ssm", "hybrid")
 
 
 class Status:
@@ -846,6 +851,12 @@ class ContinuousEngine:
         self.lane_seconds: List[float] = []
         self.stall_seconds: List[float] = []
         if prefill_mode == "chunked":
+            if cfg.family == "moe":
+                logger.warning(
+                    "family='moe' + prefill_mode='chunked': expert capacity "
+                    "is chunk-local, so outputs are NOT bit-identical to "
+                    "whole-prompt admission (use prefill_mode='whole' when "
+                    "the oracle matters)")
             if p_chunk == "auto":
                 p_chunk = self._autotune_p_chunk(p_chunk_candidates)
             else:
@@ -860,7 +871,7 @@ class ContinuousEngine:
         """The reference's refusals (a family outside the verify's
         contract; a recycled draft with nothing cast to recycle); and a
         round's k + 1 rows must fit a slot's cache."""
-        if cfg.family not in FAMILIES:
+        if cfg.family not in _SPEC_FAMILIES:
             raise ValueError(f"speculative decode does not serve "
                              f"family={cfg.family!r}")
         if spec.draft == "recycled" and not policy.weight_fmt:
@@ -878,6 +889,11 @@ class ContinuousEngine:
         if spec.draft == "recycled":
             self.draft_params = dense_like(self.params)
         else:
+            if cast_formats(raw_params):
+                raise ValueError(
+                    f"draft={spec.draft!r} is cast from the f32 weights, and "
+                    f"these are cast to {sorted(cast_formats(raw_params))}: "
+                    "build them without a policy, or use draft='recycled'")
             self.draft_params = load_params(
                 raw_params, dataclasses.replace(self.policy,
                                                 weight_fmt=spec.draft),

@@ -74,7 +74,7 @@ import torch
 
 from ..core.formats import get_format
 from ..core.pack import bytes_per_block
-from ..core.qtensor import QTensor, QuantPolicy
+from ..core.qtensor import QTensor, QuantPolicy, cast_formats
 from ..kernels.ops import quantize_qtensor
 from ..models import (init_cache, prefill_into_slot, read_cache_slot,
                       reset_slot, write_cache_slot)
@@ -230,6 +230,13 @@ class TieredContinuousEngine(ContinuousEngine):
     # -- construction hooks -------------------------------------------------
 
     def _load_weights(self, params):
+        cast = cast_formats(params)
+        other = {spec.weight_fmt for spec in self.tiers.values()} - cast
+        if cast and other:
+            raise ValueError(
+                f"the tiers' weight sets {sorted(map(str, other))} are cast "
+                f"from the f32 weights, and these are cast to "
+                f"{sorted(cast)}: build them without a policy")
         self._wparams: Dict[Optional[str], Any] = {}
         for spec in self.tiers.values():
             if spec.weight_fmt not in self._wparams:

@@ -2058,3 +2058,94 @@ def test_kv_flip_between_replays_is_read_on_card(cuda):
         if integrity:       # the canary trips (the sentinel may too,
             assert got[1].status == "FAILED"    # and is then the cause)
             assert len(causes) == 1 and any(t.any() for t in trips)
+
+
+# ---------------------------------------------------------------------------
+# the dequant GEMM's grouped instance (MoE routed experts)
+# ---------------------------------------------------------------------------
+
+def _experts(cuda, e, k, n, fname="nxfp4", seed=0):
+    """A cast expert stack (E, K, N) along axis -2 and each expert's own
+    QTensor (the slices ``ops.qmatmul`` takes)."""
+    from repro_torch.core.qtensor import QTensor
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    w = torch.randn((e, k, n), generator=g, device=cuda) * 0.02
+    q = quantize_qtensor(w, fname, axis=-2, device=cuda)
+    per = [QTensor(q.packed[i], q.meta[i], q.fmt_name, q.shape[1:], q.axis,
+                   q.orig_len) for i in range(e)]
+    return q, per
+
+
+def _routed(cuda, r, k, e, drop=(), skip=(), seed=1):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((r, k), generator=g, device=cuda).to(torch.bfloat16)
+    live = [i for i in range(e) if i not in skip]
+    expert = torch.tensor([live[i % len(live)] for i in range(r)],
+                          dtype=torch.int32, device=cuda)
+    for i in drop:
+        expert[i] = -1
+    return x, expert
+
+
+@pytest.mark.parametrize("r,k,n,e", [(16, 2048, 1408, 60), (8, 4096, 6400, 16),
+                                     (16, 1408, 2048, 60),
+                                     (300, 2048, 1408, 60)])
+def test_grouped_matmul_rows_bitwise_qmatmul(cuda, r, k, n, e):
+    """Each row bitwise ``ops.qmatmul`` of that row alone against its
+    expert's weight, at decode and prefill row counts; within 1e-5 of the
+    plain version's scale; bitwise on a second launch."""
+    from repro_torch.kernels import nxfp_matmul_grouped as ng
+    from repro_torch.kernels.ops import expert_matmul, qmatmul
+    q, per = _experts(cuda, e, k, n)
+    x, expert = _routed(cuda, r, k, e)
+    y = expert_matmul(x, expert, q)
+    assert torch.equal(y, expert_matmul(x, expert, q))
+    ex = expert.cpu().tolist()
+    for i in range(0, r, max(1, r // 24)):
+        assert torch.equal(y[i:i + 1], qmatmul(x[i:i + 1], per[ex[i]])), i
+    plain = ng.nxfp_matmul_grouped_plain(x, expert, q.packed, q.meta, q.fmt)
+    assert (y - plain).abs().max() <= 1e-5 * plain.abs().max()
+
+
+def test_grouped_matmul_dropped_rows_zero_and_idle_experts_unread(cuda):
+    """Dropped rows come back zero; an expert with no rows reads none of
+    its weight (garbage bytes there change nothing) and leaves every
+    other row as it was."""
+    from repro_torch.kernels.ops import expert_matmul
+    q, _ = _experts(cuda, 8, 512, 320)
+    x, expert = _routed(cuda, 40, 512, 8, drop=(0, 7, 39), skip=(2, 5))
+    y = expert_matmul(x, expert, q)
+    assert not y[[0, 7, 39]].any()
+    poisoned = dataclasses.replace(q, packed=q.packed.clone(),
+                                   meta=q.meta.clone())
+    for idle in (2, 5):
+        poisoned.packed[idle].fill_(0xFF)
+        poisoned.meta[idle].fill_(0x7FFF)
+    assert torch.equal(expert_matmul(x, expert, poisoned), y)
+
+
+def test_moe_decode_rows_bitwise_across_batch_on_card(cuda):
+    """A smoke MoE model's decode rows at B 4 bitwise each request decoded
+    alone (the router's 16-row product, the grouped GEMM's rows; each
+    slot prefilled alone, since a batched prefill's capacity spans the
+    batch), and ServeEngine's graph loop bitwise its host loop."""
+    import numpy as np
+    from repro_torch.models import init_cache, prefill_into_slot
+    cfg = get_smoke_config("qwen2_moe_a2_7b")
+    policy = QuantPolicy("nxfp4", "nxfp4")
+    params = init_params(cfg, 0, device=cuda, policy=policy)
+    toks = torch.randint(0, cfg.vocab, (4, 9), device=cuda)
+    cache = init_cache(cfg, 4, 32, "nxfp4", device=cuda)
+    for i in range(4):
+        prefill_into_slot(cfg, params, {"tokens": toks[i:i + 1]}, cache, i,
+                          32, "nxfp4")
+    step, _ = decode_step(cfg, params, toks[:, -1:], cache, "nxfp4")
+    for i in range(4):
+        _, c1 = prefill(cfg, params, {"tokens": toks[i:i + 1]}, 32, "nxfp4")
+        one, _ = decode_step(cfg, params, toks[i:i + 1, -1:], c1, "nxfp4")
+        assert torch.equal(one[0], step[i]), i
+    eng = ServeEngine(cfg, params, policy, max_len=64, device=cuda)
+    batch = {"tokens": toks.cpu().numpy()}
+    graph = eng.generate(batch, max_new=12, loop="device", chunk=4)
+    host = eng.generate(batch, max_new=12, loop="host")
+    np.testing.assert_array_equal(graph.tokens, host.tokens)

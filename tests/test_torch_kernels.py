@@ -130,14 +130,18 @@ def test_decode_split_covers_k_once(k, n, m):
 
 
 def _weight_kn(cfg, head=True):
-    """Every (K, N) a config's layers put through the GEMM, and with
-    ``head`` its head's (a dense bf16 product unless a policy casts it)."""
+    """Every (K, N) a config's layers put through the GEMM (an MoE layer's
+    experts and shared MLP included), and with ``head`` its head's (a
+    dense bf16 product unless a policy casts it)."""
     d, hd, h, kvh = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
     di, n, dr = cfg.dinner, cfg.ssm_state, cfg.dtrank
     attn = [(d, h * hd), (d, kvh * hd), (h * hd, d), (d, cfg.d_ff),
             (cfg.d_ff, d)]
     mamba = [(d, 2 * di), (di, dr + 2 * n), (dr, di), (di, d)]
-    kn = {"dense": attn, "ssm": mamba, "hybrid": attn + mamba}[cfg.family]
+    shared = ([(d, cfg.shared_d_ff), (cfg.shared_d_ff, d)]
+              if cfg.shared_d_ff else [])
+    kn = {"dense": attn, "ssm": mamba, "hybrid": attn + mamba,
+          "moe": attn + shared}[cfg.family]
     return kn + [(d, cfg.vocab)] if head else kn
 
 
