@@ -8,7 +8,8 @@ Phases 7-12, 14-17, phase 13's Falcon-Mamba-7B and phase 18's paged and
 tiered engines serve their models at ``--serving-layers`` (default 8, at
 most ``--layers``; phases 14-16 served Llama-3-8B and Hymba-1.5B at full
 depth until phase 17 came, phases 11 and 13 theirs until phase 18 came);
-phase 13's Hymba-1.5B and phase 18's models serve at full depth.
+phase 13's Hymba-1.5B and phase 18's and 19's models serve at full
+depth.
 
 Phases, each fatal on failure (exit code 1, no result line):
 
@@ -317,6 +318,30 @@ Phases, each fatal on failure (exit code 1, no result line):
    launch, every row bitwise ``ops.qmatmul`` of its expert's rows at up
    to 16, timed beside its bound and ``torch.matmul`` of each routed
    expert's rows (``launches_phase18_path``).
+19. The vision and audio families and the quantized-KV simulation
+   (``phase_vlm_audio``). (a) The smoke Llama-3.2-Vision and Whisper
+   models (memory inputs drawn from a seeded generator on the card)
+   through the kernels against the plain path on the CPU, prefill and 4
+   teacher-forced steps within 1e-2; the smoke Llama with
+   ``kv_sim_fmt="nxfp4"`` and a dense cache: every K/V fake-quantized on
+   the card (the quantizer kernel, then the decode) equal to the plain
+   ``fake_quant`` of the same tensor but for counted near-tie blocks,
+   logits within 1e-2 of the CPU's. (b) Llama-3.2-Vision-90B at full
+   width and depth (100 layers, d 8192; every fifth a cross layer over
+   1601 patches), built a layer at a time at nxfp4 (peak against the
+   packed bytes + 2 layers of f32), and (c) Whisper-tiny at its published
+   config (1500 frames; the encoder's seconds and peak): ServeEngine on 4
+   x 128 prompt tokens with vision (4, 1601, 8192) or frames (4, 1500,
+   384), 32 greedy tokens, the graph loop (chunk 16) bitwise the host
+   loop, rows 1 and 3 served alone at B 1 bitwise their batch rows, the
+   dense-row attention launched once per cross layer a decode step and
+   the quantizer once per self layer. (d) The kernels at the families'
+   shapes: the GEMM at Vision-90B's and Whisper's (K, N) at M 4 and 512,
+   the memory projections at M 6404 and 6000; the dense-row instance at
+   S 1601 (KVH 8, G 8, D 128) and S 1500 (KVH 6, G 1, D 64), bitwise at B
+   1/4/8, no read past S; packed attention and the K/V write at Whisper's
+   heads; the weight casts of both models' widest MLP weight; the kv_sim
+   quantizer at a Llama-3-8B prefill's K (``launches_phase19_path``).
 
 The last three lines are the kernel table as JSON, the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.
@@ -1117,18 +1142,19 @@ def check_attention(timer, rows, cases=ATTENTION_CASES):
         torch.cuda.empty_cache()
 
 
-def check_dense_attention(timer, rows):
+def check_dense_attention(timer, rows, cases=None):
     """The dense-row instance of the attention kernel (bf16 K/V, no
     padding of head_dim) at every head shape of ``ATTENTION_CASES`` but
-    S 256: within 1e-5 of max|V| of its plain version (the reference's
-    einsum), bitwise on a second launch, and row 0's bits the same at B 1,
-    4 and 8 (the decode batch of a continuous engine's slots)."""
+    S 256 (or at ``cases``): within 1e-5 of max|V| of its plain version
+    (the reference's einsum), bitwise on a second launch, and row 0's bits
+    the same at B 1, 4 and 8 (the decode batch of a continuous engine's
+    slots)."""
     from repro_torch.kernels import dense_attention as da
 
     gen = torch.Generator(device="cuda").manual_seed(13)
-    for (kvh, g, d), s, lens in ATTENTION_CASES:
-        if s == 256:
-            continue
+    if cases is None:
+        cases = [c for c in ATTENTION_CASES if c[1] != 256]
+    for (kvh, g, d), s, lens in cases:
         b = 8
         k, v = (torch.randn((b, s, kvh, d), generator=gen, device="cuda")
                 .to(torch.bfloat16) for _ in range(2))
@@ -5542,6 +5568,385 @@ def phase_moe(card: str, serving_layers: int, rows):
     return counts, fig
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the vision and audio families and the quantized-KV simulation
+# ---------------------------------------------------------------------------
+
+VISION, WHISPER = "llama_3_2_vision_90b", "whisper_tiny"
+P19_SERVE = (4, 128)                  # ServeEngine: B 4 x 128 prompt tokens
+P19_NEW, P19_CHUNK, P19_MAX_LEN = 32, 16, 256
+P19_SOLOS = (1, 3)                    # rows of the batch served alone at B 1
+# the dequant GEMM at the families' (K, N) pairs, at a decode batch and a
+# prefill: Vision-90B's wq/wo, wk/wv (and cross_wk/wv), w1/w3, w2; its
+# memory projection (cross_wk/wv over 4 x 1601 patches); Whisper-tiny's
+# wq/wk/wv/wo, w1/w3, w2, also at the encoder's and the memory
+# projection's M (4 x 1500 frames)
+P19_VISION_KN = ((8192, 8192), (8192, 1024), (8192, 28672), (28672, 8192))
+P19_WHISPER_KN = ((384, 384), (384, 1536), (1536, 384))
+P19_M = (4, 512)
+P19_VISION_MEM_M = 4 * 1601
+P19_WHISPER_ENC_M = 4 * 1500
+# the dense-row instance over each family's memory, every row valid (as
+# cross decode reads it; check_dense_attention adds 4 ragged rows), and
+# packed decode attention and the K/V write at Whisper's heads
+P19_MEMORY = (((8, 8, 128), 1601, (1601,) * 4),
+              ((6, 1, 64), 1500, (1500,) * 4))
+P19_ATTENTION = (((6, 1, 64), 512, (512, 300, 131, 17)),)
+P19_KV = {"decode whisper": (1, (128, 200, 17, 255), 64, 256, 6),
+          "prefill whisper": (128, None, 64, 256, 6)}
+P19_CASTS = {"nxfp_quantize vision mlp_w1": (8192, 28672),
+             "nxfp_quantize whisper mlp_w1": (384, 1536)}
+P19_KV_SIM = (4, 128, 8, 128)         # a Llama-3-8B prefill's K, bf16
+P19_MAIN_ROWS = ("nxfp_matmul M=4 K=8192 N=28672",
+                 "dense_decode_attention KVH=8 G=8 D=128 S=1601")
+_SERVED = ("nxfp_quantize", "nxfp_matmul", "nxfp_attention",
+           "dense_attention")
+P19_KERNELS = {"vision serve": _SERVED, "whisper serve": _SERVED,
+               "vision build": ("nxfp_quantize",),
+               "whisper build": ("nxfp_quantize",),
+               "kv_sim prefill": ("nxfp_quantize", "nxfp_matmul")}
+
+
+def _memory_name(cfg) -> str:
+    return "vision" if cfg.family == "vlm" else "frames"
+
+
+def _memory_rows(cfg) -> int:
+    return cfg.n_vision_tokens or cfg.n_audio_frames
+
+
+def _fake_quant_diff(x, got, what):
+    """Blocks (along the last axis, padded as the codec pads them) where
+    ``got``, the kv_sim route's output for ``x`` on the card, differs from
+    the plain ``fake_quant`` of the same tensor; fails unless each is a
+    candidate near-tie. Returns (differing blocks, blocks)."""
+    from repro_torch.core.formats import get_format
+    from repro_torch.core.quantize import (fake_quant, near_tie_blocks,
+                                           to_blocks)
+    fmt = get_format("nxfp4")
+    bs = fmt.block_size
+    ne = (got != fake_quant(x, fmt, axis=-1)).to(torch.float32)
+    diff = to_blocks(ne, bs, -1)[0].reshape(-1, bs).any(-1)
+    if diff.any():
+        xb = to_blocks(x.float(), bs, -1)[0].reshape(-1, bs)
+        if not bool(near_tie_blocks(xb[diff], fmt).all()):
+            fail(f"{what}: the card's fake-quantized blocks differ from the "
+                 "plain fake_quant beyond a candidate near-tie")
+    return int(diff.sum()), diff.numel()
+
+
+def _p19_small():
+    """(a) The smoke vision and audio models through the kernels on the
+    card against the plain path on the CPU, from the same weights and
+    inputs (the memory drawn on the card): prefill and 4 teacher-forced
+    decode steps, logits within phase 4's 1e-2. Then the smoke Llama with
+    ``kv_sim_fmt="nxfp4"`` and a dense cache: every K/V the simulation
+    fake-quantizes on the card equal to the plain codec's ``fake_quant``
+    of the same tensor (but for counted candidate near-tie blocks), its
+    logits within 1e-2 of the CPU's and not the unsimulated ones."""
+    import numpy as np
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.qtensor import QuantPolicy
+    from repro_torch.models import attention, decode_step, init_params
+    from repro_torch.models import prefill
+    from repro_torch.serving import ServeEngine
+    fig, devs = {}, ("cpu", "cuda")
+    pol = QuantPolicy("nxfp4", "nxfp4")
+    for arch in (VISION, WHISPER):
+        cfg = get_smoke_config(arch)
+        params = init_params(cfg, seed=0, device="cpu")
+        eng = {dev: ServeEngine(cfg, params, pol, max_len=32, device=dev)
+               for dev in devs}
+        gen = torch.Generator(device="cuda").manual_seed(19)
+        mem = torch.randn((2, _memory_rows(cfg), cfg.d_model), generator=gen,
+                          device="cuda")
+        toks = torch.from_numpy(np.random.default_rng(19).integers(
+            0, cfg.vocab, (2, 9)))
+        out = {dev: prefill(cfg, e.params, {"tokens": toks.to(dev),
+                                            _memory_name(cfg): mem.to(dev)},
+                            max_len=32, kv_fmt="nxfp4")
+               for dev, e in eng.items()}
+        worst = 0.0
+        for step in range(5):
+            lc, lg = out["cpu"][0], out["cuda"][0].cpu()
+            if not torch.isfinite(lg).all():
+                fail(f"{arch} smoke: non-finite logits on the card")
+            worst = max(worst, float((lc - lg).abs().max()))
+            if step == 4:
+                break
+            tok = torch.argmax(lc, dim=-1)
+            for dev, e in eng.items():
+                out[dev] = decode_step(cfg, e.params, tok.to(dev)[:, None],
+                                       out[dev][1], "nxfp4")
+        if worst > 1e-2:
+            fail(f"{arch} smoke: card vs CPU logits differ by {worst:.3g} "
+                 "> 1e-2")
+        fig[arch] = worst
+        del eng, out
+    cfg = dataclasses.replace(get_smoke_config("llama3_8b"),
+                              kv_sim_fmt="nxfp4")
+    params = init_params(cfg, seed=0, device="cpu")
+    pol = QuantPolicy("nxfp4", None)
+    eng = {dev: ServeEngine(cfg, params, pol, max_len=32, device=dev)
+           for dev in devs}
+    toks = torch.from_numpy(np.random.default_rng(20).integers(
+        0, cfg.vocab, (2, 9)))
+    real, seen = attention.fake_quant_rows, []
+
+    def spy(x, fmt):
+        y = real(x, fmt)
+        if x.is_cuda:
+            seen.append((x, y))
+        return y
+
+    counts = {}
+    attention.fake_quant_rows = spy
+    try:
+        logits = {dev: prefill(cfg, e.params, {"tokens": toks.to(dev)},
+                               max_len=32, kv_fmt=None)[0].cpu()
+                  for dev, e in eng.items() if dev == "cpu"}
+        logits["cuda"] = _counted(lambda: prefill(
+            cfg, eng["cuda"].params, {"tokens": toks.cuda()}, max_len=32,
+            kv_fmt=None)[0].cpu(), counts)
+    finally:
+        attention.fake_quant_rows = real
+    if len(seen) != 2 * cfg.n_layers:
+        fail(f"kv_sim: {len(seen)} fake-quantized K/V on the card, "
+             f"{2 * cfg.n_layers} expected")
+    n_diff, n_blocks = 0, 0
+    for x, y in seen:
+        d, n = _fake_quant_diff(x, y, "kv_sim smoke")
+        n_diff, n_blocks = n_diff + d, n_blocks + n
+    err = float((logits["cpu"] - logits["cuda"]).abs().max())
+    if err > 1e-2:
+        fail(f"kv_sim smoke: card vs CPU logits differ by {err:.3g} > 1e-2")
+    plain = prefill(dataclasses.replace(cfg, kv_sim_fmt=None),
+                    eng["cuda"].params, {"tokens": toks.cuda()}, max_len=32,
+                    kv_fmt=None)[0].cpu()
+    if torch.equal(plain, logits["cuda"]):
+        fail("kv_sim smoke: the simulated prefill gave the plain logits")
+    fig["kv_sim"] = dict(logit_err=err, tensors=len(seen), blocks=n_blocks,
+                         near_ties=n_diff)
+    log(f"phase 19 (a): smoke vision and audio models through the kernels "
+        f"vs the plain CPU path, prefill + 4 teacher-forced steps: max logit "
+        f"difference {fig[VISION]:.3g} / {fig[WHISPER]:.3g} (tolerance 1e-2); "
+        f"smoke Llama kv_sim_fmt=nxfp4, dense cache: {len(seen)} K/V tensors "
+        f"fake-quantized on the card, {n_blocks} blocks, bitwise the plain "
+        f"fake_quant but {n_diff} near-tie blocks; logits {err:.3g} from the "
+        f"CPU's, not the unsimulated ones")
+    return counts, fig
+
+
+def _p19_serve(arch, counts):
+    """(b), (c): ``arch`` at full width and depth, built a layer at a time
+    (nxfp4), its memory drawn on the card: ServeEngine on 4 x 128 prompt
+    tokens, 32 greedy tokens, the graph device loop (chunk 16, one graph,
+    twice) bitwise the host loop, the dense-row instance and the quantizer
+    launched as many times a decode step as there are cross and self
+    layers; two rows served alone at B 1 bitwise their rows of the batch.
+    For the audio family the encoder's seconds and peak memory."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.qtensor import QuantPolicy
+    from repro_torch.models import lm
+    from repro_torch.serving import ServeEngine
+    cfg = get_config(arch)
+    what = "vision" if cfg.family == "vlm" else "whisper"
+    params, fig = _build_layered(cfg, counts[f"{what} build"])
+    # the embedding and the head are drawn in f32 before their bf16 store:
+    # where one outweighs a layer (Whisper-tiny: 79.7 MB of f32 against
+    # 11.8) the build peaks on that draw, which phase 18's bound (packed +
+    # 2 layers of f32) does not count
+    fig["layer_bound"] = fig["bound"]
+    fig["bound"] = fig["packed"] + 2 * max(fig["layer_f32"],
+                                           4 * cfg.vocab * cfg.d_model)
+    if fig["peak"] > fig["bound"]:
+        fail(f"{arch} layered build: peak {fig['peak']} bytes above the "
+             f"packed bytes + 2 x the largest f32 draw ({fig['bound']})")
+    if cfg.family == "vlm" and fig["peak"] > fig["layer_bound"]:
+        fail(f"{arch} layered build: peak {fig['peak']} bytes above the "
+             f"packed bytes + 2 layers of f32 ({fig['layer_bound']})")
+    b, t = P19_SERVE
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    mem = torch.randn((b, _memory_rows(cfg), cfg.d_model), generator=gen,
+                      device="cuda")
+    toks = np.random.default_rng(19).integers(0, cfg.vocab, (b, t))
+    name = _memory_name(cfg)
+    batch = {"tokens": toks, name: mem}
+    eng = ServeEngine(cfg, params, QuantPolicy("nxfp4", "nxfp4"),
+                      max_len=P19_MAX_LEN, device="cuda")
+    del params
+    if cfg.family == "audio":
+        _free()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        enc = lm._encode_audio(cfg, eng.params, mem)
+        torch.cuda.synchronize()
+        fig["encoder_s"] = round(time.time() - t0, 4)
+        fig["encoder_peak"] = torch.cuda.max_memory_allocated() - base
+        del enc
+    serve = counts[f"{what} serve"]
+    runs = _counted(lambda: [
+        eng.generate(batch, max_new=P19_NEW, loop="device", chunk=P19_CHUNK)
+        for _ in range(2)], serve)
+    step = {}
+    host = _counted(lambda: eng.generate(batch, max_new=P19_NEW,
+                                         loop="host"), step)
+    for k, v in step.items():
+        serve[k] = serve.get(k, 0) + v
+    for r in runs:
+        if not np.array_equal(r.tokens, host.tokens) or not (
+                r.n_generated == P19_NEW).all():
+            fail(f"{arch}: the graph device loop and the host loop disagree")
+    if _device_loop_of(eng).replays < 2 * (P19_NEW // P19_CHUNK):
+        fail(f"{arch}: the device loop did not replay its graph")
+    kinds = lm.layer_kinds(cfg)
+    n_cross = sum(k in ("cross", "encdec") for k in kinds)
+    n_self = sum(k != "cross" for k in kinds)
+    # the host loop: a prefill (a K/V write a self layer) and 32 steps
+    if step.get("dense_attention") != n_cross * P19_NEW or step.get(
+            "nxfp_quantize") != n_self * (P19_NEW + 1):
+        fail(f"{arch}: the host loop's launches {step} are not "
+             f"{n_cross} dense-row attentions and {n_self} K/V writes a "
+             f"step")
+    for i in P19_SOLOS:
+        solo = eng.generate({"tokens": toks[i:i + 1], name: mem[i:i + 1]},
+                            max_new=P19_NEW, loop="device", chunk=P19_CHUNK)
+        if not np.array_equal(solo.tokens[0], host.tokens[i]):
+            fail(f"{arch}: row {i} served alone at B 1 is not its row of "
+                 f"the B {b} stream")
+    ms = runs[-1].decode_seconds / P19_NEW * 1e3
+    fig.update(graph_ms_step=round(ms, 3),
+               host_ms_step=round(host.decode_seconds / P19_NEW * 1e3, 3),
+               tok_s=round(b * 1e3 / ms, 2),
+               prefill_s=round(runs[-1].prefill_seconds, 4),
+               per_step={"dense_attention": n_cross, "nxfp_quantize": n_self},
+               weights=eng.weights_footprint_bytes())
+    del eng
+    _free()
+    return fig
+
+
+def _memory_guard(heads, s):
+    """The dense-row instance over a memory of ``s`` rows whose next slot
+    is NaN: the output stays finite (the kernel reads no row at or past
+    ``s``; its last 32-row tile is partial)."""
+    from repro_torch.kernels import dense_attention as da
+    kvh, g, d = heads
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    kv = torch.randn((2, 5, s, kvh, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    kv[:, 4] = float("nan")
+    q = torch.randn((4, kvh, g, d), generator=gen, device="cuda") * d ** -0.5
+    lens = torch.full((4,), s, dtype=torch.int32, device="cuda")
+    out = da.dense_decode_attention(q, kv[0, :4], kv[1, :4], lens)
+    if not torch.isfinite(out).all():
+        fail(f"dense decode attention S={s}: a row at or past S was read")
+
+
+def _kv_sim_row(timer, rows):
+    """The kv_sim route's kernel at a Llama-3-8B prefill's K (4, 128, 8,
+    128) bf16: the quantizer under the table-driven rules on its 16384
+    blocks against its plain version (bitwise but near ties), and
+    ``fake_quant_rows`` against the plain ``fake_quant``."""
+    from repro_torch.core.formats import get_format
+    from repro_torch.core.quantize import near_tie_blocks
+    from repro_torch.core.pack import unpack_codes
+    from repro_torch.kernels import nxfp_quantize as nq
+    from repro_torch.kernels.decode_lib import decode_block_values
+    from repro_torch.kernels.ops import fake_quant_rows
+    fmt = get_format("nxfp4")
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    k = torch.randn(P19_KV_SIM, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    flat = k.reshape(-1, fmt.block_size)
+    kp, km = nq.nxfp_quantize_pack(flat, fmt, table=True)
+    pp, pm = nq.nxfp_quantize_pack_plain(flat, fmt, table=True)
+    diff = (kp != pp).any(-1) | (km.to(torch.int32) != pm.to(torch.int32))
+    route, _ = _fake_quant_diff(k, fake_quant_rows(k, "nxfp4"), "kv_sim")
+    err = float((decode_block_values(unpack_codes(kp, fmt.bits, 32), km, fmt)
+                 - decode_block_values(unpack_codes(pp, fmt.bits, 32), pm,
+                                       fmt)).abs().max())
+    if diff.any() and not bool(near_tie_blocks(flat[diff].float(),
+                                               fmt).all()):
+        fail("kv_sim quantizer: blocks differ from the plain codec beyond "
+             "a candidate near-tie")
+    n = flat.shape[0]
+    ms = timer(lambda: nq.nxfp_quantize_pack(flat, fmt, table=True))
+    plain_ms = timer(lambda: nq.nxfp_quantize_pack_plain(flat, fmt, True), 5)
+    route_ms = timer(lambda: fake_quant_rows(k, "nxfp4"))
+    n_cands = int(nq.evaluated_candidates(flat, fmt).sum())
+    b_ms, b_by = bound(n * 32 * 2 + n * (fmt.bytes_per_block + 2),
+                       n_cands * 32 * QUANT_OPS, PEAK_F32)
+    log(f"kv_sim quantizer (K {P19_KV_SIM} bf16, {n} blocks): bitwise but "
+        f"{int(diff.sum())} near-tie blocks (the route: {route}); "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, the whole route "
+        f"(kernel + decode) {route_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+    rows["nxfp_quantize kv_sim"] = dict(
+        max_abs_err=err, ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        near_ties=int(diff.sum()), route_ms=route_ms,
+        shape=f"K {P19_KV_SIM} bf16 (kv_sim_fmt nxfp4), {n} blocks")
+
+
+def check_phase19_kernels(timer, rows):
+    """(d) The kernels at the shapes phase 19's paths give them, each
+    against its plain version as phase 3 holds it and timed beside its
+    bound and a library call."""
+    check_matmul(timer, rows, P19_VISION_KN, P19_M)
+    check_matmul(timer, rows, ((8192, 1024),), (P19_VISION_MEM_M,))
+    check_matmul(timer, rows, P19_WHISPER_KN, P19_M + (P19_WHISPER_ENC_M,))
+    check_dense_attention(timer, rows, P19_MEMORY)
+    for heads, s, _ in P19_MEMORY:
+        _memory_guard(heads, s)
+    check_attention(timer, rows, P19_ATTENTION)
+    check_kv_write(timer, rows, P19_KV)
+    for key, shape in P19_CASTS.items():
+        check_quantizer(timer, rows, shape, key)
+    _kv_sim_row(timer, rows)
+
+
+def phase_vlm_audio(card: str, rows):
+    """Phase 19: (a) the smoke vision and audio models and the kv_sim
+    route against the CPU; (b) Llama-3.2-Vision-90B and (c) Whisper-tiny
+    at full width and depth through ServeEngine; (d) the kernels at their
+    shapes. Launches are counted around each path alone. Returns (counts
+    by path, figures)."""
+    t0 = time.time()
+    counts = {path: {} for path in P19_KERNELS}
+    counts["kv_sim prefill"], fig = _p19_small()
+    fig["vision"] = _p19_serve(VISION, counts)
+    fig["whisper"] = _p19_serve(WHISPER, counts)
+    timer = Timer("cuda")
+    check_phase19_kernels(timer, rows)
+    del timer
+    _free()
+    fig["seconds"] = round(time.time() - t0, 1)
+    for arch in ("vision", "whisper"):
+        f = fig[arch]
+        enc = (f", encoder {f['encoder_s']} s (peak {f['encoder_peak']} "
+               "bytes above the weights)" if "encoder_s" in f else "")
+        log(f"  {arch} ({card}): full width and depth, built a layer at a "
+            f"time in {f['seconds']} s, peak {f['peak']} bytes against packed "
+            f"{f['packed']} + 2 x one layer's f32 {f['layer_f32']} = "
+            f"{f['layer_bound']} (+ 2 x the largest f32 draw: {f['bound']}); "
+            f"weights "
+            f"{f['weights']} bytes; ServeEngine {P19_SERVE[0]} x "
+            f"{P19_SERVE[1]} tokens: graph loop == host loop, rows "
+            f"{list(P19_SOLOS)} alone == their batch rows, decode "
+            f"{f['graph_ms_step']} ms/step ({f['tok_s']} tok/s) vs host loop "
+            f"{f['host_ms_step']} ms/step, prefill {f['prefill_s']} s{enc}; "
+            f"launches a decode step {f['per_step']}")
+    log(f"  launches on phase 19's paths: {counts}; phase 19 "
+        f"{fig['seconds']} s")
+    for path, names in P19_KERNELS.items():
+        for name in names:
+            if counts[path].get(name, 0) <= 0:
+                fail(f"phase 19 ({path}): kernel {name} was never launched")
+    return counts, fig
+
+
 def kernel_formats(kname, rows, wide_counts):
     """The formats ``kname`` ran in this run: its main-path formats, its
     phase-3 wide rows and the formats phase 7 served through it."""
@@ -5713,6 +6118,11 @@ def main():
     p18_counts, _ = phase_moe(smi_line, late, rows)
     p18_rows = [k for k in rows if k not in p18_rows]
     log(f"phase 18 seconds: {time.time() - t18:.1f}")
+    t19 = time.time()
+    p19_rows = set(rows)
+    p19_counts, _ = phase_vlm_audio(smi_line, rows)
+    p19_rows = [k for k in rows if k not in p19_rows]
+    log(f"phase 19 seconds: {time.time() - t19:.1f}")
 
     table = []
     for kname, (sources, replaces) in KERNELS.items():
@@ -5745,6 +6155,8 @@ def main():
                                    for path, n in p17_counts.items()},
             launches_phase18_path={path: n.get(c, 0)
                                    for path, n in p18_counts.items()},
+            launches_phase19_path={path: n.get(c, 0)
+                                   for path, n in p19_counts.items()},
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
@@ -5801,10 +6213,28 @@ def main():
             **{f: r[f] for f in ("max_abs_err", "ms", "plain_ms",
                                  "bound_ms", "bound_by", "library_ms",
                                  "shape")}))
+    # the rows at the vision and audio families' shapes (phase 19), each
+    # with its kernel's launches on phase 19's paths (the builds, the
+    # serves, the kv_sim prefill)
+    for key in sorted(p19_rows, key=lambda k: k not in P19_MAIN_ROWS):
+        kname = next(k for k in KERNELS if key.split(" ")[0] in (
+            k, COUNTERS[k]))
+        sources, replaces = KERNELS[kname]
+        by_path = {path: n.get(COUNTERS[kname], 0)
+                   for path, n in p19_counts.items()}
+        r = rows[key]
+        table.append(dict(
+            name=key, kernel=kname, route="cuda", source=sources[0],
+            replaces=replaces, launches=sum(by_path.values()),
+            launches_phase19_path=by_path,
+            **{f: r[f] for f in ("max_abs_err", "ms", "plain_ms",
+                                 "bound_ms", "bound_by", "library_ms",
+                                 "shape")}))
     extra = [dict(name=k, **{f: v for f, v in r.items()})
              for k, r in rows.items()
              if k not in MAIN_ROW.values() and k not in ssm_rows
-             and k not in p15_rows and k not in p18_rows]
+             and k not in p15_rows and k not in p18_rows
+             and k not in p19_rows]
     log(f"other shapes: {json.dumps(extra)}")
     log(f"total seconds: {time.time() - t_start:.1f}")
     print(json.dumps({"kernels": table}), flush=True)

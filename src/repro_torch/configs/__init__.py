@@ -4,7 +4,11 @@
 tiny same-family variant for CPU tests. The dense family
 (``h2o_danube_3_4b`` with its sliding-window ring cache), the MoE family
 (``qwen2_moe_a2_7b``, ``phi3_5_moe_42b``), the SSM family
-(``falcon_mamba_7b``) and the hybrid family (``hymba_1_5b``) are ported.
+(``falcon_mamba_7b``), the hybrid family (``hymba_1_5b``), the vision
+family (``llama_3_2_vision_90b``: cross attention to stub patch
+embeddings every fifth layer) and the audio family (``whisper_tiny``: an
+encoder over stub frame embeddings, a decoder cross-attending to it) are
+ported.
 """
 from __future__ import annotations
 
@@ -16,7 +20,7 @@ from repro_torch.models.common import ModelConfig
 ARCH_IDS: List[str] = ["llama3_8b", "llama2_7b", "starcoder2_3b",
                        "deepseek_67b", "llama3_405b", "h2o_danube_3_4b",
                    "falcon_mamba_7b", "hymba_1_5b", "qwen2_moe_a2_7b",
-                   "phi3_5_moe_42b"]
+                   "phi3_5_moe_42b", "llama_3_2_vision_90b", "whisper_tiny"]
 
 _ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
 

@@ -8,7 +8,12 @@ QTensor leaves (anything with ``packed``/``meta`` children and the
 QTensor aux fields) carry across with their exact bytes, split on ``L``,
 so the kernels can be fed the reference's own packed weights: an MoE
 expert stack (L, E, D, F) cast along axis -2 becomes one QTensor of
-logical shape (E, D, F) a layer, packed (E, F, KB, bpb). Nothing here
+logical shape (E, D, F) a layer, packed (E, F, KB, bpb). The vision
+family's groups (``self_layers``, leaves (G, every - 1, ...), and
+``cross_layers``, (G, ...)) become one flat list in execution order
+(every - 1 self layers, then the group's cross layer); the audio
+family's ``enc_layers`` and ``layers`` are split on L, its
+``enc_pos_embed`` and ``enc_scale`` carried as they are. Nothing here
 imports JAX.
 """
 from __future__ import annotations
@@ -44,7 +49,8 @@ def _qtensor(leaf, device, index=None) -> QTensor:
     packed, meta = np.asarray(leaf.packed), np.asarray(leaf.meta)
     shape = tuple(leaf.shape)
     if index is not None:
-        packed, meta, shape = packed[index], meta[index], shape[1:]
+        packed, meta = packed[index], meta[index]
+        shape = shape[len(index):]
     return QTensor(tensor_from_numpy(packed, device),
                    tensor_from_numpy(meta, device), leaf.fmt_name, shape,
                    int(leaf.axis), int(leaf.orig_len))
@@ -60,20 +66,39 @@ def _leaf(name: str, leaf, device, index=None):
     return t.to(torch.bfloat16) if name in _BF16_LEAVES else t
 
 
+def _split(stack: Dict[str, Any], device, lead: int = 1):
+    """A stacked layer dict (leaves with ``lead`` leading stack axes) ->
+    the list of its layers, the stack axes flattened in order."""
+    dims = {(leaf.packed if _is_qtensor(leaf) else np.asarray(leaf)
+             ).shape[:lead] for leaf in stack.values()}
+    if len(dims) != 1:
+        raise ValueError(f"stacked layer leaves disagree on their stack "
+                         f"axes: {dims}")
+    return [{name: _leaf(name, leaf, device, idx)
+             for name, leaf in stack.items()}
+            for idx in np.ndindex(*dims.pop())]
+
+
 def params_from_jax(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
-    """Reference parameter tree (numpy leaves) of a dense, moe, ssm or
-    hybrid model -> port tree: every stacked layer leaf (attention, MLP,
-    the MoE router, experts and shared MLP, and the Mamba block's
-    ``ssm_*`` leaves, cast or dense) split on L."""
+    """Reference parameter tree (numpy leaves) -> port tree: every
+    stacked layer leaf (attention, MLP, the MoE router, experts and shared
+    MLP, the Mamba block's ``ssm_*`` leaves, the cross projections; cast
+    or dense) split on its stack axes into the port's list of layers:
+    ``layers`` (and the audio family's ``enc_layers``) on L, the vision
+    family's ``self_layers`` (G, every - 1) and ``cross_layers`` (G)
+    interleaved into one ``layers`` list in execution order."""
     dev = resolve_device(device)
+    stacks = ("layers", "enc_layers", "self_layers", "cross_layers")
     out = {name: _leaf(name, leaf, dev) for name, leaf in tree.items()
-           if name != "layers"}
-    layers = tree["layers"]
-    n_layers = {(leaf.packed if _is_qtensor(leaf) else np.asarray(leaf)
-                 ).shape[0] for leaf in layers.values()}
-    if len(n_layers) != 1:
-        raise ValueError(f"stacked layer leaves disagree on L: {n_layers}")
-    out["layers"] = [{name: _leaf(name, leaf, dev, i)
-                      for name, leaf in layers.items()}
-                     for i in range(n_layers.pop())]
+           if name not in stacks}
+    if "self_layers" in tree:
+        selfs = _split(tree["self_layers"], dev, lead=2)
+        cross = _split(tree["cross_layers"], dev)
+        per = len(selfs) // len(cross)
+        out["layers"] = [layer for g, c in enumerate(cross)
+                         for layer in selfs[g * per:(g + 1) * per] + [c]]
+    else:
+        out["layers"] = _split(tree["layers"], dev)
+    if "enc_layers" in tree:
+        out["enc_layers"] = _split(tree["enc_layers"], dev)
     return out

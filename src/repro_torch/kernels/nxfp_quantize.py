@@ -10,7 +10,9 @@ bf16 or f32 input and the symmetric weight/KV formats, the asymmetric
 formats, at 2 to 8 bits and block sizes 8 to 128. A custom recycle
 value is encoded as the reference's table-driven ``quantize_blocks`` does
 (a value on a midpoint takes the lower level), and the plain version is
-that encoder.
+that encoder; ``nxfp_quantize_pack(table=True)`` asks for that encoder for
+any code-recycling format (the reference's ``fake_quant`` encodes with
+it: the quantized-KV simulation).
 
 ``quantize_plan`` picks the kernel's regime from the block count: a warp
 per block for a small T (a decode step's K/V rows), a thread per block over
@@ -36,7 +38,7 @@ from ..core.formats import BlockFormat
 from ..core.levels import level_table
 from ..core.pack import bytes_per_block, pack_codes
 from ..core.quantize import (_side, arith_ok, block_maxima, candidates,
-                              encode_blocks, to_blocks)
+                              encode_blocks, quantize_blocks, to_blocks)
 from . import build
 
 __all__ = ["nxfp_quantize_pack", "nxfp_quantize_pack_plain",
@@ -103,18 +105,20 @@ def recycle_window(elem_name: str, recycle):
 
 
 @functools.lru_cache(maxsize=None)
-def _desc(fmt: BlockFormat) -> _CandList:
+def _desc(fmt: BlockFormat, table: bool = False) -> _CandList:
     """The format's candidate list for the host entry (built once; the C
-    side checks it against the kernel's compile-time element formats)."""
+    side checks it against the kernel's compile-time element formats).
+    ``table`` selects the table-driven encoder's rules (the kernel's
+    ``KIND_CRT``) for a format whose recycle value is not custom too."""
     cands = candidates(fmt)
     d = _CandList(int(fmt.cr), int(fmt.asym), int(fmt.ox), len(cands))
-    for i, (fmt_bit, table, nano_mode) in enumerate(cands):
-        el = table.fmt
+    for i, (fmt_bit, levels, nano_mode) in enumerate(cands):
+        el = levels.fmt
         mode = -1 if nano_mode is None else (-2 if nano_mode == "round"
                                              else int(nano_mode))
-        d.c[i] = _Cand(fmt_bit, int(el.is_bfp), el.mbits, el.bias, table.emax,
-                       mode, float(np.float32(table.max_pos)))
-    if not arith_ok(fmt):
+        d.c[i] = _Cand(fmt_bit, int(el.is_bfp), el.mbits, el.bias,
+                       levels.emax, mode, float(np.float32(levels.max_pos)))
+    if table or not arith_ok(fmt):
         d.table = 1
         for fmt_bit, el in fmt.elem_formats:
             lo, hi, val = recycle_window(el.name, fmt.recycle)
@@ -192,11 +196,12 @@ def evaluated_candidates(xb, fmt: BlockFormat):
     return count
 
 
-def nxfp_quantize_pack_plain(xb, fmt: BlockFormat):
+def nxfp_quantize_pack_plain(xb, fmt: BlockFormat, table: bool = False):
     """(T, B) float blocks -> (packed uint8 (T, bpb), meta (T,) of
     ``fmt.meta_dtype``): the encoder the reference serves ``fmt`` with
-    (table-driven for a custom recycle value), then the pack."""
-    codes, meta = encode_blocks(xb, fmt)
+    (table-driven for a custom recycle value; with ``table``, the
+    table-driven ``quantize_blocks`` for every format), then the pack."""
+    codes, meta = (quantize_blocks if table else encode_blocks)(xb, fmt)
     return pack_codes(codes, fmt.bits), meta
 
 
@@ -215,20 +220,22 @@ def _check_input(x, name: str) -> None:
 
 
 def _launch(job: _Job, fmt: BlockFormat, n_blocks: int, device,
-            plan: QuantPlan | None) -> None:
+            plan: QuantPlan | None, table: bool = False) -> None:
     global LAUNCHES
     lib = build.library()
     plan = plan or quantize_plan(n_blocks, fmt.block_size,
                                  build.sm_count(device))
     rc = lib.nxfp_quantize_launch(
         ctypes.addressof(job), fmt.bits, fmt.block_size,
-        ctypes.addressof(_desc(fmt)), _REGIME[plan.regime], plan.per_cta,
+        ctypes.addressof(_desc(fmt, table)), _REGIME[plan.regime],
+        plan.per_cta,
         plan.grid, build.stream_handle(device))
     build.check(rc, "nxfp_quantize")
     LAUNCHES += 1
 
 
-def nxfp_quantize_pack(xb, fmt: BlockFormat, plan: QuantPlan | None = None):
+def nxfp_quantize_pack(xb, fmt: BlockFormat, plan: QuantPlan | None = None,
+                       table: bool = False):
     """(T, B) f32 or bf16 blocks -> (packed uint8 (T, bpb), meta (T,)
     uint16, or uint32 for asym formats).
 
@@ -236,10 +243,19 @@ def nxfp_quantize_pack(xb, fmt: BlockFormat, plan: QuantPlan | None = None):
     which raises ``NotImplementedError`` for formats it does not take.
     ``plan`` overrides ``quantize_plan`` (the tests and
     ``scripts/compare_kernels.py`` run both regimes on the same blocks).
+    ``table`` encodes with the table-driven encoder's rules
+    (``core.quantize.quantize_blocks``: a value on a midpoint takes the
+    lower level), which the kernel runs for code-recycling formats only
+    (its ``KIND_CRT``); for another symmetric format it raises
+    ``NotImplementedError`` on CUDA.
     """
     if not build.on_cuda(xb):
-        return nxfp_quantize_pack_plain(xb, fmt)
+        return nxfp_quantize_pack_plain(xb, fmt, table)
     _require_kernel(fmt)
+    if table and not fmt.cr:
+        raise NotImplementedError(
+            f"{fmt.name}: the kernel runs the table-driven encoder for "
+            "code-recycling formats only")
     t, b = xb.shape
     build.require(b == fmt.block_size, f"block axis {b} != {fmt.block_size}")
     _check_input(xb, "input")
@@ -250,7 +266,7 @@ def nxfp_quantize_pack(xb, fmt: BlockFormat, plan: QuantPlan | None = None):
                meta=(meta.data_ptr(), 0), pos=None, n_per=t, n_tensors=1,
                in_bf16=int(xb.dtype == torch.bfloat16), b=t, t=1, kvh=1,
                hd=b, nb=1, s=1, cb=t)
-    _launch(job, fmt, t, xb.device, plan)
+    _launch(job, fmt, t, xb.device, plan, table)
     return packed, meta
 
 

@@ -15,7 +15,7 @@ import torch.nn.functional as F
 
 from .. import resolve_device
 from ..core.qtensor import QTensor, fmt_key
-from ..core.quantize import resolve_format, to_blocks
+from ..core.quantize import fake_quant, resolve_format, to_blocks
 from .dense_attention import dense_decode_attention
 from .nxfp_attention import nxfp_decode_attention
 from .nxfp_matmul import nxfp_matmul, plain_product
@@ -23,9 +23,9 @@ from .nxfp_matmul_grouped import nxfp_matmul_grouped
 from .nxfp_qq_matmul import nxfp_qq_matmul
 from .nxfp_quantize import nxfp_quantize_pack
 
-__all__ = ["qmatmul", "quantize_qtensor", "decode_attention",
-           "decode_attention_dense", "router_matmul", "expert_matmul",
-           "expert_bmm"]
+__all__ = ["qmatmul", "quantize_qtensor", "fake_quant_rows",
+           "decode_attention", "decode_attention_dense", "router_matmul",
+           "expert_matmul", "expert_bmm"]
 
 # above this many rows the bf16 product runs on row tiles of this height
 DENSE_ROW_TILE = 128
@@ -155,18 +155,42 @@ def quantize_qtensor(x, fmt, axis: int = -1, device=None) -> QTensor:
     otherwise (the input is moved there first). Raises when CUDA is asked
     for and absent.
     """
-    fmt = resolve_format(fmt)
-    x = x.to(resolve_device(device))
+    return _cast(x.to(resolve_device(device)), resolve_format(fmt), axis)
+
+
+def _cast(x, fmt, axis: int, table: bool = False) -> QTensor:
+    """``x`` cast to a QTensor along ``axis`` where it lies (the encoder's
+    rules: ``nxfp_quantize_pack``'s ``table``)."""
     axis = axis if axis < 0 else axis - x.ndim
     xb, orig = to_blocks(x, fmt.block_size, axis)
     flat = xb.reshape(-1, fmt.block_size)
     if flat.dtype not in (torch.float32, torch.bfloat16):
         flat = flat.to(torch.float32)       # the kernel reads bf16 or f32
     flat = flat.contiguous()
-    packed, meta = nxfp_quantize_pack(flat, fmt)
+    packed, meta = nxfp_quantize_pack(flat, fmt, table=table)
     packed = packed.reshape(*xb.shape[:-1], packed.shape[-1])
     meta = meta.reshape(xb.shape[:-1])
     return QTensor(packed, meta, fmt_key(fmt), tuple(x.shape), axis, orig)
+
+
+def fake_quant_rows(x, fmt):
+    """The direct-cast round trip of ``x`` along its last axis, in its
+    dtype (``core.quantize.fake_quant(x, fmt, axis=-1)``, the reference's
+    quantized-KV simulation). CPU tensors take ``fake_quant`` itself.
+    CUDA tensors are cast by the quantizer kernel and decoded
+    (``QTensor.dequantize``). ``fake_quant`` encodes with the table-driven
+    ``quantize_blocks`` (a value on a midpoint takes the lower level, where
+    the serving cast rounds half to even), so the kernel runs its
+    table-driven rules (``nxfp_quantize_pack(table=True)``): the same
+    codes. The activation formats (asym, ox) have no table form, and the
+    kernel's arithmetic encoder is ``fake_quant``'s there. Any other
+    format without code recycling raises on CUDA (the kernel has no
+    table-driven instance for it)."""
+    if x.device.type != "cuda":
+        return fake_quant(x, fmt, axis=-1)
+    fmt = resolve_format(fmt)
+    return _cast(x, fmt, -1, table=not (fmt.asym or fmt.ox)).dequantize(
+        x.dtype)
 
 
 def decode_attention(q, kq: QTensor, vq: QTensor, lengths, n_kv_heads: int):

@@ -1,5 +1,6 @@
-"""The dense (Llama-style GQA), SSM (Mamba-1) and hybrid families on
-torch."""
+"""The dense (Llama-style GQA), MoE, SSM (Mamba-1), hybrid, vision
+(cross attention to patch embeddings) and audio (encoder-decoder)
+families on torch."""
 from .common import ModelConfig
 from .lm import (commit_verify, decode_loop, decode_step, draft_loop,
                  init_cache, init_lane, init_paged_cache, init_params,

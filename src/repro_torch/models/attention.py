@@ -1,5 +1,6 @@
-"""Prefill self-attention (causal, optionally sliding-window) and GQA
-projections.
+"""Prefill self-attention (causal, optionally sliding-window; the audio
+encoder's without the causal mask), cross attention to a precomputed
+memory (vision patches, the audio encoder's output) and GQA projections.
 
 The reference runs prefill attention as a doubly chunked online softmax in
 XLA (not Pallas). Here it is plain PyTorch, the same recurrence: f32
@@ -13,12 +14,18 @@ sums follows its shape, and the whole prompt's T keys and the lane's R
 scratch rows would otherwise reduce in different orders. With fixed tiles
 a query row meets the same products whether its prompt runs whole
 (``self_attention``) or in lane chunks (``self_attention_resume``), and
-the tiles past its last key change nothing. A sliding window masks keys
+the tiles past its last key change nothing. On CUDA the products also run
+in calls of a fixed count (``_bmm``): cuBLAS picks its kernel from the
+batch count too. A sliding window masks keys
 ``window`` or more positions back, and the whole prefill visits only the
 key tiles that meet a query chunk's band (``BANDED_SWA``): a tile masked
 for every query leaves (m, l, acc) bit-unchanged, so banded and unbanded
 attention give the same bits. Decode attention goes through
 ``kernels.ops.decode_attention`` (packed) and ``decode_attention_dense``.
+
+``cfg.kv_sim_fmt`` (the paper's section 7.1 quantized-KV simulation)
+fake-quantizes the rope'd prefill K and V before attention, as the
+reference does, through ``kernels.ops.fake_quant_rows``.
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..kernels.ops import fake_quant_rows
 from .common import (ModelConfig, apply_rope, dense, qact, rope_freqs,
                      scale_like)
 
@@ -60,14 +68,56 @@ def _pad_rows(x, rows: int):
     return F.pad(x, (0, 0) * (x.dim() - 2) + (0, pad)) if pad else x
 
 
-def attend_chunked(q, k, v, *, window=None, q_offset=0, kv_valid=None,
-                   chunk_q: int = 1024):
-    """Causal attention of q (B, Tq, KVH, G, D), rope'd and scaled, over
-    k, v (B, Tk, KVH, D). Returns (B, Tq, KVH, G, D) f32.
+# on CUDA the tiles' products run in calls of exactly this many (``_bmm``)
+BMM_GROUP = 64
 
-    ``window`` masks keys ``window`` or more positions before the query
-    (sliding-window attention); with an int ``q_offset`` only the key
-    tiles inside a query chunk's band run (``BANDED_SWA``). ``q_offset``
+
+def _padded(x, n: int):
+    """x (m, ...) as a contiguous (n, ...) tensor, rows past m zero: x
+    itself where it is one already (its groups then have a new buffer's
+    shapes and strides), else a new buffer."""
+    if x.shape[0] == n and x.is_contiguous():
+        return x
+    buf = x.new_zeros((n,) + tuple(x.shape[1:]))
+    buf[:x.shape[0]].copy_(x)
+    return buf
+
+
+def _bmm(a, b, trans_b: bool = False):
+    """The products a (n, m, k) @ b (n, k, p) (``trans_b``: b (n, p, k),
+    transposed), f32. On CUDA they run in calls of exactly ``BMM_GROUP``
+    products over contiguous buffers, the last zero-padded: cuBLAS picks
+    its kernel, and with it a product's order of sums, from the batch
+    count as well as the shapes (Whisper's 16 x 64 query tiles over a
+    256-key tile gave other bits in 192 products than in 48: a B 4
+    prefill's row was not the row prefilled alone), so a product's bits
+    do not depend on how many share its call (the batch, the prompt
+    length, the lane's chunk). On the CPU one ``torch.bmm``."""
+    if a.device.type != "cuda":
+        return torch.bmm(a, b.transpose(1, 2) if trans_b else b)
+    n = a.shape[0]
+    n_pad = -(-n // BMM_GROUP) * BMM_GROUP
+    a, b = _padded(a, n_pad), _padded(b, n_pad)
+    if trans_b:
+        b = b.transpose(1, 2)
+    out = torch.empty((n_pad, a.shape[1], b.shape[2]), dtype=torch.float32,
+                      device=a.device)
+    for i in range(0, n_pad, BMM_GROUP):
+        torch.bmm(a[i:i + BMM_GROUP], b[i:i + BMM_GROUP],
+                  out=out[i:i + BMM_GROUP])
+    return out[:n]
+
+
+def attend_chunked(q, k, v, *, causal: bool = True, window=None,
+                   q_offset=0, kv_valid=None, chunk_q: int = 1024):
+    """Attention of q (B, Tq, KVH, G, D), rope'd and scaled, over k, v
+    (B, Tk, KVH, D). Returns (B, Tq, KVH, G, D) f32.
+
+    ``causal`` masks keys past the query's position (False: the audio
+    encoder and cross attention, every valid key). ``window`` masks keys
+    ``window`` or more positions before the query (sliding-window
+    attention); with an int ``q_offset`` only the key tiles inside a
+    query chunk's band run (``BANDED_SWA``). ``q_offset``
     is q[0]'s global position (an int, or an int tensor on the device, as
     the lane's graph reads it); ``kv_valid`` (B,) int tensor, the keys
     past which are masked (default: all Tk). Keys run in
@@ -77,7 +127,8 @@ def attend_chunked(q, k, v, *, window=None, q_offset=0, kv_valid=None,
     p = 0), so stale or padded rows past ``kv_valid`` never perturb it.
     Queries run in chunks of ``chunk_q`` (a multiple of ``Q_TILE`` at
     least), each cut into ``Q_TILE`` rows a product: a key tile's
-    products with every query tile are the batch of one ``bmm``."""
+    products with every query tile are the batch of one ``bmm`` (on CUDA
+    of fixed-size groups of them, ``_bmm``)."""
     b, tq, kvh, g, d = q.shape
     tk = k.shape[1]
     nk = -(-tk // KV_TILE)
@@ -108,20 +159,21 @@ def attend_chunked(q, k, v, *, window=None, q_offset=0, kv_valid=None,
             .expand(b, kvh, nq, hi - lo, KV_TILE, d)) for a in (k, v))
         qpos = (q_offset + q0 + torch.arange(nq * Q_TILE, device=q.device)
                 ).reshape(nq, 1, Q_TILE, 1)
-        mask = valid & (kpos <= qpos)              # (B|1, 1, nq, 1, QT, rows)
+        # (B|1, 1, nq, 1, QT, rows); without the causal term (B|1, 1, 1,
+        # 1, 1, rows)
+        mask = valid & (kpos <= qpos) if causal else valid
         if window is not None:
             mask = mask & (qpos - kpos < window)
         for j in range(lo, hi):
-            s = torch.bmm(qt, kt[:, :, :, j - lo].reshape(-1, KV_TILE, d)
-                          .transpose(1, 2)).reshape(b, kvh, nq, g, Q_TILE,
-                                                    KV_TILE)
+            s = _bmm(qt, kt[:, :, :, j - lo].reshape(-1, KV_TILE, d),
+                     trans_b=True).reshape(b, kvh, nq, g, Q_TILE, KV_TILE)
             mj = mask[..., j * KV_TILE:(j + 1) * KV_TILE]
             s = torch.where(mj, s, _NEG)
             # the first tile's max(-1e30, max s) is max s: s >= -1e30
             m_new = s.amax(dim=-1) if j == lo else torch.maximum(
                 m, s.amax(dim=-1))
             p = torch.where(mj, torch.exp(s - m_new[..., None]), 0.0)
-            pv = torch.bmm(p.to(v.dtype).to(torch.float32).reshape(
+            pv = _bmm(p.to(v.dtype).to(torch.float32).reshape(
                 -1, g * Q_TILE, KV_TILE), vt[:, :, :, j - lo].reshape(
                     -1, KV_TILE, d)).reshape(b, kvh, nq, g, Q_TILE, d)
             if j == lo:     # the reference's 0 * alpha + x, less the ops
@@ -153,23 +205,34 @@ def gqa_project(cfg: ModelConfig, p, x, xq=None, mm=dense):
     return q, k, v
 
 
-def self_attention(cfg: ModelConfig, p, x, positions, window=None,
-                   act_fmt=None):
-    """Causal full-sequence self attention (prefill). x (B, T, D).
+def _kv_sim(cfg: ModelConfig, k, v):
+    """The rope'd K/V as a ``cfg.kv_sim_fmt`` cache would hold them (the
+    identity when it is None)."""
+    if not cfg.kv_sim_fmt:
+        return k, v
+    return (fake_quant_rows(k, cfg.kv_sim_fmt),
+            fake_quant_rows(v, cfg.kv_sim_fmt))
 
-    ``window`` is the sliding window (None: full attention). ``act_fmt``
-    encodes the layer input once for Q/K/V and the attention output once
-    for W_o (qq prefill). Returns (attn out (B, T, D), rope'd k, v (B, T,
-    KVH, hd)).
+
+def self_attention(cfg: ModelConfig, p, x, positions, window=None,
+                   act_fmt=None, causal: bool = True):
+    """Full-sequence self attention (prefill). x (B, T, D).
+
+    ``window`` is the sliding window (None: full attention); ``causal``
+    False drops the causal mask (the audio encoder). ``act_fmt`` encodes
+    the layer input once for Q/K/V and the attention output once for W_o
+    (qq prefill). Returns (attn out (B, T, D), rope'd k, v (B, T, KVH,
+    hd), fake-quantized under ``cfg.kv_sim_fmt``).
     """
     b, t, _ = x.shape
     q, k, v = gqa_project(cfg, p, x, xq=qact(x, act_fmt))
     cos, sin = rope_freqs(positions, cfg.hd, cfg.rope_theta)
     q = apply_rope(q.reshape(b, t, -1, cfg.hd), cos, sin).reshape(q.shape)
     k = apply_rope(k, cos, sin)
+    k, v = _kv_sim(cfg, k, v)
     q = scale_like(q, 1.0 / math.sqrt(cfg.hd))
     o = attend_chunked(q.to(x.dtype), k.to(x.dtype), v.to(x.dtype),
-                       window=window)
+                       causal=causal, window=window)
     o = o.reshape(b, t, cfg.n_heads * cfg.hd).to(x.dtype)
     return dense(qact(o, act_fmt), p["wo"], out_dtype=x.dtype), k, v
 
@@ -214,6 +277,7 @@ def self_attention_resume(cfg: ModelConfig, p, x, lane_k, lane_v, positions,
     cos, sin = rope_freqs(positions, cfg.hd, cfg.rope_theta)
     q = apply_rope(q.reshape(b, t, -1, cfg.hd), cos, sin).reshape(q.shape)
     k = apply_rope(k, cos, sin)
+    k, v = _kv_sim(cfg, k, v)
     at = offset % r_lane if wrapped else offset
     rows = (at.reshape(()) + torch.arange(t, device=x.device)).long()
     lane_k.index_copy_(1, rows, k.to(lane_k.dtype))
@@ -232,3 +296,26 @@ def self_attention_resume(cfg: ModelConfig, p, x, lane_k, lane_v, positions,
                        window=window, q_offset=q_off, kv_valid=valid)
     o = o.reshape(b, t, cfg.n_heads * cfg.hd).to(x.dtype)
     return dense(qact(o, act_fmt), p["wo"], out_dtype=x.dtype), k, v
+
+
+def cross_attention(cfg: ModelConfig, p, x, mem_k, mem_v):
+    """x (B, T, D) attends to a precomputed memory's K/V (B, S, KVH, hd)
+    (``memory_kv``), without rope and without the causal mask, through
+    the ``cross_`` projections. Returns (B, T, D)."""
+    b, t, _ = x.shape
+    hd, h, kvh = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    q = dense(x, p["cross_wq"]).reshape(b, t, kvh, h // kvh, hd)
+    q = scale_like(q, 1.0 / math.sqrt(hd))
+    o = attend_chunked(q.to(x.dtype), mem_k.to(x.dtype), mem_v.to(x.dtype),
+                       causal=False)
+    return dense(o.reshape(b, t, h * hd).to(x.dtype), p["cross_wo"])
+
+
+def memory_kv(cfg: ModelConfig, p, mem):
+    """A memory (B, S, D) (vision patches, the audio encoder's output)
+    projected once to a layer's cross K/V, each (B, S, KVH, hd) in the
+    memory's dtype, contiguous."""
+    b, s, _ = mem.shape
+    hd, kvh = cfg.hd, cfg.n_kv_heads
+    return (dense(mem, p["cross_wk"]).reshape(b, s, kvh, hd),
+            dense(mem, p["cross_wv"]).reshape(b, s, kvh, hd))

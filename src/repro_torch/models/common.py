@@ -30,11 +30,14 @@ class ModelConfig:
     """The reference's ModelConfig for the families the port serves:
     dense (Llama-style GQA, optionally sliding-window), moe (GQA and a
     routed-expert SwiGLU FFN, optionally a shared MLP beside it), ssm
-    (Mamba-1, attention-free) and hybrid (windowed GQA and a Mamba head
-    in parallel in every layer)."""
+    (Mamba-1, attention-free), hybrid (windowed GQA and a Mamba head in
+    parallel in every layer), vlm (dense layers with a cross-attention
+    layer to stub patch embeddings every ``cross_attn_every``-th) and
+    audio (an encoder over stub frame embeddings, decoder layers that
+    cross-attend to its output)."""
 
     name: str
-    family: str                    # dense | moe | ssm | hybrid
+    family: str                    # dense | moe | ssm | hybrid | vlm | audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -58,7 +61,16 @@ class ModelConfig:
     dt_rank: int = 0               # 0 -> ceil(d_model / 16)
     conv_width: int = 4
     ssm_chunk: int = 256           # the selective scan's chunk length
+    # --- VLM ---
+    cross_attn_every: int = 0      # every k-th layer is cross-attention
+    n_vision_tokens: int = 0
+    # --- encoder-decoder (whisper) ---
+    n_enc_layers: int = 0
+    n_audio_frames: int = 0
     dtype: Any = torch.bfloat16
+    # fake-quantize prefill K/V to this format (the paper's section 7.1
+    # quantized-KV simulation, ``attention.self_attention``); None: off
+    kv_sim_fmt: Optional[str] = None
 
     @property
     def hd(self) -> int:
@@ -83,8 +95,12 @@ class ModelConfig:
         return self.family in ("ssm", "hybrid")
 
     def param_count(self) -> int:
-        """Analytic parameter count, embeddings included (the reference's
-        dense, moe, ssm and hybrid branches)."""
+        """Analytic parameter count, embeddings included: the reference's
+        formula, equal to its value for every family. It is not the size
+        of the tree ``lm.init_params`` builds: for vlm it counts each
+        cross layer's attention twice (a cross layer has its cross
+        projections and no self attention), and for audio no decoder
+        layer's cross attention."""
         d, hd, h, kvh = self.d_model, self.hd, self.n_heads, self.n_kv_heads
         attn = d * hd * h + 2 * d * hd * kvh + hd * h * d
         mlp = 3 * d * self.d_ff
@@ -95,7 +111,10 @@ class ModelConfig:
                + d * self.n_experts)
         per_layer = {"ssm": mamba, "hybrid": attn + mamba + mlp,
                      "moe": attn + moe}.get(self.family, attn + mlp)
-        return self.n_layers * per_layer + 2 * self.vocab * d
+        total = self.n_layers * per_layer + 2 * self.vocab * d
+        if self.family == "vlm" and self.cross_attn_every:
+            total += (self.n_layers // self.cross_attn_every) * attn
+        return total + self.n_enc_layers * (attn + mlp)
 
 
 # ---------------------------------------------------------------------------
@@ -104,10 +123,12 @@ class ModelConfig:
 
 def ninit(gen: torch.Generator, shape, scale: float = 0.02,
           dtype=torch.float32):
-    """Normal(0, scale) weights drawn from ``gen`` on ``gen.device``."""
+    """Normal(0, scale) weights drawn from ``gen`` on ``gen.device``: f32
+    draws scaled in place (one f32 copy of the leaf at a time), then
+    ``dtype``."""
     w = torch.randn(shape, generator=gen, device=gen.device,
                     dtype=torch.float32)
-    return (w * scale).to(dtype)
+    return w.mul_(scale).to(dtype)
 
 
 def init_mlp(gen: torch.Generator, d: int, ff: int, n_layers: int):

@@ -1,25 +1,32 @@
-"""Model assembly for the dense, MoE, SSM and hybrid families: init,
-prefill, the chunked prefill's lane chunk, decode.
+"""Model assembly for every family the port serves: init, prefill, the
+chunked prefill's lane chunk, decode.
 
 Layers are a Python list of per-layer dicts (params) and of per-layer
-caches; prefill and decode loop over them. The cache is
-``{"pos": (B,) int32, "layers": [layer cache, ...]}``: a layer cache holds
-the attention K/V (``kvcache.attn_cache_init``) where the family has
-attention, and the Mamba state ``h``/``conv`` (``kvcache.ssm_cache_init``)
-where it has a Mamba block. A paged cache (``init_paged_cache``) has pool
-buffers and one block table shared by every layer's dict; its Mamba state
-stays per slot.
+caches, in execution order; prefill and decode loop over them. The cache
+is ``{"pos": (B,) int32, "layers": [layer cache, ...]}``: a layer cache
+holds the attention K/V (``kvcache.attn_cache_init``) where the layer has
+self attention, the Mamba state ``h``/``conv`` (``kvcache.ssm_cache_init``)
+where it has a Mamba block, and a memory's cross K/V ``mem_k``/``mem_v``
+(B, S_mem, KVH, hd) where it cross-attends (the vision family's every
+``cross_attn_every``-th layer, each audio decoder layer; ``layer_kinds``).
+The audio family's params also hold the encoder (``enc_layers``, a list,
+``enc_pos_embed``, ``enc_scale``). A paged cache (``init_paged_cache``)
+has pool buffers and one block table shared by every layer's dict; its
+Mamba state stays per slot.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from .. import resolve_device
+from ..core.qtensor import QTensor
 from ..kernels.build import bit_view
-from .blocks import (_put_state, init_layer, layer_decode, layer_forward,
-                     layer_prefill_chunk, layer_verify)
+from .attention import memory_kv
+from .blocks import (CROSS_KINDS, _put_state, family_kind, init_layer,
+                     layer_decode, layer_forward, layer_prefill_chunk,
+                     layer_verify)
 from .common import (ModelConfig, cast_params, dense, dense_rows, ninit,
                      rmsnorm)
 from .kvcache import (_POOL_PREFIX, attn_cache_init, paged_attn_cache_init,
@@ -29,13 +36,36 @@ from .ssm import reset_state_slot
 
 Params = Dict[str, Any]
 
-# the families the port serves (the reference's scanned-stack families)
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+# the families ``prefill``, ``decode_step`` and ``decode_loop`` serve
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+# the reference's scanned-stack families (one kind of layer, no memory):
+# what the slot caches, the lane and the speculative verify serve
+# (``init_cache``, ``init_paged_cache``, ``init_lane``, ``prefill_chunk``,
+# ``verify_step``); the reference's continuous engines cannot serve the
+# vision and audio families either (a request carries no memory input)
+STACK_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported")
+def _check_family(cfg: ModelConfig, families=FAMILIES) -> None:
+    if cfg.family not in families:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not served here (serves "
+            f"{', '.join(families)})")
+
+
+def layer_kinds(cfg: ModelConfig) -> List[str]:
+    """Each layer's kind, in execution order: the vision family's groups
+    of ``cross_attn_every - 1`` dense layers and one cross layer (the
+    reference's scan over groups), the audio decoder's encdec layers, or
+    the family's one kind."""
+    if cfg.family == "vlm":
+        every = cfg.cross_attn_every
+        if not every or cfg.n_layers % every:
+            raise ValueError(f"n_layers ({cfg.n_layers}) must be a multiple "
+                             f"of cross_attn_every ({every})")
+        return ["cross" if i % every == every - 1 else "dense"
+                for i in range(cfg.n_layers)]
+    return [family_kind(cfg)] * cfg.n_layers
 
 
 def _state_entries(cfg: ModelConfig, batch: int, dev):
@@ -60,7 +90,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
     Matmul weights and norms are f32, as in the reference. ``tok_embed``
     and ``lm_head`` are stored in bf16: the default policy keeps both
     dense and every use rounds them to bf16, so storing them rounded
-    changes no result (the footprint counts what is stored).
+    changes no result (the footprint counts what is stored). The draws run
+    in one order: the embedding, the head, for the audio family the
+    encoder's positional embedding and layers, then the layers in
+    execution order (``layer_kinds``).
 
     ``policy`` (a ``QuantPolicy`` with a ``weight_fmt``) builds the tree
     the engines serve a layer at a time: each layer is drawn, its leaves
@@ -76,18 +109,29 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
+    cast = policy is not None and bool(policy.weight_fmt)
     p: Params = {
         "tok_embed": ninit(gen, (cfg.vocab, cfg.d_model), dtype=cfg.dtype),
         "final_scale": torch.ones((cfg.d_model,), dtype=torch.float32,
                                   device=dev),
         "lm_head": ninit(gen, (cfg.d_model, cfg.vocab), dtype=cfg.dtype),
     }
-    if policy is None or not policy.weight_fmt:
-        p["layers"] = [init_layer(gen, cfg) for _ in range(cfg.n_layers)]
-        return p
-    p = cast_params(p, policy, dev)
-    p["layers"] = [cast_params(init_layer(gen, cfg), policy, dev,
-                               f"layers/{i}") for i in range(cfg.n_layers)]
+    if cfg.family == "audio":
+        p["enc_pos_embed"] = ninit(gen, (cfg.n_audio_frames, cfg.d_model))
+        p["enc_scale"] = torch.ones((cfg.d_model,), dtype=torch.float32,
+                                    device=dev)
+    if cast:
+        p = cast_params(p, policy, dev)
+
+    def layers(name, kinds):
+        if not cast:
+            return [init_layer(gen, cfg, k) for k in kinds]
+        return [cast_params(init_layer(gen, cfg, k), policy, dev,
+                            f"{name}/{i}") for i, k in enumerate(kinds)]
+
+    if cfg.family == "audio":
+        p["enc_layers"] = layers("enc_layers", ["dense"] * cfg.n_enc_layers)
+    p["layers"] = layers("layers", layer_kinds(cfg))
     return p
 
 
@@ -100,6 +144,37 @@ def _head(cfg: ModelConfig, params: Params, x):
     return dense(x, params["lm_head"], out_dtype=torch.float32)
 
 
+def _encode_audio(cfg: ModelConfig, params: Params, frames):
+    """The audio encoder over stub frame embeddings (B, S_enc, D): the
+    positional embedding added in f32, the encoder's dense layers without
+    the causal mask, then ``enc_scale``'s rmsnorm. Returns (B, S_enc, D)
+    in ``cfg.dtype``."""
+    s = frames.shape[1]
+    pos = params["enc_pos_embed"]
+    if isinstance(pos, QTensor):
+        pos = pos.dequantize(torch.float32)
+    x = (frames.to(torch.float32) + pos[None, :s]).to(cfg.dtype)
+    positions = torch.arange(s, dtype=torch.int32, device=frames.device)
+    for lp in params["enc_layers"]:
+        x, _ = layer_forward(cfg, lp, x, positions, kind="dense",
+                             causal=False)
+    return rmsnorm(x, params["enc_scale"], cfg.norm_eps)
+
+
+def _memory(cfg: ModelConfig, params: Params, batch: Dict[str, Any]):
+    """What the cross layers attend to, in ``cfg.dtype`` on the tokens'
+    device: the vision patches (``batch["vision"]``, (B, n_vision_tokens,
+    D)), the audio encoder's output over ``batch["frames"]``; None for the
+    other families."""
+    dev = batch["tokens"].device
+    if cfg.family == "vlm":
+        return torch.as_tensor(batch["vision"]).to(dev).to(cfg.dtype)
+    if cfg.family == "audio":
+        return _encode_audio(cfg, params,
+                             torch.as_tensor(batch["frames"]).to(dev))
+    return None
+
+
 def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
             max_len: int, kv_fmt: Optional[str],
             act_fmt: Optional[str] = None
@@ -107,24 +182,39 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
     """Run the full prompt, build the cache. Returns (last logits (B, V)
     f32, cache).
 
-    ``act_fmt`` (e.g. "amxfp4") quantizes each layer's GEMM inputs, so
-    every projection runs quantized x quantized; None keeps dense
-    activations. Decode always runs with dense activations.
+    ``batch`` holds ``tokens`` (B, T), and for the vision family
+    ``vision`` (B, n_vision_tokens, D), for the audio family ``frames``
+    (B, n_audio_frames, D) (stub embeddings, f32): each cross layer
+    projects the memory (the vision patches in ``cfg.dtype``, the audio
+    encoder's output) to its K/V once (``attention.memory_kv``) and keeps
+    them in its cache. ``act_fmt`` (e.g. "amxfp4") quantizes each layer's
+    GEMM inputs, so every projection runs quantized x quantized; None
+    keeps dense activations. The vision and audio families keep dense
+    activations whatever ``act_fmt`` says, as in the reference. Decode
+    always runs with dense activations.
     """
     _check_family(cfg)
     tokens = batch["tokens"]
     b, t = tokens.shape
     x = _embed(cfg, params, tokens)
     positions = torch.arange(t, dtype=torch.int32, device=tokens.device)
+    mem = _memory(cfg, params, batch)
+    if mem is not None:
+        act_fmt = None
     layers = []
-    for lp in params["layers"]:
-        x, out = layer_forward(cfg, lp, x, positions, act_fmt=act_fmt)
-        entries = {}
+    for lp, kind in zip(params["layers"], layer_kinds(cfg)):
+        entries, kv = {}, None
+        if kind in CROSS_KINDS:
+            kv = memory_kv(cfg, lp, mem)
+        x, out = layer_forward(cfg, lp, x, positions, act_fmt=act_fmt,
+                               kind=kind, mem=kv)
         if "k" in out:
             entries.update(write_prefill(cfg, out["k"], out["v"], kv_fmt,
                                          max_len))
         if "ssm_h" in out:
             entries.update(h=out["ssm_h"], conv=out["ssm_conv"])
+        if kv is not None:
+            entries.update(mem_k=kv[0], mem_v=kv[1])
         layers.append(entries)
     cache = {"pos": torch.full((b,), t, dtype=torch.int32,
                                device=tokens.device),
@@ -143,7 +233,7 @@ def _check_p_chunk(cfg: ModelConfig, p_chunk: int) -> None:
     ring row), and for a Mamba block a multiple of ``ssm_chunk`` (the
     scan's chunks must fall where the whole prompt's fall, or the chunked
     prefill would give other bits, silently)."""
-    _check_family(cfg)
+    _check_family(cfg, STACK_FAMILIES)
     if p_chunk < 1:
         raise ValueError(f"p_chunk ({p_chunk}) must be >= 1")
     if cfg.sliding_window and p_chunk > cfg.sliding_window:
@@ -253,8 +343,9 @@ def decode_step(cfg: ModelConfig, params: Params, tokens, cache,
     it bitwise)."""
     pos = cache["pos"]
     x = _embed(cfg, params, tokens)
-    for lp, lc in zip(params["layers"], cache["layers"]):
-        x, _ = layer_decode(cfg, lp, x, lc, pos, kv_fmt, live)
+    for lp, lc, kind in zip(params["layers"], cache["layers"],
+                            layer_kinds(cfg)):
+        x, _ = layer_decode(cfg, lp, x, lc, pos, kv_fmt, live, kind=kind)
     logits = _head(cfg, params, x)
     step = 1 if live is None else live.to(pos.dtype)
     return logits[:, 0], {"pos": pos + step, "layers": cache["layers"]}
@@ -380,7 +471,7 @@ def verify_step(cfg: ModelConfig, params: Params, tokens, cache,
     whose ``live`` entry is false); the Mamba state and ``pos`` are not
     touched. ``commit_verify`` lands an accepted prefix and puts the rest
     back. Returns (logits (B, Q, V) f32, pending)."""
-    _check_family(cfg)
+    _check_family(cfg, STACK_FAMILIES)
     pos = cache["pos"]
     x = _embed(cfg, params, tokens)
     pending = []
@@ -430,7 +521,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     """A zeroed cache with every slot at position 0: per layer the
     attention K/V (not for the attention-free ``ssm`` family) and the
     Mamba state (``ssm`` and ``hybrid``)."""
-    _check_family(cfg)
+    _check_family(cfg, STACK_FAMILIES)
     dev = resolve_device(device)
 
     def layer():
@@ -454,7 +545,7 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
     ``prefill_chunk`` run on it unchanged. The Mamba state has no sequence
     axis and stays per slot (``init_cache``'s); an attention-free model
     has no pool and no table at all."""
-    _check_family(cfg)
+    _check_family(cfg, STACK_FAMILIES)
     dev = resolve_device(device)
     layers = [_state_entries(cfg, batch, dev) for _ in range(cfg.n_layers)]
     if not cfg.attn_free:

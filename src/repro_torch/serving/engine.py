@@ -56,6 +56,9 @@ logger = logging.getLogger("repro_torch.serving")
 # device) and the batch (a _DeviceLoop), then steps and greedy (its
 # graphs). An engine's entries go when the engine is collected.
 _PROGRAM_CACHE: Dict[Any, "_DeviceLoop"] = {}
+# a batch's memory inputs: the vision family's patch embeddings, the audio
+# family's frame embeddings (``models.lm.prefill``)
+_MEMORY_INPUTS = ("vision", "frames")
 _ENGINE_IDS = itertools.count()
 
 
@@ -313,12 +316,20 @@ class ServeEngine:
         return cached_program(key, lambda: _DeviceLoop(self, cache))
 
     def _prefill(self, batch):
-        tokens = torch.as_tensor(np.asarray(batch["tokens"]),
-                                 dtype=torch.int64).to(self.device)
-        logits, cache = prefill(self.cfg, self.params, {"tokens": tokens},
-                                max_len=self.max_len,
-                                kv_fmt=self.policy.kv_fmt)
-        return logits, cache
+        """``prefill`` of the batch on the engine's device: its tokens and
+        the memory input its family reads (``vision``, ``frames``)."""
+        return prefill(self.cfg, self.params, self._inputs(batch),
+                       max_len=self.max_len, kv_fmt=self.policy.kv_fmt)
+
+    def _inputs(self, batch) -> Dict[str, Any]:
+        """The batch as tensors on the engine's device: ``tokens`` int64
+        and, where present, the memory inputs as they are given."""
+        out = {"tokens": torch.as_tensor(np.asarray(batch["tokens"]),
+                                         dtype=torch.int64).to(self.device)}
+        for name in _MEMORY_INPUTS:
+            if name in batch:
+                out[name] = torch.as_tensor(batch[name]).to(self.device)
+        return out
 
     def generate(self, batch: Dict[str, Any], max_new: int,
                  temperature: Union[float, np.ndarray] = 0.0,

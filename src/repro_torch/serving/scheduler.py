@@ -141,7 +141,7 @@ from ..models import (decode_loop, init_cache, init_lane, prefill_chunk,
 from ..models.common import ModelConfig
 from ..models.kvcache import (cache_rows, kv_slot_checksum,
                                ssm_state_checksum)
-from ..models.lm import restore_round, save_round
+from ..models.lm import STACK_FAMILIES, restore_round, save_round
 from .engine import (_sync, capture_graph, load_params,
                      mask_chunk_emissions, sample_tokens)
 from .events import Journal, replay
@@ -757,6 +757,11 @@ class ContinuousEngine:
     waiting, the seconds of admission or lane work before it). After an
     ``"auto"`` pick, ``p_chunk_sweep`` (seconds of one lane chunk per
     candidate) and ``p_chunk_decode_s`` (one decode chunk's).
+
+    The vision and audio families are refused at construction (a
+    ``Request`` carries no memory input, and a slot cache no memory K/V;
+    the reference's engines fail at admission): ``ServeEngine`` serves
+    them.
     """
 
     def __init__(self, cfg: ModelConfig, params, policy: QuantPolicy,
@@ -769,6 +774,11 @@ class ContinuousEngine:
                  speculative: Optional[SpeculativeConfig] = None,
                  preemption: Optional[PreemptionPolicy] = None,
                  kv_integrity: bool = False, device=None):
+        if cfg.family not in STACK_FAMILIES:
+            raise ValueError(
+                f"the continuous engines do not serve family="
+                f"{cfg.family!r}: a request carries no memory input "
+                "(vision, frames); serve it through ServeEngine")
         if chunk < 1 or n_slots < 1:
             raise ValueError(f"chunk ({chunk}) and n_slots ({n_slots}) "
                              "must be >= 1")

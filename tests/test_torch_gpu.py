@@ -2149,3 +2149,182 @@ def test_moe_decode_rows_bitwise_across_batch_on_card(cuda):
     graph = eng.generate(batch, max_new=12, loop="device", chunk=4)
     host = eng.generate(batch, max_new=12, loop="host")
     np.testing.assert_array_equal(graph.tokens, host.tokens)
+
+
+# ---------------------------------------------------------------------------
+# the vision and audio families: the dense-row instance over a memory,
+# cross decode, the kv_sim route, the smoke models' graph loop
+# ---------------------------------------------------------------------------
+
+# (KV heads, G, head_dim, S): Llama-3.2-Vision-90B's cross attention over
+# its 1601 patches, Whisper-tiny's over its 1500 frames (neither a whole
+# number of the kernel's 32-row tiles)
+MEMORY_HEADS = [(8, 8, 128, 1601), (6, 1, 64, 1500)]
+
+
+@pytest.mark.parametrize("heads", MEMORY_HEADS,
+                         ids=lambda h: "KVH{}-G{}-D{}-S{}".format(*h))
+def test_dense_attention_over_a_memory(cuda, heads):
+    """The dense-row instance at the cross layers' memory lengths (every
+    row valid, as cross decode reads it, and two ragged rows): within
+    1e-5 of max|V| of its plain version, bitwise on a second launch, row
+    0's bits the same at B 1, 4 and 8; a NaN slot right past the last
+    row's memory never reaches the output (no read at or past S)."""
+    from repro_torch.kernels import dense_attention as da
+    kvh, g, d, s = heads
+    gen = torch.Generator(device=cuda).manual_seed(29)
+    b = 8
+    buf = torch.randn((b + 1, s, kvh, d), generator=gen, device=cuda).to(
+        torch.bfloat16)
+    vbuf = torch.randn((b + 1, s, kvh, d), generator=gen, device=cuda).to(
+        torch.bfloat16)
+    buf[b] = float("nan")
+    vbuf[b] = float("nan")
+    k, v = buf[:b], vbuf[:b]
+    q = torch.randn((b, kvh, g, d), generator=gen, device=cuda) * d ** -0.5
+    lens = torch.full((b,), s, dtype=torch.int32, device=cuda)
+    lens[2], lens[5] = 700, 33
+    out = da.dense_decode_attention(q, k, v, lens)
+    assert torch.isfinite(out).all()
+    assert torch.equal(out, da.dense_decode_attention(q, k, v, lens))
+    ref = da.dense_decode_attention_plain(q, k, v, lens)
+    err = float((out - ref).abs().max())
+    assert err <= 1e-5 * float(v.float().abs().max()), err
+    one = da.dense_decode_attention(q[:1], k[:1], v[:1], lens[:1])
+    for bb in (4, 8):
+        got = da.dense_decode_attention(q[:bb], k[:bb], v[:bb], lens[:bb])
+        assert torch.equal(got[0], one[0]), bb
+
+
+@pytest.mark.parametrize("arch", ["llama_3_2_vision_90b", "whisper_tiny"])
+def test_cross_decode_rows_and_plain_on_card(cuda, arch):
+    """A smoke cross layer's one-token cross attention (``_cross_decode``:
+    the dense-row instance) within 1e-5 of the same function with the
+    attention's plain version (the reference's einsum) on the same card
+    tensors, and a row's bits at B 1 those of the B 4 batch."""
+    from repro_torch.kernels import dense_attention as da
+    from repro_torch.models import attention, blocks, lm
+    cfg = get_smoke_config(arch)
+    params = init_params(cfg, 0, device=cuda, policy=QuantPolicy("nxfp4",
+                                                                 "nxfp4"))
+    i = next(j for j, kind in enumerate(lm.layer_kinds(cfg))
+             if kind in blocks.CROSS_KINDS)
+    p = params["layers"][i]
+    gen = torch.Generator(device=cuda).manual_seed(30)
+    s = cfg.n_vision_tokens or cfg.n_audio_frames
+    mem = torch.randn((4, s, cfg.d_model), generator=gen, device=cuda).to(
+        cfg.dtype)
+    mk, mv = attention.memory_kv(cfg, p, mem)
+    h = torch.randn((4, 1, cfg.d_model), generator=gen, device=cuda).to(
+        cfg.dtype)
+    da.LAUNCHES = 0
+    out = blocks._cross_decode(cfg, p, h, mk, mv)
+    assert da.LAUNCHES == 1
+    one = blocks._cross_decode(cfg, p, h[:1], mk[:1], mv[:1])
+    assert torch.equal(one[0], out[0])
+    q = blocks.dense(h, p["cross_wq"]).reshape(4, cfg.n_kv_heads, -1,
+                                               cfg.hd).float() \
+        * cfg.hd ** -0.5
+    lens = torch.full((4,), s, dtype=torch.int32, device=cuda)
+    o_k = da.dense_decode_attention(q, mk, mv, lens)
+    o_p = da.dense_decode_attention_plain(q, mk, mv, lens)
+    assert float((o_k - o_p).abs().max()) <= 1e-5 * float(
+        mv.float().abs().max())
+
+
+@pytest.mark.parametrize("fname", ["nxfp4", "nxfp4_bs16", "mxfp4_cr",
+                                   "nxfp6", "nxfp8", "nxfp3", "nxfp4_bs64"])
+def test_quantize_kernel_table_rules_bitwise(cuda, fname):
+    """``table=True`` (the table-driven encoder's rules, the kernel's
+    KIND_CRT) on code-recycling formats: bitwise the plain
+    ``quantize_blocks`` up to counted candidate near-ties, on the edge
+    blocks and on bf16 blocks, whose scaled values often land on a
+    midpoint (where the arithmetic encoder rounds half to even and
+    differs)."""
+    fmt = get_format(fname)
+    gen = torch.Generator(device=cuda).manual_seed(33)
+    bf = torch.randn((4096, fmt.block_size), generator=gen,
+                     device=cuda).to(torch.bfloat16)
+    for xb in (_edge_blocks(fmt).to(cuda), bf):
+        kp, km = nq.nxfp_quantize_pack(xb, fmt, table=True)
+        pp, pm = nq.nxfp_quantize_pack_plain(xb, fmt, table=True)
+        diff = (kp != pp).any(-1) | (meta_int32(km) != meta_int32(pm))
+        if diff.any():
+            assert near_tie_blocks(xb[diff].float(), fmt).all(), \
+                int(diff.sum())
+    arith = nq.nxfp_quantize_pack(bf, fmt)
+    print(f"{fname}: table rules bitwise; the arithmetic encoder differs "
+          f"on {int((arith[0] != kp).any(-1).sum())} of {bf.shape[0]} "
+          "bf16 blocks")
+
+
+def test_kv_sim_route_is_the_plain_codec_on_card(cuda):
+    """``fake_quant_rows`` on a CUDA tensor (the quantizer kernel under the
+    table-driven rules, then the QTensor's decode) against the plain
+    codec's ``fake_quant`` on the same tensor: bitwise but for counted
+    candidate near-tie blocks (the quantizer's own contract), bf16 K rows
+    of Llama-3-8B's heads; a format without code recycling raises."""
+    from repro_torch.core.quantize import fake_quant
+    from repro_torch.kernels import nxfp_quantize as nqk
+    from repro_torch.kernels.ops import fake_quant_rows
+    fmt = get_format("nxfp4")
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    k = torch.randn((4, 128, 8, 128), generator=gen, device=cuda).to(
+        torch.bfloat16)
+    nqk.LAUNCHES = 0
+    got = fake_quant_rows(k, "nxfp4")
+    assert nqk.LAUNCHES == 1 and got.dtype == k.dtype
+    ne = (got != fake_quant(k, "nxfp4", axis=-1)).to(torch.float32)
+    diff = to_blocks(ne, 32, -1)[0].reshape(-1, 32).any(-1)
+    if diff.any():
+        xb, _ = to_blocks(k.float(), 32, -1)
+        assert near_tie_blocks(xb.reshape(-1, 32)[diff], fmt).all()
+    print(f"kv_sim route: {int(diff.sum())} near-tie blocks")
+    with pytest.raises(NotImplementedError, match="code-recycling"):
+        fake_quant_rows(k, "mxfp4")
+
+
+@pytest.mark.parametrize("arch", ["llama_3_2_vision_90b", "whisper_tiny"])
+def test_vlm_audio_graph_loop_equals_host_loop(cuda, arch):
+    """ServeEngine on a smoke vision or audio model (its memory input on
+    the card): the graph device loop's tokens (chunks of 4) bitwise the
+    host loop's, and the dense-row instance launched in the loop."""
+    from repro_torch.kernels import dense_attention as da
+    cfg = get_smoke_config(arch)
+    policy = QuantPolicy("nxfp4", "nxfp4")
+    params = init_params(cfg, 0, device=cuda, policy=policy)
+    eng = ServeEngine(cfg, params, policy, max_len=48, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(32)
+    s = cfg.n_vision_tokens or cfg.n_audio_frames
+    batch = {"tokens": np.random.default_rng(3).integers(0, cfg.vocab,
+                                                         (3, 7)),
+             ("vision" if cfg.family == "vlm" else "frames"): torch.randn(
+                 (3, s, cfg.d_model), generator=gen, device=cuda)}
+    da.LAUNCHES = 0
+    dev = eng.generate(batch, max_new=9, loop="device", chunk=4)
+    assert da.LAUNCHES > 0
+    host = eng.generate(batch, max_new=9, loop="host")
+    np.testing.assert_array_equal(dev.tokens, host.tokens)
+    assert _graph_loop(eng, 3).replays >= 3
+
+
+@pytest.mark.parametrize("heads", [(6, 1, 64), (8, 4, 128), (8, 8, 128)],
+                         ids=lambda h: "KVH{}-G{}-D{}".format(*h))
+def test_prefill_attention_rows_batch_invariant_on_card(cuda, heads):
+    """``attend_chunked``'s rows of a B 4 prefill (causal, 128 tokens; and
+    without the causal mask over 1500 keys, the audio encoder's and cross
+    attention's) bitwise each row attended alone: the tiles' products run
+    in calls of a fixed count (``attention._bmm``), whatever the batch."""
+    from repro_torch.models import attention
+    kvh, g, d = heads
+    gen = torch.Generator(device=cuda).manual_seed(34)
+    for t, s, causal in ((128, 128, True), (128, 1500, False)):
+        q = torch.randn((4, t, kvh, g, d), generator=gen, device=cuda).to(
+            torch.bfloat16)
+        k, v = (torch.randn((4, s, kvh, d), generator=gen, device=cuda)
+                .to(torch.bfloat16) for _ in range(2))
+        out = attention.attend_chunked(q, k, v, causal=causal)
+        for i in range(4):
+            one = attention.attend_chunked(q[i:i + 1], k[i:i + 1],
+                                           v[i:i + 1], causal=causal)
+            assert torch.equal(one[0], out[i]), (t, s, causal, i)

@@ -140,8 +140,10 @@ def _weight_kn(cfg, head=True):
     mamba = [(d, 2 * di), (di, dr + 2 * n), (dr, di), (di, d)]
     shared = ([(d, cfg.shared_d_ff), (cfg.shared_d_ff, d)]
               if cfg.shared_d_ff else [])
+    # the vision family's cross layers and the audio decoder's cross
+    # attention run the attention's (K, N) pairs again
     kn = {"dense": attn, "ssm": mamba, "hybrid": attn + mamba,
-          "moe": attn + shared}[cfg.family]
+          "moe": attn + shared, "vlm": attn, "audio": attn}[cfg.family]
     return kn + [(d, cfg.vocab)] if head else kn
 
 
