@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py              # full run: 32 layers of Llama-3-8B
     python3 chip_smoke.py --layers 2   # same, with the depth cut to 2
+    python3 chip_smoke.py --train-layers 2   # phase 20 trains 2 layers
 
 Phases 7-12, 14-17, phase 13's Falcon-Mamba-7B and phase 18's paged and
 tiered engines serve their models at ``--serving-layers`` (default 8, at
@@ -342,6 +343,39 @@ Phases, each fatal on failure (exit code 1, no result line):
    1/4/8, no read past S; packed attention and the K/V write at Whisper's
    heads; the weight casts of both models' widest MLP weight; the kv_sim
    quantizer at a Llama-3-8B prefill's K (``launches_phase19_path``).
+20. Training (``phase_train``). (a) The smoke Llama (f32 training tree,
+   B 4 x T 32) on the card against the CPU from the same weights: the
+   loss within 1e-4 and every gradient leaf within 2e-2 of its norm; the
+   NxFP8 gradient cast of those gradients on the quantizer kernel (one
+   launch a leaf of at least 4096 values) equal to the plain codec's but
+   for counted candidate near-tie blocks; ``forward_train``'s last row
+   bitwise ``prefill(kv_fmt=None)``'s logits at B 4 x T 4 (both heads on
+   the 16-row tile) and within 1e-5 of max|logit| at T 32 (a 128-row
+   tile against the 16-row one); the forward's values with grad on
+   bitwise those with grad off. (b) Llama-3-8B at full width and
+   ``--train-layers`` depth (default 4: 1.923B parameters) trained in
+   f32 by ``train_loop``: 30 steps of B 4 x T 256 from
+   ``SyntheticLM(vocab=128256)``, 2 microbatches, remat, AdamW (cosine,
+   peak 1e-3), ``grad_compress="nxfp8"``; every loss finite and the
+   mean of the last 5 below step 0's; then a run with a
+   ``CheckpointManager`` saving every 10 steps (keep 1, under
+   ``build/``) whose data source raises after step 20's checkpoint, and
+   a run resumed from it, which must reach step 30 with the uninterrupted
+   run's losses and weights bitwise and its moments' bit sums. Printed:
+   the losses, a step's forward+backward, cast and optimizer ms (CUDA
+   events), tok/s, the data draw, peak memory against the prediction,
+   the crash and resume seconds, the checkpoint bytes. (c) The trained
+   weights cast with ``load_params`` to nxfp4 and mxfp4: ``loss_fn`` on
+   a held-out batch through the dequant GEMM (M 1024) within 2e-3 of
+   ``loss_fn`` over each tree's ``dense_like``, both deltas against the
+   f32 loss printed; ``ServeEngine`` on the nxfp4 tree (4 x 32 prompt
+   tokens, 16 new), graph loop == host loop. (d) Launches counted around
+   each path alone: the quantizer once a compressed leaf a step in
+   training, the dequant GEMM in the eval, every kernel of the serve.
+   (e) The quantizer at the gradient casts' widest shapes (``tok_embed``
+   (128256, 4096) and ``lm_head`` (4096, 128256) f32, NxFP8), bitwise
+   but near ties, and the dequant GEMM at M 1024 for the four (K, N)
+   pairs, timed beside their bounds (``launches_phase20_path``).
 
 The last three lines are the kernel table as JSON, the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.
@@ -5947,6 +5981,412 @@ def phase_vlm_audio(card: str, rows):
     return counts, fig
 
 
+P20_STEPS = 30                        # (b) training steps
+P20_BATCH, P20_SEQ, P20_MICRO = 4, 256, 2
+P20_LR = 1e-3                         # the cosine schedule's peak
+P20_CKPT_EVERY = 10
+P20_RESUME = 20                       # the crash comes after this checkpoint
+P20_SMALL = (4, 32)                   # (a) the smoke Llama's batch
+P20_HEAD_TILE = (4, 4)                # (a) B x T rows on the 16-row head tile
+P20_GRAD_TOL = 2e-2                   # (a) |g_card - g_cpu| / |g_cpu|
+P20_LOSS_TOL = 1e-4                   # (a) |loss_card - loss_cpu|
+P20_LOGIT_TOL = 1e-5                  # (a) of max|logit|, off the head tile
+P20_EVAL_TOL = 2e-3                   # (c) |loss(cast) - loss(dense_like)|
+P20_CASTS = ("nxfp4", "mxfp4")
+P20_SERVE = (4, 32, 16)               # (c) B, prompt tokens, new tokens
+P20_GRAD_CASTS = {"nxfp_quantize grad tok_embed": (128256, 4096),
+                  "nxfp_quantize grad lm_head": (4096, 128256)}
+P20_MAIN_ROWS = ("nxfp_quantize grad tok_embed",
+                 "nxfp_matmul M=1024 K=4096 N=14336")
+P20_KERNELS = {"smoke gradient cast": ("nxfp_quantize",),
+               "train": ("nxfp_quantize",),
+               "direct-cast eval": ("nxfp_quantize", "nxfp_matmul"),
+               "serve": ("nxfp_quantize", "nxfp_matmul", "nxfp_attention")}
+# the predictions written before phase 20's first run (PERF.md, PR 30):
+# the peak above what was allocated before training, and a step's parts
+P20_PREDICTED = {"peak_gb": (38, 46), "step_ms": (200, 600)}
+
+
+def _p20_grads(cfg, params, batch):
+    """(loss, gradient leaves) of ``loss_fn`` over ``params``' leaves."""
+    from repro_torch.models import loss_fn
+    from repro_torch.tree import tree_leaves, tree_unflatten
+    live = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    loss, _ = loss_fn(cfg, tree_unflatten(params, live), batch)
+    return loss.detach(), torch.autograd.grad(loss, live)
+
+
+def _cast_diff(got, want, leaves, fmt):
+    """Blocks where the kernel's gradient cast (``got``) and the plain
+    codec's (``want``) decode to other values; fails unless each is a
+    candidate near-tie. Returns their count."""
+    from repro_torch.core.quantize import near_tie_blocks
+    n_diff = 0
+    for g, w, x in zip(got, want, leaves):
+        d = g.cpu() != w
+        if not d.any():
+            continue
+        n = x.shape[-1]
+        pad = (-n) % fmt.block_size
+        xb = torch.nn.functional.pad(x.cpu().float(), (0, pad)).reshape(
+            *x.shape[:-1], -1, fmt.block_size)
+        db = torch.nn.functional.pad(d, (0, pad)).reshape(
+            *x.shape[:-1], -1, fmt.block_size).any(-1)
+        if not bool(near_tie_blocks(xb[db], fmt).all()):
+            fail("phase 20: the gradient cast on the kernel differs from "
+                 "the plain codec beyond a candidate near-tie")
+        n_diff += int(db.sum())
+    return n_diff
+
+
+def _p20_small(counts):
+    """(a) The smoke Llama, card against CPU from the same f32 weights:
+    the loss and every gradient leaf; the gradient cast on the quantizer
+    kernel against the plain codec; ``forward_train``'s last row against
+    ``prefill``'s logits; the forward with grad on against off."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.formats import get_format
+    from repro_torch.data import SyntheticLM, make_data_iter
+    from repro_torch.models import forward_train, init_params, prefill
+    from repro_torch.train import compress
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = get_smoke_config("llama3_8b")
+    params = init_params(cfg, seed=0, device="cpu", train=True)
+    batch = next(make_data_iter(SyntheticLM(vocab=cfg.vocab), *P20_SMALL))
+    got = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(dev, copy=True), params)
+        b = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+        got[dev] = (p, b) + _p20_grads(cfg, p, b)
+    (_, _, l_cpu, g_cpu), (p_gpu, b_gpu, l_gpu, g_gpu) = (got["cpu"],
+                                                          got["cuda"])
+    if not abs(float(l_cpu) - float(l_gpu)) <= P20_LOSS_TOL:
+        fail(f"phase 20: smoke loss {float(l_gpu)} on the card against "
+             f"{float(l_cpu)} on the CPU")
+    worst = max(float((a.cpu() - b).norm() / b.norm().clamp(min=1e-30))
+                for a, b in zip(g_gpu, g_cpu))
+    if not worst <= P20_GRAD_TOL:
+        fail(f"phase 20: a gradient leaf is {worst:.3g} of its norm off "
+             "the CPU's")
+    fmt = get_format("nxfp8")
+    on_card = _counted(lambda: compress.simulate_compress(
+        list(g_gpu), "nxfp8"), counts["smoke gradient cast"])
+    plain = compress.simulate_compress([g.cpu() for g in g_gpu], "nxfp8")
+    near = _cast_diff(on_card, plain, g_gpu, fmt)
+    n_cast = sum(g.numel() >= compress._MIN_COMPRESS for g in g_gpu)
+    if counts["smoke gradient cast"].get("nxfp_quantize") != n_cast:
+        fail("phase 20: the smoke gradient cast did not launch the "
+             "quantizer once a leaf of at least 4096 values")
+    with torch.no_grad():
+        off, _ = forward_train(cfg, p_gpu, b_gpu)
+    live = tree_map(lambda t: t.detach().requires_grad_(), p_gpu)
+    on, _ = forward_train(cfg, live, b_gpu)
+    if not torch.equal(on.detach(), off):
+        fail("phase 20: the forward's values with grad on are not those "
+             "with grad off")
+    del on, live
+    heads = {}
+    for what, (bb, tt) in (("head tile", P20_HEAD_TILE),
+                           ("128-row tile", P20_SMALL)):
+        toks = b_gpu["tokens"][:bb, :tt]
+        with torch.no_grad():
+            full, _ = forward_train(cfg, p_gpu, {"tokens": toks})
+            last, _ = prefill(cfg, p_gpu, {"tokens": toks}, max_len=tt + 1,
+                              kv_fmt=None)
+        err = float((full[:, -1] - last).abs().max())
+        heads[what] = err
+        if what == "head tile" and err != 0.0:
+            fail("phase 20: forward_train's last row is not prefill's "
+                 "logits on the same head tile")
+        if err > P20_LOGIT_TOL * float(last.abs().max()):
+            fail(f"phase 20: forward_train's last row {err:.3g} off "
+                 "prefill's logits")
+    log(f"  (a) smoke Llama, card vs CPU from the same f32 weights: loss "
+        f"{float(l_gpu):.6f} vs {float(l_cpu):.6f}, worst gradient leaf "
+        f"{worst:.3g} of its norm (held <= {P20_GRAD_TOL}); the NxFP8 "
+        f"gradient cast on the quantizer kernel ({n_cast} leaves) equal to "
+        f"the plain codec but in {near} near-tie blocks; forward with grad "
+        f"on == off, bitwise; forward_train's last row vs prefill's logits: "
+        f"bitwise at B x T {P20_HEAD_TILE} (both heads on the 16-row "
+        f"tile), {heads['128-row tile']:.3g} at {P20_SMALL} (128-row tile "
+        f"against the 16-row one; held <= {P20_LOGIT_TOL} of max|logit|)")
+    return dict(loss_gpu=float(l_gpu), loss_cpu=float(l_cpu),
+                worst_grad=worst, near_ties=near, head_err=heads)
+
+
+class _CrashAfter:
+    """A data source that raises on its ``n``-th draw: a crash between two
+    steps, after the checkpoint of the last one."""
+
+    def __init__(self, source, n):
+        self.source, self.left = source, n
+
+    def sample(self, *args):
+        if self.left == 0:
+            raise RuntimeError("crash")
+        self.left -= 1
+        return self.source.sample(*args)
+
+
+def _bits_sum(t) -> int:
+    """The exact sum of a tensor's 32-bit patterns as int64 (chunked): a
+    checksum two bitwise-equal tensors share."""
+    v = t.reshape(-1).view(torch.int32)
+    return sum(int(v[i:i + (1 << 26)].to(torch.int64).sum())
+               for i in range(0, v.numel(), 1 << 26))
+
+
+def _p20_train(cfg, counts, tmp):
+    """(b) Llama-3-8B at full width and ``cfg.n_layers`` depth trained in
+    f32: the uninterrupted run (its figures), then a run that crashes
+    after step 20's checkpoint and one resumed from it. Returns (the
+    trained weights, figures)."""
+    import numpy as np
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.train import train_loop
+    from repro_torch.train import compress
+    from repro_torch.tree import tree_leaves
+    t0 = time.time()
+    src = SyntheticLM(vocab=cfg.vocab, seed=0)
+    src_s = time.time() - t0
+    kw = dict(steps=P20_STEPS, batch=P20_BATCH, seq=P20_SEQ, lr=P20_LR,
+              n_micro=P20_MICRO, grad_compress="nxfp8", device="cuda",
+              log_every=P20_CKPT_EVERY)
+    _free()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    hist = []
+    t0 = time.time()
+    state, losses = _counted(lambda: train_loop(
+        cfg, source=src, history=hist, time_parts=True, **kw),
+        counts["train"])
+    torch.cuda.synchronize()
+    train_s = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    n_params = sum(p.numel() for p in tree_leaves(state.params))
+    n_cast = sum(p.numel() >= compress._MIN_COMPRESS
+                 for p in tree_leaves(state.params))
+    if counts["train"].get("nxfp_quantize", 0) != n_cast * P20_STEPS:
+        fail(f"phase 20: {counts['train'].get('nxfp_quantize')} quantizer "
+             f"launches, not one a compressed leaf ({n_cast}) a step "
+             f"({P20_STEPS})")
+    if not all(np.isfinite(losses)) or not (
+            np.mean(losses[-5:]) < losses[0]):
+        fail(f"phase 20: losses {losses} are not finite or do not fall")
+    # what the resumed run must reach: the weights (kept on the card) and
+    # the moments' checksums; the rest of the state is dropped first
+    keep = tree_leaves(state.params)
+    sums = [_bits_sum(t) for t in tree_leaves((state.opt.mu, state.opt.nu))]
+    del state
+    _free()
+    # the crash after step 20's checkpoint, then the resumed run
+    t0 = time.time()
+    try:
+        train_loop(cfg, source=_CrashAfter(src, P20_RESUME), ckpt_dir=tmp,
+                   ckpt_every=P20_CKPT_EVERY, ckpt_keep=1, **kw)
+        fail("phase 20: the crashing run did not crash")
+    except RuntimeError as e:
+        if str(e) != "crash":
+            raise
+    crash_s = time.time() - t0
+    _free()
+    t0 = time.time()
+    resumed, tail = train_loop(cfg, source=src, ckpt_dir=tmp,
+                               ckpt_every=P20_CKPT_EVERY, ckpt_keep=1, **kw)
+    resume_s = time.time() - t0
+    if tail != losses[P20_RESUME:]:
+        fail(f"phase 20: the resumed run's losses {tail} are not the "
+             f"uninterrupted run's {losses[P20_RESUME:]}")
+    if not all(torch.equal(a, b)
+               for a, b in zip(tree_leaves(resumed.params), keep)):
+        fail("phase 20: the resumed run's weights are not the "
+             "uninterrupted run's")
+    if [_bits_sum(t) for t in tree_leaves((resumed.opt.mu,
+                                           resumed.opt.nu))] != sums:
+        fail("phase 20: the resumed run's moments are not the "
+             "uninterrupted run's")
+    ckpt_bytes = sum(f.stat().st_size for f in tmp.rglob("*") if f.is_file())
+    del keep
+    parts = {k: statistics.median(h["ms"][k] for h in hist[1:])
+             for k in ("fwd_bwd", "cast", "opt")}
+    fig = dict(params=n_params, peak=peak, losses=losses,
+               step_ms=statistics.median(h["step_ms"] for h in hist[1:]),
+               first_step_ms=hist[0]["step_ms"], parts_ms=parts,
+               data_ms=statistics.median(h["data_ms"] for h in hist),
+               source_s=src_s, train_s=train_s, crash_s=crash_s,
+               resume_s=resume_s, ckpt_bytes=ckpt_bytes, compressed=n_cast)
+    fig["tok_s"] = P20_BATCH * P20_SEQ * 1e3 / fig["step_ms"]
+    return resumed.params, fig
+
+
+def _p20_cast_eval_serve(cfg, params, counts):
+    """(c) The trained weights direct-cast (nxfp4, mxfp4) with
+    ``load_params``: ``loss_fn`` over each cast tree (the dequant GEMM at
+    M 1024) against its ``dense_like`` and against the f32 weights; then
+    ``ServeEngine`` on the nxfp4 tree, the graph loop against the host
+    loop."""
+    import numpy as np
+    from repro_torch.core.qtensor import QuantPolicy, dense_like
+    from repro_torch.data import SyntheticLM, make_data_iter
+    from repro_torch.models import loss_fn
+    from repro_torch.serving import ServeEngine
+    from repro_torch.serving.engine import load_params
+    held = next(make_data_iter(SyntheticLM(vocab=cfg.vocab, seed=0),
+                               P20_BATCH, P20_SEQ, seed=1))
+    held = {"tokens": torch.as_tensor(held["tokens"]).to("cuda")}
+    with torch.no_grad():
+        f32 = float(loss_fn(cfg, params, held)[0])
+    fig = {"f32": f32}
+    cast = {}
+    for fmt in P20_CASTS:
+        cast[fmt] = _counted(lambda: load_params(
+            params, QuantPolicy(fmt, None), torch.device("cuda")),
+            counts["direct-cast eval"])
+        with torch.no_grad():
+            lq = float(_counted(lambda: loss_fn(cfg, cast[fmt], held)[0],
+                                counts["direct-cast eval"]))
+            ld = float(loss_fn(cfg, dense_like(cast[fmt]), held)[0])
+        if not abs(lq - ld) <= P20_EVAL_TOL:
+            fail(f"phase 20: {fmt} eval loss {lq} through the dequant GEMM "
+                 f"against {ld} over its dense_like")
+        fig[fmt] = dict(loss=lq, dense_like=ld, delta=lq - f32)
+    del cast["mxfp4"]
+    b, t, n_new = P20_SERVE
+    eng = ServeEngine(cfg, cast["nxfp4"], QuantPolicy("nxfp4", "nxfp4"),
+                      max_len=t + n_new, device="cuda")
+    prompts = {"tokens": np.random.default_rng(20).integers(
+        0, cfg.vocab, (b, t)).astype(np.int32)}
+    graph = _counted(lambda: eng.generate(prompts, max_new=n_new,
+                                          loop="device", chunk=n_new),
+                     counts["serve"])
+    host = _counted(lambda: eng.generate(prompts, max_new=n_new,
+                                         loop="host"), counts["serve"])
+    if not np.array_equal(graph.tokens, host.tokens):
+        fail("phase 20: the trained model's graph loop and host loop "
+             "disagree")
+    del eng, cast
+    _free()
+    return fig
+
+
+def _grad_cast_row(timer, rows, key, shape):
+    """The quantizer at a gradient cast's shape: (R, C) f32 -> NxFP8
+    blocks along C, against its plain version (run a chunk of rows at a
+    time), bitwise up to counted candidate near-ties; timed beside its
+    bound (no library call casts to a block format)."""
+    from repro_torch.core.formats import get_format
+    from repro_torch.core.pack import unpack_codes
+    from repro_torch.core.quantize import near_tie_blocks
+    from repro_torch.kernels import nxfp_quantize as nq
+    from repro_torch.kernels.decode_lib import decode_block_values
+    fmt = get_format("nxfp8")
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    flat = (torch.randn(shape, generator=gen, device="cuda") * 1e-4).reshape(
+        -1, fmt.block_size)
+    step = 1 << 20
+
+    def plain():
+        out = [nq.nxfp_quantize_pack_plain(flat[i:i + step], fmt)
+               for i in range(0, flat.shape[0], step)]
+        return (torch.cat([o[0] for o in out]), torch.cat([o[1] for o in out]))
+
+    kp, km = nq.nxfp_quantize_pack(flat, fmt)
+    pp, pm = plain()
+    diff = (kp != pp).any(-1) | (km.to(torch.int32) != pm.to(torch.int32))
+    n_diff = int(diff.sum())
+    if n_diff and not bool(near_tie_blocks(flat[diff], fmt).all()):
+        fail(f"{key}: blocks differ from the plain codec beyond a near-tie")
+    err = 0.0
+    if n_diff:
+        def deq(p, m):
+            return decode_block_values(unpack_codes(p, fmt.bits, 32), m, fmt)
+        err = float((deq(kp[diff], km[diff])
+                     - deq(pp[diff], pm[diff])).abs().max())
+    del pp, pm
+    t = flat.shape[0]
+    n_cands, regime = _quantizer_traits(nq, flat, fmt)
+    ms = timer(lambda: nq.nxfp_quantize_pack(flat, fmt))
+    plain_ms = timer(plain, 3)
+    b_ms, b_by = bound(t * 32 * 4 + t * (fmt.bytes_per_block + 2),
+                       n_cands * 32 * QUANT_OPS, PEAK_F32)
+    log(f"{key} ({shape[0]}x{shape[1]} f32 gradient, {t} blocks, {regime} "
+        f"regime): bitwise but {n_diff} near-tie blocks; kernel {ms:.4f} "
+        f"ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    rows[key] = dict(max_abs_err=err, ms=ms,
+                     plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                     library_ms=None, near_ties=n_diff,
+                     shape=f"{tuple(shape)} f32 gradient, {t} blocks of 32, "
+                           "nxfp8 along the last axis")
+
+
+def check_phase20_kernels(timer, rows):
+    """(e) The quantizer at the gradient casts' widest shapes and the
+    dequant GEMM at the direct-cast evaluation's M (B x T = 1024) for
+    Llama-3-8B's four (K, N) pairs."""
+    for key, shape in P20_GRAD_CASTS.items():
+        _grad_cast_row(timer, rows, key, shape)
+    check_matmul(timer, rows, MATMUL_KN, (P20_BATCH * P20_SEQ,))
+
+
+def phase_train(card: str, train_layers: int, rows):
+    """Phase 20: training (A15). (a) the smoke Llama card against CPU;
+    (b) Llama-3-8B at full width trained in f32 through ``train_loop``,
+    crash and resume; (c) the trained weights direct-cast, evaluated and
+    served; (d) the launch counts; (e) the kernel rows. Returns (counts by
+    path, figures)."""
+    import dataclasses
+    import tempfile
+    from pathlib import Path
+    from repro_torch.configs import get_config
+    t0 = time.time()
+    counts = {path: {} for path in P20_KERNELS}
+    fig = {"small": _p20_small(counts)}
+    cfg = dataclasses.replace(get_config("llama3_8b"), n_layers=train_layers)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        params, fig["train"] = _p20_train(cfg, counts, Path(tmp))
+    fig["eval"] = _p20_cast_eval_serve(cfg, params, counts)
+    del params
+    _free()
+    timer = Timer("cuda")
+    check_phase20_kernels(timer, rows)
+    del timer
+    _free()
+    fig["seconds"] = round(time.time() - t0, 1)
+    tr, ev = fig["train"], fig["eval"]
+    lo, hi = P20_PREDICTED["peak_gb"]
+    log(f"  (b) Llama-3-8B full width, {train_layers} layers, "
+        f"{tr['params']} parameters in f32 ({card}): {P20_STEPS} steps of "
+        f"B {P20_BATCH} x T {P20_SEQ}, {P20_MICRO} microbatches, remat, "
+        f"AdamW (cosine, peak {P20_LR}), NxFP8 gradient cast on "
+        f"{tr['compressed']} leaves a step; losses "
+        f"{[round(x, 4) for x in tr['losses']]}; a step "
+        f"{tr['step_ms']:.1f} ms median (first {tr['first_step_ms']:.1f}), "
+        f"of it forward+backward {tr['parts_ms']['fwd_bwd']:.1f} ms, cast "
+        f"{tr['parts_ms']['cast']:.1f} ms, optimizer "
+        f"{tr['parts_ms']['opt']:.1f} ms (CUDA events, medians); "
+        f"{tr['tok_s']:.1f} tok/s; data draw {tr['data_ms']:.2f} ms a batch "
+        f"(source built in {tr['source_s']:.2f} s); peak "
+        f"{tr['peak']} bytes above the weights' start ({tr['peak'] / 1e9:.2f}"
+        f" GB, predicted {lo}-{hi} GB); run {tr['train_s']:.1f} s; crash "
+        f"run (checkpoints at {P20_CKPT_EVERY} and {P20_RESUME}) "
+        f"{tr['crash_s']:.1f} s, resumed run {tr['resume_s']:.1f} s, "
+        f"checkpoint {tr['ckpt_bytes']} bytes; resumed == uninterrupted "
+        f"(losses, weights bitwise; moments by their bits' sums)")
+    log(f"  (c) direct-cast eval ({card}), held-out batch: f32 loss "
+        f"{ev['f32']:.5f}; " + "; ".join(
+            f"{f} {ev[f]['loss']:.5f} (dense_like {ev[f]['dense_like']:.5f},"
+            f" delta vs f32 {ev[f]['delta']:+.5f})" for f in P20_CASTS)
+        + f"; ServeEngine on the nxfp4 tree {P20_SERVE[0]} x {P20_SERVE[1]}"
+        f" + {P20_SERVE[2]} new: graph loop == host loop")
+    log(f"  launches on phase 20's paths: {counts}; phase 20 "
+        f"{fig['seconds']} s")
+    for path, names in P20_KERNELS.items():
+        for name in names:
+            if counts[path].get(name, 0) <= 0:
+                fail(f"phase 20 ({path}): kernel {name} was never launched")
+    return counts, fig
+
+
 def kernel_formats(kname, rows, wide_counts):
     """The formats ``kname`` ran in this run: its main-path formats, its
     phase-3 wide rows and the formats phase 7 served through it."""
@@ -6024,6 +6464,8 @@ TIER_PATH = ("dense_decode_attention",)
 # script's clock keeps full depth for phase 13's Hymba and phase 18's
 # models
 SERVING_LAYERS = 8
+# phase 20 trains Llama-3-8B at full width and this depth
+TRAIN_LAYERS = 4
 
 
 def main():
@@ -6037,6 +6479,9 @@ def main():
                          "Qwen-MoE's for phase 18's paged and tiered "
                          f"engines (default {SERVING_LAYERS}, at most "
                          "--layers)")
+    ap.add_argument("--train-layers", type=int, default=TRAIN_LAYERS,
+                    help="Llama-3-8B depth for phase 20's training "
+                         f"(default {TRAIN_LAYERS})")
     args = ap.parse_args()
     late = min(args.layers, args.serving_layers)
     name, count, smi_line = phase_device()
@@ -6123,6 +6568,11 @@ def main():
     p19_counts, _ = phase_vlm_audio(smi_line, rows)
     p19_rows = [k for k in rows if k not in p19_rows]
     log(f"phase 19 seconds: {time.time() - t19:.1f}")
+    t20 = time.time()
+    p20_rows = set(rows)
+    p20_counts, _ = phase_train(smi_line, args.train_layers, rows)
+    p20_rows = [k for k in rows if k not in p20_rows]
+    log(f"phase 20 seconds: {time.time() - t20:.1f}")
 
     table = []
     for kname, (sources, replaces) in KERNELS.items():
@@ -6157,6 +6607,8 @@ def main():
                                    for path, n in p18_counts.items()},
             launches_phase19_path={path: n.get(c, 0)
                                    for path, n in p19_counts.items()},
+            launches_phase20_path={path: n.get(c, 0)
+                                   for path, n in p20_counts.items()},
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
@@ -6230,11 +6682,28 @@ def main():
             **{f: r[f] for f in ("max_abs_err", "ms", "plain_ms",
                                  "bound_ms", "bound_by", "library_ms",
                                  "shape")}))
+    # the rows at phase 20's shapes (the gradient casts, the direct-cast
+    # evaluation's GEMM at M 1024), each with its kernel's launches on
+    # phase 20's paths (the smoke cast, training, the eval, the serve)
+    for key in sorted(p20_rows, key=lambda k: k not in P20_MAIN_ROWS):
+        kname = next(k for k in KERNELS if key.split(" ")[0] in (
+            k, COUNTERS[k]))
+        sources, replaces = KERNELS[kname]
+        by_path = {path: n.get(COUNTERS[kname], 0)
+                   for path, n in p20_counts.items()}
+        r = rows[key]
+        table.append(dict(
+            name=key, kernel=kname, route="cuda", source=sources[0],
+            replaces=replaces, launches=sum(by_path.values()),
+            launches_phase20_path=by_path,
+            **{f: r[f] for f in ("max_abs_err", "ms", "plain_ms",
+                                 "bound_ms", "bound_by", "library_ms",
+                                 "shape")}))
     extra = [dict(name=k, **{f: v for f, v in r.items()})
              for k, r in rows.items()
              if k not in MAIN_ROW.values() and k not in ssm_rows
              and k not in p15_rows and k not in p18_rows
-             and k not in p19_rows]
+             and k not in p19_rows and k not in p20_rows]
     log(f"other shapes: {json.dumps(extra)}")
     log(f"total seconds: {time.time() - t_start:.1f}")
     print(json.dumps({"kernels": table}), flush=True)

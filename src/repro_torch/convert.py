@@ -56,14 +56,14 @@ def _qtensor(leaf, device, index=None) -> QTensor:
                    int(leaf.axis), int(leaf.orig_len))
 
 
-def _leaf(name: str, leaf, device, index=None):
+def _leaf(name: str, leaf, device, index=None, train: bool = False):
     if _is_qtensor(leaf):
         return _qtensor(leaf, device, index)
     a = np.asarray(leaf)
     if index is not None:
         a = a[index]
     t = tensor_from_numpy(a, device)
-    return t.to(torch.bfloat16) if name in _BF16_LEAVES else t
+    return t.to(torch.bfloat16) if name in _BF16_LEAVES and not train else t
 
 
 def _split(stack: Dict[str, Any], device, lead: int = 1):
@@ -79,18 +79,21 @@ def _split(stack: Dict[str, Any], device, lead: int = 1):
             for idx in np.ndindex(*dims.pop())]
 
 
-def params_from_jax(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
+def params_from_jax(tree: Dict[str, Any], device=None,
+                    train: bool = False) -> Dict[str, Any]:
     """Reference parameter tree (numpy leaves) -> port tree: every
     stacked layer leaf (attention, MLP, the MoE router, experts and shared
     MLP, the Mamba block's ``ssm_*`` leaves, the cross projections; cast
     or dense) split on its stack axes into the port's list of layers:
     ``layers`` (and the audio family's ``enc_layers``) on L, the vision
     family's ``self_layers`` (G, every - 1) and ``cross_layers`` (G)
-    interleaved into one ``layers`` list in execution order."""
+    interleaved into one ``layers`` list in execution order. ``train``
+    keeps ``tok_embed`` and ``lm_head`` in f32 (``lm.init_params``'s
+    training tree), else they are stored in bf16."""
     dev = resolve_device(device)
     stacks = ("layers", "enc_layers", "self_layers", "cross_layers")
-    out = {name: _leaf(name, leaf, dev) for name, leaf in tree.items()
-           if name not in stacks}
+    out = {name: _leaf(name, leaf, dev, train=train)
+           for name, leaf in tree.items() if name not in stacks}
     if "self_layers" in tree:
         selfs = _split(tree["self_layers"], dev, lead=2)
         cross = _split(tree["cross_layers"], dev)

@@ -7,6 +7,7 @@ from typing import Any, Optional, Tuple
 
 import torch
 
+from ..tree import tree_leaves as _leaves  # a QTensor is one leaf
 from .formats import BlockFormat, get_format
 from .pack import unpack_codes
 from .quantize import dequantize_blocks, from_blocks
@@ -101,15 +102,6 @@ def _map_with_path(fn, tree, path=""):
         return type(tree)(_map_with_path(fn, v, f"{path}/{i}")
                           for i, v in enumerate(tree))
     return fn(path, tree)
-
-
-def _leaves(tree):
-    """Leaves of a nested dict/list tree (QTensor counts as one leaf)."""
-    if isinstance(tree, dict):
-        return [l for v in tree.values() for l in _leaves(v)]
-    if isinstance(tree, (list, tuple)):
-        return [l for v in tree for l in _leaves(v)]
-    return [tree]
 
 
 def direct_cast_tree(params, policy: QuantPolicy, quantize_fn):

@@ -25,11 +25,60 @@ from .nxfp_quantize import nxfp_quantize_pack
 
 __all__ = ["qmatmul", "quantize_qtensor", "fake_quant_rows",
            "decode_attention", "decode_attention_dense", "router_matmul",
-           "expert_matmul", "expert_bmm"]
+           "expert_matmul", "expert_bmm", "needs_grad"]
 
 # above this many rows the bf16 product runs on row tiles of this height
 DENSE_ROW_TILE = 128
 DENSE_SMALL_M = 16
+
+
+def needs_grad(*tensors) -> bool:
+    """Autograd records this call: grad mode is on and an input requires
+    grad. Only then does an op take its autograd ``Function``; every
+    other call runs the serving route as it is."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
+def _operand_grads(ctx, g, x_t, w_t, mm):
+    """The reference's transpose of its rounded product (JAX's
+    ``dot_general`` transpose): the f32 cotangent ``g`` times the other
+    operand rounded to the product's dtype ``ctx.dtype``, in f32 (``mm``;
+    ``x_t``/``w_t`` transpose the saved operands), rounded to that dtype,
+    then to the operand's own."""
+    x, w = ctx.saved_tensors
+    dt = ctx.dtype
+    gx = gw = None
+    if ctx.needs_input_grad[0]:
+        gx = mm(g, w_t(w.to(dt).float())).to(dt).to(x.dtype)
+    if ctx.needs_input_grad[1]:
+        gw = mm(x_t(x.to(dt).float()), g).to(dt).to(w.dtype)
+    return gx, gw
+
+
+class _DenseMatmul(torch.autograd.Function):
+    """``_dense_matmul`` under autograd: the forward is the serving route,
+    bit for bit; the backward gives both operands' gradients with plain
+    products (``_operand_grads``)."""
+
+    @staticmethod
+    def forward(ctx, x, w, dtype):
+        ctx.dtype = dtype
+        ctx.save_for_backward(x, w)
+        return _dense_route(x.to(dtype), w.to(dtype), dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        lead = g.shape[:-1]
+        g2 = g.reshape(-1, g.shape[-1]).float()
+
+        def x_t(xr):
+            return xr.reshape(-1, xr.shape[-1]).T
+
+        gx, gw = _operand_grads(ctx, g2, x_t, lambda wr: wr.T, torch.mm)
+        if gx is not None:
+            gx = gx.reshape(*lead, gx.shape[-1])
+        return gx, gw, None
 
 
 def _dense_matmul(x, w, dtype=torch.bfloat16):
@@ -47,9 +96,16 @@ def _dense_matmul(x, w, dtype=torch.bfloat16):
     those past x's zero: cuBLAS may take another kernel at one row than
     at four (Hymba's head, N 32001, gave other bits at B 1 and B 4), and
     one shape keeps a row's bits whatever the batch
-    (``scripts/batch_invariance.py --dense``)."""
-    xb, wb = x.to(dtype), w.to(dtype)
-    if x.device.type == "cuda":
+    (``scripts/batch_invariance.py --dense``). Under autograd the same
+    route runs in ``_DenseMatmul``."""
+    if needs_grad(x, w):
+        return _DenseMatmul.apply(x, w, dtype)
+    return _dense_route(x.to(dtype), w.to(dtype), dtype)
+
+
+def _dense_route(xb, wb, dtype):
+    """``_dense_matmul`` of the operands rounded to ``dtype``."""
+    if xb.device.type == "cuda":
         kw = {} if dtype == torch.float32 else {"out_dtype": torch.float32}
         lead = xb.shape[:-1]
         x2 = xb.reshape(-1, xb.shape[-1])
@@ -63,16 +119,16 @@ def _dense_matmul(x, w, dtype=torch.bfloat16):
         if tiles * DENSE_ROW_TILE != m:
             x2 = F.pad(x2, (0, 0, 0, tiles * DENSE_ROW_TILE - m))
         y = torch.empty((tiles * DENSE_ROW_TILE, n), dtype=torch.float32,
-                        device=x.device)
+                        device=xb.device)
         for i in range(0, tiles * DENSE_ROW_TILE, DENSE_ROW_TILE):
             torch.mm(x2[i:i + DENSE_ROW_TILE], wb, out=y[i:i + DENSE_ROW_TILE],
                      **kw)
         return y[:m].reshape(*lead, n)
     # bf16 x bf16 products are exact in f32, so an f32 matmul of the
     # rounded operands is the reference's bf16 dot with f32 accumulation
-    lead = x.shape[:-1]
-    y = plain_product(xb.float().reshape(-1, x.shape[-1]), wb.float())
-    return y.reshape(*lead, w.shape[-1])
+    lead = xb.shape[:-1]
+    y = plain_product(xb.float().reshape(-1, xb.shape[-1]), wb.float())
+    return y.reshape(*lead, wb.shape[-1])
 
 
 def router_matmul(x, w):
@@ -120,15 +176,39 @@ def expert_matmul(x, expert, w: QTensor):
     return nxfp_matmul_grouped(x, expert, w.packed, w.meta, w.fmt)
 
 
+class _ExpertBmm(torch.autograd.Function):
+    """``expert_bmm`` under autograd: the forward is the serving route,
+    bit for bit; the backward gives both operands' gradients with plain
+    batched products (``_operand_grads``)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.dtype = torch.bfloat16
+        ctx.save_for_backward(x, w)
+        return _expert_bmm_route(x.to(torch.bfloat16), w.to(torch.bfloat16))
+
+    @staticmethod
+    def backward(ctx, g):
+        gx, gw = _operand_grads(ctx, g.float(), lambda xr: xr.transpose(1, 2),
+                                lambda wr: wr.transpose(1, 2), torch.bmm)
+        return gx, gw
+
+
 def expert_bmm(x, w):
     """Dense (bf16) experts: x (E, C, K) @ w (E, K, N) -> (E, C, N) f32,
     both rounded to bf16, f32 accumulation. On CUDA one ``torch.bmm`` (a
     plain product outside any kernel, as the reference's XLA einsum is);
     a row's bits depend on C, which the caller keeps fixed where they must
     not follow the batch. On the CPU one product a row (``plain_product``)
-    per expert."""
-    xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
-    if x.device.type == "cuda":
+    per expert. Under autograd the same route runs in ``_ExpertBmm``."""
+    if needs_grad(x, w):
+        return _ExpertBmm.apply(x, w)
+    return _expert_bmm_route(x.to(torch.bfloat16), w.to(torch.bfloat16))
+
+
+def _expert_bmm_route(xb, wb):
+    """``expert_bmm`` of the bf16-rounded operands."""
+    if xb.device.type == "cuda":
         return torch.bmm(xb, wb, out_dtype=torch.float32)
     return torch.stack([plain_product(xb[e].float(), wb[e].float())
                         for e in range(xb.shape[0])])

@@ -34,7 +34,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..kernels.ops import fake_quant_rows
+from ..kernels.ops import fake_quant_rows, needs_grad
 from .common import (ModelConfig, apply_rope, dense, qact, rope_freqs,
                      scale_like)
 
@@ -92,7 +92,38 @@ def _bmm(a, b, trans_b: bool = False):
     256-key tile gave other bits in 192 products than in 48: a B 4
     prefill's row was not the row prefilled alone), so a product's bits
     do not depend on how many share its call (the batch, the prompt
-    length, the lane's chunk). On the CPU one ``torch.bmm``."""
+    length, the lane's chunk). On the CPU one ``torch.bmm``. Under
+    autograd the same route runs in ``_Bmm``."""
+    if needs_grad(a, b):
+        return _Bmm.apply(a, b, trans_b)
+    return _bmm_route(a, b, trans_b)
+
+
+class _Bmm(torch.autograd.Function):
+    """``_bmm`` under autograd: the forward is its route, bit for bit; the
+    backward is the plain f32 products of the gradients (the operands are
+    f32 here, so nothing is rounded)."""
+
+    @staticmethod
+    def forward(ctx, a, b, trans_b):
+        ctx.trans_b = trans_b
+        ctx.save_for_backward(a, b)
+        return _bmm_route(a, b, trans_b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.bmm(g, b if ctx.trans_b else b.transpose(1, 2))
+        if ctx.needs_input_grad[1]:
+            gb = (torch.bmm(g.transpose(1, 2), a) if ctx.trans_b
+                  else torch.bmm(a.transpose(1, 2), g))
+        return ga, gb, None
+
+
+def _bmm_route(a, b, trans_b: bool):
+    """``_bmm``'s products as serving runs them."""
     if a.device.type != "cuda":
         return torch.bmm(a, b.transpose(1, 2) if trans_b else b)
     n = a.shape[0]
@@ -207,9 +238,17 @@ def gqa_project(cfg: ModelConfig, p, x, xq=None, mm=dense):
 
 def _kv_sim(cfg: ModelConfig, k, v):
     """The rope'd K/V as a ``cfg.kv_sim_fmt`` cache would hold them (the
-    identity when it is None)."""
+    identity when it is None). Under autograd it raises: the reference
+    differentiates through its codec's rounding, which the port's cast
+    (the quantizer kernel on the card) has no derivative for; evaluate a
+    ``kv_sim_fmt`` model without grad."""
     if not cfg.kv_sim_fmt:
         return k, v
+    if needs_grad(k, v):
+        raise NotImplementedError(
+            f"kv_sim_fmt={cfg.kv_sim_fmt!r} under autograd: the reference "
+            "differentiates through its codec, and the port's cast has no "
+            "derivative; run loss_fn without grad (torch.no_grad())")
     return (fake_quant_rows(k, cfg.kv_sim_fmt),
             fake_quant_rows(v, cfg.kv_sim_fmt))
 

@@ -20,7 +20,7 @@ import torch.nn.functional as F
 
 from ..core.qtensor import QTensor, QuantPolicy, _map_with_path
 from ..core.quantize import resolve_format
-from ..kernels.ops import qmatmul, quantize_qtensor
+from ..kernels.ops import needs_grad, qmatmul, quantize_qtensor
 
 Params = Dict[str, Any]
 
@@ -71,6 +71,8 @@ class ModelConfig:
     # fake-quantize prefill K/V to this format (the paper's section 7.1
     # quantized-KV simulation, ``attention.self_attention``); None: off
     kv_sim_fmt: Optional[str] = None
+    # activation checkpointing per layer in ``lm.forward_train``
+    remat: bool = True
 
     @property
     def hd(self) -> int:
@@ -201,6 +203,42 @@ def cast_params(tree, policy: QuantPolicy, device, path: str = ""):
 ROW_GROUP = 16
 
 
+def _mean_square_rows(x):
+    """``mean_square``'s forward (its docstring): the fixed two-stage sum
+    over at least ``ROW_GROUP`` rows. Returns (means (..., 1), the f32
+    rows (n, d))."""
+    rows = x.to(torch.float32).reshape(-1, x.shape[-1])
+    n, d = rows.shape
+    sq = torch.empty((max(n, ROW_GROUP), d), dtype=torch.float32,
+                     device=rows.device)
+    torch.square(rows, out=sq[:n])
+    parts = math.gcd(d, 32)
+    part = torch.sum(sq.reshape(-1, d // parts), dim=-1)
+    total = torch.sum(part.reshape(-1, parts), dim=-1)
+    return (total[:n] / d).reshape(*x.shape[:-1], 1), rows
+
+
+class _MeanSquare(torch.autograd.Function):
+    """``mean_square`` under autograd: the forward is the no-grad route,
+    bit for bit (the ``out=`` square into the ``ROW_GROUP`` buffer has no
+    derivative of its own); the backward is the reference's, 2 x g / d on
+    the real rows (the buffer's unset rows are never read)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out, rows = _mean_square_rows(x)
+        ctx.save_for_backward(rows)
+        ctx.x_shape, ctx.x_dtype = x.shape, x.dtype
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (rows,) = ctx.saved_tensors
+        d = rows.shape[-1]
+        gx = (g.reshape(-1, 1) / d) * (2.0 * rows)
+        return gx.reshape(ctx.x_shape).to(ctx.x_dtype)
+
+
 def mean_square(x):
     """mean(x^2) over the last axis in f32, keeping it (..., 1).
 
@@ -215,16 +253,11 @@ def mean_square(x):
     rows run on a buffer of exactly that many (its rows past ``x``'s are
     left unset; each row is reduced on its own and theirs are sliced
     off), where one reduction over 16 long rows gives each row a single
-    warp, as it does over more rows."""
-    rows = x.to(torch.float32).reshape(-1, x.shape[-1])
-    n, d = rows.shape
-    sq = torch.empty((max(n, ROW_GROUP), d), dtype=torch.float32,
-                     device=rows.device)
-    torch.square(rows, out=sq[:n])
-    parts = math.gcd(d, 32)
-    part = torch.sum(sq.reshape(-1, d // parts), dim=-1)
-    total = torch.sum(part.reshape(-1, parts), dim=-1)
-    return (total[:n] / d).reshape(*x.shape[:-1], 1)
+    warp, as it does over more rows. Under autograd the same sums run in
+    ``_MeanSquare``."""
+    if needs_grad(x):
+        return _MeanSquare.apply(x)
+    return _mean_square_rows(x)[0]
 
 
 def rmsnorm(x, scale, eps: float):

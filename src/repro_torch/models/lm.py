@@ -19,6 +19,7 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..core.qtensor import QTensor
@@ -84,13 +85,17 @@ def recurrent_state(*trees):
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None,
-                policy=None) -> Params:
+                policy=None, train: bool = False) -> Params:
     """Random weights from a ``torch.Generator`` seeded with ``seed``.
 
     Matmul weights and norms are f32, as in the reference. ``tok_embed``
     and ``lm_head`` are stored in bf16: the default policy keeps both
     dense and every use rounds them to bf16, so storing them rounded
-    changes no result (the footprint counts what is stored). The draws run
+    changes no result (the footprint counts what is stored). ``train``
+    keeps them in f32, the training tree (``forward_train``): the
+    reference trains both in f32, and a bf16 leaf would round most of
+    AdamW's small updates away. The draws are the same either way. The
+    draws run
     in one order: the embedding, the head, for the audio family the
     encoder's positional embedding and layers, then the layers in
     execution order (``layer_kinds``).
@@ -110,11 +115,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     cast = policy is not None and bool(policy.weight_fmt)
+    emb = torch.float32 if train else cfg.dtype
     p: Params = {
-        "tok_embed": ninit(gen, (cfg.vocab, cfg.d_model), dtype=cfg.dtype),
+        "tok_embed": ninit(gen, (cfg.vocab, cfg.d_model), dtype=emb),
         "final_scale": torch.ones((cfg.d_model,), dtype=torch.float32,
                                   device=dev),
-        "lm_head": ninit(gen, (cfg.d_model, cfg.vocab), dtype=cfg.dtype),
+        "lm_head": ninit(gen, (cfg.d_model, cfg.vocab), dtype=emb),
     }
     if cfg.family == "audio":
         p["enc_pos_embed"] = ninit(gen, (cfg.n_audio_frames, cfg.d_model))
@@ -173,6 +179,65 @@ def _memory(cfg: ModelConfig, params: Params, batch: Dict[str, Any]):
         return _encode_audio(cfg, params,
                              torch.as_tensor(batch["frames"]).to(dev))
     return None
+
+
+def forward_train(cfg: ModelConfig, params: Params, batch: Dict[str, Any]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The whole sequence through every layer, differentiable: ``batch``
+    holds ``tokens`` (B, T) (a tensor on the params' device) and the
+    memory input of the vision or audio family (``prefill``'s). Returns
+    (logits (B, T, V) f32, the MoE layers' summed load-balance loss, an
+    f32 scalar; 0 for the other families).
+
+    The layers are the serving path's (``layer_forward``), so with grad
+    off every value is the bits ``prefill`` computes. Under autograd with
+    ``cfg.remat`` each layer runs in ``torch.utils.checkpoint`` (its
+    activations recomputed in the backward, as the reference's
+    ``jax.checkpoint``); a cross layer projects the memory to its K/V
+    inside its checkpoint, the audio encoder runs outside them, as in the
+    reference."""
+    _check_family(cfg)
+    tokens = batch["tokens"]
+    t = tokens.shape[1]
+    x = _embed(cfg, params, tokens)
+    positions = torch.arange(t, dtype=torch.int32, device=tokens.device)
+    mem = _memory(cfg, params, batch)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for lp, kind in zip(params["layers"], layer_kinds(cfg)):
+        def layer(h, lp=lp, kind=kind):
+            kv = memory_kv(cfg, lp, mem) if kind in CROSS_KINDS else None
+            h, out = layer_forward(cfg, lp, h, positions, kind=kind, mem=kv)
+            return h, out.get("moe_aux")
+        if remat:
+            x, layer_aux = checkpoint(layer, x, use_reentrant=False,
+                                      preserve_rng_state=False)
+        else:
+            x, layer_aux = layer(x)
+        if layer_aux is not None:
+            aux = aux + layer_aux
+    return _head(cfg, params, x), aux
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
+            aux_weight: float = 0.01):
+    """Next-token cross entropy of ``forward_train``'s logits, the mean
+    over the (B, T - 1) targets (or their ``batch["mask"]``ed mean), plus
+    ``aux_weight`` times the MoE load-balance loss. Returns (loss f32
+    scalar, {"nll", "aux"}). Without grad it evaluates any tree the
+    engines serve, a direct-cast one included (its projections through
+    the dequant GEMM: the paper's direct-cast evaluation)."""
+    logits, aux = forward_train(cfg, params, batch)
+    targets = batch["tokens"][:, 1:].long()
+    lp = torch.log_softmax(logits[:, :-1].to(torch.float32), dim=-1)
+    nll = -torch.gather(lp, -1, targets[..., None])[..., 0]
+    mask = batch.get("mask")
+    if mask is not None:
+        m = mask[:, 1:].to(torch.float32)
+        loss = torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)
+    else:
+        loss = torch.mean(nll)
+    return loss + aux_weight * aux, {"nll": loss, "aux": aux}
 
 
 def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any],

@@ -34,6 +34,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..kernels.ops import needs_grad
 from .common import ModelConfig, dense, ninit
 
 PREFIX = "ssm_"          # the Mamba weights' keys in a layer's params
@@ -133,13 +134,20 @@ def _scan_in_chunk(a, bx):
     """Inclusive scan of the steps (a, bx) (B, L, di, N) along axis 1, in
     place (Hillis-Steele doubling): step i ends as the composition of steps
     0..i, combined as the reference's ``(a1 a2, a2 b1 + b2)``, and which
-    steps it is combined with depends on i alone, not on L."""
+    steps it is combined with depends on i alone, not on L. Under autograd
+    each round builds new tensors of the same values (an in-place round
+    would overwrite what the backward reads)."""
+    grad = needs_grad(a, bx)
     d = 1
     while d < a.shape[1]:
         nb = a[:, d:] * bx[:, :-d] + bx[:, d:]
         na = a[:, :-d] * a[:, d:]
-        bx[:, d:] = nb
-        a[:, d:] = na
+        if grad:
+            bx = torch.cat([bx[:, :d], nb], dim=1)
+            a = torch.cat([a[:, :d], na], dim=1)
+        else:
+            bx[:, d:] = nb
+            a[:, d:] = na
         d *= 2
     return a, bx
 

@@ -2328,3 +2328,200 @@ def test_prefill_attention_rows_batch_invariant_on_card(cuda, heads):
             one = attention.attend_chunked(q[i:i + 1], k[i:i + 1],
                                            v[i:i + 1], causal=causal)
             assert torch.equal(one[0], out[i]), (t, s, causal, i)
+
+
+# ---------------------------------------------------------------------------
+# training (A15): the autograd Functions of the batch-invariant routes, the
+# out-of-place scan, the gradient cast on the quantizer kernel
+# ---------------------------------------------------------------------------
+
+def _grads_of(fn, *inputs, seed=40):
+    """(fn(*inputs) with grad off, with grad on, the inputs' gradients of
+    a seeded f32 cotangent)."""
+    with torch.no_grad():
+        off = fn(*inputs)
+    live = [x.detach().requires_grad_() for x in inputs]
+    on = fn(*live)
+    gen = torch.Generator(device=on.device).manual_seed(seed)
+    cot = torch.randn(on.shape, generator=gen, device=on.device)
+    return off, on.detach(), torch.autograd.grad(on, live, cot), cot
+
+
+def _assert_close(got, want, rel=1e-6):
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= rel * float(want.float().abs().max()) + 1e-30, err
+
+
+@pytest.mark.parametrize("m", [5, 16, 200])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_dense_matmul_function_grads_on_card(cuda, m, dtype):
+    """``ops._dense_matmul`` under autograd (``_DenseMatmul``: 16-row
+    padding or 128-row tiles through ``out=``; the router's f32 route):
+    its values with grad on are the bits with grad off, and its gradients
+    are plain autograd's of the rounded product (each cast back through
+    its rounding)."""
+    from repro_torch.kernels import ops
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(41)
+    x = torch.randn((m, 96), generator=gen, device=cuda).to(torch.bfloat16)
+    w = torch.randn((96, 72), generator=gen, device=cuda)
+    off, on, (gx, gw), cot = _grads_of(
+        lambda a, b: ops._dense_matmul(a, b, dt), x, w)
+    assert torch.equal(off, on)
+    xr, wr = (t.detach().requires_grad_() for t in (x, w))
+    ref = xr.to(dt).float() @ wr.to(dt).float()
+    rx, rw = torch.autograd.grad(ref, (xr, wr), cot)
+    _assert_close(gx, rx)
+    _assert_close(gw, rw)
+    assert gx.dtype == x.dtype and gw.dtype == w.dtype
+
+
+def test_expert_bmm_and_attention_bmm_grads_on_card(cuda):
+    """``ops.expert_bmm`` (``_ExpertBmm``, ``out_dtype`` f32) and the
+    attention tiles' ``_bmm`` (``_Bmm``, calls of 64 products, both
+    transposes): grad-on values bitwise grad-off, gradients plain
+    autograd's."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention
+    gen = torch.Generator(device=cuda).manual_seed(42)
+    x = torch.randn((3, 16, 48), generator=gen, device=cuda)
+    w = torch.randn((3, 48, 40), generator=gen, device=cuda)
+    off, on, (gx, gw), cot = _grads_of(ops.expert_bmm, x, w)
+    assert torch.equal(off, on)
+    xr, wr = (t.detach().requires_grad_() for t in (x, w))
+    rx, rw = torch.autograd.grad(torch.bmm(
+        xr.to(torch.bfloat16).float(), wr.to(torch.bfloat16).float()),
+        (xr, wr), cot)
+    _assert_close(gx, rx)
+    _assert_close(gw, rw)
+    for trans_b in (False, True):
+        a = torch.randn((70, 32, 24), generator=gen, device=cuda)
+        b = torch.randn((70, 16, 24) if trans_b else (70, 24, 16),
+                        generator=gen, device=cuda)
+        off, on, (ga, gb), cot = _grads_of(
+            lambda p, q: attention._bmm(p, q, trans_b), a, b)
+        assert torch.equal(off, on)
+        ar, br = (t.detach().requires_grad_() for t in (a, b))
+        ref = torch.bmm(ar, br.transpose(1, 2) if trans_b else br)
+        ra, rb = torch.autograd.grad(ref, (ar, br), cot)
+        _assert_close(ga, ra)
+        _assert_close(gb, rb)
+
+
+def test_mean_square_and_scan_under_autograd_on_card(cuda):
+    """``common.mean_square`` under autograd (fewer rows than its 16-row
+    buffer, and more): the grad-off bits, and the plain mean's gradient;
+    the selective scan's out-of-place rounds bitwise its in-place ones,
+    with plain autograd's gradient of the sequential recurrence."""
+    from repro_torch.models import common, ssm
+    gen = torch.Generator(device=cuda).manual_seed(43)
+    for rows in (3, 40):
+        x = torch.randn((rows, 96), generator=gen, device=cuda)
+        off, on, (gx,), cot = _grads_of(common.mean_square, x)
+        assert torch.equal(off, on)
+        xr = x.detach().requires_grad_()
+        (rx,) = torch.autograd.grad(torch.mean(xr * xr, -1, keepdim=True),
+                                    (xr,), cot)
+        _assert_close(gx, rx, 1e-5)
+    a = torch.rand((2, 16, 8, 4), generator=gen, device=cuda)
+    bx = torch.randn((2, 16, 8, 4), generator=gen, device=cuda)
+    ia, ib = ssm._scan_in_chunk(a.clone(), bx.clone())
+    la, lb = (t.detach().requires_grad_() for t in (a, bx))
+    oa, ob = ssm._scan_in_chunk(la, lb)
+    assert torch.equal(oa.detach(), ia) and torch.equal(ob.detach(), ib)
+    (g,) = torch.autograd.grad(ob.sum(), (lb,))
+    h, want = torch.zeros_like(bx[:, 0]), torch.zeros_like(bx)
+    for t in reversed(range(16)):        # d(sum_s h_s)/d bx_t
+        h = 1.0 + (a[:, t + 1] * h if t + 1 < 16 else 0.0)
+        want[:, t] = h
+    _assert_close(g, want, 1e-5)
+
+
+def test_gradient_cast_on_the_kernel_is_the_plain_codec(cuda):
+    """``simulate_compress`` on the card: one quantizer launch a leaf of
+    at least 4096 values, and every value the plain codec's on the CPU
+    but in counted candidate near-tie blocks."""
+    from repro_torch.train import compress
+    fmt = get_format("nxfp8")
+    rng = np.random.default_rng(44)
+    tree = {"pad": rng.standard_normal((64, 200)) * 1e-3,
+            "whole": rng.standard_normal((128, 512)),
+            "vec": rng.standard_normal((4096,)),
+            "small": rng.standard_normal((10, 100))}
+    tree = {k: torch.tensor(v.astype(np.float32)) for k, v in tree.items()}
+    nq.LAUNCHES = 0
+    got = compress.simulate_compress({k: v.to(cuda) for k, v in tree.items()})
+    assert nq.LAUNCHES == 3
+    want = compress.simulate_compress(tree)
+    for k, x in tree.items():
+        diff = got[k].cpu() != want[k]
+        if not diff.any():
+            continue
+        n = x.shape[-1]
+        xb, _ = to_blocks(x, fmt.block_size, -1)
+        bad = _diff_blocks(diff, n, fmt.block_size)
+        assert near_tie_blocks(xb[bad], fmt).all(), (k, int(bad.sum()))
+
+
+def _diff_blocks(diff, n, bs):
+    """(..., n) bool -> (..., nb) bool: the blocks holding a True."""
+    pad = (-n) % bs
+    d = torch.nn.functional.pad(diff, (0, pad)) if pad else diff
+    return d.reshape(*d.shape[:-1], -1, bs).any(-1)
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One train step of the smoke Llama (2 microbatches, the NxFP8 cast)
+    on the card and on the CPU from the same weights: the loss within
+    1e-4 and the new weights within 2 learning rates (a near-0 gradient
+    may take the other sign's first update)."""
+    from repro_torch.data import SyntheticLM, make_data_iter
+    from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.train import init_state, make_train_step
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = get_smoke_config("llama3_8b")
+    params = init_params(cfg, 0, device="cpu", train=True)
+    batch = next(make_data_iter(SyntheticLM(vocab=cfg.vocab), 4, 32))
+    out = []
+    for dev in ("cpu", cuda):
+        opt = AdamW(lr=cosine_schedule(1e-3, 1, 10))
+        step, _ = make_train_step(cfg, opt, n_microbatches=2,
+                                  grad_compress="nxfp8")
+        state, m = step(init_state(tree_map(
+            lambda p: p.to(dev, copy=True), params), opt), batch)
+        out.append((float(m["loss"]), tree_leaves(state.params)))
+    (l_cpu, p_cpu), (l_gpu, p_gpu) = out
+    assert abs(l_cpu - l_gpu) <= 1e-4
+    for a, b in zip(p_cpu, p_gpu):
+        assert float((a - b.cpu()).abs().max()) <= 2e-3
+
+
+def test_checkpoint_round_trip_on_card(cuda, tmp_path, monkeypatch):
+    """A train state and a cast tree on the card through
+    ``CheckpointManager`` (async) and back onto the card, bit for bit,
+    with the pinned staging buffer cut to 4 KiB so every tensor crosses
+    in chunks (a ragged last one)."""
+    from repro_torch.checkpoint import CheckpointManager, manager
+    from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.serving.engine import load_params
+    from repro_torch.train import init_state
+    from repro_torch.tree import tree_leaves
+    monkeypatch.setattr(manager, "STAGE_BYTES", 4096)
+    cfg = get_smoke_config("llama3_8b")
+    params = init_params(cfg, 0, device=cuda, train=True)
+    tree = {"state": init_state(params, AdamW(lr=cosine_schedule(1e-3, 1,
+                                                                 5))),
+            "cast": load_params(params, QuantPolicy("nxfp4", None), cuda),
+            "bf16": params["lm_head"].to(torch.bfloat16)}
+    mgr = CheckpointManager(tmp_path)
+    mgr.save(tree, 1)
+    mgr.close()
+    back, step = mgr.restore(tree)
+    assert step == 1
+    for a, b in zip(tree_leaves(tree), tree_leaves(back)):
+        if isinstance(a, torch.Tensor):
+            assert b.device == a.device and b.dtype == a.dtype
+            assert torch.equal(a, b)
+        else:
+            assert torch.equal(a.packed, b.packed)
+            assert torch.equal(a.meta.to(torch.int32), b.meta.to(torch.int32))

@@ -24,6 +24,7 @@ from repro_torch.kernels import build, dense_attention, nxfp_attention
 from repro_torch.kernels import nxfp_matmul
 from repro_torch.kernels import nxfp_qq_matmul, nxfp_quantize
 from repro_torch.kernels.ops import quantize_qtensor
+from repro_torch.launch.train import train_loop
 from repro_torch.models import init_cache, init_paged_cache, init_params
 from repro_torch.serving import (ContinuousEngine, PagedContinuousEngine,
                                  PriorityPreemption, ServeEngine,
@@ -69,7 +70,9 @@ def test_import_scan_covers_the_package():
                  "src/repro_torch/serving/snapshot.py",
                  "src/repro_torch/serving/paged.py",
                  "src/repro_torch/serving/paged_engine.py",
-                 "src/repro_torch/serving/faults.py"):
+                 "src/repro_torch/serving/faults.py",
+                 "src/repro_torch/launch/train.py",
+                 "src/repro_torch/train/compress.py"):
         assert must in names
 
 
@@ -114,6 +117,8 @@ ENTRY_POINTS = {
     "PagedContinuousEngine": lambda dev: PagedContinuousEngine(
         _smoke(), init_params(_smoke(), seed=0, device="cpu"),
         QuantPolicy("nxfp4", "nxfp4"), n_slots=2, max_len=16, device=dev),
+    "train_loop": lambda dev: train_loop(_smoke(), steps=1, batch=2, seq=8,
+                                         device=dev, log_every=100),
 }
 
 
