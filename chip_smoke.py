@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py              # full run: 32 layers of Llama-3-8B
     python3 chip_smoke.py --layers 2   # same, with the depth cut to 2
-    python3 chip_smoke.py --train-layers 2   # phase 20 trains 2 layers
+    python3 chip_smoke.py --train-layers 4   # phase 20 trains 4 layers
 
-Phases 7-12, 14-17, phase 13's Falcon-Mamba-7B and phase 18's paged and
-tiered engines serve their models at ``--serving-layers`` (default 8, at
+Phases 7-12, 14-17, 21, phase 13's Falcon-Mamba-7B and phase 18's paged
+and tiered engines serve their models at ``--serving-layers`` (default 8, at
 most ``--layers``; phases 14-16 served Llama-3-8B and Hymba-1.5B at full
 depth until phase 17 came, phases 11 and 13 theirs until phase 18 came);
 phase 13's Hymba-1.5B and phase 18's and 19's models serve at full
@@ -353,7 +353,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    the 16-row tile) and within 1e-5 of max|logit| at T 32 (a 128-row
    tile against the 16-row one); the forward's values with grad on
    bitwise those with grad off. (b) Llama-3-8B at full width and
-   ``--train-layers`` depth (default 4: 1.923B parameters) trained in
+   ``--train-layers`` depth (default 2: 1.487B parameters; 4 until
+   phase 21 came) trained in
    f32 by ``train_loop``: 30 steps of B 4 x T 256 from
    ``SyntheticLM(vocab=128256)``, 2 microbatches, remat, AdamW (cosine,
    peak 1e-3), ``grad_compress="nxfp8"``; every loss finite and the
@@ -376,6 +377,27 @@ Phases, each fatal on failure (exit code 1, no result line):
    (128256, 4096) and ``lm_head`` (4096, 128256) f32, NxFP8), bitwise
    but near ties, and the dequant GEMM at M 1024 for the four (K, N)
    pairs, timed beside their bounds (``launches_phase20_path``).
+21. Slot-sharded serving (``phase_sharded``): Llama-3-8B at full width
+   and ``--serving-layers``, nxfp4 weights and KV, on
+   ``make_serving_mesh(2, ["cuda:0"] * 2)`` (both shards on the one
+   card), 8 slots, chunk 16, max_len 512. (a) 12 staggered requests (two
+   sampled with their own seeds) through the lane at P 32: every stream
+   bitwise and every status equal to the unsharded ``ContinuousEngine``'s
+   (8 slots: up to 16 rows both sides run the split-K GEMM), at 2 shards
+   of 4 slots and at 4 shards of 2; then the unsharded and the 2-shard
+   engine's second serves in turns (tok/s, ms a decode chunk), and one
+   shard's decode chunk counted eagerly (its launches; a chunk replays
+   one such graph a shard). (b) A ``shard_down`` fault on shard 1 at
+   chunk 1 (whole admission): every stream OK and bitwise the no-drain
+   unsharded serve's, ``drain`` and ``migrate`` in the events, no
+   admission on shard 1 after the drain, the migrations' ms, and
+   draining the last healthy shard refused. (c) The sharded paged engine
+   bitwise the unsharded paged engine, every pool empty after. (d) The
+   sharded speculative engine (k 4, recycled draft; the first 8
+   requests) bitwise the unsharded speculative engine, with
+   ``spec_shard_stats()``. Launches
+   are counted around each sharded serve alone (first serves: the
+   shards' graph captures), peak memory printed.
 
 The last three lines are the kernel table as JSON, the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.
@@ -6002,9 +6024,10 @@ P20_KERNELS = {"smoke gradient cast": ("nxfp_quantize",),
                "train": ("nxfp_quantize",),
                "direct-cast eval": ("nxfp_quantize", "nxfp_matmul"),
                "serve": ("nxfp_quantize", "nxfp_matmul", "nxfp_attention")}
-# the predictions written before phase 20's first run (PERF.md, PR 30):
-# the peak above what was allocated before training, and a step's parts
-P20_PREDICTED = {"peak_gb": (38, 46), "step_ms": (200, 600)}
+# the predictions written before phase 20's first run (PERF.md §6) at
+# 4 layers: the peak above what was allocated before training, and a
+# step's parts
+P20_PREDICTED = {"peak_gb": (38, 46), "step_ms": (200, 600), "layers": 4}
 
 
 def _p20_grads(cfg, params, batch):
@@ -6367,7 +6390,8 @@ def phase_train(card: str, train_layers: int, rows):
         f"{tr['tok_s']:.1f} tok/s; data draw {tr['data_ms']:.2f} ms a batch "
         f"(source built in {tr['source_s']:.2f} s); peak "
         f"{tr['peak']} bytes above the weights' start ({tr['peak'] / 1e9:.2f}"
-        f" GB, predicted {lo}-{hi} GB); run {tr['train_s']:.1f} s; crash "
+        f" GB, predicted {lo}-{hi} GB at {P20_PREDICTED['layers']} layers); "
+        f"run {tr['train_s']:.1f} s; crash "
         f"run (checkpoints at {P20_CKPT_EVERY} and {P20_RESUME}) "
         f"{tr['crash_s']:.1f} s, resumed run {tr['resume_s']:.1f} s, "
         f"checkpoint {tr['ckpt_bytes']} bytes; resumed == uninterrupted "
@@ -6384,6 +6408,280 @@ def phase_train(card: str, train_layers: int, rows):
         for name in names:
             if counts[path].get(name, 0) <= 0:
                 fail(f"phase 20 ({path}): kernel {name} was never launched")
+    return counts, fig
+
+
+# ---------------------------------------------------------------------------
+# phase 21: slot-sharded serving (A3), two shards on the one card
+# ---------------------------------------------------------------------------
+
+P21_SLOTS = 8                      # 4 a shard at 2 shards, 2 at 4
+P21_SHARDS = (2, 4)
+P21_PROMPTS = (32, 64, 96, 128) * 3    # 12 requests: more than the slots
+P21_NEW = (8, 16, 24, 32, 40, 48, 56, 64, 24, 16, 40, 32)
+P21_SAMPLED = {2: (0.8, 17), 9: (1.3, 23)}     # uid: (temperature, seed)
+P21_ROUNDS = 1                     # (unsharded, sharded, sharded, unsharded)
+P21_DRAIN = ((64, 48), (96, 56), (64, 40), (128, 48), (64, 32), (96, 24))
+P21_VICTIM = 1
+P21_SPEC_K = 4
+P21_SPEC_REQS = 8                  # the speculative serves take the first 8
+P21_KERNELS = ("nxfp_quantize", "nxfp_matmul", "nxfp_attention")
+
+
+def _p21_requests(cfg, prompts=P21_PROMPTS, news=P21_NEW, sampled=None,
+                  spread=0.05):
+    """Requests from seed 21: the first four at once, the rest ``spread``
+    s apart after them."""
+    import numpy as np
+    from repro_torch.serving import Request
+    sampled = P21_SAMPLED if sampled is None else sampled
+    rng = np.random.default_rng(21)
+    return [Request(uid=i, tokens=rng.integers(0, cfg.vocab, (t,)),
+                    max_new=m, temperature=sampled.get(i, (0.0, 0))[0],
+                    seed=sampled.get(i, (0.0, 0))[1],
+                    arrival_time=0.0 if i < 4 else spread * (i - 3))
+            for i, (t, m) in enumerate(zip(prompts, news))]
+
+
+def _p21_same(got, want, what):
+    """Every stream and status of ``got`` equal to ``want``'s."""
+    import numpy as np
+    g = {r.uid: r for r in got}
+    w = {r.uid: r for r in want}
+    if g.keys() != w.keys():
+        fail(f"phase 21 ({what}): results for {sorted(g)}, expected "
+             f"{sorted(w)}")
+    for uid, r in w.items():
+        if g[uid].status != r.status or not np.array_equal(g[uid].tokens,
+                                                           r.tokens):
+            fail(f"phase 21 ({what}): uid {uid} {g[uid].status} "
+                 f"{g[uid].tokens[:8].tolist()} ... against the unsharded "
+                 f"{r.status} {r.tokens[:8].tolist()} ...")
+
+
+def _p21_serve(eng, reqs, **kw):
+    """(results, figures) of one serve: tok/s and seconds (host clock, the
+    card synchronised), ms a decode chunk (median of the host-clock
+    ``chunk_times``, the fold's host copy included) and its live slots."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.serve(reqs, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    times = [t for _, t in eng.chunk_times]
+    return res, dict(
+        seconds=round(wall, 4),
+        tok_s=round(sum(r.n_generated for r in res) / wall, 2),
+        chunks=eng.chunks, lane_chunks=eng.lane_chunks,
+        chunk_ms=round(1e3 * statistics.median(times), 3),
+        live=statistics.median(n for n, _ in eng.chunk_times))
+
+
+def _p21_oracle(cfg, params, counts, fig):
+    """(a): 2 and 4 shards against the unsharded engine, the timed turns
+    and one shard's chunk counted eagerly."""
+    from repro_torch.core.qtensor import QuantPolicy
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.serving import ContinuousEngine, ShardedContinuousEngine
+    policy = QuantPolicy("nxfp4", "nxfp4")
+    kw = dict(n_slots=P21_SLOTS, chunk=CONT_CHUNK, max_len=CONT_MAX_LEN,
+              prefill_mode="chunked", p_chunk=LANE_P)
+    plain = ContinuousEngine(cfg, params, policy, device="cuda", **kw)
+    want, _ = _p21_serve(plain, _p21_requests(cfg))
+    engines = {}
+    for n in P21_SHARDS:
+        eng = ShardedContinuousEngine(cfg, params, policy, make_serving_mesh(
+            n, ["cuda:0"] * n), **kw)
+        got, first = _counted(lambda: _p21_serve(eng, _p21_requests(cfg)),
+                              counts.setdefault(f"oracle S{n}", {}))
+        _p21_same(got, want, f"{n} shards")
+        fig[f"S{n} first"] = first
+        engines[n] = eng
+    runs = {"unsharded": [], "sharded": []}
+    for _ in range(P21_ROUNDS):
+        for name in ("unsharded", "sharded", "sharded", "unsharded"):
+            eng = plain if name == "unsharded" else engines[2]
+            got, f = _p21_serve(eng, _p21_requests(cfg))
+            _p21_same(got, want, f"turn, {name}")
+            runs[name].append(f)
+    fig["turns"] = runs
+    for name, rs in runs.items():
+        fig[f"{name} tok_s"] = statistics.median(r["tok_s"] for r in rs)
+        fig[f"{name} chunk_ms"] = statistics.median(r["chunk_ms"]
+                                                    for r in rs)
+    fig["chunk_ratio"] = round(fig["sharded chunk_ms"]
+                               / fig["unsharded chunk_ms"], 3)
+    import numpy as np
+    per_chunk = {}
+    shard = engines[2].shards[0]
+    shard._upload(dict(shard._host, poison=np.zeros(
+        (shard.n_slots,), bool)))     # every slot parked: nothing written
+    _counted(lambda: shard._chunk_fn(True)(), per_chunk)
+    torch.cuda.synchronize()
+    fig["launches_a_shard_chunk"] = per_chunk
+    fig["graphs"] = {n: [len(sh._graphs) + len(sh._lane_graphs)
+                         for sh in eng.shards] for n, eng in engines.items()}
+
+
+def _p21_drain(cfg, params, counts, fig):
+    """(b): a shard_down fault at chunk 1 against the no-drain serve."""
+    from repro_torch.core.qtensor import QuantPolicy
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.serving import (ContinuousEngine, Fault, FaultPlan,
+                                     ShardedContinuousEngine)
+    policy = QuantPolicy("nxfp4", "nxfp4")
+    kw = dict(n_slots=P21_SLOTS, chunk=CONT_CHUNK, max_len=CONT_MAX_LEN)
+    prompts, news = zip(*P21_DRAIN)
+
+    def reqs():
+        return _p21_requests(cfg, prompts, news, sampled={1: (0.8, 5)},
+                             spread=0.02)
+
+    want = ContinuousEngine(cfg, params, policy, device="cuda",
+                            **kw).serve(reqs())
+    eng = ShardedContinuousEngine(cfg, params, policy, make_serving_mesh(
+        2, ["cuda:0"] * 2), **kw)
+    plan = FaultPlan([Fault(kind="shard_down", chunk=1, shard=P21_VICTIM)])
+    got, evs = _counted(lambda: _p16_events(lambda: eng.serve(
+        reqs(), fault_plan=plan)), counts.setdefault("drain", {}))
+    _p21_same(got, want, "drain")
+    kinds = [e["event"] for e in evs]
+    if "drain" not in kinds or "migrate" not in kinds:
+        fail(f"phase 21 (drain): events {sorted(set(kinds))} lack drain or "
+             "migrate")
+    d = kinds.index("drain")
+    late = [e for e in evs[d + 1:] if e["event"] in (
+        "admit", "prefill-start", "resume", "migrate")
+        and e.get("shard") == P21_VICTIM]
+    if late:
+        fail(f"phase 21 (drain): shard {P21_VICTIM} took {late} after its "
+             "drain")
+    try:
+        eng.drain_shard(1 - P21_VICTIM)
+    except ValueError as exc:
+        refused = str(exc)
+    else:
+        fail("phase 21 (drain): draining the last healthy shard was not "
+             "refused")
+    fig["drain"] = dict(
+        live=evs[d]["live"], migrations=[(e["uid"], e["slot"], e["n_gen"])
+                                         for e in evs if e["event"] ==
+                                         "migrate"],
+        suspended=kinds.count("suspend"), resumed=kinds.count("resume"),
+        migrate_ms=[round(1e3 * t, 3) for t in eng.migrate_seconds],
+        refused=refused)
+
+
+def _p21_paged(cfg, params, counts, fig):
+    """(c): the sharded paged engine against the unsharded paged one."""
+    from repro_torch.core.qtensor import QuantPolicy
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.serving import (PagedContinuousEngine,
+                                     ShardedPagedContinuousEngine)
+    policy = QuantPolicy("nxfp4", "nxfp4")
+    kw = dict(n_slots=P21_SLOTS, chunk=CONT_CHUNK, max_len=CONT_MAX_LEN,
+              prefill_mode="chunked", p_chunk=LANE_P)
+    want = PagedContinuousEngine(cfg, params, policy, device="cuda",
+                                 prefix_sharing=False, **kw).serve(
+        _p21_requests(cfg))
+    eng = ShardedPagedContinuousEngine(cfg, params, policy, make_serving_mesh(
+        2, ["cuda:0"] * 2), **kw)
+    got, f = _counted(lambda: _p21_serve(eng, _p21_requests(cfg)),
+                      counts.setdefault("paged", {}))
+    _p21_same(got, want, "paged")
+    for pool in eng.pools:
+        if pool.used:
+            fail(f"phase 21 (paged): {pool.used} pages still held")
+    fig["paged"] = dict(f, pools=[{k: st[k] for k in (
+        "shard", "n_pages", "high_watermark")} for st in eng.pool_stats()])
+
+
+def _p21_speculative(cfg, params, counts, fig):
+    """(d): the sharded speculative engine against the unsharded one."""
+    from repro_torch.core.qtensor import QuantPolicy
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.serving import (ContinuousEngine,
+                                     ShardedContinuousEngine,
+                                     SpeculativeConfig)
+    policy = QuantPolicy("nxfp4", "nxfp4")
+    kw = dict(n_slots=P21_SLOTS, chunk=CONT_CHUNK, max_len=CONT_MAX_LEN,
+              prefill_mode="chunked", p_chunk=LANE_P,
+              speculative=SpeculativeConfig(k=P21_SPEC_K))
+    plain = ContinuousEngine(cfg, params, policy, device="cuda", **kw)
+    want = plain.serve(_p21_requests(cfg)[:P21_SPEC_REQS])
+    eng = ShardedContinuousEngine(cfg, params, policy, make_serving_mesh(
+        2, ["cuda:0"] * 2), **kw)
+    got, f = _counted(lambda: _p21_serve(
+        eng, _p21_requests(cfg)[:P21_SPEC_REQS]),
+        counts.setdefault("speculative", {}))
+    _p21_same(got, want, "speculative")
+    per = eng.spec_shard_stats()
+    if sum(d["accepted"] for d in per) != eng.spec_stats()["accepted"]:
+        fail(f"phase 21 (speculative): per-shard stats {per} do not sum to "
+             f"{eng.spec_stats()}")
+    fig["speculative"] = dict(f, spec_shard_stats=per,
+                              unsharded=plain.spec_stats())
+
+
+def phase_sharded(card: str, serving_layers: int):
+    """Phase 21: slot-sharded serving on the one card (the module
+    docstring's item 21). Returns (launch counts by path, figures)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.qtensor import QuantPolicy
+    from repro_torch.models import init_params
+    t0 = time.time()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config("llama3_8b"),
+                              n_layers=serving_layers)
+    params = init_params(cfg, seed=0, device="cuda",
+                         policy=QuantPolicy("nxfp4", None))
+    counts, fig = {}, {}
+    steps = (("oracle", _p21_oracle), ("drain", _p21_drain),
+             ("paged", _p21_paged), ("speculative", _p21_speculative))
+    for name, step in steps:
+        t1 = time.time()
+        step(cfg, params, counts, fig)
+        fig[f"{name}_s"] = round(time.time() - t1, 1)
+        gc.collect()
+        torch.cuda.empty_cache()
+    fig["peak"] = torch.cuda.max_memory_allocated()
+    fig["seconds"] = round(time.time() - t0, 1)
+    where = {f"S{n}": f"cuda:0 {n} times (one card)" for n in P21_SHARDS}
+    log(f"sharded serving ({card}): Llama-3-8B full width, {serving_layers} "
+        f"layers, nxfp4 weights and KV, {P21_SLOTS} slots, chunk "
+        f"{CONT_CHUNK}, max_len {CONT_MAX_LEN}, lane P {LANE_P}; shards on "
+        f"{where}; {len(P21_PROMPTS)} staggered requests (two sampled): "
+        f"every stream and status equal to the unsharded engine's at 2 and "
+        f"4 shards; {fig['oracle_s']} s")
+    log(f"  first serves ({card}; captures included): S2 {fig['S2 first']}; "
+        f"S4 {fig['S4 first']}; graphs a shard {fig['graphs']}")
+    log(f"  turns ({card}; second serves, {P21_ROUNDS} rounds of "
+        f"(unsharded, sharded, sharded, unsharded), host clock): tok/s "
+        f"unsharded {fig['unsharded tok_s']} vs 2 shards "
+        f"{fig['sharded tok_s']}; ms a decode chunk {fig['unsharded chunk_ms']}"
+        f" vs {fig['sharded chunk_ms']} (ratio {fig['chunk_ratio']}); "
+        f"every serve {fig['turns']}")
+    log(f"  one shard's decode chunk, counted eagerly (a chunk replays one "
+        f"such graph a shard, in shard order): {fig['launches_a_shard_chunk']}")
+    log(f"  drain ({card}): shard {P21_VICTIM} down at chunk 1, every stream "
+        f"OK and bitwise the no-drain unsharded serve's, nothing admitted to "
+        f"shard {P21_VICTIM} after the drain; {fig['drain']}; "
+        f"{fig['drain_s']} s")
+    log(f"  paged ({card}): every stream bitwise the unsharded paged "
+        f"engine's, every pool empty after; {fig['paged']}; "
+        f"{fig['paged_s']} s")
+    log(f"  speculative ({card}): k {P21_SPEC_K}, recycled draft, every "
+        f"stream bitwise the unsharded speculative engine's; "
+        f"{fig['speculative']}; {fig['speculative_s']} s")
+    log(f"  launches on phase 21's paths (each sharded serve alone, first "
+        f"serves): {counts}; peak {fig['peak']} bytes ({card}); phase 21 "
+        f"{fig['seconds']} s")
+    for path, n in counts.items():
+        for name in P21_KERNELS:
+            if n.get(name, 0) <= 0:
+                fail(f"phase 21 ({path}): kernel {name} was never launched")
     return counts, fig
 
 
@@ -6458,14 +6756,15 @@ MAIN_ROW = {"nxfp_quantize": "nxfp_quantize",
 # path's premium tier (phase 10) for the dense-row attention
 QQ_PATH = ("nxfp_qq_matmul",)
 TIER_PATH = ("dense_decode_attention",)
-# phases 7-10 and 12, 14-17 serve Llama-3-8B at this depth (the main
+# phases 7-10, 12, 14-17 and 21 serve Llama-3-8B at this depth (the main
 # path, phase 5, at --layers), phase 11 its dense family, phase 13
 # Falcon-Mamba-7B and phase 18 Qwen-MoE's paged and tiered engines: the
 # script's clock keeps full depth for phase 13's Hymba and phase 18's
 # models
 SERVING_LAYERS = 8
-# phase 20 trains Llama-3-8B at full width and this depth
-TRAIN_LAYERS = 4
+# phase 20 trains Llama-3-8B at full width and this depth (4 until phase
+# 21 came)
+TRAIN_LAYERS = 2
 
 
 def main():
@@ -6473,8 +6772,8 @@ def main():
     ap.add_argument("--layers", type=int, default=32,
                     help="Llama-3-8B depth for the main path (default 32)")
     ap.add_argument("--serving-layers", type=int, default=SERVING_LAYERS,
-                    help="Llama-3-8B depth for phases 7-10, 12 and "
-                         "14-17, the dense family's for phase 11, "
+                    help="Llama-3-8B depth for phases 7-10, 12, 14-17 "
+                         "and 21, the dense family's for phase 11, "
                          "Falcon-Mamba-7B's for phases 13-17 and "
                          "Qwen-MoE's for phase 18's paged and tiered "
                          f"engines (default {SERVING_LAYERS}, at most "
@@ -6573,6 +6872,9 @@ def main():
     p20_counts, _ = phase_train(smi_line, args.train_layers, rows)
     p20_rows = [k for k in rows if k not in p20_rows]
     log(f"phase 20 seconds: {time.time() - t20:.1f}")
+    t21 = time.time()
+    phase_sharded(smi_line, late)
+    log(f"phase 21 seconds: {time.time() - t21:.1f}")
 
     table = []
     for kname, (sources, replaces) in KERNELS.items():

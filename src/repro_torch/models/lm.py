@@ -324,8 +324,9 @@ def init_lane(cfg: ModelConfig, max_len: int, p_chunk: int,
     recurrent state between chunks (``h``, ``conv``, batch 1), which
     ``prefill_chunk`` zeroes at offset 0; an attention-free layer has no
     K/V scratch. Returns ``{"layers": [{"k", "v", "h", "conv"}, ...]}``.
-    (The reference's ``n_lanes``, one lane per shard, waits for the
-    sharded engine.)"""
+    (The reference's ``n_lanes`` stacks one lane a shard; the port's
+    sharded engine gives each shard an engine, and so a lane, of its
+    own.)"""
     _check_p_chunk(cfg, p_chunk)
     dev = resolve_device(device)
     rows = -(-max_len // p_chunk) * p_chunk

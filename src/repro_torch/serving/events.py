@@ -2,10 +2,9 @@
 loggers (a copy of the reference's ``serving/events.py``; the port keeps
 its own).
 
-Scheduler and engine transitions (admit, finish, and the lifecycle kinds
-the later slices emit) are logged as ONE ``json.dumps`` object per record,
-so a serving run leaves a machine-parseable trail behind the ordinary
-logging tree: handlers, filters and levels keep working unchanged, and
+Scheduler and engine transitions (admit, finish and the lifecycle kinds)
+are logged as ONE ``json.dumps`` object per record, so a serving run
+leaves a machine-parseable trail behind the ordinary logging tree: handlers, filters and levels keep working unchanged, and
 human-oriented messages coexist on the same loggers. ``parse_event`` is
 the read side: feed it captured log messages and it returns the event
 dicts, skipping the human text.
@@ -22,10 +21,10 @@ from typing import Iterable, List, Optional, Tuple
 
 __all__ = ["emit", "parse_event", "Journal", "replay", "EVENT_KINDS"]
 
-# Every kind the reference's engines and scheduler emit (the port emits
-# all but migrate and drain, which belong to the sharded engine): fault
-# and containment kinds (fault, quarantine, requeue), recovery kinds
-# (suspend through restore), paged-KV memory kinds (pool, cow-break,
+# Every kind the reference's engines and scheduler emit, and the port's
+# too: fault and containment kinds (fault, quarantine, requeue), recovery
+# kinds (suspend through restore; migrate and drain are the sharded
+# engine's shard drain), paged-KV memory kinds (pool, cow-break,
 # prefix-hit) and the tiered engine's kv-repack.
 EVENT_KINDS = ("admit", "prefill-start", "prefill-done", "degrade",
                "shed", "expire", "cancel", "fault", "quarantine",

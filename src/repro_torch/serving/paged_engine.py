@@ -89,8 +89,12 @@ reference's: the K/V canary pins a slot-private stable prefix, which
 prefix sharing breaks on purpose (and ``flip_kv_bytes`` raises on the
 pools).
 
-Left for later: the sharded paged engine and paged tiers (the reference
-has none).
+``ShardedPagedContinuousEngine`` serves the slot-sharded engine
+(``serving/sharded.py``) over a page pool a shard: each shard is a paged
+engine of its own, its table holding its pool's local page indices and
+its own null page 0, and admission goes to the least-loaded shard whose
+pool fits the request. It serves no prefix sharing, as the reference's
+does not. Paged tiers are left for later (the reference has none).
 """
 from __future__ import annotations
 
@@ -106,8 +110,9 @@ from ..models import init_paged_cache
 from ..models.common import ModelConfig
 from .paged import NULL_PAGE, PagePool, auto_page_size
 from .scheduler import ContinuousEngine, Request, SlotScheduler
+from .sharded import ShardedContinuousEngine, _ShardMixin
 
-__all__ = ["PagedContinuousEngine"]
+__all__ = ["PagedContinuousEngine", "ShardedPagedContinuousEngine"]
 
 # the steps the pages change; an attention-free model keeps
 # ContinuousEngine's (it has no K/V rows to page)
@@ -200,7 +205,7 @@ class PagedContinuousEngine(ContinuousEngine):
     def pool_stats(self) -> List[Dict[str, Any]]:
         """The allocator's counters (occupancy, high watermark, COW breaks,
         prefix hits, evictions), one dict per pool (the reference's list;
-        ``shard`` None: the port has one pool)."""
+        ``shard`` None: one pool, the sharded engine's are per shard)."""
         st = self.pool.stats()
         st["shard"] = None
         return [st]
@@ -312,16 +317,19 @@ class PagedContinuousEngine(ContinuousEngine):
                                 self.policy.kv_fmt, self.n_pages,
                                 self.page_size, device=self.device)
 
-    def _make_sched(self) -> SlotScheduler:
-        sched = super()._make_sched()
-        # reclaim what an aborted serve left (an exception mid-flight):
-        # release its pages and null its table rows, so that a parked
-        # slot's writes drop instead of landing in pages a new request
-        # may be handed
+    def _reclaim_pages(self) -> None:
+        """Release what an aborted serve left (an exception mid-flight):
+        its pages go back and its table rows are nulled, so that a parked
+        slot's writes drop instead of landing in pages a new request may
+        be handed."""
         for slot in list(self.pool._slots):
             self.pool.release(slot)
             self._write_table(slot, [])
         self._unarmed_claims.clear()
+
+    def _make_sched(self) -> SlotScheduler:
+        sched = super()._make_sched()
+        self._reclaim_pages()
         sched.admission_gate = self._admission_gate
         sched.pool_monitor = self._pool_monitor
         return sched
@@ -397,3 +405,73 @@ class PagedContinuousEngine(ContinuousEngine):
             self._emit("cow-break", slot=slot, shard=None, pages=len(pairs),
                        pos=int(pos[slot]), chunk=self.chunks)
             self._emit_pool()
+
+
+class _PagedShard(_ShardMixin, PagedContinuousEngine):
+    pass
+
+
+class ShardedPagedContinuousEngine(ShardedContinuousEngine):
+    """Slot-sharded serving over a page pool a shard (the reference's
+    ``ShardedPagedContinuousEngine``): each shard is a paged engine of its
+    slots, its pool of ``n_pages / S`` pages with local page indices and
+    its own null page 0 (default: the dense footprint of its slots, plus
+    that page). Admission asks the page gate of each candidate shard and
+    takes the least-loaded shard whose pool fits the request.
+    ``prefix_sharing`` is refused, as the reference refuses it: a
+    registry a shard would share only within the shard. ``pool_stats()``
+    has one row a shard; ``pools`` are the shards' pools (empty for an
+    attention-free model, which has no pages)."""
+
+    _shard_cls = _PagedShard
+
+    def __init__(self, cfg: ModelConfig, params, policy: QuantPolicy, mesh,
+                 n_slots: int = 4, n_pages: Optional[int] = None,
+                 page_size: Optional[int] = None,
+                 prefix_sharing: bool = False, **kw):
+        if prefix_sharing:
+            raise ValueError(
+                "prefix_sharing is not served sharded: the registry and "
+                "COW copy are engine-global, pools are per-shard")
+        s = int(mesh.shape["data"]) if "data" in mesh.axis_names else 1
+        if n_pages is not None and n_pages % s:
+            raise ValueError(f"n_pages ({n_pages}) must be divisible by "
+                             f"the 'data' axis ({s}): a pool a shard")
+        self._pages_kw = dict(
+            n_pages=None if n_pages is None else n_pages // s,
+            page_size=page_size, prefix_sharing=False)
+        super().__init__(cfg, params, policy, mesh, n_slots=n_slots, **kw)
+        self.page_size = self.shards[0].page_size
+        self.n_pages = sum(sh.n_pages for sh in self.shards)
+
+    def _shard_kw(self) -> Dict[str, Any]:
+        return self._pages_kw
+
+    @property
+    def pools(self) -> List[PagePool]:
+        return [sh.pool for sh in self.shards if sh.pool is not None]
+
+    def pool_stats(self) -> List[Dict[str, Any]]:
+        out = []
+        for sh in self.shards:
+            if sh.pool is not None:
+                out.append(dict(sh.pool.stats(), shard=sh.index))
+        return out
+
+    def _make_sched(self) -> SlotScheduler:
+        sched = super()._make_sched()
+        if self.cfg.attn_free:
+            return sched
+        for sh in self.shards:
+            sh._reclaim_pages()
+        sched.admission_gate = (lambda req, shard, resumable: self.shards[
+            shard]._admission_gate(req, None, resumable))
+        sched.pool_monitor = lambda: max(p.occupancy() for p in self.pools)
+        return sched
+
+    def _start_prefill(self, sched: SlotScheduler, slot: int, req: Request,
+                       now: float) -> Dict[str, Any]:
+        if not self.cfg.attn_free:
+            eng, loc = self._owner(slot)
+            eng._alloc_slot(loc, req)
+        return super()._start_prefill(sched, slot, req, now)

@@ -121,7 +121,13 @@ change: decode rows are independent. The poison mask is a static buffer
 written before each replay, so the all-False default runs today's graphs
 on today's inputs.
 
-Left for a later slice: sharding.
+Sharding: ``serving/sharded.py``'s ``ShardedContinuousEngine`` runs this
+loop over S shards of ``n_slots / S`` slots, each on its own device, with
+``ShardedSlotScheduler`` here routing admission to a shard. The hooks it
+overrides are the device steps (``_owner`` names the engine and slot index
+that hold a slot's state) and the lane cursor (``_park_lane``,
+``_lane_busy``, ``_drop_lane_cursor``); a ``shard_down`` fault calls
+``drain_shard``, which an unsharded engine refuses.
 """
 from __future__ import annotations
 
@@ -486,6 +492,9 @@ class SlotScheduler:
         # takes a queued request out (admission, shedding, expiry,
         # cancellation) consumes its snapshot with it.
         self.resumable: Dict[int, SlotSnapshot] = {}
+        # shards out of rotation (a sharded engine's drain; admission never
+        # routes to one): always empty for an unsharded engine
+        self.drained: set = set()
         # engine hooks, both optional: admission_gate(req, shard,
         # resumable) -> bool vetoes a policy pick whose KV pages do not fit
         # now (the paged engine: a free slot is no longer enough);
@@ -615,6 +624,20 @@ class SlotScheduler:
         self.queue.append(req)
         return req
 
+    def reassign(self, old: int, new: int) -> Request:
+        """Move a live request from slot ``old`` to the free slot ``new``
+        (a live migration's bookkeeping): its phase goes with it and
+        ``old`` returns to the free list (its shard may be drained: the
+        routing, not the free list, keeps a drained shard's slots out of
+        admission). Moving the slot's state is the engine's work."""
+        req = self.active.pop(old)
+        phase = self.phase.pop(old)
+        self.free.remove(new)
+        self.free.append(old)
+        self.active[new] = req
+        self.phase[new] = phase
+        return req
+
     def mark_prefilling(self, slot: int) -> None:
         self.phase[slot] = PREFILLING
 
@@ -627,6 +650,86 @@ class SlotScheduler:
     @property
     def has_work(self) -> bool:
         return bool(self.queue or self.active)
+
+
+class ShardedSlotScheduler(SlotScheduler):
+    """Slot bookkeeping over S shards of ``slots_per_shard`` slots: global
+    slot ``g`` lives on shard ``g // slots_per_shard`` at local index ``g %
+    slots_per_shard`` (the sharded engine's contiguous blocks). The policy
+    still ranks the queue (which request); the slot comes from one shard:
+    the caller's when it names one (a shard's own lane), else the
+    least-loaded shard with a free slot (ties: the lowest id), so early
+    traffic spreads over the shards instead of filling shard 0. A drained
+    shard is out of rotation. With an admission gate (per-shard page
+    pools), a shard whose gate refuses the pick is skipped for the next.
+    Pure host bookkeeping."""
+
+    def __init__(self, n_shards: int, slots_per_shard: int,
+                 policy: Optional[AdmissionPolicy] = None, **kw):
+        super().__init__(n_shards * slots_per_shard, policy, **kw)
+        self.n_shards = n_shards
+        self.slots_per_shard = slots_per_shard
+
+    def shard_of(self, slot: int) -> int:
+        return slot // self.slots_per_shard
+
+    def local_slot(self, slot: int) -> int:
+        return slot % self.slots_per_shard
+
+    def load(self, shard: int) -> int:
+        """Occupied slots on ``shard``, prefilling and decoding alike."""
+        return sum(1 for s in self.active if self.shard_of(s) == shard)
+
+    def free_on(self, shard: int) -> List[int]:
+        return [s for s in self.free if self.shard_of(s) == shard]
+
+    def healthy_free(self) -> List[int]:
+        """The free slots on shards still in rotation."""
+        return [s for s in self.free if self.shard_of(s) not in self.drained]
+
+    def _least_loaded(self) -> List[int]:
+        """Healthy shards with a free slot, least-loaded first."""
+        with_free = {self.shard_of(s) for s in self.free} - self.drained
+        return sorted(with_free, key=lambda s: (self.load(s), s))
+
+    def next_admission(self, now: float, shard: Optional[int] = None
+                       ) -> Optional[Tuple[int, Request]]:
+        """Pop (global slot, request), routed to ``shard`` or, with none,
+        to the least-loaded healthy shard whose gate takes the pick. A
+        drained ``shard`` admits nothing (its lane is being retired)."""
+        if not self.queue or (shard is not None and shard in self.drained):
+            return None
+        idx = self.policy.select(self.queue, now)
+        if idx is None:
+            return None
+        req = self.queue[idx]
+        resum = req.uid in self.resumable
+        if shard is not None:
+            free = self.free_on(shard)
+            if not free or not self._gate(req, shard, resum):
+                return None
+            return self._take(idx, free[0])
+        for sh in self._least_loaded():
+            if self._gate(req, sh, resum):
+                return self._take(idx, self.free_on(sh)[0])
+        return None
+
+    def next_resume(self, now: float) -> Optional[Tuple[int, Request]]:
+        """The policy's pick, only if resumable, into the least-loaded
+        healthy shard whose gate takes it (a snapshot restores into any
+        free slot)."""
+        if not self.queue or not self.resumable:
+            return None
+        shards = self._least_loaded()
+        if not shards:
+            return None
+        idx = self.policy.select(self.queue, now)
+        if idx is None or self.queue[idx].uid not in self.resumable:
+            return None
+        for sh in shards:
+            if self._gate(self.queue[idx], sh, True):
+                return self._take(idx, self.free_on(sh)[0])
+        return None
 
 
 # ---------------------------------------------------------------------------
@@ -894,26 +997,31 @@ class ContinuousEngine:
 
     def _init_speculative(self, raw_params, spec: SpeculativeConfig,
                           n_slots: int) -> None:
-        """The draft weights on the engine's device, the controller, the
-        counters and the static ``spec_k`` buffer."""
-        if spec.draft == "recycled":
-            self.draft_params = dense_like(self.params)
-        else:
-            if cast_formats(raw_params):
-                raise ValueError(
-                    f"draft={spec.draft!r} is cast from the f32 weights, and "
-                    f"these are cast to {sorted(cast_formats(raw_params))}: "
-                    "build them without a policy, or use draft='recycled'")
-            self.draft_params = load_params(
-                raw_params, dataclasses.replace(self.policy,
-                                                weight_fmt=spec.draft),
-                self.device)
+        """The draft weights (``_load_draft``), the controller, the
+        counters (in all and per slot) and the static ``spec_k`` buffer."""
+        self.draft_params = self._load_draft(raw_params, spec)
         self._adaptive = AdaptiveK(spec, n_slots)
         self._spec_k = torch.zeros((n_slots,), dtype=torch.int32,
                                    device=self.device)
         self.spec_accepted = 0        # candidates accepted (all chunks)
         self.spec_offered = 0         # candidates offered (all chunks)
+        self._spec_acc_slot = np.zeros((n_slots,), np.int64)
+        self._spec_off_slot = np.zeros((n_slots,), np.int64)
         self.spec_rounds: List[Tuple[int, int]] = []
+
+    def _load_draft(self, raw_params, spec: SpeculativeConfig):
+        """The draft weights on the engine's device: the cast weights
+        decoded to bf16 (``draft="recycled"``), or the f32 weights cast to
+        ``spec.draft``."""
+        if spec.draft == "recycled":
+            return dense_like(self.params)
+        if cast_formats(raw_params):
+            raise ValueError(
+                f"draft={spec.draft!r} is cast from the f32 weights, and "
+                f"these are cast to {sorted(cast_formats(raw_params))}: "
+                "build them without a policy, or use draft='recycled'")
+        return load_params(raw_params, dataclasses.replace(
+            self.policy, weight_fmt=spec.draft), self.device)
 
     def _spec_round_shape(self) -> Tuple[int, int]:
         """(k, n_rounds) of the next speculative chunk: k the most live
@@ -945,23 +1053,19 @@ class ContinuousEngine:
             restore_round(cfg, self.cache, saved, kv)
         return one_round
 
-    def _dispatch_spec_chunk(self, greedy: bool):
-        """Run one speculative chunk from the uploaded slot state and fold
-        its results and acceptance counts back into the host state and the
+    def _dispatch_spec_chunk(self, greedy: bool, poison: np.ndarray):
+        """Run one speculative chunk from the host slot state and fold its
+        results and acceptance counts back into the host state and the
         controller. Returns (emitted (B, n_rounds * (k+1)), finite (B,))."""
         k, n_rounds = self._spec_round_shape()
         self.spec_rounds.append((k, n_rounds))
-        self._spec_k.copy_(torch.from_numpy(self._adaptive.k.astype(np.int32)))
-        outs = self._run_chunk(
-            ("spec", k, n_rounds, greedy),
-            lambda steps=None: self._spec_chunk_fn(greedy, k, n_rounds,
-                                                   warm=steps is not None),
-            greedy)
-        got = self._fold(outs, self.cache, slice(None))
+        got = self._chunk_results(poison, greedy, (k, n_rounds))
         emitted, finite = got[:, :-3], got[:, -3] != 0
         acc, off = got[:, -2], got[:, -1]
         self.spec_accepted += int(acc.sum())
         self.spec_offered += int(off.sum())
+        self._spec_acc_slot += acc
+        self._spec_off_slot += off
         old_k = self._adaptive.k.copy()
         self._adaptive.update(self._host["live"], acc, off)
         for s in np.nonzero(self._adaptive.k != old_k)[0]:
@@ -992,6 +1096,21 @@ class ContinuousEngine:
     def _slot_cache(self, slot: int):
         """The cache arena that holds ``slot``'s rows."""
         return self.cache
+
+    def _owner(self, slot: int):
+        """(engine, index) that hold ``slot``'s device state: this engine
+        and ``slot`` itself (a sharded engine's shard, and the slot's index
+        there)."""
+        return self, slot
+
+    def _shard_of(self, slot: int) -> Optional[int]:
+        """The shard that owns ``slot``, for the event records (None: an
+        unsharded engine, and the field is dropped)."""
+        return None
+
+    def _positions(self) -> np.ndarray:
+        """Every slot's ``pos`` (B,), on the host."""
+        return self.cache["pos"].cpu().numpy()
 
     def _build_lane(self, p_chunk: int) -> None:
         """The lane for chunks of ``p_chunk``: its scratch and its static
@@ -1170,6 +1289,33 @@ class ContinuousEngine:
         h["done"][rows] = got[rows, n + 2] != 0
         return np.concatenate([got[:, :n], got[:, n + 3:]], axis=1)
 
+    def _launch(self, poison: np.ndarray, greedy: bool, shape=None,
+                spec_k: Optional[np.ndarray] = None):
+        """Upload the host slot state, ``poison`` (B,) into its static
+        buffer, and run one decode chunk: plain, or speculative of
+        ``shape`` (k, n_rounds) with each slot's ``spec_k``. Returns the
+        chunk's outputs on the device (``_fold`` reads them)."""
+        self._upload(dict(self._host, poison=poison))
+        if shape is None:
+            return self._run_chunk(
+                greedy, lambda steps=None: self._chunk_fn(greedy, steps),
+                greedy)
+        k, n_rounds = shape
+        self._spec_k.copy_(torch.from_numpy(spec_k.astype(np.int32)))
+        return self._run_chunk(
+            ("spec", k, n_rounds, greedy),
+            lambda steps=None: self._spec_chunk_fn(greedy, k, n_rounds,
+                                                   warm=steps is not None),
+            greedy)
+
+    def _chunk_results(self, poison: np.ndarray, greedy: bool,
+                       shape=None) -> np.ndarray:
+        """One decode chunk (``_launch``) folded into the host state:
+        emitted, then the extra columns (``_fold``)."""
+        spec_k = self._adaptive.k if shape is not None else None
+        return self._fold(self._launch(poison, greedy, shape, spec_k),
+                          self.cache, slice(None))
+
     def _dispatch_chunk(self, poison: np.ndarray):
         """Run one decode chunk from the host slot state, ``poison`` (B,)
         written into its static buffer, and fold its results back into the
@@ -1177,15 +1323,11 @@ class ContinuousEngine:
         t0 = time.perf_counter()
         h = self._host
         live = int(h["live"].sum())
-        self._upload(dict(h, poison=poison))
         greedy = bool((h["temp"] == 0.0).all())
         if self.speculative is not None:
-            emitted, finite = self._dispatch_spec_chunk(greedy)
+            emitted, finite = self._dispatch_spec_chunk(greedy, poison)
         else:
-            outs = self._run_chunk(
-                greedy, lambda steps=None: self._chunk_fn(greedy, steps),
-                greedy)
-            got = self._fold(outs, self.cache, slice(None))
+            got = self._chunk_results(poison, greedy)
             emitted, finite = got[:, :-1], got[:, -1] != 0
         self.chunks += 1
         self.chunk_times.append((live, time.perf_counter() - t0))
@@ -1312,7 +1454,8 @@ class ContinuousEngine:
         tok0 = self._admit_dispatch(slot, req)
         self.admit_seconds.append(time.perf_counter() - t0)
         self._arm_slot(slot, req, tok0)
-        self._emit("admit", uid=req.uid, slot=slot, prompt=len(req.tokens),
+        self._emit("admit", uid=req.uid, slot=slot,
+                   shard=self._shard_of(slot), prompt=len(req.tokens),
                    max_new=req.max_new, queue_delay=now - req.arrival_time)
         return self._decoding_state(req, now, clock)
 
@@ -1331,6 +1474,21 @@ class ContinuousEngine:
             else:
                 state[slot] = self._admit(slot, req, now, clock)
 
+    # the lane cursor: None while the lane is idle (a sharded engine keeps
+    # one a shard)
+    def _park_lane(self) -> None:
+        self._pf = None
+
+    def _lane_busy(self) -> bool:
+        return self._pf is not None
+
+    def _drop_lane_cursor(self, slot: int) -> None:
+        """Forget the lane cursor feeding ``slot`` (an abort): the lane
+        scratch needs no cleanup, since a later prompt reads only rows it
+        wrote."""
+        if self._pf is not None and self._pf["slot"] == slot:
+            self._pf = None
+
     def _start_prefill(self, sched: SlotScheduler, slot: int, req: Request,
                        now: float) -> Dict[str, Any]:
         """Mark a slot PREFILLING and park its flags (it rides the decode
@@ -1338,7 +1496,7 @@ class ContinuousEngine:
         sched.mark_prefilling(slot)
         self._park_slot_flags(slot)
         self._emit("prefill-start", uid=req.uid, slot=slot,
-                   prompt=len(req.tokens),
+                   shard=self._shard_of(slot), prompt=len(req.tokens),
                    chunks=-(-len(req.tokens) // self.p_chunk),
                    queue_delay=now - req.arrival_time)
         return {"slot": slot, "req": req, "offset": 0, "admit_time": now}
@@ -1379,7 +1537,8 @@ class ContinuousEngine:
         self._arm_slot(slot, req, tok0)
         sched.mark_decoding(slot)
         state[slot] = self._decoding_state(req, pf["admit_time"], clock)
-        self._emit("prefill-done", uid=req.uid, slot=slot, prompt=t,
+        self._emit("prefill-done", uid=req.uid, slot=slot,
+                   shard=self._shard_of(slot), prompt=t,
                    ttft=state[slot]["ttft"])
         self._pf = None
 
@@ -1446,15 +1605,14 @@ class ContinuousEngine:
             status=status,
             degraded=sched.degraded.pop(req.uid, None) is not None)
         results.append(res)
-        self._emit("finish", uid=req.uid, slot=slot, status=res.status,
+        self._emit("finish", uid=req.uid, slot=slot,
+                   shard=self._shard_of(slot), status=res.status,
                    n=res.n_generated, ttft=res.ttft, tok_s=res.decode_tok_s)
 
     def _abort_prefill(self, sched: SlotScheduler, slot: int) -> Request:
-        """Tear down a PREFILLING slot: the lane cursor is dropped (the
-        lane scratch needs no cleanup: a later prompt reads only rows it
-        wrote), the slot parked and freed."""
-        if self._pf is not None and self._pf["slot"] == slot:
-            self._pf = None
+        """Tear down a PREFILLING slot: its lane cursor dropped, the slot
+        parked and freed."""
+        self._drop_lane_cursor(slot)
         req = sched.release(slot)
         self._reset_dispatch(slot)
         self._park_slot_flags(slot)
@@ -1532,7 +1690,8 @@ class ContinuousEngine:
         state.pop(slot, None)
         self._reset_dispatch(slot)
         self._park_slot_flags(slot)
-        self._emit(event, uid=req.uid, slot=slot, n_gen=snap.n_gen,
+        self._emit(event, uid=req.uid, slot=slot,
+                   shard=self._shard_of(slot), n_gen=snap.n_gen,
                    pos=snap.pos, nbytes=snap.nbytes)
 
     def _resume(self, sched: SlotScheduler, state: Dict[int, Any],
@@ -1561,7 +1720,8 @@ class ContinuousEngine:
                        "prev_n_gen": snap.n_gen,
                        "queue_delay": snap.queue_delay, "ttft": snap.ttft,
                        "decode_spent": snap.decode_spent}
-        self._emit(event, uid=req.uid, slot=slot, n_gen=snap.n_gen,
+        self._emit(event, uid=req.uid, slot=slot,
+                   shard=self._shard_of(slot), n_gen=snap.n_gen,
                    pos=snap.pos)
 
     def _resume_ready(self, sched: SlotScheduler, state: Dict[int, Any],
@@ -1587,9 +1747,9 @@ class ContinuousEngine:
             self._suspend_slot(sched, state, slot, clock, event="preempt")
 
     def drain_shard(self, shard: int) -> None:
-        """Take ``shard`` out of rotation: sharded engines only (the
-        reference's ``ShardedContinuousEngine``; the port has none yet),
-        so a ``shard_down`` fault is refused loudly here."""
+        """Take ``shard`` out of rotation: sharded engines only
+        (``ShardedContinuousEngine.drain_shard``), so an unsharded engine
+        refuses a ``shard_down`` fault loudly."""
         raise ValueError("drain_shard needs a sharded engine "
                          "(ShardedContinuousEngine)")
 
@@ -1610,7 +1770,8 @@ class ContinuousEngine:
         for slot in [s for s in list(sched.active) if bad[s]]:
             req = sched.active[slot]
             self._emit("quarantine", uid=req.uid, slot=slot,
-                       cause=cause.get(slot), retries_left=req.retries,
+                       shard=self._shard_of(slot), cause=cause.get(slot),
+                       retries_left=req.retries,
                        chunk=self.chunks - 1)
             if req.retries <= 0:
                 self._finish_slot(sched, state, slot, Status.FAILED, clock(),
@@ -1649,7 +1810,7 @@ class ContinuousEngine:
         moves an armed slot's state; a trip joins this chunk's
         containment."""
         if self._has_attn_kv:
-            pos = self.cache["pos"].cpu().numpy()
+            pos = self._positions()
             armed = self._host["live"].copy()
             hz = self._chunk_horizon()
             w = self.cfg.sliding_window
@@ -1711,11 +1872,12 @@ class ContinuousEngine:
             s = uid2slot.get(f.uid)
             if s is None or not live[s]:
                 continue
-            n_rows = int(self._slot_cache(s)["pos"][s])
+            eng, loc = self._owner(s)
+            n_rows = int(eng._slot_cache(loc)["pos"][loc])
             if n_rows <= 0:
                 continue
             plan.fire(i)
-            flip_kv_bytes(self._slot_cache(s), s, n_rows, plan.rng(i),
+            flip_kv_bytes(eng._slot_cache(loc), loc, n_rows, plan.rng(i),
                           n_bytes=f.n_bytes)
             self._emit("fault", kind="kv_flip", uid=f.uid, slot=s,
                        n_bytes=f.n_bytes, chunk=ci)
@@ -1873,7 +2035,8 @@ class ContinuousEngine:
                 continue
             if sched.phase.get(slot) == PREFILLING:
                 sched.queue.append(self._abort_prefill(sched, slot))
-                self._emit("suspend", uid=uid, slot=slot, resumable=False)
+                self._emit("suspend", uid=uid, slot=slot,
+                           shard=self._shard_of(slot), resumable=False)
             else:
                 self._suspend_slot(sched, state, slot, clock)
 
@@ -1935,7 +2098,7 @@ class ContinuousEngine:
         for r in requests:
             self._check_request(r)
             sched.submit(r)
-        self._pf = None
+        self._park_lane()
         for slot in range(self.n_slots):      # every slot parked at entry
             self._park_slot_flags(slot)
         self.chunks = 0
@@ -1969,7 +2132,7 @@ class ContinuousEngine:
             else:
                 self._admit_ready(sched, state, clock(), clock)
             if not self._host["live"].any():
-                if self._pf is None:
+                if not self._lane_busy():
                     nxt = sched.next_arrival()
                     if nxt is not None:
                         time.sleep(max(nxt - clock(), 0.0))

@@ -22,9 +22,9 @@ The port's cache is a list of per-layer dicts whose K/V buffers are (B, S,
 
 ``SlotSnapshot.key`` is the slot generator's ``get_state()`` (a CPU
 ``ByteTensor``): the port samples from a ``torch.Generator`` per slot
-where the reference carries a PRNG key. The reference's ``take_owner_row``
-picks one shard's row out of a sharded extract; it comes with the sharded
-engine and is not ported here.
+where the reference carries a PRNG key. ``take_owner_row`` picks one
+shard's row out of a shard-stacked extract (the reference's sharded
+engine reads a slot so; the port's reads it on its owner shard alone).
 """
 from __future__ import annotations
 
@@ -32,12 +32,15 @@ import dataclasses
 import os
 from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from ..models.kvcache import _KV_LEAVES, _POOL_PREFIX
+from ..sharding import slot_cache_specs
 
 __all__ = ["SlotSnapshot", "pack_device_state", "unpack_device_state",
-           "slot_row_capacity", "save_checkpoint", "load_checkpoint"]
+           "slot_row_capacity", "save_checkpoint", "load_checkpoint",
+           "take_owner_row"]
 
 _ROW_LEAVES = frozenset(_KV_LEAVES)  # leaves with a sequence-row axis (1)
 
@@ -67,6 +70,21 @@ def pack_device_state(solo: Dict[str, Any], used_rows: int) -> Dict[str, Any]:
                                else leaf).to("cpu", copy=True)
                         for name, leaf in layer.items()}
                        for layer in solo["layers"]]}
+
+
+def take_owner_row(stacked: Dict[str, Any], owner: int) -> Dict[str, Any]:
+    """One shard's batch-1 slice out of a shard-stacked extract (every
+    shard's slice of a slot stacked along the slot axis,
+    ``sharding.slot_cache_specs``): the row ``owner`` of every leaf, as
+    numpy arrays."""
+    axes = slot_cache_specs(stacked)
+    return {"pos": np.take(np.asarray(stacked["pos"]), [owner],
+                           axis=axes["pos"]),
+            "layers": [{name: np.take(np.asarray(leaf), [owner],
+                                      axis=ax[name])
+                        for name, leaf in layer.items()}
+                       for layer, ax in zip(stacked["layers"],
+                                            axes["layers"])]}
 
 
 def unpack_device_state(dev: Dict[str, Any],

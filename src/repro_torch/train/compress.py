@@ -10,7 +10,8 @@ and pack; NxFP8 runs its 8-bit instance); on the CPU its plain version,
 the reference's arithmetic encoder and pack. The decode is the port's
 ``kernels/decode_lib.py`` in row chunks, so a 525M-value leaf never has
 more than a chunk of decoded values besides its own. The packed wire over
-``all_gather`` (``make_pod_grad_fn``) waits for the multi-device path.
+``all_gather`` (``make_pod_grad_fn``) waits for the process groups it
+needs (the sharded serving engines have no collective).
 """
 from __future__ import annotations
 

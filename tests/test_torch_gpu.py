@@ -2525,3 +2525,64 @@ def test_checkpoint_round_trip_on_card(cuda, tmp_path, monkeypatch):
         else:
             assert torch.equal(a.packed, b.packed)
             assert torch.equal(a.meta.to(torch.int32), b.meta.to(torch.int32))
+
+
+# -- slot-sharded serving: two shards on one card
+
+def _sharded_reqs(cfg, sampled=True):
+    from repro_torch.serving import Request
+    lens, news = [20, 33, 18, 40, 25, 21], [6, 12, 4, 9, 14, 7]
+    return [Request(uid=i, tokens=np.random.default_rng(i).integers(
+        0, cfg.vocab, (t,)).astype(np.int32), max_new=m,
+        arrival_time=0.0 if i < 3 else 0.05,
+        **(dict(temperature=1.3, seed=17) if sampled and i == 1 else {}))
+        for i, (t, m) in enumerate(zip(lens, news))]
+
+
+@pytest.mark.parametrize("mode", ["whole", "chunked"])
+def test_sharded_streams_on_card(cuda, mode):
+    """A 2-shard engine on ``cuda:0`` twice emits the unsharded engine's
+    streams bit for bit (4 slots each side: one GEMM regime), a seeded
+    sampled request included, every shard replaying its own graphs."""
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.serving import (ContinuousEngine,
+                                     ShardedContinuousEngine)
+    cfg = get_smoke_config("llama3_8b")
+    params = init_params(cfg, seed=0, device=cuda)
+    kw = dict(n_slots=4, max_len=64, chunk=4, prefill_mode=mode)
+    if mode == "chunked":
+        kw["p_chunk"] = 32
+    policy = QuantPolicy("nxfp4", "nxfp4")
+    want = {r.uid: r.tokens for r in ContinuousEngine(
+        cfg, params, policy, device=cuda, **kw).serve(_sharded_reqs(cfg))}
+    eng = ShardedContinuousEngine(cfg, params, policy, make_serving_mesh(
+        2, [cuda, cuda]), **kw)
+    got = {r.uid: r.tokens for r in eng.serve(_sharded_reqs(cfg))}
+    assert got.keys() == want.keys()
+    for uid in want:
+        np.testing.assert_array_equal(got[uid], want[uid])
+    assert all(sh._graphs for sh in eng.shards) and eng.replays > 0
+
+
+def test_sharded_migration_on_card(cuda):
+    """A ``shard_down`` at chunk 1 migrates shard 1's live requests onto
+    shard 0 through a snapshot and its restore; every stream stays OK and
+    bitwise the no-drain unsharded serve's."""
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.serving import (ContinuousEngine, Fault, FaultPlan,
+                                     ShardedContinuousEngine, Status)
+    cfg = get_smoke_config("llama3_8b")
+    params = init_params(cfg, seed=0, device=cuda)
+    kw = dict(n_slots=8, max_len=64, chunk=4)
+    policy = QuantPolicy("nxfp4", "nxfp4")
+    reqs = _sharded_reqs(cfg, sampled=False)[:4]
+    want = {r.uid: r.tokens for r in ContinuousEngine(
+        cfg, params, policy, device=cuda, **kw).serve(reqs)}
+    eng = ShardedContinuousEngine(cfg, params, policy, make_serving_mesh(
+        2, [cuda, cuda]), **kw)
+    got = eng.serve(reqs, fault_plan=FaultPlan(
+        [Fault(kind="shard_down", chunk=1, shard=1)]))
+    assert eng.migrate_seconds
+    for r in got:
+        assert r.status == Status.OK
+        np.testing.assert_array_equal(r.tokens, want[r.uid])

@@ -24,10 +24,13 @@ from repro_torch.kernels import build, dense_attention, nxfp_attention
 from repro_torch.kernels import nxfp_matmul
 from repro_torch.kernels import nxfp_qq_matmul, nxfp_quantize
 from repro_torch.kernels.ops import quantize_qtensor
+from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.launch.train import train_loop
 from repro_torch.models import init_cache, init_paged_cache, init_params
 from repro_torch.serving import (ContinuousEngine, PagedContinuousEngine,
                                  PriorityPreemption, ServeEngine,
+                                 ShardedContinuousEngine,
+                                 ShardedPagedContinuousEngine,
                                  TieredContinuousEngine, default_tiers)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -72,7 +75,10 @@ def test_import_scan_covers_the_package():
                  "src/repro_torch/serving/paged_engine.py",
                  "src/repro_torch/serving/faults.py",
                  "src/repro_torch/launch/train.py",
-                 "src/repro_torch/train/compress.py"):
+                 "src/repro_torch/train/compress.py",
+                 "src/repro_torch/serving/sharded.py",
+                 "src/repro_torch/launch/mesh.py",
+                 "src/repro_torch/sharding/rules.py"):
         assert must in names
 
 
@@ -84,6 +90,12 @@ def no_cuda(monkeypatch):
 
 def _smoke():
     return get_smoke_config("llama3_8b")
+
+
+def _mesh(dev):
+    """A 2-shard serving mesh: the first two CUDA devices by default,
+    else ``dev`` twice."""
+    return make_serving_mesh(2, None if dev is None else [dev] * 2)
 
 
 ENTRY_POINTS = {
@@ -117,6 +129,13 @@ ENTRY_POINTS = {
     "PagedContinuousEngine": lambda dev: PagedContinuousEngine(
         _smoke(), init_params(_smoke(), seed=0, device="cpu"),
         QuantPolicy("nxfp4", "nxfp4"), n_slots=2, max_len=16, device=dev),
+    "make_serving_mesh": _mesh,
+    "ShardedContinuousEngine": lambda dev: ShardedContinuousEngine(
+        _smoke(), init_params(_smoke(), seed=0, device="cpu"),
+        QuantPolicy("nxfp4", "nxfp4"), _mesh(dev), n_slots=2, max_len=16),
+    "ShardedPagedContinuousEngine": lambda dev: ShardedPagedContinuousEngine(
+        _smoke(), init_params(_smoke(), seed=0, device="cpu"),
+        QuantPolicy("nxfp4", "nxfp4"), _mesh(dev), n_slots=2, max_len=16),
     "train_loop": lambda dev: train_loop(_smoke(), steps=1, batch=2, seq=8,
                                          device=dev, log_every=100),
 }
