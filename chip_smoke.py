@@ -5,12 +5,11 @@
     python3 chip_smoke.py --layers 2   # same, with the depth cut to 2
     python3 chip_smoke.py --train-layers 4   # phase 20 trains 4 layers
 
-Phases 7-12, 14-17, 21, phase 13's Falcon-Mamba-7B and phase 18's paged
-and tiered engines serve their models at ``--serving-layers`` (default 8, at
-most ``--layers``; phases 14-16 served Llama-3-8B and Hymba-1.5B at full
-depth until phase 17 came, phases 11 and 13 theirs until phase 18 came);
-phase 13's Hymba-1.5B and phase 18's and 19's models serve at full
-depth.
+Phases 7-17, 21 and phase 18's paged and tiered engines serve their
+models at ``--serving-layers`` (default 8, at most ``--layers``; phases
+14-16 served Llama-3-8B and Hymba-1.5B at full depth until phase 17 came,
+phases 11 and 13 theirs until phase 18 came, phase 13's Hymba-1.5B until
+phase 22 came); phase 18's and 19's models serve at full depth.
 
 Phases, each fatal on failure (exit code 1, no result line):
 
@@ -107,8 +106,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    on every serve, the quantizer, the dequant GEMM and decode attention
    launched on the path, every lane chunk a replay of one of the lane's
    two CUDA graphs; and through a P 128 lane and whole admission. Printed
-   for the three in 2 rounds of (P 32, whole, P 128, P 128, whole,
-   P 32): tok/s, TTFT and queue delay (median,
+   for the three in 1 round (2 until phase 22 came) of (P 32, whole,
+   P 128, P 128, whole, P 32): tok/s, TTFT and queue delay (median,
    max), lane chunks, the largest stall a decode chunk waited behind and
    slot occupancy; one lane-chunk replay at P 16-128 against one
    decode-chunk replay (CUDA events); a serve under ``TtftDeadline`` with
@@ -189,7 +188,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    step); 3 requests (prompts 1000, 300, 64) through ``ContinuousEngine``
    whole and at P 256 (max_len 2048) and ``PagedContinuousEngine`` (no
    pages: no attention), every stream bitwise its solo host-loop stream.
-   Hymba-1.5B (32 layers, windowed attention and a Mamba head, nxfp4 KV
+   Hymba-1.5B (at ``--serving-layers``, its 32 layers until phase 22
+   came; windowed attention and a Mamba head, nxfp4 KV
    in a 1024-row ring): 3 requests (2600, 300, 64) whole and at P 256
    picked by ``p_chunk="auto"`` (the only candidate that is a multiple of
    ``ssm_chunk``; max_len 1280: the chunks from offset 1280 on run the
@@ -288,7 +288,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    retry: FAILED with a prefix of its fault-free stream; the K/V canary
    must trip) and a 0.05 s delay; every other stream bitwise the same
    engine's fault-free serve, every chunk a graph replay. Then the same
-   serve with the canaries off and on in turns, three times (its wall a
+   serve with the canaries off and on in turns, twice (three times until
+   phase 22 came; its wall a
    chunk, the canary work a chunk and its share of a chunk's dispatch and
    of that wall), one fold's CUDA-event ms, the
    quarantine-to-requeue ms; the speculative (k 4, recycled draft) and
@@ -355,12 +356,13 @@ Phases, each fatal on failure (exit code 1, no result line):
    bitwise those with grad off. (b) Llama-3-8B at full width and
    ``--train-layers`` depth (default 2: 1.487B parameters; 4 until
    phase 21 came) trained in
-   f32 by ``train_loop``: 30 steps of B 4 x T 256 from
+   f32 by ``train_loop``: 20 steps (30 until phase 22 came) of B 4 x T
+   256 from
    ``SyntheticLM(vocab=128256)``, 2 microbatches, remat, AdamW (cosine,
    peak 1e-3), ``grad_compress="nxfp8"``; every loss finite and the
    mean of the last 5 below step 0's; then a run with a
    ``CheckpointManager`` saving every 10 steps (keep 1, under
-   ``build/``) whose data source raises after step 20's checkpoint, and
+   ``build/``) whose data source raises after step 10's checkpoint, and
    a run resumed from it, which must reach step 30 with the uninterrupted
    run's losses and weights bitwise and its moments' bit sums. Printed:
    the losses, a step's forward+backward, cast and optimizer ms (CUDA
@@ -398,6 +400,29 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``spec_shard_stats()``. Launches
    are counted around each sharded serve alone (first serves: the
    shards' graph captures), peak memory printed.
+22. The paper's figures (``phase_figures``). (a) The quantizer's
+   table-driven instances (``KIND_TAB`` without code recycling,
+   ``KIND_CRT`` with it: the cast the reference's ``direct_cast_tree``
+   and ``fake_quant`` make) at full width: Llama-3-8B's w1 (4096 x 14336
+   f32, seeded) cast along K under every format the figures cast (Table
+   1's 16, Fig. 12's block sizes 8-128, Fig. 10's 3-bit ones, Fig. 11's
+   14 recycle points), each bitwise the plain ``quantize_blocks`` on
+   every 64th row of the blocked weight but counted candidate near-ties,
+   timed beside its bound and nxfp4's beside the serving instance; the
+   kv_sim route (``fake_quant_rows``) at a prefill's K (4, 128, 8, 128)
+   bf16 under mxfp4 and bfp4 against the plain ``fake_quant``. (b)
+   ``figures.common.trained_model`` (600 steps of 24 x 128 into a
+   temporary directory; its ppl must show training), then Table 1 and
+   Figs. 3 and 8-12 on it, every cast and fake-quantization the suite
+   makes held against the plain version (codes and meta, bitwise but
+   counted near-ties); every ordering the reference asserts printed
+   with its verdict (not held: a finding about the trained model), the
+   CSV rows and each figure's seconds. (c) Both example twins
+   (``examples/train_then_serve_quantized_torch.py``,
+   ``examples/longcontext_ssm_serving_torch.py``) run to completion. (d)
+   Table 1's W4 row through the table cast on phase 20's trained
+   Llama-3-8B (printed, not held). Launches are counted around (b), (c)
+   and (d) alone (``launches_phase22_path``).
 
 The last three lines are the kernel table as JSON, the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.
@@ -1693,7 +1718,8 @@ def phase_main(n_layers: int):
     return counts, per_step, cfg, engine, prompts, med
 
 
-LOOP_ROUNDS = 4       # phase 5: rounds of the three decode loops in turns
+LOOP_ROUNDS = 2       # phase 5: rounds of the three decode loops in turns
+                      # (4 until phase 22 came)
 
 
 def _device_loop_of(engine):
@@ -2104,7 +2130,8 @@ def phase_continuous(n_layers: int, graph_ms: float, card: str):
 # phase 9: the chunked-prefill lane at full width
 LANE_P = 32                   # the lane's chunk width
 LANE_WIDE_P = 128             # served too: the wgmma GEMM's whole M tile
-LANE_ROUNDS = 2               # rounds of each mode in turns, and reversed
+LANE_ROUNDS = 1               # rounds of each mode in turns, and reversed
+                              # (2 until phase 22 came)
 LANE_TIMED_P = (16, 32, 64, 128)
 LANE_REPLAYS = 20             # replays timed per graph
 
@@ -3498,8 +3525,9 @@ def phase_falcon(card, n_layers):
     return counts, fig
 
 
-def phase_hymba(card):
-    """Hymba-1.5B (32 layers, windowed attention and a Mamba head) at full
+def phase_hymba(card, n_layers):
+    """Hymba-1.5B (``n_layers`` deep, ``--serving-layers``: its 32 until
+    phase 22 came; windowed attention and a Mamba head) at full
     width: the decode step's invariance and the lane's state, then
     ``ContinuousEngine`` whole and at P 256 (a prompt that wraps the ring
     and runs the ring lane), and ``PagedContinuousEngine`` at P 256 with
@@ -3512,7 +3540,7 @@ def phase_hymba(card):
                                      Request)
     t0 = time.time()
     counts = {"cast": {}, "engines": {}}
-    cfg, params, cast_s = _counted(lambda: _cast_family(HYMBA),
+    cfg, params, cast_s = _counted(lambda: _cast_family(HYMBA, n_layers),
                                    counts["cast"])
     policy = QuantPolicy(None, "nxfp4")
     step_split = _ssm_invariance(cfg, params, "hymba")
@@ -3589,12 +3617,12 @@ def phase_hymba(card):
     return counts, fig
 
 
-def phase_ssm_family(card, falcon_layers):
-    """Phase 13: Falcon-Mamba-7B (``falcon_layers`` deep), then Hymba-1.5B
-    (32 layers)."""
+def phase_ssm_family(card, n_layers):
+    """Phase 13: Falcon-Mamba-7B, then Hymba-1.5B, both ``n_layers``
+    deep."""
     t0 = time.time()
-    fcounts, ffig = phase_falcon(card, falcon_layers)
-    hcounts, hfig = phase_hymba(card)
+    fcounts, ffig = phase_falcon(card, n_layers)
+    hcounts, hfig = phase_hymba(card, n_layers)
     llama_kv = 2048 * 36864        # Llama-3-8B's nxfp4 KV, 36,864 B a token
     log(f"  state per slot ({card}): falcon {ffig['state_bytes_slot']} bytes"
         f" of h and conv (Llama-3-8B's nxfp4 KV at 2048 tokens: {llama_kv};"
@@ -4830,7 +4858,8 @@ P17_REQS = ((64, 48), (128, 64), (96, 48), (32, 40), (160, 32))  # (T, new)
 P17_NAN_UID, P17_FLIP_UID = 1, 2   # uid 1 gets one retry, uid 2 none
 P17_FLIP_BYTES = 2
 P17_DELAY = 0.05                   # s
-P17_ROUNDS = 3                     # timed serves: (off, on, on, off) x 3
+P17_ROUNDS = 2                     # timed serves: (off, on, on, off) x 2
+                                   # (3 until phase 22 came)
 P17_FOLDS = 20                     # timed folds (CUDA events, median)
 P17_FALCON = ((300, 48), (64, 32), (32, 16))
 P17_TIERS = ((64, 32, "economy"), (96, 32, None), (48, 32, "economy"))
@@ -5671,21 +5700,22 @@ def _memory_rows(cfg) -> int:
     return cfg.n_vision_tokens or cfg.n_audio_frames
 
 
-def _fake_quant_diff(x, got, what):
+def _fake_quant_diff(x, got, what, fname="nxfp4"):
     """Blocks (along the last axis, padded as the codec pads them) where
-    ``got``, the kv_sim route's output for ``x`` on the card, differs from
-    the plain ``fake_quant`` of the same tensor; fails unless each is a
-    candidate near-tie. Returns (differing blocks, blocks)."""
+    ``got``, the kv_sim route's output for ``x`` on the card under
+    ``fname``, differs from the plain ``fake_quant`` of the same tensor;
+    fails unless each is a candidate near-tie. Returns (differing blocks,
+    blocks)."""
     from repro_torch.core.formats import get_format
     from repro_torch.core.quantize import (fake_quant, near_tie_blocks,
                                            to_blocks)
-    fmt = get_format("nxfp4")
+    fmt = get_format(fname)
     bs = fmt.block_size
     ne = (got != fake_quant(x, fmt, axis=-1)).to(torch.float32)
     diff = to_blocks(ne, bs, -1)[0].reshape(-1, bs).any(-1)
     if diff.any():
         xb = to_blocks(x.float(), bs, -1)[0].reshape(-1, bs)
-        if not bool(near_tie_blocks(xb[diff], fmt).all()):
+        if not bool(near_tie_blocks(xb[diff], fmt, table=True).all()):
             fail(f"{what}: the card's fake-quantized blocks differ from the "
                  "plain fake_quant beyond a candidate near-tie")
     return int(diff.sum()), diff.numel()
@@ -5901,18 +5931,18 @@ def _memory_guard(heads, s):
         fail(f"dense decode attention S={s}: a row at or past S was read")
 
 
-def _kv_sim_row(timer, rows):
+def _kv_sim_row(timer, rows, fname="nxfp4", key="nxfp_quantize kv_sim"):
     """The kv_sim route's kernel at a Llama-3-8B prefill's K (4, 128, 8,
-    128) bf16: the quantizer under the table-driven rules on its 16384
-    blocks against its plain version (bitwise but near ties), and
-    ``fake_quant_rows`` against the plain ``fake_quant``."""
+    128) bf16 under ``fname``: the quantizer under the table-driven rules
+    on its 16384 blocks against its plain version (bitwise but near
+    ties), and ``fake_quant_rows`` against the plain ``fake_quant``."""
     from repro_torch.core.formats import get_format
     from repro_torch.core.quantize import near_tie_blocks
     from repro_torch.core.pack import unpack_codes
     from repro_torch.kernels import nxfp_quantize as nq
     from repro_torch.kernels.decode_lib import decode_block_values
     from repro_torch.kernels.ops import fake_quant_rows
-    fmt = get_format("nxfp4")
+    fmt = get_format(fname)
     gen = torch.Generator(device="cuda").manual_seed(21)
     k = torch.randn(P19_KV_SIM, generator=gen, device="cuda").to(
         torch.bfloat16)
@@ -5920,30 +5950,32 @@ def _kv_sim_row(timer, rows):
     kp, km = nq.nxfp_quantize_pack(flat, fmt, table=True)
     pp, pm = nq.nxfp_quantize_pack_plain(flat, fmt, table=True)
     diff = (kp != pp).any(-1) | (km.to(torch.int32) != pm.to(torch.int32))
-    route, _ = _fake_quant_diff(k, fake_quant_rows(k, "nxfp4"), "kv_sim")
+    route, _ = _fake_quant_diff(k, fake_quant_rows(k, fname), "kv_sim",
+                                fname)
     err = float((decode_block_values(unpack_codes(kp, fmt.bits, 32), km, fmt)
                  - decode_block_values(unpack_codes(pp, fmt.bits, 32), pm,
                                        fmt)).abs().max())
-    if diff.any() and not bool(near_tie_blocks(flat[diff].float(),
-                                               fmt).all()):
-        fail("kv_sim quantizer: blocks differ from the plain codec beyond "
-             "a candidate near-tie")
+    if diff.any() and not bool(near_tie_blocks(flat[diff].float(), fmt,
+                                               table=True).all()):
+        fail(f"kv_sim quantizer ({fname}): blocks differ from the plain "
+             "codec beyond a candidate near-tie")
     n = flat.shape[0]
     ms = timer(lambda: nq.nxfp_quantize_pack(flat, fmt, table=True))
     plain_ms = timer(lambda: nq.nxfp_quantize_pack_plain(flat, fmt, True), 5)
-    route_ms = timer(lambda: fake_quant_rows(k, "nxfp4"))
+    route_ms = timer(lambda: fake_quant_rows(k, fname))
     n_cands = int(nq.evaluated_candidates(flat, fmt).sum())
     b_ms, b_by = bound(n * 32 * 2 + n * (fmt.bytes_per_block + 2),
                        n_cands * 32 * QUANT_OPS, PEAK_F32)
-    log(f"kv_sim quantizer (K {P19_KV_SIM} bf16, {n} blocks): bitwise but "
-        f"{int(diff.sum())} near-tie blocks (the route: {route}); "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, the whole route "
-        f"(kernel + decode) {route_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
-    rows["nxfp_quantize kv_sim"] = dict(
+    log(f"kv_sim quantizer (K {P19_KV_SIM} bf16, {fname}, {n} blocks): "
+        f"bitwise but {int(diff.sum())} near-tie blocks (the route: "
+        f"{route}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, the whole "
+        f"route (kernel + decode) {route_ms:.4f} ms, bound {b_ms:.5f} ms "
+        f"({b_by})")
+    rows[key] = dict(
         max_abs_err=err, ms=ms,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
         near_ties=int(diff.sum()), route_ms=route_ms,
-        shape=f"K {P19_KV_SIM} bf16 (kv_sim_fmt nxfp4), {n} blocks")
+        shape=f"K {P19_KV_SIM} bf16 (kv_sim_fmt {fname}), {n} blocks")
 
 
 def check_phase19_kernels(timer, rows):
@@ -6003,11 +6035,12 @@ def phase_vlm_audio(card: str, rows):
     return counts, fig
 
 
-P20_STEPS = 30                        # (b) training steps
+P20_STEPS = 20                        # (b) training steps (30 until
+                                      # phase 22 came)
 P20_BATCH, P20_SEQ, P20_MICRO = 4, 256, 2
 P20_LR = 1e-3                         # the cosine schedule's peak
 P20_CKPT_EVERY = 10
-P20_RESUME = 20                       # the crash comes after this checkpoint
+P20_RESUME = 10                       # the crash comes after this checkpoint
 P20_SMALL = (4, 32)                   # (a) the smoke Llama's batch
 P20_HEAD_TILE = (4, 4)                # (a) B x T rows on the 16-row head tile
 P20_GRAD_TOL = 2e-2                   # (a) |g_card - g_cpu| / |g_cpu|
@@ -6162,7 +6195,7 @@ def _bits_sum(t) -> int:
 def _p20_train(cfg, counts, tmp):
     """(b) Llama-3-8B at full width and ``cfg.n_layers`` depth trained in
     f32: the uninterrupted run (its figures), then a run that crashes
-    after step 20's checkpoint and one resumed from it. Returns (the
+    after step 10's checkpoint and one resumed from it. Returns (the
     trained weights, figures)."""
     import numpy as np
     from repro_torch.data import SyntheticLM
@@ -6202,7 +6235,7 @@ def _p20_train(cfg, counts, tmp):
     sums = [_bits_sum(t) for t in tree_leaves((state.opt.mu, state.opt.nu))]
     del state
     _free()
-    # the crash after step 20's checkpoint, then the resumed run
+    # the crash after step 10's checkpoint, then the resumed run
     t0 = time.time()
     try:
         train_loop(cfg, source=_CrashAfter(src, P20_RESUME), ckpt_dir=tmp,
@@ -6368,6 +6401,8 @@ def phase_train(card: str, train_layers: int, rows):
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
         params, fig["train"] = _p20_train(cfg, counts, Path(tmp))
     fig["eval"] = _p20_cast_eval_serve(cfg, params, counts)
+    # phase 22 reads Table 1's W4 row off these weights
+    fig["trained"] = (cfg, params)
     del params
     _free()
     timer = Timer("cuda")
@@ -6392,7 +6427,8 @@ def phase_train(card: str, train_layers: int, rows):
         f"{tr['peak']} bytes above the weights' start ({tr['peak'] / 1e9:.2f}"
         f" GB, predicted {lo}-{hi} GB at {P20_PREDICTED['layers']} layers); "
         f"run {tr['train_s']:.1f} s; crash "
-        f"run (checkpoints at {P20_CKPT_EVERY} and {P20_RESUME}) "
+        f"run (a checkpoint every {P20_CKPT_EVERY} steps, the crash after "
+        f"step {P20_RESUME}'s) "
         f"{tr['crash_s']:.1f} s, resumed run {tr['resume_s']:.1f} s, "
         f"checkpoint {tr['ckpt_bytes']} bytes; resumed == uninterrupted "
         f"(losses, weights bitwise; moments by their bits' sums)")
@@ -6685,6 +6721,319 @@ def phase_sharded(card: str, serving_layers: int):
     return counts, fig
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the paper's figures (A2) on the card
+# ---------------------------------------------------------------------------
+
+P22_W1 = (4096, 14336)             # (a) Llama-3-8B's w1, cast along K
+P22_ROW_STRIDE = 64                # (a) the plain version's rows of it
+P22_KV_FMTS = ("mxfp4", "bfp4")    # (a) the kv_sim route at P19_KV_SIM
+# (a) the casts whose rows join the kernel table: the table instance
+# without CR (mxfp4), with it (nxfp4), at block size 128 (bfp4_bs128)
+P22_TABLE_ROWS = ("mxfp4", "nxfp4", "bfp4_bs128")
+P22_MAIN_ROWS = ("nxfp_quantize table mxfp4 w1",)
+P22_KERNELS = {"figures": ("nxfp_quantize",),
+               "examples": ("nxfp_quantize", "nxfp_matmul",
+                            "nxfp_attention"),
+               "full-width W4": ("nxfp_quantize",)}
+# the predictions written before phase 22's first run (PERF.md §6, PR 33)
+P22_PREDICTED = {"seconds": (45, 75), "train_s": (15, 35),
+                 "table_vs_serving": (0.9, 1.3)}
+
+
+def _p22_formats():
+    """Every format the figures cast: Table 1's 16, Fig. 12's block sizes,
+    Fig. 10's 3-bit ones, then Fig. 11's recycle points."""
+    from repro_torch.core.formats import get_format
+    from repro_torch.figures import fig10_accuracy as f10
+    from repro_torch.figures import fig11_remap_sweep as f11
+    from repro_torch.figures import fig12_blocksize as f12
+    from repro_torch.figures import table1_perplexity as t1
+    names = [f for row in t1.ROWS.values() for f in row]
+    names += [f12.fmt_name(fam, bs) for bs in f12.BS for fam in f12.FAMILIES]
+    names += f10.FMTS
+    return ([get_format(n) for n in dict.fromkeys(names)]
+            + [f11._fmt_with_recycle(base, float(v))
+               for base, elem in f11.BASES for v in f11.sweep_points(elem)])
+
+
+def _p22_table_cast(timer, w, fmt, rows, serving_ms=None):
+    """(a) ``w`` (K, N) f32 cast along K by the quantizer under the
+    table-driven rules (``table=True``), held against the plain
+    ``quantize_blocks`` on every ``P22_ROW_STRIDE``-th row of the blocked
+    weight (its N axis), bitwise but counted candidate near-ties, and
+    timed beside its bound. Formats in ``P22_TABLE_ROWS`` also time the
+    plain version on those rows and join the kernel table. Returns (ms,
+    bound ms, what bounds it, near ties, blocks compared)."""
+    from repro_torch.core.pack import unpack_codes
+    from repro_torch.core.quantize import (meta_int32, near_tie_blocks,
+                                           to_blocks)
+    from repro_torch.kernels import nxfp_quantize as nq
+    from repro_torch.kernels.decode_lib import decode_block_values
+    bs = fmt.block_size
+    xb, _ = to_blocks(w, bs, -2)                      # (N, K / bs, bs)
+    flat = xb.reshape(-1, bs)
+    kp, km = nq.nxfp_quantize_pack(flat, fmt, table=True)
+    sample = xb[::P22_ROW_STRIDE].reshape(-1, bs).contiguous()
+    pp, pm = nq.nxfp_quantize_pack_plain(sample, fmt, table=True)
+    ks = kp.reshape(*xb.shape[:2], -1)[::P22_ROW_STRIDE].reshape(
+        -1, kp.shape[-1])
+    kms = km.reshape(xb.shape[:2])[::P22_ROW_STRIDE].reshape(-1)
+    diff = (ks != pp).any(-1) | (meta_int32(kms) != meta_int32(pm))
+    n_diff = int(diff.sum())
+    if n_diff and not bool(near_tie_blocks(sample[diff], fmt,
+                                           table=True).all()):
+        fail(f"phase 22: the table cast of {fmt.name} differs from the "
+             "plain quantize_blocks beyond a candidate near-tie")
+    t = flat.shape[0]
+    ms = timer(lambda: nq.nxfp_quantize_pack(flat, fmt, table=True))
+    n_cands = int(nq.evaluated_candidates(flat, fmt).sum())
+    b_ms, b_by = bound(t * bs * 4 + t * (fmt.bytes_per_block + 2),
+                       n_cands * bs * QUANT_OPS, PEAK_F32)
+    if fmt.name in P22_TABLE_ROWS:
+        def deq(p, m):
+            return decode_block_values(unpack_codes(p, fmt.bits, bs), m, fmt)
+        err = 0.0 if not n_diff else float(
+            (deq(ks[diff], kms[diff]) - deq(pp[diff], pm[diff])).abs().max())
+        plain_ms = timer(lambda: nq.nxfp_quantize_pack_plain(
+            sample, fmt, True), 3)
+        rows[f"nxfp_quantize table {fmt.name} w1"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=None, near_ties=n_diff,
+            serving_ms=serving_ms, candidates_per_block=n_cands / t,
+            shape=f"{P22_W1} f32 weight along K, {t} blocks of {bs}, "
+                  f"{fmt.name} under the table-driven rules "
+                  f"(KIND_{'CRT' if fmt.cr else 'TAB'}); plain_ms on "
+                  f"every {P22_ROW_STRIDE}th row ({sample.shape[0]} "
+                  "blocks)")
+    return ms, b_ms, b_by, n_diff, sample.shape[0]
+
+
+def check_phase22_kernels(timer, rows):
+    """(a) The quantizer's table instances at full width: Llama-3-8B's w1
+    (4096 x 14336 f32, seeded) under every format the figures cast, each
+    against the plain version on a fixed sample of rows; the nxfp4 table
+    instance against the serving (arithmetic) instance on the same
+    weight; then the kv_sim route at a prefill's K under mxfp4 and
+    bfp4."""
+    from repro_torch.core.formats import get_format
+    from repro_torch.core.quantize import to_blocks
+    from repro_torch.kernels import nxfp_quantize as nq
+    t0 = time.time()
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    w = torch.randn(P22_W1, generator=gen, device="cuda") * 0.02
+    nx4 = get_format("nxfp4")
+    flat = to_blocks(w, 32, -2)[0].reshape(-1, 32)
+    serving_ms = timer(lambda: nq.nxfp_quantize_pack(flat, nx4))
+    del flat
+    casts, ties, n_blocks = {}, 0, 0
+    for fmt in _p22_formats():
+        ms, b_ms, b_by, n_diff, n = _p22_table_cast(
+            timer, w, fmt, rows, serving_ms if fmt.name == "nxfp4" else None)
+        casts[fmt.name] = (round(ms, 4), round(b_ms, 4), b_by[0])
+        ties += n_diff
+        n_blocks += n
+    del w
+    for fname in P22_KV_FMTS:
+        _kv_sim_row(timer, rows, fname, f"nxfp_quantize kv_sim {fname}")
+    ratio = casts["nxfp4"][0] / serving_ms
+    log(f"  (a) table instances ({len(casts)} formats, w1 {P22_W1} f32 "
+        f"along K, plain on every {P22_ROW_STRIDE}th row: {n_blocks} "
+        f"blocks compared, bitwise but {ties} near-tie blocks): nxfp4 "
+        f"table {casts['nxfp4'][0]} ms against the serving instance "
+        f"{serving_ms:.4f} ms (ratio {ratio:.3f}, predicted "
+        f"{P22_PREDICTED['table_vs_serving']}); (ms, bound ms, bound by) "
+        f"by format {casts}; {time.time() - t0:.1f} s")
+    return dict(casts=casts, near_ties=ties, serving_ms=serving_ms,
+                ratio=ratio)
+
+
+class _CastCheck:
+    """While active, every quantizer call of ``kernels.ops`` (the casts
+    and ``fake_quant_rows``) is followed by the plain version on the same
+    blocks under the same rules, codes and meta compared (bitwise but
+    counted candidate near-ties, else the phase fails). The plain version
+    launches no kernel, so the launch counts read only the path's."""
+
+    def __init__(self):
+        from repro_torch.kernels import ops
+        self.ops, self.real = ops, ops.nxfp_quantize_pack
+        self.calls = self.blocks = self.near_ties = 0
+
+    def __call__(self, xb, fmt, plan=None, table=False):
+        from repro_torch.core.quantize import meta_int32, near_tie_blocks
+        from repro_torch.kernels import nxfp_quantize as nq
+        kp, km = self.real(xb, fmt, plan, table)
+        pp, pm = nq.nxfp_quantize_pack_plain(xb, fmt, table)
+        diff = (kp != pp).any(-1) | (meta_int32(km) != meta_int32(pm))
+        n = int(diff.sum())
+        if n and not bool(near_tie_blocks(xb[diff].float(), fmt,
+                                          table=table).all()):
+            fail(f"phase 22: a figure's cast ({fmt.name}, {xb.shape[0]} "
+                 "blocks) differs from the plain version beyond a "
+                 "candidate near-tie")
+        self.calls += 1
+        self.blocks += xb.shape[0]
+        self.near_ties += n
+        return kp, km
+
+    def __enter__(self):
+        self.ops.nxfp_quantize_pack = self
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.nxfp_quantize_pack = self.real
+
+
+def _p22_figures(counts):
+    """(b) ``trained_model`` (600 steps of 24 x 128 into a temporary
+    directory), then Table 1 and Figs. 3 and 8-12 on it, every cast held
+    against the plain version (``_CastCheck``). Returns (figures, the
+    orderings' verdicts by figure, the CSV rows)."""
+    import tempfile
+    from pathlib import Path
+    from repro_torch.figures import (common, fig3_profile, fig8_quant_error,
+                                     fig9_tradeoff, fig10_accuracy,
+                                     fig11_remap_sweep, fig12_blocksize,
+                                     table1_perplexity)
+    t0 = time.time()
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        model = common.trained_model(device="cuda", cache=Path(tmp))
+    torch.cuda.synchronize()
+    fig = {"train_s": round(time.time() - t0, 1), "seconds": {}}
+    csv, verdicts = common.Csv(), {}
+    with _CastCheck() as chk:
+        for mod in (table1_perplexity, fig3_profile, fig8_quant_error,
+                    fig9_tradeoff, fig10_accuracy, fig11_remap_sweep,
+                    fig12_blocksize):
+            name = mod.__name__.rsplit(".", 1)[-1]
+            t0 = time.time()
+            r = _counted(lambda: mod.compute(csv, model=model,
+                                             device="cuda"),
+                         counts["figures"])
+            torch.cuda.synchronize()
+            fig["seconds"][name] = round(time.time() - t0, 1)
+            verdicts[name] = mod.orderings(r)
+            if name == "table1_perplexity":
+                fig["base_ppl"] = r["base"]
+    if not fig["base_ppl"] < common.BENCH_CFG.vocab / 2:
+        fail(f"phase 22: the trained bench model's ppl {fig['base_ppl']} "
+             "shows no training")
+    fig.update(casts=chk.calls, cast_blocks=chk.blocks,
+               cast_near_ties=chk.near_ties)
+    return fig, verdicts, csv.rows
+
+
+def _p22_examples(counts):
+    """(c) Both example twins run to completion on the card (the
+    train-then-serve one's checkpoints in a temporary directory)."""
+    import importlib.util
+    import tempfile
+
+    def load(name):
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(ROOT, "examples", f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    t0 = time.time()
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        tts = _counted(lambda: load("train_then_serve_quantized_torch").main(
+            "cuda", ckpt_dir=tmp), counts["examples"])
+    t1 = time.time()
+    lc = _counted(lambda: load("longcontext_ssm_serving_torch").main("cuda"),
+                  counts["examples"])
+    import numpy as np
+    if not np.isfinite(tts["base_ppl"]) or tts["tokens"].shape != (8, 32):
+        fail("phase 22: the train-then-serve example's results are off")
+    return dict(train_then_serve_s=round(t1 - t0, 1),
+                longcontext_s=round(time.time() - t1, 1),
+                state_bytes={a: v["state_bytes"] for a, v in lc.items()})
+
+
+def _p22_full_width(trained, counts):
+    """(d) Table 1's W4 row through the table cast on phase 20's trained
+    full-width Llama-3-8B: the ppl of the held-out batch (phase 20's)
+    over each cast's ``dense_like`` and over the f32 weights. Printed,
+    not held: 30 steps from random weights cannot show the ordering."""
+    import math
+    from repro_torch.core.qtensor import dense_like
+    from repro_torch.data import SyntheticLM, make_data_iter
+    from repro_torch.figures import common
+    from repro_torch.figures.table1_perplexity import ROWS
+    from repro_torch.models import loss_fn
+    cfg, params = trained
+    held = next(make_data_iter(SyntheticLM(vocab=cfg.vocab, seed=0),
+                               P20_BATCH, P20_SEQ, seed=1))
+    held = {"tokens": torch.as_tensor(held["tokens"]).to("cuda")}
+    t0 = time.time()
+    with torch.no_grad():
+        out = {"f32": math.exp(float(loss_fn(cfg, params, held)[0]))}
+        for fmt in ROWS[4]:
+            qp = _counted(lambda: common.cast_tree(params, fmt),
+                          counts["full-width W4"])
+            out[fmt] = math.exp(float(loss_fn(cfg, dense_like(qp), held)[0]))
+            del qp
+    _free()
+    return dict(ppl=out, seconds=round(time.time() - t0, 1))
+
+
+def phase_figures(card: str, rows, trained=None):
+    """Phase 22: the paper's figures (A2). (a) the quantizer's table
+    instances at full width and the kv_sim route; (b) the figure suite
+    on a bench model trained on the card; (c) both example twins; (d)
+    Table 1's W4 row on phase 20's trained Llama-3-8B (skipped when
+    ``trained`` is None). Launches are counted around (b), (c) and (d)
+    alone. Returns (counts by path, figures)."""
+    t_phase = time.time()
+    counts = {path: {} for path in P22_KERNELS}
+    timer = Timer("cuda")
+    fig = {"kernels": check_phase22_kernels(timer, rows)}
+    del timer
+    _free()
+    fig["figures"], verdicts, csv_rows = _p22_figures(counts)
+    _free()
+    fig["examples"] = _p22_examples(counts)
+    _free()
+    if trained is not None:
+        fig["full_width"] = _p22_full_width(trained, counts)
+    fig["seconds"] = round(time.time() - t_phase, 1)
+    f = fig["figures"]
+    log(f"  (b) figure suite ({card}; PYTHONHASHSEED "
+        f"{os.environ.get('PYTHONHASHSEED', 'unset')}): trained_model 600 "
+        f"steps of 24 x 128 in {f['train_s']} s (predicted "
+        f"{P22_PREDICTED['train_s']}), fp32 ppl {f['base_ppl']:.4f}; "
+        f"{f['casts']} casts ({f['cast_blocks']} blocks) on the quantizer's "
+        f"table instances, each equal to the plain version but in "
+        f"{f['cast_near_ties']} near-tie blocks; seconds by figure "
+        f"{f['seconds']}")
+    for name, rule in verdicts.items():
+        for what, ok in rule:
+            log(f"  ordering {name}: {what}: {'holds' if ok else 'FAILS'}")
+    log("  CSV rows: " + json.dumps([r[:3] for r in csv_rows]))
+    e = fig["examples"]
+    log(f"  (c) examples ({card}): train_then_serve_quantized_torch "
+        f"{e['train_then_serve_s']} s, longcontext_ssm_serving_torch "
+        f"{e['longcontext_s']} s (state bytes {e['state_bytes']})")
+    if "full_width" in fig:
+        fw = fig["full_width"]
+        log(f"  (d) Table 1's W4 row on phase 20's trained Llama-3-8B "
+            f"({card}; held-out B {P20_BATCH} x T {P20_SEQ}, table cast, "
+            f"dense_like): ppl {json.dumps(fw['ppl'])}; {fw['seconds']} s "
+            "(printed, not held)")
+    lo, hi = P22_PREDICTED["seconds"]
+    log(f"  launches on phase 22's paths: {counts}; phase 22 "
+        f"{fig['seconds']} s (predicted {lo}-{hi})")
+    for path, names in P22_KERNELS.items():
+        if path == "full-width W4" and trained is None:
+            continue
+        for name in names:
+            if counts[path].get(name, 0) <= 0:
+                fail(f"phase 22 ({path}): kernel {name} was never launched")
+    return counts, fig
+
+
 def kernel_formats(kname, rows, wide_counts):
     """The formats ``kname`` ran in this run: its main-path formats, its
     phase-3 wide rows and the formats phase 7 served through it."""
@@ -6719,7 +7068,10 @@ KERNELS = {
                        "src/repro_torch/csrc/nxfp_quantize_bs8.cu",
                        "src/repro_torch/csrc/nxfp_quantize_bs64.cu",
                        "src/repro_torch/csrc/nxfp_quantize_bs128.cu",
-                       "src/repro_torch/csrc/nxfp_quantize_crt.cu"],
+                       "src/repro_torch/csrc/nxfp_quantize_crt.cu",
+                       "src/repro_torch/csrc/nxfp_quantize_tab.cu",
+                       "src/repro_torch/csrc/nxfp_quantize_tabw.cu",
+                       "src/repro_torch/csrc/nxfp_quantize_tab237.cu"],
                       "src/repro/kernels/nxfp_quantize.py:92"),
     "nxfp_matmul": (["src/repro_torch/csrc/nxfp_matmul_decode.cu",
                      "src/repro_torch/csrc/nxfp_matmul_prefill.cu",
@@ -6758,8 +7110,8 @@ QQ_PATH = ("nxfp_qq_matmul",)
 TIER_PATH = ("dense_decode_attention",)
 # phases 7-10, 12, 14-17 and 21 serve Llama-3-8B at this depth (the main
 # path, phase 5, at --layers), phase 11 its dense family, phase 13
-# Falcon-Mamba-7B and phase 18 Qwen-MoE's paged and tiered engines: the
-# script's clock keeps full depth for phase 13's Hymba and phase 18's
+# Falcon-Mamba-7B and Hymba-1.5B and phase 18 Qwen-MoE's paged and tiered
+# engines: the script's clock keeps full depth for phase 18's and 19's
 # models
 SERVING_LAYERS = 8
 # phase 20 trains Llama-3-8B at full width and this depth (4 until phase
@@ -6774,7 +7126,8 @@ def main():
     ap.add_argument("--serving-layers", type=int, default=SERVING_LAYERS,
                     help="Llama-3-8B depth for phases 7-10, 12, 14-17 "
                          "and 21, the dense family's for phase 11, "
-                         "Falcon-Mamba-7B's for phases 13-17 and "
+                         "Falcon-Mamba-7B's and Hymba-1.5B's for phases "
+                         "13-17 and "
                          "Qwen-MoE's for phase 18's paged and tiered "
                          f"engines (default {SERVING_LAYERS}, at most "
                          "--layers)")
@@ -6869,12 +7222,19 @@ def main():
     log(f"phase 19 seconds: {time.time() - t19:.1f}")
     t20 = time.time()
     p20_rows = set(rows)
-    p20_counts, _ = phase_train(smi_line, args.train_layers, rows)
+    p20_counts, p20_fig = phase_train(smi_line, args.train_layers, rows)
+    trained = p20_fig.pop("trained")
     p20_rows = [k for k in rows if k not in p20_rows]
     log(f"phase 20 seconds: {time.time() - t20:.1f}")
     t21 = time.time()
     phase_sharded(smi_line, late)
     log(f"phase 21 seconds: {time.time() - t21:.1f}")
+    t22 = time.time()
+    p22_rows = set(rows)
+    p22_counts, _ = phase_figures(smi_line, rows, trained)
+    p22_rows = [k for k in rows if k not in p22_rows]
+    del trained
+    log(f"phase 22 seconds: {time.time() - t22:.1f}")
 
     table = []
     for kname, (sources, replaces) in KERNELS.items():
@@ -6911,6 +7271,8 @@ def main():
                                    for path, n in p19_counts.items()},
             launches_phase20_path={path: n.get(c, 0)
                                    for path, n in p20_counts.items()},
+            launches_phase22_path={path: n.get(c, 0)
+                                   for path, n in p22_counts.items()},
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
@@ -7001,11 +7363,28 @@ def main():
             **{f: r[f] for f in ("max_abs_err", "ms", "plain_ms",
                                  "bound_ms", "bound_by", "library_ms",
                                  "shape")}))
+    # the rows at phase 22's shapes (the table instances at w1, the kv_sim
+    # route under mxfp4 and bfp4), each with the quantizer's launches on
+    # phase 22's paths (the figure suite, the examples, the full-width W4
+    # casts)
+    for key in sorted(p22_rows, key=lambda k: k not in P22_MAIN_ROWS):
+        sources, replaces = KERNELS["nxfp_quantize"]
+        by_path = {path: n.get("nxfp_quantize", 0)
+                   for path, n in p22_counts.items()}
+        r = rows[key]
+        table.append(dict(
+            name=key, kernel="nxfp_quantize", route="cuda",
+            source=sources[0], replaces=replaces,
+            launches=sum(by_path.values()), launches_phase22_path=by_path,
+            **{f: r[f] for f in ("max_abs_err", "ms", "plain_ms",
+                                 "bound_ms", "bound_by", "library_ms",
+                                 "shape")}))
     extra = [dict(name=k, **{f: v for f, v in r.items()})
              for k, r in rows.items()
              if k not in MAIN_ROW.values() and k not in ssm_rows
              and k not in p15_rows and k not in p18_rows
-             and k not in p19_rows and k not in p20_rows]
+             and k not in p19_rows and k not in p20_rows
+             and k not in p22_rows]
     log(f"other shapes: {json.dumps(extra)}")
     log(f"total seconds: {time.time() - t_start:.1f}")
     print(json.dumps({"kernels": table}), flush=True)

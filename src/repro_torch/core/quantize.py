@@ -309,15 +309,18 @@ def arith_encode_blocks(xb, fmt: BlockFormat):
     return _best(_candidate_results(xb, fmt))
 
 
-def near_tie_blocks(xb, fmt: BlockFormat, ulps: int = 4):
+def near_tie_blocks(xb, fmt: BlockFormat, ulps: int = 4,
+                    table: bool = False):
     """(..., nb) bool: blocks whose best and runner-up candidate MSEs lie
-    within ``ulps`` f32 ulps of each other.
+    within ``ulps`` f32 ulps of each other, under the encoder ``fmt`` is
+    served with or, with ``table``, the table-driven one
+    (``quantize_blocks``).
 
     Only there may two correct encoders pick different candidates: the
     32-element mean is summed in another order by XLA, torch and CUDA.
     Used to tell such blocks from real faults when codes differ.
     """
-    table = not arith_ok(fmt) and not (fmt.asym or fmt.ox)
+    table = (table or not arith_ok(fmt)) and not (fmt.asym or fmt.ox)
     mses = torch.stack([mse for _, _, mse in
                         _candidate_results(xb, fmt, table)])
     if mses.shape[0] < 2:

@@ -30,8 +30,8 @@ struct CandList {
   int ox;
   int n_cands;
   CandDesc c[kMaxCands];
-  int table;  // a custom recycle value: the table-driven encoder's rules
-  float cr_lo[2], cr_hi[2], cr_val[2];  // its window and value per fmt bit
+  int table;  // the table-driven encoder's rules (quantize_blocks)
+  float cr_lo[2], cr_hi[2], cr_val[2];  // CR: its window and value per fmt bit
 };
 
 bool matches(const CandDesc& cd, int bits, int ebits) {
@@ -76,19 +76,18 @@ bool reduce(const CandList& cl, int bits, nxfpq::Fmt& f, int& mxe,
       mxe = ebits;
     }
   }
-  if (cl.cr && (cl.asym || cl.ox)) return false;
-  if (cl.table && !cl.cr) return false;
+  if ((cl.cr || cl.table) && (cl.asym || cl.ox)) return false;
   f.asym = cl.asym;
   for (int b = 0; b < 2; ++b) {
     f.cr_lo[b] = cl.cr_lo[b];
     f.cr_hi[b] = cl.cr_hi[b];
     f.cr_val[b] = cl.cr_val[b];
   }
-  kind = cl.ox     ? nxfpq::KIND_OX
-         : cl.asym ? nxfpq::KIND_ASYM
-         : cl.table ? nxfpq::KIND_CRT
-         : cl.cr   ? nxfpq::KIND_CR
-                   : nxfpq::KIND_SYM;
+  kind = cl.ox      ? nxfpq::KIND_OX
+         : cl.asym  ? nxfpq::KIND_ASYM
+         : cl.table ? (cl.cr ? nxfpq::KIND_CRT : nxfpq::KIND_TAB)
+         : cl.cr    ? nxfpq::KIND_CR
+                    : nxfpq::KIND_SYM;
   return true;
 }
 
@@ -127,6 +126,9 @@ extern "C" int nxfp_quantize_launch(const void* job_desc, int bits,
   NXFPQ_INSTANCES_BS64(NXFPQ_CASE)
   NXFPQ_INSTANCES_BS128(NXFPQ_CASE)
   NXFPQ_INSTANCES_CRT(NXFPQ_CASE)
+  NXFPQ_INSTANCES_TAB(NXFPQ_CASE)
+  NXFPQ_INSTANCES_TABW(NXFPQ_CASE)
+  NXFPQ_INSTANCES_TAB237(NXFPQ_CASE)
 #undef NXFPQ_CASE
   return (int)cudaErrorInvalidValue;
 }

@@ -57,17 +57,19 @@ struct Fmt {
 
 // The format kinds an instance is compiled for: symmetric, symmetric with
 // code recycling, asymmetric (AMXFP), outlier mantissa (MX+, asym at run
-// time), and code recycling with a custom recycled value, which the
-// reference encodes table-driven (core/quantize.py: quantize_blocks): a
-// value on a midpoint between two levels takes the lower one, and the
-// recycled value sits wherever the format puts it. CR excludes asym and ox
-// (formats.py).
+// time), and the reference's table-driven encoder (core/quantize.py:
+// quantize_blocks: a value on a midpoint between two levels takes the lower
+// one), with code recycling (the recycled value wherever the format puts
+// it: any custom value, or the default under the table's rules) or without
+// (BFP, MxFP and the NxFP ablations as the reference's direct_cast_tree and
+// fake_quant cast them). CR excludes asym and ox (formats.py).
 enum Kind {
   KIND_SYM = 0,
   KIND_CR = 1,
   KIND_ASYM = 2,
   KIND_OX = 3,
-  KIND_CRT = 4
+  KIND_CRT = 4,
+  KIND_TAB = 5
 };
 // A thread per block over a shared-memory tile, or a warp per block.
 enum Regime { REGIME_TILE = 0, REGIME_WARP = 1 };
@@ -115,9 +117,11 @@ cudaError_t launch(const Job& job, const Fmt& fmt, int regime, int per_cta,
 // are listed apart from the rest, each group in a file of its own so that
 // nvcc compiles them in parallel: 3-bit codes (nxfp_quantize_b3.cu), 2- and
 // 7-bit codes (nxfp_quantize_b27.cu), bs 8,
-// 64 and 128 (nxfp_quantize_bs{8,64,128}.cu) and the custom recycle value
-// at bs 16/32 (nxfp_quantize_crt.cu). ox stops at bs 32 (its index is 5
-// bits).
+// 64 and 128 (nxfp_quantize_bs{8,64,128}.cu), the custom recycle value
+// at bs 16/32 (nxfp_quantize_crt.cu) and the table-driven encoder without
+// CR (KIND_TAB: nxfp_quantize_tab.cu at bs 16/32, nxfp_quantize_tabw.cu at
+// bs 8/64/128, nxfp_quantize_tab237.cu for 2-, 3- and 7-bit codes). ox
+// stops at bs 32 (its index is 5 bits).
 #define NXFPQ_KINDS(X, B, S, M) X(B, S, M, 0) X(B, S, M, 1) X(B, S, M, 2) \
   X(B, S, M, 3)
 #define NXFPQ_SIZES(X, B, M) NXFPQ_KINDS(X, B, 32, M) NXFPQ_KINDS(X, B, 16, M)
@@ -149,6 +153,15 @@ cudaError_t launch(const Job& job, const Fmt& fmt, int regime, int per_cta,
   NXFPQ_BFP_KINDS(X, B, 16, M) NXFPQ_BFP_KINDS(X, B, 32, M) \
   NXFPQ_BFP_KINDS(X, B, 64, M) NXFPQ_BFP_KINDS(X, B, 128, M)
 #define NXFPQ_INSTANCES_27(X) NXFPQ_BFP_SIZES(X, 2, 1) NXFPQ_BFP_SIZES(X, 7, 2)
+// the table-driven encoder without CR, at every width and block size
+#define NXFPQ_TAB_(X, B, M) X(B, 32, M, 5) X(B, 16, M, 5)
+#define NXFPQ_TABW_(X, B, M) X(B, 8, M, 5) X(B, 64, M, 5) X(B, 128, M, 5)
+#define NXFPQ_TAB_SIZES(X, B, M) X(B, 8, M, 5) X(B, 16, M, 5) \
+  X(B, 32, M, 5) X(B, 64, M, 5) X(B, 128, M, 5)
+#define NXFPQ_INSTANCES_TAB(X) NXFPQ_WIDTHS(NXFPQ_TAB_, X)
+#define NXFPQ_INSTANCES_TABW(X) NXFPQ_WIDTHS(NXFPQ_TABW_, X)
+#define NXFPQ_INSTANCES_TAB237(X) NXFPQ_TAB_SIZES(X, 3, 2) \
+  NXFPQ_TAB_SIZES(X, 2, 1) NXFPQ_TAB_SIZES(X, 7, 2)
 
 #define NXFPQ_DECLARE(B, S, M, K)                                        \
   template cudaError_t launch<B, S, M, K>(const Job&, const Fmt&, int, int, \

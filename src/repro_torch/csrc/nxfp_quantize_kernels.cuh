@@ -6,7 +6,8 @@
 // + dynamic_update_slice).
 //
 // Computes, bit for bit, the port's plain codec (core/quantize.py:
-// quantize_blocks_arith + core/pack.pack_codes): per block of BS values
+// quantize_blocks_arith, or the table-driven quantize_blocks under
+// KIND_CRT and KIND_TAB, + core/pack.pack_codes): per block of BS values
 // (bf16 or f32 input; bf16 -> f32 is exact) nan_to_num to +-1e30,
 // subnormals read as 0, the block max and its exponent (one per sign for
 // asym), then every candidate (element format x nano mode, in the
@@ -156,16 +157,19 @@ struct Cand {
 // bit; x's sign also gives the code's (a value that scales to -0 has
 // magnitude 0 and takes code 0 either way).
 //
-// KIND_CRT takes the table-driven encoder's rule instead: the nearest
-// level, and a value on a midpoint takes the lower level (a smaller
+// KIND_CRT and KIND_TAB take the table-driven encoder's rule instead: the
+// nearest level, and a value on a midpoint takes the lower level (a smaller
 // magnitude for x > 0, a larger one for x < 0); y - floor(y) is exact, so
-// the tie test is exact. Its recycled value then takes the window (cr_lo,
-// cr_hi] whatever the snap gave: outside it the nearest level of the grid
-// with the recycled value is the nearest of the grid without it.
+// the tie test is exact. Above the top level both rules clamp, and a value
+// that snaps to 0 takes the +0 code (the table drops -0 without CR). Under
+// KIND_CRT the recycled value then takes the window (cr_lo, cr_hi] whatever
+// the snap gave: outside it the nearest level of the grid with the recycled
+// value is the nearest of the grid without it.
 template <int BITS, class E, int KIND>
 __device__ __forceinline__ int encode(float x, const Cand& c, bool asym,
                                       float& dqa) {
   constexpr int kSign = 1 << (BITS - 1);
+  constexpr bool kTable = KIND == KIND_CRT || KIND == KIND_TAB;
   const bool neg = x < 0.0f;
   const float vp = x * ((asym && neg) ? c.inv_n : c.inv);
   float q;
@@ -173,7 +177,7 @@ __device__ __forceinline__ int encode(float x, const Cand& c, bool asym,
   if constexpr (E::kBfp) {
     const float a = fminf(fabsf(vp), (float)E::kMmax);
     float t = a + kMagic;
-    if constexpr (KIND == KIND_CRT) {
+    if constexpr (kTable) {
       const float fl = floorf(a);
       if (a - fl == 0.5f) t = (neg ? fl + 1.0f : fl) + kMagic;
     }
@@ -184,7 +188,7 @@ __device__ __forceinline__ int encode(float x, const Cand& c, bool asym,
     const int ex = max(__float_as_int(a) >> 23, E::kEmin + 127);
     const float y = a * __int_as_float((E::kMb + 254 - ex) << 23);
     float t = y + kMagic;
-    if constexpr (KIND == KIND_CRT) {
+    if constexpr (kTable) {
       const float fl = floorf(y);
       if (y - fl == 0.5f) t = (neg ? fl + 1.0f : fl) + kMagic;
     }

@@ -11,8 +11,10 @@ formats, at 2 to 8 bits and block sizes 8 to 128. A custom recycle
 value is encoded as the reference's table-driven ``quantize_blocks`` does
 (a value on a midpoint takes the lower level), and the plain version is
 that encoder; ``nxfp_quantize_pack(table=True)`` asks for that encoder for
-any code-recycling format (the reference's ``fake_quant`` encodes with
-it: the quantized-KV simulation).
+every symmetric format (the reference's ``direct_cast_tree`` and
+``fake_quant`` encode with it: the paper's figures, the quantized-KV
+simulation): the kernel's ``KIND_CRT`` with code recycling, ``KIND_TAB``
+without.
 
 ``quantize_plan`` picks the kernel's regime from the block count: a warp
 per block for a small T (a decode step's K/V rows), a thread per block over
@@ -109,7 +111,9 @@ def _desc(fmt: BlockFormat, table: bool = False) -> _CandList:
     """The format's candidate list for the host entry (built once; the C
     side checks it against the kernel's compile-time element formats).
     ``table`` selects the table-driven encoder's rules (the kernel's
-    ``KIND_CRT``) for a format whose recycle value is not custom too."""
+    ``KIND_CRT`` with code recycling, ``KIND_TAB`` without) for a format
+    the arithmetic encoder takes too; an asym or ox format has no table
+    form and keeps the arithmetic encoder, as in ``quantize_blocks``."""
     cands = candidates(fmt)
     d = _CandList(int(fmt.cr), int(fmt.asym), int(fmt.ox), len(cands))
     for i, (fmt_bit, levels, nano_mode) in enumerate(cands):
@@ -118,8 +122,9 @@ def _desc(fmt: BlockFormat, table: bool = False) -> _CandList:
                                              else int(nano_mode))
         d.c[i] = _Cand(fmt_bit, int(el.is_bfp), el.mbits, el.bias,
                        levels.emax, mode, float(np.float32(levels.max_pos)))
-    if table or not arith_ok(fmt):
+    if (table and not (fmt.asym or fmt.ox)) or not arith_ok(fmt):
         d.table = 1
+    if d.table and fmt.cr:
         for fmt_bit, el in fmt.elem_formats:
             lo, hi, val = recycle_window(el.name, fmt.recycle)
             d.cr_lo[fmt_bit], d.cr_hi[fmt_bit] = lo, hi
@@ -245,17 +250,12 @@ def nxfp_quantize_pack(xb, fmt: BlockFormat, plan: QuantPlan | None = None,
     ``scripts/compare_kernels.py`` run both regimes on the same blocks).
     ``table`` encodes with the table-driven encoder's rules
     (``core.quantize.quantize_blocks``: a value on a midpoint takes the
-    lower level), which the kernel runs for code-recycling formats only
-    (its ``KIND_CRT``); for another symmetric format it raises
-    ``NotImplementedError`` on CUDA.
+    lower level; the asym and ox formats keep the arithmetic encoder, as
+    there), the kernel's ``KIND_CRT`` or ``KIND_TAB`` instances.
     """
     if not build.on_cuda(xb):
         return nxfp_quantize_pack_plain(xb, fmt, table)
     _require_kernel(fmt)
-    if table and not fmt.cr:
-        raise NotImplementedError(
-            f"{fmt.name}: the kernel runs the table-driven encoder for "
-            "code-recycling formats only")
     t, b = xb.shape
     build.require(b == fmt.block_size, f"block axis {b} != {fmt.block_size}")
     _check_input(xb, "input")

@@ -228,14 +228,22 @@ def _qact_matmul(xq: QTensor, w):
     return y.reshape(*xq.shape[:-1], w.packed.shape[0])
 
 
-def quantize_qtensor(x, fmt, axis: int = -1, device=None) -> QTensor:
+def quantize_qtensor(x, fmt, axis: int = -1, device=None,
+                     table: bool = False) -> QTensor:
     """Direct-cast a dense tensor to a QTensor (fused encode + pack).
 
     ``device`` is where the cast runs: ``cuda`` unless the caller says
     otherwise (the input is moved there first). Raises when CUDA is asked
-    for and absent.
+    for and absent. The encoder is the one the reference serves with
+    (``core.quantize.encode_blocks``: the arithmetic one; the serving
+    engines' ``load_params``), or with ``table`` the reference's default
+    cast, ``QTensor.quantize``: the table-driven ``quantize_blocks`` (a
+    value on a midpoint takes the lower level), which its
+    ``direct_cast_tree`` uses when given no ``quantize_fn`` (the paper's
+    figures). On CUDA both run the quantizer kernel.
     """
-    return _cast(x.to(resolve_device(device)), resolve_format(fmt), axis)
+    return _cast(x.to(resolve_device(device)), resolve_format(fmt), axis,
+                 table)
 
 
 def _cast(x, fmt, axis: int, table: bool = False) -> QTensor:
@@ -262,15 +270,12 @@ def fake_quant_rows(x, fmt):
     ``quantize_blocks`` (a value on a midpoint takes the lower level, where
     the serving cast rounds half to even), so the kernel runs its
     table-driven rules (``nxfp_quantize_pack(table=True)``): the same
-    codes. The activation formats (asym, ox) have no table form, and the
-    kernel's arithmetic encoder is ``fake_quant``'s there. Any other
-    format without code recycling raises on CUDA (the kernel has no
-    table-driven instance for it)."""
+    codes, for every format. The activation formats (asym, ox) have no
+    table form, and the kernel's arithmetic encoder is ``fake_quant``'s
+    there."""
     if x.device.type != "cuda":
         return fake_quant(x, fmt, axis=-1)
-    fmt = resolve_format(fmt)
-    return _cast(x, fmt, -1, table=not (fmt.asym or fmt.ox)).dequantize(
-        x.dtype)
+    return _cast(x, resolve_format(fmt), -1, table=True).dequantize(x.dtype)
 
 
 def decode_attention(q, kq: QTensor, vq: QTensor, lengths, n_kv_heads: int):

@@ -57,7 +57,7 @@ def _edge_blocks(fmt, n=513, seed=0):
     xb[5] = 1e-40
     xb[6] = -np.abs(xb[6])                       # one-signed blocks (asym)
     xb[7] = np.abs(xb[7])
-    xb[8, 3], xb[8, 9] = 7.0, -7.0               # tied |max| of both signs
+    xb[8, 3], xb[8, min(9, b - 1)] = 7.0, -7.0   # tied |max| of both signs
     return torch.from_numpy(xb)
 
 
@@ -2232,11 +2232,18 @@ def test_cross_decode_rows_and_plain_on_card(cuda, arch):
         mv.float().abs().max())
 
 
-@pytest.mark.parametrize("fname", ["nxfp4", "nxfp4_bs16", "mxfp4_cr",
-                                   "nxfp6", "nxfp8", "nxfp3", "nxfp4_bs64"])
+@pytest.mark.parametrize("fname", [
+    "nxfp4", "nxfp4_bs16", "mxfp4_cr", "nxfp6", "nxfp8", "nxfp3",
+    "nxfp4_bs64",
+    # without code recycling (KIND_TAB): BFP, MxFP and the NxFP ablations
+    # the reference's figures cast, at block sizes 8 to 128
+    "bfp3", "bfp4", "bfp5", "bfp6", "mxfp3", "mxfp4", "mxfp5", "mxfp6",
+    "mxfp6_e3m2", "nxfp3_nm", "nxfp4_nm", "nxfp5_nm", "nxfp6_nm",
+    "nxfp4_nm_am", "nxfp6_nm_am", "bfp4_bs8", "mxfp4_bs8", "bfp4_bs128",
+    "mxfp4_bs128", "mxfp4_bs16", "bfp4_bs64", "bfp2", "bfp7", "mxfp8"])
 def test_quantize_kernel_table_rules_bitwise(cuda, fname):
-    """``table=True`` (the table-driven encoder's rules, the kernel's
-    KIND_CRT) on code-recycling formats: bitwise the plain
+    """``table=True`` (the table-driven encoder's rules: the kernel's
+    KIND_CRT with code recycling, KIND_TAB without): bitwise the plain
     ``quantize_blocks`` up to counted candidate near-ties, on the edge
     blocks and on bf16 blocks, whose scaled values often land on a
     midpoint (where the arithmetic encoder rounds half to even and
@@ -2250,38 +2257,40 @@ def test_quantize_kernel_table_rules_bitwise(cuda, fname):
         pp, pm = nq.nxfp_quantize_pack_plain(xb, fmt, table=True)
         diff = (kp != pp).any(-1) | (meta_int32(km) != meta_int32(pm))
         if diff.any():
-            assert near_tie_blocks(xb[diff].float(), fmt).all(), \
-                int(diff.sum())
+            assert near_tie_blocks(xb[diff].float(), fmt,
+                                   table=True).all(), int(diff.sum())
     arith = nq.nxfp_quantize_pack(bf, fmt)
     print(f"{fname}: table rules bitwise; the arithmetic encoder differs "
           f"on {int((arith[0] != kp).any(-1).sum())} of {bf.shape[0]} "
           "bf16 blocks")
 
 
-def test_kv_sim_route_is_the_plain_codec_on_card(cuda):
+@pytest.mark.parametrize("fname", ["nxfp4", "mxfp4", "bfp4"])
+def test_kv_sim_route_is_the_plain_codec_on_card(cuda, fname):
     """``fake_quant_rows`` on a CUDA tensor (the quantizer kernel under the
     table-driven rules, then the QTensor's decode) against the plain
     codec's ``fake_quant`` on the same tensor: bitwise but for counted
     candidate near-tie blocks (the quantizer's own contract), bf16 K rows
-    of Llama-3-8B's heads; a format without code recycling raises."""
+    of Llama-3-8B's heads. Formats without code recycling (mxfp4, bfp4:
+    Fig. 9's weights+KV points) run the kernel's KIND_TAB instances (they
+    raised until the kernel had them)."""
     from repro_torch.core.quantize import fake_quant
     from repro_torch.kernels import nxfp_quantize as nqk
     from repro_torch.kernels.ops import fake_quant_rows
-    fmt = get_format("nxfp4")
+    fmt = get_format(fname)
     gen = torch.Generator(device=cuda).manual_seed(31)
     k = torch.randn((4, 128, 8, 128), generator=gen, device=cuda).to(
         torch.bfloat16)
     nqk.LAUNCHES = 0
-    got = fake_quant_rows(k, "nxfp4")
+    got = fake_quant_rows(k, fname)
     assert nqk.LAUNCHES == 1 and got.dtype == k.dtype
-    ne = (got != fake_quant(k, "nxfp4", axis=-1)).to(torch.float32)
+    ne = (got != fake_quant(k, fname, axis=-1)).to(torch.float32)
     diff = to_blocks(ne, 32, -1)[0].reshape(-1, 32).any(-1)
     if diff.any():
         xb, _ = to_blocks(k.float(), 32, -1)
-        assert near_tie_blocks(xb.reshape(-1, 32)[diff], fmt).all()
-    print(f"kv_sim route: {int(diff.sum())} near-tie blocks")
-    with pytest.raises(NotImplementedError, match="code-recycling"):
-        fake_quant_rows(k, "mxfp4")
+        assert near_tie_blocks(xb.reshape(-1, 32)[diff], fmt,
+                               table=True).all()
+    print(f"kv_sim route {fname}: {int(diff.sum())} near-tie blocks")
 
 
 @pytest.mark.parametrize("arch", ["llama_3_2_vision_90b", "whisper_tiny"])
@@ -2586,3 +2595,34 @@ def test_sharded_migration_on_card(cuda):
     for r in got:
         assert r.status == Status.OK
         np.testing.assert_array_equal(r.tokens, want[r.uid])
+
+
+def test_figure_numbers_on_card_match_cpu(cuda):
+    """Table 1's and Fig. 12's numbers for the bench model (its seed-0
+    f32 init) on the card against the CPU's from the same weights: every
+    cast leaf's codes and meta bitwise (the quantizer's table instances
+    against the plain ``quantize_blocks``, no near-tie expected on these
+    weights), ``quantized_ppl`` within 1e-3 of the ppl (bf16 activations
+    summed in other orders) and ``_weight_mse`` within 1e-5 (the same
+    codes, f32 sums in other orders)."""
+    from repro_torch.core.qtensor import QTensor
+    from repro_torch.figures import common
+    from repro_torch.figures.fig11_remap_sweep import _weight_mse
+    from repro_torch.figures.table1_perplexity import quantized_ppl
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = common.BENCH_CFG
+    cpu = init_params(cfg, 0, device="cpu", train=True)
+    card = tree_map(lambda t: t.to(cuda), cpu)
+    for fmt in ("mxfp4", "nxfp4_nm_am", "bfp4_bs128"):
+        got = [x for x in tree_leaves(common.cast_tree(card, fmt))
+               if isinstance(x, QTensor)]
+        want = [x for x in tree_leaves(common.cast_tree(cpu, fmt))
+                if isinstance(x, QTensor)]
+        assert len(got) == len(want) == 2 * 7
+        for g, w in zip(got, want):
+            assert torch.equal(g.packed.cpu(), w.packed)
+            assert torch.equal(meta_int32(g.meta).cpu(), meta_int32(w.meta))
+        pg, pw = quantized_ppl(cfg, card, fmt), quantized_ppl(cfg, cpu, fmt)
+        assert abs(pg - pw) <= 1e-3 * pw, (fmt, pg, pw)
+        mg, mw = _weight_mse(card, fmt), _weight_mse(cpu, fmt)
+        assert abs(mg - mw) <= 1e-5 * mw, (fmt, mg, mw)

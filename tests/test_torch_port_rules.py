@@ -9,7 +9,12 @@
   and launches the kernel, or raises.
 """
 import ast
+import functools
+import importlib
+import importlib.util
 import pathlib
+import sys
+import tempfile
 
 import jax  # noqa: F401  (the test files of the port import both packages)
 import numpy as np
@@ -17,9 +22,12 @@ import pytest
 import torch
 
 from repro_torch.configs import get_smoke_config
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.convert import params_from_jax
 from repro_torch.core.formats import get_format
 from repro_torch.core.qtensor import QuantPolicy
+from repro_torch.figures import common as figures_common
+from repro_torch.figures import fig3_profile
 from repro_torch.kernels import build, dense_attention, nxfp_attention
 from repro_torch.kernels import nxfp_matmul
 from repro_torch.kernels import nxfp_qq_matmul, nxfp_quantize
@@ -27,6 +35,8 @@ from repro_torch.kernels.ops import quantize_qtensor
 from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.launch.train import train_loop
 from repro_torch.models import init_cache, init_paged_cache, init_params
+from repro_torch.optim.adamw import AdamW, cosine_schedule
+from repro_torch.train.state import init_state
 from repro_torch.serving import (ContinuousEngine, PagedContinuousEngine,
                                  PriorityPreemption, ServeEngine,
                                  ShardedContinuousEngine,
@@ -36,8 +46,15 @@ from repro_torch.serving import (ContinuousEngine, PagedContinuousEngine,
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
               + sorted((ROOT / "scripts").glob("*.py"))
+              + sorted((ROOT / "examples").glob("*_torch.py"))
               + [ROOT / "chip_smoke.py"])
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
+FIGURES = ("fig3_profile", "fig8_quant_error", "fig9_tradeoff",
+           "fig10_accuracy", "fig11_remap_sweep", "fig12_blocksize",
+           "table1_perplexity")
+EXAMPLES = ("train_then_serve_quantized_torch",
+            "longcontext_ssm_serving_torch", "quickstart_torch",
+            "continuous_serving_torch")
 
 
 def _imported_modules(path):
@@ -78,7 +95,11 @@ def test_import_scan_covers_the_package():
                  "src/repro_torch/train/compress.py",
                  "src/repro_torch/serving/sharded.py",
                  "src/repro_torch/launch/mesh.py",
-                 "src/repro_torch/sharding/rules.py"):
+                 "src/repro_torch/sharding/rules.py",
+                 "src/repro_torch/figures/common.py",
+                 "src/repro_torch/figures/table1_perplexity.py",
+                 *(f"src/repro_torch/figures/{m}.py" for m in FIGURES),
+                 *(f"examples/{m}.py" for m in EXAMPLES)):
         assert must in names
 
 
@@ -138,7 +159,40 @@ ENTRY_POINTS = {
         QuantPolicy("nxfp4", "nxfp4"), _mesh(dev), n_slots=2, max_len=16),
     "train_loop": lambda dev: train_loop(_smoke(), steps=1, batch=2, seq=8,
                                          device=dev, log_every=100),
+    # the figures' trained model (restored from a cached CPU checkpoint
+    # on the CPU path) and a figure that reads no model
+    "figures.trained_model": lambda dev: figures_common.trained_model(
+        device=dev, cache=_bench_cache()),
+    "figures.fig3_profile": lambda dev: fig3_profile.compute(
+        figures_common.Csv(), device=dev),
+    "examples.longcontext_ssm_serving_torch": lambda dev: _example(
+        "longcontext_ssm_serving_torch").main(dev, context=64,
+                                              decode_steps=1),
 }
+
+
+_TMP = []
+
+
+@functools.lru_cache(maxsize=None)
+def _bench_cache():
+    """A checkpoint directory holding the bench model's init state at
+    ``TRAIN_STEPS``, on the CPU: ``trained_model`` restores it."""
+    _TMP.append(tempfile.TemporaryDirectory())
+    cfg, steps = figures_common.BENCH_CFG, figures_common.TRAIN_STEPS
+    opt = AdamW(lr=cosine_schedule(1e-3, steps // 20, steps))
+    mgr = CheckpointManager(_TMP[-1].name, keep=1, async_save=False)
+    mgr.save(init_state(init_params(cfg, 0, device="cpu", train=True), opt),
+             steps, block=True)
+    return _TMP[-1].name
+
+
+def _example(name):
+    spec = importlib.util.spec_from_file_location(
+        f"_ex_{name}", ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
@@ -148,6 +202,38 @@ def test_entry_points_raise_without_cuda(no_cuda, name):
     with pytest.raises(RuntimeError, match="CUDA"):
         ENTRY_POINTS[name]("cuda")
     ENTRY_POINTS[name]("cpu")       # the explicit CPU path works
+
+
+def _figure_cli(name):
+    def run(dev):
+        argv = [name] + ([] if dev is None else ["--device", dev])
+        old, sys.argv = sys.argv, argv
+        try:
+            importlib.import_module(f"repro_torch.figures.{name}").main()
+        finally:
+            sys.argv = old
+    return run
+
+
+# entry points whose CPU path trains or evaluates a model for minutes:
+# held here to their refusal only (the CPU tests drive their functions,
+# ``tests/test_torch_figures.py``)
+SLOW_ENTRY_POINTS = {
+    **{f"figures.{m}.compute": lambda dev, m=m: importlib.import_module(
+        f"repro_torch.figures.{m}").compute(figures_common.Csv(), device=dev)
+       for m in FIGURES},
+    **{f"figures.{m} (command line)": _figure_cli(m) for m in FIGURES},
+    "examples.train_then_serve_quantized_torch": lambda dev: _example(
+        "train_then_serve_quantized_torch").main(dev),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SLOW_ENTRY_POINTS))
+def test_figure_entry_points_raise_without_cuda(no_cuda, name):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SLOW_ENTRY_POINTS[name](None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SLOW_ENTRY_POINTS[name]("cuda")
 
 
 @pytest.fixture
