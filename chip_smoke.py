@@ -72,7 +72,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    5 quantizer launches (4 activation encodes, K and V) per layer in the
    prefill. Logits must be finite and bitwise equal on a
    second run. The qq and dense-activation prefills are timed in turns,
-   8 rounds of (qq, dense, dense, qq), and compared by their medians and
+   4 rounds of (qq, dense, dense, qq) (8 until phase 23 came), and
+   compared by their medians and
    by each round's ratio.
 7. Wide serving: Llama-3-8B at full width, the depth of ``--layers``,
    served with nxfp3 weights and nxfp3 KV, then with nxfp4_bs64 weights
@@ -122,7 +123,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    replay at P 16-128, least of 3 after a warm-up) and pick, which must be
    > 16 (at 16 the lane's GEMMs run split-K, outside the bitwise oracle);
    phase 8's requests bitwise their solo streams on every serve, timed in
-   2 rounds of (auto, whole, whole, auto). Then overload: 16 requests at
+   1 round of (auto, whole, whole, auto) (2 until phase 23 came). Then
+   overload: 16 requests at
    t 0 (phase 8's, twice) into 4 slots with ``max_queue`` 4, under
    ``RejectNew``, ``DropOldest`` and ``DegradeOverBudget(max_new_cap=8)``:
    the shed and degraded uids are the rule's (8 over budget at the first
@@ -423,6 +425,26 @@ Phases, each fatal on failure (exit code 1, no result line):
    Table 1's W4 row through the table cast on phase 20's trained
    Llama-3-8B (printed, not held). Launches are counted around (b), (c)
    and (d) alone (``launches_phase22_path``).
+23. The packed NxFP8 gradient wire (``phase_pod_wire``), two pods on the
+   one card: ranks are processes started after the parent frees its
+   memory, joined over gloo (NCCL refuses two ranks on one card; gloo
+   stages each CUDA gather through the host), and a rank that fails
+   fails the run. (a) 2 spawned ranks on ``cuda:0``, each with its pod's
+   seeded gradients at Llama-3-8B's training leaf shapes at 2 layers
+   (``tok_embed``/``lm_head`` (128256, 4096), wq, wk/wv, wo, w1/w3, w2,
+   the norms), through ``make_pod_grad_fn``: every rank's averaged
+   gradients bitwise the parent's single-process oracle (the same
+   kernel casts, the pods' wires decoded in pod order), leaf by leaf by
+   ``core.pack.tensor_fold``; the wire's bytes exactly 8.5/32 of f32;
+   the cast, gather and decode ms. (b) ``python -m torch.distributed.run
+   --nproc-per-node 2 -m repro_torch.launch.train`` with ``--mesh
+   pod=2,data=1,model=1 --backend gloo``: Llama-3-8B at full width and 2
+   layers, f32, 3 steps of B 4 x T 256, 2 microbatches, the nxfp8 wire;
+   both ranks' losses and weights bitwise equal, and bitwise the
+   parent's single-process oracle (each pod's rows in turn, the same
+   wire arithmetic, no collective). Printed: ms a step and its parts,
+   tok/s, the peak a rank. The ranks report their quantizer launches
+   (``launches_phase23_path``).
 
 The last three lines are the kernel table as JSON, the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.
@@ -1718,7 +1740,7 @@ def phase_main(n_layers: int):
     return counts, per_step, cfg, engine, prompts, med
 
 
-LOOP_ROUNDS = 2       # phase 5: rounds of the three decode loops in turns
+LOOP_ROUNDS = 1       # phase 5: rounds of the three decode loops in turns
                       # (4 until phase 22 came)
 
 
@@ -1823,7 +1845,7 @@ def phase_wide_serving(n_layers: int, prompts):
     return out
 
 
-PREFILL_ROUNDS = 8    # phase 6: rounds of (qq, dense, dense, qq) prefills
+PREFILL_ROUNDS = 4    # phase 6: rounds of (qq, dense, dense, qq) prefills
 
 
 def _timed_prefill(cfg, params, tokens, act_fmt):
@@ -2291,7 +2313,7 @@ def phase_lane(n_layers: int, params, reqs, solos, card: str):
 
 
 # phase 10: admission control and serving tiers at full width
-AUTO_ROUNDS = 2               # rounds of (auto, whole, whole, auto)
+AUTO_ROUNDS = 1               # rounds of (auto, whole, whole, auto)
 BURST, BURST_QUEUE, BURST_CAP = 16, 4, 8   # overload: requests, max_queue,
 #                                            DegradeOverBudget's max_new_cap
 TIER_OF = ("premium", "standard", "economy")   # phase 8's uid % 3
@@ -7034,6 +7056,338 @@ def phase_figures(card: str, rows, trained=None):
     return counts, fig
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the packed NxFP8 gradient wire (A4), two pods on the one card
+# ---------------------------------------------------------------------------
+
+P23_PODS = 2                       # ranks, both on cuda:0 (gloo)
+P23_LAYERS = 2                     # Llama-3-8B's depth here (its full width)
+P23_STEPS = 3                      # (b) steps through the launcher
+P23_BATCH, P23_SEQ, P23_MICRO = 4, 256, 2
+P23_TIMEOUT = 300                  # s, each multi-process part
+P23_KERNELS = {"wire": ("nxfp_quantize",), "step": ("nxfp_quantize",)}
+# the predictions written before phase 23's first run (PERF.md §6): a
+# step's gather seconds (gloo over loopback, 1.58 GB sent a rank), the
+# step's ms against phase 20's (which has no wire), the peak per rank
+P23_PREDICTED = {"gather_s": (3.5, 6.5), "step_ms": (4000, 8000),
+                 "peak_gb": (28, 36), "seconds": (40, 60)}
+
+
+def _p23_cfg():
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("llama3_8b"), n_layers=P23_LAYERS)
+
+
+def _p23_pod_grads(pod, device):
+    """Pod ``pod``'s seeded gradients at Llama-3-8B's training-tree leaf
+    shapes (``P23_LAYERS`` layers), drawn leaf after leaf from one
+    generator: a generator of the pod's seed."""
+    from repro_torch.models import init_params
+    from repro_torch.tree import tree_leaves
+    gen = torch.Generator(device=device).manual_seed(23_000 + pod)
+    for t in tree_leaves(init_params(_p23_cfg(), device="meta", train=True)):
+        yield torch.randn(t.shape, generator=gen, device=device).mul_(1e-4)
+
+
+def _p23_wire_rank(rank, init, q):
+    """(a) A rank of the wire alone: its pod's gradients through
+    ``make_pod_grad_fn`` over the mesh's gloo pod group; sends back each
+    averaged leaf's ``tensor_fold``, the launch counts, the wire's parts
+    and the peak memory."""
+    import traceback
+    try:
+        from repro_torch.core.pack import tensor_fold
+        from repro_torch.kernels import launch_counts, reset_launch_counts
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.train import compress
+        mesh = make_mesh((P23_PODS, 1, 1), ("pod", "data", "model"),
+                         backend="gloo", devices=["cuda:0"] * P23_PODS,
+                         init_method=init, rank=rank, world_size=P23_PODS)
+        grads = list(_p23_pod_grads(mesh.coord["pod"], mesh.device))
+        parts = {}
+        fn, mode = compress.make_pod_grad_fn(
+            lambda params, batch: (torch.zeros((), device=mesh.device),
+                                   grads), mesh, parts=parts)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        _, out = fn(None, {"tokens": torch.zeros((P23_PODS, 1))})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        q.put((rank, None, dict(
+            mode=mode, folds=[tensor_fold(g) for g in out], parts=parts,
+            wall=wall, launches=counts,
+            peak=torch.cuda.max_memory_allocated())))
+        mesh.close()
+    except BaseException:
+        q.put((rank, traceback.format_exc(), None))
+        raise
+
+
+def _p23_spawn(target, n, timeout=P23_TIMEOUT):
+    """Run ``target(rank, init, q)`` on ``n`` spawned ranks joined at a
+    free local port; fails the run if a rank fails, exits without a
+    result or outlasts ``timeout``. Returns the results by rank."""
+    import multiprocessing
+    import queue
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=target,
+                         args=(r, f"tcp://localhost:{port}", q))
+             for r in range(n)]
+    for p in procs:
+        p.start()
+    got, deadline = {}, time.time() + timeout
+    try:
+        while len(got) < n:
+            try:
+                rank, err, out = q.get(timeout=1.0)
+            except queue.Empty:
+                dead = [r for r, p in enumerate(procs)
+                        if r not in got and p.exitcode is not None]
+                if dead or time.time() > deadline:
+                    fail(f"phase 23: ranks {dead or 'all'} sent no result")
+                continue
+            if err is not None:
+                fail(f"phase 23: rank {rank} failed:\n{err}")
+            got[rank] = out
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    if any(p.exitcode != 0 for p in procs):
+        fail(f"phase 23: rank exit codes {[p.exitcode for p in procs]}")
+    return [got[r] for r in range(n)]
+
+
+def _p23_wire(counts):
+    """(a) The wire alone at full width: 2 ranks on cuda:0, each with its
+    pod's seeded gradients, every rank's result bitwise the single-process
+    oracle's (the same kernel casts, the pods' wires decoded in pod
+    order), leaf by leaf by ``tensor_fold``; the wire's bytes against
+    f32's."""
+    from repro_torch.core.formats import get_format
+    from repro_torch.core.pack import tensor_fold
+    from repro_torch.train import compress
+    _free()
+    ranks = _p23_spawn(_p23_wire_rank, P23_PODS)
+    for r in ranks:
+        for k, v in r["launches"].items():
+            counts["wire"][k] = counts["wire"].get(k, 0) + v
+    if any(r["mode"] != "shard_map" for r in ranks):
+        fail(f"phase 23: the wire's mode is {ranks[0]['mode']}")
+    if any(r["folds"] != ranks[0]["folds"] for r in ranks):
+        fail("phase 23: the ranks' averaged gradients differ")
+    fmt = get_format("nxfp8")
+    gens = [_p23_pod_grads(p, "cuda") for p in range(P23_PODS)]
+    n_leaves = wire_bytes = f32_bytes = 0
+    for k, leaves in enumerate(zip(*gens)):
+        wires = [compress._leaf_roundtrip(x, fmt) for x in leaves]
+        if leaves[0].numel() < compress._MIN_COMPRESS:
+            fail("phase 23: a leaf under _MIN_COMPRESS values")
+        out = torch.empty_like(leaves[0])
+        compress._decode_mean([w for w, _, _ in wires],
+                              [m for _, m, _ in wires], wires[0][2], out,
+                              fmt)
+        if tensor_fold(out) != ranks[0]["folds"][k]:
+            fail(f"phase 23: leaf {k} {tuple(out.shape)} differs from the "
+                 "single-process oracle")
+        w, m, _ = wires[0]
+        wire_bytes += w.numel() + m.numel() * m.element_size()
+        f32_bytes += 4 * out.numel()
+        n_leaves += 1
+        del leaves, wires, out
+    _free()
+    n_cast = counts["wire"].get("nxfp_quantize", 0)
+    if n_cast != P23_PODS * n_leaves:
+        fail(f"phase 23: {n_cast} quantizer launches for {n_leaves} leaves "
+             f"on {P23_PODS} ranks")
+    ratio = f32_bytes / wire_bytes
+    if abs(ratio - 32 / 8.5) > 1e-9:
+        fail(f"phase 23: f32 / wire bytes {ratio}, not 32 / 8.5")
+    return dict(leaves=n_leaves, wire_bytes=wire_bytes, f32_bytes=f32_bytes,
+                ratio=ratio, parts=[r["parts"] for r in ranks],
+                wall=[r["wall"] for r in ranks],
+                peak=[r["peak"] for r in ranks])
+
+
+def _p23_oracle(cfg, n_steps):
+    """(b)'s single-process oracle: ``train_loop``'s init, data and
+    schedule; each step's pods' rows in turn through the single-device
+    accumulation, every leaf's pod wires (``_leaf_roundtrip``) decoded in
+    pod order into the mean (a leaf under ``_MIN_COMPRESS`` values
+    averaged as it is), the mean loss, AdamW. Returns (losses, the final
+    weights' folds)."""
+    from repro_torch.core.formats import get_format
+    from repro_torch.core.pack import tensor_fold
+    from repro_torch.data import SyntheticLM, make_data_iter
+    from repro_torch.models import init_params
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.train import compress
+    from repro_torch.train.state import TrainState, init_state
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import tree_leaves, tree_unflatten
+    fmt = get_format("nxfp8")
+    opt = AdamW(lr=cosine_schedule(3e-4, max(n_steps // 20, 10), n_steps))
+    state = init_state(init_params(cfg, 0, device="cuda", train=True), opt)
+    _, info = make_train_step(cfg, opt, n_microbatches=P23_MICRO)
+    it = make_data_iter(SyntheticLM(vocab=cfg.vocab, seed=0), P23_BATCH,
+                        P23_SEQ, seed=0)
+    rows = P23_BATCH // P23_PODS
+    losses = []
+    for _ in range(n_steps):
+        b = {k: torch.as_tensor(v).to("cuda") for k, v in next(it).items()}
+        pods = [info["grad_fn"](state.params, {
+            k: v[p * rows:(p + 1) * rows] for k, v in b.items()})
+            for p in range(P23_PODS)]
+        grads = []
+        for leaves in zip(*(tree_leaves(g) for _, g in pods)):
+            if leaves[0].numel() < compress._MIN_COMPRESS:
+                out = torch.zeros_like(leaves[0])   # an f32 wire
+                for x in leaves:
+                    out += x
+                grads.append(out.div_(P23_PODS))
+                continue
+            wires = [compress._leaf_roundtrip(x, fmt) for x in leaves]
+            out = leaves[0]         # its wire is cast: the mean goes here
+            compress._decode_mean([w for w, _, _ in wires],
+                                  [m for _, m, _ in wires], wires[0][2],
+                                  out, fmt)
+            grads.append(out)
+            del wires
+        total = torch.zeros((), device="cuda")
+        for loss, _ in pods:
+            total += loss
+        del pods
+        params, opt_state, _ = opt.update(tree_unflatten(state.params, grads),
+                                          state.opt, state.params)
+        state = TrainState(params, opt_state, state.step + 1)
+        losses.append(float(total / P23_PODS))
+        del grads
+    folds = [tensor_fold(p) for p in tree_leaves(state.params)]
+    del state
+    _free()
+    return losses, folds
+
+
+def _p23_step(counts, tmp):
+    """(b) The step through the launcher: torchrun, 2 ranks on cuda:0 over
+    gloo, Llama-3-8B full width at ``P23_LAYERS`` layers; the losses and
+    weights of both ranks bitwise equal, and bitwise the single-process
+    oracle's."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(P23_PODS), "-m", "repro_torch.launch.train",
+           "--arch", "llama3_8b", "--layers", str(P23_LAYERS), "--steps",
+           str(P23_STEPS), "--batch", str(P23_BATCH), "--seq", str(P23_SEQ),
+           "--n-micro", str(P23_MICRO), "--grad-compress", "nxfp8",
+           "--mesh", f"pod={P23_PODS},data=1,model=1", "--backend", "gloo",
+           "--report", str(tmp)]
+    # two ranks of ~30 GB share the card: expandable segments keep each
+    # one's cache from holding much more than it allocated
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True",
+               PYTHONPATH=os.pathsep.join(
+                   [os.path.join(ROOT, "src")]
+                   + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    _free()
+    t0 = time.time()
+    try:
+        proc = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
+                              text=True, timeout=P23_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        fail(f"phase 23: torchrun outlasted {P23_TIMEOUT} s")
+    run_s = time.time() - t0
+    if proc.returncode != 0:
+        fail(f"phase 23: torchrun exited {proc.returncode}:\n"
+             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    ranks = [json.loads((tmp / f"rank{r}.json").read_text())
+             for r in range(P23_PODS)]
+    for r in ranks:
+        for k, v in r["launches"].items():
+            counts["step"][k] = counts["step"].get(k, 0) + v
+    if any((r["losses"], r["folds"]) != (ranks[0]["losses"],
+                                         ranks[0]["folds"]) for r in ranks):
+        fail("phase 23: the ranks' losses or weights differ")
+    t0 = time.time()
+    losses, folds = _p23_oracle(_p23_cfg(), P23_STEPS)
+    oracle_s = time.time() - t0
+    if losses != ranks[0]["losses"] or folds != ranks[0]["folds"]:
+        fail(f"phase 23: rank 0's losses {ranks[0]['losses']} or weights "
+             f"differ from the single-process oracle's ({losses})")
+    from repro_torch.models import init_params
+    from repro_torch.tree import tree_leaves
+    from repro_torch.train import compress
+    n_cast = sum(t.numel() >= compress._MIN_COMPRESS for t in tree_leaves(
+        init_params(_p23_cfg(), device="meta", train=True)))
+    if counts["step"].get("nxfp_quantize", 0) != (
+            P23_PODS * P23_STEPS * n_cast):
+        fail(f"phase 23: {counts['step'].get('nxfp_quantize')} quantizer "
+             f"launches, not one a leaf ({n_cast}) a step a rank")
+    hist = [r["history"] for r in ranks]
+    later = [h for rh in hist for h in rh[1:]]
+    parts = {k: statistics.median(h["ms"][k] for h in later)
+             for k in later[0]["ms"]}
+    step_ms = statistics.median(h["step_ms"] for h in later)
+    return dict(losses=ranks[0]["losses"], run_s=run_s, oracle_s=oracle_s,
+                step_ms=step_ms, parts=parts,
+                first_step_ms=[rh[0]["step_ms"] for rh in hist],
+                tok_s=P23_BATCH * P23_SEQ * 1e3 / step_ms,
+                peak=[r["peak"] for r in ranks], tail=proc.stdout[-600:])
+
+
+def phase_pod_wire(card: str):
+    """Phase 23: the packed NxFP8 gradient wire (A4). (a) the wire alone at
+    full width on 2 ranks of cuda:0; (b) the train step through the
+    launcher under torchrun. Launches are counted in the ranks (the
+    oracles' casts are not counted). Returns (counts by path, figures)."""
+    import tempfile
+    from pathlib import Path
+    t_phase = time.time()
+    counts = {path: {} for path in P23_KERNELS}
+    fig = {"wire": _p23_wire(counts)}
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        fig["step"] = _p23_step(counts, Path(tmp))
+    fig["seconds"] = round(time.time() - t_phase, 1)
+    w, st = fig["wire"], fig["step"]
+    lo, hi = P23_PREDICTED["gather_s"]
+    log(f"  (a) the wire alone ({card}): {P23_PODS} ranks on cuda:0 over "
+        f"gloo, Llama-3-8B's {w['leaves']} training leaves at "
+        f"{P23_LAYERS} layers, every rank bitwise the single-process oracle "
+        f"leaf by leaf; wire {w['wire_bytes']} bytes a rank against "
+        f"{w['f32_bytes']} f32 ({w['ratio']:.4f}x = 32 / 8.5); by rank: "
+        f"cast / gather / decode ms {[{k: round(v, 1) for k, v in p.items()} for p in w['parts']]} "
+        f"(CUDA events; the gather predicted {lo}-{hi} s), wall "
+        f"{[round(x, 2) for x in w['wall']]} s, peak {w['peak']} bytes")
+    lo, hi = P23_PREDICTED["step_ms"]
+    plo, phi = P23_PREDICTED["peak_gb"]
+    log(f"  (b) torchrun, {P23_PODS} ranks on cuda:0 over gloo, Llama-3-8B "
+        f"full width, {P23_LAYERS} layers, f32, B {P23_BATCH} x T "
+        f"{P23_SEQ}, {P23_MICRO} microbatches, nxfp8 wire, {P23_STEPS} "
+        f"steps ({card}): losses {st['losses']} on both ranks and the "
+        f"oracle's, weights bitwise; a step {st['step_ms']:.1f} ms median "
+        f"of steps 2-{P23_STEPS} on both ranks (first "
+        f"{[round(x, 1) for x in st['first_step_ms']]}; predicted {lo}-{hi}), "
+        f"parts {{{', '.join(f'{k}: {v:.1f}' for k, v in st['parts'].items())}}} ms; "
+        f"{st['tok_s']:.1f} tok/s of the global batch; peak by rank "
+        f"{st['peak']} bytes (predicted {plo}-{phi} GB); torchrun "
+        f"{st['run_s']:.1f} s, oracle {st['oracle_s']:.1f} s")
+    log(f"  launches on phase 23's paths (the ranks): {counts}; phase 23 "
+        f"{fig['seconds']} s (predicted {P23_PREDICTED['seconds']})")
+    for path, names in P23_KERNELS.items():
+        for name in names:
+            if counts[path].get(name, 0) <= 0:
+                fail(f"phase 23 ({path}): kernel {name} was never launched")
+    return counts, fig
+
+
 def kernel_formats(kname, rows, wide_counts):
     """The formats ``kname`` ran in this run: its main-path formats, its
     phase-3 wide rows and the formats phase 7 served through it."""
@@ -7235,6 +7589,9 @@ def main():
     p22_rows = [k for k in rows if k not in p22_rows]
     del trained
     log(f"phase 22 seconds: {time.time() - t22:.1f}")
+    t23 = time.time()
+    p23_counts, _ = phase_pod_wire(smi_line)
+    log(f"phase 23 seconds: {time.time() - t23:.1f}")
 
     table = []
     for kname, (sources, replaces) in KERNELS.items():
@@ -7273,6 +7630,8 @@ def main():
                                    for path, n in p20_counts.items()},
             launches_phase22_path={path: n.get(c, 0)
                                    for path, n in p22_counts.items()},
+            launches_phase23_path={path: n.get(c, 0)
+                                   for path, n in p23_counts.items()},
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],

@@ -142,3 +142,16 @@ def byte_fold(x, keep_dims: int):
     make the fold, with no per-dtype widening. Summed in int64, where
     wrap-around keeps the low 32 bits exact; returns torch.uint32."""
     return (byte_fold_wide(x, keep_dims) & _M32).to(torch.uint32)
+
+
+def tensor_fold(x, chunk: int = 1 << 22) -> int:
+    """One 32-bit fingerprint of a tensor of any size: the fold of its
+    rows' ``byte_fold``s (rows along the first axis, folded a chunk of
+    about ``chunk`` elements at a time, so no int64 copy of the whole
+    tensor is made; in int64 throughout, as the card's canaries fold).
+    Tensors with the same shape and bits give the same fold."""
+    rows = x.reshape(x.shape[0], -1) if x.ndim > 1 else x.reshape(1, -1)
+    step = max(1, chunk // max(rows.shape[1], 1))
+    per_row = torch.cat([byte_fold_wide(rows[i:i + step], 1) & _M32
+                         for i in range(0, rows.shape[0], step)])
+    return int(byte_fold_wide(per_row, 0) & _M32)

@@ -240,7 +240,9 @@ def quantize_qtensor(x, fmt, axis: int = -1, device=None,
     cast, ``QTensor.quantize``: the table-driven ``quantize_blocks`` (a
     value on a midpoint takes the lower level), which its
     ``direct_cast_tree`` uses when given no ``quantize_fn`` (the paper's
-    figures). On CUDA both run the quantizer kernel.
+    figures). On CUDA both run the quantizer kernel. On the ``meta``
+    device the result holds the packed and meta shapes only (the sharding
+    rules' abstract trees).
     """
     return _cast(x.to(resolve_device(device)), resolve_format(fmt), axis,
                  table)
@@ -255,6 +257,12 @@ def _cast(x, fmt, axis: int, table: bool = False) -> QTensor:
     if flat.dtype not in (torch.float32, torch.bfloat16):
         flat = flat.to(torch.float32)       # the kernel reads bf16 or f32
     flat = flat.contiguous()
+    if flat.device.type == "meta":          # an abstract tree: shapes only
+        packed = torch.empty((*xb.shape[:-1], fmt.bytes_per_block),
+                             dtype=torch.uint8, device="meta")
+        meta = torch.empty(xb.shape[:-1], dtype=getattr(torch, fmt.meta_dtype),
+                           device="meta")
+        return QTensor(packed, meta, fmt_key(fmt), tuple(x.shape), axis, orig)
     packed, meta = nxfp_quantize_pack(flat, fmt, table=table)
     packed = packed.reshape(*xb.shape[:-1], packed.shape[-1])
     meta = meta.reshape(xb.shape[:-1])

@@ -24,6 +24,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..kernels.ops import decode_attention_dense
+from ..sharding.ctx import constrain_act
 from .attention import (cross_attention, gqa_project, self_attention,
                         self_attention_resume)
 from .common import (ModelConfig, apply_rope, dense, dense_rows, init_attn,
@@ -112,6 +113,7 @@ def layer_forward(cfg: ModelConfig, p: Params, x, positions,
     Mamba block and the MoE FFN keep dense activations, as in the
     reference. None keeps dense activations."""
     kind = kind or family_kind(cfg)
+    x = constrain_act(x)  # the residual stream batch-data sharded
     h = rmsnorm(x, p["ln1_scale"], cfg.norm_eps)
     out: Dict[str, Any] = {}
     attn_y = ssm_y = ffn = cross = None
@@ -162,6 +164,7 @@ def layer_prefill_chunk(cfg: ModelConfig, p: Params, x, lane_l, cache_l,
     cache are updated in place. Returns x. The memory kinds (cross,
     encdec) raise NotImplementedError, as in the reference."""
     _refuse_cross(family_kind(cfg), "chunked prefill")
+    x = constrain_act(x)
     h = rmsnorm(x, p["ln1_scale"], cfg.norm_eps)
     attn_y = ssm_y = None
     if not cfg.attn_free:

@@ -127,7 +127,9 @@ def ninit(gen: torch.Generator, shape, scale: float = 0.02,
           dtype=torch.float32):
     """Normal(0, scale) weights drawn from ``gen`` on ``gen.device``: f32
     draws scaled in place (one f32 copy of the leaf at a time), then
-    ``dtype``."""
+    ``dtype``. On the ``meta`` device, the shape alone."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     w = torch.randn(shape, generator=gen, device=gen.device,
                     dtype=torch.float32)
     return w.mul_(scale).to(dtype)

@@ -84,6 +84,14 @@ def recurrent_state(*trees):
             for name, buf in layer.items() if name in ("h", "conv")]
 
 
+class _MetaGenerator(torch.Generator):
+    """A host generator whose draws land on the ``meta`` device."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, device=None,
                 policy=None, train: bool = False) -> Params:
     """Random weights from a ``torch.Generator`` seeded with ``seed``.
@@ -109,10 +117,15 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
     init_params(cfg, seed), policy)``, and the f32 model never exists:
     the build peaks near the packed bytes plus a layer's f32 weights. A
     policy without a weight format leaves the f32 tree as it is.
+
+    ``device="meta"`` gives the tree's shapes and dtypes without storage
+    (with ``policy``, each cast leaf's packed and meta shapes): the
+    sharding rules' abstract parameters (``sharding.params_specs``).
     """
     _check_family(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
+    gen = _MetaGenerator() if dev.type == "meta" else torch.Generator(
+        device=dev)
     gen.manual_seed(seed)
     cast = policy is not None and bool(policy.weight_fmt)
     emb = torch.float32 if train else cfg.dtype

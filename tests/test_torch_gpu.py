@@ -2626,3 +2626,25 @@ def test_figure_numbers_on_card_match_cpu(cuda):
         assert abs(pg - pw) <= 1e-3 * pw, (fmt, pg, pw)
         mg, mw = _weight_mse(card, fmt), _weight_mse(cpu, fmt)
         assert abs(mg - mw) <= 1e-5 * mw, (fmt, mg, mw)
+
+
+# -- the packed gradient wire: two pods on one card
+
+def test_pod_wire_on_card(cuda, tmp_path):
+    """``make_pod_grad_fn`` on 2 ranks sharing ``cuda:0`` over gloo (each
+    gather staged through the host): every rank's averaged gradients
+    bitwise the single-process oracle's on the card (the quantizer
+    kernel's casts, every pod's wire decoded in pod order)."""
+    import _torch_dist
+    ranks = _torch_dist.Group(2, str(tmp_path / "store"),
+                              [("wire", dict(n_pods=2))],
+                              device="cuda:0").results()
+    want = _torch_dist.pod_mean([
+        {k: torch.from_numpy(v).to(cuda)
+         for k, v in _torch_dist.wire_tree(p).items()} for p in range(2)])
+    for rank in ranks:
+        mode, loss, got = rank[0]
+        assert mode == "shard_map" and loss == 1.5
+        for (k, g), w in zip(got.items(), want):
+            assert np.array_equal(g.view(np.uint32),
+                                  w.cpu().numpy().view(np.uint32)), k

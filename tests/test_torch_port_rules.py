@@ -32,7 +32,7 @@ from repro_torch.kernels import build, dense_attention, nxfp_attention
 from repro_torch.kernels import nxfp_matmul
 from repro_torch.kernels import nxfp_qq_matmul, nxfp_quantize
 from repro_torch.kernels.ops import quantize_qtensor
-from repro_torch.launch.mesh import make_serving_mesh
+from repro_torch.launch.mesh import make_mesh, make_serving_mesh, make_test_mesh
 from repro_torch.launch.train import train_loop
 from repro_torch.models import init_cache, init_paged_cache, init_params
 from repro_torch.optim.adamw import AdamW, cosine_schedule
@@ -96,6 +96,8 @@ def test_import_scan_covers_the_package():
                  "src/repro_torch/serving/sharded.py",
                  "src/repro_torch/launch/mesh.py",
                  "src/repro_torch/sharding/rules.py",
+                 "src/repro_torch/sharding/ctx.py",
+                 "src/repro_torch/sharding/shard_map.py",
                  "src/repro_torch/figures/common.py",
                  "src/repro_torch/figures/table1_perplexity.py",
                  *(f"src/repro_torch/figures/{m}.py" for m in FIGURES),
@@ -159,6 +161,10 @@ ENTRY_POINTS = {
         QuantPolicy("nxfp4", "nxfp4"), _mesh(dev), n_slots=2, max_len=16),
     "train_loop": lambda dev: train_loop(_smoke(), steps=1, batch=2, seq=8,
                                          device=dev, log_every=100),
+    "make_mesh": lambda dev: _process_mesh(make_mesh, (1,), ("pod",),
+                                           device=dev),
+    "make_test_mesh": lambda dev: _process_mesh(make_test_mesh, 1, 1,
+                                                device=dev),
     # the figures' trained model (restored from a cached CPU checkpoint
     # on the CPU path) and a figure that reads no model
     "figures.trained_model": lambda dev: figures_common.trained_model(
@@ -172,6 +178,15 @@ ENTRY_POINTS = {
 
 
 _TMP = []
+
+
+def _process_mesh(make, *args, device):
+    """A 1-rank gloo mesh, joined and left again (the group is the
+    process's default one)."""
+    _TMP.append(tempfile.TemporaryDirectory())
+    mesh = make(*args, backend="gloo", device=device, rank=0, world_size=1,
+                init_method=f"file://{_TMP[-1].name}/store")
+    mesh.close()
 
 
 @functools.lru_cache(maxsize=None)
